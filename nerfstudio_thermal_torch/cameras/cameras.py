@@ -98,10 +98,8 @@ class Cameras:
             )
 
         # OpenCV -> OpenGL y flip
-        flip = torch.tensor([1.0, -1.0], dtype=coord_stack.dtype, device=coord_stack.device)
-        coord_stack = coord_stack * flip
         cxs = coord_stack[..., 0]
-        cys = coord_stack[..., 1]
+        cys = -coord_stack[..., 1]
         directions_stack = torch.stack([cxs, cys, -torch.ones_like(cxs)], dim=-1)
 
         c2w = self.camera_to_worlds[idx]

@@ -137,6 +137,18 @@ class RaySamples:
 Frustums = RaySamples
 
 
+def map_tensors(container, fn):
+    """A copy of a ray container with `fn` applied to each tensor field."""
+    return dataclasses.replace(
+        container,
+        **{
+            f.name: fn(getattr(container, f.name))
+            for f in dataclasses.fields(container)
+            if isinstance(getattr(container, f.name), torch.Tensor)
+        },
+    )
+
+
 def get_weights(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
     """[..., S, 1] deltas and densities -> [..., S, 1] weights."""
     delta_density = deltas * densities

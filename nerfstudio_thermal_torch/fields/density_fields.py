@@ -3,8 +3,8 @@
 This slice carries `MLPDensityField`, the frequency-encoded proposal field
 of the `*-tpu` configurations. Its MLPs are 64 wide, so they fail the
 fused-MLP gate and run eagerly, with the encoding computed outside the MLP
-layers. The hash-grid `HashMLPDensityField` arrives with the training slice
-of `thermal-nerfacto`.
+layers. The hash-grid `HashMLPDensityField` arrives with the hash-grid
+slice of the port (`thermal-nerfacto`).
 """
 
 import torch
@@ -19,7 +19,7 @@ class HashMLPDensityField(nn.Module):
     def __init__(self, *args, **kwargs) -> None:
         raise NotImplementedError(
             "HashMLPDensityField needs the hash-grid kernels, which arrive with "
-            "the training slice of thermal-nerfacto"
+            "the hash-grid slice of the port (thermal-nerfacto)"
         )
 
 

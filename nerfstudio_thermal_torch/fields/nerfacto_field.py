@@ -6,8 +6,8 @@ in-box selector -> frequency encoding + deep MLP -> f32 trunc_exp density;
 the colour head takes SH(direction) ++ geo features ++ appearance embedding.
 With `use_pallas` the base MLP passes the fused-MLP gate and its encoding
 runs inside the fused kernel. The hash-grid base field arrives with the
-training slice of `thermal-nerfacto`; the fused ray-march and whole-field
-kernels are later work. `ThermalNerfactoField` is the same module with
+hash-grid slice of the port (`thermal-nerfacto`); the fused ray-march and
+whole-field kernels are later work. `ThermalNerfactoField` is the same module with
 `num_channels` in {1, 3, 4}.
 """
 
@@ -52,7 +52,7 @@ class NerfactoField(nn.Module):
         if field_encoding != "freq":
             raise NotImplementedError(
                 "the hash-grid base field needs the hash-grid kernels, which "
-                "arrive with the training slice of thermal-nerfacto"
+                "arrive with the hash-grid slice of the port (thermal-nerfacto)"
             )
         if fused_raymarch or fused_field:
             raise NotImplementedError(

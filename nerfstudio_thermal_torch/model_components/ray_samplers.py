@@ -1,4 +1,4 @@
-"""Ray samplers, eval mode (counterpart of nerfstudio_thermal_tpu/model_components/ray_samplers.py).
+"""Ray samplers (counterpart of nerfstudio_thermal_tpu/model_components/ray_samplers.py).
 
 The JAX package writes its sorted lookups as gather-free comparison counts
 (`take_below_above`) for the TPU. Here they are `torch.searchsorted` plus a
@@ -6,11 +6,14 @@ gather, which select the same elements: with `right=True` an entry equal to
 the query counts as below it, exactly as the comparison `a <= v` does, and
 indices clamp to the first/last element as the masked reductions do.
 
-Stratified jitter is a training feature and arrives with the training
-slice; these samplers are deterministic.
+In training the samplers jitter their bins (stratified sampling, one
+uniform per ray with `single_jitter`). The uniforms come from an explicit
+`torch.Generator` on the rays' device, or are passed in as tensors, so a
+test can feed the JAX package's draws: the two frameworks' generators
+give different numbers from one seed.
 """
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,25 +35,43 @@ def take_below_above(
     return below, above
 
 
-def _check_eval(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "stratified (training) sampling arrives with the training slice of the port"
-        )
+def _uniforms(
+    shape: Tuple[int, ...],
+    like: torch.Tensor,
+    uniforms: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """The jitter draw: the given tensor (checked) or fresh U[0, 1)."""
+    if uniforms is not None:
+        if tuple(uniforms.shape) != tuple(shape):
+            raise ValueError(f"uniforms of shape {tuple(uniforms.shape)}, expected {tuple(shape)}")
+        return uniforms.to(device=like.device, dtype=torch.float32)
+    return torch.rand(shape, generator=generator, device=like.device, dtype=torch.float32)
 
 
 def spaced_sample(
     ray_bundle: RayBundle,
     num_samples: int,
     spacing_kind: str = "uniform",
+    train_stratified: bool = True,
+    single_jitter: bool = False,
     train: bool = False,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> RaySamples:
-    """Samples evenly spaced in the warped spacing domain."""
-    _check_eval(train)
+    """Samples evenly spaced in the warped spacing domain; jittered within
+    their bins in training."""
     num_rays = ray_bundle.origins.shape[0]
     bins = torch.linspace(
         0.0, 1.0, num_samples + 1, dtype=torch.float32, device=ray_bundle.origins.device
     )[None, :].expand(num_rays, num_samples + 1)
+    if train_stratified and train:
+        shape = (num_rays, 1) if single_jitter else (num_rays, num_samples + 1)
+        t_rand = _uniforms(shape, bins, uniforms, generator)
+        bin_centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
+        bin_upper = torch.cat([bin_centers, bins[..., -1:]], dim=-1)
+        bin_lower = torch.cat([bins[..., :1], bin_centers], dim=-1)
+        bins = bin_lower + (bin_upper - bin_lower) * t_rand
     s_near = spacing_fn(spacing_kind, ray_bundle.nears)  # [R, 1]
     s_far = spacing_fn(spacing_kind, ray_bundle.fars)
     euclidean_bins = spacing_fn_inv(spacing_kind, bins * s_far + (1.0 - bins) * s_near)
@@ -70,13 +91,18 @@ def pdf_sample(
     ray_samples: RaySamples,
     weights: torch.Tensor,  # [R, S, 1]
     num_samples: int,
+    train_stratified: bool = True,
+    single_jitter: bool = False,
     include_original: bool = True,
     histogram_padding: float = 0.01,
     train: bool = False,
     eps: float = 1e-5,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> RaySamples:
-    """Inverse-CDF resampling in the spacing domain."""
-    _check_eval(train)
+    """Inverse-CDF resampling in the spacing domain; the sample positions
+    carry no gradient."""
+    weights = weights.detach()
     num_bins = num_samples + 1
     w = weights[..., 0] + histogram_padding  # [R, S]
     weights_sum = torch.sum(w, dim=-1, keepdim=True)
@@ -90,8 +116,12 @@ def pdf_sample(
 
     u = torch.linspace(
         0.0, 1.0 - 1.0 / num_bins, num_bins, dtype=torch.float32, device=cdf.device
-    )
-    u = (u + 1.0 / (2 * num_bins)).expand(*cdf.shape[:-1], num_bins)
+    ).expand(*cdf.shape[:-1], num_bins)
+    if train_stratified and train:
+        shape = (*cdf.shape[:-1], 1) if single_jitter else (*cdf.shape[:-1], num_bins)
+        u = u + _uniforms(shape, cdf, uniforms, generator) / num_bins
+    else:
+        u = u + 1.0 / (2 * num_bins)
 
     existing_bins = torch.cat(
         [ray_samples.spacing_starts[..., 0], ray_samples.spacing_ends[..., -1:, 0]], dim=-1
@@ -123,16 +153,26 @@ def proposal_sample(
     num_proposal_samples_per_ray: Tuple[int, ...] = (256, 96),
     num_nerf_samples_per_ray: int = 48,
     initial_spacing_kind: str = "piecewise",
+    single_jitter: bool = True,
     anneal: float = 1.0,
+    updated: bool = True,
     train: bool = False,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """Hierarchical proposal sampling: one density fn per proposal level,
     each fed the RaySamples of its level; `anneal` exponentiates the weights
-    between levels. Returns (final samples, weights list, samples list)."""
-    _check_eval(train)
+    between levels; the proposal densities carry gradient only when
+    `updated`. In training, `uniforms` (one tensor per level, n + 1) or
+    `generator` supplies the jitter. Returns (final samples, weights list,
+    samples list)."""
     n = len(num_proposal_samples_per_ray)
     if len(density_fns) != n:
         raise ValueError(f"{len(density_fns)} density fns for {n} proposal levels")
+    if uniforms is not None and len(uniforms) != n + 1:
+        raise ValueError(f"{len(uniforms)} uniform draws for {n + 1} sampling levels")
+    draws = list(uniforms) if uniforms is not None else [None] * (n + 1)
+    jitter = dict(single_jitter=single_jitter, train=train, generator=generator)
     weights_list: List[torch.Tensor] = []
     samples_list: List[RaySamples] = []
     weights = None
@@ -141,14 +181,19 @@ def proposal_sample(
         is_prop = i_level < n
         num_samples = num_proposal_samples_per_ray[i_level] if is_prop else num_nerf_samples_per_ray
         if i_level == 0:
-            ray_samples = spaced_sample(ray_bundle, num_samples, spacing_kind=initial_spacing_kind)
+            ray_samples = spaced_sample(
+                ray_bundle, num_samples, spacing_kind=initial_spacing_kind,
+                uniforms=draws[0], **jitter,
+            )
         else:
             ray_samples = pdf_sample(
-                ray_bundle, ray_samples, torch.pow(weights, anneal), num_samples,
-                include_original=False,
+                ray_bundle, ray_samples, torch.pow(weights.detach(), anneal), num_samples,
+                include_original=False, uniforms=draws[i_level], **jitter,
             )
         if is_prop:
             density = density_fns[i_level](ray_samples)
+            if not updated:
+                density = density.detach()
             weights = ray_samples.get_weights(density)
             weights_list.append(weights)
             samples_list.append(ray_samples)

@@ -64,14 +64,15 @@ class Model(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         raise NotImplementedError
 
-    def get_outputs(self, ray_bundle: RayBundle, *, train: bool = False) -> Dict[str, torch.Tensor]:
+    def get_outputs(self, ray_bundle: RayBundle, *, train: bool = False, **kwargs) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def forward(self, ray_bundle: RayBundle, *, train: bool = False) -> Dict[str, torch.Tensor]:
-        """Collider, then get_outputs."""
+    def forward(self, ray_bundle: RayBundle, *, train: bool = False, **kwargs) -> Dict[str, torch.Tensor]:
+        """Collider, then get_outputs (training takes the anneal, update
+        flags and jitter draws as keyword arguments)."""
         if self.collider is not None:
             ray_bundle = self.collider(ray_bundle, train=train)
-        return self.get_outputs(ray_bundle, train=train)
+        return self.get_outputs(ray_bundle, train=train, **kwargs)
 
     @torch.no_grad()
     def get_outputs_for_camera(

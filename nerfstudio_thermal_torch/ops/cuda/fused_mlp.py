@@ -1,23 +1,30 @@
-"""Fused-MLP forward: a hand-written Hopper kernel and its plain PyTorch version.
+"""Fused MLP: hand-written Hopper kernels and their plain PyTorch versions.
 
-Counterpart of nerfstudio_thermal_tpu/ops/pallas/fused_mlp.py:fused_mlp
-(forward only; the TPU kernel body is `_fwd_kernel`). The CUDA source is
-nerfstudio_thermal_torch/csrc/fused_mlp_fwd.cu; its header says what bounds
-the kernel and what the first design gives up.
+Counterpart of nerfstudio_thermal_tpu/ops/pallas/fused_mlp.py:fused_mlp,
+forward and backward (the TPU kernel bodies `_fwd_kernel` and
+`_bwd_kernel`). The CUDA sources are nerfstudio_thermal_torch/csrc/
+fused_mlp_fwd.cu and fused_mlp_bwd.cu; their headers say what bounds each
+kernel and what the first design gives up.
 
-`fused_mlp` dispatches on the device of its input: a CPU tensor goes to
-`fused_mlp_plain`, a CUDA tensor to the kernel, which is built with nvcc on
-first use into build/kernels/ and loaded with ctypes. There is no fallback
-from one to the other: a CUDA tensor launches the kernel or raises.
+`fused_mlp` is one autograd node that dispatches on the device of its
+input: for a CPU tensor the forward is `fused_mlp_plain` and the backward
+`fused_mlp_bwd_plain`; for a CUDA tensor both are kernels, built with nvcc
+on first use into build/kernels/ and loaded with ctypes. There is no
+fallback from one to the other: a CUDA tensor launches the kernel or
+raises.
 
 Numerics (both versions): the frequency table is 2*pi*exp2(e_k) in f32;
 pre = x_d * f_k is one product; the encoding [sin(pre), cos(pre), x] is
 rounded to the compute dtype. Each layer adds its bias (rounded to the
 compute dtype) to an f32 accumulator, applies relu (or the output
-activation) in f32 and rounds to the compute dtype.
+activation) in f32 and rounds to the compute dtype. The backward follows
+the rounding points of the TPU kernel's `_mlp_bwd_walk` (see
+`fused_mlp_bwd_plain`).
 """
 
+import collections
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -26,18 +33,22 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
-SOURCE = _PKG_DIR / "csrc" / "fused_mlp_fwd.cu"
+SOURCES = {
+    "fwd": _PKG_DIR / "csrc" / "fused_mlp_fwd.cu",
+    "bwd": _PKG_DIR / "csrc" / "fused_mlp_bwd.cu",
+}
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 MAX_LAYERS = 16
+_DESC_HEADER = 9  # ints before the per-layer descriptors
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 FreqEncoding = Tuple[int, float, float, bool]
@@ -111,7 +122,7 @@ def fused_mlp_plain(
 # Build and load
 # --------------------------------------------------------------------------
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -121,43 +132,61 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the fused-MLP kernel cannot be built")
+    raise RuntimeError("nvcc not found: the fused-MLP kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libfused_mlp_fwd-{digest}.so"
+def library_path(kind: str) -> Path:
+    source = SOURCES[kind]
+    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def build() -> Tuple[Path, float, str]:
-    """Compile the kernel if its library is missing. Returns (path, seconds
-    spent compiling, compiler output)."""
-    path = library_path()
-    if path.exists():
-        return path, 0.0, ""
+def build(kinds: Sequence[str] = tuple(SOURCES)) -> Dict[str, Tuple[Path, float, str]]:
+    """Compile the kernels whose libraries are missing, one nvcc per source,
+    all started together. Returns {kind: (path, seconds spent compiling,
+    compiler output)}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
+    result, running = {}, {}
+    for kind in kinds:
+        path = library_path(kind)
+        if path.exists():
+            result[kind] = (path, 0.0, "")
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[kind])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[kind] = (proc, tmp, path, time.perf_counter())
+    failures = []
+    for kind, (proc, tmp, path, t0) in running.items():
+        output, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {SOURCES[kind].name} ({proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, path)
+        result[kind] = (path, seconds, output)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return result
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's shared library."""
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
+def load_library(kind: str) -> ctypes.CDLL:
+    """Build (at first use) and load one kernel's shared library."""
+    if kind not in _libs:
+        path, _, _ = build([kind])[kind]
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_mlp_fwd.argtypes = [p, p, p, p, p, i, ctypes.POINTER(i), i, i, i, p]
-        lib.fused_mlp_fwd.restype = i
-        _lib = lib
-    return _lib
+        ip = ctypes.POINTER(i)
+        if kind == "fwd":
+            lib.fused_mlp_fwd.argtypes = [p, p, p, p, p, i, ip, i, i, i, p]
+            lib.fused_mlp_fwd.restype = i
+        else:
+            lib.fused_mlp_bwd_sizes.argtypes = [ip, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+            lib.fused_mlp_bwd_sizes.restype = i
+            lib.fused_mlp_bwd.argtypes = [p] * 11 + [i, ip, i, i, i, p]
+            lib.fused_mlp_bwd.restype = i
+        _libs[kind] = lib
+    return _libs[kind]
 
 
 # --------------------------------------------------------------------------
@@ -165,6 +194,7 @@ def load_library() -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=64)
 def _fragment_index(k_pad: int, n_pad: int, device) -> torch.Tensor:
     """Flat indices into a row-major [k_pad, n_pad] matrix, in the order of
     mma.m16n8k16 B fragments: [k-tile][n-tile pair][lane][8 values], so one
@@ -178,59 +208,112 @@ def _fragment_index(k_pad: int, n_pad: int, device) -> torch.Tensor:
     return (k * n_pad + n).reshape(-1)
 
 
+def _pad_layers(
+    weights: Sequence[torch.Tensor],
+    skips: Sequence[int],
+    enc_dim: int,
+    compute_dtype: torch.dtype,
+) -> Tuple[List[torch.Tensor], List[bool], int]:
+    """Every layer as a zero-padded [k_pad, n_pad] matrix in the compute
+    dtype (multiples of 16), skip layers laid out as [x0 rows | pad | h rows
+    | pad]. Returns (matrices, skip flags, in_pad)."""
+    in_pad = _round_up(enc_dim, 16)
+    device = weights[0].device
+    mats, flags = [], []
+    prev = enc_dim
+    for li, w in enumerate(weights):
+        din, dout = w.shape
+        skip = li in skips and li != 0
+        if li == 0:
+            if din != enc_dim:
+                raise ValueError(f"layer 0 takes {din} inputs, the input gives {enc_dim}")
+        elif skip:
+            if din != enc_dim + prev:
+                raise ValueError(f"skip layer {li} takes {din} inputs, expected {enc_dim + prev}")
+        elif din != prev:
+            raise ValueError(f"layer {li} takes {din} inputs, the previous layer gives {prev}")
+        wp = torch.zeros(_k_pad(skip, din, enc_dim, in_pad), _round_up(dout, 16),
+                         dtype=compute_dtype, device=device)
+        for src, dst, cnt in _row_segments(skip, din, enc_dim, in_pad):
+            wp[dst : dst + cnt, :dout] = w[src : src + cnt].to(compute_dtype)
+        mats.append(wp)
+        flags.append(skip)
+        prev = dout
+    return mats, flags, in_pad
+
+
+def _k_pad(skip: bool, din: int, enc_dim: int, in_pad: int) -> int:
+    return in_pad + _round_up(din - enc_dim, 16) if skip else _round_up(din, 16)
+
+
+def _row_segments(skip: bool, din: int, enc_dim: int, in_pad: int):
+    """(source row, padded row, count) of a layer's weight rows."""
+    if skip:
+        return [(0, 0, enc_dim), (enc_dim, in_pad, din - enc_dim)]
+    return [(0, 0, din)]
+
+
+def _pack_matrix(m: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """A padded [K, N] matrix in the order the kernels read it: mma B
+    fragments for bf16, row-major for f32."""
+    if compute_dtype == torch.bfloat16:
+        return m.reshape(-1)[_fragment_index(m.shape[0], m.shape[1], m.device)]
+    return m.reshape(-1)
+
+
 def pack(
     weights: Sequence[torch.Tensor],
     biases: Sequence[torch.Tensor],
     skips: Sequence[int],
     enc_dim: int,
     compute_dtype: torch.dtype,
-) -> Tuple[torch.Tensor, torch.Tensor, List[int], int, int]:
+    transposed: bool = False,
+):
     """Pad every layer to multiples of 16 (zero weight rows and columns),
     lay skip layers out as [x0 rows | pad | h rows | pad], and pack.
 
-    Returns (weights, biases, per-layer desc ints, in_pad, hid_pad)."""
-    in_pad = _round_up(enc_dim, 16)
+    Returns (weights, biases, per-layer desc ints, in_pad, hid_pad), and
+    with `transposed` also the packed W^T of every layer ([n_pad, k_pad],
+    at the same offsets), which the backward's dh W^T products read."""
+    mats, flags, in_pad = _pad_layers(weights, skips, enc_dim, compute_dtype)
     device = weights[0].device
-    packed_w, packed_b, desc = [], [], []
+    packed_w, packed_t, packed_b, desc = [], [], [], []
     w_off = b_off = 0
-    prev = enc_dim
     hid_pad = 16
-    for li, (w, b) in enumerate(zip(weights, biases)):
-        din, dout = w.shape
-        skip = li in skips and li != 0
-        n_pad = _round_up(dout, 16)
-        wc = w.to(compute_dtype)
-        if li == 0:
-            if din != enc_dim:
-                raise ValueError(f"layer 0 takes {din} inputs, the input gives {enc_dim}")
-            k_pad = in_pad
-            rows = [(0, 0, din)]
-        elif skip:
-            if din != enc_dim + prev:
-                raise ValueError(f"skip layer {li} takes {din} inputs, expected {enc_dim + prev}")
-            k_pad = in_pad + _round_up(prev, 16)
-            rows = [(0, 0, enc_dim), (enc_dim, in_pad, prev)]
-        else:
-            if din != prev:
-                raise ValueError(f"layer {li} takes {din} inputs, the previous layer gives {prev}")
-            k_pad = _round_up(prev, 16)
-            rows = [(0, 0, din)]
-        wp = torch.zeros(k_pad, n_pad, dtype=compute_dtype, device=device)
-        for src, dst, cnt in rows:
-            wp[dst : dst + cnt, :dout] = wc[src : src + cnt]
-        if compute_dtype == torch.bfloat16:
-            wp = wp.reshape(-1)[_fragment_index(k_pad, n_pad, device)]
-        packed_w.append(wp.reshape(-1))
+    for li, (wp, b, skip) in enumerate(zip(mats, biases, flags)):
+        k_pad, n_pad = wp.shape
+        packed_w.append(_pack_matrix(wp, compute_dtype))
+        if transposed:
+            packed_t.append(_pack_matrix(wp.t().contiguous(), compute_dtype))
         bp = torch.zeros(n_pad, dtype=torch.float32, device=device)
-        bp[:dout] = b.to(compute_dtype).float()
+        bp[: b.shape[0]] = b.to(compute_dtype).float()
         packed_b.append(bp)
         desc += [k_pad, n_pad, int(skip), w_off, b_off]
         w_off += k_pad * n_pad
         b_off += n_pad
-        if li < len(weights) - 1:
+        if li < len(mats) - 1:
             hid_pad = max(hid_pad, n_pad)
-        prev = dout
-    return torch.cat(packed_w), torch.cat(packed_b), desc, in_pad, hid_pad
+    out = (torch.cat(packed_w), torch.cat(packed_b), desc, in_pad, hid_pad)
+    return out + (torch.cat(packed_t),) if transposed else out
+
+
+def unpack_grads(
+    dw: torch.Tensor,  # [total_w] f32, padded row-major [k_pad, n_pad] per layer
+    db: torch.Tensor,  # [total_b] f32
+    desc: List[int],
+    shapes: Sequence[Tuple[int, int]],
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The backward kernel's padded dW/db back to per-layer [din, dout] and
+    [dout], both skip segments included."""
+    in_pad, enc_dim = desc[2], desc[3]
+    dws, dbs = [], []
+    for li, (din, dout) in enumerate(shapes):
+        k_pad, n_pad, skip, w_off, b_off = desc[_DESC_HEADER + 5 * li : _DESC_HEADER + 5 * li + 5]
+        m = dw[w_off : w_off + k_pad * n_pad].view(k_pad, n_pad)
+        rows = [m[dst : dst + cnt, :dout] for _, dst, cnt in _row_segments(bool(skip), din, enc_dim, in_pad)]
+        dws.append(torch.cat(rows) if len(rows) > 1 else rows[0])
+        dbs.append(db[b_off : b_off + dout])
+    return dws, dbs
 
 
 def smem_bytes(in_pad: int, hid_pad: int, compute_dtype: torch.dtype) -> int:
@@ -246,7 +329,7 @@ def smem_bytes(in_pad: int, hid_pad: int, compute_dtype: torch.dtype) -> int:
 
 @dataclass
 class Packed:
-    """Weights, biases and descriptor of one MLP, in the kernel's layout."""
+    """Weights, biases and descriptor of one MLP, in the kernels' layout."""
 
     weights: torch.Tensor
     biases: torch.Tensor
@@ -254,6 +337,30 @@ class Packed:
     desc: List[int]
     out_dim: int
     compute_dtype: torch.dtype
+    shapes: List[Tuple[int, int]]  # per layer [din, dout]
+    weights_t: Optional[torch.Tensor] = None  # packed W^T, for the backward
+
+
+class PackCache:
+    """Packed weights of one MLP by the identity and version of its tensors:
+    a training step runs each field's MLP twice with the same weights, and
+    an optimizer step bumps the versions. Entries hold their tensors, so an
+    address cannot be reused while its entry lives."""
+
+    def __init__(self, size: int = 2):
+        self.size = size
+        self.entries: "collections.OrderedDict" = collections.OrderedDict()
+
+    def get(self, key, tensors, build) -> "Packed":
+        hit = self.entries.get(key)
+        if hit is not None:
+            self.entries.move_to_end(key)
+            return hit[1]
+        packed = build()
+        self.entries[key] = (tensors, packed)
+        if len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+        return packed
 
 
 def prepare(
@@ -264,10 +371,28 @@ def prepare(
     skips: Sequence[int],
     freq_encoding: Optional[FreqEncoding],
     compute_dtype: torch.dtype,
+    transposed: bool = False,
+    cache: Optional[PackCache] = None,
 ) -> Packed:
-    """Pack an MLP for `launch` and check that it fits the kernel."""
+    """Pack an MLP for `launch` (and, with `transposed`, for
+    `launch_bwd`) and check that it fits the forward kernel. With a cache,
+    calls with unchanged tensors reuse the packing."""
+    args = (in_dim, weights, biases, out_activation, skips, freq_encoding, compute_dtype, transposed)
+    if cache is None:
+        return _prepare(*args)
+    tensors = (*weights, *biases)
+    key = (
+        tuple((t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device) for t in tensors),
+        in_dim, out_activation, tuple(skips), freq_encoding, compute_dtype, transposed,
+    )
+    return cache.get(key, tensors, lambda: _prepare(*args))
+
+
+def _prepare(in_dim, weights, biases, out_activation, skips, freq_encoding, compute_dtype, transposed) -> Packed:
     enc_dim = encoding_dim(in_dim, freq_encoding)
-    w, b, layer_desc, in_pad, hid_pad = pack(weights, biases, skips, enc_dim, compute_dtype)
+    w, b, layer_desc, in_pad, hid_pad, *wt = pack(
+        weights, biases, skips, enc_dim, compute_dtype, transposed
+    )
     if smem_bytes(in_pad, hid_pad, compute_dtype) > SMEM_LIMIT:
         raise ValueError(
             f"fused_mlp: widths (input {in_pad}, hidden {hid_pad}) exceed the "
@@ -285,11 +410,17 @@ def prepare(
         if freq_encoding is not None
         else torch.zeros(1, dtype=torch.float32, device=w.device)
     )
-    return Packed(w, b, freqs, header + layer_desc, out_dim, compute_dtype)
+    shapes = [tuple(t.shape) for t in weights]
+    return Packed(w, b, freqs, header + layer_desc, out_dim, compute_dtype, shapes,
+                  wt[0] if wt else None)
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
-    """One kernel launch on the current stream: x [N, in_dim] f32 CUDA,
+    """One forward launch on the current stream: x [N, in_dim] f32 CUDA,
     contiguous -> [N, out_dim] in the compute dtype."""
     if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("fused_mlp kernel: x must be a contiguous [N, in_dim] f32 CUDA tensor")
@@ -300,11 +431,10 @@ def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
     if n == 0:
         return out
     desc = (ctypes.c_int * len(packed.desc))(*packed.desc)
-    err = load_library().fused_mlp_fwd(
+    err = load_library("fwd").fused_mlp_fwd(
         x.data_ptr(), packed.weights.data_ptr(), packed.biases.data_ptr(), packed.freqs.data_ptr(),
         out.data_ptr(), n, desc, len(packed.desc), int(packed.compute_dtype == torch.bfloat16),
-        x.device.index if x.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _device_index(x), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError {err}")
@@ -312,44 +442,197 @@ def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
     return out
 
 
-class _FusedMLPForward(torch.autograd.Function):
-    """The kernel as an autograd node. Eval needs no gradient; the backward
-    kernels (the TPU's _bwd_kernel / _bwd_saved_kernel) come with the
-    training slice, and until then a backward raises."""
-
-    @staticmethod
-    def forward(ctx, x, spec, *params):
-        weights, biases = params[: len(params) // 2], params[len(params) // 2 :]
-        out_activation, skips, freq_encoding, compute_dtype = spec
-        packed = prepare(x.shape[1], weights, biases, out_activation, skips, freq_encoding, compute_dtype)
-        return launch(x, packed)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "fused_mlp backward on CUDA arrives with the training slice of the port"
+def launch_bwd(
+    x: torch.Tensor, g: torch.Tensor, packed: Packed
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One backward on the current stream (the walk, dW and two sums):
+    x [N, in_dim] f32 and g [N, out_dim] in the compute dtype, contiguous
+    CUDA tensors -> (dx [N, in_dim] f32, dW padded [total_w] f32, db padded
+    [total_b] f32); `unpack_grads` gives the per-layer tensors."""
+    if packed.weights_t is None:
+        raise ValueError("fused_mlp_bwd kernel: pack the MLP with transposed=True")
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("fused_mlp_bwd kernel: x must be a contiguous [N, in_dim] f32 CUDA tensor")
+    if x.shape[1] != packed.desc[1]:
+        raise ValueError(f"fused_mlp_bwd kernel: x has {x.shape[1]} columns, the MLP takes {packed.desc[1]}")
+    n = x.shape[0]
+    if tuple(g.shape) != (n, packed.out_dim) or g.dtype != packed.compute_dtype or not g.is_contiguous():
+        raise ValueError("fused_mlp_bwd kernel: g must be a contiguous [N, out_dim] tensor in the compute dtype")
+    dev = x.device
+    if n == 0:
+        return (
+            torch.zeros(0, x.shape[1], dtype=torch.float32, device=dev),
+            torch.zeros(packed.weights.numel(), dtype=torch.float32, device=dev),
+            torch.zeros(packed.biases.numel(), dtype=torch.float32, device=dev),
         )
+    # the kernels write every element of the three outputs
+    dx = torch.empty(n, x.shape[1], dtype=torch.float32, device=dev)
+    dw = torch.empty(packed.weights.numel(), dtype=torch.float32, device=dev)
+    db = torch.empty(packed.biases.numel(), dtype=torch.float32, device=dev)
+    lib = load_library("bwd")
+    desc = (ctypes.c_int * len(packed.desc))(*packed.desc)
+    bf16 = int(packed.compute_dtype == torch.bfloat16)
+    sizes = (ctypes.c_longlong * 3)()
+    err = lib.fused_mlp_bwd_sizes(desc, len(packed.desc), n, bf16, _device_index(x), sizes)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd: the kernel refuses this MLP (cudaError {err})")
+    if sizes[2] > SMEM_LIMIT:
+        raise ValueError("fused_mlp_bwd: widths exceed the backward kernel's shared memory")
+    workspace = torch.empty(sizes[0], dtype=packed.compute_dtype, device=dev)
+    scratch = torch.empty(sizes[1], dtype=torch.float32, device=dev)
+    err = lib.fused_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+        packed.biases.data_ptr(), packed.freqs.data_ptr(), workspace.data_ptr(), scratch.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, desc, len(packed.desc), bf16,
+        _device_index(x), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError {err}")
+    fused_mlp_bwd.launches += 1
+    return dx, dw, db
 
 
-def fused_mlp(
-    x: torch.Tensor,  # [N, in_dim]; raw f32 coordinates when freq_encoding is set
-    weights: Sequence[torch.Tensor],  # per layer [din, dout]
-    biases: Sequence[torch.Tensor],  # per layer [dout]
+def fused_mlp_bwd_plain(
+    x: torch.Tensor,
+    g: torch.Tensor,  # [N, out_dim] cotangent of the output
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
     activation: str = "relu",
     out_activation: Optional[str] = None,
     skip_connections: Sequence[int] = (),
     freq_encoding: Optional[FreqEncoding] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """The whole MLP stack in one kernel. Returns [N, out_dim] in the
-    compute dtype. Skip layers (li in skip_connections, li != 0) take
-    concat([x0, h]); with freq_encoding=(F, min_exp, max_exp,
-    include_input) the NeRF encoding runs inside the kernel."""
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """Plain PyTorch version of the backward kernel, layer by layer, with
+    the rounding points of the TPU kernel's `_mlp_bwd_walk` (it is not
+    autograd of `fused_mlp_plain`, which rounds elsewhere):
+    g is rounded to the compute dtype; a sigmoid head multiplies by
+    y (1 - y) of the f32 final pre-activation; hidden layers mask dh by
+    post_act (compute dtype) > 0; db sums dh in f32 before dh is rounded;
+    the rounded dh feeds dW (f32 accumulation) and dh W^T; a skip layer's
+    x0 columns and layer 0's go to dx0; the encoding backward is f32.
+    Returns (dx in x's dtype, [dW] f32, [db] f32)."""
+    skips = tuple(skip_connections)
+    cdt = compute_dtype
+    with torch.no_grad():
+        if freq_encoding is not None:
+            x0 = encode(x.float(), freq_encoding).to(cdt)
+        else:
+            x0 = x.to(cdt)
+        n = len(weights)
+        wc = [w.to(cdt).float() for w in weights]
+        post, h, final_pre = [], x0, None
+        for li, (w, b) in enumerate(zip(wc, biases)):
+            inp = torch.cat([x0, h], dim=-1) if (li in skips and li != 0) else h
+            pre = inp.float() @ w + b.to(cdt).float()
+            if li == n - 1:
+                final_pre = pre
+            h = _apply_act(pre, activation if li < n - 1 else out_activation).to(cdt)
+            post.append(h)
+
+        dh = g.to(cdt).float()
+        if out_activation == "sigmoid":
+            y = torch.sigmoid(final_pre)
+            dh = dh * y * (1.0 - y)
+        enc_dim = x0.shape[-1]
+        dx0 = torch.zeros(x0.shape, dtype=torch.float32, device=x.device)
+        dws, dbs = [None] * n, [None] * n
+        for li in reversed(range(n)):
+            if li < n - 1 and activation == "relu":
+                dh = dh * (post[li].float() > 0.0)
+            h_prev = x0 if li == 0 else post[li - 1]
+            dbs[li] = dh.sum(dim=0)
+            dhc = dh.to(cdt).float()
+            skip = li in skips and li != 0
+            x_in = torch.cat([x0, h_prev], dim=-1) if skip else h_prev
+            dws[li] = x_in.float().t() @ dhc
+            dh = dhc @ wc[li].t()
+            if skip:
+                dx0 = dx0 + dh[:, :enc_dim]
+                dh = dh[:, enc_dim:]
+            if li == 0:
+                dx0 = dx0 + dh
+        if freq_encoding is not None:
+            dx = _encode_bwd(x.float(), dx0, freq_encoding)
+        else:
+            dx = dx0.to(cdt)
+    return dx.to(x.dtype), dws, dbs
+
+
+def _encode_bwd(x: torch.Tensor, d_enc: torch.Tensor, freq_encoding: FreqEncoding) -> torch.Tensor:
+    """d_enc [N, enc_dim] -> dx [N, in_dim], in f32: d_pre = d_sin cos(pre)
+    - d_cos sin(pre), summed over frequencies with the forward's table."""
+    nf_total = x.shape[-1] * freq_encoding[0]
+    f = frequencies(freq_encoding, x.device)
+    pre = (x[..., :, None] * f).reshape(x.shape[0], -1)
+    d_pre = d_enc[:, :nf_total] * torch.cos(pre) - d_enc[:, nf_total : 2 * nf_total] * torch.sin(pre)
+    dx = d_pre.reshape(x.shape[0], x.shape[1], -1) @ f
+    if freq_encoding[3]:
+        dx = dx + d_enc[:, 2 * nf_total :]
+    return dx
+
+
+def fused_mlp_bwd(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    activation: str = "relu",
+    out_activation: Optional[str] = None,
+    skip_connections: Sequence[int] = (),
+    freq_encoding: Optional[FreqEncoding] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    packed: Optional[Packed] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """The backward of `fused_mlp`: (dx, [dW] f32, [db] f32). A CPU tensor
+    runs `fused_mlp_bwd_plain`; a CUDA tensor launches the kernel (with
+    `packed` from the forward when given) or raises."""
     skips = tuple(sorted(set(skip_connections)))
     if x.device.type == "cpu":
-        return fused_mlp_plain(
-            x, weights, biases, activation, out_activation, skips, freq_encoding, compute_dtype
+        return fused_mlp_bwd_plain(
+            x, g, weights, biases, activation, out_activation, skips, freq_encoding, compute_dtype
         )
+    _check_kernel_args(x, weights, biases, activation, out_activation, freq_encoding, compute_dtype)
+    if packed is None or packed.weights_t is None:
+        packed = prepare(x.shape[1], weights, biases, out_activation, skips, freq_encoding,
+                         compute_dtype, transposed=True)
+    dx, dw, db = launch_bwd(x.float().contiguous(), g.to(compute_dtype).contiguous(), packed)
+    dws, dbs = unpack_grads(dw, db, packed.desc, packed.shapes)
+    dx = dx if freq_encoding is not None else dx.to(compute_dtype)
+    return dx.to(x.dtype), dws, dbs
+
+
+class _FusedMLP(torch.autograd.Function):
+    """fused_mlp as one autograd node: kernels on CUDA, plain versions on
+    the CPU, in both directions. The forward keeps x and the packed weights
+    (with their transposes when a gradient is wanted) for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, spec, cache, *params):
+        weights, biases = params[: len(params) // 2], params[len(params) // 2 :]
+        activation, out_activation, skips, freq_encoding, compute_dtype = spec
+        ctx.spec = spec
+        ctx.packed = None
+        ctx.save_for_backward(x, *params)
+        if x.device.type == "cpu":
+            return fused_mlp_plain(
+                x, weights, biases, activation, out_activation, skips, freq_encoding, compute_dtype
+            )
+        ctx.packed = prepare(x.shape[1], weights, biases, out_activation, skips, freq_encoding,
+                             compute_dtype, transposed=any(ctx.needs_input_grad), cache=cache)
+        return launch(x, ctx.packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        weights, biases = params[: len(params) // 2], params[len(params) // 2 :]
+        dx, dws, dbs = fused_mlp_bwd(x, g, weights, biases, *ctx.spec, packed=ctx.packed)
+        dws = [dw.to(w.dtype) for dw, w in zip(dws, weights)]
+        dbs = [db.reshape(b.shape).to(b.dtype) for db, b in zip(dbs, biases)]
+        return (dx, None, None, *dws, *dbs)
+
+
+def _check_kernel_args(x, weights, biases, activation, out_activation, freq_encoding, compute_dtype):
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
     if activation != "relu" or out_activation not in (None, "sigmoid"):
@@ -367,10 +650,32 @@ def fused_mlp(
     for t in (*weights, *biases):
         if t.device != x.device:
             raise ValueError("fused_mlp kernel: parameters must be on the input's device")
-    x = x.float().contiguous()
-    spec = (out_activation, skips, freq_encoding, compute_dtype)
-    return _FusedMLPForward.apply(x, spec, *weights, *biases)
+
+
+def fused_mlp(
+    x: torch.Tensor,  # [N, in_dim]; raw f32 coordinates when freq_encoding is set
+    weights: Sequence[torch.Tensor],  # per layer [din, dout]
+    biases: Sequence[torch.Tensor],  # per layer [dout]
+    activation: str = "relu",
+    out_activation: Optional[str] = None,
+    skip_connections: Sequence[int] = (),
+    freq_encoding: Optional[FreqEncoding] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    pack_cache: Optional[PackCache] = None,
+) -> torch.Tensor:
+    """The whole MLP stack in one kernel, differentiable. Returns
+    [N, out_dim] in the compute dtype. Skip layers (li in skip_connections,
+    li != 0) take concat([x0, h]); with freq_encoding=(F, min_exp, max_exp,
+    include_input) the NeRF encoding runs inside the kernel. A caller that
+    runs the same weights repeatedly passes its own `pack_cache`."""
+    skips = tuple(sorted(set(skip_connections)))
+    spec = (activation, out_activation, skips, freq_encoding, compute_dtype)
+    if x.device.type != "cpu":
+        _check_kernel_args(x, weights, biases, activation, out_activation, freq_encoding, compute_dtype)
+        x = x.float().contiguous()
+    return _FusedMLP.apply(x, spec, pack_cache, *weights, *biases)
 
 
 # Kernel launches since the last reset; the CPU path does not count.
 fused_mlp.launches = 0
+fused_mlp_bwd.launches = 0

@@ -19,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from nerfstudio_thermal_torch.ops.cuda.fused_mlp import encoding_dim, fused_mlp
+from nerfstudio_thermal_torch.ops.cuda.fused_mlp import PackCache, encoding_dim, fused_mlp
 from nerfstudio_thermal_torch.ops.encodings import NeRFEncoding
 
 # flax variance_scaling("truncated_normal"): stddev of a unit normal
@@ -35,9 +35,14 @@ def variance_scaling_(weight: torch.Tensor, scale: float, generator: torch.Gener
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax nn.Dense(dtype=dtype): x @ W then + b, each rounded to dtype."""
+    """flax nn.Dense(dtype=dtype): x @ W then + b, each rounded to dtype.
+    On the card that is one GEMM in the compute dtype (exact products, f32
+    accumulation, one rounding; pin_precision forbids reduced-precision
+    reductions) and an add in it; the CPU spells the same roundings out."""
     if dtype == torch.float32:
         return x.float() @ weight.t().float() + bias.float()
+    if x.is_cuda:
+        return x.to(dtype) @ weight.t().to(dtype) + bias.to(dtype)
     y = (x.to(dtype).float() @ weight.t().to(dtype).float()).to(dtype)
     return (y.float() + bias.to(dtype).float()).to(dtype)
 
@@ -84,6 +89,7 @@ class MLP(nn.Module):
             layers.append(nn.Linear(din, width))
             prev = width
         self.layers = nn.ModuleList(layers)
+        self.pack_cache = PackCache()  # the fused path's packed weights
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun-normal kernels (the last scaled by final_init_scale^2 in
@@ -115,6 +121,7 @@ class MLP(nn.Module):
                 self.skip_connections,
                 self.freq_encoding,
                 self.compute_dtype,
+                self.pack_cache,
             )
             return out.reshape(*x.shape[:-1], self.out_dim)
 

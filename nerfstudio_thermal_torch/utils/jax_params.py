@@ -1,8 +1,11 @@
-"""Carry a JAX param tree into the port's modules.
+"""Carry a JAX param tree into the port's modules, and back out.
 
-Takes the tree as nested dicts of numpy arrays, e.g.
+`load_jax_params` takes the tree as nested dicts of numpy arrays, e.g.
 `jax.tree.map(np.asarray, params)` of the JAX package's `init_params`, and
-copies it into a model of this package in place. JAX itself is not needed.
+copies it into a model of this package in place. `export_jax_tree` is the
+inverse: the model's parameters, or their gradients, as that tree of numpy
+arrays, so a test can compare every group in the JAX layout. JAX itself is
+not needed.
 
 Layouts handled:
 - flax kernels [din, dout] become `nn.Linear.weight` [dout, din];
@@ -104,3 +107,51 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
     _check_keys(params, expected, "params")
     for group in expected:
         load_module(getattr(model, GROUPS[group]), params[group], group)
+
+
+def _value(p: torch.Tensor, grads: bool) -> np.ndarray:
+    t = p.grad if grads else p
+    if t is None:
+        t = torch.zeros_like(p)
+    return t.detach().float().cpu().numpy().copy()
+
+
+def export_mlp(mlp: MLP, grads: bool = False) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for i, layer in enumerate(mlp.layers):
+        kernel, bias = _value(layer.weight, grads).T.copy(), _value(layer.bias, grads)
+        if mlp._fusable():
+            tree[f"Dense_{i}_kernel"], tree[f"Dense_{i}_bias"] = kernel, bias
+        else:
+            tree[f"Dense_{i}"] = {"kernel": kernel, "bias": bias}
+    return tree
+
+
+def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
+    if isinstance(module, NerfactoField):
+        tree = {
+            "mlp_base_net": export_mlp(module.mlp_base_net, grads),
+            "mlp_head": export_mlp(module.mlp_head, grads),
+        }
+        if module.appearance_embedding_dim > 0:
+            tree["embedding_appearance"] = _value(module.embedding_appearance, grads)
+        return tree
+    if isinstance(module, MLPDensityField):
+        return {"mlp": export_mlp(module.mlp, grads)}
+    if isinstance(module, CameraOptimizer):
+        return {"pose_adjustment": _value(module.pose_adjustment, grads)}
+    if isinstance(module, nn.ModuleList):
+        return {str(i): export_module(sub, grads) for i, sub in enumerate(module)}
+    raise TypeError(f"no JAX layout known for {type(module).__name__}")
+
+
+def export_jax_tree(model: nn.Module, grads: bool = False) -> Dict[str, Any]:
+    """The model's param groups (or, with `grads`, their .grad, zeros where
+    a parameter has none) as the JAX package's param tree of numpy arrays."""
+    tree = {}
+    for group, attr in GROUPS.items():
+        module = getattr(model, attr, None)
+        if module is None or (isinstance(module, CameraOptimizer) and module.mode == "off"):
+            continue
+        tree[group] = export_module(module, grads)
+    return tree

@@ -14,9 +14,11 @@ import torch
 
 
 def pin_precision() -> None:
-    """Exact f32 matmuls and convolutions: no TF32 anywhere."""
+    """Exact f32 matmuls and convolutions: no TF32 anywhere; bf16 matmuls
+    accumulate in f32 without reduced-precision (bf16) partial sums."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 

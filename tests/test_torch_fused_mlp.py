@@ -157,10 +157,15 @@ def test_base_field_shapes_fit_the_kernel():
 
 
 def test_cuda_path_has_no_fallback(monkeypatch):
-    """A tensor that is neither on the CPU nor on CUDA is refused, and the
-    kernel's backward raises instead of returning gradients."""
+    """A tensor that is neither on the CPU nor on CUDA is refused in both
+    directions, and the backward kernel's wrapper refuses weights packed
+    without their transposes instead of computing anything else."""
     x = torch.zeros(4, 3, device="meta")
+    w, b = [torch.zeros(27, 4, device="meta")], [torch.zeros(4, device="meta")]
     with pytest.raises(ValueError):
-        fm.fused_mlp(x, [torch.zeros(27, 4, device="meta")], [torch.zeros(4, device="meta")])
-    with pytest.raises(NotImplementedError):
-        fm._FusedMLPForward.backward(None, torch.zeros(1))
+        fm.fused_mlp(x, w, b)
+    with pytest.raises(ValueError):
+        fm.fused_mlp_bwd(x, torch.zeros(4, 4, device="meta"), w, b)
+    packed = fm.prepare(3, [torch.zeros(27, 4)], [torch.zeros(4)], None, (), (4, 0.0, 3.0, True), torch.bfloat16)
+    with pytest.raises(ValueError, match="transposed"):
+        fm.launch_bwd(torch.zeros(4, 3), torch.zeros(4, 4, dtype=torch.bfloat16), packed)

@@ -369,9 +369,9 @@ def test_thermal_nerfacto_field(use_pallas, dtype, tol):
 
 
 def test_hash_fields_raise():
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="hash-grid slice"):
         tnf.NerfactoField(AABB, num_images=2, field_encoding="hash")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="hash-grid slice"):
         tdf.HashMLPDensityField(aabb=AABB)
 
 

@@ -26,7 +26,6 @@ from nerfstudio_thermal_tpu.configs.method_configs import get_method_config as j
 from nerfstudio_thermal_tpu.models.thermal_nerfacto import ThermalNerfactoModel as JModel
 
 from nerfstudio_thermal_torch.cameras.cameras import Cameras
-from nerfstudio_thermal_torch.cameras.rays import RayBundle
 from nerfstudio_thermal_torch.configs.method_configs import get_method_config
 from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
 from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
@@ -113,22 +112,38 @@ def test_precision_pinned_by_entry_points():
     ThermalNerfactoModel(cfg, AABB, 2, {"is_thermal": [0, 1]}, device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="training slice"):
+def test_unported_paths_raise(tmp_path):
+    """What the port does not carry yet raises and names its slice: hash
+    fields, the shared and rgb_only density modes, and the trainer's eval
+    cadences."""
+    from tests.fixtures import make_synthetic_rgbt_dataset
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+
+    with pytest.raises(NotImplementedError, match="hash-grid slice"):
         ThermalNerfactoModel(get_method_config("thermal-nerfacto").model, AABB, 2, device="cpu")
-    cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
-    model = ThermalNerfactoModel(cfg, AABB, 2, {"is_thermal": [0, 1]}, device="cpu")
-    bundle = RayBundle(
-        origins=torch.zeros(4, 3), directions=torch.tensor([[0.0, 0.0, 1.0]] * 4),
-        pixel_area=torch.ones(4, 1), camera_indices=torch.zeros(4, 1, dtype=torch.long),
-    )
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(bundle, train=True)
+    for mode in ("shared", "rgb_only"):
+        cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
+        cfg.density_mode = mode
+        with pytest.raises(NotImplementedError, match="later slice"):
+            ThermalNerfactoModel(cfg, AABB, 2, {"is_thermal": [0, 1]}, device="cpu")
     with pytest.raises(KeyError):
         get_method_config("no-such-method")
+
+    method = get_method_config("thermal-nerfacto-tpu")
+    tiny(method.model, "float32")
+    method.data = make_synthetic_rgbt_dataset(tmp_path / "scene", num_pairs=4)
+    method.dataparser.eval_mode = "all"  # eval images exist
+    method.datamanager.train_num_rays_per_batch = 16
+    method.trainer.max_num_iterations = 3
+    method.trainer.steps_per_eval_batch = 2
+    trainer = setup_trainer(method, base_dir=tmp_path / "run", device="cpu")
+    trainer.setup()
+    with pytest.raises(NotImplementedError, match="eval-surface slice"):
+        trainer.train()
 
 
 @torch.no_grad()
