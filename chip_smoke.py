@@ -5,39 +5,51 @@
 
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi);
-2. build the fused-MLP forward and backward kernels from csrc/ with nvcc
-   (sm_90a), one nvcc per source, started together; build seconds and
-   registers;
-3. the forward kernel against its plain PyTorch version on the card, at the
-   main path's shape and in the other supported modes; kernel, plain,
-   library (a chain of torch.matmul calls, a yardstick the port never
-   calls) and bound times;
-4. the backward kernel against its plain version (dx, every dW, every db)
-   in the same modes; at the base shape (N = 262,144, the RGB field's
-   points per training step) kernel, plain, bound, library (forward +
-   torch.autograd.grad through the torch.matmul chain) and forward +
-   backward kernel times;
-5. the render path: thermal-nerfacto-tpu at full width (seeded random
-   weights) answers render requests through get_outputs_for_camera /
-   render_camera_device: 1920x1080 and 640x512. Every image output must be
-   finite and of the right shape, the fused-MLP launch count must be
-   4 x chunks per frame, and a small render must agree with the same model
-   evaluated on the CPU;
-6. the training path: a scene of its own (8 RGB 640x480 and 8 thermal
-   640x512 frames of a ray-traced textured sphere) trains
-   thermal-nerfacto-tpu at full width through setup_trainer ->
-   Trainer.setup -> Trainer.train for 30 steps of 8192 rays. Every loss is
-   finite, every param group changes, each step launches 4 forward and 4
-   backward fused-MLP kernels, and the proposal update counter follows
-   proposal_updated; train ms/step and rays/s over steps 10-29;
-7. one full-width step of 256 rays on the card against the same step on
-   the CPU (same params, batch and jitter): every loss term and every
-   group's gradient;
-8. a JSON line of the ported kernels, then the contract line.
+2. build every kernel from csrc/ with nvcc (sm_90a): the fused-MLP forward
+   and backward and the hash-grid kernels, one nvcc per source, started
+   together; build seconds and registers;
+3. the fused-MLP forward kernel against its plain PyTorch version on the
+   card, at the main path's shape and in the other supported modes;
+   kernel, plain, library (a chain of torch.matmul calls, a yardstick the
+   port never calls) and bound times;
+4. the fused-MLP backward kernel against its plain version (dx, every dW,
+   every db) in the same modes; at the base shape (N = 262,144, the RGB
+   field's points per training step) kernel, plain, bound, library
+   (forward + torch.autograd.grad through the torch.matmul chain) and
+   forward + backward kernel times;
+5. the three hash-grid kernels (forward, table gradient, position
+   gradient) against their plain versions, in bf16 and f32, at the
+   thermal-nerfacto base field's shape (L = 16, T = 2^19, 8192 rays x 48
+   samples), a proposal field's (L = 5, T = 2^17, 8192 x 256) and a table of
+   4096 rows (the shape of the TPU's one-hot route), with points on grid
+   coordinates and points zeroed as the fields' selector zeroes them;
+   kernel, plain, bound and (table gradient: one Tensor.index_add_ of the
+   precomputed contributions) library times;
+6. the render path of each method at full width (seeded random weights):
+   thermal-nerfacto-tpu and thermal-nerfacto answer render requests through
+   get_outputs_for_camera / render_camera_device: 1920x1080 and 640x512.
+   Every image output must be finite and of the right shape, the launch
+   counts per chunk must be what the method implies (4 fused-MLP forwards;
+   8 hash forwards: two proposals, the field and the cross density per
+   modality), and a small render must agree with the same model evaluated
+   on the CPU;
+7. the training path of each method: a scene of its own (8 RGB 640x480
+   and 8 thermal 640x512 frames of a ray-traced textured sphere) trains
+   the method at full width through setup_trainer -> Trainer.setup ->
+   Trainer.train for 30 steps of 8192 rays. Every loss is finite, every
+   param group (and every hash table) changes, each step's launch counts
+   are what the code implies (the proposal backwards only on steps that
+   update the proposal nets), and the proposal update counter follows
+   proposal_updated; train ms/step and rays/s over steps 10-29, peak
+   memory;
+8. for each method one full-width step of 256 rays on the card against the
+   same step on the CPU (same params, batch and jitter): every loss term
+   and every group's gradient;
+9. a JSON line of the ported kernels, then the contract line.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
-and of one training step to DIR. Exits non-zero without CUDA; imports
-nothing of JAX.
+and of one training step of each method to DIR. Exits non-zero without
+CUDA; imports nothing of JAX.
 """
 
 import argparse
@@ -57,6 +69,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BASE_FREQ = (10, 0.0, 9.0, True)
 BASE_DIMS = (256,) * 7 + (16,)
@@ -72,6 +85,36 @@ BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 # group's gradient relative L2.
 STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-2, 5e-2
 TRAIN_STEPS, TIMED_FROM = 30, 10
+# Hash kernels against their plain versions. Forward: the same f32 products
+# and sums in the same order (no FMA contraction), so equal up to 1e-6
+# absolute, plus one bf16 step (2^-8 relative) for a bf16 output. Table
+# gradient: atomics add the same f32 terms in a run-dependent order, up to
+# ~10^3 signed terms per coarse-level row: relative L2 1e-4. Position
+# gradient: the same arithmetic with the sum over levels in another order:
+# relative L2 1e-5.
+HASH_FWD_TOL, HASH_TABLE_TOL, HASH_POS_TOL = 1e-6, 1e-4, 1e-5
+# Launches per render chunk, and per training step (given whether the step
+# updates the RGB proposal nets), of each method. thermal-nerfacto-tpu: the
+# base field's fused MLP, twice per modality (its samples and the cross
+# density). thermal-nerfacto: per modality two proposal fields, the field
+# and the cross density run the hash forward; each one's backward runs
+# (table and positions: camera gradients reach every hash field) except
+# the RGB proposals' on a step that does not update them (their densities
+# are detached then); the thermal proposals update every step.
+METHODS = {
+    "thermal-nerfacto-tpu": dict(
+        chunk={"fused_mlp_fwd": 4},
+        step=lambda updated: {"fused_mlp_fwd": 4, "fused_mlp_bwd": 4},
+    ),
+    "thermal-nerfacto": dict(
+        chunk={"hash_encode_fwd": 8},
+        step=lambda updated: {
+            "hash_encode_fwd": 8,
+            "hash_encode_bwd_table": 6 + 2 * updated,
+            "hash_encode_bwd_pos": 6 + 2 * updated,
+        },
+    ),
+}
 
 
 def log(msg: str) -> None:
@@ -254,6 +297,179 @@ def backward_phase():
     return main
 
 
+def counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    return {
+        "fused_mlp_fwd": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_bwd,
+        "hash_encode_fwd": th.hash_encode_fwd, "hash_encode_bwd_table": th.hash_encode_bwd_table,
+        "hash_encode_bwd_pos": th.hash_encode_bwd_pos,
+    }
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expected_counts(per_unit: dict, units: int = 1) -> dict:
+    return {name: per_unit.get(name, 0) * units for name in counters()}
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+HASH_CASES = [
+    # name, levels, log2 T, points, min_res, max_res
+    ("base_L16_T2^19", 16, 19, 8192 * 48, 16, 2048),
+    ("proposal_L5_T2^17", 5, 17, 8192 * 256, 16, 256),
+    ("onehot_route_L5_T2^12", 5, 12, 8192 * 96, 16, 128),
+]
+
+
+def hash_inputs(gen, levels, log2_t, n, min_res, max_res, dtype):
+    """Table, positions, scalings and cotangent of one hash case: 1/8 of the
+    points on level-0 grid coordinates (floor == ceil), 1/8 zeroed as the
+    fields' selector zeroes them, the rest uniform in [0, 1). g is zero at
+    the zeroed points, as on the main path, except for 64 of them."""
+    from nerfstudio_thermal_torch.ops.encodings import hash_grid_scalings
+
+    table = (torch.randn(levels * 2**log2_t, 2, generator=gen) * 1e-2).cuda()
+    pos = torch.rand(n, 3, generator=gen)
+    k = n // 8
+    pos[:k] = torch.floor(pos[:k] * min_res) / min_res
+    pos[k : 2 * k] = 0.0
+    g = torch.randn(n, 2 * levels, generator=gen)
+    g[k + 64 : 2 * k] = 0.0
+    scal = torch.from_numpy(hash_grid_scalings(levels, min_res, max_res))
+    return table, pos.cuda(), scal.cuda(), g.cuda().to(dtype)
+
+
+def hash_library_scatter(pos, g, scal, table_size):
+    """One Tensor.index_add_ of the precomputed g * w contributions of
+    every corner: the table gradient's library yardstick."""
+    from nerfstudio_thermal_torch.ops import encodings as enc
+
+    levels = scal.shape[0]
+    hf, hc, wf, wc = enc._hash_factors(pos, scal, table_size)
+    offset = enc._level_offset(levels, table_size, pos.device)
+    gl = g.float().reshape(-1, levels, 2).transpose(0, 1)  # [L, N, 2]
+    idx, contrib = [], []
+    for bits in enc._CORNER_BITS:
+        wx, wy, wz = enc._corner_weights(wf, wc, bits)
+        idx.append(enc._corner_index(hf, hc, bits, offset).reshape(-1))
+        contrib.append((gl * (wx * wy * wz)[..., None]).reshape(-1, 2))
+    idx, contrib = torch.cat(idx), torch.cat(contrib)
+    return lambda: torch.zeros(levels * table_size, 2, device=pos.device).index_add_(0, idx, contrib)
+
+
+def hash_kernel_phase():
+    """The three hash kernels against their plain versions on the card, at
+    the main path's shapes, bf16 and f32. Returns the records of the base
+    shape in bf16, by kernel name."""
+    from nerfstudio_thermal_torch.ops import encodings as enc
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    gen = torch.Generator().manual_seed(2)
+    main = None
+    for name, levels, log2_t, n, lo, hi in HASH_CASES:
+        t = 2**log2_t
+        for dtype in (torch.bfloat16, torch.float32):
+            table, pos, scal, g = hash_inputs(gen, levels, log2_t, n, lo, hi, dtype)
+            calls = {
+                "hash_encode_fwd": (lambda: th.hash_encode_fwd(table, pos, scal, t, dtype),
+                                    lambda: enc.hash_encode_plain(table, pos, scal, t, dtype)),
+                "hash_encode_bwd_table": (lambda: th.hash_encode_bwd_table(pos, g, scal, t),
+                                          lambda: enc.hash_encode_bwd_table_plain(pos, g, scal, t, 2)),
+                "hash_encode_bwd_pos": (lambda: th.hash_encode_bwd_pos(table, pos, g, scal, t),
+                                        lambda: enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t)),
+            }
+            es = 2 if dtype == torch.bfloat16 else 4
+            nl, table_bytes = n * levels, levels * t * 8
+            # bytes each function must move (inputs once, outputs once) and
+            # its f32 operations per (point, level): 15 for the corners and
+            # weights, then per corner 6 (forward), 6 (scatter: 2 weight
+            # products, 2 products, 2 adds) or 12 (position gradient)
+            cost = {
+                "hash_encode_fwd": (n * 12 + table_bytes + nl * 2 * es, nl * (15 + 8 * 6)),
+                "hash_encode_bwd_table": (n * 12 + nl * 2 * es + table_bytes, nl * (15 + 8 * 6)),
+                "hash_encode_bwd_pos": (n * 24 + table_bytes + nl * 2 * es, nl * (15 + 8 * 12 + 6)),
+            }
+            recs = {}
+            for kname, (kernel, plain) in calls.items():
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()):
+                    raise AssertionError(f"{kname} {name}: shape {tuple(got.shape)} or not finite")
+                diff = (got.float() - want.float()).abs()
+                max_err, rel = float(diff.max()), rel_l2(got.float(), want.float())
+                if kname == "hash_encode_fwd":
+                    step = 2.0**-8 if dtype == torch.bfloat16 else 0.0
+                    ok = not bool((diff > HASH_FWD_TOL + step * want.float().abs()).any())
+                    tol = f"{HASH_FWD_TOL:g} abs" + (" + 2^-8 rel" if step else "")
+                else:
+                    limit = HASH_TABLE_TOL if kname == "hash_encode_bwd_table" else HASH_POS_TOL
+                    ok, tol = rel <= limit, f"{limit:g} rel L2"
+                if not ok:
+                    raise AssertionError(f"{kname} disagrees with its plain version in {name} {dtype}: "
+                                         f"max |err| {max_err:.3e}, rel L2 {rel:.3e} (tol {tol})")
+                line = (f"hash_kernel_vs_plain {kname} {name} {str(dtype)[6:]}: n={n} max_abs_err={max_err:.3e} "
+                        f"rel L2 {rel:.3e} (tol {tol}) ok")
+                if dtype == torch.bfloat16:
+                    ms = cuda_ms(kernel, iters=20)
+                    plain_ms = cuda_ms(plain, iters=3)
+                    library_ms = None
+                    if kname == "hash_encode_bwd_table":
+                        library_ms = cuda_ms(hash_library_scatter(pos, g, scal, t), iters=5)
+                    bound_ms, bound_by = bound(*cost[kname])
+                    recs[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err}
+                    line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                             f"library {'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+                             f"bound {bound_ms:.4f} ms ({bound_by})")
+                log(line)
+                del got, want, diff
+            if main is None:
+                main = recs
+            del table, pos, scal, g, calls
+            torch.cuda.empty_cache()
+    return main
+
+
+def unported_bounds() -> None:
+    """The least time of the TPU kernels not ported yet (rows 3-6 of
+    PERF.md's table), from their code at thermal-nerfacto-tpu's shapes:
+    the forwards at a render chunk's points (32768 rays x 32 samples), the
+    backwards at the RGB field's points of a training step (8192 x 32). All
+    run the base MLP (8 x 256, skip at 4, 10 frequencies: 63 -> 16); the
+    whole-field kernels add the colour head (63 -> 64 -> 64 -> 3). The
+    ray-march, encoding and SH work and the bytes (24 B of rays per ray,
+    4 B of midpoint per sample, 2 B per output channel) are three orders of
+    magnitude below the bf16 products, so the bound is operations."""
+    base, skip_in = [63, *BASE_DIMS], 63
+    macs = sum((base[i] + (skip_in if i == 4 else 0)) * base[i + 1] for i in range(len(BASE_DIMS)))
+    head = 63 * 64 + 64 * 64 + 64 * 3
+    fwd_n, bwd_n = 32768 * 32, 8192 * 32
+    rows = [
+        ("3 fused_ray_mlp forward", 2.0 * fwd_n * macs, fwd_n),
+        ("4 fused_ray_mlp backward", 6.0 * bwd_n * macs, bwd_n),
+        ("5 fused_field_mlp forward", 2.0 * fwd_n * (macs + head), fwd_n),
+        ("6 fused_field_mlp backward", 6.0 * bwd_n * (macs + head), bwd_n),
+    ]
+    for name, flops, n in rows:
+        log(f"bound of unported row {name}: {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms (operations, "
+            f"{flops:.4g} bf16 FLOP at {n:,} points)")
+
+
 def make_camera(width, height, focal, c2w):
     from nerfstudio_thermal_torch.cameras.cameras import Cameras, CameraType
 
@@ -280,15 +496,27 @@ def check_image_outputs(outputs, h, w, expect):
             raise AssertionError(f"render output {key} is not finite")
 
 
-def slice_phase():
+def scale_hash_tables(model, factor: float = 300.0) -> None:
+    """Scale every hash table up from its +-1e-3 init, so that a render
+    check sees the tables (the same on the card and on the CPU)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("hash_table"):
+                p.mul_(factor)
+
+
+def slice_phase(method_name: str):
+    """Render requests to one method at full width. Returns (launch counts
+    of the render run, seconds of the last 1080p frame, a profiler
+    callback)."""
     from nerfstudio_thermal_torch.configs.method_configs import get_method_config
     from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
-    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 
-    cfg = get_method_config("thermal-nerfacto-tpu").model
+    cfg = get_method_config(method_name).model
     aabb = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
     kwargs = dict(num_train_data=2, metadata={"is_thermal": [0, 1]}, seed=0)
     model = ThermalNerfactoModel(cfg, aabb, device="cuda", **kwargs)
+    scale_hash_tables(model)
     chunk = cfg.eval_num_rays_per_chunk
 
     # the bench.py camera at 1920x1080, and a second, rotated pose
@@ -312,6 +540,7 @@ def slice_phase():
     ref_cfg = copy.deepcopy(cfg)
     ref_cfg.eval_num_rays_per_chunk = 400
     cpu_model = ThermalNerfactoModel(ref_cfg, aabb, device="cpu", **kwargs)
+    scale_hash_tables(cpu_model)
     small = make_camera(40, 30, 30.0, c2w_b)
     ref = cpu_model.get_outputs_for_camera(small, 0)
     got = model.get_outputs_for_camera(small, 0)
@@ -321,18 +550,20 @@ def slice_phase():
         # the median depths are step functions of the cumulative weight, so
         # a one-ulp difference can move a pixel by a whole sample
         if ok.mean() < 0.99 or not np.isfinite(b).all():
-            raise AssertionError(f"render {key} disagrees with the CPU reference: {ok.mean():.4f} of pixels agree")
-        log(f"render_vs_cpu {key}: {ok.mean() * 100:.2f}% of pixels within 2e-2, max |diff| {np.abs(a - b).max():.3e}")
+            raise AssertionError(f"{method_name} render {key} disagrees with the CPU reference: "
+                                 f"{ok.mean():.4f} of pixels agree")
+        log(f"{method_name} render_vs_cpu {key}: {ok.mean() * 100:.2f}% of pixels within 2e-2, "
+            f"max |diff| {np.abs(a - b).max():.3e}")
     del cpu_model
 
     requests = [("1080p", cam_a, 1920, 1080), ("640x512", cam_b, 640, 512), ("1080p", cam_a, 1920, 1080)]
-    fm.fused_mlp.launches = 0
-    fm.fused_mlp_bwd.launches = 0
-    total = 0
+    per_chunk = METHODS[method_name]["chunk"]
+    reset_counts()
+    total_chunks = 0
     timings = []
     for name, cam, w, h in requests:
         n_chunks = -(-(w * h) // chunk)
-        before = fm.fused_mlp.launches
+        before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if name == "1080p":
@@ -341,22 +572,20 @@ def slice_phase():
         else:
             out = model.get_outputs_for_camera(cam, 0)
         dt = time.perf_counter() - t0
-        launches = fm.fused_mlp.launches - before
+        launches = {k: v - before[k] for k, v in read_counts().items()}
         check_image_outputs(out, h, w, expect)
-        if launches != 4 * n_chunks:
-            raise AssertionError(f"{name}: {launches} fused-MLP launches, expected 4 x {n_chunks}")
-        total += launches
+        if launches != expected_counts(per_chunk, n_chunks):
+            raise AssertionError(f"{method_name} {name}: launches {launches}, expected {per_chunk} x {n_chunks} chunks")
+        total_chunks += n_chunks
         timings.append((name, dt))
         log(
-            f"render {name}: {n_chunks} chunks, {launches} fused-MLP launches, "
+            f"{method_name} render {name}: {n_chunks} chunks, launches {per_chunk} per chunk, "
             f"{dt:.3f} s/frame, {w * h / dt:,.0f} rays/s"
         )
-    main_launches = fm.fused_mlp.launches
-    if main_launches != total or fm.fused_mlp_bwd.launches != 0:
-        raise AssertionError(f"render: {main_launches} forward launches (expected {total}), "
-                             f"{fm.fused_mlp_bwd.launches} backward launches (expected 0)")
-
-    return main_launches, timings[-1][1], lambda out_dir: profile_chunk(model, cam_a, out_dir)
+    counts = read_counts()
+    if counts != expected_counts(per_chunk, total_chunks):
+        raise AssertionError(f"{method_name} render: launches {counts}, expected {per_chunk} x {total_chunks}")
+    return counts, timings[-1][1], lambda out_dir: profile_chunk(model, cam_a, out_dir, method_name)
 
 
 def write_png(path: Path, img: np.ndarray) -> None:
@@ -430,106 +659,110 @@ def write_scene(root: Path, num_pairs: int = 8) -> Path:
     return root
 
 
-def train_method(scene_dir: Path, rays: int):
+def train_method(method_name: str, scene_dir: Path, rays: int):
     from nerfstudio_thermal_torch.configs.method_configs import get_method_config
 
-    method = get_method_config("thermal-nerfacto-tpu")
+    method = get_method_config(method_name)
     method.data = scene_dir
     method.datamanager.train_num_rays_per_batch = rays
     return method
 
 
-def train_phase(scene_dir: Path, run_dir: Path):
+def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     """30 full-width steps through setup_trainer -> Trainer.setup ->
     Trainer.train, with the launch counts read around Trainer.train."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
     from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
-    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 
-    method = train_method(scene_dir, 8192)
+    method = train_method(method_name, scene_dir, 8192)
     method.trainer.max_num_iterations = TRAIN_STEPS
     t0 = time.perf_counter()
     trainer = setup_trainer(method, base_dir=run_dir, device="cuda")
     trainer.setup()
-    log(f"train setup (parse, model, optimizers): {time.perf_counter() - t0:.2f} s")
+    log(f"{method_name} train setup (parse, model, optimizers): {time.perf_counter() - t0:.2f} s")
     groups = trainer.model.param_groups()
     before = {name: [p.detach().clone() for p in params] for name, params in groups.items()}
+    tables = {name: p for name, p in trainer.model.named_parameters() if name.endswith("hash_table")}
+    tables_before = {name: p.detach().clone() for name, p in tables.items()}
     records, step_times = [], []
     iteration = trainer.train_iteration
 
     def counted_iteration(step):
         """One Trainer iteration (host sampling included), synchronized and
         timed, with its kernel launches and proposal counter."""
-        f0, b0 = fm.fused_mlp.launches, fm.fused_mlp_bwd.launches
+        c0 = read_counts()
         ssu = trainer.state.steps_since_update
         t_start = time.perf_counter()
         out = iteration(step)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t_start)
-        records.append((step, ssu, trainer.state.steps_since_update,
-                        fm.fused_mlp.launches - f0, fm.fused_mlp_bwd.launches - b0, out))
+        launches = {k: v - c0[k] for k, v in read_counts().items()}
+        records.append((step, ssu, trainer.state.steps_since_update, launches, out))
         return out
 
     trainer.train_iteration = counted_iteration
-    fm.fused_mlp.launches = 0
-    fm.fused_mlp_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     trainer.train()
     torch.cuda.synchronize()
-    fwd, bwd = fm.fused_mlp.launches, fm.fused_mlp_bwd.launches
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
 
     if len(records) != TRAIN_STEPS:
-        raise AssertionError(f"{len(records)} train steps ran, expected {TRAIN_STEPS}")
-    losses = {k: torch.stack([r[5][k].float() for r in records]) for k in records[0][5] if "loss" in k}
+        raise AssertionError(f"{method_name}: {len(records)} train steps ran, expected {TRAIN_STEPS}")
+    losses = {k: torch.stack([r[4][k].float() for r in records]) for k in records[0][4] if "loss" in k}
     for k, v in losses.items():
         if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"train: {k} is not finite")
-    for step, _, _, nf, nb, _ in records:
-        if (nf, nb) != (4, 4):
-            raise AssertionError(f"train step {step}: {nf} forward and {nb} backward fused-MLP launches, expected 4 + 4")
+            raise AssertionError(f"{method_name} train: {k} is not finite")
     skipped = 0
-    for step, ssu, new_ssu, _, _, _ in records:
+    for step, ssu, new_ssu, launches, _ in records:
         updated, want = proposal_updated(step, ssu, method.model.proposal_warmup, method.model.proposal_update_every)
         if new_ssu != want:
-            raise AssertionError(f"train step {step}: steps_since_update {new_ssu}, proposal_updated says {want}")
+            raise AssertionError(f"{method_name} train step {step}: steps_since_update {new_ssu}, "
+                                 f"proposal_updated says {want}")
+        expected = expected_counts(METHODS[method_name]["step"](updated))
+        if launches != expected:
+            raise AssertionError(f"{method_name} train step {step} (proposal update {updated}): "
+                                 f"launches {launches}, expected {expected}")
         skipped += step >= TIMED_FROM and not updated
     if skipped == 0:
         raise AssertionError("no step from 10 on skipped the proposal update")
     unchanged = [
         name for name, params in groups.items()
         if all(torch.equal(a, p.detach()) for a, p in zip(before[name], params))
-    ]
+    ] + [name for name, p in tables.items() if torch.equal(tables_before[name], p.detach())]
     if unchanged:
-        raise AssertionError(f"param groups {unchanged} did not change in training")
+        raise AssertionError(f"{method_name}: {unchanged} did not change in training")
     if not (run_dir / "nerfstudio_models" / f"step-{TRAIN_STEPS:09d}.ckpt").exists():
         raise AssertionError("Trainer.train saved no final checkpoint")
     step_s = float(np.mean(step_times[TIMED_FROM:]))
     rays = method.datamanager.train_num_rays_per_batch
     log(
-        f"train: {TRAIN_STEPS} steps of {rays} rays, param groups {sorted(groups)} all changed, "
-        f"{fwd} forward + {bwd} backward fused-MLP launches (4 + 4 per step), "
+        f"{method_name} train: {TRAIN_STEPS} steps of {rays} rays, param groups {sorted(groups)} "
+        f"and {len(tables)} hash tables all changed, launches {counts}, "
         f"{skipped} of steps {TIMED_FROM}-{TRAIN_STEPS - 1} without proposal update; "
         f"loss {float(losses['rgb_loss'][0]):.4f} -> {float(losses['rgb_loss'][-1]):.4f} (rgb), "
         f"{float(losses['thermal_loss'][0]):.4f} -> {float(losses['thermal_loss'][-1]):.4f} (thermal)"
     )
-    log(f"train steps {TIMED_FROM}-{TRAIN_STEPS - 1}: {step_s * 1e3:.2f} ms/step, {rays / step_s:,.0f} rays/s "
-        f"(peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
+    log(f"{method_name} train steps {TIMED_FROM}-{TRAIN_STEPS - 1}: {step_s * 1e3:.2f} ms/step, "
+        f"{rays / step_s:,.0f} rays/s (peak memory {peak / 2**30:.1f} GiB)")
     trainer.train_iteration = iteration
-    return fwd, bwd, step_s, rays, lambda out_dir: profile_step(trainer, out_dir)
+    return counts, step_s, rays, lambda out_dir: profile_step(trainer, out_dir, method_name)
 
 
-def step_vs_cpu_phase(scene_dir: Path, run_dir: Path):
+def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path):
     """One full-width step of 256 rays on the card and on the CPU from the
     same seeded params, batch and jitter."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
-    method = train_method(scene_dir, 256)
+    method = train_method(method_name, scene_dir, 256)
     trainers = {}
     for dev in ("cpu", "cuda"):
         trainers[dev] = setup_trainer(copy.deepcopy(method), base_dir=run_dir / dev, device=dev)
         trainers[dev].setup()
     for (k, a), b in zip(trainers["cpu"].model.state_dict().items(), trainers["cuda"].model.state_dict().values()):
         if not torch.equal(a, b.cpu()):
-            raise AssertionError(f"step_vs_cpu: the seeded models differ at {k}")
+            raise AssertionError(f"{method_name} step_vs_cpu: the seeded models differ at {k}")
     batch = trainers["cpu"].datamanager.next_train(0)
     gen = torch.Generator().manual_seed(7)
     levels = len(method.model.num_proposal_samples_per_ray) + 1
@@ -550,20 +783,20 @@ def step_vs_cpu_phase(scene_dir: Path, run_dir: Path):
         err = abs(got_s[k] - w) / max(abs(w), 1e-3)
         worst_loss = max(worst_loss, err)
         if not math.isfinite(got_s[k]) or err > STEP_LOSS_TOL:
-            raise AssertionError(f"step_vs_cpu: {k} card {got_s[k]:.6g} cpu {w:.6g}")
+            raise AssertionError(f"{method_name} step_vs_cpu: {k} card {got_s[k]:.6g} cpu {w:.6g}")
     worst_grad = {}
     for name, w in want_g.items():
         worst_grad[name] = rel_l2(got_g[name], w)
         if not bool(torch.isfinite(got_g[name]).all()) or worst_grad[name] > STEP_GRAD_TOL:
-            raise AssertionError(f"step_vs_cpu: gradient of {name} rel L2 {worst_grad[name]:.3e}")
+            raise AssertionError(f"{method_name} step_vs_cpu: gradient of {name} rel L2 {worst_grad[name]:.3e}")
     log(
-        f"step_vs_cpu (256 rays, full width): {len(want_s)} losses/metrics within {worst_loss:.2e} rel "
-        f"(tol {STEP_LOSS_TOL:g}); gradients rel L2 "
+        f"{method_name} step_vs_cpu (256 rays, full width): {len(want_s)} losses/metrics within "
+        f"{worst_loss:.2e} rel (tol {STEP_LOSS_TOL:g}); gradients rel L2 "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst_grad.items()) + f" (tol {STEP_GRAD_TOL:g})"
     )
 
 
-def profile_step(trainer, out_dir: Path) -> None:
+def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -575,11 +808,12 @@ def profile_step(trainer, out_dir: Path) -> None:
         trainer.train_iteration(step + 1)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=50)
-    (out_dir / "train_step_profile.txt").write_text(table)
-    log(f"profile of one training step written to {out_dir / 'train_step_profile.txt'}")
+    path = out_dir / f"{tag}_train_step_profile.txt"
+    path.write_text(table)
+    log(f"profile of one {tag} training step written to {path}")
 
 
-def profile_chunk(model, cam, out_dir):
+def profile_chunk(model, cam, out_dir: Path, tag: str) -> None:
     """torch.profiler over one chunk of 512x64 rays: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,8 +823,9 @@ def profile_chunk(model, cam, out_dir):
         model.render_camera_device(cam, 0, width=width, height=64)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (out_dir / "chunk_profile.txt").write_text(table)
-    log(f"profile of one {width}x64 chunk written to {out_dir / 'chunk_profile.txt'}")
+    path = out_dir / f"{tag}_chunk_profile.txt"
+    path.write_text(table)
+    log(f"profile of one {tag} {width}x64 chunk written to {path}")
 
 
 def main() -> int:
@@ -607,7 +842,9 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
+    from nerfstudio_thermal_torch.ops.cuda import build
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -615,46 +852,60 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
 
-    built = fm.build()
-    for kind, (path, seconds, build_log) in built.items():
+    for name, (path, seconds, build_log) in build.build().items():
         regs = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
         log(f"build {path.name}: {seconds:.2f} s; " + "; ".join(regs))
-        fm.load_library(kind)
+    fm.load_library("fwd")
+    fm.load_library("bwd")
+    th.load_library()
 
     fwd_kernel = kernel_phase()
     bwd_kernel = backward_phase()
-    render_launches, frame_s, profile_render = slice_phase()
+    hash_kernels = hash_kernel_phase()
+    unported_bounds()
+    renders = {m: slice_phase(m) for m in METHODS}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         scene = write_scene(Path(tmp) / "sphere")
         log(f"scene: 8 RGB 640x480 + 8 thermal 640x512 frames written in {time.perf_counter() - t0:.2f} s")
-        train_fwd, train_bwd, step_s, rays, profile_train = train_phase(scene, Path(tmp) / "run")
-        step_vs_cpu_phase(scene, Path(tmp) / "step")
+        trains = {m: train_phase(m, scene, Path(tmp) / m / "run") for m in METHODS}
+        for m in METHODS:
+            step_vs_cpu_phase(m, scene, Path(tmp) / m / "step")
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
-            profile_render(Path(args.profile))
-            profile_train(Path(args.profile))
+            for m in METHODS:
+                renders[m][2](Path(args.profile))
+                trains[m][3](Path(args.profile))
 
-    common = {"route": "cuda"}
+    tpu_counts, hash_counts = trains["thermal-nerfacto-tpu"][0], trains["thermal-nerfacto"][0]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    pallas = "nerfstudio_thermal_tpu/ops/pallas/"
+    hash_source = "nerfstudio_thermal_torch/csrc/hash_encoding.cu"
     kernels = [
-        {
-            "name": "fused_mlp_fwd", **common,
-            "source": "nerfstudio_thermal_torch/csrc/fused_mlp_fwd.cu",
-            "replaces": "nerfstudio_thermal_tpu/ops/pallas/fused_mlp.py:318",
-            "launches": train_fwd,
-            **{k: fwd_kernel[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        },
-        {
-            "name": "fused_mlp_bwd", **common,
-            "source": "nerfstudio_thermal_torch/csrc/fused_mlp_bwd.cu",
-            "replaces": "nerfstudio_thermal_tpu/ops/pallas/fused_mlp.py:413",
-            "launches": train_bwd,
-            **{k: bwd_kernel[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        },
+        {"name": "fused_mlp_fwd", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_fwd.cu",
+         "replaces": pallas + "fused_mlp.py:318 (row 1)", "launches": tpu_counts["fused_mlp_fwd"],
+         **{k: fwd_kernel[k] for k in keys}},
+        {"name": "fused_mlp_bwd", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_bwd.cu",
+         "replaces": pallas + "fused_mlp.py:413 (row 2)", "launches": tpu_counts["fused_mlp_bwd"],
+         **{k: bwd_kernel[k] for k in keys}},
+        {"name": "hash_encode_fwd", "route": "cuda", "source": hash_source,
+         "replaces": pallas + "hash_encoding.py:103 (row 8; also the XLA row-gather forward of row 7, "
+                     "hash_gather.py:229)",
+         "launches": hash_counts["hash_encode_fwd"], **{k: hash_kernels["hash_encode_fwd"][k] for k in keys}},
+        {"name": "hash_encode_bwd_table", "route": "cuda", "source": hash_source,
+         "replaces": pallas + "hash_gather.py:100 (row 7), " + pallas + "hash_encoding.py:123 (row 9)",
+         "launches": hash_counts["hash_encode_bwd_table"],
+         **{k: hash_kernels["hash_encode_bwd_table"][k] for k in keys}},
+        {"name": "hash_encode_bwd_pos", "route": "cuda", "source": hash_source,
+         "replaces": pallas + "hash_encoding.py:145 (row 10)", "launches": hash_counts["hash_encode_bwd_pos"],
+         **{k: hash_kernels["hash_encode_bwd_pos"][k] for k in keys}},
     ]
-    log(f"1080p frame: {frame_s:.3f} s, {1920 * 1080 / frame_s:,.0f} rays/s ({render_launches} forward launches in the render path)")
-    log(f"train: {step_s * 1e3:.2f} ms/step, {rays / step_s:,.0f} rays/s ({smi})")
+    for m in METHODS:
+        counts, frame_s, _ = renders[m]
+        _, step_s, rays, _ = trains[m]
+        log(f"{m}: 1080p frame {frame_s:.3f} s, {1920 * 1080 / frame_s:,.0f} rays/s; "
+            f"train {step_s * 1e3:.2f} ms/step, {rays / step_s:,.0f} rays/s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

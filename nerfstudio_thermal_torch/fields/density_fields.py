@@ -1,10 +1,12 @@
 """Proposal density fields (counterpart of nerfstudio_thermal_tpu/fields/density_fields.py).
 
-This slice carries `MLPDensityField`, the frequency-encoded proposal field
-of the `*-tpu` configurations. Its MLPs are 64 wide, so they fail the
-fused-MLP gate and run eagerly, with the encoding computed outside the MLP
-layers. The hash-grid `HashMLPDensityField` arrives with the hash-grid
-slice of the port (`thermal-nerfacto`).
+`HashMLPDensityField` is the proposal field of `thermal-nerfacto`: the
+hash-grid encoding (ops/encodings.py `HashEncoding`, the hand-written hash
+kernels on CUDA) feeding a narrow eager MLP, or with `use_linear` a single
+Dense layer (`Dense_0` in the JAX tree). `MLPDensityField` is the
+frequency-encoded proposal field of the `*-tpu` configurations. Its MLPs
+are 64 wide, so they fail the fused-MLP gate and run eagerly, with the
+encoding computed outside the MLP layers.
 """
 
 import torch
@@ -12,15 +14,77 @@ from torch import nn
 
 from nerfstudio_thermal_torch.fields.base_field import normalize_positions
 from nerfstudio_thermal_torch.ops.activations import trunc_exp
-from nerfstudio_thermal_torch.ops.mlp import MLP
+from nerfstudio_thermal_torch.ops.encodings import HashEncoding
+from nerfstudio_thermal_torch.ops.mlp import MLP, dense, variance_scaling_
 
 
 class HashMLPDensityField(nn.Module):
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "HashMLPDensityField needs the hash-grid kernels, which arrive with "
-            "the hash-grid slice of the port (thermal-nerfacto)"
+    """Hash-grid density field: world positions -> density [..., 1] f32."""
+
+    def __init__(
+        self,
+        aabb,
+        num_layers: int = 2,
+        hidden_dim: int = 64,
+        use_linear: bool = False,
+        num_levels: int = 8,
+        max_res: int = 1024,
+        base_res: int = 16,
+        log2_hashmap_size: int = 18,
+        features_per_level: int = 2,
+        average_init_density: float = 1.0,
+        use_spatial_distortion: bool = True,
+        compute_dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
+    ) -> None:
+        super().__init__()
+        self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False)
+        self.use_linear = use_linear
+        self.average_init_density = average_init_density
+        self.use_spatial_distortion = use_spatial_distortion
+        self.compute_dtype = compute_dtype
+        self.encoding = HashEncoding(
+            num_levels=num_levels,
+            min_res=base_res,
+            max_res=max_res,
+            log2_hashmap_size=log2_hashmap_size,
+            features_per_level=features_per_level,
+            compute_dtype=compute_dtype,
+            use_pallas=use_pallas,
         )
+        if use_linear:
+            self.linear = nn.Linear(self.encoding.out_dim, 1)
+        else:
+            self.mlp = MLP(
+                in_dim=self.encoding.out_dim,
+                num_layers=num_layers,
+                layer_width=hidden_dim,
+                out_dim=1,
+                compute_dtype=compute_dtype,
+            )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.encoding.reset_parameters(generator)
+        if self.use_linear:
+            with torch.no_grad():
+                variance_scaling_(self.linear.weight, 1.0, generator)
+                self.linear.bias.zero_()
+        else:
+            self.mlp.reset_parameters(generator)
+
+    def forward(self, positions: torch.Tensor = None, ray_samples=None) -> torch.Tensor:
+        """World positions [..., 3] (or ray_samples) -> density [..., 1] f32."""
+        if positions is None:
+            positions = ray_samples.get_positions()
+        positions, selector = normalize_positions(positions, self.aabb, self.use_spatial_distortion)
+        encoded = self.encoding(positions.reshape(-1, 3))
+        if self.use_linear:
+            h = dense(encoded, self.linear.weight, self.linear.bias, self.compute_dtype)
+        else:
+            h = self.mlp(encoded)
+        density_before = h.reshape(*positions.shape[:-1], 1).float()
+        density = self.average_init_density * trunc_exp(density_before)
+        return density * selector[..., None]
 
 
 class MLPDensityField(nn.Module):

@@ -1,14 +1,16 @@
-"""Nerfacto field with a frequency-encoded base MLP
-(counterpart of nerfstudio_thermal_tpu/fields/nerfacto_field.py).
+"""Nerfacto field (counterpart of nerfstudio_thermal_tpu/fields/nerfacto_field.py).
 
-This slice carries `field_encoding="freq"`: contraction -> (x + 2) / 4 ->
-in-box selector -> frequency encoding + deep MLP -> f32 trunc_exp density;
-the colour head takes SH(direction) ++ geo features ++ appearance embedding.
-With `use_pallas` the base MLP passes the fused-MLP gate and its encoding
-runs inside the fused kernel. The hash-grid base field arrives with the
-hash-grid slice of the port (`thermal-nerfacto`); the fused ray-march and
-whole-field kernels are later work. `ThermalNerfactoField` is the same module with
-`num_channels` in {1, 3, 4}.
+Density: contraction -> (x + 2) / 4 -> in-box selector -> base network ->
+f32 trunc_exp density. The base network is either the hash grid feeding a
+narrow eager MLP (`field_encoding="hash"`, or any value but "freq" as in
+the JAX module: `mlp_base`, ops/mlp.py `MLPWithHashEncoding`, the
+hand-written hash kernels on CUDA), or a frequency encoding + deep MLP
+(`field_encoding="freq"`: `mlp_base_net`;
+with `use_pallas` it passes the fused-MLP gate and its encoding runs inside
+the fused kernel). The colour head takes SH(direction) ++ geo features ++
+appearance embedding. The fused ray-march and whole-field kernels and the
+semantic head are later work and raise. `ThermalNerfactoField` is the same
+module with `num_channels` in {1, 3, 4}.
 """
 
 from typing import Dict, Tuple
@@ -20,7 +22,7 @@ from nerfstudio_thermal_torch.cameras.rays import RaySamples
 from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames, normalize_positions
 from nerfstudio_thermal_torch.ops.activations import trunc_exp
 from nerfstudio_thermal_torch.ops.encodings import NeRFEncoding, SHEncoding
-from nerfstudio_thermal_torch.ops.mlp import MLP
+from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
 
 class NerfactoField(nn.Module):
@@ -28,8 +30,15 @@ class NerfactoField(nn.Module):
         self,
         aabb,
         num_images: int,
+        num_layers: int = 2,
+        hidden_dim: int = 64,
         geo_feat_dim: int = 15,
+        num_levels: int = 16,
+        base_res: int = 16,
+        max_res: int = 2048,
+        log2_hashmap_size: int = 19,
         num_layers_color: int = 3,
+        features_per_level: int = 2,
         hidden_dim_color: int = 64,
         appearance_embedding_dim: int = 32,
         use_average_appearance_embedding: bool = False,
@@ -49,11 +58,6 @@ class NerfactoField(nn.Module):
         freq_final_init_scale: float = 1.0,
     ) -> None:
         super().__init__()
-        if field_encoding != "freq":
-            raise NotImplementedError(
-                "the hash-grid base field needs the hash-grid kernels, which "
-                "arrive with the hash-grid slice of the port (thermal-nerfacto)"
-            )
         if fused_raymarch or fused_field:
             raise NotImplementedError(
                 "the fused ray-march and whole-field kernels (fused_ray_mlp, "
@@ -70,26 +74,41 @@ class NerfactoField(nn.Module):
         self.average_init_density = average_init_density
         self.num_channels = num_channels
         self.use_pallas = use_pallas
+        self.field_encoding = field_encoding
 
         self.direction_encoding = SHEncoding(levels=4)
-        nf = freq_num_frequencies
-        self.position_encoding = NeRFEncoding(
-            in_dim=3, num_frequencies=nf, min_freq_exp=0.0, max_freq_exp=nf - 1,
-            include_input=True,
-        )
-        # With use_pallas the encoding runs inside the fused kernel; otherwise
-        # get_density applies position_encoding before the MLP.
-        self.mlp_base_net = MLP(
-            in_dim=3 if use_pallas else self.position_encoding.out_dim,
-            num_layers=freq_num_layers,
-            layer_width=freq_hidden_dim,
-            out_dim=1 + geo_feat_dim,
-            skip_connections=(freq_num_layers // 2,) if freq_use_skip else (),
-            compute_dtype=compute_dtype,
-            fused=use_pallas,
-            final_init_scale=freq_final_init_scale,
-            freq_encoding=(nf, 0.0, nf - 1.0, True) if use_pallas else None,
-        )
+        if field_encoding != "freq":
+            self.mlp_base = MLPWithHashEncoding(
+                num_levels=num_levels,
+                min_res=base_res,
+                max_res=max_res,
+                log2_hashmap_size=log2_hashmap_size,
+                features_per_level=features_per_level,
+                num_layers=num_layers,
+                layer_width=hidden_dim,
+                out_dim=1 + geo_feat_dim,
+                compute_dtype=compute_dtype,
+                use_pallas=use_pallas,
+            )
+        else:
+            nf = freq_num_frequencies
+            self.position_encoding = NeRFEncoding(
+                in_dim=3, num_frequencies=nf, min_freq_exp=0.0, max_freq_exp=nf - 1,
+                include_input=True,
+            )
+            # With use_pallas the encoding runs inside the fused kernel;
+            # otherwise get_density applies position_encoding before the MLP.
+            self.mlp_base_net = MLP(
+                in_dim=3 if use_pallas else self.position_encoding.out_dim,
+                num_layers=freq_num_layers,
+                layer_width=freq_hidden_dim,
+                out_dim=1 + geo_feat_dim,
+                skip_connections=(freq_num_layers // 2,) if freq_use_skip else (),
+                compute_dtype=compute_dtype,
+                fused=use_pallas,
+                final_init_scale=freq_final_init_scale,
+                freq_encoding=(nf, 0.0, nf - 1.0, True) if use_pallas else None,
+            )
         if appearance_embedding_dim > 0:
             self.embedding_appearance = nn.Parameter(
                 torch.empty(num_images, appearance_embedding_dim)
@@ -105,9 +124,10 @@ class NerfactoField(nn.Module):
         )
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """JAX initializers: lecun-normal MLPs (the base MLP's last layer
-        scaled), zero biases, N(0, 1) appearance table."""
-        self.mlp_base_net.reset_parameters(generator)
+        """JAX initializers: U(-1e-3, 1e-3) hash tables, lecun-normal MLPs
+        (the freq base MLP's last layer scaled), zero biases, N(0, 1)
+        appearance table."""
+        self.base_network.reset_parameters(generator)
         self.mlp_head.reset_parameters(generator)
         if self.appearance_embedding_dim > 0:
             with torch.no_grad():
@@ -117,13 +137,18 @@ class NerfactoField(nn.Module):
         """World positions [..., 3] -> (density [..., 1] f32, geo features)."""
         positions, selector = normalize_positions(positions, self.aabb, self.use_spatial_distortion)
         flat = positions.reshape(-1, 3)
-        if not self.use_pallas:
+        if self.field_encoding == "freq" and not self.use_pallas:
             flat = self.position_encoding(flat)
-        h = self.mlp_base_net(flat)
+        h = self.base_network(flat)
         h = h.reshape(*positions.shape[:-1], h.shape[-1])
         density_before, geo_feat = h[..., :1], h[..., 1:]
         density = self.average_init_density * trunc_exp(density_before.float())
         return density * selector[..., None], geo_feat
+
+    @property
+    def base_network(self) -> nn.Module:
+        """The density network: `mlp_base` (hash) or `mlp_base_net` (freq)."""
+        return self.mlp_base_net if self.field_encoding == "freq" else self.mlp_base
 
     def density_fn(self, positions: torch.Tensor) -> torch.Tensor:
         return self.get_density(positions)[0]

@@ -36,13 +36,18 @@ from nerfstudio_thermal_torch.utils.math import psnr
 
 @dataclass
 class NerfactoModelConfig(ModelConfig):
-    """Field names and defaults as in the JAX package's config. The
-    hash-grid fields arrive with the hash-grid slice."""
+    """Field names and defaults as in the JAX package's config."""
 
     near_plane: float = 0.05
     far_plane: float = 1000.0
     background_color: str = "last_sample"
+    hidden_dim: int = 64
     hidden_dim_color: int = 64
+    num_levels: int = 16
+    base_res: int = 16
+    max_res: int = 2048
+    log2_hashmap_size: int = 19
+    features_per_level: int = 2
     num_proposal_samples_per_ray: Tuple[int, ...] = (256, 96)
     num_nerf_samples_per_ray: int = 48
     proposal_update_every: int = 5
@@ -118,6 +123,12 @@ class NerfactoModel(Model):
         return dict(
             aabb=self.scene_aabb,
             num_images=self.num_train_data,
+            hidden_dim=cfg.hidden_dim,
+            num_levels=cfg.num_levels,
+            max_res=cfg.max_res,
+            base_res=cfg.base_res,
+            features_per_level=cfg.features_per_level,
+            log2_hashmap_size=cfg.log2_hashmap_size,
             hidden_dim_color=cfg.hidden_dim_color,
             use_spatial_distortion=not cfg.disable_scene_contraction,
             use_average_appearance_embedding=cfg.use_average_appearance_embedding,
@@ -162,12 +173,19 @@ class NerfactoModel(Model):
         self.camera_optimizer = build_camera_optimizer(cfg.camera_optimizer, self.num_train_data)
 
     def _build_proposal_net(self, args: Dict) -> nn.Module:
-        """A proposal density field from a proposal_net_args_list entry;
-        {"encoding": "freq"} selects MLPDensityField."""
+        """A proposal density field from a proposal_net_args_list entry:
+        HashMLPDensityField, or MLPDensityField for {"encoding": "freq"}."""
         cfg = self.config
         args = dict(args)
         if args.pop("encoding", "hash") != "freq":
-            return HashMLPDensityField(**args)
+            return HashMLPDensityField(
+                aabb=self.scene_aabb,
+                use_spatial_distortion=not cfg.disable_scene_contraction,
+                average_init_density=cfg.average_init_density,
+                compute_dtype=self.compute_dtype,
+                use_pallas=cfg.use_pallas,
+                **args,
+            )
         for k in ("log2_hashmap_size", "num_levels", "max_res", "use_linear", "features_per_level"):
             args.pop(k, None)
         return MLPDensityField(

@@ -90,7 +90,7 @@ class ThermalNerfactoModel(NerfactoModel):
         if cfg.density_mode != "separate":
             raise NotImplementedError(
                 f"density_mode={cfg.density_mode!r} arrives with a later slice of the "
-                "port (with thermal-nerfacto's hash grid); the port has 'separate'"
+                "port; the port has 'separate'"
             )
         if cfg.fused_modalities:
             raise NotImplementedError(
@@ -244,8 +244,8 @@ class ThermalNerfactoModel(NerfactoModel):
         )
         if train and (cfg.tv_rgb_loss_mult > 0 or cfg.tv_thermal_loss_mult > 0):
             raise NotImplementedError(
-                "the density TV loss samples the hash-grid field; it arrives with the "
-                "hash-grid slice of the port (thermal-nerfacto)"
+                "the density TV loss (tv_*_loss_mult > 0, the fields' sample_and_density) "
+                "arrives with a later slice of the port"
             )
         loss_dict = {}
         # masked channels, mean over the whole batch (as the reference does)

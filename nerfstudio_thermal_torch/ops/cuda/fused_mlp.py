@@ -9,9 +9,9 @@ kernel and what the first design gives up.
 `fused_mlp` is one autograd node that dispatches on the device of its
 input: for a CPU tensor the forward is `fused_mlp_plain` and the backward
 `fused_mlp_bwd_plain`; for a CUDA tensor both are kernels, built with nvcc
-on first use into build/kernels/ and loaded with ctypes. There is no
-fallback from one to the other: a CUDA tensor launches the kernel or
-raises.
+on first use into build/kernels/ and loaded with ctypes (ops/cuda/build.py).
+There is no fallback from one to the other: a CUDA tensor launches the
+kernel or raises.
 
 Numerics (both versions): the frequency table is 2*pi*exp2(e_k) in f32;
 pre = x_d * f_k is one product; the encoding [sin(pre), cos(pre), x] is
@@ -25,28 +25,14 @@ the rounding points of the TPU kernel's `_mlp_bwd_walk` (see
 import collections
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[2]
-SOURCES = {
-    "fwd": _PKG_DIR / "csrc" / "fused_mlp_fwd.cu",
-    "bwd": _PKG_DIR / "csrc" / "fused_mlp_bwd.cu",
-}
-BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from nerfstudio_thermal_torch.ops.cuda import build
+
 MAX_LAYERS = 16
 _DESC_HEADER = 9  # ints before the per-layer descriptors
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
@@ -119,74 +105,30 @@ def fused_mlp_plain(
 
 
 # --------------------------------------------------------------------------
-# Build and load
+# Load (ops/cuda/build.py compiles)
 # --------------------------------------------------------------------------
 
-_libs: Dict[str, ctypes.CDLL] = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(_I)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the fused-MLP kernels cannot be built")
+def _bind_fwd(lib: ctypes.CDLL) -> None:
+    lib.fused_mlp_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _IP, _I, _I, _I, _P]
+    lib.fused_mlp_fwd.restype = _I
 
 
-def library_path(kind: str) -> Path:
-    source = SOURCES[kind]
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
-
-
-def build(kinds: Sequence[str] = tuple(SOURCES)) -> Dict[str, Tuple[Path, float, str]]:
-    """Compile the kernels whose libraries are missing, one nvcc per source,
-    all started together. Returns {kind: (path, seconds spent compiling,
-    compiler output)}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    result, running = {}, {}
-    for kind in kinds:
-        path = library_path(kind)
-        if path.exists():
-            result[kind] = (path, 0.0, "")
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[kind])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[kind] = (proc, tmp, path, time.perf_counter())
-    failures = []
-    for kind, (proc, tmp, path, t0) in running.items():
-        output, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {SOURCES[kind].name} ({proc.returncode}):\n{output}")
-            continue
-        os.replace(tmp, path)
-        result[kind] = (path, seconds, output)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return result
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    lib.fused_mlp_bwd_sizes.argtypes = [_IP, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_mlp_bwd_sizes.restype = _I
+    lib.fused_mlp_bwd.argtypes = [_P] * 11 + [_I, _IP, _I, _I, _I, _P]
+    lib.fused_mlp_bwd.restype = _I
 
 
 def load_library(kind: str) -> ctypes.CDLL:
-    """Build (at first use) and load one kernel's shared library."""
-    if kind not in _libs:
-        path, _, _ = build([kind])[kind]
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        ip = ctypes.POINTER(i)
-        if kind == "fwd":
-            lib.fused_mlp_fwd.argtypes = [p, p, p, p, p, i, ip, i, i, i, p]
-            lib.fused_mlp_fwd.restype = i
-        else:
-            lib.fused_mlp_bwd_sizes.argtypes = [ip, i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
-            lib.fused_mlp_bwd_sizes.restype = i
-            lib.fused_mlp_bwd.argtypes = [p] * 11 + [i, ip, i, i, i, p]
-            lib.fused_mlp_bwd.restype = i
-        _libs[kind] = lib
-    return _libs[kind]
+    """Build (at first use) and load the forward ("fwd") or backward
+    ("bwd") kernel's shared library."""
+    return build.load(f"fused_mlp_{kind}", _bind_fwd if kind == "fwd" else _bind_bwd)
 
 
 # --------------------------------------------------------------------------
@@ -415,10 +357,6 @@ def _prepare(in_dim, weights, biases, out_activation, skips, freq_encoding, comp
                   wt[0] if wt else None)
 
 
-def _device_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
-
-
 def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
     """One forward launch on the current stream: x [N, in_dim] f32 CUDA,
     contiguous -> [N, out_dim] in the compute dtype."""
@@ -434,7 +372,7 @@ def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
     err = load_library("fwd").fused_mlp_fwd(
         x.data_ptr(), packed.weights.data_ptr(), packed.biases.data_ptr(), packed.freqs.data_ptr(),
         out.data_ptr(), n, desc, len(packed.desc), int(packed.compute_dtype == torch.bfloat16),
-        _device_index(x), torch.cuda.current_stream(x.device).cuda_stream,
+        *build.device_and_stream(x),
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError {err}")
@@ -473,7 +411,7 @@ def launch_bwd(
     desc = (ctypes.c_int * len(packed.desc))(*packed.desc)
     bf16 = int(packed.compute_dtype == torch.bfloat16)
     sizes = (ctypes.c_longlong * 3)()
-    err = lib.fused_mlp_bwd_sizes(desc, len(packed.desc), n, bf16, _device_index(x), sizes)
+    err = lib.fused_mlp_bwd_sizes(desc, len(packed.desc), n, bf16, build.device_and_stream(x)[0], sizes)
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd: the kernel refuses this MLP (cudaError {err})")
     if sizes[2] > SMEM_LIMIT:
@@ -484,7 +422,7 @@ def launch_bwd(
         x.data_ptr(), g.data_ptr(), packed.weights.data_ptr(), packed.weights_t.data_ptr(),
         packed.biases.data_ptr(), packed.freqs.data_ptr(), workspace.data_ptr(), scratch.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), n, desc, len(packed.desc), bf16,
-        _device_index(x), torch.cuda.current_stream(dev).cuda_stream,
+        *build.device_and_stream(x),
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd kernel launch failed: cudaError {err}")

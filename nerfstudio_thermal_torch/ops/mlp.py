@@ -1,4 +1,5 @@
-"""MLPs (counterpart of nerfstudio_thermal_tpu/ops/mlp.py).
+"""MLPs (counterpart of nerfstudio_thermal_tpu/ops/mlp.py): `MLP` and the
+hash-grid base network `MLPWithHashEncoding`.
 
 Params are f32; compute runs in `compute_dtype`. A stack that passes the
 `_fusable` gate (relu hidden layers, none/sigmoid output, width >= 128 and
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from nerfstudio_thermal_torch.ops.cuda.fused_mlp import PackCache, encoding_dim, fused_mlp
-from nerfstudio_thermal_torch.ops.encodings import NeRFEncoding
+from nerfstudio_thermal_torch.ops.encodings import HashEncoding, NeRFEncoding
 
 # flax variance_scaling("truncated_normal"): stddev of a unit normal
 # truncated to [-2, 2]
@@ -147,3 +148,51 @@ class MLP(nn.Module):
         elif self.out_activation is not None:
             raise ValueError(f"unsupported output activation {self.out_activation}")
         return x
+
+
+class MLPWithHashEncoding(nn.Module):
+    """Hash-grid encoding feeding an eager MLP: the base network of the
+    hash-grid nerfacto fields. Submodules `encoding` and `mlp`, as the JAX
+    module names them."""
+
+    def __init__(
+        self,
+        num_levels: int = 16,
+        min_res: int = 16,
+        max_res: int = 1024,
+        log2_hashmap_size: int = 19,
+        features_per_level: int = 2,
+        num_layers: int = 2,
+        layer_width: int = 64,
+        out_dim: int = 16,
+        activation: Optional[str] = "relu",
+        out_activation: Optional[str] = None,
+        compute_dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
+    ) -> None:
+        super().__init__()
+        self.encoding = HashEncoding(
+            num_levels=num_levels,
+            min_res=min_res,
+            max_res=max_res,
+            log2_hashmap_size=log2_hashmap_size,
+            features_per_level=features_per_level,
+            compute_dtype=compute_dtype,
+            use_pallas=use_pallas,
+        )
+        self.mlp = MLP(
+            in_dim=self.encoding.out_dim,
+            num_layers=num_layers,
+            layer_width=layer_width,
+            out_dim=out_dim,
+            activation=activation,
+            out_activation=out_activation,
+            compute_dtype=compute_dtype,
+        )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.encoding.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        return self.mlp(self.encoding(positions))

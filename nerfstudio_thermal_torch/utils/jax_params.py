@@ -11,6 +11,9 @@ Layouts handled:
 - flax kernels [din, dout] become `nn.Linear.weight` [dout, din];
 - both MLP layouts: the fused path's flat `Dense_{i}_kernel` /
   `Dense_{i}_bias` and the eager path's `Dense_{i}/{kernel, bias}`;
+- `hash_table` [L * T, F] of a hash encoding, as it is (no transpose): the
+  base field's `mlp_base/{encoding, mlp}` and the hash proposal fields'
+  `encoding` beside `mlp`, or `Dense_0` with `use_linear`;
 - `embedding_appearance` in a field;
 - `pose_adjustment` of the camera optimizers;
 - the top-level groups below.
@@ -25,9 +28,10 @@ import torch
 from torch import nn
 
 from nerfstudio_thermal_torch.cameras.camera_optimizers import CameraOptimizer
-from nerfstudio_thermal_torch.fields.density_fields import MLPDensityField
+from nerfstudio_thermal_torch.fields.density_fields import HashMLPDensityField, MLPDensityField
 from nerfstudio_thermal_torch.fields.nerfacto_field import NerfactoField
-from nerfstudio_thermal_torch.ops.mlp import MLP
+from nerfstudio_thermal_torch.ops.encodings import HashEncoding
+from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
 # JAX param group -> attribute of the model
 GROUPS = {
@@ -74,14 +78,42 @@ def load_mlp(mlp: MLP, tree: Mapping, where: str = "mlp") -> None:
         _copy(layer.bias, bias, f"{where}/Dense_{i}/bias")
 
 
+def _load_dense(layer: nn.Linear, tree: Mapping, where: str) -> None:
+    _check_keys(tree, ["kernel", "bias"], where)
+    _copy(layer.weight, np.asarray(tree["kernel"]).T, f"{where}/kernel")
+    _copy(layer.bias, tree["bias"], f"{where}/bias")
+
+
+def _base_name(field: NerfactoField) -> str:
+    return "mlp_base_net" if field.field_encoding == "freq" else "mlp_base"
+
+
 def load_module(module: nn.Module, tree: Mapping, where: str) -> None:
     if isinstance(module, NerfactoField):
         has_emb = module.appearance_embedding_dim > 0
-        _check_keys(tree, ["mlp_base_net", "mlp_head"] + ["embedding_appearance"] * has_emb, where)
+        base = _base_name(module)
+        _check_keys(tree, [base, "mlp_head"] + ["embedding_appearance"] * has_emb, where)
         if has_emb:
             _copy(module.embedding_appearance, tree["embedding_appearance"], f"{where}/embedding_appearance")
-        load_mlp(module.mlp_base_net, tree["mlp_base_net"], f"{where}/mlp_base_net")
+        load_module(module.base_network, tree[base], f"{where}/{base}")
         load_mlp(module.mlp_head, tree["mlp_head"], f"{where}/mlp_head")
+    elif isinstance(module, MLP):
+        load_mlp(module, tree, where)
+    elif isinstance(module, HashEncoding):
+        _check_keys(tree, ["hash_table"], where)
+        _copy(module.hash_table, tree["hash_table"], f"{where}/hash_table")
+    elif isinstance(module, MLPWithHashEncoding):
+        _check_keys(tree, ["encoding", "mlp"], where)
+        load_module(module.encoding, tree["encoding"], f"{where}/encoding")
+        load_mlp(module.mlp, tree["mlp"], f"{where}/mlp")
+    elif isinstance(module, HashMLPDensityField):
+        head = "Dense_0" if module.use_linear else "mlp"
+        _check_keys(tree, ["encoding", head], where)
+        load_module(module.encoding, tree["encoding"], f"{where}/encoding")
+        if module.use_linear:
+            _load_dense(module.linear, tree["Dense_0"], f"{where}/Dense_0")
+        else:
+            load_mlp(module.mlp, tree["mlp"], f"{where}/mlp")
     elif isinstance(module, MLPDensityField):
         _check_keys(tree, ["mlp"], where)
         load_mlp(module.mlp, tree["mlp"], f"{where}/mlp")
@@ -130,11 +162,27 @@ def export_mlp(mlp: MLP, grads: bool = False) -> Dict[str, Any]:
 def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
     if isinstance(module, NerfactoField):
         tree = {
-            "mlp_base_net": export_mlp(module.mlp_base_net, grads),
+            _base_name(module): export_module(module.base_network, grads),
             "mlp_head": export_mlp(module.mlp_head, grads),
         }
         if module.appearance_embedding_dim > 0:
             tree["embedding_appearance"] = _value(module.embedding_appearance, grads)
+        return tree
+    if isinstance(module, MLP):
+        return export_mlp(module, grads)
+    if isinstance(module, HashEncoding):
+        return {"hash_table": _value(module.hash_table, grads)}
+    if isinstance(module, MLPWithHashEncoding):
+        return {"encoding": export_module(module.encoding, grads), "mlp": export_mlp(module.mlp, grads)}
+    if isinstance(module, HashMLPDensityField):
+        tree = {"encoding": export_module(module.encoding, grads)}
+        if module.use_linear:
+            tree["Dense_0"] = {
+                "kernel": _value(module.linear.weight, grads).T.copy(),
+                "bias": _value(module.linear.bias, grads),
+            }
+        else:
+            tree["mlp"] = export_mlp(module.mlp, grads)
         return tree
     if isinstance(module, MLPDensityField):
         return {"mlp": export_mlp(module.mlp, grads)}

@@ -6,20 +6,28 @@ machine with a card and no JAX installation:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances as in tests/test_torch_fused_mlp.py: f32 1e-4 (same exact
-products and sums in another order), bf16 2e-2 (one flipped bf16 rounding
-moves later layers by about one bf16 step). The backward is held per tensor
-by the relative L2 error ||got - want|| / ||want||: at most 1e-4 in f32
-(exact products, another summation order over N) and 3e-2 in bf16 (one
-flipped bf16 rounding of dh or of a relu mask at a tie moves a layer's dW
-by about 2^-8 relative), and every value must be finite.
+Fused MLP, tolerances as in tests/test_torch_fused_mlp.py: f32 1e-4 (same
+exact products and sums in another order), bf16 2e-2 (one flipped bf16
+rounding moves later layers by about one bf16 step). The backward is held
+per tensor by the relative L2 error ||got - want|| / ||want||: at most 1e-4
+in f32 (exact products, another summation order over N) and 3e-2 in bf16
+(one flipped bf16 rounding of dh or of a relu mask at a tie moves a
+layer's dW by about 2^-8 relative), and every value must be finite.
+
+Hash grid, as chip_smoke.py holds it: forward within 1e-6 absolute (the
+same f32 products and sums in the same order), plus one bf16 step for a
+bf16 output; table gradient relative L2 1e-4 (atomics add the same f32
+terms in a run-dependent order); position gradient relative L2 1e-5 (the
+sum over levels in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from nerfstudio_thermal_torch.ops import encodings as enc
 from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +122,72 @@ def test_autograd_goes_through_both_kernels(cuda):
     assert (fm.fused_mlp.launches - f0, fm.fused_mlp_bwd.launches - b0) == (1, 1)
     assert x.grad.dtype == torch.float32 and all(w.grad.dtype == torch.float32 for w in ws)
     assert all(bool(torch.isfinite(t.grad).all()) for t in (x, *ws, *bs))
+
+
+HASH_CASES = [
+    # (levels, log2 T, points, min_res, max_res)
+    (16, 19, 50_000, 16, 2048),  # the base field's grid
+    (5, 17, 100_003, 16, 256),  # a proposal field's grid
+    (5, 12, 4_099, 16, 128),  # a table of 4096 rows (the TPU's one-hot route)
+    (2, 8, 1, 4, 16),
+]
+
+
+def _hash_case(case, dtype, seed):
+    levels, log2_t, n, lo, hi = HASH_CASES[case]
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn(levels * 2**log2_t, 2, generator=gen) * 1e-2
+    pos = torch.rand(n, 3, generator=gen)
+    k = n // 8
+    pos[:k] = torch.floor(pos[:k] * lo) / lo  # on level-0 grid coordinates
+    pos[k : 2 * k] = 0.0  # zeroed by the fields' selector
+    g = torch.randn(n, 2 * levels, generator=gen).to(dtype)
+    scal = torch.from_numpy(enc.hash_grid_scalings(levels, lo, hi))
+    return table, pos, scal, g, 2**log2_t
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(HASH_CASES)))
+def test_hash_kernels_match_plain(cuda, case, dtype):
+    table, pos, scal, g, t = (x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _hash_case(case, dtype, case))
+    before = (th.hash_encode_fwd.launches, th.hash_encode_bwd_table.launches, th.hash_encode_bwd_pos.launches)
+    out = th.hash_encode_fwd(table, pos, scal, t, dtype)
+    d_table = th.hash_encode_bwd_table(pos, g, scal, t)
+    d_pos = th.hash_encode_bwd_pos(table, pos, g, scal, t)
+    torch.cuda.synchronize()
+    after = (th.hash_encode_fwd.launches, th.hash_encode_bwd_table.launches, th.hash_encode_bwd_pos.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    want = enc.hash_encode_plain(table, pos, scal, t, dtype)
+    assert out.dtype == dtype and out.shape == want.shape
+    step = 2.0**-8 if dtype == torch.bfloat16 else 0.0
+    assert bool(((out.float() - want.float()).abs() <= 1e-6 + step * want.float().abs()).all())
+    want_table = enc.hash_encode_bwd_table_plain(pos, g, scal, t, 2)
+    want_pos = enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t)
+    assert bool(torch.isfinite(d_table).all()) and bool(torch.isfinite(d_pos).all())
+    assert _rel_l2(d_table, want_table) <= 1e-4, _rel_l2(d_table, want_table)
+    assert _rel_l2(d_pos, want_pos) <= 1e-5, _rel_l2(d_pos, want_pos)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_hash_encoding_goes_through_the_kernels(cuda, use_pallas):
+    """HashEncoding on CUDA tensors, for a small and a large table and both
+    values of use_pallas: one forward launch, one table-gradient launch,
+    and a position-gradient launch only when the positions need one."""
+    for log2_t in (10, 19):
+        mod = enc.HashEncoding(num_levels=4, log2_hashmap_size=log2_t, use_pallas=use_pallas,
+                               compute_dtype=torch.bfloat16)
+        mod.reset_parameters(torch.Generator().manual_seed(log2_t))
+        mod = mod.to(cuda)
+        for pos_grad in (False, True):
+            pos = torch.rand(6, 50, 3, device=cuda).requires_grad_(pos_grad)
+            c0 = (th.hash_encode_fwd.launches, th.hash_encode_bwd_table.launches, th.hash_encode_bwd_pos.launches)
+            out = mod(pos)
+            out.float().square().sum().backward()
+            torch.cuda.synchronize()
+            c1 = (th.hash_encode_fwd.launches, th.hash_encode_bwd_table.launches, th.hash_encode_bwd_pos.launches)
+            assert out.shape == (6, 50, 8) and out.dtype == torch.bfloat16
+            assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1, int(pos_grad))
+            assert mod.hash_table.grad.dtype == torch.float32 and bool(torch.isfinite(mod.hash_table.grad).all())
+            if pos_grad:
+                assert pos.grad.shape == pos.shape and bool(torch.isfinite(pos.grad).all())
+            mod.hash_table.grad = None

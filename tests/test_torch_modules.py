@@ -369,10 +369,14 @@ def test_thermal_nerfacto_field(use_pallas, dtype, tol):
 
 
 def test_hash_fields_raise():
-    with pytest.raises(NotImplementedError, match="hash-grid slice"):
-        tnf.NerfactoField(AABB, num_images=2, field_encoding="hash")
-    with pytest.raises(NotImplementedError, match="hash-grid slice"):
-        tdf.HashMLPDensityField(aabb=AABB)
+    """The hash fields build; what they do not carry yet raises: the
+    semantic head and the fused ray-march and whole-field knobs."""
+    assert tnf.NerfactoField(AABB, num_images=2, field_encoding="hash", log2_hashmap_size=10).field_encoding == "hash"
+    assert tdf.HashMLPDensityField(aabb=AABB, log2_hashmap_size=10).encoding.out_dim == 16
+    with pytest.raises(NotImplementedError, match="semantic head"):
+        tnf.NerfactoField(AABB, num_images=2, log2_hashmap_size=10, num_semantic_classes=3)
+    with pytest.raises(NotImplementedError, match="fused ray-march"):
+        tnf.NerfactoField(AABB, num_images=2, log2_hashmap_size=10, fused_raymarch=True)
 
 
 def test_carry_over_rejects_mismatched_trees():

@@ -117,14 +117,16 @@ def test_precision_pinned_by_entry_points():
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the port does not carry yet raises and names its slice: hash
-    fields, the shared and rgb_only density modes, and the trainer's eval
-    cadences."""
+    """What the port does not carry yet raises and names its slice or says
+    it is not ported: a shared proposal network, the shared and rgb_only
+    density modes, and the trainer's eval cadences."""
     from tests.fixtures import make_synthetic_rgbt_dataset
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
-    with pytest.raises(NotImplementedError, match="hash-grid slice"):
-        ThermalNerfactoModel(get_method_config("thermal-nerfacto").model, AABB, 2, device="cpu")
+    cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
+    cfg.use_same_proposal_network = True
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ThermalNerfactoModel(cfg, AABB, 2, device="cpu")
     for mode in ("shared", "rgb_only"):
         cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
         cfg.density_mode = mode

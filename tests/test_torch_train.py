@@ -90,9 +90,9 @@ def scene(tmp_path_factory):
     return make_synthetic_rgbt_dataset(tmp_path_factory.mktemp("scene"), num_pairs=4)
 
 
-def _method(get, dtype, scene):
-    method = get("thermal-nerfacto-tpu")
-    tiny(method.model, dtype)
+def _method(get, dtype, scene, name="thermal-nerfacto-tpu", cut=tiny):
+    method = get(name)
+    cut(method.model, dtype)
     method.datamanager.train_num_rays_per_batch = NUM_RAYS
     method.dataparser.data = scene
     method.data = scene
@@ -102,8 +102,8 @@ def _method(get, dtype, scene):
 class JaxSide:
     """The JAX model, optimizer and jitted train step of one dtype."""
 
-    def __init__(self, scene, dtype):
-        self.method = _method(jax_method_config, dtype, scene)
+    def __init__(self, scene, dtype, name="thermal-nerfacto-tpu", cut=tiny):
+        self.method = _method(jax_method_config, dtype, scene, name, cut)
         parsed = JaxParser(self.method.dataparser).get_dataparser_outputs("train")
         self.dataset = JaxDataset(parsed)
         self.cameras = jax.tree.map(jnp.asarray, parsed.cameras)
@@ -155,8 +155,8 @@ def adam_state(opt_state, name):
     return int(adam.count), adam.mu[name], adam.nu[name]
 
 
-def port_trainer(scene, dtype, tmp_path, jax_params=None):
-    method = _method(get_method_config, dtype, scene)
+def port_trainer(scene, dtype, tmp_path, jax_params=None, name="thermal-nerfacto-tpu", cut=tiny):
+    method = _method(get_method_config, dtype, scene, name, cut)
     trainer = setup_trainer(method, base_dir=tmp_path, device="cpu")
     if jax_params is not None:
         load_jax_params(trainer.model, jax.tree.map(np.asarray, jax_params))
