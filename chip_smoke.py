@@ -81,9 +81,9 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # another order over N; bf16 one flipped rounding of dh or of a relu mask
 # at a tie moves a layer's dW by about 2^-8 relative.
 BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
-# One training step, card against CPU (bf16 MLPs): losses relative, each
-# group's gradient relative L2.
-STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-2, 5e-2
+# One training step, card against CPU (bf16 MLPs): losses relative; each
+# group's gradient relative L2 per method (METHODS' step_grad_tol).
+STEP_LOSS_TOL = 2e-2
 TRAIN_STEPS, TIMED_FROM = 30, 10
 # Hash kernels against their plain versions. Forward: the same f32 products
 # and sums in the same order (no FMA contraction), so equal up to 1e-6
@@ -101,10 +101,16 @@ HASH_FWD_TOL, HASH_TABLE_TOL, HASH_POS_TOL = 1e-6, 1e-4, 1e-5
 # (table and positions: camera gradients reach every hash field) except
 # the RGB proposals' on a step that does not update them (their densities
 # are detached then); the thermal proposals update every step.
+# step_grad_tol, the card-against-CPU step's gradient limit:
+# thermal-nerfacto-tpu's camera groups sum small signed terms through 8 x
+# 256 bf16 layers, where a flipped bf16 rounding weighs most (read ~3e-2);
+# thermal-nerfacto's narrow bf16 MLPs flip less, and its table gradients
+# differ only in the atomics' summation order (read <= 1.6e-3).
 METHODS = {
     "thermal-nerfacto-tpu": dict(
         chunk={"fused_mlp_fwd": 4},
         step=lambda updated: {"fused_mlp_fwd": 4, "fused_mlp_bwd": 4},
+        step_grad_tol=5e-2,
     ),
     "thermal-nerfacto": dict(
         chunk={"hash_encode_fwd": 8},
@@ -113,6 +119,7 @@ METHODS = {
             "hash_encode_bwd_table": 6 + 2 * updated,
             "hash_encode_bwd_pos": 6 + 2 * updated,
         },
+        step_grad_tol=1e-2,
     ),
 }
 
@@ -353,6 +360,20 @@ def hash_inputs(gen, levels, log2_t, n, min_res, max_res, dtype):
     return table, pos.cuda(), scal.cuda(), g.cuda().to(dtype)
 
 
+def hash_rows_touched(pos, scal, table_size) -> int:
+    """The distinct table rows, over all levels, that the 8 corners of
+    these positions fall on."""
+    from nerfstudio_thermal_torch.ops import encodings as enc
+
+    levels = scal.shape[0]
+    hf, hc, _, _ = enc._hash_factors(pos, scal, table_size)
+    offset = enc._level_offset(levels, table_size, pos.device)
+    seen = torch.zeros(levels * table_size, dtype=torch.bool, device=pos.device)
+    for bits in enc._CORNER_BITS:
+        seen[enc._corner_index(hf, hc, bits, offset).reshape(-1)] = True
+    return int(seen.sum())
+
+
 def hash_library_scatter(pos, g, scal, table_size):
     """One Tensor.index_add_ of the precomputed g * w contributions of
     every corner: the table gradient's library yardstick."""
@@ -393,15 +414,18 @@ def hash_kernel_phase():
                                         lambda: enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t)),
             }
             es = 2 if dtype == torch.bfloat16 else 4
-            nl, table_bytes = n * levels, levels * t * 8
+            nl, rows = n * levels, hash_rows_touched(pos, scal, t)
             # bytes each function must move (inputs once, outputs once) and
             # its f32 operations per (point, level): 15 for the corners and
             # weights, then per corner 6 (forward), 6 (scatter: 2 weight
-            # products, 2 products, 2 adds) or 12 (position gradient)
+            # products, 2 products, 2 adds) or 12 (position gradient). The
+            # forward and the position gradient read only the table rows
+            # these positions touch (a coarse level reaches far fewer than
+            # T); the table gradient writes its dense d_table in full.
             cost = {
-                "hash_encode_fwd": (n * 12 + table_bytes + nl * 2 * es, nl * (15 + 8 * 6)),
-                "hash_encode_bwd_table": (n * 12 + nl * 2 * es + table_bytes, nl * (15 + 8 * 6)),
-                "hash_encode_bwd_pos": (n * 24 + table_bytes + nl * 2 * es, nl * (15 + 8 * 12 + 6)),
+                "hash_encode_fwd": (n * 12 + rows * 8 + nl * 2 * es, nl * (15 + 8 * 6)),
+                "hash_encode_bwd_table": (n * 12 + nl * 2 * es + levels * t * 8, nl * (15 + 8 * 6)),
+                "hash_encode_bwd_pos": (n * 24 + rows * 8 + nl * 2 * es, nl * (15 + 8 * 12 + 6)),
             }
             recs = {}
             for kname, (kernel, plain) in calls.items():
@@ -423,7 +447,7 @@ def hash_kernel_phase():
                     raise AssertionError(f"{kname} disagrees with its plain version in {name} {dtype}: "
                                          f"max |err| {max_err:.3e}, rel L2 {rel:.3e} (tol {tol})")
                 line = (f"hash_kernel_vs_plain {kname} {name} {str(dtype)[6:]}: n={n} max_abs_err={max_err:.3e} "
-                        f"rel L2 {rel:.3e} (tol {tol}) ok")
+                        f"rel L2 {rel:.3e} (tol {tol}) ok; table rows touched {rows} of {levels * t}")
                 if dtype == torch.bfloat16:
                     ms = cuda_ms(kernel, iters=20)
                     plain_ms = cuda_ms(plain, iters=3)
@@ -784,15 +808,15 @@ def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path):
         worst_loss = max(worst_loss, err)
         if not math.isfinite(got_s[k]) or err > STEP_LOSS_TOL:
             raise AssertionError(f"{method_name} step_vs_cpu: {k} card {got_s[k]:.6g} cpu {w:.6g}")
-    worst_grad = {}
+    worst_grad, grad_tol = {}, METHODS[method_name]["step_grad_tol"]
     for name, w in want_g.items():
         worst_grad[name] = rel_l2(got_g[name], w)
-        if not bool(torch.isfinite(got_g[name]).all()) or worst_grad[name] > STEP_GRAD_TOL:
+        if not bool(torch.isfinite(got_g[name]).all()) or worst_grad[name] > grad_tol:
             raise AssertionError(f"{method_name} step_vs_cpu: gradient of {name} rel L2 {worst_grad[name]:.3e}")
     log(
         f"{method_name} step_vs_cpu (256 rays, full width): {len(want_s)} losses/metrics within "
         f"{worst_loss:.2e} rel (tol {STEP_LOSS_TOL:g}); gradients rel L2 "
-        + ", ".join(f"{k} {v:.2e}" for k, v in worst_grad.items()) + f" (tol {STEP_GRAD_TOL:g})"
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst_grad.items()) + f" (tol {grad_tol:g})"
     )
 
 

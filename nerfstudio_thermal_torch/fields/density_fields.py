@@ -35,7 +35,6 @@ class HashMLPDensityField(nn.Module):
         average_init_density: float = 1.0,
         use_spatial_distortion: bool = True,
         compute_dtype: torch.dtype = torch.float32,
-        use_pallas: bool = False,
     ) -> None:
         super().__init__()
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False)
@@ -50,7 +49,6 @@ class HashMLPDensityField(nn.Module):
             log2_hashmap_size=log2_hashmap_size,
             features_per_level=features_per_level,
             compute_dtype=compute_dtype,
-            use_pallas=use_pallas,
         )
         if use_linear:
             self.linear = nn.Linear(self.encoding.out_dim, 1)

@@ -88,7 +88,6 @@ class NerfactoField(nn.Module):
                 layer_width=hidden_dim,
                 out_dim=1 + geo_feat_dim,
                 compute_dtype=compute_dtype,
-                use_pallas=use_pallas,
             )
         else:
             nf = freq_num_frequencies

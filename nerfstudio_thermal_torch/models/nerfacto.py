@@ -183,7 +183,6 @@ class NerfactoModel(Model):
                 use_spatial_distortion=not cfg.disable_scene_contraction,
                 average_init_density=cfg.average_init_density,
                 compute_dtype=self.compute_dtype,
-                use_pallas=cfg.use_pallas,
                 **args,
             )
         for k in ("log2_hashmap_size", "num_levels", "max_res", "use_linear", "features_per_level"):

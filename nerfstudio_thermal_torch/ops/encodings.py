@@ -278,12 +278,11 @@ class HashEncoding(nn.Module):
     parameter [L * T, F] in f32, initialised U(-hash_init_scale,
     hash_init_scale), and per-level resolutions.
 
-    On CUDA tensors it runs the hand-written kernels for every table size
-    and both values of `use_pallas`: on the TPU that flag picks between two
-    Pallas routes of the same function (a one-hot matmul for small tables,
-    a row gather with an MXU scatter for large ones), and on this card one
-    set of gather and scatter kernels serves both. It is kept so that the
-    configurations stay the JAX package's."""
+    On CUDA tensors it runs the hand-written kernels for every table size.
+    The JAX module's `use_pallas` picks between two Pallas routes of the
+    same function (a one-hot matmul for small tables, a row gather with an
+    MXU scatter for large ones); on this card one set of gather and scatter
+    kernels serves both, so the module takes no such flag."""
 
     def __init__(
         self,
@@ -294,7 +293,6 @@ class HashEncoding(nn.Module):
         features_per_level: int = 2,
         hash_init_scale: float = 1e-3,
         compute_dtype: torch.dtype = torch.float32,
-        use_pallas: bool = False,
     ) -> None:
         super().__init__()
         self.num_levels = num_levels

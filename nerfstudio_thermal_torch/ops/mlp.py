@@ -168,7 +168,6 @@ class MLPWithHashEncoding(nn.Module):
         activation: Optional[str] = "relu",
         out_activation: Optional[str] = None,
         compute_dtype: torch.dtype = torch.float32,
-        use_pallas: bool = False,
     ) -> None:
         super().__init__()
         self.encoding = HashEncoding(
@@ -178,7 +177,6 @@ class MLPWithHashEncoding(nn.Module):
             log2_hashmap_size=log2_hashmap_size,
             features_per_level=features_per_level,
             compute_dtype=compute_dtype,
-            use_pallas=use_pallas,
         )
         self.mlp = MLP(
             in_dim=self.encoding.out_dim,

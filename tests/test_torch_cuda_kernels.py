@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from nerfstudio_thermal_torch.configs.method_configs import get_method_config
+from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
 from nerfstudio_thermal_torch.ops import encodings as enc
 from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
@@ -170,14 +172,16 @@ def test_hash_kernels_match_plain(cuda, case, dtype):
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_hash_encoding_goes_through_the_kernels(cuda, use_pallas):
-    """HashEncoding on CUDA tensors, for a small and a large table and both
-    values of use_pallas: one forward launch, one table-gradient launch,
-    and a position-gradient launch only when the positions need one."""
-    for log2_t in (10, 19):
-        mod = enc.HashEncoding(num_levels=4, log2_hashmap_size=log2_t, use_pallas=use_pallas,
-                               compute_dtype=torch.bfloat16)
-        mod.reset_parameters(torch.Generator().manual_seed(log2_t))
-        mod = mod.to(cuda)
+    """The hash encodings of a thermal-nerfacto model on the card, a small
+    (the TPU's one-hot route) and a large table, for both values of the
+    config's use_pallas: one forward launch, one table-gradient launch, and
+    a position-gradient launch only when the positions need one."""
+    cfg = get_method_config("thermal-nerfacto").model
+    cfg.use_pallas, cfg.num_levels, cfg.log2_hashmap_size = use_pallas, 4, 19
+    cfg.proposal_net_args_list = [dict(cfg.proposal_net_args_list[0], num_levels=4, log2_hashmap_size=10)] * 2
+    model = ThermalNerfactoModel(cfg, [[-1.0] * 3, [1.0] * 3], 2, {"is_thermal": [0, 1]}, device=cuda, seed=3)
+    for mod, t in ((model.proposal_networks[0].encoding, 2**10), (model.field.mlp_base.encoding, 2**19)):
+        assert mod.hash_table.is_cuda and mod.table_size == t
         for pos_grad in (False, True):
             pos = torch.rand(6, 50, 3, device=cuda).requires_grad_(pos_grad)
             c0 = (th.hash_encode_fwd.launches, th.hash_encode_bwd_table.launches, th.hash_encode_bwd_pos.launches)

@@ -141,13 +141,13 @@ def test_spatial_hash_and_scalings():
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_hash_encoding_module(use_pallas):
-    """HashEncoding with the JAX module's table: the same output for both
-    values of use_pallas (the JAX module takes its one-hot kernel for
-    use_pallas at T <= 4096, XLA otherwise); a seeded init is
-    U(-1e-3, 1e-3) and repeatable."""
-    kw = dict(num_levels=3, min_res=4, max_res=32, log2_hashmap_size=10, use_pallas=use_pallas)
+    """HashEncoding with the JAX module's table: its one output matches the
+    JAX module's for both values of use_pallas (the JAX module takes its
+    one-hot kernel for use_pallas at T <= 4096, XLA otherwise); a seeded
+    init is U(-1e-3, 1e-3) and repeatable."""
+    kw = dict(num_levels=3, min_res=4, max_res=32, log2_hashmap_size=10)
     pos = np.random.default_rng(4).uniform(0, 1, (6, 7, 3)).astype(np.float32)
-    jmod = jenc.HashEncoding(**kw)
+    jmod = jenc.HashEncoding(use_pallas=use_pallas, **kw)
     params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(pos))["params"]
     tmod = tenc.HashEncoding(**kw)
     jax_params.load_module(tmod, jax.tree.map(np.asarray, params), "encoding")
