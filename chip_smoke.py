@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel from csrc/ with nvcc (sm_90a): the fused-MLP forward
-   and backward and the hash-grid kernels, one nvcc per source, started
+   and backward, the hash-grid kernels and the fused ray-march /
+   whole-field forward and backward, one nvcc per source, started
    together; build seconds and registers;
 3. the fused-MLP forward kernel against its plain PyTorch version on the
    card, at the main path's shape and in the other supported modes;
@@ -25,15 +26,28 @@ Phases, each fatal on failure:
    coordinates and points zeroed as the fields' selector zeroes them;
    kernel, plain, bound and (table gradient: one Tensor.index_add_ of the
    precomputed contributions) library times;
-6. the render path of each method at full width (seeded random weights):
-   thermal-nerfacto-tpu and thermal-nerfacto answer render requests through
-   get_outputs_for_camera / render_camera_device: 1920x1080 and 640x512.
-   Every image output must be finite and of the right shape, the launch
-   counts per chunk must be what the method implies (4 fused-MLP forwards;
-   8 hash forwards: two proposals, the field and the cross density per
-   modality), and a small render must agree with the same model evaluated
+6. the fused ray-march kernels (forward and backward, with and without
+   input gradients) and the whole-field kernels (C = 3 and 1) against
+   their plain versions, bf16 and f32, at thermal-nerfacto-tpu's shapes:
+   the cross density (8 x 256 base, 1,048,576 points per render chunk,
+   65,536 per training step), both proposal stacks (3 x 64; x 128 and x 48
+   samples) and the fields (1,048,576 / 262,144 points), with rays whose
+   samples leave the unit ball and the box and samples with tied inf-norm
+   components; kernel, plain, library (a chain of PyTorch ops and
+   torch.matmul calls, a yardstick the port never calls) and bound times;
+7. the render path of each method at full width (seeded random weights):
+   thermal-nerfacto-tpu, thermal-nerfacto and thermal-nerfacto-tpu+fused
+   (thermal-nerfacto-tpu with fused_raymarch, fused_field and
+   fused_raymarch_proposals, the knobs bench.py sets for its fused
+   candidates) answer render requests through get_outputs_for_camera /
+   render_camera_device: 1920x1080 and 640x512. Every image output must be
+   finite and of the right shape, the launch counts per chunk must be what
+   the method implies (4 fused-MLP forwards; 8 hash forwards: two
+   proposals, the field and the cross density per modality; 6 ray-march
+   forwards, four proposals and two cross densities, and 2 whole-field
+   forwards), and a small render must agree with the same model evaluated
    on the CPU;
-7. the training path of each method: a scene of its own (8 RGB 640x480
+8. the training path of each method: a scene of its own (8 RGB 640x480
    and 8 thermal 640x512 frames of a ray-traced textured sphere) trains
    the method at full width through setup_trainer -> Trainer.setup ->
    Trainer.train for 30 steps of 8192 rays. Every loss is finite, every
@@ -42,10 +56,10 @@ Phases, each fatal on failure:
    update the proposal nets), and the proposal update counter follows
    proposal_updated; train ms/step and rays/s over steps 10-29, peak
    memory;
-8. for each method one full-width step of 256 rays on the card against the
+9. for each method one full-width step of 256 rays on the card against the
    same step on the CPU (same params, batch and jitter): every loss term
    and every group's gradient;
-9. a JSON line of the ported kernels, then the contract line.
+10. a JSON line of the ported kernels, then the contract line.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -101,11 +115,18 @@ HASH_FWD_TOL, HASH_TABLE_TOL, HASH_POS_TOL = 1e-6, 1e-4, 1e-5
 # (table and positions: camera gradients reach every hash field) except
 # the RGB proposals' on a step that does not update them (their densities
 # are detached then); the thermal proposals update every step.
+# thermal-nerfacto-tpu+fused: per modality two proposal fields and the
+# cross density run the ray-march forward and the field the whole-field
+# forward; each one's backward runs except the RGB proposals' on a step
+# that does not update them, and only the cross densities' backward takes
+# input gradients (the proposals see detached rays:
+# proposal_camera_gradients is off).
 # step_grad_tol, the card-against-CPU step's gradient limit:
 # thermal-nerfacto-tpu's camera groups sum small signed terms through 8 x
 # 256 bf16 layers, where a flipped bf16 rounding weighs most (read ~3e-2);
 # thermal-nerfacto's narrow bf16 MLPs flip less, and its table gradients
 # differ only in the atomics' summation order (read <= 1.6e-3).
+FUSED_KNOBS = ("fused_raymarch", "fused_field", "fused_raymarch_proposals")
 METHODS = {
     "thermal-nerfacto-tpu": dict(
         chunk={"fused_mlp_fwd": 4},
@@ -121,7 +142,31 @@ METHODS = {
         },
         step_grad_tol=1e-2,
     ),
+    "thermal-nerfacto-tpu+fused": dict(
+        chunk={"fused_ray_mlp_fwd": 6, "fused_field_mlp_fwd": 2},
+        step=lambda updated: {
+            "fused_ray_mlp_fwd": 6,
+            "fused_field_mlp_fwd": 2,
+            "fused_ray_mlp_bwd": 4 + 2 * updated,
+            "fused_ray_mlp_bwd_input_grads": 2,
+            "fused_field_mlp_bwd": 2,
+        },
+        step_grad_tol=5e-2,
+    ),
 }
+
+
+def method_config(name: str):
+    """The registered method, with the fused knobs on for a "+fused" name."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config
+
+    base, _, variant = name.partition("+")
+    method = get_method_config(base)
+    if variant:
+        assert variant == "fused", name
+        for knob in FUSED_KNOBS:
+            setattr(method.model, knob, True)
+    return method
 
 
 def log(msg: str) -> None:
@@ -189,11 +234,7 @@ def kernel_phase():
         got = fm.fused_mlp(x, ws, bs, "relu", out_act, skips, freq, dtype)
         torch.cuda.synchronize()
         want = fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips, freq, dtype)
-        err = (got.float() - want.float()).abs()
-        limit = TOL[dtype] * (1.0 + want.float().abs())
-        max_err = float(err.max())
-        if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()) or bool((err > limit).any()):
-            raise AssertionError(f"kernel disagrees with plain version in case {name}: max |err| {max_err}")
+        max_err = check_fwd(f"fused_mlp_fwd {name}", got, want, dtype)
         line = f"kernel_vs_plain {name}: n={n} max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel) ok"
         if timed:
             packed = fm.prepare(in_dim, ws, bs, out_act, skips, freq, dtype)
@@ -202,23 +243,19 @@ def kernel_phase():
             wb = [w.to(dtype) for w in ws]
             bb = [b.to(dtype) for b in bs]
             library_ms = cuda_ms(lambda: library_mlp(x, wb, bb, skips, freq, out_act, dtype), iters=10)
-            macs = sum(w.shape[0] * w.shape[1] for w in ws)
-            flops = 2.0 * n * macs
-            nbytes = n * (in_dim * 4 + dims[-1] * 2) + sum(w.numel() * 2 + b.numel() * 2 for w, b in zip(ws, bs))
-            t_ops = flops / PEAK_BF16_FLOPS * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+            flops = 2.0 * n * mlp_macs(ws)
+            nbytes = n * (in_dim * 4 + dims[-1] * 2) + param_bytes(ws, bs, False)
+            bound_ms, bound_by, _ = bound3(nbytes, flops, 0.0)
             main = {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err": max_err, "flops": flops,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": max_err, "flops": flops,
             }
             line += (
                 f" | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms,"
-                f" torch.matmul chain {library_ms:.3f} ms, bound {main['bound_ms']:.3f} ms ({main['bound_by']})"
+                f" torch.matmul chain {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
             )
         log(line)
-        del ws, bs, x, got, want, err, limit
+        del ws, bs, x, got, want
     torch.cuda.empty_cache()
     return main
 
@@ -250,21 +287,13 @@ def backward_phase():
         dx, dws, dbs = fm.fused_mlp_bwd(x, g, ws, bs, "relu", out_act, skips, freq, dtype)
         torch.cuda.synchronize()
         want = fm.fused_mlp_bwd_plain(x, g, ws, bs, "relu", out_act, skips, freq, dtype)
-        errs, max_err, scale = {}, 0.0, 0.0
-        for key, got_t, want_t in [("dx", [dx], [want[0]]), ("dW", dws, want[1]), ("db", dbs, want[2])]:
-            for i, (a, b) in enumerate(zip(got_t, want_t)):
-                if a.shape != b.shape or not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"backward {name}: {key}{i} has shape {tuple(a.shape)} or is not finite")
-                errs[f"{key}{i}"] = rel_l2(a, b)
-                err = float((a.double() - b.double()).abs().max())
-                if err > max_err:
-                    max_err, scale = err, float(b.abs().max())
-        worst = max(errs, key=errs.get)
-        if errs[worst] > BWD_TOL[dtype]:
-            raise AssertionError(f"backward kernel disagrees with plain version in case {name}: {worst} rel L2 {errs[worst]:.3e}")
+        named = [("dx", dx, want[0])]
+        named += [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, want[1]))]
+        named += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, want[2]))]
+        worst, key, max_err = check_bwd(f"fused_mlp_bwd {name}", named, dtype)
         line = (
-            f"bwd_kernel_vs_plain {name}: n={n} worst rel L2 {errs[worst]:.3e} ({worst}),"
-            f" max |err| {max_err:.3e} where max |plain| is {scale:.3e} (tol {BWD_TOL[dtype]:g} rel L2) ok"
+            f"bwd_kernel_vs_plain {name}: n={n} worst rel L2 {worst:.3e} ({key}),"
+            f" max |err| {max_err:.3e} (tol {BWD_TOL[dtype]:g} rel L2) ok"
         )
         if timed:
             packed = fm.prepare(in_dim, ws, bs, out_act, skips, freq, dtype, transposed=True)
@@ -280,49 +309,53 @@ def backward_phase():
                 return torch.autograd.grad(out, [xr, *wb, *bb], g)
 
             library_ms = cuda_ms(library, iters=10)
-            macs = sum(w.shape[0] * w.shape[1] for w in ws)
-            flops = 6.0 * n * macs  # recompute + dX + dW
+            flops = 6.0 * n * mlp_macs(ws)  # recompute + dX + dW
             nbytes = n * (in_dim * 4 + dims[-1] * 2 + in_dim * 4) + sum(
                 w.numel() * (2 + 4) + b.numel() * (4 + 4) for w, b in zip(ws, bs)
             )
-            t_ops = flops / PEAK_BF16_FLOPS * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+            bound_ms, bound_by, _ = bound3(nbytes, flops, 0.0)
             main = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "pair_ms": pair_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err": max_err, "n": n,
+                "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err, "n": n,
             }
             line += (
                 f" | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms,"
                 f" fwd+bwd kernels {pair_ms:.3f} ms, torch.matmul chain fwd+grad {library_ms:.3f} ms,"
-                f" bound {main['bound_ms']:.3f} ms ({main['bound_by']})"
+                f" bound {bound_ms:.3f} ms ({bound_by})"
             )
         log(line)
-        del ws, bs, x, g, dx, dws, dbs, want
+        del ws, bs, x, g, dx, dws, dbs, want, named
     torch.cuda.empty_cache()
     return main
 
 
 def counters():
-    """Every kernel wrapper's launch counter, by kernel name."""
+    """Every kernel wrapper's launch counter, by kernel name: (wrapper,
+    attribute). fused_ray_mlp_bwd_input_grads counts the ray backward's
+    launches that computed input gradients."""
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
     from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
     return {
-        "fused_mlp_fwd": fm.fused_mlp, "fused_mlp_bwd": fm.fused_mlp_bwd,
-        "hash_encode_fwd": th.hash_encode_fwd, "hash_encode_bwd_table": th.hash_encode_bwd_table,
-        "hash_encode_bwd_pos": th.hash_encode_bwd_pos,
+        "fused_mlp_fwd": (fm.fused_mlp, "launches"), "fused_mlp_bwd": (fm.fused_mlp_bwd, "launches"),
+        "hash_encode_fwd": (th.hash_encode_fwd, "launches"),
+        "hash_encode_bwd_table": (th.hash_encode_bwd_table, "launches"),
+        "hash_encode_bwd_pos": (th.hash_encode_bwd_pos, "launches"),
+        "fused_ray_mlp_fwd": (fr.fused_ray_mlp, "launches"), "fused_ray_mlp_bwd": (fr.fused_ray_mlp_bwd, "launches"),
+        "fused_ray_mlp_bwd_input_grads": (fr.fused_ray_mlp_bwd, "input_grad_launches"),
+        "fused_field_mlp_fwd": (fr.fused_field_mlp, "launches"),
+        "fused_field_mlp_bwd": (fr.fused_field_mlp_bwd, "launches"),
     }
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 def expected_counts(per_unit: dict, units: int = 1) -> dict:
@@ -469,29 +502,282 @@ def hash_kernel_phase():
     return main
 
 
-def unported_bounds() -> None:
-    """The least time of the TPU kernels not ported yet (rows 3-6 of
-    PERF.md's table), from their code at thermal-nerfacto-tpu's shapes:
-    the forwards at a render chunk's points (32768 rays x 32 samples), the
-    backwards at the RGB field's points of a training step (8192 x 32). All
-    run the base MLP (8 x 256, skip at 4, 10 frequencies: 63 -> 16); the
-    whole-field kernels add the colour head (63 -> 64 -> 64 -> 3). The
-    ray-march, encoding and SH work and the bytes (24 B of rays per ray,
-    4 B of midpoint per sample, 2 B per output channel) are three orders of
-    magnitude below the bf16 products, so the bound is operations."""
-    base, skip_in = [63, *BASE_DIMS], 63
-    macs = sum((base[i] + (skip_in if i == 4 else 0)) * base[i + 1] for i in range(len(BASE_DIMS)))
-    head = 63 * 64 + 64 * 64 + 64 * 3
-    fwd_n, bwd_n = 32768 * 32, 8192 * 32
-    rows = [
-        ("3 fused_ray_mlp forward", 2.0 * fwd_n * macs, fwd_n),
-        ("4 fused_ray_mlp backward", 6.0 * bwd_n * macs, bwd_n),
-        ("5 fused_field_mlp forward", 2.0 * fwd_n * (macs + head), fwd_n),
-        ("6 fused_field_mlp backward", 6.0 * bwd_n * (macs + head), bwd_n),
-    ]
-    for name, flops, n in rows:
-        log(f"bound of unported row {name}: {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms (operations, "
-            f"{flops:.4g} bf16 FLOP at {n:,} points)")
+def bound3(nbytes: float, mma_flops: float, f32_ops: float):
+    """The least time (ms) of a ray-march or whole-field function: the
+    largest of its bf16 tensor-core FLOP at the bf16 peak, its f32 work
+    outside the products (positions, contraction, encoding, SH; a sin or cos
+    counts as one operation) at the f32 peak, and its bytes at the memory
+    rate. Returns (ms, "operations" or "bytes", the term that wins)."""
+    terms = {"bf16 products": mma_flops / PEAK_BF16_FLOPS * 1e3, "f32 work": f32_ops / PEAK_F32_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def ray_inputs(gen, r, s):
+    """Rays from inside the scene box with unit directions, sorted midpoints
+    from the near plane out to 6 (outside the unit ball); one ray in 64 ends
+    at 1e8 (contracted to the box's edge: selector 0); one ray in 16 from
+    the origin along (a, +-a, b) (tied inf-norm components)."""
+    o = torch.rand(r, 3, generator=gen) * 1.6 - 0.8
+    d = torch.nn.functional.normalize(torch.randn(r, 3, generator=gen), dim=-1)
+    t = torch.sort(torch.rand(r, s, generator=gen) * 6.0 + 0.05, dim=-1).values
+    t[::64, -1] = 1e8
+    o[1::16] = 0.0
+    d[1::16] = torch.tensor([0.6, 0.6, 0.52915025])
+    d[2::16] = torch.tensor([0.6, -0.6, 0.52915025])
+    o[2::16] = 0.0
+    return o.cuda(), d.cuda(), t.reshape(-1, 1).cuda()
+
+
+def library_ray(o, d, t, s, ws, bs, skips, freq, dtype):
+    """The ray-march function as a chain of PyTorch ops (posgen,
+    contraction, encoding, torch.matmul layers): a yardstick only."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
+    c = fr.contract(o, d, t, s)
+    return torch.cat([library_mlp(c.x, ws, bs, skips, freq, None, dtype), c.sel.to(dtype)], -1)
+
+
+def library_field(o, d, t, e, s, bw, bb, hw, hb, skips, freq, dtype):
+    """The whole-field function as a chain of PyTorch ops (posgen,
+    contraction, encoding, torch.matmul layers, SH, colour head)."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+    from nerfstudio_thermal_torch.ops.encodings import sh_encoding
+
+    c = fr.contract(o, d, t, s)
+    base = library_mlp(c.x, bw, bb, skips, freq, None, dtype)
+    head_in = torch.cat([sh_encoding(d, 4).to(dtype).repeat_interleave(s, 0), base[:, 1:],
+                         e.to(dtype).repeat_interleave(s, 0)], -1)
+    rgb = library_mlp(head_in, hw, hb, (), None, "sigmoid", dtype)
+    return torch.cat([rgb, base[:, :1], c.sel.to(dtype)], -1)
+
+
+def mlp_macs(ws) -> int:
+    return sum(w.shape[0] * w.shape[1] for w in ws)
+
+
+def input_grad_macs(ws, skips) -> int:
+    """MACs of the dX products that feed only the input gradient: layer 0's
+    and the encoding rows of each skip layer's."""
+    enc = ws[0].shape[0]
+    return enc * ws[0].shape[1] + sum(enc * ws[li].shape[1] for li in skips if li != 0)
+
+
+def param_bytes(ws, bs, grads: bool) -> int:
+    """Weights and biases read in bf16 (and, for a backward, dW and db
+    written in f32)."""
+    return sum((w.numel() + b.numel()) * (2 + (4 if grads else 0)) for w, b in zip(ws, bs))
+
+
+def check_fwd(name, got, want, dtype):
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()) or bool(
+        (err > TOL[dtype] * (1.0 + want.float().abs())).any()
+    ):
+        raise AssertionError(f"{name}: kernel disagrees with plain version: max |err| {max_err}")
+    return max_err
+
+
+def check_bwd(name, named, dtype):
+    """named: (tensor name, kernel's, plain's). Returns the worst relative
+    L2 error and the largest absolute one."""
+    errs, max_err = {}, 0.0
+    for key, a, b in named:
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: {key} has shape {tuple(a.shape)} or is not finite")
+        errs[key] = rel_l2(a, b)
+        max_err = max(max_err, float((a.double() - b.double()).abs().max()))
+    worst = max(errs, key=errs.get)
+    if errs[worst] > BWD_TOL[dtype]:
+        raise AssertionError(f"{name}: backward kernel disagrees with plain version: {worst} rel L2 {errs[worst]:.3e}")
+    return errs[worst], worst, max_err
+
+
+# name, base layer widths (incl. output), skips, frequencies, rays (forward,
+# backward), samples, backward with input gradients
+RAY_CASES = [
+    ("cross_density", BASE_DIMS, (4,), BASE_FREQ, 32768, 2048, 32, True),
+    ("proposal_0", (64, 64, 1), (), (5, 0.0, 4.0, True), 32768, 8192, 128, False),
+    ("proposal_1", (64, 64, 1), (), (7, 0.0, 6.0, True), 32768, 8192, 48, False),
+]
+
+
+def ray_kernel_phase():
+    """The ray-march forward and backward kernels against their plain
+    versions at the main path's shapes, bf16 (timed) and f32. Returns the
+    records of the bf16 cases, by kernel name and case."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
+    gen = torch.Generator().manual_seed(3)
+    recs = {"fused_ray_mlp_fwd": {}, "fused_ray_mlp_bwd": {}}
+    for name, dims, skips, freq, r_fwd, r_bwd, s, need in RAY_CASES:
+        ws, bs = mlp_params(gen, 3, dims, skips, freq)
+        nf = freq[0]
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{name} {str(dtype)[6:]}"
+            packed = fm.prepare(3, ws, bs, None, skips, freq, dtype, transposed=True)
+            # forward
+            o, d, t = ray_inputs(gen, r_fwd, s)
+            n = r_fwd * s
+            got = fr.launch_ray(o, d, t, s, packed)
+            torch.cuda.synchronize()
+            want = fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, freq, dtype)
+            max_err = check_fwd(f"fused_ray_mlp_fwd {tag}", got, want, dtype)
+            zeros = int((want[:, -1] == 0).sum())
+            line = (f"kernel_vs_plain fused_ray_mlp_fwd {tag}: n={n} ({r_fwd} x {s}) max_abs_err={max_err:.3e} "
+                    f"(tol {TOL[dtype]:g} abs+rel), {zeros} samples with selector 0, ok")
+            del got, want
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: fr.launch_ray(o, d, t, s, packed), iters=10)
+                plain_ms = cuda_ms(lambda: fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, freq, dtype), iters=3)
+                wb, bb = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
+                library_ms = cuda_ms(lambda: library_ray(o, d, t, s, wb, bb, skips, freq, dtype), iters=5)
+                nbytes = r_fwd * 24 + n * (4 + (dims[-1] + 1) * 2) + param_bytes(ws, bs, False)
+                bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * mlp_macs(ws), n * (40 + 9 * nf))
+                recs["fused_ray_mlp_fwd"][name] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                }
+                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+                         f"bound {bound_ms:.4f} ms ({term})")
+            log(line)
+            # backward
+            o, d, t = ray_inputs(gen, r_bwd, s)
+            n = r_bwd * s
+            g = torch.randn(n, dims[-1] + 1, generator=gen).cuda().to(dtype)
+            gk = g[:, :-1].contiguous()
+            (d_o, d_d, d_t), dw, db = fr.fused_ray_mlp_bwd(o, d, t, gk, s, packed, need)
+            torch.cuda.synchronize()
+            dws, dbs = fm.unpack_grads(dw, db, packed.desc, packed.shapes)
+            w_o, w_d, w_t, w_dws, w_dbs = fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, freq, dtype, need)
+            named = [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, w_dws))]
+            named += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, w_dbs))]
+            if need:
+                named += [("d_o", d_o, w_o), ("d_d", d_d, w_d), ("d_t", d_t, w_t)]
+            worst, key, max_err = check_bwd(f"fused_ray_mlp_bwd {tag}", named, dtype)
+            line = (f"bwd_kernel_vs_plain fused_ray_mlp_bwd {tag}: n={n} ({r_bwd} x {s}) input grads {need}, "
+                    f"worst rel L2 {worst:.3e} ({key}), max |err| {max_err:.3e} (tol {BWD_TOL[dtype]:g} rel L2) ok")
+            del named, dws, dbs, w_dws, w_dbs, dw, db
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: fr.fused_ray_mlp_bwd(o, d, t, gk, s, packed, need), iters=5)
+                plain_ms = cuda_ms(lambda: fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, freq, dtype, need), iters=2)
+                wb = [w.to(dtype).requires_grad_(True) for w in ws]
+                bb = [b.to(dtype).requires_grad_(True) for b in bs]
+                ins = [x.clone().requires_grad_(need) for x in (o, d, t)]
+
+                def library():
+                    out = library_ray(*ins, s, wb, bb, skips, freq, dtype)
+                    return torch.autograd.grad(out, (ins if need else []) + wb + bb, g)
+
+                library_ms = cuda_ms(library, iters=3)
+                nbytes = (r_bwd * 24 + n * (4 + dims[-1] * 2) + param_bytes(ws, bs, True)
+                          + (r_bwd * 24 + n * 4 if need else 0))
+                f32_ops = n * (40 + 9 * nf + ((21 * nf + 45) if need else 0))
+                macs = 3 * mlp_macs(ws) - (0 if need else input_grad_macs(ws, skips))
+                bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, f32_ops)
+                recs["fused_ray_mlp_bwd"][name] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                }
+                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
+                         f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
+            log(line)
+            del o, d, t, g, gk, packed
+            torch.cuda.empty_cache()
+    return recs
+
+
+# channels, rays (forward, backward), samples
+FIELD_CASES = [(3, 32768, 8192, 32), (1, 32768, 8192, 32)]
+
+
+def field_kernel_phase():
+    """The whole-field forward and backward kernels against their plain
+    versions at the main path's shapes (base 8 x 256, head 63 -> 64 -> 64
+    -> C, E = 32), bf16 (timed) and f32. Returns the bf16 records by kernel
+    name and C."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
+    gen = torch.Generator().manual_seed(4)
+    recs = {"fused_field_mlp_fwd": {}, "fused_field_mlp_bwd": {}}
+    e, skips = 32, (4,)
+    for c, r_fwd, r_bwd, s in FIELD_CASES:
+        bw, bb = mlp_params(gen, 3, BASE_DIMS, skips, BASE_FREQ)
+        hw, hb = mlp_params(gen, 63, (64, 64, c), (), None)
+        macs = mlp_macs(bw) + mlp_macs(hw)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"C={c} {str(dtype)[6:]}"
+            base = fm.prepare(3, bw, bb, None, skips, BASE_FREQ, dtype, transposed=True)
+            head = fm.prepare(63, hw, hb, "sigmoid", (), None, dtype, transposed=True)
+            o, d, t = ray_inputs(gen, r_fwd, s)
+            emb = torch.randn(r_fwd, e, generator=gen).cuda()
+            n = r_fwd * s
+            got, _ = fr.launch_field(o, d, t, emb, s, base, head)
+            torch.cuda.synchronize()
+            want = fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype)
+            max_err = check_fwd(f"fused_field_mlp_fwd {tag}", got, want, dtype)
+            line = f"kernel_vs_plain fused_field_mlp_fwd {tag}: n={n} ({r_fwd} x {s}) max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel) ok"
+            del got, want
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head), iters=10)
+                plain_ms = cuda_ms(lambda: fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=3)
+                wbs = [[x.to(dtype) for x in z] for z in (bw, bb, hw, hb)]
+                library_ms = cuda_ms(lambda: library_field(o, d, t, emb, s, *wbs, skips, BASE_FREQ, dtype), iters=5)
+                nbytes = r_fwd * (24 + 4 * e) + n * (4 + (c + 2) * 2) + param_bytes(bw + hw, bb + hb, False)
+                bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, n * (40 + 9 * BASE_FREQ[0]) + r_fwd * 30)
+                recs["fused_field_mlp_fwd"][c] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                }
+                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+                         f"bound {bound_ms:.4f} ms ({term})")
+            log(line)
+            o, d, t = ray_inputs(gen, r_bwd, s)
+            emb = torch.randn(r_bwd, e, generator=gen).cuda()
+            n = r_bwd * s
+            g = torch.randn(n, c + 2, generator=gen).cuda().to(dtype)
+            _, head_in = fr.launch_field(o, d, t, emb, s, base, head)
+            d_o, d_d, d_t, d_e, (gbw, gbb, ghw, ghb) = fr.fused_field_mlp_bwd(o, d, t, emb, g, head_in, s, base, head)
+            torch.cuda.synchronize()
+            dbw, dbb = fm.unpack_grads(gbw, gbb, base.desc, base.shapes)
+            dhw, dhb = fm.unpack_grads(ghw, ghb, head.desc, head.shapes)
+            want = fr.fused_field_mlp_bwd_plain(o, d, t, emb, g, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype)
+            named = list(zip(("d_o", "d_d", "d_t", "d_emb"), (d_o, d_d, d_t, d_e), want[:4]))
+            for key, got_l, want_l in zip(("dWb", "dbb", "dWh", "dbh"), (dbw, dbb, dhw, dhb), want[4:]):
+                named += [(f"{key}{i}", a, b) for i, (a, b) in enumerate(zip(got_l, want_l))]
+            worst, key, max_err = check_bwd(f"fused_field_mlp_bwd {tag}", named, dtype)
+            line = (f"bwd_kernel_vs_plain fused_field_mlp_bwd {tag}: n={n} ({r_bwd} x {s}) worst rel L2 {worst:.3e} "
+                    f"({key}), max |err| {max_err:.3e} (tol {BWD_TOL[dtype]:g} rel L2) ok")
+            del named, want
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: fr.fused_field_mlp_bwd(o, d, t, emb, g, head_in, s, base, head), iters=5)
+                plain_ms = cuda_ms(lambda: fr.fused_field_mlp_bwd_plain(o, d, t, emb, g, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=2)
+                wbs = [[x.to(dtype).requires_grad_(True) for x in z] for z in (bw, bb, hw, hb)]
+                ins = [x.clone().requires_grad_(True) for x in (o, d, t, emb)]
+
+                def library():
+                    out = library_field(*ins, s, *wbs, skips, BASE_FREQ, dtype)
+                    return torch.autograd.grad(out, ins + [x for z in wbs for x in z], g)
+
+                library_ms = cuda_ms(library, iters=3)
+                nbytes = (r_bwd * (24 + 4 * e) * 2 + n * (4 + (c + 2) * 2 + 4)
+                          + param_bytes(bw + hw, bb + hb, True))
+                f32_ops = n * (40 + 30 * BASE_FREQ[0] + 45 + 54) + r_bwd * 100
+                bound_ms, bound_by, term = bound3(nbytes, 6.0 * n * macs, f32_ops)
+                recs["fused_field_mlp_bwd"][c] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                }
+                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
+                         f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
+            log(line)
+            del o, d, t, emb, g, head_in, base, head
+            torch.cuda.empty_cache()
+    return recs
 
 
 def make_camera(width, height, focal, c2w):
@@ -533,10 +819,9 @@ def slice_phase(method_name: str):
     """Render requests to one method at full width. Returns (launch counts
     of the render run, seconds of the last 1080p frame, a profiler
     callback)."""
-    from nerfstudio_thermal_torch.configs.method_configs import get_method_config
     from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
 
-    cfg = get_method_config(method_name).model
+    cfg = method_config(method_name).model
     aabb = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
     kwargs = dict(num_train_data=2, metadata={"is_thermal": [0, 1]}, seed=0)
     model = ThermalNerfactoModel(cfg, aabb, device="cuda", **kwargs)
@@ -684,9 +969,7 @@ def write_scene(root: Path, num_pairs: int = 8) -> Path:
 
 
 def train_method(method_name: str, scene_dir: Path, rays: int):
-    from nerfstudio_thermal_torch.configs.method_configs import get_method_config
-
-    method = get_method_config(method_name)
+    method = method_config(method_name)
     method.data = scene_dir
     method.datamanager.train_num_rays_per_batch = rays
     return method
@@ -868,6 +1151,7 @@ def main() -> int:
         return 1
     from nerfstudio_thermal_torch.ops.cuda import build
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
     from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
     smi = subprocess.run(
@@ -879,14 +1163,16 @@ def main() -> int:
     for name, (path, seconds, build_log) in build.build().items():
         regs = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
         log(f"build {path.name}: {seconds:.2f} s; " + "; ".join(regs))
-    fm.load_library("fwd")
-    fm.load_library("bwd")
+    for kind in ("fwd", "bwd"):
+        fm.load_library(kind)
+        fr.load_library(kind)
     th.load_library()
 
     fwd_kernel = kernel_phase()
     bwd_kernel = backward_phase()
     hash_kernels = hash_kernel_phase()
-    unported_bounds()
+    ray_kernels = ray_kernel_phase()
+    field_kernels = field_kernel_phase()
     renders = {m: slice_phase(m) for m in METHODS}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -903,9 +1189,12 @@ def main() -> int:
                 trains[m][3](Path(args.profile))
 
     tpu_counts, hash_counts = trains["thermal-nerfacto-tpu"][0], trains["thermal-nerfacto"][0]
+    fused_counts = trains["thermal-nerfacto-tpu+fused"][0]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "nerfstudio_thermal_tpu/ops/pallas/"
     hash_source = "nerfstudio_thermal_torch/csrc/hash_encoding.cu"
+    ray_fwd_source = "nerfstudio_thermal_torch/csrc/fused_ray_fwd.cu"
+    ray_bwd_source = "nerfstudio_thermal_torch/csrc/fused_ray_bwd.cu"
     kernels = [
         {"name": "fused_mlp_fwd", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_fwd.cu",
          "replaces": pallas + "fused_mlp.py:318 (row 1)", "launches": tpu_counts["fused_mlp_fwd"],
@@ -924,6 +1213,22 @@ def main() -> int:
         {"name": "hash_encode_bwd_pos", "route": "cuda", "source": hash_source,
          "replaces": pallas + "hash_encoding.py:145 (row 10)", "launches": hash_counts["hash_encode_bwd_pos"],
          **{k: hash_kernels["hash_encode_bwd_pos"][k] for k in keys}},
+        {"name": "fused_ray_mlp_fwd", "route": "cuda", "source": ray_fwd_source,
+         "replaces": pallas + "fused_mlp.py:774 (row 3: fused_ray_mlp -> _ray_fwd_kernel)",
+         "launches": fused_counts["fused_ray_mlp_fwd"],
+         **{k: ray_kernels["fused_ray_mlp_fwd"]["cross_density"][k] for k in keys}},
+        {"name": "fused_ray_mlp_bwd", "route": "cuda", "source": ray_bwd_source,
+         "replaces": pallas + "fused_mlp.py:797 (row 4: _fused_ray_bwd -> _ray_bwd_kernel)",
+         "launches": fused_counts["fused_ray_mlp_bwd"],
+         **{k: ray_kernels["fused_ray_mlp_bwd"]["cross_density"][k] for k in keys}},
+        {"name": "fused_field_mlp_fwd", "route": "cuda", "source": ray_fwd_source,
+         "replaces": pallas + "fused_mlp.py:1160 (row 5: fused_field_mlp -> _field_fwd_kernel)",
+         "launches": fused_counts["fused_field_mlp_fwd"],
+         **{k: field_kernels["fused_field_mlp_fwd"][3][k] for k in keys}},
+        {"name": "fused_field_mlp_bwd", "route": "cuda", "source": ray_bwd_source,
+         "replaces": pallas + "fused_mlp.py:1185 (row 6: _fused_field_bwd -> _field_bwd_kernel)",
+         "launches": fused_counts["fused_field_mlp_bwd"],
+         **{k: field_kernels["fused_field_mlp_bwd"][3][k] for k in keys}},
     ]
     for m in METHODS:
         counts, frame_s, _ = renders[m]

@@ -84,6 +84,8 @@ struct MlpDesc {
   int hid_pad;
   int out_dim;
   int out_sigmoid;
+  int dx_exact;  // no encoding: dx is dx0 in f32, not rounded (not from desc)
+  int no_dx;     // no input gradient: layer 0's dX product and dx are skipped (not from desc)
   LayerDesc layers[kMaxLayers];
 };
 
@@ -489,6 +491,7 @@ fused_mlp_bwd_walk(const float* __restrict__ x, const T* __restrict__ g,
   // walk back: dh_in = dhc W^T; x0 columns to dx0, the rest masked by the
   // previous layer's activation, summed into db and rounded into dhc
   for (int li = L - 1; li >= 0; --li) {
+    if (li == 0 && d.no_dx) break;
     const LayerDesc Ld = d.layers[li];
     const int off = (li > 0 && Ld.skip) ? d.in_pad : 0;
     const void* wl = static_cast<const unsigned char*>(wt) + (size_t)Ld.w_off * es;
@@ -520,6 +523,7 @@ fused_mlp_bwd_walk(const float* __restrict__ x, const T* __restrict__ g,
   }
 
   // dx: the encoding backward in f32, or dx0 rounded to the compute dtype
+  if (d.no_dx) return;
   for (int i = threadIdx.x; i < kBM * D; i += blockDim.x) {
     const int r = i / D, dd = i - r * D;
     const int row = row0 + r;
@@ -538,7 +542,7 @@ fused_mlp_bwd_walk(const float* __restrict__ x, const T* __restrict__ g,
       }
       if (d.include_input) acc += d0[2 * nf + dd];
     } else {
-      acc = to_f32(from_f32<T>(d0[dd]));
+      acc = d.dx_exact ? d0[dd] : to_f32(from_f32<T>(d0[dd]));
     }
     dx[(size_t)row * D + dd] = acc;
   }
@@ -729,6 +733,8 @@ bool parse_desc(const int* desc, int desc_len, MlpDesc& d) {
   d.hid_pad = desc[6];
   d.out_dim = desc[7];
   d.out_sigmoid = desc[8];
+  d.dx_exact = 0;
+  d.no_dx = 0;
   if (d.num_layers < 1 || d.num_layers > kMaxLayers ||
       desc_len != kDescHeader + kDescPerLayer * d.num_layers)
     return false;

@@ -127,7 +127,7 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fwd_bf16(const float* __restrict__ x, const uint4* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ freqs,
-                   __nv_bfloat16* __restrict__ out, int n, MlpDesc d) {
+                   __nv_bfloat16* __restrict__ out, int out_stride, int n, MlpDesc d) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int x0_stride = d.in_pad + kPad;
   const int h_stride = d.hid_pad + kPad;
@@ -215,9 +215,9 @@ fused_mlp_fwd_bf16(const float* __restrict__ x, const uint4* __restrict__ w,
               const int row = row0 + r;
               if (row < n) {
                 if (col < d.out_dim)
-                  out[(size_t)row * d.out_dim + col] = __float2bfloat16_rn(out_act(v0, d.out_sigmoid));
+                  out[(size_t)row * out_stride + col] = __float2bfloat16_rn(out_act(v0, d.out_sigmoid));
                 if (col + 1 < d.out_dim)
-                  out[(size_t)row * d.out_dim + col + 1] = __float2bfloat16_rn(out_act(v1, d.out_sigmoid));
+                  out[(size_t)row * out_stride + col + 1] = __float2bfloat16_rn(out_act(v1, d.out_sigmoid));
               }
             }
           }
@@ -232,7 +232,7 @@ fused_mlp_fwd_bf16(const float* __restrict__ x, const uint4* __restrict__ w,
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ bias, const float* __restrict__ freqs,
-                  float* __restrict__ out, int n, MlpDesc d) {
+                  float* __restrict__ out, int out_stride, int n, MlpDesc d) {
   extern __shared__ float smem32[];
   const int x0_stride = d.in_pad + 1;
   const int h_stride = d.hid_pad + 1;
@@ -287,7 +287,7 @@ fused_mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
           if (!last) {
             hout[r * h_stride + c] = fmaxf(v, 0.f);
           } else if (row0 + r < n && c < d.out_dim) {
-            out[(size_t)(row0 + r) * d.out_dim + c] = out_act(v, d.out_sigmoid);
+            out[(size_t)(row0 + r) * out_stride + c] = out_act(v, d.out_sigmoid);
           }
         }
       }
@@ -297,17 +297,10 @@ fused_mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 on success). desc holds
-// kDescHeader ints (the MlpDesc header in field order) then kDescPerLayer
-// ints per layer (the LayerDesc fields in order).
-extern "C" int fused_mlp_fwd(const void* x, const void* w, const void* bias,
-                             const void* freqs, void* out, int n,
-                             const int* desc, int desc_len, int compute_bf16,
-                             int device, void* stream) {
-  MlpDesc d;
-  if (desc_len < kDescHeader) return (int)cudaErrorInvalidValue;
+// desc holds kDescHeader ints (the MlpDesc header in field order) then
+// kDescPerLayer ints per layer (the LayerDesc fields in order).
+bool parse_desc(const int* desc, int desc_len, MlpDesc& d) {
+  if (desc_len < kDescHeader) return false;
   d.num_layers = desc[0];
   d.in_dim = desc[1];
   d.in_pad = desc[2];
@@ -318,33 +311,52 @@ extern "C" int fused_mlp_fwd(const void* x, const void* w, const void* bias,
   d.out_dim = desc[7];
   d.out_sigmoid = desc[8];
   if (d.num_layers < 1 || d.num_layers > kMaxLayers ||
-      desc_len != kDescHeader + kDescPerLayer * d.num_layers || n <= 0)
-    return (int)cudaErrorInvalidValue;
+      desc_len != kDescHeader + kDescPerLayer * d.num_layers)
+    return false;
   for (int i = 0; i < d.num_layers; ++i) {
     const int* l = desc + kDescHeader + kDescPerLayer * i;
     d.layers[i] = LayerDesc{l[0], l[1], l[2], l[3], l[4]};
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return true;
+}
+
+// One forward on stream s: x [n, in_dim] f32, out rows of out_stride
+// elements (the first out_dim written).
+cudaError_t launch_fwd(const float* x, const void* w, const float* bias, const float* freqs,
+                       void* out, int out_stride, int n, const MlpDesc& d, int compute_bf16,
+                       cudaStream_t s) {
+  cudaError_t err;
   if (compute_bf16) {
     const size_t smem = (size_t)kBM * (d.in_pad + kPad) * 2 + 2 * (size_t)kBM * (d.hid_pad + kPad) * 2;
     err = cudaFuncSetAttribute(fused_mlp_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     const int grid = (n + kBM - 1) / kBM;
     fused_mlp_fwd_bf16<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const uint4*>(w),
-        static_cast<const float*>(bias), static_cast<const float*>(freqs),
-        static_cast<__nv_bfloat16*>(out), n, d);
+        x, static_cast<const uint4*>(w), bias, freqs, static_cast<__nv_bfloat16*>(out), out_stride, n, d);
   } else {
     const size_t smem = (size_t)kBM32 * (d.in_pad + 1) * 4 + 2 * (size_t)kBM32 * (d.hid_pad + 1) * 4;
     err = cudaFuncSetAttribute(fused_mlp_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     const int grid = (n + kBM32 - 1) / kBM32;
     fused_mlp_fwd_f32<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<const float*>(freqs),
-        static_cast<float*>(out), n, d);
+        x, static_cast<const float*>(w), bias, freqs, static_cast<float*>(out), out_stride, n, d);
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 on success); desc as parse_desc
+// reads it.
+extern "C" int fused_mlp_fwd(const void* x, const void* w, const void* bias,
+                             const void* freqs, void* out, int n,
+                             const int* desc, int desc_len, int compute_bf16,
+                             int device, void* stream) {
+  MlpDesc d;
+  if (!parse_desc(desc, desc_len, d) || n <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fwd(static_cast<const float*>(x), w, static_cast<const float*>(bias),
+                         static_cast<const float*>(freqs), out, d.out_dim, n, d, compute_bf16,
+                         reinterpret_cast<cudaStream_t>(stream));
 }

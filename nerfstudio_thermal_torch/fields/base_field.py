@@ -37,3 +37,10 @@ def normalize_positions(positions: torch.Tensor, aabb: torch.Tensor, use_spatial
         positions = SceneBox.get_normalized_positions(positions, aabb)
     selector = torch.all((positions > 0.0) & (positions < 1.0), dim=-1)
     return positions * selector[..., None], selector
+
+
+def ray_march_inputs(ray_samples):
+    """What the fused ray-march kernels take from ray samples: origins and
+    directions [R, 3] (one per ray) and the sample midpoints [R * S, 1]."""
+    mids = ((ray_samples.starts + ray_samples.ends) * 0.5).reshape(-1, 1)
+    return ray_samples.origins.reshape(-1, 3), ray_samples.directions.reshape(-1, 3), mids

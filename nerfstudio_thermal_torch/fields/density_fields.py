@@ -6,13 +6,17 @@ kernels on CUDA) feeding a narrow eager MLP, or with `use_linear` a single
 Dense layer (`Dense_0` in the JAX tree). `MLPDensityField` is the
 frequency-encoded proposal field of the `*-tpu` configurations. Its MLPs
 are 64 wide, so they fail the fused-MLP gate and run eagerly, with the
-encoding computed outside the MLP layers.
+encoding computed outside the MLP layers, unless `fused_raymarch` is set:
+then a call with ray samples runs the fused ray-march kernel
+(ops/cuda/fused_ray.py), positions, contraction, selector, encoding and
+MLP in one call, with input gradients only when
+`fused_raymarch_input_grads` asks for them.
 """
 
 import torch
 from torch import nn
 
-from nerfstudio_thermal_torch.fields.base_field import normalize_positions
+from nerfstudio_thermal_torch.fields.base_field import normalize_positions, ray_march_inputs
 from nerfstudio_thermal_torch.ops.activations import trunc_exp
 from nerfstudio_thermal_torch.ops.encodings import HashEncoding
 from nerfstudio_thermal_torch.ops.mlp import MLP, dense, variance_scaling_
@@ -98,16 +102,14 @@ class MLPDensityField(nn.Module):
         use_spatial_distortion: bool = True,
         compute_dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
+        fused_raymarch_input_grads: bool = True,
         fused_raymarch: bool = False,
     ) -> None:
         super().__init__()
-        if fused_raymarch:
-            raise NotImplementedError(
-                "the fused ray-march kernel (fused_ray_mlp) is not ported yet"
-            )
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False)
         self.average_init_density = average_init_density
         self.use_spatial_distortion = use_spatial_distortion
+        self.fused_raymarch = fused_raymarch
         self.mlp = MLP(
             in_dim=3,
             num_layers=num_layers,
@@ -116,13 +118,23 @@ class MLPDensityField(nn.Module):
             compute_dtype=compute_dtype,
             fused=use_pallas,
             freq_encoding=(num_frequencies, 0.0, num_frequencies - 1.0, True),
+            ray_input_grads=fused_raymarch_input_grads,
         )
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mlp.reset_parameters(generator)
 
+    def fuses_rays(self) -> bool:
+        """Whether a call with ray samples runs the fused ray march."""
+        return self.fused_raymarch and self.use_spatial_distortion and self.mlp.will_fuse_rays()
+
     def forward(self, positions: torch.Tensor = None, ray_samples=None) -> torch.Tensor:
         """World positions [..., 3] (or ray_samples) -> density [..., 1] f32."""
+        if ray_samples is not None and self.fuses_rays():
+            sample_shape = ray_samples.starts.shape[:-1]
+            h = self.mlp.forward_rays(*ray_march_inputs(ray_samples), sample_shape[-1]).reshape(*sample_shape, 2)
+            density = self.average_init_density * trunc_exp(h[..., :1].float())
+            return density * h[..., 1:].float()
         if positions is None:
             positions = ray_samples.get_positions()
         positions, selector = normalize_positions(positions, self.aabb, self.use_spatial_distortion)

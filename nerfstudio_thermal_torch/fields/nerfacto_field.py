@@ -8,9 +8,15 @@ hand-written hash kernels on CUDA), or a frequency encoding + deep MLP
 (`field_encoding="freq"`: `mlp_base_net`;
 with `use_pallas` it passes the fused-MLP gate and its encoding runs inside
 the fused kernel). The colour head takes SH(direction) ++ geo features ++
-appearance embedding. The fused ray-march and whole-field kernels and the
-semantic head are later work and raise. `ThermalNerfactoField` is the same
-module with `num_channels` in {1, 3, 4}.
+appearance embedding. With `fused_raymarch`, `get_density_from_rays` runs
+the fused ray-march kernel (positions, contraction, selector, encoding and
+the base MLP in one call); with `fused_field` as well, the whole field
+(ray march, base MLP, SH, appearance embedding and colour head) is one
+whole-field kernel call (ops/cuda/fused_ray.py). Where the configuration
+cannot fuse (a hash field, no contraction, use_pallas off, no appearance
+embedding), both fall back to the unfused path silently, as the JAX
+module does. The semantic head is later work and raises.
+`ThermalNerfactoField` is the same module with `num_channels` in {1, 3, 4}.
 """
 
 from typing import Dict, Tuple
@@ -19,8 +25,9 @@ import torch
 from torch import nn
 
 from nerfstudio_thermal_torch.cameras.rays import RaySamples
-from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames, normalize_positions
+from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames, normalize_positions, ray_march_inputs
 from nerfstudio_thermal_torch.ops.activations import trunc_exp
+from nerfstudio_thermal_torch.ops.cuda.fused_ray import fused_field_mlp
 from nerfstudio_thermal_torch.ops.encodings import NeRFEncoding, SHEncoding
 from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
@@ -58,11 +65,6 @@ class NerfactoField(nn.Module):
         freq_final_init_scale: float = 1.0,
     ) -> None:
         super().__init__()
-        if fused_raymarch or fused_field:
-            raise NotImplementedError(
-                "the fused ray-march and whole-field kernels (fused_ray_mlp, "
-                "fused_field_mlp) are not ported yet"
-            )
         if num_semantic_classes > 0:
             raise NotImplementedError("the semantic head is not ported yet")
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False)
@@ -74,6 +76,9 @@ class NerfactoField(nn.Module):
         self.average_init_density = average_init_density
         self.num_channels = num_channels
         self.use_pallas = use_pallas
+        self.fused_raymarch = fused_raymarch
+        self.fused_field = fused_field
+        self.num_semantic_classes = num_semantic_classes
         self.field_encoding = field_encoding
 
         self.direction_encoding = SHEncoding(levels=4)
@@ -152,8 +157,27 @@ class NerfactoField(nn.Module):
     def density_fn(self, positions: torch.Tensor) -> torch.Tensor:
         return self.get_density(positions)[0]
 
+    def _fuses_rays(self) -> bool:
+        return (
+            self.fused_raymarch
+            and self.field_encoding == "freq"
+            and self.use_spatial_distortion
+            and self.use_pallas
+            and self.mlp_base_net.will_fuse_rays()
+        )
+
     def get_density_from_rays(self, ray_samples: RaySamples) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.get_density(ray_samples.get_positions())
+        """Density and geo features at the samples' midpoints: the fused ray
+        march when the configuration fuses, else get_density at the
+        positions (the same function)."""
+        if not self._fuses_rays():
+            return self.get_density(ray_samples.get_positions())
+        sample_shape = ray_samples.starts.shape[:-1]
+        origins, dirs, mids = ray_march_inputs(ray_samples)
+        h = self.mlp_base_net.forward_rays(origins, dirs, mids, sample_shape[-1])
+        h = h.reshape(*sample_shape, h.shape[-1])
+        density = self.average_init_density * trunc_exp(h[..., :1].float())
+        return density * h[..., -1:].float(), h[..., 1:-1]
 
     def get_outputs(self, ray_samples: RaySamples, geo_feat: torch.Tensor, train: bool = True) -> torch.Tensor:
         """Colour head: SH(dir) ++ geo_feat ++ appearance -> MLP -> sigmoid."""
@@ -163,22 +187,51 @@ class NerfactoField(nn.Module):
         d = d.reshape(-1, d.shape[-1]).repeat_interleave(num_samples, dim=0)
         parts = [d, geo_feat.reshape(-1, self.geo_feat_dim).float()]
         if self.appearance_embedding_dim > 0:
-            cam_idx = ray_samples.camera_indices[..., 0].reshape(-1)
-            table = self.embedding_appearance
-            if train:
-                emb = table[cam_idx.long()]
-            elif self.use_average_appearance_embedding:
-                emb = table.mean(dim=0).expand(cam_idx.shape[0], -1)
-            else:
-                emb = torch.zeros(
-                    cam_idx.shape[0], self.appearance_embedding_dim,
-                    dtype=table.dtype, device=table.device,
-                )
+            emb = self._appearance(ray_samples.camera_indices[..., 0].reshape(-1), train)
             parts.append(emb.repeat_interleave(num_samples, dim=0))
         rgb = self.mlp_head(torch.cat(parts, dim=-1))
         return rgb.reshape(*sample_shape, self.num_channels).float()
 
+    def _appearance(self, cam_idx: torch.Tensor, train: bool) -> torch.Tensor:
+        """Per-ray embeddings: the camera's row in training, else the table's
+        mean (use_average_appearance_embedding) or zeros."""
+        table = self.embedding_appearance
+        if train:
+            return table[cam_idx.long()]
+        if self.use_average_appearance_embedding:
+            return table.mean(dim=0).expand(cam_idx.shape[0], -1)
+        return torch.zeros(cam_idx.shape[0], self.appearance_embedding_dim, dtype=table.dtype, device=table.device)
+
+    def _fused_field_ok(self) -> bool:
+        return (
+            self.fused_field
+            and self._fuses_rays()
+            and self.appearance_embedding_dim > 0
+            and self.num_semantic_classes == 0
+        )
+
+    def _fused_field_forward(self, ray_samples: RaySamples, train: bool) -> Dict[FieldHeadNames, torch.Tensor]:
+        """The whole field in one whole-field kernel call: the same function
+        as get_density_from_rays + get_outputs."""
+        sample_shape = ray_samples.starts.shape[:-1]
+        origins, dirs, mids = ray_march_inputs(ray_samples)
+        emb = self._appearance(ray_samples.camera_indices[..., 0].reshape(-1), train)
+        mlp = self.mlp_base_net
+        base_ws, base_bs = mlp.export_params()
+        head_ws, head_bs = self.mlp_head.export_params()
+        out = fused_field_mlp(
+            origins, dirs, mids, emb, base_ws, base_bs, head_ws, head_bs, sample_shape[-1],
+            mlp.skip_connections, mlp.freq_encoding, mlp.compute_dtype,
+            (mlp.pack_cache, self.mlp_head.pack_cache),
+        )
+        c = self.num_channels
+        out = out.reshape(*sample_shape, c + 2)
+        density = self.average_init_density * trunc_exp(out[..., c : c + 1].float()) * out[..., c + 1 :].float()
+        return {FieldHeadNames.DENSITY: density, FieldHeadNames.RGB: out[..., :c].float()}
+
     def forward(self, ray_samples: RaySamples, train: bool = True) -> Dict[FieldHeadNames, torch.Tensor]:
+        if self._fused_field_ok():
+            return self._fused_field_forward(ray_samples, train)
         density, geo_feat = self.get_density_from_rays(ray_samples)
         rgb = self.get_outputs(ray_samples, geo_feat, train=train)
         return {FieldHeadNames.DENSITY: density, FieldHeadNames.RGB: rgb}

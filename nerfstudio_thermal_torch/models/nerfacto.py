@@ -83,8 +83,13 @@ class NerfactoModelConfig(ModelConfig):
     use_pallas: bool = False
     """Run base MLPs that pass the fused-MLP gate through the fused kernel."""
     fused_raymarch: bool = False
+    """The freq field's get_density_from_rays through the fused ray-march
+    kernel (positions, contraction, encoding and base MLP in one call)."""
     fused_field: bool = False
+    """With fused_raymarch: the whole freq field (ray march, base MLP, SH,
+    appearance embedding and colour head) through the whole-field kernel."""
     fused_raymarch_proposals: bool = False
+    """The freq proposal fields through the fused ray-march kernel."""
     field_encoding: str = "hash"  # "hash" | "freq"
     freq_num_frequencies: int = 10
     freq_num_layers: int = 8
@@ -194,6 +199,7 @@ class NerfactoModel(Model):
             compute_dtype=self.compute_dtype,
             use_pallas=cfg.use_pallas,
             fused_raymarch=cfg.fused_raymarch_proposals,
+            fused_raymarch_input_grads=cfg.proposal_camera_gradients,
             **args,
         )
 

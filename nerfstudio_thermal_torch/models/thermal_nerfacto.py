@@ -94,7 +94,8 @@ class ThermalNerfactoModel(NerfactoModel):
             )
         if cfg.fused_modalities:
             raise NotImplementedError(
-                "fused_modalities arrives with the fused ray-march slice of the port"
+                "fused_modalities is not ported yet: it is the last item of ROADMAP.md "
+                "queue A6 (models)"
             )
         self._populate_common()
         self.field = ThermalNerfactoField(**self._field_kwargs(), num_channels=3)

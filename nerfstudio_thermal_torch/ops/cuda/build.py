@@ -2,19 +2,21 @@
 
 Each source under nerfstudio_thermal_torch/csrc/ is compiled by nvcc for
 sm_90a into a shared library with a plain C interface, at first use, into
-build/kernels/ (keyed by a hash of the source and the flags), and loaded
-with ctypes. The kernel wrappers (fused_mlp.py, hash_encoding.py) bind
-their functions' argument types through `load`.
+build/kernels/ (keyed by a hash of the source, of every file it includes
+from csrc/, and of the flags), and loaded with ctypes. The kernel wrappers
+(fused_mlp.py, fused_ray.py, hash_encoding.py) bind their functions'
+argument types through `load`.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -23,6 +25,8 @@ SOURCES = {
     "fused_mlp_fwd": _PKG_DIR / "csrc" / "fused_mlp_fwd.cu",
     "fused_mlp_bwd": _PKG_DIR / "csrc" / "fused_mlp_bwd.cu",
     "hash_encoding": _PKG_DIR / "csrc" / "hash_encoding.cu",
+    "fused_ray_fwd": _PKG_DIR / "csrc" / "fused_ray_fwd.cu",
+    "fused_ray_bwd": _PKG_DIR / "csrc" / "fused_ray_bwd.cu",
 }
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = [
@@ -43,10 +47,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> List[Path]:
+    """The source and every file it includes with #include "...", found
+    next to the including file, recursively, each once."""
+    files, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / name.decode()).resolve())
+    return files
+
+
 def library_path(name: str) -> Path:
     source = SOURCES[name]
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in source_files(source):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Tuple[Path, float, str]]:

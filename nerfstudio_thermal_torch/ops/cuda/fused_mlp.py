@@ -441,22 +441,46 @@ def fused_mlp_bwd_plain(
     freq_encoding: Optional[FreqEncoding] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
-    """Plain PyTorch version of the backward kernel, layer by layer, with
-    the rounding points of the TPU kernel's `_mlp_bwd_walk` (it is not
-    autograd of `fused_mlp_plain`, which rounds elsewhere):
-    g is rounded to the compute dtype; a sigmoid head multiplies by
-    y (1 - y) of the f32 final pre-activation; hidden layers mask dh by
-    post_act (compute dtype) > 0; db sums dh in f32 before dh is rounded;
-    the rounded dh feeds dW (f32 accumulation) and dh W^T; a skip layer's
-    x0 columns and layer 0's go to dx0; the encoding backward is f32.
+    """Plain PyTorch version of the backward kernel (see
+    `mlp_bwd_walk_plain`); the encoding backward is f32, and without the
+    encoding dx is the walk's dx0 rounded to the compute dtype.
     Returns (dx in x's dtype, [dW] f32, [db] f32)."""
-    skips = tuple(skip_connections)
     cdt = compute_dtype
     with torch.no_grad():
         if freq_encoding is not None:
             x0 = encode(x.float(), freq_encoding).to(cdt)
         else:
             x0 = x.to(cdt)
+        dx0, dws, dbs = mlp_bwd_walk_plain(x0, g, weights, biases, activation, out_activation,
+                                           skip_connections, cdt)
+        if freq_encoding is not None:
+            dx = _encode_bwd(x.float(), dx0, freq_encoding)
+        else:
+            dx = dx0.to(cdt)
+    return dx.to(x.dtype), dws, dbs
+
+
+def mlp_bwd_walk_plain(
+    x0: torch.Tensor,  # [N, enc_dim] the (encoded) input in the compute dtype
+    g: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    activation: str = "relu",
+    out_activation: Optional[str] = None,
+    skip_connections: Sequence[int] = (),
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """The backward walk, layer by layer, with the rounding points of the
+    TPU kernel's `_mlp_bwd_walk` (it is not autograd of `fused_mlp_plain`,
+    which rounds elsewhere): g is rounded to the compute dtype; a sigmoid
+    head multiplies by y (1 - y) of the f32 final pre-activation; hidden
+    layers mask dh by post_act (compute dtype) > 0; db sums dh in f32
+    before dh is rounded; the rounded dh feeds dW (f32 accumulation) and
+    dh W^T; a skip layer's x0 columns and layer 0's go to dx0.
+    Returns (dx0 f32, [dW] f32, [db] f32)."""
+    skips = tuple(skip_connections)
+    cdt = compute_dtype
+    with torch.no_grad():
         n = len(weights)
         wc = [w.to(cdt).float() for w in weights]
         post, h, final_pre = [], x0, None
@@ -473,7 +497,7 @@ def fused_mlp_bwd_plain(
             y = torch.sigmoid(final_pre)
             dh = dh * y * (1.0 - y)
         enc_dim = x0.shape[-1]
-        dx0 = torch.zeros(x0.shape, dtype=torch.float32, device=x.device)
+        dx0 = torch.zeros(x0.shape, dtype=torch.float32, device=x0.device)
         dws, dbs = [None] * n, [None] * n
         for li in reversed(range(n)):
             if li < n - 1 and activation == "relu":
@@ -490,11 +514,7 @@ def fused_mlp_bwd_plain(
                 dh = dh[:, enc_dim:]
             if li == 0:
                 dx0 = dx0 + dh
-        if freq_encoding is not None:
-            dx = _encode_bwd(x.float(), dx0, freq_encoding)
-        else:
-            dx = dx0.to(cdt)
-    return dx.to(x.dtype), dws, dbs
+    return dx0, dws, dbs
 
 
 def _encode_bwd(x: torch.Tensor, d_enc: torch.Tensor, freq_encoding: FreqEncoding) -> torch.Tensor:

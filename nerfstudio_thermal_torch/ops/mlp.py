@@ -8,19 +8,23 @@ Params are f32; compute runs in `compute_dtype`. A stack that passes the
 on the CPU. Any other stack runs eagerly, layer by layer, with the
 arithmetic of flax's `nn.Dense` at the compute dtype: operands rounded to
 the compute dtype, the product rounded to it, then the bias added and the
-sum rounded again.
+sum rounded again. A stack with an in-kernel frequency encoding that passes
+`will_fuse_rays` (no width gate) also runs from rays: `forward_rays` is the
+fused ray-march (ops/cuda/fused_ray.py), and `export_params` hands the
+weights to the whole-field kernel.
 
 Layer-count semantics: num_layers == 1 is a single in -> out layer;
 otherwise (num_layers - 1) hidden layers and an output layer.
 """
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from nerfstudio_thermal_torch.ops.cuda.fused_mlp import PackCache, encoding_dim, fused_mlp
+from nerfstudio_thermal_torch.ops.cuda.fused_ray import fused_ray_mlp
 from nerfstudio_thermal_torch.ops.encodings import HashEncoding, NeRFEncoding
 
 # flax variance_scaling("truncated_normal"): stddev of a unit normal
@@ -67,6 +71,7 @@ class MLP(nn.Module):
         fused: bool = False,
         freq_encoding: Optional[Tuple[int, float, float, bool]] = None,
         final_init_scale: float = 1.0,
+        ray_input_grads: bool = True,
     ) -> None:
         super().__init__()
         self.in_dim = in_dim
@@ -80,6 +85,9 @@ class MLP(nn.Module):
         self.fused = fused
         self.freq_encoding = freq_encoding
         self.final_init_scale = final_init_scale
+        # forward_rays: d(origins, dirs, ts) in the backward; False when the
+        # caller detaches the ray geometry
+        self.ray_input_grads = ray_input_grads
         enc_dim = encoding_dim(in_dim, freq_encoding)
         num_linears = 1 if num_layers == 1 else num_layers
         layers = []
@@ -102,10 +110,35 @@ class MLP(nn.Module):
                 variance_scaling_(layer.weight, scale, generator)
                 layer.bias.zero_()
 
+    def _act_ok(self) -> bool:
+        return self.activation == "relu" and self.out_activation in (None, "sigmoid")
+
     def _fusable(self) -> bool:
-        act_ok = self.activation == "relu" and self.out_activation in (None, "sigmoid")
         big_enough = self.layer_width >= 128 and self.num_layers >= 4
-        return self.fused and act_ok and big_enough
+        return self.fused and self._act_ok() and big_enough
+
+    def will_fuse_rays(self) -> bool:
+        """Whether `forward_rays` runs: no width gate, so the narrow
+        proposal stacks fuse too once the ray march folds in."""
+        return self.fused and self._act_ok() and self.freq_encoding is not None
+
+    def export_params(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """This stack's (weights [din, dout], biases), for a kernel that runs
+        it inside a larger one (the whole-field kernel)."""
+        return [layer.weight.t() for layer in self.layers], [layer.bias for layer in self.layers]
+
+    def forward_rays(self, origins: torch.Tensor, dirs: torch.Tensor, ts: torch.Tensor,
+                     num_samples: int) -> torch.Tensor:
+        """The fused ray march: origins, dirs [R, 3], ts [R * S, 1] ->
+        [R * S, out_dim + 1] in the compute dtype, the in-scene selector
+        last. Callers gate on `will_fuse_rays`."""
+        if not self.will_fuse_rays():
+            raise ValueError("forward_rays needs fused=True, relu layers, a none/sigmoid output and freq_encoding")
+        weights, biases = self.export_params()
+        return fused_ray_mlp(
+            origins, dirs, ts, weights, biases, num_samples, self.out_activation, self.skip_connections,
+            self.freq_encoding, self.compute_dtype, self.ray_input_grads, self.pack_cache,
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fusable():

@@ -10,7 +10,11 @@ not needed.
 Layouts handled:
 - flax kernels [din, dout] become `nn.Linear.weight` [dout, din];
 - both MLP layouts: the fused path's flat `Dense_{i}_kernel` /
-  `Dense_{i}_bias` and the eager path's `Dense_{i}/{kernel, bias}`;
+  `Dense_{i}_bias` and the eager path's `Dense_{i}/{kernel, bias}`. The
+  export writes the layout the JAX module of the same configuration
+  creates: flat for a stack that passes the fused-MLP gate, for the
+  proposal MLPs that run the fused ray march and for the colour head of a
+  field that runs the whole-field kernel; nested otherwise;
 - `hash_table` [L * T, F] of a hash encoding, as it is (no transpose): the
   base field's `mlp_base/{encoding, mlp}` and the hash proposal fields'
   `encoding` beside `mlp`, or `Dense_0` with `use_linear`;
@@ -148,11 +152,14 @@ def _value(p: torch.Tensor, grads: bool) -> np.ndarray:
     return t.detach().float().cpu().numpy().copy()
 
 
-def export_mlp(mlp: MLP, grads: bool = False) -> Dict[str, Any]:
+def export_mlp(mlp: MLP, grads: bool = False, flat: bool = False) -> Dict[str, Any]:
+    """An MLP's tree: flat `Dense_{i}_kernel` names where it passes the
+    fused-MLP gate or `flat` says its JAX module runs it inside a fused
+    kernel, nested `Dense_{i}` otherwise."""
     tree: Dict[str, Any] = {}
     for i, layer in enumerate(mlp.layers):
         kernel, bias = _value(layer.weight, grads).T.copy(), _value(layer.bias, grads)
-        if mlp._fusable():
+        if flat or mlp._fusable():
             tree[f"Dense_{i}_kernel"], tree[f"Dense_{i}_bias"] = kernel, bias
         else:
             tree[f"Dense_{i}"] = {"kernel": kernel, "bias": bias}
@@ -163,7 +170,7 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
     if isinstance(module, NerfactoField):
         tree = {
             _base_name(module): export_module(module.base_network, grads),
-            "mlp_head": export_mlp(module.mlp_head, grads),
+            "mlp_head": export_mlp(module.mlp_head, grads, flat=module._fused_field_ok()),
         }
         if module.appearance_embedding_dim > 0:
             tree["embedding_appearance"] = _value(module.embedding_appearance, grads)
@@ -185,7 +192,7 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
             tree["mlp"] = export_mlp(module.mlp, grads)
         return tree
     if isinstance(module, MLPDensityField):
-        return {"mlp": export_mlp(module.mlp, grads)}
+        return {"mlp": export_mlp(module.mlp, grads, flat=module.fuses_rays())}
     if isinstance(module, CameraOptimizer):
         return {"pose_adjustment": _value(module.pose_adjustment, grads)}
     if isinstance(module, nn.ModuleList):

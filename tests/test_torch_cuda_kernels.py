@@ -19,6 +19,12 @@ same f32 products and sums in the same order), plus one bf16 step for a
 bf16 output; table gradient relative L2 1e-4 (atomics add the same f32
 terms in a run-dependent order); position gradient relative L2 1e-5 (the
 sum over levels in another order).
+
+Fused ray-march and whole-field kernels, with the fused MLP's tolerances:
+outputs 2e-2 (bf16) / 1e-4 (f32) absolute plus relative, every gradient
+(d_o, d_d, d_t, d_emb, every dW and db) relative L2 3e-2 / 1e-4. The rays
+include samples far outside the unit ball, samples that leave the box
+(selector 0) and samples with tied inf-norm components.
 """
 
 import numpy as np
@@ -29,6 +35,7 @@ from nerfstudio_thermal_torch.configs.method_configs import get_method_config
 from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
 from nerfstudio_thermal_torch.ops import encodings as enc
 from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
 from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +202,131 @@ def test_hash_encoding_goes_through_the_kernels(cuda, use_pallas):
             if pos_grad:
                 assert pos.grad.shape == pos.shape and bool(torch.isfinite(pos.grad).all())
             mod.hash_table.grad = None
+
+
+def _rays(gen, r, s, device):
+    """Rays from inside the scene box, unit directions, sorted midpoints out
+    to 6 (outside the unit ball); one ray's last sample at 1e8 (the
+    contraction reaches the box's edge: selector 0); two rays with tied
+    x / y components (o = 0, d = (a, +-a, b))."""
+    o = torch.rand(r, 3, generator=gen) * 1.6 - 0.8
+    d = torch.nn.functional.normalize(torch.randn(r, 3, generator=gen), dim=-1)
+    t = torch.sort(torch.rand(r, s, generator=gen) * 6.0 + 0.05, dim=-1).values
+    t[0, -1] = 1e8
+    o[1:3] = 0.0
+    d[1] = torch.tensor([0.6, 0.6, 0.52915025])
+    d[2] = torch.tensor([0.6, -0.6, 0.52915025])
+    return o.to(device), d.to(device), t.reshape(-1, 1).to(device)
+
+
+RAY_CASES = [
+    # (layer widths incl. output, skips, freq_encoding, dtype, rays, samples)
+    ((256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), torch.bfloat16, 512, 32),
+    ((256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), torch.float32, 128, 32),
+    ((64, 64, 1), (), (5, 0.0, 4.0, True), torch.bfloat16, 300, 128),
+    ((64, 64, 1), (), (7, 0.0, 6.0, True), torch.float32, 100, 48),
+]
+
+
+def _close(got, want, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+def _grads_close(named, dtype):
+    for name, got, want in named:
+        assert got.shape == want.shape, name
+        assert bool(torch.isfinite(got).all()), name
+        assert _rel_l2(got, want) <= BWD_TOL[dtype], (name, _rel_l2(got, want))
+
+
+@pytest.mark.parametrize("case", range(len(RAY_CASES)))
+def test_ray_kernels_match_plain(cuda, case):
+    dims, skips, enc, dtype, r, s = RAY_CASES[case]
+    gen = torch.Generator().manual_seed(200 + case)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(3, enc), cuda)
+    o, d, t = _rays(gen, r, s, cuda)
+    packed = fm.prepare(3, ws, bs, None, skips, enc, dtype, transposed=True)
+    f0 = fr.fused_ray_mlp.launches
+    got = fr.launch_ray(o, d, t, s, packed)
+    torch.cuda.synchronize()
+    assert fr.fused_ray_mlp.launches == f0 + 1
+    want = fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, enc, dtype)
+    _close(got, want, dtype)
+    assert float(got[:, -1].float().sum()) == float(want[:, -1].float().sum()) < r * s  # some selectors are 0
+    g = torch.randn(r * s, dims[-1] + 1, generator=gen).to(cuda).to(dtype)
+    for need in (True, False):
+        b0 = (fr.fused_ray_mlp_bwd.launches, fr.fused_ray_mlp_bwd.input_grad_launches)
+        (d_o, d_d, d_t), dw, db = fr.fused_ray_mlp_bwd(o, d, t, g[:, :-1].contiguous(), s, packed, need)
+        torch.cuda.synchronize()
+        assert (fr.fused_ray_mlp_bwd.launches - b0[0], fr.fused_ray_mlp_bwd.input_grad_launches - b0[1]) == (1, int(need))
+        dws, dbs = fm.unpack_grads(dw, db, packed.desc, packed.shapes)
+        w_o, w_d, w_t, w_dws, w_dbs = fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, enc, dtype, need)
+        named = [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, w_dws))]
+        named += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, w_dbs))]
+        if need:
+            named += [("d_o", d_o, w_o), ("d_d", d_d, w_d), ("d_t", d_t, w_t)]
+        else:
+            assert d_o is None and w_o is None
+        _grads_close(named, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels", [3, 1])
+def test_field_kernels_match_plain(cuda, channels, dtype):
+    gen = torch.Generator().manual_seed(300 + channels)
+    enc, skips, r, s, e = (10, 0.0, 9.0, True), (4,), 256, 32, 32
+    bw, bb = _params(gen, (256,) * 7 + (16,), skips, 63, cuda)
+    hw, hb = _params(gen, (64, 64, channels), (), 16 + 15 + e, cuda)
+    o, d, t = _rays(gen, r, s, cuda)
+    emb = torch.randn(r, e, generator=gen).to(cuda)
+    base = fm.prepare(3, bw, bb, None, skips, enc, dtype, transposed=True)
+    head = fm.prepare(63, hw, hb, "sigmoid", (), None, dtype, transposed=True)
+    f0 = fr.fused_field_mlp.launches
+    got, head_in = fr.launch_field(o, d, t, emb, s, base, head)
+    torch.cuda.synchronize()
+    assert fr.fused_field_mlp.launches == f0 + 1
+    _close(got, fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, enc, dtype), dtype)
+    g = torch.randn(r * s, channels + 2, generator=gen).to(cuda).to(dtype)
+    b0 = fr.fused_field_mlp_bwd.launches
+    d_o, d_d, d_t, d_emb, (gbw, gbb, ghw, ghb) = fr.fused_field_mlp_bwd(o, d, t, emb, g, head_in, s, base, head)
+    torch.cuda.synchronize()
+    assert fr.fused_field_mlp_bwd.launches == b0 + 1
+    dbw, dbb = fm.unpack_grads(gbw, gbb, base.desc, base.shapes)
+    dhw, dhb = fm.unpack_grads(ghw, ghb, head.desc, head.shapes)
+    want = fr.fused_field_mlp_bwd_plain(o, d, t, emb, g, bw, bb, hw, hb, s, skips, enc, dtype)
+    named = [(k, a, b) for k, a, b in zip(("d_o", "d_d", "d_t", "d_emb"), (d_o, d_d, d_t, d_emb), want[:4])]
+    for tag, got_l, want_l in zip(("dWb", "dbb", "dWh", "dbh"), (dbw, dbb, dhw, dhb), want[4:]):
+        named += [(f"{tag}{i}", a, b) for i, (a, b) in enumerate(zip(got_l, want_l))]
+    _grads_close(named, dtype)
+
+
+def test_fused_models_go_through_the_kernels(cuda):
+    """A thermal-nerfacto-tpu with the three fused knobs, cut to small
+    widths, on the card: a training step launches the ray-march forward for
+    four proposals and two cross densities, the whole-field forward for two
+    fields, and their backwards (the cross densities' with input
+    gradients, the proposals' without); no fused-MLP kernel runs."""
+    cfg = get_method_config("thermal-nerfacto-tpu").model
+    cfg.fused_raymarch = cfg.fused_field = cfg.fused_raymarch_proposals = True
+    cfg.freq_num_layers, cfg.freq_hidden_dim = 4, 128
+    cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray = (16, 8), 8
+    model = ThermalNerfactoModel(cfg, [[-1.0] * 3, [1.0] * 3], 2, {"is_thermal": [0, 1]}, device=cuda, seed=3)
+    from nerfstudio_thermal_torch.cameras.rays import RayBundle
+
+    n = 512
+    gen = torch.Generator().manual_seed(5)
+    bundle = RayBundle(
+        origins=(torch.rand(n, 3, generator=gen) * 0.2 + torch.tensor([2.0, 0.0, 0.0])).to(cuda),
+        directions=torch.nn.functional.normalize(torch.tensor([-1.0, 0.0, 0.0]) + 0.3 * torch.randn(n, 3, generator=gen), dim=-1).to(cuda),
+        pixel_area=torch.ones(n, 1, device=cuda), camera_indices=torch.zeros(n, 1, dtype=torch.int32, device=cuda),
+    )
+    counters = (fm.fused_mlp, fr.fused_ray_mlp, fr.fused_field_mlp, fr.fused_ray_mlp_bwd, fr.fused_field_mlp_bwd)
+    before = [c.launches for c in counters] + [fr.fused_ray_mlp_bwd.input_grad_launches]
+    out = model(bundle, train=True, generator=torch.Generator(device=cuda).manual_seed(0))
+    (out["rgb"].sum() + out["rgb_thermal"].sum() + out["density2"].sum() + out["density2_thermal"].sum()
+     + sum(w.sum() for w in out["weights_list"] + out["weights_list_thermal"])).backward()
+    torch.cuda.synchronize()
+    after = [c.launches for c in counters] + [fr.fused_ray_mlp_bwd.input_grad_launches]
+    assert [a - b for a, b in zip(after, before)] == [0, 6, 2, 6, 2, 2]

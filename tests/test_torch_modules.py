@@ -369,14 +369,25 @@ def test_thermal_nerfacto_field(use_pallas, dtype, tol):
 
 
 def test_hash_fields_raise():
-    """The hash fields build; what they do not carry yet raises: the
-    semantic head and the fused ray-march and whole-field knobs."""
+    """The hash fields build; the semantic head, which they do not carry
+    yet, raises. The fused ray-march and whole-field knobs do not apply to
+    a hash field: as in the JAX module, it computes what it computes
+    without them (the positions path)."""
     assert tnf.NerfactoField(AABB, num_images=2, field_encoding="hash", log2_hashmap_size=10).field_encoding == "hash"
     assert tdf.HashMLPDensityField(aabb=AABB, log2_hashmap_size=10).encoding.out_dim == 16
     with pytest.raises(NotImplementedError, match="semantic head"):
         tnf.NerfactoField(AABB, num_images=2, log2_hashmap_size=10, num_semantic_classes=3)
-    with pytest.raises(NotImplementedError, match="fused ray-march"):
-        tnf.NerfactoField(AABB, num_images=2, log2_hashmap_size=10, fused_raymarch=True)
+    plain = tnf.NerfactoField(AABB, num_images=3, log2_hashmap_size=10, num_levels=4)
+    plain.reset_parameters(torch.Generator().manual_seed(0))
+    fused = tnf.NerfactoField(AABB, num_images=3, log2_hashmap_size=10, num_levels=4, fused_raymarch=True,
+                              fused_field=True)
+    fused.load_state_dict(plain.state_dict())
+    _, ts = _ray_samples(16)
+    with torch.no_grad():
+        want, got = plain(ts, train=True), fused(ts, train=True)
+        torch.testing.assert_close(fused.get_density_from_rays(ts), plain.get_density_from_rays(ts), rtol=0, atol=0)
+    for head in want:
+        torch.testing.assert_close(got[head], want[head], rtol=0, atol=0)
 
 
 def test_carry_over_rejects_mismatched_trees():
