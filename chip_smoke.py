@@ -59,7 +59,13 @@ Phases, each fatal on failure:
 9. for each method one full-width step of 256 rays on the card against the
    same step on the CPU (same params, batch and jitter): every loss term
    and every group's gradient;
-10. a JSON line of the ported kernels, then the contract line.
+10. the stage split of every timed backward of phases 4 and 6 (device ms
+   per call from torch.profiler: the one-pass kernel of a narrow stack, or
+   the walk, the dW tiles and the slab sums, and the per-point and per-ray
+   passes), after the timed phases;
+11. a JSON line of the ported kernels (row 4 at its three shapes: the
+   cross density and both proposal stacks, each with the launches of its
+   stack in the fused training run), then the contract line.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -186,6 +192,60 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# (label, function, arguments) of each timed backward, for the stage split
+# printed after the timed render and training phases (a profiler session
+# slows the host ops that follow it); the tensor arguments wait on the host,
+# so the card's memory holds none of them through those phases
+STAGE_CALLS = []
+STAGES = (("one-pass", "fused_mlp_bwd_narrow"), ("walk", "fused_mlp_bwd_walk"), ("dW", "fused_mlp_bwd_dw"),
+          ("sums", "sum_slabs"))
+
+
+def stage_split(fn, iters: int = 5) -> dict:
+    """Device ms per call of each stage of a fused-MLP backward (the
+    one-pass kernel, or the walk, the dW tiles and the slab sums; "other"
+    holds the per-point and per-ray passes), read from torch.profiler over
+    `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        us = ev.cuda_time_total if us is None else us
+        if us <= 0:
+            continue
+        stage = next((name for name, key in STAGES if key in ev.key), "other")
+        split[stage] = split.get(stage, 0.0) + us / 1e3 / iters
+    if not split:
+        raise AssertionError("torch.profiler saw no device time in a backward call")
+    return split
+
+
+def park_stage_call(label: str, fn, *args) -> None:
+    STAGE_CALLS.append((label, fn, tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+
+
+def stage_lines():
+    """The stage split of each parked backward, its arguments back on the
+    card for the split only."""
+    while STAGE_CALLS:
+        label, fn, args = STAGE_CALLS.pop(0)
+        args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+        yield stage_line(label, stage_split(lambda: fn(*args)))
+        del args
+        torch.cuda.empty_cache()
+
+
+def stage_line(name: str, split: dict) -> str:
+    return f"bwd_stages {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+
+
 def mlp_params(gen, in_dim, dims, skips, freq):
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 
@@ -309,6 +369,7 @@ def backward_phase():
                 return torch.autograd.grad(out, [xr, *wb, *bb], g)
 
             library_ms = cuda_ms(library, iters=10)
+            park_stage_call(f"fused_mlp_bwd {name} n={n}", fm.launch_bwd, x, g, packed)
             flops = 6.0 * n * mlp_macs(ws)  # recompute + dX + dW
             nbytes = n * (in_dim * 4 + dims[-1] * 2 + in_dim * 4) + sum(
                 w.numel() * (2 + 4) + b.numel() * (4 + 4) for w, b in zip(ws, bs)
@@ -350,8 +411,11 @@ def counters():
 
 
 def reset_counts() -> None:
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    fr.fused_ray_mlp_bwd.stack_launches.clear()
 
 
 def read_counts() -> dict:
@@ -673,6 +737,7 @@ def ray_kernel_phase():
                     return torch.autograd.grad(out, (ins if need else []) + wb + bb, g)
 
                 library_ms = cuda_ms(library, iters=3)
+                park_stage_call(f"fused_ray_mlp_bwd {tag} n={n}", fr.fused_ray_mlp_bwd, o, d, t, gk, s, packed, need)
                 nbytes = (r_bwd * 24 + n * (4 + dims[-1] * 2) + param_bytes(ws, bs, True)
                           + (r_bwd * 24 + n * 4 if need else 0))
                 f32_ops = n * (40 + 9 * nf + ((21 * nf + 45) if need else 0))
@@ -680,7 +745,7 @@ def ray_kernel_phase():
                 bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, f32_ops)
                 recs["fused_ray_mlp_bwd"][name] = {
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n, "stack": tuple(packed.desc),
                 }
                 line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
                          f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
@@ -764,6 +829,8 @@ def field_kernel_phase():
                     return torch.autograd.grad(out, ins + [x for z in wbs for x in z], g)
 
                 library_ms = cuda_ms(library, iters=3)
+                park_stage_call(f"fused_field_mlp_bwd {tag} n={n}", fr.fused_field_mlp_bwd, o, d, t, emb, g, head_in,
+                                s, base, head)
                 nbytes = (r_bwd * (24 + 4 * e) * 2 + n * (4 + (c + 2) * 2 + 4)
                           + param_bytes(bw + hw, bb + hb, True))
                 f32_ops = n * (40 + 30 * BASE_FREQ[0] + 45 + 54) + r_bwd * 100
@@ -980,6 +1047,7 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     Trainer.train, with the launch counts read around Trainer.train."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
     from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
 
     method = train_method(method_name, scene_dir, 8192)
     method.trainer.max_num_iterations = TRAIN_STEPS
@@ -1014,6 +1082,10 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    stacks = dict(fr.fused_ray_mlp_bwd.stack_launches)
+    if sum(stacks.values()) != counts["fused_ray_mlp_bwd"]:
+        raise AssertionError(f"{method_name}: ray backward launches by stack {stacks} do not add up to "
+                             f"{counts['fused_ray_mlp_bwd']}")
 
     if len(records) != TRAIN_STEPS:
         raise AssertionError(f"{method_name}: {len(records)} train steps ran, expected {TRAIN_STEPS}")
@@ -1054,7 +1126,7 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     log(f"{method_name} train steps {TIMED_FROM}-{TRAIN_STEPS - 1}: {step_s * 1e3:.2f} ms/step, "
         f"{rays / step_s:,.0f} rays/s (peak memory {peak / 2**30:.1f} GiB)")
     trainer.train_iteration = iteration
-    return counts, step_s, rays, lambda out_dir: profile_step(trainer, out_dir, method_name)
+    return counts, step_s, rays, lambda out_dir: profile_step(trainer, out_dir, method_name), stacks
 
 
 def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path):
@@ -1181,6 +1253,8 @@ def main() -> int:
         trains = {m: train_phase(m, scene, Path(tmp) / m / "run") for m in METHODS}
         for m in METHODS:
             step_vs_cpu_phase(m, scene, Path(tmp) / m / "step")
+        for line in stage_lines():
+            log(line)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -1190,6 +1264,12 @@ def main() -> int:
 
     tpu_counts, hash_counts = trains["thermal-nerfacto-tpu"][0], trains["thermal-nerfacto"][0]
     fused_counts = trains["thermal-nerfacto-tpu+fused"][0]
+    # row 4's launches by stack: the cross densities' and each proposal's
+    fused_stacks = trains["thermal-nerfacto-tpu+fused"][4]
+    ray_bwd = ray_kernels["fused_ray_mlp_bwd"]
+    if set(fused_stacks) != {rec["stack"] for rec in ray_bwd.values()}:
+        raise AssertionError(f"fused training ran the ray backward on stacks {sorted(fused_stacks)}, "
+                             f"not on those of {sorted(ray_bwd)}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "nerfstudio_thermal_tpu/ops/pallas/"
     hash_source = "nerfstudio_thermal_torch/csrc/hash_encoding.cu"
@@ -1217,10 +1297,14 @@ def main() -> int:
          "replaces": pallas + "fused_mlp.py:774 (row 3: fused_ray_mlp -> _ray_fwd_kernel)",
          "launches": fused_counts["fused_ray_mlp_fwd"],
          **{k: ray_kernels["fused_ray_mlp_fwd"]["cross_density"][k] for k in keys}},
-        {"name": "fused_ray_mlp_bwd", "route": "cuda", "source": ray_bwd_source,
-         "replaces": pallas + "fused_mlp.py:797 (row 4: _fused_ray_bwd -> _ray_bwd_kernel)",
-         "launches": fused_counts["fused_ray_mlp_bwd"],
-         **{k: ray_kernels["fused_ray_mlp_bwd"]["cross_density"][k] for k in keys}},
+        # row 4 at its three main-path shapes, each with the launches of its
+        # stack: the cross densities (8 x 256, input gradients) and the two
+        # proposal stacks (3 x 64, none)
+        *({"name": "fused_ray_mlp_bwd" + ("" if case == "cross_density" else f"_{case}"), "route": "cuda",
+           "source": ray_bwd_source,
+           "replaces": pallas + f"fused_mlp.py:797 (row 4: _fused_ray_bwd -> _ray_bwd_kernel; {case})",
+           "launches": fused_stacks[ray_bwd[case]["stack"]], **{k: ray_bwd[case][k] for k in keys}}
+          for case in ("cross_density", "proposal_0", "proposal_1")),
         {"name": "fused_field_mlp_fwd", "route": "cuda", "source": ray_fwd_source,
          "replaces": pallas + "fused_mlp.py:1160 (row 5: fused_field_mlp -> _field_fwd_kernel)",
          "launches": fused_counts["fused_field_mlp_fwd"],
@@ -1232,7 +1316,7 @@ def main() -> int:
     ]
     for m in METHODS:
         counts, frame_s, _ = renders[m]
-        _, step_s, rays, _ = trains[m]
+        _, step_s, rays, _, _ = trains[m]
         log(f"{m}: 1080p frame {frame_s:.3f} s, {1920 * 1080 / frame_s:,.0f} rays/s; "
             f"train {step_s * 1e3:.2f} ms/step, {rays / step_s:,.0f} rays/s ({smi})")
     print(json.dumps({"kernels": kernels}))

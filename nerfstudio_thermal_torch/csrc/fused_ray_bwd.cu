@@ -15,15 +15,20 @@
 //   VJP of sum_s d_sh, and d_emb = sum_s d_emb columns of d_head_in.
 //
 // What bounds them: the MLP products, three times the forward's (recompute,
-// dX, dW; without need_input_grads less layer 0's dX): 6 N x 429,568 MAC for the base stack (0.68 ms at N = 262,144 at
-// 989 TFLOP/s bf16), 6 N x ~8.4k for the head. The per-point and per-ray
-// passes move ~60-400 bytes a point.
+// dX, dW; without need_input_grads less layer 0's dX): 6 N x 429,568 MAC
+// for the base stack (0.68 ms at N = 262,144 at 989 TFLOP/s bf16), 6 N x
+// ~8.4k for the head, 6 N x ~3.1k for a proposal stack without input
+// gradients (0.035 ms at 1,048,576). The per-point and per-ray passes move
+// ~60-400 bytes a point.
 //
-// Design: a composition of fused_mlp_bwd.cu's three-stage backward (walk
-// with a device workspace, dW tiles, fixed-order slab sums), run once per
-// stack on the same workspace, with per-point and per-ray kernels around
-// it (fused_ray_common.cuh, IEEE roundings). The per-ray sums run one
-// thread per (ray, component) over the ray's S samples in order: no
+// Design: a composition of fused_mlp_bwd.cu's launch_all, run once per
+// stack, with per-point and per-ray kernels around it
+// (fused_ray_common.cuh, IEEE roundings). launch_all takes the one-pass
+// kernel for the 64-wide stacks (the proposals, the colour head: no
+// workspace, dW and db in per-CTA slabs) and the three-stage path (walk
+// with a device workspace, dW tiles, slab sums) for the 8 x 256 base and
+// cross-density stacks; both end in fixed-order sums. The per-ray sums run
+// one thread per (ray, component) over the ray's S samples in order: no
 // atomics, and a ray whose 128 samples span several point blocks needs no
 // cross-block reduction. The head's walk returns d_head_in unrounded
 // (MlpDesc.dx_exact), as the TPU kernel keeps d_headin in f32. The head
@@ -225,7 +230,8 @@ extern "C" int fused_ray_bwd(const void* o, const void* d, const void* t, const 
 // compute dtype; head_in [n, 16 + geo + E] f32 from the forward; the base
 // stack (bw, bwt, bb, freqs, base_desc) and the head stack (hw, hwt, hb,
 // head_desc) packed as for fused_mlp_bwd. Workspace and scratch sized by
-// fused_mlp_bwd_sizes for the larger of the two stacks at n points.
+// fused_mlp_bwd_sizes for the larger of the two stacks at n points (the
+// head's one-pass kernel needs no workspace).
 // Scratch: x, dx, d_pos [n, 3] f32, d_head_in [n, 16 + geo + E] f32, g_base
 // [n, 1 + geo] in the compute dtype, dsh [n_rays, 16] f32. Outputs dbw, dbb,
 // dhw, dhb (padded layouts), d_o, d_d [n_rays, 3], d_t [n], d_emb

@@ -380,10 +380,34 @@ def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
     return out
 
 
+@dataclass
+class BwdSizes:
+    """What one backward needs, as the kernel library plans it."""
+
+    ws_elems: int  # workspace elements in the compute dtype (0 on the narrow path)
+    scratch_floats: int  # f32 scratch: dW/db slabs and partial sums
+    narrow: bool  # the one-pass kernel (bf16, no skip, every width <= 64)
+
+
+def bwd_sizes(lib: ctypes.CDLL, packed: Packed, n: int, like: torch.Tensor) -> BwdSizes:
+    """The backward's plan for `packed` at n points on `like`'s device
+    (`lib` is either backward library: both export fused_mlp_bwd_sizes)."""
+    desc = (ctypes.c_int * len(packed.desc))(*packed.desc)
+    out = (ctypes.c_longlong * 4)()
+    err = lib.fused_mlp_bwd_sizes(desc, len(packed.desc), n, int(packed.compute_dtype == torch.bfloat16),
+                                  build.device_and_stream(like)[0], out)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd: the kernel refuses this MLP (cudaError {err})")
+    if out[2] > SMEM_LIMIT:
+        raise ValueError("fused_mlp_bwd: widths exceed the backward kernel's shared memory")
+    return BwdSizes(out[0], out[1], bool(out[3]))
+
+
 def launch_bwd(
     x: torch.Tensor, g: torch.Tensor, packed: Packed
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One backward on the current stream (the walk, dW and two sums):
+    """One backward on the current stream (the one-pass kernel and two
+    sums for a narrow bf16 stack, else the walk, dW and three sums):
     x [N, in_dim] f32 and g [N, out_dim] in the compute dtype, contiguous
     CUDA tensors -> (dx [N, in_dim] f32, dW padded [total_w] f32, db padded
     [total_b] f32); `unpack_grads` gives the per-layer tensors."""
@@ -410,14 +434,9 @@ def launch_bwd(
     lib = load_library("bwd")
     desc = (ctypes.c_int * len(packed.desc))(*packed.desc)
     bf16 = int(packed.compute_dtype == torch.bfloat16)
-    sizes = (ctypes.c_longlong * 3)()
-    err = lib.fused_mlp_bwd_sizes(desc, len(packed.desc), n, bf16, build.device_and_stream(x)[0], sizes)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_bwd: the kernel refuses this MLP (cudaError {err})")
-    if sizes[2] > SMEM_LIMIT:
-        raise ValueError("fused_mlp_bwd: widths exceed the backward kernel's shared memory")
-    workspace = torch.empty(sizes[0], dtype=packed.compute_dtype, device=dev)
-    scratch = torch.empty(sizes[1], dtype=torch.float32, device=dev)
+    sizes = bwd_sizes(lib, packed, n, x)
+    workspace = torch.empty(sizes.ws_elems, dtype=packed.compute_dtype, device=dev)
+    scratch = torch.empty(sizes.scratch_floats, dtype=torch.float32, device=dev)
     err = lib.fused_mlp_bwd(
         x.data_ptr(), g.data_ptr(), packed.weights.data_ptr(), packed.weights_t.data_ptr(),
         packed.biases.data_ptr(), packed.freqs.data_ptr(), workspace.data_ptr(), scratch.data_ptr(),

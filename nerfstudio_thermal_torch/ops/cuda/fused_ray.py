@@ -29,6 +29,7 @@ to the compute dtype, keeps the head's input gradient in f32 and rounds
 g_base = [g_raw, d_geo] to the compute dtype before the base walk.
 """
 
+import collections
 import ctypes
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -350,20 +351,14 @@ def launch_field(origins, dirs, ts, emb, num_samples: int, base: fm.Packed, head
 
 def _bwd_buffers(lib, packs: Sequence[fm.Packed], n: int, like: torch.Tensor):
     """Workspace and scratch of the fused-MLP backward, for the larger of
-    the stacks at n points."""
+    the stacks at n points (a narrow stack's one-pass kernel needs no
+    workspace)."""
     ws_elems = scratch_floats = 0
     for p in packs:
         if p.weights_t is None:
             raise ValueError("fused ray backward kernels: pack the MLPs with transposed=True")
-        desc, desc_len = _desc(p)
-        sizes = (ctypes.c_longlong * 3)()
-        err = lib.fused_mlp_bwd_sizes(desc, desc_len, n, _bf16(p.compute_dtype), build.device_and_stream(like)[0],
-                                      sizes)
-        if err != 0:
-            raise RuntimeError(f"fused ray backward: the kernel refuses this MLP (cudaError {err})")
-        if sizes[2] > fm.SMEM_LIMIT:
-            raise ValueError("fused ray backward: widths exceed the backward kernel's shared memory")
-        ws_elems, scratch_floats = max(ws_elems, sizes[0]), max(scratch_floats, sizes[1])
+        sizes = fm.bwd_sizes(lib, p, n, like)
+        ws_elems, scratch_floats = max(ws_elems, sizes.ws_elems), max(scratch_floats, sizes.scratch_floats)
     return (torch.empty(ws_elems, dtype=packs[0].compute_dtype, device=like.device),
             torch.empty(scratch_floats, dtype=torch.float32, device=like.device))
 
@@ -407,6 +402,7 @@ def fused_ray_mlp_bwd(origins, dirs, ts, g, num_samples: int, packed: fm.Packed,
         raise RuntimeError(f"fused_ray_bwd kernel launch failed: cudaError {err}")
     fused_ray_mlp_bwd.launches += 1
     fused_ray_mlp_bwd.input_grad_launches += int(need_input_grads)
+    fused_ray_mlp_bwd.stack_launches[tuple(packed.desc)] += 1
     return (d_o, d_d, d_t), dw, db
 
 
@@ -623,9 +619,10 @@ def fused_field_mlp(
 
 # Kernel launches since the last reset; the CPU path does not count. The
 # ray backward also counts those of its launches that computed input
-# gradients.
+# gradients, and its launches by stack (the packed descriptor as a tuple).
 fused_ray_mlp.launches = 0
 fused_ray_mlp_bwd.launches = 0
 fused_ray_mlp_bwd.input_grad_launches = 0
+fused_ray_mlp_bwd.stack_launches = collections.Counter()
 fused_field_mlp.launches = 0
 fused_field_mlp_bwd.launches = 0

@@ -12,7 +12,9 @@ rounding moves later layers by about one bf16 step). The backward is held
 per tensor by the relative L2 error ||got - want|| / ||want||: at most 1e-4
 in f32 (exact products, another summation order over N) and 3e-2 in bf16
 (one flipped bf16 rounding of dh or of a relu mask at a tie moves a
-layer's dW by about 2^-8 relative), and every value must be finite.
+layer's dW by about 2^-8 relative), and every value must be finite. Both
+backward paths (the one-pass kernel of a 64-wide stack, the walk / dW /
+sums of an 8 x 256 one) give bitwise-equal results over two launches.
 
 Hash grid, as chip_smoke.py holds it: forward within 1e-6 absolute (the
 same f32 products and sums in the same order), plus one bf16 step for a
@@ -67,6 +69,12 @@ CASES = [
     (3, (128,) * 3 + (3,), (), (6, 0.0, 5.0, True), "sigmoid", torch.bfloat16, 10000),
     (32, (128,) * 3 + (16,), (2,), None, None, torch.bfloat16, 4099),
     (3, (256,) * 7 + (16,), (), (10, 0.0, 9.0, True), None, torch.bfloat16, 12345),
+    # 64-wide stacks (the backward's one-pass kernel): the proposals, with a
+    # ragged N and fewer points than one tile, and the colour head, at N = 1 too
+    (3, (64, 64, 1), (), (5, 0.0, 4.0, True), None, torch.bfloat16, 100_003),
+    (3, (64, 64, 1), (), (7, 0.0, 6.0, True), None, torch.bfloat16, 100),
+    (63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 65536),
+    (63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 1),
 ]
 
 
@@ -114,6 +122,27 @@ def test_backward_kernel_matches_plain(cuda, case):
         assert got.shape == want.shape, name
         assert bool(torch.isfinite(got).all()), name
         assert _rel_l2(got, want) <= BWD_TOL[dtype], (name, _rel_l2(got, want))
+
+
+@pytest.mark.parametrize("path", ["narrow", "wide"])
+def test_backward_is_deterministic(cuda, path):
+    """Two launches on the same inputs give bitwise-equal dx, dW and db, on
+    the one-pass kernel (a proposal stack, no workspace) and on the
+    three-stage path (8 x 256): fixed tiles per CTA and fixed-order slab
+    sums, no atomics."""
+    in_dim, dims, skips, enc, out_act, dtype, n = CASES[5] if path == "narrow" else CASES[0]
+    gen = torch.Generator().manual_seed(17)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(in_dim, enc), cuda)
+    x = torch.rand(n, in_dim, generator=gen).to(cuda)
+    g = torch.randn(n, dims[-1], generator=gen).to(cuda).to(dtype)
+    packed = fm.prepare(in_dim, ws, bs, out_act, skips, enc, dtype, transposed=True)
+    sizes = fm.bwd_sizes(fm.load_library("bwd"), packed, n, x)
+    assert sizes.narrow == (path == "narrow") and (sizes.ws_elems == 0) == sizes.narrow
+    first = fm.launch_bwd(x, g, packed)
+    second = fm.launch_bwd(x, g, packed)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_autograd_goes_through_both_kernels(cuda):
@@ -225,6 +254,7 @@ RAY_CASES = [
     ((256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), torch.float32, 128, 32),
     ((64, 64, 1), (), (5, 0.0, 4.0, True), torch.bfloat16, 300, 128),
     ((64, 64, 1), (), (7, 0.0, 6.0, True), torch.float32, 100, 48),
+    ((64, 64, 1), (), (7, 0.0, 6.0, True), torch.bfloat16, 1000, 48),
 ]
 
 
@@ -257,10 +287,12 @@ def test_ray_kernels_match_plain(cuda, case):
     assert float(got[:, -1].float().sum()) == float(want[:, -1].float().sum()) < r * s  # some selectors are 0
     g = torch.randn(r * s, dims[-1] + 1, generator=gen).to(cuda).to(dtype)
     for need in (True, False):
-        b0 = (fr.fused_ray_mlp_bwd.launches, fr.fused_ray_mlp_bwd.input_grad_launches)
+        bwd_counts = lambda: (fr.fused_ray_mlp_bwd.launches, fr.fused_ray_mlp_bwd.input_grad_launches,  # noqa: E731
+                              fr.fused_ray_mlp_bwd.stack_launches[tuple(packed.desc)])
+        b0 = bwd_counts()
         (d_o, d_d, d_t), dw, db = fr.fused_ray_mlp_bwd(o, d, t, g[:, :-1].contiguous(), s, packed, need)
         torch.cuda.synchronize()
-        assert (fr.fused_ray_mlp_bwd.launches - b0[0], fr.fused_ray_mlp_bwd.input_grad_launches - b0[1]) == (1, int(need))
+        assert [a - b for a, b in zip(bwd_counts(), b0)] == [1, int(need), 1]
         dws, dbs = fm.unpack_grads(dw, db, packed.desc, packed.shapes)
         w_o, w_d, w_t, w_dws, w_dbs = fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, enc, dtype, need)
         named = [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, w_dws))]
@@ -307,7 +339,8 @@ def test_fused_models_go_through_the_kernels(cuda):
     widths, on the card: a training step launches the ray-march forward for
     four proposals and two cross densities, the whole-field forward for two
     fields, and their backwards (the cross densities' with input
-    gradients, the proposals' without); no fused-MLP kernel runs."""
+    gradients, the proposals' without), each stack's backward twice; no
+    fused-MLP kernel runs."""
     cfg = get_method_config("thermal-nerfacto-tpu").model
     cfg.fused_raymarch = cfg.fused_field = cfg.fused_raymarch_proposals = True
     cfg.freq_num_layers, cfg.freq_hidden_dim = 4, 128
@@ -324,9 +357,12 @@ def test_fused_models_go_through_the_kernels(cuda):
     )
     counters = (fm.fused_mlp, fr.fused_ray_mlp, fr.fused_field_mlp, fr.fused_ray_mlp_bwd, fr.fused_field_mlp_bwd)
     before = [c.launches for c in counters] + [fr.fused_ray_mlp_bwd.input_grad_launches]
+    stacks_before = fr.fused_ray_mlp_bwd.stack_launches.copy()
     out = model(bundle, train=True, generator=torch.Generator(device=cuda).manual_seed(0))
     (out["rgb"].sum() + out["rgb_thermal"].sum() + out["density2"].sum() + out["density2_thermal"].sum()
      + sum(w.sum() for w in out["weights_list"] + out["weights_list_thermal"])).backward()
     torch.cuda.synchronize()
     after = [c.launches for c in counters] + [fr.fused_ray_mlp_bwd.input_grad_launches]
     assert [a - b for a, b in zip(after, before)] == [0, 6, 2, 6, 2, 2]
+    # the cross densities' stack and the two proposal stacks (F 5, F 7)
+    assert sorted((fr.fused_ray_mlp_bwd.stack_launches - stacks_before).values()) == [2, 2, 2]

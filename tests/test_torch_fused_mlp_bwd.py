@@ -13,7 +13,11 @@ rounding of dh or of a relu mask at a tie moves a layer's dW by about 2^-8
 relative); every value must be finite.
 
 The emulation test reads the packed W^T and the padded dW/db layouts the
-way the CUDA kernel does, so a layout fault shows without a card.
+way the CUDA kernel does, so a layout fault shows without a card. The
+narrow-schedule test runs the one-pass kernel's schedule (persistent CTAs
+with static strided 128-point tiles, 16-row warps, per-CTA dW/db, slabs
+summed in CTA order) at the proposal and colour-head widths, ragged N
+included; it matches the plain backward within the f32 reorder tolerance.
 """
 
 import numpy as np
@@ -132,6 +136,106 @@ def test_packing_emulation_of_backward_matches_plain(case, dtype):
     for a, b in zip(dws + dbs, want_dws + want_dbs):
         assert a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+NARROW_CASES = {
+    # name: (in_dim, hidden widths, out_dim, freq_encoding, out_act, n, grid)
+    "proposal_f5": (3, (64, 64), 1, (5, 0.0, 4.0, True), None, 300, 2),
+    "proposal_f7_ragged": (3, (64, 64), 1, (7, 0.0, 6.0, True), None, 517, 3),
+    "head_sigmoid": (63, (64, 64), 3, None, "sigmoid", 129, 4),
+    "one_point": (3, (64, 64), 1, (5, 0.0, 4.0, True), None, 1, 1),
+}
+
+
+def _emulate_narrow(x, g, ws, bs, enc, out_act, dtype, grid, need_dx=True, tile=128, warps=8):
+    """The one-pass kernel's schedule on the CPU: CTA c takes tiles c,
+    c + grid, ...; per tile the recompute and walk of `_emulate_bwd` on 128
+    padded rows (zero input and g past N), db as the 16-row warp sums added
+    in warp order, dW += x_in^T dhc; each CTA keeps one dW/db slab, and the
+    slabs are summed in CTA order."""
+    n, in_dim = x.shape
+    enc_dim = fm.encoding_dim(in_dim, enc)
+    packed = fm.prepare(in_dim, ws, bs, out_act, (), enc, dtype, transposed=True)
+    w, b, wt, desc = packed.weights, packed.biases, packed.weights_t, packed.desc
+    in_pad = desc[2]
+    layer = lambda li: desc[9 + 5 * li : 14 + 5 * li]  # noqa: E731
+    unpack = _unpack_bf16 if dtype == torch.bfloat16 else (lambda flat, k, m: flat.reshape(k, m))
+    wl = [unpack(w[layer(li)[3] : layer(li)[3] + layer(li)[0] * layer(li)[1]], *layer(li)[:2]).float()
+          for li in range(len(ws))]
+    wtl = [unpack(wt[layer(li)[3] : layer(li)[3] + layer(li)[0] * layer(li)[1]], layer(li)[1], layer(li)[0]).float()
+           for li in range(len(ws))]
+    tiles = -(-n // tile)
+    x0_all = fm.encode(x, enc) if enc is not None else x
+    x0_all = torch.nn.functional.pad(x0_all, (0, in_pad - enc_dim)).to(dtype)
+    out_pad = layer(len(ws) - 1)[1]
+    g_all = torch.nn.functional.pad(g.to(dtype).float(), (0, out_pad - g.shape[1]))
+    dx0_all = torch.zeros(tiles * tile, in_pad)
+    dw_slabs = torch.zeros(grid, w.numel())
+    db_slabs = torch.zeros(grid, b.numel())
+    for cta in range(grid):
+        for t in range(cta, tiles, grid):
+            rows = slice(t * tile, min((t + 1) * tile, n))
+            m = rows.stop - rows.start
+            x0 = torch.zeros(tile, in_pad, dtype=dtype)
+            x0[:m] = x0_all[rows]
+            acts, h, pre = [], x0, None
+            for li in range(len(ws)):
+                k_pad, n_pad, _, w_off, b_off = layer(li)
+                pre = h.float() @ wl[li] + b[b_off : b_off + n_pad]
+                h = fm._apply_act(pre, "relu" if li < len(ws) - 1 else out_act).to(dtype)
+                acts.append(h)
+            dh = torch.zeros(tile, out_pad)
+            dh[:m] = g_all[rows]
+            if out_act == "sigmoid":
+                y = torch.sigmoid(pre)
+                dh = dh * y * (1.0 - y)
+            for li in reversed(range(len(ws))):
+                k_pad, n_pad, _, w_off, b_off = layer(li)
+                if li < len(ws) - 1:
+                    dh = dh * (acts[li].float() > 0)
+                warp_sums = dh.reshape(warps, tile // warps, n_pad).sum(1)
+                tile_db = torch.zeros(n_pad)
+                for k in range(warps):
+                    tile_db = tile_db + warp_sums[k]
+                db_slabs[cta, b_off : b_off + n_pad] += tile_db
+                dhc = dh.to(dtype).float()
+                x_in = x0 if li == 0 else acts[li - 1]
+                dw_slabs[cta, w_off : w_off + k_pad * n_pad] += (x_in.float().t() @ dhc).reshape(-1)
+                if li > 0 or need_dx:
+                    dh = dhc @ wtl[li]
+            if need_dx:
+                dx0_all[t * tile : (t + 1) * tile] = dh
+    dw, db = torch.zeros(w.numel()), torch.zeros(b.numel())
+    for cta in range(grid):
+        dw, db = dw + dw_slabs[cta], db + db_slabs[cta]
+    dws, dbs = fm.unpack_grads(dw, db, desc, [tuple(t.shape) for t in ws])
+    if not need_dx:
+        return None, dws, dbs
+    dx0 = dx0_all[:n, :enc_dim]
+    dx = fm._encode_bwd(x, dx0, enc) if enc is not None else dx0.to(dtype).float()
+    return dx, dws, dbs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(NARROW_CASES))
+def test_narrow_schedule_emulation_matches_plain(case, dtype):
+    """Static tiles per CTA, per-CTA dW/db partials and the fixed-order
+    slab sum give the plain backward's dx, dW and db (f32 reorder
+    tolerance), for ragged N and fewer points than one tile too."""
+    in_dim, widths, out_dim, enc, out_act, n, grid = NARROW_CASES[case]
+    x, ws, bs = make_case(5, in_dim, widths, out_dim, (), enc, n=n)
+    x, ws, bs = torch.as_tensor(x), list(map(torch.as_tensor, ws)), list(map(torch.as_tensor, bs))
+    g = torch.as_tensor(np.random.default_rng(6).normal(size=(n, out_dim)).astype(np.float32))
+    want_dx, want_dws, want_dbs = fm.fused_mlp_bwd_plain(x, g, ws, bs, "relu", out_act, (), enc, dtype)
+    dx, dws, dbs = _emulate_narrow(x, g, ws, bs, enc, out_act, dtype, grid)
+    np.testing.assert_allclose(dx.numpy(), want_dx.float().numpy(), rtol=1e-5, atol=1e-6)
+    for a, b in zip(dws + dbs, want_dws + want_dbs):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    # without input gradients (the proposals): the same dW and db
+    _, dws2, dbs2 = _emulate_narrow(x, g, ws, bs, enc, out_act, dtype, grid, need_dx=False)
+    for a, b in zip(dws2 + dbs2, dws + dbs):
+        assert torch.equal(a, b)
 
 
 def test_transposed_pack_is_the_transpose():
