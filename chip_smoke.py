@@ -10,7 +10,9 @@ Phases, each fatal on failure:
    whole-field forward and backward, one nvcc per source, started
    together; build seconds and registers;
 3. the fused-MLP forward kernel against its plain PyTorch version on the
-   card, at the main path's shape and in the other supported modes;
+   card, at the main path's shape and in the other supported modes, each
+   line naming the path that ran (the wgmma kernel of the 8 x 256 stacks,
+   the one-pass narrow kernel of the 64-wide ones, the f32 kernel);
    kernel, plain, library (a chain of torch.matmul calls, a yardstick the
    port never calls) and bound times;
 4. the fused-MLP backward kernel against its plain version (dx, every dW,
@@ -50,22 +52,31 @@ Phases, each fatal on failure:
 8. the training path of each method: a scene of its own (8 RGB 640x480
    and 8 thermal 640x512 frames of a ray-traced textured sphere) trains
    the method at full width through setup_trainer -> Trainer.setup ->
-   Trainer.train for 30 steps of 8192 rays. Every loss is finite, every
+   Trainer.train for 30 steps of 8192 rays. Every loss is finite on every
+   step, or else the step is run once more from its starting state on the
+   card and on the CPU's plain path (same batch, the card's own jitter
+   draws) and both must give non-finite values in exactly the same losses;
+   every parameter is finite after the run, every
    param group (and every hash table) changes, each step's launch counts
    are what the code implies (the proposal backwards only on steps that
-   update the proposal nets), and the proposal update counter follows
-   proposal_updated; train ms/step and rays/s over steps 10-29, peak
-   memory;
+   update the proposal nets), the proposal update counter follows
+   proposal_updated, and the batches come from the native (C++) batch
+   sampler; train ms/step and rays/s over steps 10-29, peak memory;
 9. for each method one full-width step of 256 rays on the card against the
    same step on the CPU (same params, batch and jitter): every loss term
-   and every group's gradient;
+   and every group's gradient; then the same for thermal-nerfacto-tpu and
+   its +fused variant with f32 compute, where the kernels' products are
+   exact f32 (and for thermal-nerfacto-tpu with 4 encoding frequencies,
+   where every group is held to 1e-3); each f32 step also runs on the card
+   in bf16, a control held against the CPU's f32 step, which must break
+   every f32 limit in at least one loss or group;
 10. the stage split of every timed backward of phases 4 and 6 (device ms
    per call from torch.profiler: the one-pass kernel of a narrow stack, or
    the walk, the dW tiles and the slab sums, and the per-point and per-ray
    passes), after the timed phases;
-11. a JSON line of the ported kernels (row 4 at its three shapes: the
-   cross density and both proposal stacks, each with the launches of its
-   stack in the fused training run), then the contract line.
+11. a JSON line of the ported kernels (rows 3 and 4 at their three shapes:
+   the cross density and both proposal stacks, each with the launches of
+   its stack in the fused training run), then the contract line.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -73,6 +84,7 @@ CUDA; imports nothing of JAX.
 """
 
 import argparse
+import collections
 import copy
 import json
 import math
@@ -104,6 +116,28 @@ BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 # One training step, card against CPU (bf16 MLPs): losses relative; each
 # group's gradient relative L2 per method (METHODS' step_grad_tol).
 STEP_LOSS_TOL = 2e-2
+# The same step with f32 compute (the kernels' f32 paths: exact f32
+# products, no TF32). A control shows that each limit tells the f32 path
+# from a bf16 one: the card's bf16 step from the same params, batch and
+# jitter, held against the CPU's f32 step, must exceed each limit in at
+# least one loss or group. Readings below: H100, f32 step / bf16 control.
+# - Losses relative 4e-4: the interlevel and distortion losses are small
+#   sums of differences of prefix sums over ~200 samples a ray (f32 at most
+#   1.35e-4, interlevel; the control at least 1.11e-3, rgb).
+# - Gradients, relative L2 per group, 1e-3 for the field and proposal
+#   groups, the limit the port's CPU step holds against the JAX package's
+#   f32 step (tests/test_torch_train.py): the same f32 arithmetic in other
+#   orders (f32 at most 2.7e-4; the control 2.3e-3-1.1e-2).
+# - The camera groups' gradients reach the poses through the base field's
+#   frequency encoding, whose backward multiplies the card's and the CPU's
+#   one-ulp differences in sin and cos by the frequency (up to 2 pi 2^9).
+#   The gap grows with the top frequency (camera_opt 3.4e-5 with 4
+#   frequencies, 5.7e-3 with the method's 10), so they are held to 1e-3
+#   with 4 frequencies (F32_CHECK_FREQS; every group then must read
+#   <= 1e-3; the control's cameras 1.2e-2 and 2.5e-2) and to 2e-2 with 10
+#   (the control 3.6e-2-1.6e-1).
+STEP_LOSS_TOL_F32, STEP_GRAD_TOL_F32, STEP_CAMERA_GRAD_TOL_F32 = 4e-4, 1e-3, 2e-2
+F32_CHECK_FREQS = 4
 TRAIN_STEPS, TIMED_FROM = 30, 10
 # Hash kernels against their plain versions. Forward: the same f32 products
 # and sums in the same order (no FMA contraction), so equal up to 1e-6
@@ -285,19 +319,22 @@ def kernel_phase():
         ("no_encoding_bf16", 32, (128,) * 4 + (16,), (2,), None, None, torch.bfloat16, 1 << 18, False),
         ("no_skip_8x256_bf16", 3, BASE_DIMS, (), BASE_FREQ, None, torch.bfloat16, 1 << 18, False),
         ("ragged_n_base_bf16", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.bfloat16, 777_777, False),
+        ("colour_head_3x64_bf16", 63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 1 << 20, False),
+        ("ragged_n_head_bf16", 63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 100_003, False),
     ]
     gen = torch.Generator().manual_seed(0)
     main = None
     for name, in_dim, dims, skips, freq, out_act, dtype, n, timed in cases:
         ws, bs = mlp_params(gen, in_dim, dims, skips, freq)
         x = torch.rand(n, in_dim, generator=gen).cuda()
+        packed = fm.prepare(in_dim, ws, bs, out_act, skips, freq, dtype)
         got = fm.fused_mlp(x, ws, bs, "relu", out_act, skips, freq, dtype)
         torch.cuda.synchronize()
         want = fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips, freq, dtype)
-        max_err = check_fwd(f"fused_mlp_fwd {name}", got, want, dtype)
-        line = f"kernel_vs_plain {name}: n={n} max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel) ok"
+        max_err = check_fwd(f"fused_mlp_fwd {name} ({packed.fwd_path} path)", got, want, dtype)
+        line = (f"kernel_vs_plain {name} [{packed.fwd_path} path]: n={n} max_abs_err={max_err:.3e} "
+                f"(tol {TOL[dtype]:g} abs+rel) ok")
         if timed:
-            packed = fm.prepare(in_dim, ws, bs, out_act, skips, freq, dtype)
             ms = cuda_ms(lambda: fm.launch(x, packed), iters=20)
             plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips, freq, dtype), iters=5)
             wb = [w.to(dtype) for w in ws]
@@ -415,6 +452,7 @@ def reset_counts() -> None:
 
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    fr.fused_ray_mlp.stack_launches.clear()
     fr.fused_ray_mlp_bwd.stack_launches.clear()
 
 
@@ -689,10 +727,10 @@ def ray_kernel_phase():
             got = fr.launch_ray(o, d, t, s, packed)
             torch.cuda.synchronize()
             want = fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, freq, dtype)
-            max_err = check_fwd(f"fused_ray_mlp_fwd {tag}", got, want, dtype)
+            max_err = check_fwd(f"fused_ray_mlp_fwd {tag} ({packed.fwd_path} path)", got, want, dtype)
             zeros = int((want[:, -1] == 0).sum())
-            line = (f"kernel_vs_plain fused_ray_mlp_fwd {tag}: n={n} ({r_fwd} x {s}) max_abs_err={max_err:.3e} "
-                    f"(tol {TOL[dtype]:g} abs+rel), {zeros} samples with selector 0, ok")
+            line = (f"kernel_vs_plain fused_ray_mlp_fwd {tag} [{packed.fwd_path} path]: n={n} ({r_fwd} x {s}) "
+                    f"max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel), {zeros} samples with selector 0, ok")
             del got, want
             if dtype == torch.bfloat16:
                 ms = cuda_ms(lambda: fr.launch_ray(o, d, t, s, packed), iters=10)
@@ -703,7 +741,7 @@ def ray_kernel_phase():
                 bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * mlp_macs(ws), n * (40 + 9 * nf))
                 recs["fused_ray_mlp_fwd"][name] = {
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n, "stack": tuple(packed.desc),
                 }
                 line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
                          f"bound {bound_ms:.4f} ms ({term})")
@@ -784,8 +822,10 @@ def field_kernel_phase():
             got, _ = fr.launch_field(o, d, t, emb, s, base, head)
             torch.cuda.synchronize()
             want = fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype)
-            max_err = check_fwd(f"fused_field_mlp_fwd {tag}", got, want, dtype)
-            line = f"kernel_vs_plain fused_field_mlp_fwd {tag}: n={n} ({r_fwd} x {s}) max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel) ok"
+            paths = f"{base.fwd_path} base, {head.fwd_path} head"
+            max_err = check_fwd(f"fused_field_mlp_fwd {tag} ({paths})", got, want, dtype)
+            line = (f"kernel_vs_plain fused_field_mlp_fwd {tag} [{paths}]: n={n} ({r_fwd} x {s}) "
+                    f"max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel) ok")
             del got, want
             if dtype == torch.bfloat16:
                 ms = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head), iters=10)
@@ -1054,25 +1094,33 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     t0 = time.perf_counter()
     trainer = setup_trainer(method, base_dir=run_dir, device="cuda")
     trainer.setup()
-    log(f"{method_name} train setup (parse, model, optimizers): {time.perf_counter() - t0:.2f} s")
+    if not trainer.datamanager.uses_native_sampler:
+        raise AssertionError(f"{method_name}: the native batch sampler did not build or the scene did not qualify")
+    log(f"{method_name} train setup (parse, model, optimizers; native batch sampler): "
+        f"{time.perf_counter() - t0:.2f} s")
     groups = trainer.model.param_groups()
     before = {name: [p.detach().clone() for p in params] for name, params in groups.items()}
     tables = {name: p for name, p in trainer.model.named_parameters() if name.endswith("hash_table")}
     tables_before = {name: p.detach().clone() for name, p in tables.items()}
-    records, step_times = [], []
+    records, step_times, starts = [], [], {}
     iteration = trainer.train_iteration
 
     def counted_iteration(step):
         """One Trainer iteration (host sampling included), synchronized and
-        timed, with its kernel launches and proposal counter."""
+        timed, with its kernel launches and proposal counter; the state it
+        started from is kept when a loss came out non-finite."""
         c0 = read_counts()
         ssu = trainer.state.steps_since_update
+        start = step_start(trainer)
+        torch.cuda.synchronize()
         t_start = time.perf_counter()
         out = iteration(step)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t_start)
         launches = {k: v - c0[k] for k, v in read_counts().items()}
         records.append((step, ssu, trainer.state.steps_since_update, launches, out))
+        if not all(bool(torch.isfinite(v).all()) for k, v in out.items() if "loss" in k):
+            starts[step] = start
         return out
 
     trainer.train_iteration = counted_iteration
@@ -1082,17 +1130,32 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    stacks = dict(fr.fused_ray_mlp_bwd.stack_launches)
-    if sum(stacks.values()) != counts["fused_ray_mlp_bwd"]:
-        raise AssertionError(f"{method_name}: ray backward launches by stack {stacks} do not add up to "
-                             f"{counts['fused_ray_mlp_bwd']}")
+    stacks = {"fwd": dict(fr.fused_ray_mlp.stack_launches), "bwd": dict(fr.fused_ray_mlp_bwd.stack_launches)}
+    for way, key in (("fwd", "fused_ray_mlp_fwd"), ("bwd", "fused_ray_mlp_bwd")):
+        if sum(stacks[way].values()) != counts[key]:
+            raise AssertionError(f"{method_name}: ray {way} launches by stack {stacks[way]} do not add up to "
+                                 f"{counts[key]}")
 
     if len(records) != TRAIN_STEPS:
         raise AssertionError(f"{method_name}: {len(records)} train steps ran, expected {TRAIN_STEPS}")
     losses = {k: torch.stack([r[4][k].float() for r in records]) for k in records[0][4] if "loss" in k}
-    for k, v in losses.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"{method_name} train: {k} is not finite")
+    # Every loss must be finite on every step. The trunc_exp forward is a
+    # bare exp, as in the JAX package (ops/activations.py:12-15, kept by the
+    # port), so a density can overflow to inf, and with it the density
+    # loss, while its gradient (the exp of the input clamped to 15) stays
+    # finite. A step with a non-finite loss therefore passes only where the
+    # plain path agrees (overflow_witness): run again from the state it
+    # started from on the card and on the CPU, it must give non-finite
+    # values in exactly the same losses, and the finite ones must agree.
+    # Every parameter must be finite after the run.
+    witnessed = []
+    for step in sorted({s for v in losses.values() for s in (~torch.isfinite(v)).nonzero().flatten().tolist()}):
+        bad = sorted(k for k, v in losses.items() if not bool(torch.isfinite(v[step])))
+        overflow_witness(method, method_name, step, starts[step], bad, run_dir / f"witness_{step}")
+        witnessed.append(f"{step} ({', '.join(bad)})")
+    nonfinite = [name for name, p in trainer.model.named_parameters() if not bool(torch.isfinite(p).all())]
+    if nonfinite:
+        raise AssertionError(f"{method_name} train: parameters {nonfinite} are not finite")
     skipped = 0
     for step, ssu, new_ssu, launches, _ in records:
         updated, want = proposal_updated(step, ssu, method.model.proposal_warmup, method.model.proposal_update_every)
@@ -1120,6 +1183,8 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
         f"{method_name} train: {TRAIN_STEPS} steps of {rays} rays, param groups {sorted(groups)} "
         f"and {len(tables)} hash tables all changed, launches {counts}, "
         f"{skipped} of steps {TIMED_FROM}-{TRAIN_STEPS - 1} without proposal update; "
+        f"non-finite losses on steps {', '.join(witnessed) or 'none'} (each witnessed by the CPU's plain path; "
+        f"parameters finite); "
         f"loss {float(losses['rgb_loss'][0]):.4f} -> {float(losses['rgb_loss'][-1]):.4f} (rgb), "
         f"{float(losses['thermal_loss'][0]):.4f} -> {float(losses['thermal_loss'][-1]):.4f} (thermal)"
     )
@@ -1129,25 +1194,112 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
     return counts, step_s, rays, lambda out_dir: profile_step(trainer, out_dir, method_name), stacks
 
 
-def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path):
+def step_start(trainer):
+    """What a training step starts from: the model's tensors, the jitter
+    generator's state and the step counters."""
+    st = trainer.state
+    params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    return params, st.generator.get_state(), st.step, st.steps_since_update, st.steps_since_update_thermal
+
+
+def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: Path) -> None:
+    """Training step `step` once more from the state it started from, on
+    the card and on the CPU (the plain PyTorch versions of every kernel),
+    with the same batch and the card's own jitter draws (recorded as the
+    card draws them again from the same generator state). Raises unless
+    both give non-finite values in exactly the losses `bad`, as the
+    training run did, and the finite losses agree within STEP_LOSS_TOL."""
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+    from nerfstudio_thermal_torch.model_components import ray_samplers
+
+    if method.model.background_color == "random":
+        raise AssertionError(f"{method_name}: the witness does not replay a random background's draw")
+    params, gen_state, st, ssu, ssu_t = start
+    trainers = {}
+    for dev in ("cuda", "cpu"):
+        tr = setup_trainer(copy.deepcopy(method), base_dir=run_dir / dev, device=dev)
+        tr.setup()
+        tr.model.load_state_dict(params)
+        tr.state.step, tr.state.steps_since_update, tr.state.steps_since_update_thermal = st, ssu, ssu_t
+        trainers[dev] = tr
+    trainers["cuda"].state.generator.set_state(gen_state)
+    batch = trainers["cpu"].datamanager.next_train(step)
+    draws, draw = [], ray_samplers._uniforms
+
+    def recorded(*args):
+        u = draw(*args)
+        draws.append(u)
+        return u
+
+    ray_samplers._uniforms = recorded
+    try:
+        card = trainers["cuda"]._train_step(
+            trainers["cuda"].state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()})
+    finally:
+        ray_samplers._uniforms = draw
+    levels = len(method.model.num_proposal_samples_per_ray) + 1
+    if len(draws) != 2 * levels:
+        raise AssertionError(f"{method_name} witness: {len(draws)} jitter draws, expected {2 * levels}")
+    uniforms = {"rgb": [u.cpu() for u in draws[:levels]], "thermal": [u.cpu() for u in draws[levels:]]}
+    t0 = time.perf_counter()
+    cpu = trainers["cpu"]._train_step(
+        trainers["cpu"].state, {k: torch.as_tensor(v) for k, v in batch.items()}, uniforms=uniforms)
+    cpu_s = time.perf_counter() - t0
+    card = {k: float(v) for k, v in card.items() if "loss" in k}
+    cpu = {k: float(v) for k, v in cpu.items() if "loss" in k}
+    card_bad = sorted(k for k, v in card.items() if not math.isfinite(v))
+    cpu_bad = sorted(k for k, v in cpu.items() if not math.isfinite(v))
+    log(f"{method_name} witness of step {step}: training run non-finite in {bad}; again from its start, card "
+        f"{card_bad}, CPU plain path {cpu_bad} ({cpu_s:.1f} s); card / CPU "
+        + ", ".join(f"{k} {card[k]:.6g} / {cpu[k]:.6g}" for k in sorted(card)))
+    if card_bad != bad:
+        raise AssertionError(f"{method_name} step {step}: the card does not repeat its non-finite losses {bad} "
+                             f"from the same start ({card_bad})")
+    if cpu_bad != bad:
+        raise AssertionError(f"{method_name} step {step}: the CPU's plain path gives non-finite losses {cpu_bad} "
+                             f"where the kernels gave {bad}")
+    for k in card:
+        if k not in bad and abs(card[k] - cpu[k]) > STEP_LOSS_TOL * max(abs(cpu[k]), 1e-3):
+            raise AssertionError(f"{method_name} step {step} witness: {k} card {card[k]:.6g} CPU {cpu[k]:.6g}")
+
+
+def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path, f32_freqs: int = None):
     """One full-width step of 256 rays on the card and on the CPU from the
-    same seeded params, batch and jitter."""
+    same seeded params, batch and jitter. With f32_freqs the MLPs run in f32
+    and the base field's encoding has that many frequencies (the f32
+    limits), and the card also runs the step in bf16: a control that must
+    exceed every f32 limit in at least one loss or group."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
     method = train_method(method_name, scene_dir, 256)
+    loss_tol, tag = STEP_LOSS_TOL, method.model.compute_dtype
+    grad_tols = collections.defaultdict(lambda: METHODS[method_name]["step_grad_tol"])
+    if f32_freqs is not None:
+        method.model.compute_dtype, method.model.freq_num_frequencies = "float32", f32_freqs
+        tag, loss_tol = f"float32, {f32_freqs} frequencies", STEP_LOSS_TOL_F32
+        camera_tol = STEP_GRAD_TOL_F32 if f32_freqs <= F32_CHECK_FREQS else STEP_CAMERA_GRAD_TOL_F32
+        grad_tols = collections.defaultdict(lambda: STEP_GRAD_TOL_F32, camera_opt=camera_tol,
+                                            camera_opt_thermal=camera_tol)
+    runs = {"cpu": ("cpu", method), "cuda": ("cuda", method)}
+    if f32_freqs is not None:
+        control = copy.deepcopy(method)
+        control.model.compute_dtype = "bfloat16"
+        runs["control"] = ("cuda", control)
     trainers = {}
-    for dev in ("cpu", "cuda"):
-        trainers[dev] = setup_trainer(copy.deepcopy(method), base_dir=run_dir / dev, device=dev)
-        trainers[dev].setup()
-    for (k, a), b in zip(trainers["cpu"].model.state_dict().items(), trainers["cuda"].model.state_dict().values()):
-        if not torch.equal(a, b.cpu()):
-            raise AssertionError(f"{method_name} step_vs_cpu: the seeded models differ at {k}")
+    for label, (dev, m) in runs.items():
+        trainers[label] = setup_trainer(copy.deepcopy(m), base_dir=run_dir / label, device=dev)
+        trainers[label].setup()
+    for label, tr in trainers.items():
+        for (k, a), b in zip(trainers["cpu"].model.state_dict().items(), tr.model.state_dict().values()):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"{method_name} step_vs_cpu: the seeded models ({label}) differ at {k}")
     batch = trainers["cpu"].datamanager.next_train(0)
     gen = torch.Generator().manual_seed(7)
     levels = len(method.model.num_proposal_samples_per_ray) + 1
     uniforms = {m: [torch.rand(256, 1, generator=gen) for _ in range(levels)] for m in ("rgb", "thermal")}
     results = {}
-    for dev, tr in trainers.items():
+    for label, tr in trainers.items():
+        dev = runs[label][0]
         b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         u = {m: [t.to(dev) for t in us] for m, us in uniforms.items()}
         scalars = tr._train_step(tr.state, b, uniforms=u)
@@ -1155,24 +1307,41 @@ def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path):
             name: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten().float().cpu() for p in ps])
             for name, ps in tr.model.param_groups().items()
         }
-        results[dev] = ({k: float(v) for k, v in scalars.items()}, grads)
+        results[label] = ({k: float(v) for k, v in scalars.items()}, grads)
     (want_s, want_g), (got_s, got_g) = results["cpu"], results["cuda"]
-    worst_loss = 0.0
-    for k, w in want_s.items():
-        err = abs(got_s[k] - w) / max(abs(w), 1e-3)
-        worst_loss = max(worst_loss, err)
-        if not math.isfinite(got_s[k]) or err > STEP_LOSS_TOL:
-            raise AssertionError(f"{method_name} step_vs_cpu: {k} card {got_s[k]:.6g} cpu {w:.6g}")
-    worst_grad, grad_tol = {}, METHODS[method_name]["step_grad_tol"]
-    for name, w in want_g.items():
-        worst_grad[name] = rel_l2(got_g[name], w)
-        if not bool(torch.isfinite(got_g[name]).all()) or worst_grad[name] > grad_tol:
-            raise AssertionError(f"{method_name} step_vs_cpu: gradient of {name} rel L2 {worst_grad[name]:.3e}")
+    loss_err = {k: abs(got_s[k] - w) / max(abs(w), 1e-3) for k, w in want_s.items()}
+    worst_loss = max(loss_err, key=loss_err.get)
+    worst_grad = {name: rel_l2(got_g[name], w) for name, w in want_g.items()}
     log(
-        f"{method_name} step_vs_cpu (256 rays, full width): {len(want_s)} losses/metrics within "
-        f"{worst_loss:.2e} rel (tol {STEP_LOSS_TOL:g}); gradients rel L2 "
-        + ", ".join(f"{k} {v:.2e}" for k, v in worst_grad.items()) + f" (tol {grad_tol:g})"
+        f"{method_name} step_vs_cpu {tag} (256 rays, full width): {len(want_s)} losses/metrics within "
+        f"{loss_err[worst_loss]:.2e} rel ({worst_loss}; tol {loss_tol:g}); gradients rel L2 "
+        + ", ".join(f"{k} {v:.2e} (tol {grad_tols[k]:g})" for k, v in worst_grad.items())
     )
+    for k, err in loss_err.items():
+        if not math.isfinite(got_s[k]) or err > loss_tol:
+            raise AssertionError(f"{method_name} step_vs_cpu {tag}: {k} card {got_s[k]:.6g} cpu {want_s[k]:.6g}")
+    for name, err in worst_grad.items():
+        if not bool(torch.isfinite(got_g[name]).all()) or err > grad_tols[name]:
+            raise AssertionError(f"{method_name} step_vs_cpu {tag}: gradient of {name} rel L2 {err:.3e}")
+    if "control" not in results:
+        return
+    ctl_s, ctl_g = results["control"]
+    ctl_loss = {k: abs(ctl_s[k] - w) / max(abs(w), 1e-3) for k, w in want_s.items()}
+    ctl_grad = {name: rel_l2(ctl_g[name], w) for name, w in want_g.items()}
+    log(
+        f"{method_name} step_vs_cpu control, card bfloat16 against CPU {tag}: losses up to "
+        f"{max(ctl_loss.values()):.2e} rel ({max(ctl_loss, key=ctl_loss.get)}; f32 tol {loss_tol:g}); gradients rel L2 "
+        + ", ".join(f"{k} {v:.2e} (f32 tol {grad_tols[k]:g})" for k, v in ctl_grad.items())
+    )
+    limits = [("losses", loss_tol, ctl_loss)] + [
+        (f"gradients held to {tol:g}", tol, {k: v for k, v in ctl_grad.items() if grad_tols[k] == tol})
+        for tol in sorted({grad_tols[k] for k in ctl_grad})
+    ]
+    for what, tol, reads in limits:
+        if max(reads.values()) <= tol:
+            raise AssertionError(f"{method_name} step_vs_cpu {tag}: the bf16 control keeps its {what} within the "
+                                 f"f32 limit {tol:g} (at most {max(reads.values()):.3e}): the limit cannot tell "
+                                 "the f32 path from a bf16 one")
 
 
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
@@ -1253,6 +1422,9 @@ def main() -> int:
         trains = {m: train_phase(m, scene, Path(tmp) / m / "run") for m in METHODS}
         for m in METHODS:
             step_vs_cpu_phase(m, scene, Path(tmp) / m / "step")
+        for m, freqs in (("thermal-nerfacto-tpu", 10), ("thermal-nerfacto-tpu+fused", 10),
+                         ("thermal-nerfacto-tpu", F32_CHECK_FREQS)):
+            step_vs_cpu_phase(m, scene, Path(tmp) / m / f"step_f32_{freqs}", f32_freqs=freqs)
         for line in stage_lines():
             log(line)
         if args.profile is not None:
@@ -1264,12 +1436,14 @@ def main() -> int:
 
     tpu_counts, hash_counts = trains["thermal-nerfacto-tpu"][0], trains["thermal-nerfacto"][0]
     fused_counts = trains["thermal-nerfacto-tpu+fused"][0]
-    # row 4's launches by stack: the cross densities' and each proposal's
+    # rows 3 and 4's launches by stack: the cross densities' and each proposal's
     fused_stacks = trains["thermal-nerfacto-tpu+fused"][4]
-    ray_bwd = ray_kernels["fused_ray_mlp_bwd"]
-    if set(fused_stacks) != {rec["stack"] for rec in ray_bwd.values()}:
-        raise AssertionError(f"fused training ran the ray backward on stacks {sorted(fused_stacks)}, "
-                             f"not on those of {sorted(ray_bwd)}")
+    for way in ("fwd", "bwd"):
+        recs = ray_kernels[f"fused_ray_mlp_{way}"]
+        if set(fused_stacks[way]) != {rec["stack"] for rec in recs.values()}:
+            raise AssertionError(f"fused training ran the ray {way} on stacks {sorted(fused_stacks[way])}, "
+                                 f"not on those of {sorted(recs)}")
+    ray_fwd, ray_bwd = ray_kernels["fused_ray_mlp_fwd"], ray_kernels["fused_ray_mlp_bwd"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "nerfstudio_thermal_tpu/ops/pallas/"
     hash_source = "nerfstudio_thermal_torch/csrc/hash_encoding.cu"
@@ -1293,17 +1467,21 @@ def main() -> int:
         {"name": "hash_encode_bwd_pos", "route": "cuda", "source": hash_source,
          "replaces": pallas + "hash_encoding.py:145 (row 10)", "launches": hash_counts["hash_encode_bwd_pos"],
          **{k: hash_kernels["hash_encode_bwd_pos"][k] for k in keys}},
-        {"name": "fused_ray_mlp_fwd", "route": "cuda", "source": ray_fwd_source,
-         "replaces": pallas + "fused_mlp.py:774 (row 3: fused_ray_mlp -> _ray_fwd_kernel)",
-         "launches": fused_counts["fused_ray_mlp_fwd"],
-         **{k: ray_kernels["fused_ray_mlp_fwd"]["cross_density"][k] for k in keys}},
+        # row 3 at its three main-path shapes, each with the launches of its
+        # stack: the cross densities (8 x 256, the wgmma kernel) and the two
+        # proposal stacks (3 x 64, the one-pass narrow kernel)
+        *({"name": "fused_ray_mlp_fwd" + ("" if case == "cross_density" else f"_{case}"), "route": "cuda",
+           "source": ray_fwd_source,
+           "replaces": pallas + f"fused_mlp.py:774 (row 3: fused_ray_mlp -> _ray_fwd_kernel; {case})",
+           "launches": fused_stacks["fwd"][ray_fwd[case]["stack"]], **{k: ray_fwd[case][k] for k in keys}}
+          for case in ("cross_density", "proposal_0", "proposal_1")),
         # row 4 at its three main-path shapes, each with the launches of its
         # stack: the cross densities (8 x 256, input gradients) and the two
         # proposal stacks (3 x 64, none)
         *({"name": "fused_ray_mlp_bwd" + ("" if case == "cross_density" else f"_{case}"), "route": "cuda",
            "source": ray_bwd_source,
            "replaces": pallas + f"fused_mlp.py:797 (row 4: _fused_ray_bwd -> _ray_bwd_kernel; {case})",
-           "launches": fused_stacks[ray_bwd[case]["stack"]], **{k: ray_bwd[case][k] for k in keys}}
+           "launches": fused_stacks["bwd"][ray_bwd[case]["stack"]], **{k: ray_bwd[case][k] for k in keys}}
           for case in ("cross_density", "proposal_0", "proposal_1")),
         {"name": "fused_field_mlp_fwd", "route": "cuda", "source": ray_fwd_source,
          "replaces": pallas + "fused_mlp.py:1160 (row 5: fused_field_mlp -> _field_fwd_kernel)",

@@ -10,7 +10,7 @@ The CLI (`configs/cli.py`, `scripts/train.py`) is later work.
 import copy
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -25,6 +25,7 @@ from nerfstudio_thermal_torch.data.dataparsers.nerfstudio_dataparser import (
 from nerfstudio_thermal_torch.engine.optimizers import AdamOptimizerConfig, OptimizerGroupConfig
 from nerfstudio_thermal_torch.engine.schedulers import ExponentialDecaySchedulerConfig
 from nerfstudio_thermal_torch.engine.trainer import Trainer, TrainerConfig
+from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 from nerfstudio_thermal_torch.models.thermal_nerfacto import (
     ThermalNerfactoModel,
     ThermalNerfactoModelConfig,
@@ -40,10 +41,14 @@ class MethodConfig:
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     dataparser: NerfstudioDataParserConfig = field(default_factory=NerfstudioDataParserConfig)
     datamanager: VanillaDataManagerConfig = field(default_factory=VanillaDataManagerConfig)
-    model: ThermalNerfactoModelConfig = field(default_factory=ThermalNerfactoModelConfig)
+    model: NerfactoModelConfig = field(default_factory=NerfactoModelConfig)
     optimizers: Dict[str, OptimizerGroupConfig] = field(default_factory=dict)
     data: Optional[Path] = None
     description: str = ""
+    dynamic_batch: Optional[Any] = None
+    """The JAX package's DynamicBatchPipelineConfig (instant-ngp); the
+    dynamic-batch pipeline is not ported yet, and setup_trainer raises when
+    this is set."""
 
 
 def _field_opt():
@@ -143,7 +148,10 @@ def setup_trainer(
 ) -> Trainer:
     """Dataparser -> data manager -> model -> pipeline -> trainer. The model
     is built on `device` (CUDA unless the caller asks for the CPU) from the
-    trainer's seed."""
+    trainer's seed: a ThermalNerfactoModel for a thermal config, else a
+    NerfactoModel."""
+    if config.dynamic_batch is not None:
+        raise NotImplementedError("the dynamic-batch pipeline (MethodConfig.dynamic_batch) is not ported yet")
     if config.data is not None:
         config.dataparser.data = Path(config.data)
     parser_cls = ThermalNerf if isinstance(config.dataparser, ThermalNerfDataParserConfig) else Nerfstudio
@@ -151,7 +159,8 @@ def setup_trainer(
     metadata = dict(datamanager.train_dataparser_outputs.metadata)
     if "is_thermal" not in metadata:
         metadata["is_thermal"] = list(datamanager.train_dataset.is_thermal)
-    model = ThermalNerfactoModel(
+    model_cls = ThermalNerfactoModel if isinstance(config.model, ThermalNerfactoModelConfig) else NerfactoModel
+    model = model_cls(
         config.model,
         scene_aabb=datamanager.train_dataparser_outputs.scene_box,
         num_train_data=len(datamanager.train_dataset),

@@ -23,10 +23,13 @@
 // the products (chip_smoke.py's bound terms). The ray prologue moves 12
 // bytes of x per point; rays cost 24 bytes each and midpoints 4 per point.
 //
-// Design: a first, simple composition of fused_mlp_fwd.cu's kernel. A
-// prologue kernel (one thread per point, IEEE roundings, fused_ray_common.cuh)
-// writes x [n, 3] f32 and the selector column of the output; the fused-MLP
-// kernel runs the stack on x, writing its rows with the output's stride.
+// Design: a composition of fused_mlp_fwd.cu's kernels. A prologue kernel
+// (one thread per point, IEEE roundings, fused_ray_common.cuh) writes x
+// [n, 3] f32 and the selector column of the output; the fused-MLP forward
+// runs the stack on x, on the path launch_fwd picks (the one-pass narrow
+// kernel for the 64-wide proposal stacks and the colour head, the wgmma
+// kernel for the 8 x 256 stacks), writing its rows with the output's
+// stride.
 // The whole-field forward runs the base stack into a [n, 16] buffer, a
 // second kernel (one thread per element, so that the stores coalesce)
 // assembles the head input [n, 16 + geo + E] in f32 (every value rounded
@@ -79,45 +82,56 @@ __global__ void field_head_input(const float* __restrict__ d, const float* __res
 
 inline int blocks(long long n) { return (int)((n + kPointThreads - 1) / kPointThreads); }
 
+// One stack's packed weights, in the mma order and the wgmma order (see
+// fused_mlp_fwd.cu launch_fwd, which picks the path that reads them).
+struct Stack {
+  const void* w;
+  const void* w_wg;
+  long long wg_elems;
+  const float* bias;
+};
+
 template <typename T>
-cudaError_t ray_fwd(const float* o, const float* d, const float* t, const void* w,
-                    const float* bias, const float* freqs, float* x, T* out, int n, int S,
-                    const MlpDesc& md, cudaStream_t s) {
+cudaError_t ray_fwd(const float* o, const float* d, const float* t, const Stack& st,
+                    const float* freqs, float* x, T* out, int n, int S, const MlpDesc& md,
+                    int bf16, cudaStream_t s) {
   const int stride = md.out_dim + 1;
   ray_prologue<T><<<blocks(n), kPointThreads, 0, s>>>(o, d, t, x, out, stride, md.out_dim, n, S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_fwd(x, w, bias, freqs, out, stride, n, md, sizeof(T) == 2, s);
+  return launch_fwd(x, st.w, st.w_wg, st.wg_elems, st.bias, freqs, out, stride, n, md, bf16, s);
 }
 
 template <typename T>
 cudaError_t field_fwd(const float* o, const float* d, const float* t, const float* emb,
-                      const void* bw, const float* bb, const float* freqs, const void* hw,
-                      const float* hb, float* x, T* base_out, float* head_in, T* out, int n,
-                      int S, int E, const MlpDesc& base, const MlpDesc& head, cudaStream_t s) {
+                      const Stack& bst, const float* freqs, const Stack& hst, float* x, T* base_out,
+                      float* head_in, T* out, int n, int S, int E, const MlpDesc& base,
+                      const MlpDesc& head, int bf16, cudaStream_t s) {
   const int C = head.out_dim, geo = base.out_dim - 1;
-  const int bf16 = sizeof(T) == 2;
   ray_prologue<T><<<blocks(n), kPointThreads, 0, s>>>(o, d, t, x, out, C + 2, C + 1, n, S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_fwd(x, bw, bb, freqs, base_out, base.out_dim, n, base, bf16, s);
+  err = launch_fwd(x, bst.w, bst.w_wg, bst.wg_elems, bst.bias, freqs, base_out, base.out_dim, n, base,
+                   bf16, s);
   if (err != cudaSuccess) return err;
   field_head_input<T><<<blocks((long long)n * (16 + geo + E)), kPointThreads, 0, s>>>(
       d, emb, base_out, head_in, out, n, S, geo, E, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_fwd(head_in, hw, hb, freqs, out, C + 2, n, head, bf16, s);
+  return launch_fwd(head_in, hst.w, hst.w_wg, hst.wg_elems, hst.bias, freqs, out, C + 2, n, head, bf16,
+                    s);
 }
 
 }  // namespace
 
 // One fused ray-march forward on `stream`: origins, dirs [n_rays, 3] f32,
 // ts [n_rays * S] f32, the MLP packed as for fused_mlp_fwd (desc, weights,
-// biases, frequencies; in_dim 3 with the encoding). Scratch x [n, 3] f32;
-// out [n, out_dim + 1] in the compute dtype. Returns the cudaError_t.
+// wgmma-order weights, biases, frequencies; in_dim 3 with the encoding),
+// bf16 the compute dtype (0: f32). Scratch x [n, 3] f32; out [n, out_dim +
+// 1] in the compute dtype. Returns the cudaError_t.
 extern "C" int fused_ray_fwd(const void* o, const void* d, const void* t, const void* w,
-                             const void* bias, const void* freqs, void* x, void* out, int n_rays,
-                             int S, const int* desc, int desc_len, int compute_bf16, int device,
-                             void* stream) {
+                             const void* w_wg, long long wg_elems, const void* bias,
+                             const void* freqs, void* x, void* out, int n_rays, int S,
+                             const int* desc, int desc_len, int bf16, int device, void* stream) {
   MlpDesc md;
   if (!parse_desc(desc, desc_len, md) || md.in_dim != 3 || md.num_freqs <= 0 || n_rays <= 0 ||
       S <= 0)
@@ -129,13 +143,13 @@ extern "C" int fused_ray_fwd(const void* o, const void* d, const void* t, const 
   const float* of = static_cast<const float*>(o);
   const float* df = static_cast<const float*>(d);
   const float* tf = static_cast<const float*>(t);
-  const float* bf = static_cast<const float*>(bias);
+  const Stack st{w, w_wg, wg_elems, static_cast<const float*>(bias)};
   const float* ff = static_cast<const float*>(freqs);
   float* xf = static_cast<float*>(x);
-  if (compute_bf16) {
-    err = ray_fwd(of, df, tf, w, bf, ff, xf, static_cast<__nv_bfloat16*>(out), n, S, md, s);
+  if (bf16) {
+    err = ray_fwd(of, df, tf, st, ff, xf, static_cast<__nv_bfloat16*>(out), n, S, md, bf16, s);
   } else {
-    err = ray_fwd(of, df, tf, w, bf, ff, xf, static_cast<float*>(out), n, S, md, s);
+    err = ray_fwd(of, df, tf, st, ff, xf, static_cast<float*>(out), n, S, md, bf16, s);
   }
   return (int)err;
 }
@@ -143,15 +157,17 @@ extern "C" int fused_ray_fwd(const void* o, const void* d, const void* t, const 
 // One whole-field forward on `stream`: origins, dirs [n_rays, 3], ts
 // [n_rays * S], emb [n_rays, E] f32; the base stack packed with the
 // encoding (in_dim 3, out 1 + geo) and the head stack without (in_dim
-// 16 + geo + E, sigmoid, out C). Scratch x [n, 3] f32 and base_out [n,
-// 1 + geo] in the compute dtype; head_in [n, 16 + geo + E] f32 (kept for
-// the backward); out [n, C + 2] in the compute dtype.
+// 16 + geo + E, sigmoid, out C), each with its wgmma-order weights; bf16
+// the compute dtype of both (0: f32). Scratch x [n, 3] f32 and base_out
+// [n, 1 + geo] in the compute dtype; head_in [n, 16 + geo + E] f32 (kept
+// for the backward); out [n, C + 2] in the compute dtype.
 extern "C" int fused_field_fwd(const void* o, const void* d, const void* t, const void* emb,
-                               const void* bw, const void* bb, const void* freqs, const void* hw,
-                               const void* hb, void* x, void* base_out, void* head_in, void* out,
-                               int n_rays, int S, int E, const int* base_desc, int base_len,
-                               const int* head_desc, int head_len, int compute_bf16, int device,
-                               void* stream) {
+                               const void* bw, const void* bw_wg, long long b_wg_elems,
+                               const void* bb, const void* freqs, const void* hw, const void* hw_wg,
+                               long long h_wg_elems, const void* hb, void* x, void* base_out,
+                               void* head_in, void* out, int n_rays, int S, int E,
+                               const int* base_desc, int base_len, const int* head_desc,
+                               int head_len, int bf16, int device, void* stream) {
   MlpDesc base, head;
   if (!parse_desc(base_desc, base_len, base) || !parse_desc(head_desc, head_len, head) ||
       base.in_dim != 3 || base.num_freqs <= 0 || head.num_freqs != 0 || !head.out_sigmoid ||
@@ -165,17 +181,17 @@ extern "C" int fused_field_fwd(const void* o, const void* d, const void* t, cons
   const float* df = static_cast<const float*>(d);
   const float* tf = static_cast<const float*>(t);
   const float* ef = static_cast<const float*>(emb);
-  const float* bbf = static_cast<const float*>(bb);
-  const float* hbf = static_cast<const float*>(hb);
+  const Stack bst{bw, bw_wg, b_wg_elems, static_cast<const float*>(bb)};
+  const Stack hst{hw, hw_wg, h_wg_elems, static_cast<const float*>(hb)};
   const float* ff = static_cast<const float*>(freqs);
   float* xf = static_cast<float*>(x);
   float* hif = static_cast<float*>(head_in);
-  if (compute_bf16) {
-    err = field_fwd(of, df, tf, ef, bw, bbf, ff, hw, hbf, xf, static_cast<__nv_bfloat16*>(base_out),
-                    hif, static_cast<__nv_bfloat16*>(out), n, S, E, base, head, s);
+  if (bf16) {
+    err = field_fwd(of, df, tf, ef, bst, ff, hst, xf, static_cast<__nv_bfloat16*>(base_out), hif,
+                    static_cast<__nv_bfloat16*>(out), n, S, E, base, head, bf16, s);
   } else {
-    err = field_fwd(of, df, tf, ef, bw, bbf, ff, hw, hbf, xf, static_cast<float*>(base_out), hif,
-                    static_cast<float*>(out), n, S, E, base, head, s);
+    err = field_fwd(of, df, tf, ef, bst, ff, hst, xf, static_cast<float*>(base_out), hif,
+                    static_cast<float*>(out), n, S, E, base, head, bf16, s);
   }
   return (int)err;
 }

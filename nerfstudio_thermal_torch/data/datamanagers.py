@@ -2,10 +2,11 @@
 
 `VanillaDataManager` owns the train and eval datasets and the train pixel
 sampler, and gives one host batch per step (the eval batches come with the
-eval surface). Ray generation happens in the
-train step, on the device. The C++ batch sampler and the prefetching
-manager of the JAX package are later work: `use_native_sampler` is off
-here and raises if set.
+eval surface). Ray generation happens in the train step, on the device. As
+in the JAX package, `use_native_sampler` (on by default) samples through
+the C++ batch sampler (data/native_sampler.py) when the dataset qualifies
+and the library builds, and through the Python PixelSampler otherwise. The
+prefetching manager of the JAX package is later work.
 """
 
 from dataclasses import dataclass
@@ -25,14 +26,14 @@ class VanillaDataManagerConfig:
     patch_size: int = 1
     camera_res_scale_factor: float = 1.0
     seed: int = 0
-    use_native_sampler: bool = False
-    """The JAX package's C++ batch sampler; not ported yet."""
+    use_native_sampler: bool = True
+    """Use the C++ batch sampler (native/batch_sampler.cpp) for the per-step
+    host hot path when it builds and the dataset has no extra per-pixel
+    channels (depth/semantics); falls back to the Python sampler otherwise."""
 
 
 class VanillaDataManager:
     def __init__(self, config: VanillaDataManagerConfig, dataparser: DataParser, test_split: str = "val"):
-        if config.use_native_sampler:
-            raise NotImplementedError("the native batch sampler is not ported yet")
         self.config = config
         self.dataparser = dataparser
         self.train_dataparser_outputs = dataparser.get_dataparser_outputs(split="train")
@@ -43,10 +44,38 @@ class VanillaDataManager:
             PixelSamplerConfig(config.train_num_rays_per_batch, config.patch_size),
             self.train_dataset, seed=config.seed,
         )
+        self._native = self._try_native_sampler() if config.use_native_sampler else None
+
+    def _try_native_sampler(self):
+        """The C++ sampler when the dataset qualifies (no per-pixel sidecar
+        channels, one channel count) and the library builds, else None."""
+        md = self.train_dataset.metadata
+        if md.get("depth_filenames") or (md.get("semantics") and md["semantics"].get("filenames")):
+            return None
+        try:
+            from nerfstudio_thermal_torch.data.native_sampler import NativeBatchSampler, native_available
+
+            if not native_available():
+                return None
+            images = [self.train_dataset.get_image(i) for i in range(len(self.train_dataset))]
+            if len({im.shape[-1] for im in images}) != 1:
+                return None
+            return NativeBatchSampler(
+                images, self.train_dataset.is_thermal, patch_size=self.config.patch_size, seed=self.config.seed
+            )
+        except Exception:
+            return None
+
+    @property
+    def uses_native_sampler(self) -> bool:
+        return self._native is not None
 
     @property
     def train_cameras(self):
         return self.train_dataset.cameras
 
     def next_train(self, step: int) -> Dict[str, np.ndarray]:
-        return self.train_pixel_sampler.sample(self.config.train_num_rays_per_batch, step=step)
+        n = self.config.train_num_rays_per_batch
+        if self._native is not None:
+            return self._native.sample(n, step=step)
+        return self.train_pixel_sampler.sample(n, step=step)

@@ -61,6 +61,8 @@ class TrainerConfig:
     save_only_latest_checkpoint: bool = True
     load_dir: Optional[Path] = None
     load_step: Optional[int] = None
+    num_devices: Optional[int] = None
+    """Devices of the data-parallel mesh (None: all); the port trains on one."""
     seed: int = 42
     output_dir: Path = Path("outputs")
     experiment_name: str = "experiment"
@@ -90,8 +92,10 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
 
     Updates the model's parameters, the optimizers and `state` in place.
     `uniforms` ({"rgb": [...], "thermal": [...]}, one draw per sampling
-    level) replaces the jitter the state's generator would draw; a test
-    passes the JAX package's draws there."""
+    level) replaces the jitter the state's generator would draw, and
+    `background_uniforms` the draw of a random background (U[0, 1) of the
+    prediction's shape, [R, 3] or [R, 4] for RGBT) that the loss blends;
+    a test passes the JAX package's draws there."""
     cfg = model.config
     use_anneal = cfg.use_proposal_weight_anneal
     use_anneal_t = getattr(cfg, "use_proposal_thermal_weight_anneal", False)
@@ -100,6 +104,7 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
     warmup = cfg.proposal_warmup
     update_every = cfg.proposal_update_every
     thermal = hasattr(model, "field_thermal")
+    random_background = isinstance(cfg.background_color, str) and cfg.background_color == "random"
     ray_generator = RayGenerator(cameras)
 
     def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None):
@@ -127,6 +132,11 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
             uniforms=uniforms, generator=state.generator, **kwargs,
         )
         metrics = model.get_metrics_dict(outputs, batch, train=True)
+        if random_background and background_uniforms is None:
+            # the JAX step draws it from its loss key, with the prediction's shape
+            rgb = outputs["rgb"]
+            shape = (*rgb.shape[:-1], rgb.shape[-1] + (outputs["rgb_thermal"].shape[-1] if thermal else 0))
+            background_uniforms = torch.rand(shape, generator=state.generator, device=rgb.device)
         loss_dict = model.get_loss_dict(
             outputs, batch, metrics, train=True, background_uniforms=background_uniforms
         )
@@ -154,6 +164,7 @@ class Trainer:
             ("profiler", config.profiler != "none"),
             ("viewer", config.vis != "none"),
             ("gradient accumulation", config.gradient_accumulation_steps > 1),
+            ("data parallelism over several devices", config.num_devices not in (None, 1)),
         ):
             if unported:
                 raise NotImplementedError(f"the trainer's {name} is not ported yet")

@@ -28,6 +28,12 @@ from nerfstudio_thermal_torch.utils.precision import pin_precision, resolve_devi
 
 @dataclass
 class ModelConfig:
+    enable_collider: bool = True
+    collider_near: float = 2.0
+    collider_far: float = 6.0
+    """The collider fields, with the JAX package's defaults; as there, no
+    model of the port reads them (nerfacto bounds its rays by near_plane
+    and far_plane)."""
     eval_num_rays_per_chunk: int = 4096
 
 

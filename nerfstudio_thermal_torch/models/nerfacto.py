@@ -66,12 +66,17 @@ class NerfactoModelConfig(ModelConfig):
     proposal_initial_sampler: str = "piecewise"  # piecewise | uniform
     interlevel_loss_mult: float = 1.0
     distortion_loss_mult: float = 0.002
+    orientation_loss_mult: float = 0.0001
+    pred_normal_loss_mult: float = 0.001
     use_proposal_weight_anneal: bool = True
     use_appearance_embedding: bool = True
     use_average_appearance_embedding: bool = True
     proposal_weights_anneal_slope: float = 10.0
     proposal_weights_anneal_max_num_iters: int = 1000
     use_single_jitter: bool = True
+    predict_normals: bool = False
+    """predict_normals and the two normal loss weights keep the JAX
+    package's names and defaults; as there, nerfacto reads none of them."""
     disable_scene_contraction: bool = False
     use_gradient_scaling: bool = False
     appearance_embed_dim: int = 32

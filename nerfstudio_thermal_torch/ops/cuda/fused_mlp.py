@@ -13,6 +13,14 @@ on first use into build/kernels/ and loaded with ctypes (ops/cuda/build.py).
 There is no fallback from one to the other: a CUDA tensor launches the
 kernel or raises.
 
+The forward has three paths, chosen by the kernel library from the
+descriptor and the compute dtype (`forward_plan` asks it which): the f32
+kernel; for bf16 the one-pass narrow kernel (no skip layer, every padded
+width <= 64: the proposal stacks, the colour head) or the wgmma kernel
+(every other stack whose padded widths are <= 256: the 8 x 256 base
+stacks), which reads the weights in its own order, laid out by the plan
+the library returns (`Packed.weights_wg`, `_pack_wgmma`).
+
 Numerics (both versions): the frequency table is 2*pi*exp2(e_k) in f32;
 pre = x_d * f_k is one product; the encoding [sin(pre), cos(pre), x] is
 rounded to the compute dtype. Each layer adds its bias (rounded to the
@@ -36,6 +44,8 @@ from nerfstudio_thermal_torch.ops.cuda import build
 MAX_LAYERS = 16
 _DESC_HEADER = 9  # ints before the per-layer descriptors
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# Forward paths, in the order of the kernel library's FwdPath values.
+FWD_PATHS = ("f32", "narrow", "wgmma")
 
 FreqEncoding = Tuple[int, float, float, bool]
 
@@ -114,7 +124,9 @@ _IP = ctypes.POINTER(_I)
 
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
-    lib.fused_mlp_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _IP, _I, _I, _I, _P]
+    lib.fused_mlp_fwd_plan.argtypes = [_IP, _I, _I, _IP, _IP, ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_mlp_fwd_plan.restype = _I
+    lib.fused_mlp_fwd.argtypes = [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _IP, _I, _I, _I, _P]
     lib.fused_mlp_fwd.restype = _I
 
 
@@ -258,10 +270,60 @@ def unpack_grads(
     return dws, dbs
 
 
-def smem_bytes(in_pad: int, hid_pad: int, compute_dtype: torch.dtype) -> int:
-    if compute_dtype == torch.bfloat16:
-        return 128 * (in_pad + 8) * 2 + 2 * 128 * (hid_pad + 8) * 2
-    return 64 * (in_pad + 1) * 4 + 2 * 64 * (hid_pad + 1) * 4
+def forward_plan(desc: Sequence[int], compute_dtype: torch.dtype) -> Tuple[str, List[Tuple[int, int, int, int]], int]:
+    """The forward kernel library's plan of a stack (fused_mlp_fwd.cu
+    fused_mlp_fwd_plan): its path (one of FWD_PATHS) and, on the wgmma
+    path, per layer (wgmma width nw, 64-row slices of x0, 64-row slices of
+    the previous layer's output, offset of the layer's slices in elements)
+    and the length of the wgmma-order weights. Raises for a stack no
+    forward kernel takes."""
+    c_desc = (ctypes.c_int * len(desc))(*desc)
+    path, layers, elems = ctypes.c_int(), (ctypes.c_int * (4 * MAX_LAYERS))(), ctypes.c_longlong()
+    err = load_library("fwd").fused_mlp_fwd_plan(
+        c_desc, len(desc), int(compute_dtype == torch.bfloat16), ctypes.byref(path), layers, ctypes.byref(elems)
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_fwd: malformed descriptor (cudaError {err})")
+    if path.value < 0:
+        widths = [desc[_DESC_HEADER + 5 * i + 1] for i in range(desc[0])]
+        raise ValueError(f"fused_mlp: no {compute_dtype} forward kernel takes this stack "
+                         f"(padded input {desc[2]}, layers {widths})")
+    plan = [tuple(layers[4 * i : 4 * i + 4]) for i in range(desc[0])] if FWD_PATHS[path.value] == "wgmma" else []
+    return FWD_PATHS[path.value], plan, elems.value
+
+
+@functools.lru_cache(maxsize=16)
+def _wgmma_index(nw: int, device) -> torch.Tensor:
+    """Flat indices into a slice stored n-major ([nw, 64]: row n holds
+    the slice's 64 k values of column n), in wgmma's K-major 128-byte
+    swizzle order: row n is 128 bytes, and its 16-byte chunk c of k values
+    8c .. 8c + 7 sits at chunk position c ^ (n % 8)."""
+    n = torch.arange(nw, device=device)[:, None, None]
+    pos = torch.arange(8, device=device)[None, :, None]
+    e = torch.arange(8, device=device)[None, None, :]
+    return (n * 64 + (pos ^ (n % 8)) * 8 + e).reshape(-1)
+
+
+def _pack_wgmma(
+    mats: Sequence[torch.Tensor], flags: Sequence[bool], in_pad: int,
+    plan: Sequence[Tuple[int, int, int, int]], total: int,
+) -> torch.Tensor:
+    """The padded [k_pad, n_pad] layers in the wide path's order: per layer
+    of the plan (`forward_plan`) the 64-row slices of its x0 rows (rows
+    0 .. in_pad), then of its h rows (from in_pad in a skip layer, from 0
+    otherwise), each zero beyond the layer's rows and columns, laid out by
+    `_wgmma_index`; `total` elements in all."""
+    out = []
+    for (nw, slices_x0, slices_h, _), wp, skip in zip(plan, mats, flags):
+        for start, stop, slices in ((0, in_pad, slices_x0), (in_pad if skip else 0, wp.shape[0], slices_h)):
+            rows = wp[start:stop][: 64 * slices]
+            seg = torch.zeros(slices * 64, nw, dtype=wp.dtype, device=wp.device)
+            seg[: rows.shape[0], : wp.shape[1]] = rows
+            for s in range(slices):
+                out.append(seg[64 * s : 64 * s + 64].t().reshape(-1)[_wgmma_index(nw, wp.device)])
+    packed = torch.cat(out)
+    assert packed.numel() == total
+    return packed
 
 
 # --------------------------------------------------------------------------
@@ -281,6 +343,8 @@ class Packed:
     compute_dtype: torch.dtype
     shapes: List[Tuple[int, int]]  # per layer [din, dout]
     weights_t: Optional[torch.Tensor] = None  # packed W^T, for the backward
+    fwd_path: Optional[str] = None  # the forward kernel (forward_plan); None off the card
+    weights_wg: Optional[torch.Tensor] = None  # the wgmma path's weights (_pack_wgmma)
 
 
 class PackCache:
@@ -317,8 +381,10 @@ def prepare(
     cache: Optional[PackCache] = None,
 ) -> Packed:
     """Pack an MLP for `launch` (and, with `transposed`, for
-    `launch_bwd`) and check that it fits the forward kernel. With a cache,
-    calls with unchanged tensors reuse the packing."""
+    `launch_bwd`). For CUDA tensors the kernel library names the forward
+    path, and a stack no forward kernel takes raises; CPU tensors get the
+    packing alone (the tests' emulations read it). With a cache, calls with
+    unchanged tensors reuse the packing."""
     args = (in_dim, weights, biases, out_activation, skips, freq_encoding, compute_dtype, transposed)
     if cache is None:
         return _prepare(*args)
@@ -335,11 +401,6 @@ def _prepare(in_dim, weights, biases, out_activation, skips, freq_encoding, comp
     w, b, layer_desc, in_pad, hid_pad, *wt = pack(
         weights, biases, skips, enc_dim, compute_dtype, transposed
     )
-    if smem_bytes(in_pad, hid_pad, compute_dtype) > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_mlp: widths (input {in_pad}, hidden {hid_pad}) exceed the "
-            "kernel's shared memory"
-        )
     out_dim = weights[-1].shape[1]
     header = [
         len(weights), in_dim, in_pad, enc_dim,
@@ -353,13 +414,28 @@ def _prepare(in_dim, weights, biases, out_activation, skips, freq_encoding, comp
         else torch.zeros(1, dtype=torch.float32, device=w.device)
     )
     shapes = [tuple(t.shape) for t in weights]
-    return Packed(w, b, freqs, header + layer_desc, out_dim, compute_dtype, shapes,
-                  wt[0] if wt else None)
+    desc = header + layer_desc
+    path = weights_wg = None
+    if w.device.type == "cuda":
+        path, plan, total = forward_plan(desc, compute_dtype)
+        if path == "wgmma":
+            mats, flags, _ = _pad_layers(weights, skips, enc_dim, compute_dtype)
+            weights_wg = _pack_wgmma(mats, flags, in_pad, plan, total)
+    return Packed(w, b, freqs, desc, out_dim, compute_dtype, shapes, wt[0] if wt else None, path, weights_wg)
+
+
+def wgmma_args(packed: Packed) -> Tuple[Optional[int], int]:
+    """(pointer, length) of a stack's wgmma-order weights, as the kernel
+    libraries take them; (None, 0) off the wgmma path."""
+    if packed.weights_wg is None:
+        return None, 0
+    return packed.weights_wg.data_ptr(), packed.weights_wg.numel()
 
 
 def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
-    """One forward launch on the current stream: x [N, in_dim] f32 CUDA,
-    contiguous -> [N, out_dim] in the compute dtype."""
+    """One forward launch on the current stream, on the stack's path
+    (`Packed.fwd_path`): x [N, in_dim] f32 CUDA, contiguous -> [N,
+    out_dim] in the compute dtype."""
     if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("fused_mlp kernel: x must be a contiguous [N, in_dim] f32 CUDA tensor")
     if x.shape[1] != packed.desc[1]:
@@ -370,13 +446,15 @@ def launch(x: torch.Tensor, packed: Packed) -> torch.Tensor:
         return out
     desc = (ctypes.c_int * len(packed.desc))(*packed.desc)
     err = load_library("fwd").fused_mlp_fwd(
-        x.data_ptr(), packed.weights.data_ptr(), packed.biases.data_ptr(), packed.freqs.data_ptr(),
-        out.data_ptr(), n, desc, len(packed.desc), int(packed.compute_dtype == torch.bfloat16),
+        x.data_ptr(), packed.weights.data_ptr(), *wgmma_args(packed), packed.biases.data_ptr(),
+        packed.freqs.data_ptr(), out.data_ptr(), n, desc, len(packed.desc),
+        int(packed.compute_dtype == torch.bfloat16),
         *build.device_and_stream(x),
     )
     if err != 0:
-        raise RuntimeError(f"fused_mlp_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_mlp_fwd kernel launch failed ({packed.fwd_path} path): cudaError {err}")
     fused_mlp.launches += 1
+    fused_mlp.path_launches[packed.fwd_path] += 1
     return out
 
 
@@ -653,6 +731,8 @@ def fused_mlp(
     return _FusedMLP.apply(x, spec, pack_cache, *weights, *biases)
 
 
-# Kernel launches since the last reset; the CPU path does not count.
+# Kernel launches since the last reset; the CPU path does not count. The
+# forward also counts its launches by path (FWD_PATHS).
 fused_mlp.launches = 0
+fused_mlp.path_launches = collections.Counter()
 fused_mlp_bwd.launches = 0

@@ -257,10 +257,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(_I)
 
 
+_LL = ctypes.c_longlong
+
+
 def _bind_fwd(lib: ctypes.CDLL) -> None:
-    lib.fused_ray_fwd.argtypes = [_P] * 8 + [_I, _I, _IP, _I, _I, _I, _P]
+    lib.fused_ray_fwd.argtypes = [_P] * 5 + [_LL] + [_P] * 4 + [_I, _I, _IP, _I, _I, _I, _P]
     lib.fused_ray_fwd.restype = _I
-    lib.fused_field_fwd.argtypes = [_P] * 13 + [_I, _I, _I, _IP, _I, _IP, _I, _I, _I, _P]
+    lib.fused_field_fwd.argtypes = ([_P] * 6 + [_LL] + [_P] * 4 + [_LL] + [_P] * 5
+                                    + [_I, _I, _I, _IP, _I, _IP, _I, _I, _I, _P])
     lib.fused_field_fwd.restype = _I
 
 
@@ -315,13 +319,14 @@ def launch_ray(origins, dirs, ts, num_samples: int, packed: fm.Packed) -> torch.
     x = torch.empty(n, 3, dtype=torch.float32, device=origins.device)
     desc, desc_len = _desc(packed)
     err = load_library("fwd").fused_ray_fwd(
-        origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), packed.weights.data_ptr(),
+        origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), packed.weights.data_ptr(), *fm.wgmma_args(packed),
         packed.biases.data_ptr(), packed.freqs.data_ptr(), x.data_ptr(), out.data_ptr(),
         r, num_samples, desc, desc_len, _bf16(packed.compute_dtype), *build.device_and_stream(origins),
     )
     if err != 0:
-        raise RuntimeError(f"fused_ray_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_ray_fwd kernel launch failed ({packed.fwd_path} path): cudaError {err}")
     fused_ray_mlp.launches += 1
+    fused_ray_mlp.stack_launches[tuple(packed.desc)] += 1
     return out
 
 
@@ -339,12 +344,14 @@ def launch_field(origins, dirs, ts, emb, num_samples: int, base: fm.Packed, head
     (bd, bl), (hd, hl) = _desc(base), _desc(head)
     err = load_library("fwd").fused_field_fwd(
         origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), emb.data_ptr(), base.weights.data_ptr(),
-        base.biases.data_ptr(), base.freqs.data_ptr(), head.weights.data_ptr(), head.biases.data_ptr(),
-        x.data_ptr(), base_out.data_ptr(), head_in.data_ptr(), out.data_ptr(),
-        r, num_samples, emb.shape[1], bd, bl, hd, hl, _bf16(cdt), *build.device_and_stream(origins),
+        *fm.wgmma_args(base), base.biases.data_ptr(), base.freqs.data_ptr(), head.weights.data_ptr(),
+        *fm.wgmma_args(head), head.biases.data_ptr(), x.data_ptr(), base_out.data_ptr(), head_in.data_ptr(),
+        out.data_ptr(), r, num_samples, emb.shape[1], bd, bl, hd, hl, _bf16(cdt),
+        *build.device_and_stream(origins),
     )
     if err != 0:
-        raise RuntimeError(f"fused_field_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_field_fwd kernel launch failed ({base.fwd_path} base, {head.fwd_path} "
+                           f"head): cudaError {err}")
     fused_field_mlp.launches += 1
     return out, head_in
 
@@ -618,9 +625,11 @@ def fused_field_mlp(
 
 
 # Kernel launches since the last reset; the CPU path does not count. The
-# ray backward also counts those of its launches that computed input
-# gradients, and its launches by stack (the packed descriptor as a tuple).
+# ray forward and backward also count their launches by stack (the packed
+# descriptor as a tuple), and the backward those of its launches that
+# computed input gradients.
 fused_ray_mlp.launches = 0
+fused_ray_mlp.stack_launches = collections.Counter()
 fused_ray_mlp_bwd.launches = 0
 fused_ray_mlp_bwd.input_grad_launches = 0
 fused_ray_mlp_bwd.stack_launches = collections.Counter()

@@ -13,8 +13,10 @@ per tensor by the relative L2 error ||got - want|| / ||want||: at most 1e-4
 in f32 (exact products, another summation order over N) and 3e-2 in bf16
 (one flipped bf16 rounding of dh or of a relu mask at a tie moves a
 layer's dW by about 2^-8 relative), and every value must be finite. Both
-backward paths (the one-pass kernel of a 64-wide stack, the walk / dW /
-sums of an 8 x 256 one) give bitwise-equal results over two launches.
+forward paths of bf16 (the one-pass narrow kernel of a 64-wide stack, the
+wgmma kernel of an 8 x 256 one) and both backward paths (the one-pass
+kernel, the walk / dW / sums) give bitwise-equal results over two
+launches.
 
 Hash grid, as chip_smoke.py holds it: forward within 1e-6 absolute (the
 same f32 products and sums in the same order), plus one bf16 step for a
@@ -39,6 +41,7 @@ from nerfstudio_thermal_torch.ops import encodings as enc
 from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
 from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+from tests import torch_fused_mlp_plan as plan_rule
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +96,85 @@ def test_kernel_matches_plain(cuda, case):
     np.testing.assert_allclose(
         got.float().cpu().numpy(), want.float().cpu().numpy(), atol=tol, rtol=tol
     )
+
+
+FWD_PATH_CASES = [
+    # (in_dim, layer widths incl. output, skips, freq_encoding, out_act, n, path): the
+    # main path's stacks at its shapes (row 1 / the cross densities, the two
+    # proposal stacks, the colour head) and at a ragged N
+    (3, (256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), None, 1 << 20, "wgmma"),
+    (3, (256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), None, 777_777, "wgmma"),
+    (3, (64, 64, 1), (), (5, 0.0, 4.0, True), None, 4_194_304, "narrow"),
+    (3, (64, 64, 1), (), (7, 0.0, 6.0, True), None, 1_572_864, "narrow"),
+    (3, (64, 64, 1), (), (5, 0.0, 4.0, True), None, 100_003, "narrow"),
+    (63, (64, 64, 3), (), None, "sigmoid", 1 << 20, "narrow"),
+    (63, (64, 64, 3), (), None, "sigmoid", 1, "narrow"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FWD_PATH_CASES)))
+def test_forward_paths_match_plain(cuda, case):
+    """Each bf16 forward path on the stacks the rule sends to it: the path
+    that launched, the plain version's values, and the same bits from a
+    second launch (the narrow kernel's persistent CTAs and the wgmma
+    kernel's tiles depend only on the grid)."""
+    in_dim, dims, skips, enc, out_act, n, path = FWD_PATH_CASES[case]
+    gen = torch.Generator().manual_seed(400 + case)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(in_dim, enc), cuda)
+    x = torch.rand(n, in_dim, generator=gen).to(cuda)
+    packed = fm.prepare(in_dim, ws, bs, out_act, skips, enc, torch.bfloat16)
+    assert packed.fwd_path == path and (packed.weights_wg is not None) == (path == "wgmma")
+    before = fm.fused_mlp.path_launches[path]
+    first = fm.launch(x, packed)
+    second = fm.launch(x, packed)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.path_launches[path] == before + 2
+    assert torch.equal(first, second)
+    want = fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips, enc, torch.bfloat16)
+    _close(first, want, torch.bfloat16)
+
+
+PLAN_CASES = [
+    # (in_dim, layer widths incl. output, skips, freq_encoding, out_act): the
+    # main path's stacks, a narrow stack with a skip, a ragged skip stack,
+    # a 128-wide one, and stacks too wide for the bf16 kernels (272) and for
+    # the f32 kernel too (512)
+    (3, (256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), None),
+    (3, (64, 64, 1), (), (5, 0.0, 4.0, True), None),
+    (3, (64, 64, 1), (), (7, 0.0, 6.0, True), None),
+    (63, (64, 64, 3), (), None, "sigmoid"),
+    (3, (64, 64, 64, 16), (2,), (4, 0.0, 3.0, True), None),
+    (3, (40, 24, 24, 6), (2,), (4, 0.0, 3.0, True), "sigmoid"),
+    (32, (128, 128, 128, 16), (2,), None, None),
+    (3, (272, 16), (), (4, 0.0, 3.0, True), None),
+    (3, (512, 16), (), (4, 0.0, 3.0, True), None),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PLAN_CASES)))
+def test_forward_plan_matches_the_library(cuda, case):
+    """The CPU tests' copy of the forward's path rule and wgmma plan
+    (tests/torch_fused_mlp_plan.py) gives what the kernel library decides,
+    for both compute dtypes; a stack no kernel takes raises in prepare."""
+    in_dim, dims, skips, enc, out_act = PLAN_CASES[case]
+    gen = torch.Generator().manual_seed(600 + case)
+    for dtype in (torch.bfloat16, torch.float32):
+        ws, bs = _params(gen, dims, skips, fm.encoding_dim(in_dim, enc), torch.device("cpu"))
+        desc = fm.prepare(in_dim, ws, bs, out_act, skips, enc, dtype).desc
+        want = plan_rule.forward_path(desc, dtype == torch.bfloat16)
+        if want is None:
+            with pytest.raises(ValueError, match="no .* forward kernel"):
+                fm.forward_plan(desc, dtype)
+            with pytest.raises(ValueError, match="no .* forward kernel"):
+                fm.prepare(in_dim, [w.to(cuda) for w in ws], [b.to(cuda) for b in bs], out_act, skips, enc, dtype)
+            continue
+        path, plan, total = fm.forward_plan(desc, dtype)
+        assert path == want, (dtype, path, want)
+        if path == "wgmma":
+            want_plan, want_total = plan_rule.wgmma_plan(desc)
+            assert (plan, total) == (want_plan, want_total)
+        else:
+            assert (plan, total) == ([], 0)
 
 
 BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
@@ -358,11 +440,14 @@ def test_fused_models_go_through_the_kernels(cuda):
     counters = (fm.fused_mlp, fr.fused_ray_mlp, fr.fused_field_mlp, fr.fused_ray_mlp_bwd, fr.fused_field_mlp_bwd)
     before = [c.launches for c in counters] + [fr.fused_ray_mlp_bwd.input_grad_launches]
     stacks_before = fr.fused_ray_mlp_bwd.stack_launches.copy()
+    fwd_stacks_before = fr.fused_ray_mlp.stack_launches.copy()
     out = model(bundle, train=True, generator=torch.Generator(device=cuda).manual_seed(0))
     (out["rgb"].sum() + out["rgb_thermal"].sum() + out["density2"].sum() + out["density2_thermal"].sum()
      + sum(w.sum() for w in out["weights_list"] + out["weights_list_thermal"])).backward()
     torch.cuda.synchronize()
     after = [c.launches for c in counters] + [fr.fused_ray_mlp_bwd.input_grad_launches]
     assert [a - b for a, b in zip(after, before)] == [0, 6, 2, 6, 2, 2]
-    # the cross densities' stack and the two proposal stacks (F 5, F 7)
+    # the cross densities' stack and the two proposal stacks (F 5, F 7), in
+    # both directions
     assert sorted((fr.fused_ray_mlp_bwd.stack_launches - stacks_before).values()) == [2, 2, 2]
+    assert sorted((fr.fused_ray_mlp.stack_launches - fwd_stacks_before).values()) == [2, 2, 2]

@@ -94,6 +94,8 @@ def _method(get, dtype, scene, name="thermal-nerfacto-tpu", cut=tiny):
     method = get(name)
     cut(method.model, dtype)
     method.datamanager.train_num_rays_per_batch = NUM_RAYS
+    # the batches are compared with (and taken from) JAX's Python PixelSampler
+    method.datamanager.use_native_sampler = False
     method.dataparser.data = scene
     method.data = scene
     return method
@@ -224,7 +226,12 @@ def test_train_step_matches_jax(scene, tmp_path, dtype):
     trainer = port_trainer(scene, dtype, tmp_path, js.params)
     tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
     got = trainer._train_step(trainer.state, tbatch, uniforms=js.uniforms(state.rng))
+    _assert_step_matches(js, new_state, want, trainer, got, dtype)
 
+
+def _assert_step_matches(js, new_state, want, trainer, got, dtype):
+    """Every loss term and metric, every group's gradient (JAX's from its
+    first Adam moment), the frozen camera rows and the step counters."""
     assert set(got) == set(want)
     for k, w in want.items():
         w = float(w)
@@ -247,6 +254,33 @@ def test_train_step_matches_jax(scene, tmp_path, dtype):
     assert not grads["camera_opt_thermal/pose_adjustment"][~is_thermal].any()
     assert (trainer.state.step, int(new_state.step)) == (1, 1)
     assert trainer.state.steps_since_update == int(new_state.steps_since_update)
+
+
+def _tiny_random_background(model_cfg, dtype):
+    tiny(model_cfg, dtype)
+    model_cfg.background_color = "random"
+
+
+def test_random_background_step_matches_jax(scene, tmp_path):
+    """background_color="random", f32: one step with JAX's background draw
+    (U[0, 1) of the RGBT prediction's shape from the step's loss key)
+    passed to the port matches JAX at this file's tolerances. Without a
+    draw passed, the port draws its own from the state's generator."""
+    js = JaxSide(scene, "float32", cut=_tiny_random_background)
+    state = js.state()
+    batch = js.batch(0)
+    new_state, want = js.step_fn(state, batch)
+    _, _, key_loss, _ = jax.random.split(state.rng, 4)
+    background = torch.tensor(np.asarray(jax.random.uniform(key_loss, (NUM_RAYS, 4))))
+
+    trainer = port_trainer(scene, "float32", tmp_path, js.params, cut=_tiny_random_background)
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    got = trainer._train_step(trainer.state, tbatch, uniforms=js.uniforms(state.rng), background_uniforms=background)
+    _assert_step_matches(js, new_state, want, trainer, got, "float32")
+    generator_before = trainer.state.generator.get_state()
+    again = trainer._train_step(trainer.state, tbatch, uniforms=js.uniforms(state.rng))
+    assert all(np.isfinite(float(v)) for v in again.values())
+    assert not torch.equal(trainer.state.generator.get_state(), generator_before)  # the port's own draw
 
 
 def test_two_steps_with_a_skipped_proposal_update_match_jax(scene, tmp_path):
