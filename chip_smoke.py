@@ -27,7 +27,10 @@ Phases, each fatal on failure:
    4096 rows (the shape of the TPU's one-hot route), with points on grid
    coordinates and points zeroed as the fields' selector zeroes them;
    kernel, plain, bound and (table gradient: one Tensor.index_add_ of the
-   precomputed contributions) library times;
+   precomputed contributions) library times. These uniform points are not
+   the model's: its points are ray-major, the samples of a ray consecutive
+   and sorted by depth, so phase 8b times the same kernels on the model's
+   own points;
 6. the fused ray-march kernels (forward and backward, with and without
    input gradients) and the whole-field kernels (C = 3 and 1) against
    their plain versions, bf16 and f32, at thermal-nerfacto-tpu's shapes:
@@ -62,6 +65,15 @@ Phases, each fatal on failure:
    update the proposal nets), the proposal update counter follows
    proposal_updated, and the batches come from the native (C++) batch
    sampler; train ms/step and rays/s over steps 10-29, peak memory;
+8b. the hash kernels on the model's own points: the 8 hash calls of one
+   thermal-nerfacto render chunk (recorded in phase 7 from one 512 x 64
+   chunk of the 1080p camera) and the 8 of its training step 9 (phase 8;
+   every step before 10 updates the proposals), with the cotangents that
+   step's backward gave them. Each call's forward (in its dtype and in f32)
+   and, for the step, its table and position gradients are held against
+   the plain versions under the tolerances of phase 5 and timed with
+   bound, rows touched and (table gradient) the index_add_ yardstick; the
+   `hash_model` lines give each call and the sums per chunk and per step;
 9. for each method one full-width step of 256 rays on the card against the
    same step on the CPU (same params, batch and jitter): every loss term
    and every group's gradient; then the same for thermal-nerfacto-tpu and
@@ -76,7 +88,9 @@ Phases, each fatal on failure:
    passes), after the timed phases;
 11. a JSON line of the ported kernels (rows 3 and 4 at their three shapes:
    the cross density and both proposal stacks, each with the launches of
-   its stack in the fused training run), then the contract line.
+   its stack in the fused training run; the hash kernels with their sums
+   on the model's points as the extra fields model_render_chunk and
+   model_train_step), then the contract line.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -85,6 +99,7 @@ CUDA; imports nothing of JAX.
 
 import argparse
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -527,60 +542,174 @@ def hash_library_scatter(pos, g, scal, table_size):
     return lambda: torch.zeros(levels * table_size, 2, device=pos.device).index_add_(0, idx, contrib)
 
 
+def hash_cost(kname: str, n: int, levels: int, t: int, rows: int, dtype):
+    """Bytes each hash function must move (inputs once, outputs once) and
+    its f32 operations, per (point, level): 15 for the corners and weights,
+    then per corner 6 (forward), 6 (scatter: 2 weight products, 2 products,
+    2 adds) or 12 (position gradient). The forward and the position gradient
+    read only the table rows these positions touch (a coarse level reaches
+    far fewer than T); the table gradient writes its dense d_table in full."""
+    es, nl = (2 if dtype == torch.bfloat16 else 4), n * levels
+    return {
+        "hash_encode_fwd": (n * 12 + rows * 8 + nl * 2 * es, nl * (15 + 8 * 6)),
+        "hash_encode_bwd_table": (n * 12 + nl * 2 * es + levels * t * 8, nl * (15 + 8 * 6)),
+        "hash_encode_bwd_pos": (n * 24 + rows * 8 + nl * 2 * es, nl * (15 + 8 * 12 + 6)),
+    }[kname]
+
+
+def hash_calls(table, pos, scal, t, g, dtype) -> dict:
+    """(kernel, plain version) of each hash function on one case, by kernel
+    name: the forward in `dtype`, and with a cotangent g the table and
+    position gradients."""
+    from nerfstudio_thermal_torch.ops import encodings as enc
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    calls = {"hash_encode_fwd": (lambda: th.hash_encode_fwd(table, pos, scal, t, dtype),
+                                 lambda: enc.hash_encode_plain(table, pos, scal, t, dtype))}
+    if g is not None:
+        calls["hash_encode_bwd_table"] = (lambda: th.hash_encode_bwd_table(pos, g, scal, t),
+                                          lambda: enc.hash_encode_bwd_table_plain(pos, g, scal, t, 2))
+        calls["hash_encode_bwd_pos"] = (lambda: th.hash_encode_bwd_pos(table, pos, g, scal, t),
+                                        lambda: enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t))
+    return calls
+
+
+def check_hash_kernel(kname: str, what: str, kernel, plain, dtype):
+    """One hash kernel's result against its plain version's on the same
+    inputs, under the hash tolerances. Returns (max |err|, relative L2,
+    the tolerance as text); raises where they disagree."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{kname} {what}: shape {tuple(got.shape)} or not finite")
+    diff = (got.float() - want.float()).abs()
+    max_err, rel = float(diff.max()), rel_l2(got.float(), want.float())
+    if kname == "hash_encode_fwd":
+        step = 2.0**-8 if dtype == torch.bfloat16 else 0.0
+        ok = not bool((diff > HASH_FWD_TOL + step * want.float().abs()).any())
+        tol = f"{HASH_FWD_TOL:g} abs" + (" + 2^-8 rel" if step else "")
+    else:
+        limit = HASH_TABLE_TOL if kname == "hash_encode_bwd_table" else HASH_POS_TOL
+        ok, tol = rel <= limit, f"{limit:g} rel L2"
+    if not ok:
+        raise AssertionError(f"{kname} disagrees with its plain version in {what}: "
+                             f"max |err| {max_err:.3e}, rel L2 {rel:.3e} (tol {tol})")
+    return max_err, rel, tol
+
+
+@contextlib.contextmanager
+def recording_hash_calls():
+    """While open, every call of the port's hash_encode (the hash fields'
+    entry to the kernels) appends a record to the yielded list: the table,
+    the positions as the kernels take them ([N, 3] f32), the scalings, T,
+    the compute dtype and, where the call's backward runs, the cotangent g
+    [N, 2L] it receives (taken by a hook on the output). Positions and g
+    are copied to the host, so that they hold no card memory through the
+    phases that follow (hash_model_phase brings them back). The wrapped
+    call computes and counts as before."""
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    calls, inner = [], th.hash_encode
+
+    def recorded(table, positions, scalings, table_size, compute_dtype=torch.float32):
+        out = inner(table, positions, scalings, table_size, compute_dtype)
+        rec = {"table": table.detach(), "pos": positions.detach().reshape(-1, 3).float().cpu(),
+               "scal": scalings.detach(), "t": table_size, "dtype": compute_dtype, "g": None}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.update(g=g.detach().reshape(rec["pos"].shape[0], -1).cpu()))
+        calls.append(rec)
+        return out
+
+    th.hash_encode = recorded
+    try:
+        yield calls
+    finally:
+        th.hash_encode = inner
+
+
+# the hash calls of one thermal-nerfacto render chunk and of one training
+# step that updates the proposal nets, recorded by slice_phase and
+# train_phase, for hash_model_phase
+HASH_MODEL_CALLS = {}
+HASH_METHOD = "thermal-nerfacto"
+HASH_CAPTURE_STEP = TIMED_FROM - 1  # updates the proposals (every step < 10 does), not timed
+
+
+def hash_model_phase(scopes=None):
+    """The hash kernels on the positions (and cotangents) the model itself
+    produced: the 8 calls of one thermal-nerfacto render chunk (forward) and
+    the 8 of one training step (forward, table gradient, position
+    gradient). Each case is held against the plain versions as in
+    hash_kernel_phase (the forward in the call's dtype and in f32) and
+    timed with its bound, rows touched and, for the table gradient, the
+    index_add_ yardstick; then the sums per chunk and per step. Returns
+    {scope: {kernel name: sums}}."""
+    scopes = HASH_MODEL_CALLS if scopes is None else scopes
+    result = {}
+    for scope, calls in scopes.items():
+        sums = collections.defaultdict(lambda: {"ms": 0.0, "bound_ms": 0.0, "library_ms": None, "cases": 0,
+                                                "rows": 0, "points": 0})
+        for i, rec in enumerate(calls):
+            table, scal, t = rec["table"], rec["scal"], rec["t"]
+            pos = rec["pos"].to(table.device).contiguous()
+            g = None if rec["g"] is None else rec["g"].to(table.device).contiguous()
+            n, levels = pos.shape[0], scal.shape[0]
+            rows = hash_rows_touched(pos, scal, t)
+            name = f"{scope}[{i}] L{levels} T2^{t.bit_length() - 1}"
+            calls = hash_calls(table, pos, scal, t, g, rec["dtype"])
+            for kname, (kernel, plain) in calls.items():
+                checks = [(rec["dtype"], kernel, plain)]
+                if kname == "hash_encode_fwd" and rec["dtype"] != torch.float32:
+                    # f32, where the kernel must equal the plain version
+                    checks.append((torch.float32, *hash_calls(table, pos, scal, t, None, torch.float32)[kname]))
+                errs = []
+                for dt, k, p in checks:
+                    max_err, rel, tol = check_hash_kernel(kname, f"{name} {dt}", k, p, dt)
+                    errs.append(f"{str(dt)[6:]} max_abs_err={max_err:.3e} rel L2 {rel:.3e} (tol {tol})")
+                dtype = rec["dtype"] if kname == "hash_encode_fwd" else g.dtype
+                ms = cuda_ms(kernel, iters=20)
+                bound_ms, bound_by = bound(*hash_cost(kname, n, levels, t, rows, dtype))
+                library_ms = None
+                if kname == "hash_encode_bwd_table":
+                    library_ms = cuda_ms(hash_library_scatter(pos, g, scal, t), iters=5)
+                s = sums[kname]
+                s["ms"] += ms
+                s["bound_ms"] += bound_ms
+                s["cases"] += 1
+                s["rows"] += rows
+                s["points"] += n
+                if library_ms is not None:
+                    s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
+                library = "none" if library_ms is None else f"{library_ms:.4f} ms"
+                log(f"hash_model {kname} {name}: n={n} " + "; ".join(errs) + f" ok; table rows touched {rows} of "
+                    f"{levels * t} | kernel {ms:.4f} ms, library {library}, bound {bound_ms:.4f} ms ({bound_by})")
+            del pos, g, calls
+            torch.cuda.empty_cache()
+        for kname, s in sums.items():
+            library = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f} ms"
+            log(f"hash_model {kname} per {scope.replace('_', ' ')}: {s['cases']} calls, {s['points']} points, "
+                f"kernel {s['ms']:.4f} ms, library {library}, bound {s['bound_ms']:.4f} ms, "
+                f"rows touched {s['rows']}")
+        result[scope] = dict(sums)
+    return result
+
+
 def hash_kernel_phase():
     """The three hash kernels against their plain versions on the card, at
     the main path's shapes, bf16 and f32. Returns the records of the base
     shape in bf16, by kernel name."""
-    from nerfstudio_thermal_torch.ops import encodings as enc
-    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
-
     gen = torch.Generator().manual_seed(2)
     main = None
     for name, levels, log2_t, n, lo, hi in HASH_CASES:
         t = 2**log2_t
         for dtype in (torch.bfloat16, torch.float32):
             table, pos, scal, g = hash_inputs(gen, levels, log2_t, n, lo, hi, dtype)
-            calls = {
-                "hash_encode_fwd": (lambda: th.hash_encode_fwd(table, pos, scal, t, dtype),
-                                    lambda: enc.hash_encode_plain(table, pos, scal, t, dtype)),
-                "hash_encode_bwd_table": (lambda: th.hash_encode_bwd_table(pos, g, scal, t),
-                                          lambda: enc.hash_encode_bwd_table_plain(pos, g, scal, t, 2)),
-                "hash_encode_bwd_pos": (lambda: th.hash_encode_bwd_pos(table, pos, g, scal, t),
-                                        lambda: enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t)),
-            }
-            es = 2 if dtype == torch.bfloat16 else 4
-            nl, rows = n * levels, hash_rows_touched(pos, scal, t)
-            # bytes each function must move (inputs once, outputs once) and
-            # its f32 operations per (point, level): 15 for the corners and
-            # weights, then per corner 6 (forward), 6 (scatter: 2 weight
-            # products, 2 products, 2 adds) or 12 (position gradient). The
-            # forward and the position gradient read only the table rows
-            # these positions touch (a coarse level reaches far fewer than
-            # T); the table gradient writes its dense d_table in full.
-            cost = {
-                "hash_encode_fwd": (n * 12 + rows * 8 + nl * 2 * es, nl * (15 + 8 * 6)),
-                "hash_encode_bwd_table": (n * 12 + nl * 2 * es + levels * t * 8, nl * (15 + 8 * 6)),
-                "hash_encode_bwd_pos": (n * 24 + rows * 8 + nl * 2 * es, nl * (15 + 8 * 12 + 6)),
-            }
+            calls = hash_calls(table, pos, scal, t, g, dtype)
+            rows = hash_rows_touched(pos, scal, t)
             recs = {}
             for kname, (kernel, plain) in calls.items():
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-                if got.shape != want.shape or not bool(torch.isfinite(got.float()).all()):
-                    raise AssertionError(f"{kname} {name}: shape {tuple(got.shape)} or not finite")
-                diff = (got.float() - want.float()).abs()
-                max_err, rel = float(diff.max()), rel_l2(got.float(), want.float())
-                if kname == "hash_encode_fwd":
-                    step = 2.0**-8 if dtype == torch.bfloat16 else 0.0
-                    ok = not bool((diff > HASH_FWD_TOL + step * want.float().abs()).any())
-                    tol = f"{HASH_FWD_TOL:g} abs" + (" + 2^-8 rel" if step else "")
-                else:
-                    limit = HASH_TABLE_TOL if kname == "hash_encode_bwd_table" else HASH_POS_TOL
-                    ok, tol = rel <= limit, f"{limit:g} rel L2"
-                if not ok:
-                    raise AssertionError(f"{kname} disagrees with its plain version in {name} {dtype}: "
-                                         f"max |err| {max_err:.3e}, rel L2 {rel:.3e} (tol {tol})")
+                max_err, rel, tol = check_hash_kernel(kname, f"{name} {dtype}", kernel, plain, dtype)
                 line = (f"hash_kernel_vs_plain {kname} {name} {str(dtype)[6:]}: n={n} max_abs_err={max_err:.3e} "
                         f"rel L2 {rel:.3e} (tol {tol}) ok; table rows touched {rows} of {levels * t}")
                 if dtype == torch.bfloat16:
@@ -589,14 +718,13 @@ def hash_kernel_phase():
                     library_ms = None
                     if kname == "hash_encode_bwd_table":
                         library_ms = cuda_ms(hash_library_scatter(pos, g, scal, t), iters=5)
-                    bound_ms, bound_by = bound(*cost[kname])
+                    bound_ms, bound_by = bound(*hash_cost(kname, n, levels, t, rows, dtype))
                     recs[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                                    "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err}
                     line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
                              f"library {'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
                              f"bound {bound_ms:.4f} ms ({bound_by})")
                 log(line)
-                del got, want, diff
             if main is None:
                 main = recs
             del table, pos, scal, g, calls
@@ -972,6 +1100,15 @@ def slice_phase(method_name: str):
             f"max |diff| {np.abs(a - b).max():.3e}")
     del cpu_model
 
+    if method_name == HASH_METHOD:
+        # the hash calls of one 1080p chunk (512 x 64 rays), for hash_model_phase
+        with recording_hash_calls() as calls:
+            model.render_camera_device(cam_a, 0, width=chunk // 64, height=64)
+            torch.cuda.synchronize()
+        if len(calls) != METHODS[method_name]["chunk"]["hash_encode_fwd"]:
+            raise AssertionError(f"{method_name}: one render chunk made {len(calls)} hash calls")
+        HASH_MODEL_CALLS["render_chunk"] = calls
+
     requests = [("1080p", cam_a, 1920, 1080), ("640x512", cam_b, 640, 512), ("1080p", cam_a, 1920, 1080)]
     per_chunk = METHODS[method_name]["chunk"]
     reset_counts()
@@ -1114,7 +1251,17 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
         start = step_start(trainer)
         torch.cuda.synchronize()
         t_start = time.perf_counter()
-        out = iteration(step)
+        if method_name == HASH_METHOD and step == HASH_CAPTURE_STEP:
+            # the hash calls of this step and their cotangents, for
+            # hash_model_phase (the step is not timed)
+            with recording_hash_calls() as calls:
+                out = iteration(step)
+            if len(calls) != 8 or any(rec["g"] is None for rec in calls):
+                raise AssertionError(f"{method_name} step {step}: {len(calls)} hash calls, "
+                                     f"{sum(rec['g'] is not None for rec in calls)} with a cotangent; expected 8")
+            HASH_MODEL_CALLS["train_step"] = calls
+        else:
+            out = iteration(step)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t_start)
         launches = {k: v - c0[k] for k, v in read_counts().items()}
@@ -1420,6 +1567,9 @@ def main() -> int:
         scene = write_scene(Path(tmp) / "sphere")
         log(f"scene: 8 RGB 640x480 + 8 thermal 640x512 frames written in {time.perf_counter() - t0:.2f} s")
         trains = {m: train_phase(m, scene, Path(tmp) / m / "run") for m in METHODS}
+        hash_model = hash_model_phase()
+        HASH_MODEL_CALLS.clear()
+        torch.cuda.empty_cache()
         for m in METHODS:
             step_vs_cpu_phase(m, scene, Path(tmp) / m / "step")
         for m, freqs in (("thermal-nerfacto-tpu", 10), ("thermal-nerfacto-tpu+fused", 10),
@@ -1445,6 +1595,14 @@ def main() -> int:
                                  f"not on those of {sorted(recs)}")
     ray_fwd, ray_bwd = ray_kernels["fused_ray_mlp_fwd"], ray_kernels["fused_ray_mlp_bwd"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def hash_entry(kname):
+        """A hash kernel's fields: the uniform base case's, and as extra
+        fields its sums on the model's own positions (model_render_chunk:
+        the forward; model_train_step: all three)."""
+        model = {f"model_{scope}": sums[kname] for scope, sums in hash_model.items() if kname in sums}
+        return {**{k: hash_kernels[kname][k] for k in keys}, **model}
+
     pallas = "nerfstudio_thermal_tpu/ops/pallas/"
     hash_source = "nerfstudio_thermal_torch/csrc/hash_encoding.cu"
     ray_fwd_source = "nerfstudio_thermal_torch/csrc/fused_ray_fwd.cu"
@@ -1459,14 +1617,14 @@ def main() -> int:
         {"name": "hash_encode_fwd", "route": "cuda", "source": hash_source,
          "replaces": pallas + "hash_encoding.py:103 (row 8; also the XLA row-gather forward of row 7, "
                      "hash_gather.py:229)",
-         "launches": hash_counts["hash_encode_fwd"], **{k: hash_kernels["hash_encode_fwd"][k] for k in keys}},
+         "launches": hash_counts["hash_encode_fwd"], **hash_entry("hash_encode_fwd")},
         {"name": "hash_encode_bwd_table", "route": "cuda", "source": hash_source,
          "replaces": pallas + "hash_gather.py:100 (row 7), " + pallas + "hash_encoding.py:123 (row 9)",
          "launches": hash_counts["hash_encode_bwd_table"],
-         **{k: hash_kernels["hash_encode_bwd_table"][k] for k in keys}},
+         **hash_entry("hash_encode_bwd_table")},
         {"name": "hash_encode_bwd_pos", "route": "cuda", "source": hash_source,
          "replaces": pallas + "hash_encoding.py:145 (row 10)", "launches": hash_counts["hash_encode_bwd_pos"],
-         **{k: hash_kernels["hash_encode_bwd_pos"][k] for k in keys}},
+         **hash_entry("hash_encode_bwd_pos")},
         # row 3 at its three main-path shapes, each with the launches of its
         # stack: the cross densities (8 x 256, the wgmma kernel) and the two
         # proposal stacks (3 x 64, the one-pass narrow kernel)

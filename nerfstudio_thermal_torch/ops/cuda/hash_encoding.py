@@ -6,8 +6,12 @@ ops/pallas/hash_gather.py:hash_encode_hybrid (an XLA row-gather forward and
 the `_bwd_table_kernel` scatter) and ops/pallas/hash_encoding.py:
 hash_encode_pallas (`_fwd_kernel`, `_bwd_table_kernel`, `_bwd_pos_kernel`).
 The CUDA source is nerfstudio_thermal_torch/csrc/hash_encoding.cu; its
-header says what bounds each kernel and what the first design gives up.
-The plain PyTorch versions of the three functions are in ops/encodings.py.
+header says what bounds each kernel and how each is mapped: the forward and
+the table gradient give a block a tile of consecutive points (256 and 32),
+whose warps take one level of 32 points each, lane = point, with the tile
+of the output (or of g) staged in shared memory; the table gradient sums
+the lanes of a warp that add to the same row before one atomic. The plain
+PyTorch versions of the three functions are in ops/encodings.py.
 
 `hash_encode` is one autograd node that dispatches on the device of the
 positions: for CPU tensors the forward is `hash_encode_plain` and the
@@ -108,6 +112,8 @@ def hash_encode_bwd_table(positions, g, scalings, table_size: int) -> torch.Tens
     _check_g(g, n, num_levels)
     if n == 0:
         return d_table
+    if g.data_ptr() % 16:  # the kernel reads g's tiles 16 bytes at a time
+        g = g.clone()
     err = load_library().hash_encode_bwd_table(
         positions.data_ptr(), g.data_ptr(), scalings.data_ptr(), d_table.data_ptr(), n, num_levels,
         _log2(table_size), int(g.dtype == torch.bfloat16), *build.device_and_stream(positions),

@@ -20,9 +20,12 @@ launches.
 
 Hash grid, as chip_smoke.py holds it: forward within 1e-6 absolute (the
 same f32 products and sums in the same order), plus one bf16 step for a
-bf16 output; table gradient relative L2 1e-4 (atomics add the same f32
-terms in a run-dependent order); position gradient relative L2 1e-5 (the
-sum over levels in another order).
+bf16 output; table gradient relative L2 1e-4 (a warp's equal rows summed in
+a shuffle tree, then atomics in a run-dependent order); position gradient
+relative L2 1e-5 (the sum over levels in another order). Besides uniform
+points, the cases hold the points the tiled kernels find hard: ray-major
+depth-sorted samples, every point in one cell, N one past a tile multiple,
+whole tiles with g = 0, and points on integer coordinates at every level.
 
 Fused ray-march and whole-field kernels, with the fused MLP's tolerances:
 outputs 2e-2 (bf16) / 1e-4 (f32) absolute plus relative, every gradient
@@ -245,25 +248,61 @@ def test_autograd_goes_through_both_kernels(cuda):
 
 
 HASH_CASES = [
-    # (levels, log2 T, points, min_res, max_res)
-    (16, 19, 50_000, 16, 2048),  # the base field's grid
-    (5, 17, 100_003, 16, 256),  # a proposal field's grid
-    (5, 12, 4_099, 16, 128),  # a table of 4096 rows (the TPU's one-hot route)
-    (2, 8, 1, 4, 16),
+    # (levels, log2 T, points, min_res, max_res, kind of points): see _hash_case
+    (16, 19, 50_000, 16, 2048, "uniform"),  # the base field's grid
+    (5, 17, 100_003, 16, 256, "uniform"),  # a proposal field's grid
+    (5, 12, 4_099, 16, 128, "uniform"),  # a table of 4096 rows (the TPU's one-hot route)
+    (2, 8, 1, 4, 16, "uniform"),
+    # what the tiled kernels (128 points a block, lane = point) make hard
+    (16, 19, 1024 * 48, 16, 2048, "rays"),
+    (5, 17, 256 * 256, 16, 256, "rays"),
+    (16, 19, 4_096, 16, 2048, "one_cell"),
+    (5, 17, 128 * 300 + 1, 16, 256, "rays"),  # N one past a tile multiple
+    (16, 19, 128 * 64, 16, 2048, "zero_tiles"),
+    (16, 19, 3_000, 16, 2048, "integer"),
+    (2, 8, 1_000, 4, 16, "integer"),
 ]
 
 
 def _hash_case(case, dtype, seed):
-    levels, log2_t, n, lo, hi = HASH_CASES[case]
+    """Table, positions, scalings, cotangent and T of one case. Kinds of
+    points: "uniform", with 1/8 on level-0 grid coordinates and 1/8 zeroed
+    as the fields' selector zeroes them; "rays", rays of 48 samples sorted
+    by depth along chords of the unit box, ray-major as the model orders
+    them; "one_cell", every point in one cell of the finest level, so every
+    lane of a warp adds to the same 8 rows at every level; "zero_tiles",
+    rays whose g is zero over whole 128-point tiles and, for one warp, at
+    every other level; "integer", points on integer grid coordinates at
+    every level (coordinates m / s_0 where every resolution is a multiple of
+    the first, else 0 or 1), where floor = ceil puts two corners of one
+    point on the same row."""
+    levels, log2_t, n, lo, hi, kind = HASH_CASES[case]
     gen = torch.Generator().manual_seed(seed)
     table = torch.randn(levels * 2**log2_t, 2, generator=gen) * 1e-2
-    pos = torch.rand(n, 3, generator=gen)
-    k = n // 8
-    pos[:k] = torch.floor(pos[:k] * lo) / lo  # on level-0 grid coordinates
-    pos[k : 2 * k] = 0.0  # zeroed by the fields' selector
-    g = torch.randn(n, 2 * levels, generator=gen).to(dtype)
     scal = torch.from_numpy(enc.hash_grid_scalings(levels, lo, hi))
-    return table, pos, scal, g, 2**log2_t
+    if kind == "uniform":
+        pos = torch.rand(n, 3, generator=gen)
+        k = n // 8
+        pos[:k] = torch.floor(pos[:k] * lo) / lo  # on level-0 grid coordinates
+        pos[k : 2 * k] = 0.0  # zeroed by the fields' selector
+    elif kind in ("rays", "zero_tiles"):
+        r = -(-n // 48)
+        a, b = torch.rand(r, 1, 3, generator=gen), torch.rand(r, 1, 3, generator=gen)
+        t = torch.sort(torch.rand(r, 48, 1, generator=gen), dim=1).values
+        pos = (a + t * (b - a)).reshape(-1, 3)[:n].contiguous()
+    elif kind == "one_cell":
+        # up to 2e-5 above one point: in one cell at every level
+        pos = torch.tensor([0.3001, 0.6003, 0.2007]) + torch.rand(n, 3, generator=gen) * 2e-5
+    else:
+        s0 = int(scal[0])
+        m = s0 if all(int(s) % s0 == 0 for s in scal) else 1
+        pos = torch.randint(0, m + 1, (n, 3), generator=gen).float() / m
+    g = torch.randn(n, 2 * levels, generator=gen)
+    if kind == "zero_tiles":
+        g[128:384] = 0.0  # two whole tiles
+        g[512:544, 0::4] = 0.0  # one warp, every other level (both features)
+        g[512:544, 1::4] = 0.0
+    return table, pos, scal, g.to(dtype), 2**log2_t
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -286,6 +325,22 @@ def test_hash_kernels_match_plain(cuda, case, dtype):
     assert bool(torch.isfinite(d_table).all()) and bool(torch.isfinite(d_pos).all())
     assert _rel_l2(d_table, want_table) <= 1e-4, _rel_l2(d_table, want_table)
     assert _rel_l2(d_pos, want_pos) <= 1e-5, _rel_l2(d_pos, want_pos)
+
+
+def test_hash_table_gradient_of_a_row_slice_cotangent(cuda):
+    """A cotangent that is a row slice of a larger tensor (as a torch.cat
+    backward hands out) can start off the 16-byte alignment the table
+    kernel's tile loads need (here 1 row of 2L = 10 bf16, 20 bytes, in):
+    the wrapper copies it, and the result equals the plain version's."""
+    table, pos, scal, g, t = (x.to(cuda) if isinstance(x, torch.Tensor) else x
+                              for x in _hash_case(1, torch.bfloat16, 1))
+    whole = torch.cat([g[:1], g])
+    view = whole[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    d_table = th.hash_encode_bwd_table(pos, view, scal, t)
+    torch.cuda.synchronize()
+    want = enc.hash_encode_bwd_table_plain(pos, g, scal, t, 2)
+    assert _rel_l2(d_table, want) <= 1e-4, _rel_l2(d_table, want)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

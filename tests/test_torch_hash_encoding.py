@@ -271,3 +271,193 @@ def test_kernel_path_has_no_fallback():
         th.hash_encode_fwd(table, pos, scal, 256, torch.float32)
     with pytest.raises(ValueError, match="power of 2"):
         th._log2(300)
+
+
+# The kernels' tile geometry (csrc/hash_encoding.cu): a block owns a tile of
+# consecutive points (the forward FWD_TILE, the table gradient BWD_TILE: 32 *
+# kFwdGroups and 32 * kBwdGroups), its warps' lanes on 32 consecutive points
+# at one level; a staged [tile, 2L] tile keeps one (point, level) pair of
+# features per slot, rows padded to tile_stride(L) = L | 1 pairs, moved to
+# and from device memory 16 bytes a thread (16 / pair bytes pairs), the
+# remainder pair by pair.
+FWD_TILE, BWD_TILE, WARP = 256, 32, 32
+
+
+def ray_inputs(seed, num_levels, log2_t, rays, samples, min_res, max_res):
+    """Table, positions, scalings, T and cotangent like the model's: rays
+    of `samples` points sorted by depth along chords of the unit box,
+    ray-major; every 4th point repeats its predecessor, the first ray lies
+    on the box's corners {0, 1}^3 (integer coordinates at every level, where
+    floor = ceil), the second ray's points are zeroed as the fields'
+    selector zeroes them."""
+    rng = np.random.default_rng(seed)
+    t = 2**log2_t
+    table = (rng.normal(size=(num_levels * t, 2)) * 1e-2).astype(np.float32)
+    scal = jenc.hash_grid_scalings(num_levels, min_res, max_res)
+    a, b = rng.uniform(0, 1, (rays, 1, 3)), rng.uniform(0, 1, (rays, 1, 3))
+    depth = np.sort(rng.uniform(0, 1, (rays, samples, 1)), axis=1)
+    pos = (a + depth * (b - a)).astype(np.float32)
+    pos[:, 3::4] = pos[:, 2::4][:, : pos[:, 3::4].shape[1]]
+    pos[0] = rng.integers(0, 2, (samples, 3))
+    pos[1] = 0.0
+    pos = pos.reshape(-1, 3)
+    g = rng.normal(size=(len(pos), num_levels * 2)).astype(np.float32)
+    return table, pos, scal, t, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("levels,log2_t,rays,samples,res", [(3, 10, 6, 48, (8, 128)), (2, 9, 3, 64, (16, 64))])
+def test_plain_matches_hash_encode_on_ray_points(dtype, levels, log2_t, rays, samples, res):
+    """The plain forward and both plain gradients against the spec on
+    ray-coherent, duplicate-heavy points (the model's kind), tolerances as
+    for uniform points."""
+    table, pos, scal, t, g = ray_inputs(9, levels, log2_t, rays, samples, *res)
+    check(jenc.hash_encode, dtype, table, pos, scal, t, g, 1e-6, 1e-5, 1e-5)
+
+
+def _tree_sum(values):
+    """The sum of one group's values, ordered by lane, as the kernel's
+    sum_peers forms it: each remaining rank adds the next remaining rank
+    above it, then the ranks with the current bit set drop out."""
+    vals = list(values)
+    alive, bit = list(range(len(vals))), 0
+    while len(alive) > 1:
+        above = dict(zip(alive[:-1], alive[1:]))
+        vals = [vals[r] + vals[above[r]] if r in above else vals[r] for r in range(len(vals))]
+        alive = [r for r in alive if not (r >> bit) & 1]
+        bit += 1
+    return vals[0]
+
+
+def emulate_tiled_scatter(pos, g, scal, t):
+    """The table gradient as the tiled kernel forms it: per tile and warp
+    (lane = point), per level unless the warp's g is zero there, per corner
+    the lanes that add (g nonzero) grouped by row, one f32 tree sum and one
+    add per group. Returns (d_table [L * T, 2] f32, lane contributions,
+    adds issued)."""
+    num_levels = len(scal)
+    hf, hc, wf, wc = tenc._hash_factors(torch.as_tensor(pos), torch.as_tensor(scal), t)
+    d = np.zeros((num_levels * t, 2), np.float32)
+    lanes_added = atomics = 0
+    for w0 in range(0, len(pos), WARP):  # tiles are whole warps: kTile is a multiple of 32
+        lanes = np.arange(w0, min(w0 + WARP, len(pos)))
+        for lv in range(num_levels):
+            gv = g[lanes, 2 * lv : 2 * lv + 2].astype(np.float32)
+            adds = (gv != 0).any(axis=1)
+            if not adds.any():
+                continue
+            for bits in tenc._CORNER_BITS:
+                row = tenc._corner_index([h[lv : lv + 1, lanes] for h in hf], [h[lv : lv + 1, lanes] for h in hc],
+                                         bits, torch.zeros(1, 1, dtype=torch.int64))[0].numpy()
+                wx, wy, wz = (w[lv, lanes].numpy() for w in tenc._corner_weights(wf, wc, bits))
+                v = gv * ((wx * wy) * wz)[:, None]
+                for r in np.unique(row[adds]):
+                    members = np.flatnonzero(adds & (row == r))
+                    d[lv * t + r] += _tree_sum(list(v[members]))
+                    lanes_added += len(members)
+                    atomics += 1
+    return d, lanes_added, atomics
+
+
+SCATTER_KINDS = ["rays", "one_cell", "tile_plus_one", "zero_tiles", "integer"]
+
+
+def _scatter_case(kind):
+    """Small inputs of the kinds the tiled kernels find hard (the card tests'
+    kinds, made with numpy): depth-sorted rays, every point in one cell of
+    the finest level, N one past a tile multiple, g zero over whole tiles
+    and over one warp at every other level, points on integer coordinates
+    at every level."""
+    rng = np.random.default_rng(SCATTER_KINDS.index(kind) + 20)
+    levels, log2_t, lo, hi = 3, 9, 4, 16  # resolutions 4, 8, 16
+    scal = jenc.hash_grid_scalings(levels, lo, hi)
+    n = 129 if kind == "tile_plus_one" else 384  # one past a multiple of 32 and of 128
+    if kind == "one_cell":
+        pos = (np.array([0.301, 0.603, 0.207]) + rng.uniform(0, 1e-4, (n, 3))).astype(np.float32)
+    elif kind == "integer":
+        pos = (rng.integers(0, lo + 1, (n, 3)) / lo).astype(np.float32)  # every resolution a multiple of 4
+        assert all(int(s) % lo == 0 for s in scal)
+    else:
+        r = -(-n // 48)
+        a, b = rng.uniform(0, 1, (r, 1, 3)), rng.uniform(0, 1, (r, 1, 3))
+        pos = (a + np.sort(rng.uniform(0, 1, (r, 48, 1)), axis=1) * (b - a)).reshape(-1, 3)[:n].astype(np.float32)
+    g = rng.normal(size=(n, 2 * levels)).astype(np.float32)
+    if kind == "zero_tiles":
+        g[128:256] = 0.0
+        g[256 : 256 + WARP, 0::4] = 0.0
+        g[256 : 256 + WARP, 1::4] = 0.0
+    return pos, g, scal, 2**log2_t
+
+
+@pytest.mark.parametrize("kind", SCATTER_KINDS)
+def test_tiled_scatter_emulation_matches_plain(kind):
+    """An emulation of the table-gradient kernel's aggregation (one add per
+    warp, corner and distinct row) equals the plain scatter within f32
+    rounding of a reordered sum (relative L2 1e-6), and on ray-coherent
+    points issues fewer adds than lanes."""
+    pos, g, scal, t = _scatter_case(kind)
+    want = tenc.hash_encode_bwd_table_plain(torch.as_tensor(pos), torch.as_tensor(g), torch.as_tensor(scal), t, 2)
+    got, lanes_added, atomics = emulate_tiled_scatter(pos, g, scal, t)
+    want = want.numpy().astype(np.float64)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-6, rel
+    assert atomics < lanes_added  # equal rows in a warp were summed before their add
+    if kind == "one_cell":
+        assert atomics * WARP == lanes_added  # every lane of a warp on the same 8 rows
+
+
+def emulate_copy_tile(values, num_levels, pair_bytes, tile):
+    """copy_tile_out of csrc/hash_encoding.cu over a whole [N, L] array of
+    pairs (given as pair ids), tiles of `tile` points: per tile, the
+    block's smem slots filled by lane = point (row * stride + level), then
+    read back in 16-byte chunks and a remainder, in device-memory order.
+    Also checks that the 32 lanes' slots of one level fall in distinct
+    banks. Returns the [N, L] pairs as device memory receives them."""
+    n = values.shape[0]
+    stride, vec = num_levels | 1, 16 // pair_bytes
+    words = pair_bytes // 4
+    for lv in range(num_levels):  # bank check: 4-byte words, per phase of 128 bytes
+        slots = np.arange(WARP) * stride + lv
+        per_phase = 32 // words
+        for ph in range(0, WARP, per_phase):
+            banks = (slots[ph : ph + per_phase] * words) % 32
+            assert len(set(banks.tolist())) == per_phase
+    out = np.full(n * num_levels, -1, np.int64)
+    for n0 in range(0, n, tile):
+        rows = min(tile, n - n0)
+        smem = np.full(tile * stride, -2, np.int64)
+        for p in range(rows):
+            smem[p * stride : p * stride + num_levels] = values[n0 + p]
+        pairs, dst = rows * num_levels, out[n0 * num_levels :]
+        chunks = pairs // vec
+        for i in range(chunks):
+            q = i * vec
+            r, lv = divmod(q, num_levels)
+            for j in range(vec):
+                dst[q + j] = smem[r * stride + lv]
+                lv += 1
+                if lv == num_levels:
+                    lv, r = 0, r + 1
+        for q in range(chunks * vec, pairs):
+            r = q // num_levels
+            dst[q] = smem[r * stride + (q - r * num_levels)]
+    return out.reshape(n, num_levels)
+
+
+@pytest.mark.parametrize("pair_bytes", [4, 8], ids=["bf16", "f32"])
+@pytest.mark.parametrize("num_levels", [1, 2, 3, 5, 16])
+def test_forward_tile_map_reassembles_output(num_levels, pair_bytes):
+    """The forward's staged output tile, written out 16 bytes a thread,
+    reassembles [N, 2L] exactly, for ragged N; and the table gradient's
+    copy_tile_in (the same index map, the other way, on its own tile) hands
+    lane p of a tile the pairs of point p."""
+    for tile in (FWD_TILE, BWD_TILE):
+        for n in (1, 31, 127, 128, 129, 300, 513):
+            ids = np.arange(n * num_levels).reshape(n, num_levels)
+            np.testing.assert_array_equal(emulate_copy_tile(ids, num_levels, pair_bytes, tile), ids)
+    table, pos, scal, t, _ = ray_inputs(10, num_levels, 8, 3, 43, 4, 64)
+    want = tenc.hash_encode_plain(torch.as_tensor(table), torch.as_tensor(pos), torch.as_tensor(scal), t).numpy()
+    pairs = want.reshape(len(pos), num_levels, 2)
+    ids = np.arange(len(pos) * num_levels).reshape(len(pos), num_levels)
+    ids = emulate_copy_tile(ids, num_levels, pair_bytes, FWD_TILE)
+    np.testing.assert_array_equal(pairs.reshape(-1, 2)[ids.reshape(-1)].reshape(want.shape), want)
