@@ -38,8 +38,13 @@ Phases, each fatal on failure:
    65,536 per training step), both proposal stacks (3 x 64; x 128 and x 48
    samples) and the fields (1,048,576 / 262,144 points), with rays whose
    samples leave the unit ball and the box and samples with tied inf-norm
-   components; kernel, plain, library (a chain of PyTorch ops and
-   torch.matmul calls, a yardstick the port never calls) and bound times;
+   components; the whole-field forward's head input (written for the
+   backward) equal to the plain version's bitwise, and its output the same
+   without it; kernel (the field forward as a training step calls it,
+   writing the head input, and as ms_render as a render chunk does, with
+   none), plain, library (a chain of
+   PyTorch ops and torch.matmul calls, a yardstick the port never calls)
+   and bound times;
 7. the render path of each method at full width (seeded random weights):
    thermal-nerfacto-tpu, thermal-nerfacto and thermal-nerfacto-tpu+fused
    (thermal-nerfacto-tpu with fused_raymarch, fused_field and
@@ -50,8 +55,8 @@ Phases, each fatal on failure:
    the method implies (4 fused-MLP forwards; 8 hash forwards: two
    proposals, the field and the cross density per modality; 6 ray-march
    forwards, four proposals and two cross densities, and 2 whole-field
-   forwards), and a small render must agree with the same model evaluated
-   on the CPU;
+   forwards, none writing the head input), and a small render must agree
+   with the same model evaluated on the CPU;
 8. the training path of each method: a scene of its own (8 RGB 640x480
    and 8 thermal 640x512 frames of a ray-traced textured sphere) trains
    the method at full width through setup_trainer -> Trainer.setup ->
@@ -85,7 +90,10 @@ Phases, each fatal on failure:
 10. the stage split of every timed backward of phases 4 and 6 (device ms
    per call from torch.profiler: the one-pass kernel of a narrow stack, or
    the walk, the dW tiles and the slab sums, and the per-point and per-ray
-   passes), after the timed phases;
+   passes), after the timed phases; then the field_split line: the
+   whole-field forward at 1,048,576 points as a training step and as a
+   render chunk call it, its time (CUDA events) and each kernel's device
+   ms (torch.profiler), beside row 3's cross density on the same rays;
 11. a JSON line of the ported kernels (rows 3 and 4 at their three shapes:
    the cross density and both proposal stacks, each with the launches of
    its stack in the fused training run; the hash kernels with their sums
@@ -202,6 +210,7 @@ METHODS = {
         step=lambda updated: {
             "fused_ray_mlp_fwd": 6,
             "fused_field_mlp_fwd": 2,
+            "fused_field_mlp_fwd_head_input": 2,
             "fused_ray_mlp_bwd": 4 + 2 * updated,
             "fused_ray_mlp_bwd_input_grads": 2,
             "fused_field_mlp_bwd": 2,
@@ -255,6 +264,18 @@ def stage_split(fn, iters: int = 5) -> dict:
     one-pass kernel, or the walk, the dW tiles and the slab sums; "other"
     holds the per-point and per-ray passes), read from torch.profiler over
     `iters` calls."""
+    split = {}
+    for name, ms in kernel_split(fn, iters).items():
+        stage = next((stage for stage, key in STAGES if key in name), "other")
+        split[stage] = split.get(stage, 0.0) + ms
+    return split
+
+
+def kernel_split(fn, iters: int = 5) -> dict:
+    """Device ms per call of each kernel fn launches, by kernel name
+    (template arguments kept), from torch.profiler over `iters` calls."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -269,10 +290,10 @@ def stage_split(fn, iters: int = 5) -> dict:
         us = ev.cuda_time_total if us is None else us
         if us <= 0:
             continue
-        stage = next((name for name, key in STAGES if key in ev.key), "other")
-        split[stage] = split.get(stage, 0.0) + us / 1e3 / iters
+        name = re.sub(r"\(anonymous namespace\)::", "", ev.key).split("(")[0].replace("void ", "").strip()
+        split[name] = split.get(name, 0.0) + us / 1e3 / iters
     if not split:
-        raise AssertionError("torch.profiler saw no device time in a backward call")
+        raise AssertionError("torch.profiler saw no device time")
     return split
 
 
@@ -445,7 +466,9 @@ def backward_phase():
 def counters():
     """Every kernel wrapper's launch counter, by kernel name: (wrapper,
     attribute). fused_ray_mlp_bwd_input_grads counts the ray backward's
-    launches that computed input gradients."""
+    launches that computed input gradients, fused_field_mlp_fwd_head_input
+    the whole-field forward's launches that wrote the head input (a render
+    chunk's write none)."""
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
     from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
     from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
@@ -458,6 +481,7 @@ def counters():
         "fused_ray_mlp_fwd": (fr.fused_ray_mlp, "launches"), "fused_ray_mlp_bwd": (fr.fused_ray_mlp_bwd, "launches"),
         "fused_ray_mlp_bwd_input_grads": (fr.fused_ray_mlp_bwd, "input_grad_launches"),
         "fused_field_mlp_fwd": (fr.fused_field_mlp, "launches"),
+        "fused_field_mlp_fwd_head_input": (fr.fused_field_mlp, "head_input_launches"),
         "fused_field_mlp_bwd": (fr.fused_field_mlp_bwd, "launches"),
     }
 
@@ -925,6 +949,52 @@ def ray_kernel_phase():
 FIELD_CASES = [(3, 32768, 8192, 32), (1, 32768, 8192, 32)]
 
 
+def check_head_input(name, out, head_in, d, emb, s, c, dtype):
+    """The head input a whole-field forward wrote equals, bitwise, the
+    plain version's _head_input of the same base output (its raw density
+    column out[:, C], its geo columns as written): SH4 and the embedding
+    rounded to the compute dtype, each ray's broadcast to its samples."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
+    geo = head_in.shape[1] - 16 - emb.shape[1]
+    base = torch.cat([out[:, c : c + 1], head_in[:, 16 : 16 + geo].to(dtype)], -1)
+    if not torch.equal(head_in, fr._head_input(d, emb, base, s, dtype).float()):
+        raise AssertionError(f"{name}: the head input differs from the plain _head_input")
+
+
+def field_split_phase():
+    """Row 5 at its main shape, bf16: the whole-field forward (C = 3, E =
+    32, 32,768 rays x 32 samples, the rays of ray_inputs) as a training step
+    calls it (head input written) and as a render chunk does (no head
+    input), each timed with CUDA events and split by kernel (device ms per
+    call, torch.profiler), and row 3's cross density (the same base stack
+    on the same rays). Prints the field_split line; returns its numbers."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
+    c, r, _, s = FIELD_CASES[0]
+    gen, e, skips, dtype = torch.Generator().manual_seed(5), 32, (4,), torch.bfloat16
+    bw, bb = mlp_params(gen, 3, BASE_DIMS, skips, BASE_FREQ)
+    hw, hb = mlp_params(gen, 63, (64, 64, c), (), None)
+    base = fm.prepare(3, bw, bb, None, skips, BASE_FREQ, dtype)
+    head = fm.prepare(63, hw, hb, "sigmoid", (), None, dtype)
+    o, d, t = ray_inputs(gen, r, s)
+    emb = torch.randn(r, e, generator=gen).cuda()
+    forms = {"train": lambda: fr.launch_field(o, d, t, emb, s, base, head),
+             "render": lambda: fr.launch_field(o, d, t, emb, s, base, head, head_input=False)}
+    result = {form: {"ms": cuda_ms(fn, iters=10)} for form, fn in forms.items()}
+    result["row3_cross_density_ms"] = cuda_ms(lambda: fr.launch_ray(o, d, t, s, base), iters=10)
+    for form, fn in forms.items():
+        result[form]["kernels"] = kernel_split(fn)
+    parts = [f"{form}: {rec['ms']:.4f} ms = " + " + ".join(f"{k} {v:.4f}" for k, v in rec["kernels"].items())
+             for form, rec in result.items() if form in forms]
+    log(f"field_split C={c} bf16 n={r * s} ({r} x {s}): " + "; ".join(parts)
+        + f"; row 3 cross density (same base stack, same rays) {result['row3_cross_density_ms']:.4f} ms")
+    del o, d, t, emb, base, head
+    torch.cuda.empty_cache()
+    return result
+
+
 def field_kernel_phase():
     """The whole-field forward and backward kernels against their plain
     versions at the main path's shapes (base 8 x 256, head 63 -> 64 -> 64
@@ -947,16 +1017,25 @@ def field_kernel_phase():
             o, d, t = ray_inputs(gen, r_fwd, s)
             emb = torch.randn(r_fwd, e, generator=gen).cuda()
             n = r_fwd * s
-            got, _ = fr.launch_field(o, d, t, emb, s, base, head)
+            got, head_in = fr.launch_field(o, d, t, emb, s, base, head)
             torch.cuda.synchronize()
             want = fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype)
             paths = f"{base.fwd_path} base, {head.fwd_path} head"
             max_err = check_fwd(f"fused_field_mlp_fwd {tag} ({paths})", got, want, dtype)
+            check_head_input(f"fused_field_mlp_fwd {tag}", got, head_in, d, emb, s, c, dtype)
+            bare, none = fr.launch_field(o, d, t, emb, s, base, head, head_input=False)
+            if none is not None or not torch.equal(bare, got):
+                raise AssertionError(f"fused_field_mlp_fwd {tag}: without the head input the output differs "
+                                     "or a head input came back")
             line = (f"kernel_vs_plain fused_field_mlp_fwd {tag} [{paths}]: n={n} ({r_fwd} x {s}) "
-                    f"max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel) ok")
-            del got, want
+                    f"max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel), head input equal to the plain "
+                    f"_head_input, output without it bitwise equal, ok")
+            del got, want, head_in, bare
             if dtype == torch.bfloat16:
+                # a training step's call (head input written), and a render
+                # chunk's (none)
                 ms = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head), iters=10)
+                ms_render = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head, head_input=False), iters=10)
                 plain_ms = cuda_ms(lambda: fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=3)
                 wbs = [[x.to(dtype) for x in z] for z in (bw, bb, hw, hb)]
                 library_ms = cuda_ms(lambda: library_field(o, d, t, emb, s, *wbs, skips, BASE_FREQ, dtype), iters=5)
@@ -964,10 +1043,10 @@ def field_kernel_phase():
                 bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, n * (40 + 9 * BASE_FREQ[0]) + r_fwd * 30)
                 recs["fused_field_mlp_fwd"][c] = {
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                    "bound_by": bound_by, "max_abs_err": max_err, "n": n, "ms_render": ms_render,
                 }
-                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
-                         f"bound {bound_ms:.4f} ms ({term})")
+                line += (f" | kernel {ms:.3f} ms ({ms_render:.3f} ms without the head input), plain {plain_ms:.3f} "
+                         f"ms, library {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
             log(line)
             o, d, t = ray_inputs(gen, r_bwd, s)
             emb = torch.randn(r_bwd, e, generator=gen).cuda()
@@ -1577,6 +1656,7 @@ def main() -> int:
             step_vs_cpu_phase(m, scene, Path(tmp) / m / f"step_f32_{freqs}", f32_freqs=freqs)
         for line in stage_lines():
             log(line)
+        field_split_phase()
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -1644,7 +1724,7 @@ def main() -> int:
         {"name": "fused_field_mlp_fwd", "route": "cuda", "source": ray_fwd_source,
          "replaces": pallas + "fused_mlp.py:1160 (row 5: fused_field_mlp -> _field_fwd_kernel)",
          "launches": fused_counts["fused_field_mlp_fwd"],
-         **{k: field_kernels["fused_field_mlp_fwd"][3][k] for k in keys}},
+         **{k: field_kernels["fused_field_mlp_fwd"][3][k] for k in keys + ("ms_render",)}},
         {"name": "fused_field_mlp_bwd", "route": "cuda", "source": ray_bwd_source,
          "replaces": pallas + "fused_mlp.py:1185 (row 6: _fused_field_bwd -> _field_bwd_kernel)",
          "launches": fused_counts["fused_field_mlp_bwd"],

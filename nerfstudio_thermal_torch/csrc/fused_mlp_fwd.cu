@@ -68,6 +68,10 @@
 // f32 path: a plain FMA loop on the CUDA cores (no TF32, no tensor cores),
 // one CTA of 256 threads per 64 points.
 //
+// Each kernel is a template over its x0 fill, the code that says where the
+// x0 tile comes from (see "x0 fills" below): here x [n, in_dim] f32
+// (XFill); fused_ray_fwd.cu instantiates the kernels with its own fills.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: the top frequency reaches
 // ~3217 rad per unit of x, where __sinf/__cosf lose all accuracy.
@@ -78,7 +82,7 @@
 
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
 #include "fused_mlp_common.cuh"
 #include "wgmma.cuh"
@@ -134,45 +138,82 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
+// x0 fills
+//
+// A kernel fills the x0 tile of a group of rows at a time (a warp's 16 on
+// the narrow path, a warpgroup's 64 on the wide path, a block's 64 on the
+// f32 path) through its fill, an object of its template argument Fill:
+// - a point fill (Fill::kTile false) gives each row's in_dim input values,
+//   which the kernel encodes: the group's threads (tid of nthr >= rows) run
+//   prepare<T>(n, row0, rows, tid, nthr, sc), which gives thread tid the
+//   group's row tid % rows, and value(sc, row, r, k) is then value k of row
+//   `row` < n, the group's row r, for the threads that prepared row r and,
+//   after the group's barrier, for all;
+// - a tile fill (Fill::kTile true) writes the group's whole x0 tile:
+//   tile<T>(n, row0, rows, cols, tid, nthr, sc, put, sync), each value
+//   rounded to the compute dtype T, put(r, c, v) storing value v at row r,
+//   column c, sync() the group's barrier.
+// sc points to Fill::kScratch floats of shared memory a row of the group.
+
+// x [n, in_dim] f32, read where the kernel encodes it.
+struct XFill {
+  static constexpr bool kTile = false;
+  static constexpr int kScratch = 0;
+  const float* x;
+  int in_dim;
+  template <typename T>
+  __device__ void prepare(int, int, int, int, int, float*) const {}
+  __device__ float value(const float*, int row, int, int k) const { return __ldg(x + (size_t)row * in_dim + k); }
+};
+
+// ---------------------------------------------------------------------------
 // f32 path
 
-// x0 tile: the encoded (or raw) input of `rows` points, zero beyond
-// enc_dim and beyond the last point.
-__device__ void fill_x0(float* x0, int stride, const float* __restrict__ x,
+// x0 tile: the encoded (or raw) input of `rows` points from a point fill,
+// zero beyond enc_dim and beyond the last point.
+template <typename Fill>
+__device__ void fill_x0(float* x0, int stride, const Fill& fill, const float* sc,
                         const float* __restrict__ freqs, int row0, int n, int rows,
                         const MlpDesc& d) {
-  const int F = d.num_freqs, D = d.in_dim, nf = D * F;
+  const int F = d.num_freqs, nf = d.in_dim * F;
   for (int i = threadIdx.x; i < rows * d.in_pad; i += blockDim.x) {
     const int r = i / d.in_pad, c = i - r * d.in_pad;
     const int row = row0 + r;
     float v = 0.f;
     if (row < n && c < d.enc_dim) {
-      const float* xr = x + (size_t)row * D;
       if (F > 0 && c < 2 * nf) {
         const int cc = c < nf ? c : c - nf;
         const int dd = cc / F;
-        const float pre = xr[dd] * freqs[cc - dd * F];  // one product
+        const float pre = fill.value(sc, row, r, dd) * freqs[cc - dd * F];  // one product
         v = c < nf ? sinf(pre) : cosf(pre);
       } else {
-        v = xr[F > 0 ? c - 2 * nf : c];
+        v = fill.value(sc, row, r, F > 0 ? c - 2 * nf : c);
       }
     }
     x0[r * stride + c] = v;
   }
 }
 
+template <typename Fill>
 __global__ void __launch_bounds__(kThreads)
-fused_mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, const float* __restrict__ freqs,
-                  float* __restrict__ out, int out_stride, int n, MlpDesc d) {
+fused_mlp_fwd_f32(const Fill fill, const float* __restrict__ w, const float* __restrict__ bias,
+                  const float* __restrict__ freqs, float* __restrict__ out, int out_stride, int n, MlpDesc d) {
   extern __shared__ float smem32[];
   const int x0_stride = d.in_pad + 1;
   const int h_stride = d.hid_pad + 1;
   float* x0 = smem32;
   float* hbuf0 = x0 + kBM32 * x0_stride;
   float* hbuf1 = hbuf0 + kBM32 * h_stride;
+  float* sc = hbuf1 + kBM32 * h_stride;  // the fill's scratch
   const int row0 = blockIdx.x * kBM32;
-  fill_x0(x0, x0_stride, x, freqs, row0, n, kBM32, d);
+  if constexpr (Fill::kTile) {
+    fill.template tile<float>(n, row0, kBM32, d.in_pad, threadIdx.x, blockDim.x, sc,
+                              [&](int r, int c, float v) { x0[r * x0_stride + c] = v; }, [] { __syncthreads(); });
+  } else {
+    fill.template prepare<float>(n, row0, kBM32, threadIdx.x, blockDim.x, sc);
+    if constexpr (Fill::kScratch > 0) __syncthreads();
+    fill_x0(x0, x0_stride, fill, sc, freqs, row0, n, kBM32, d);
+  }
   __syncthreads();
 
   const int rg = threadIdx.x >> 4;  // rows rg*4 .. rg*4+3
@@ -234,14 +275,14 @@ fused_mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
 // every padded width <= kNarrowWidth.
 
 // Shared memory of the narrow kernel (bytes): the packed weights, the
-// biases, then the tile's x0 rows (each warp writes and reads only its own
-// 16).
+// biases, the tile's x0 rows (each warp writes and reads only its own 16)
+// and each warp's fill scratch, `scratch` floats a row.
 struct NarrowSmem {
   int x0_stride, total_w, total_b;
-  size_t w, bias, x0, total;
+  size_t w, bias, x0, sc, total;
 };
 
-__host__ __device__ inline NarrowSmem narrow_smem(const MlpDesc& d) {
+__host__ __device__ inline NarrowSmem narrow_smem(const MlpDesc& d, int scratch = 0) {
   NarrowSmem s;
   s.total_w = s.total_b = 0;
   for (int i = 0; i < d.num_layers; ++i) {
@@ -252,7 +293,8 @@ __host__ __device__ inline NarrowSmem narrow_smem(const MlpDesc& d) {
   s.w = 0;
   s.bias = align16((size_t)s.total_w * 2);
   s.x0 = s.bias + align16((size_t)s.total_b * 4);
-  s.total = s.x0 + (size_t)kNarrowRows * s.x0_stride * 2;
+  s.sc = s.x0 + align16((size_t)kNarrowRows * s.x0_stride * 2);
+  s.total = s.sc + (size_t)kNarrowRows * scratch * 4;
   return s;
 }
 
@@ -267,17 +309,19 @@ bool narrow_ok(const MlpDesc& d) {
 
 // Each CTA walks tiles blockIdx.x, + gridDim.x, ... of kNarrowRows points;
 // warp w owns rows 16 w .. 16 w + 15 of a tile in every layer.
+template <typename Fill>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_mlp_fwd_narrow(const float* __restrict__ x, const uint4* __restrict__ w,
-                     const float* __restrict__ bias, const float* __restrict__ freqs,
-                     __nv_bfloat16* __restrict__ out, int out_stride, int n, MlpDesc d, int tiles) {
+fused_mlp_fwd_narrow(const Fill fill, const uint4* __restrict__ w, const float* __restrict__ bias,
+                     const float* __restrict__ freqs, __nv_bfloat16* __restrict__ out, int out_stride, int n,
+                     MlpDesc d, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const NarrowSmem s = narrow_smem(d);
+  const NarrowSmem s = narrow_smem(d, Fill::kScratch);
   uint4* w_s = reinterpret_cast<uint4*>(smem + s.w);
   float* b_s = reinterpret_cast<float*>(smem + s.bias);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, q = lane & 3;
   __nv_bfloat16* xw = reinterpret_cast<__nv_bfloat16*>(smem + s.x0) + warp * 16 * s.x0_stride;
+  float* sc = reinterpret_cast<float*>(smem + s.sc) + warp * 16 * Fill::kScratch;
   const int L = d.num_layers;
   const int F = d.num_freqs, D = d.in_dim, nf = D * F;
 
@@ -287,24 +331,32 @@ fused_mlp_fwd_narrow(const float* __restrict__ x, const uint4* __restrict__ w,
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kNarrowRows + warp * 16;  // this warp's first row
-    // encoding of the warp's 16 rows: one sincosf per (row, dimension,
-    // frequency) for the sin and the cos column; raw and padding columns
-    for (int j = lane; j < nf; j += 32) {
-      const int dd = j / F;
-      const float f = freqs[j - dd * F];
-      for (int r = 0; r < 16; ++r) {
-        const int row = row0 + r;
-        float sv = 0.f, cv = 0.f;
-        if (row < n) sincosf(x[(size_t)row * D + dd] * f, &sv, &cv);  // one product
-        xw[r * s.x0_stride + j] = __float2bfloat16_rn(sv);
-        xw[r * s.x0_stride + nf + j] = __float2bfloat16_rn(cv);
+    if constexpr (Fill::kTile) {
+      fill.template tile<__nv_bfloat16>(
+          n, row0, 16, d.in_pad, lane, 32, sc,
+          [&](int r, int c, float v) { xw[r * s.x0_stride + c] = __float2bfloat16_rn(v); }, [] { __syncwarp(); });
+    } else {
+      fill.template prepare<__nv_bfloat16>(n, row0, 16, lane, 32, sc);
+      if constexpr (Fill::kScratch > 0) __syncwarp();
+      // encoding of the warp's 16 rows: one sincosf per (row, dimension,
+      // frequency) for the sin and the cos column; raw and padding columns
+      for (int j = lane; j < nf; j += 32) {
+        const int dd = j / F;
+        const float f = freqs[j - dd * F];
+        for (int r = 0; r < 16; ++r) {
+          const int row = row0 + r;
+          float sv = 0.f, cv = 0.f;
+          if (row < n) sincosf(fill.value(sc, row, r, dd) * f, &sv, &cv);  // one product
+          xw[r * s.x0_stride + j] = __float2bfloat16_rn(sv);
+          xw[r * s.x0_stride + nf + j] = __float2bfloat16_rn(cv);
+        }
       }
-    }
-    for (int c = 2 * nf + lane; c < d.in_pad; c += 32) {
-      for (int r = 0; r < 16; ++r) {
-        const int row = row0 + r;
-        const float v = row < n && c < d.enc_dim ? x[(size_t)row * D + c - 2 * nf] : 0.f;
-        xw[r * s.x0_stride + c] = __float2bfloat16_rn(v);
+      for (int c = 2 * nf + lane; c < d.in_pad; c += 32) {
+        for (int r = 0; r < 16; ++r) {
+          const int row = row0 + r;
+          const float v = row < n && c < d.enc_dim ? fill.value(sc, row, r, c - 2 * nf) : 0.f;
+          xw[r * s.x0_stride + c] = __float2bfloat16_rn(v);
+        }
       }
     }
     __syncwarp();
@@ -397,9 +449,11 @@ bool make_wg_plan(const MlpDesc& d, long long& elems, WgPlan& p) {
 }
 
 // Shared memory of the wide kernel: alignment slack, the ring, x0 (per
-// atom 128 rows of 128 bytes), the full and empty barriers.
-size_t wg_smem(const WgPlan& p) {
-  return 1024 + (size_t)kWgStages * kWgSlot + (size_t)p.x0_atoms * kWgRows * 128 + 2 * kWgStages * 8;
+// atom 128 rows of 128 bytes), the full and empty barriers and the fill's
+// scratch, `scratch` floats a row.
+size_t wg_smem(const WgPlan& p, int scratch = 0) {
+  return 1024 + (size_t)kWgStages * kWgSlot + (size_t)p.x0_atoms * kWgRows * 128 + 2 * kWgStages * 8 +
+         (size_t)kWgRows * scratch * 4;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -566,10 +620,11 @@ __device__ __forceinline__ void wide_layer(float (&acc)[128], uint32_t (&a)[16][
   }
 }
 
+template <typename Fill>
 __global__ void __launch_bounds__(kWgThreads, 1)
-fused_mlp_fwd_wgmma(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias, const float* __restrict__ freqs,
-                    __nv_bfloat16* __restrict__ out, int out_stride, int n, MlpDesc d, WgPlan p) {
+fused_mlp_fwd_wgmma(const Fill fill, const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                    const float* __restrict__ freqs, __nv_bfloat16* __restrict__ out, int out_stride, int n,
+                    MlpDesc d, WgPlan p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle needs 1024-byte aligned atoms
@@ -613,6 +668,8 @@ fused_mlp_fwd_wgmma(const float* __restrict__ x, const __nv_bfloat16* __restrict
     const int wg = warp >> 2, t = threadIdx.x & 127;
     const uint32_t x0_wg = base + x0_off + wg * 64 * 128;
     unsigned char* x0s = smem + x0_off + wg * 64 * 128;
+    float* sc = reinterpret_cast<float*>(smem + x0_off + p.x0_atoms * kWgRows * 128 + 2 * kWgStages * 8) +
+                wg * 64 * Fill::kScratch;  // the fill's scratch
     const int F = d.num_freqs, D = d.in_dim, nf = D * F;
     WgRing ring{base, bars, 0, -1, 0};
     float acc[128];
@@ -623,31 +680,39 @@ fused_mlp_fwd_wgmma(const float* __restrict__ x, const __nv_bfloat16* __restrict
       for (int e = 0; e < 4; ++e) a[i][e] = 0;
 
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      // x0 of the warpgroup's 64 rows in the swizzled K-major order: thread
-      // t writes row t % 64, every other frequency / column from t / 64;
-      // one sincosf per (row, dimension, frequency)
+      // x0 of the warpgroup's 64 rows in the swizzled K-major order
       {
-        const int r = t & 63, par = t >> 6;
-        const int row = tile * kWgRows + wg * 64 + r;
-        const bool in = row < n;
-        const float* xr = x + (size_t)row * D;
-        auto put = [&](int c, float v) {
+        const int row0 = tile * kWgRows + wg * 64;
+        auto put = [&](int r, int c, float v) {
           const int off = (c >> 6) * (kWgRows * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
           *reinterpret_cast<__nv_bfloat16*>(x0s + off) = __float2bfloat16_rn(v);
         };
-        for (int dd = 0; dd < (F > 0 ? D : 0); ++dd) {
-          const float xv = in ? xr[dd] : 0.f;
-          for (int k = par; k < F; k += 2) {
-            float sv, cv;
-            sincosf(xv * freqs[k], &sv, &cv);  // one product
-            put(dd * F + k, sv);
-            put(nf + dd * F + k, cv);
+        auto sync = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
+        if constexpr (Fill::kTile) {
+          fill.template tile<__nv_bfloat16>(n, row0, 64, p.x0_atoms * 64, t, 128, sc, put, sync);
+        } else {
+          // thread t prepares and writes row t % 64 (so no barrier between
+          // the two), every other frequency / column from t / 64; one
+          // sincosf per (row, dimension, frequency)
+          fill.template prepare<__nv_bfloat16>(n, row0, 64, t, 128, sc);
+          const int r = t & 63, par = t >> 6;
+          const int row = row0 + r;
+          const bool in = row < n;
+          for (int dd = 0; dd < (F > 0 ? D : 0); ++dd) {
+            const float xv = in ? fill.value(sc, row, r, dd) : 0.f;
+            for (int k = par; k < F; k += 2) {
+              float sv, cv;
+              sincosf(xv * freqs[k], &sv, &cv);  // one product
+              put(r, dd * F + k, sv);
+              put(r, nf + dd * F + k, cv);
+            }
           }
+          // raw input columns, then zeros up to the atoms' edge
+          for (int c = 2 * nf + par; c < p.x0_atoms * 64; c += 2)
+            put(r, c, in && c < d.enc_dim ? fill.value(sc, row, r, c - 2 * nf) : 0.f);
         }
-        // raw input columns, then zeros up to the atoms' edge
-        for (int c = 2 * nf + par; c < p.x0_atoms * 64; c += 2) put(c, in && c < d.enc_dim ? xr[c - 2 * nf] : 0.f);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        sync();
       }
       const int row = tile * kWgRows + wg * 64 + (warp & 3) * 16 + (lane >> 2);
       for (int li = 0; li < d.num_layers; ++li) {
@@ -709,37 +774,39 @@ int num_sms() {
   return sms > 0 ? sms : 1;
 }
 
-// CTAs of the narrow kernel that fit on one SM with `smem` bytes each,
-// cached per (device, smem): the grid depends only on these.
-int narrow_blocks_per_sm(size_t smem) {
+// CTAs of a narrow kernel that fit on one SM with `smem` bytes each, cached
+// per (device, kernel, smem): the grid depends only on these.
+template <typename Kernel>
+int narrow_blocks_per_sm(Kernel kernel, size_t smem) {
   static std::mutex mu;
-  static std::map<std::pair<int, size_t>, int> cache;
+  static std::map<std::tuple<int, const void*, size_t>, int> cache;
   int device = 0;
   cudaGetDevice(&device);
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(device, smem);
+  const auto key = std::make_tuple(device, reinterpret_cast<const void*>(kernel), smem);
   const auto hit = cache.find(key);
   if (hit != cache.end()) return hit->second;
   int blocks = 0;
-  if (cudaFuncSetAttribute(fused_mlp_fwd_narrow, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_mlp_fwd_narrow, kThreads, smem) !=
-          cudaSuccess ||
-      blocks < 1)
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) != cudaSuccess || blocks < 1)
     blocks = 1;
   cache[key] = blocks;
   return blocks;
 }
 
 // Shared memory of the f32 kernel: x0 and two hidden buffers of kBM32 rows,
-// each row padded by one float.
-size_t f32_smem(const MlpDesc& d) {
-  return (size_t)kBM32 * (d.in_pad + 1) * 4 + 2 * (size_t)kBM32 * (d.hid_pad + 1) * 4;
+// each row padded by one float, then the fill's scratch, `scratch` floats
+// a row.
+size_t f32_smem(const MlpDesc& d, int scratch = 0) {
+  return (size_t)kBM32 * (d.in_pad + 1) * 4 + 2 * (size_t)kBM32 * (d.hid_pad + 1) * 4 +
+         (size_t)kBM32 * scratch * 4;
 }
 
 // The forward path of a stack: the f32 kernel for f32 compute; for bf16
 // the narrow kernel when narrow_ok, else the wide kernel when it has a plan
 // for the stack and its shared memory fits; -1 when no kernel takes it.
+// (A fill's scratch takes a little more: launch_fwd refuses the rare stack
+// whose total then no longer fits.)
 int fwd_path(const MlpDesc& d, int bf16) {
   if (!bf16) return f32_smem(d) <= (size_t)kSmemLimit ? kPathF32 : -1;
   if (narrow_ok(d)) return kPathNarrow;
@@ -749,43 +816,50 @@ int fwd_path(const MlpDesc& d, int bf16) {
   return -1;
 }
 
-// One forward on stream s: x [n, in_dim] f32, out rows of out_stride
+// One forward on stream s: its x0 from fill, out rows of out_stride
 // elements (the first out_dim written), on the path fwd_path picks. w is
 // the packed weights (mma B-fragment order for bf16, row-major f32 for
 // f32); the wide path reads w_wg instead, the wgmma-order weights of
 // wg_elems elements, which must be the length its plan gives.
-cudaError_t launch_fwd(const float* x, const void* w, const void* w_wg, long long wg_elems,
+template <typename Fill>
+cudaError_t launch_fwd(const Fill& fill, const void* w, const void* w_wg, long long wg_elems,
                        const float* bias, const float* freqs, void* out, int out_stride, int n,
                        const MlpDesc& d, int bf16, cudaStream_t s) {
   cudaError_t err;
   const int path = fwd_path(d, bf16);
   if (path == kPathF32) {
-    const size_t smem = f32_smem(d);
-    err = cudaFuncSetAttribute(fused_mlp_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = f32_smem(d, Fill::kScratch);
+    if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+    const auto kernel = fused_mlp_fwd_f32<Fill>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    fused_mlp_fwd_f32<<<cdiv(n, kBM32), kThreads, smem, s>>>(
-        x, static_cast<const float*>(w), bias, freqs, static_cast<float*>(out), out_stride, n, d);
+    kernel<<<cdiv(n, kBM32), kThreads, smem, s>>>(fill, static_cast<const float*>(w), bias, freqs,
+                                                   static_cast<float*>(out), out_stride, n, d);
   } else if (path == kPathNarrow) {
-    const size_t smem = narrow_smem(d).total;
+    const size_t smem = narrow_smem(d, Fill::kScratch).total;
+    if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+    const auto kernel = fused_mlp_fwd_narrow<Fill>;
     const int tiles = cdiv(n, kNarrowRows);
-    const int fit = num_sms() * narrow_blocks_per_sm(smem);
-    err = cudaFuncSetAttribute(fused_mlp_fwd_narrow, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int fit = num_sms() * narrow_blocks_per_sm(kernel, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    fused_mlp_fwd_narrow<<<tiles < fit ? tiles : fit, kThreads, smem, s>>>(
-        x, static_cast<const uint4*>(w), bias, freqs, static_cast<__nv_bfloat16*>(out), out_stride, n, d,
-        tiles);
+    kernel<<<tiles < fit ? tiles : fit, kThreads, smem, s>>>(fill, static_cast<const uint4*>(w), bias, freqs,
+                                                             static_cast<__nv_bfloat16*>(out), out_stride, n, d,
+                                                             tiles);
   } else if (path == kPathWgmma) {
     WgPlan p;
     long long elems = 0;
     make_wg_plan(d, elems, p);
     if (elems != wg_elems || w_wg == nullptr) return cudaErrorInvalidValue;
-    const size_t smem = wg_smem(p);
+    const size_t smem = wg_smem(p, Fill::kScratch);
+    if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
     p.tiles = cdiv(n, kWgRows);
     const int sms = num_sms();
-    err = cudaFuncSetAttribute(fused_mlp_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const auto kernel = fused_mlp_fwd_wgmma<Fill>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    fused_mlp_fwd_wgmma<<<p.tiles < sms ? p.tiles : sms, kWgThreads, smem, s>>>(
-        x, static_cast<const __nv_bfloat16*>(w_wg), bias, freqs, static_cast<__nv_bfloat16*>(out), out_stride,
+    kernel<<<p.tiles < sms ? p.tiles : sms, kWgThreads, smem, s>>>(
+        fill, static_cast<const __nv_bfloat16*>(w_wg), bias, freqs, static_cast<__nv_bfloat16*>(out), out_stride,
         n, d, p);
   } else {
     return cudaErrorInvalidValue;
@@ -829,7 +903,7 @@ extern "C" int fused_mlp_fwd(const void* x, const void* w, const void* w_wg, lon
   if (!parse_desc(desc, desc_len, d) || n <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fwd(static_cast<const float*>(x), w, w_wg, wg_elems, static_cast<const float*>(bias),
-                         static_cast<const float*>(freqs), out, d.out_dim, n, d, bf16,
-                         reinterpret_cast<cudaStream_t>(stream));
+  return (int)launch_fwd(XFill{static_cast<const float*>(x), d.in_dim}, w, w_wg, wg_elems,
+                         static_cast<const float*>(bias), static_cast<const float*>(freqs), out, d.out_dim, n, d,
+                         bf16, reinterpret_cast<cudaStream_t>(stream));
 }

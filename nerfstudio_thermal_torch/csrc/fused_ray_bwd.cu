@@ -132,7 +132,7 @@ cudaError_t ray_bwd(const float* o, const float* d, const float* t, const T* g, 
                     float* d_t, int n_rays, int S, MlpDesc md, int need_input_grads,
                     int sms, cudaStream_t s) {
   const int n = n_rays * S;
-  ray_prologue<T><<<point_blocks(n), kPointThreads, 0, s>>>(o, d, t, x, nullptr, 0, 0, n, S);
+  ray_prologue<<<point_blocks(n), kPointThreads, 0, s>>>(o, d, t, x, n, S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   md.no_dx = !need_input_grads;
@@ -159,7 +159,7 @@ cudaError_t field_bwd(const FieldPtrs& p, const T* g, const T* g_rgb, T* g_base,
                       int S, int E, MlpDesc base, MlpDesc head, int sms, cudaStream_t s) {
   const int n = n_rays * S;
   const int C = head.out_dim, geo = base.out_dim - 1, width = head.in_dim;
-  ray_prologue<T><<<point_blocks(n), kPointThreads, 0, s>>>(p.o, p.d, p.t, p.x, nullptr, 0, 0, n, S);
+  ray_prologue<<<point_blocks(n), kPointThreads, 0, s>>>(p.o, p.d, p.t, p.x, n, S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   head.dx_exact = 1;

@@ -171,12 +171,10 @@ __device__ __forceinline__ void sh4_vjp(const float* __restrict__ dir, const flo
   out[2] = dz;
 }
 
-// Per point: x = p01 sel into x [n, 3] f32 and, when out is given, the
-// selector into column sel_col of out (rows of out_stride elements).
-template <typename T>
+// Per point: x = p01 sel into x [n, 3] f32 (the backward's recompute of
+// the stack's input).
 __global__ void ray_prologue(const float* __restrict__ o, const float* __restrict__ d,
-                             const float* __restrict__ t, float* __restrict__ x, T* __restrict__ out,
-                             int out_stride, int sel_col, int n, int S) {
+                             const float* __restrict__ t, float* __restrict__ x, int n, int S) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int r = i / S;
@@ -184,7 +182,6 @@ __global__ void ray_prologue(const float* __restrict__ o, const float* __restric
   ray_point(o + 3 * r, d + 3 * r, t[i], p);
 #pragma unroll
   for (int k = 0; k < 3; ++k) x[3 * i + k] = p.x[k];
-  if (out != nullptr) out[(size_t)i * out_stride + sel_col] = ray_cast<T>(p.sel);
 }
 
 }  // namespace

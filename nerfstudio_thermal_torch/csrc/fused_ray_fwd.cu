@@ -20,26 +20,47 @@
 // ~17k FLOP per point; the 64-wide proposal stacks (3 x 64, 5 or 7
 // frequencies) do ~14-16k FLOP per point against ~30-42 sin/cos, and even
 // there the f32 encoding and contraction work bounds about ten times below
-// the products (chip_smoke.py's bound terms). The ray prologue moves 12
-// bytes of x per point; rays cost 24 bytes each and midpoints 4 per point.
+// the products (chip_smoke.py's bound terms). Rays cost 24 bytes each and
+// midpoints 4 per point; the contracted positions never leave the kernel.
 //
-// Design: a composition of fused_mlp_fwd.cu's kernels. A prologue kernel
-// (one thread per point, IEEE roundings, fused_ray_common.cuh) writes x
-// [n, 3] f32 and the selector column of the output; the fused-MLP forward
-// runs the stack on x, on the path launch_fwd picks (the one-pass narrow
-// kernel for the 64-wide proposal stacks and the colour head, the wgmma
-// kernel for the 8 x 256 stacks), writing its rows with the output's
-// stride.
-// The whole-field forward runs the base stack into a [n, 16] buffer, a
-// second kernel (one thread per element, so that the stores coalesce)
-// assembles the head input [n, 16 + geo + E] in f32 (every value rounded
-// to the compute dtype, so exactly what the head's x0 tile holds) and
-// copies the raw density, and the fused-MLP kernel runs the head into the
-// output. What this gives up against one kernel per
-// point block: x (12 B), the base output (32 B) and the head input (252 B
-// for E = 32) make a round trip through device memory. The head input is
-// kept: the whole-field backward reads it instead of recomputing the base
-// stack a second time.
+// Design: fused_mlp_fwd.cu's kernels, instantiated here with two x0 fills
+// of their own. RayFill contracts each sample of the group's rows into
+// shared memory (one thread a row: ray_point with IEEE roundings,
+// fused_ray_common.cuh) and writes its selector column of the output; the
+// kernel then encodes the contracted positions as it encodes x. Every path
+// takes it: the wgmma kernel (the 8 x 256 stacks: row 3's cross density,
+// row 5's base), the narrow kernel (the 64-wide proposal stacks) and the
+// f32 kernel, so a ray-march forward is one launch. Rows are written with
+// the output's stride.
+// The whole-field forward is two launches: the base stack (RayFill) into a
+// [n, 1 + geo] buffer, then the head (the narrow kernel; f32, or wgmma for
+// a head wider than 64), whose HeadFill assembles its x0 tile: SH4 of each
+// ray its rows reach, computed once per ray and group, the base output's
+// geo columns and the ray's embedding, each rounded to the compute dtype,
+// as the plain version rounds them. It copies the raw density into the
+// output and, only when a backward can follow, writes the head input [n,
+// 16 + geo + E] f32, which the whole-field backward reads instead of
+// recomputing the base stack. What this still gives up against one kernel
+// per point block: the base output (32 B a point) makes a round trip
+// through device memory, and the head has a launch of its own.
+// Measured at 1,048,576 points, C = 3, bf16 (H100 80GB HBM3, 700 W;
+// chip_smoke.py's field_split line, device ms per kernel): the first
+// design's four launches took 3.90 ms (prologue 0.012, base 3.03, a kernel
+// assembling the head input one thread per element 0.66, head 0.26); now
+// 3.24-3.30 without the head input (base, contracting itself, 3.02-3.04;
+// head with its assembly 0.29) and 3.32-3.39 writing it (head 0.35). The
+// contraction in the kernel, against the prologue kernel and x [n, 3]
+// (chip_smoke.py's ray_kernel_phase): the cross density 3.07 -> 2.99-3.03
+// ms at 1,048,576 points, the proposals 1.07-1.08 -> 0.92-0.93 at
+// 4,194,304 and 0.39 -> 0.35 at 1,572,864; a first RayFill that contracted
+// one thread a row and then waited at a barrier read the cross density 1%
+// slower than the prologue design. The head assembly, tried in
+// turn: one value per thread and step with a division by S each, 0.56-0.68
+// ms for the head kernel; a batch of loads before their stores, the same;
+// each row's ray looked up from a table built once per tile, 0.44; the base
+// columns and the embedding as two loops whose warps each take one branch,
+// 0.29. (Ablations of the first: no division 0.41, no loads 0.28, zeros
+// alone 0.20.)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math (see fused_mlp_fwd.cu).
@@ -49,38 +70,130 @@
 
 namespace {
 
-constexpr int kPointThreads = 256;
+// A point fill (fused_mlp_fwd.cu, "x0 fills"): x of row i is the
+// contracted sample o_r + t_i d_r of ray r = i / S, computed into the
+// scratch by prepare (every thread its row; a row's threads write the same
+// values), whose first thread of a row also writes the row's selector to
+// sel[i * sel_stride + sel_col] in the compute dtype.
+struct RayFill {
+  static constexpr bool kTile = false;
+  static constexpr int kScratch = 3;
+  const float* o;  // [R, 3] origins
+  const float* d;  // [R, 3] directions
+  const float* t;  // [R S] midpoints
+  int S;           // samples per ray
+  void* sel;
+  int sel_stride, sel_col;
 
-// One thread per element of head_in [n, 16 + geo + E]: for point i of ray
-// r = i / S, [SH4(d_r) | base_out[i, 1:] | emb_r], each value rounded to
-// the compute dtype T (neighbouring threads write neighbouring columns);
-// the thread of column 0 also copies out[i, C] = base_out[i, 0].
-template <typename T>
-__global__ void field_head_input(const float* __restrict__ d, const float* __restrict__ emb,
-                                 const T* __restrict__ base_out, float* __restrict__ head_in,
-                                 T* __restrict__ out, int n, int S, int geo, int E, int C) {
-  const int width = 16 + geo + E;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= (long long)n * width) return;
-  const long long i = j / width;
-  const int c = (int)(j - i * width);
-  const long long r = i / S;
-  const T* b = base_out + i * (1 + geo);
-  float v;
-  if (c < 16) {
-    float sh[16];
-    sh4(d + 3 * r, sh);
-    v = ray_f32(ray_cast<T>(sh[c]));
-  } else if (c < 16 + geo) {
-    v = ray_f32(b[1 + c - 16]);
-  } else {
-    v = ray_f32(ray_cast<T>(emb[r * E + c - 16 - geo]));
+  template <typename T>
+  __device__ void prepare(int n, int row0, int rows, int tid, int, float* sc) const {
+    const int r = tid % rows, row = row0 + r;
+    if (row >= n) return;
+    const int ray = row / S;
+    RayPoint p;
+    ray_point(o + 3 * (size_t)ray, d + 3 * (size_t)ray, t[row], p);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sc[3 * r + k] = p.x[k];
+    if (tid < rows) static_cast<T*>(sel)[(size_t)row * sel_stride + sel_col] = ray_cast<T>(p.sel);
   }
-  head_in[j] = v;
-  if (c == 0) out[i * (C + 2) + C] = b[0];
-}
+  __device__ float value(const float* sc, int, int r, int k) const { return sc[3 * r + k]; }
+};
 
-inline int blocks(long long n) { return (int)((n + kPointThreads - 1) / kPointThreads); }
+// A tile fill: the whole field's colour-head input. Row i of ray r = i / S
+// is [SH4(d_r) | base[i, 1:] | emb_r], each value rounded to the compute
+// dtype T (the plain version's _head_input), zero beyond that width up to
+// `cols` and from row n on. Also copies each row's raw density base[i, 0]
+// to out[i, C] and, when head_in is given, writes the values there in f32.
+// The scratch holds SH4 of each ray the group's rows reach, computed once
+// per ray, and each row's ray (less the first), so that no thread divides
+// by S per value. The base rows and then the embeddings are read
+// kHeadBatch loads a thread at a time, issued before their stores, each
+// segment on its own so that a warp's lanes take one branch; neighbouring
+// threads take neighbouring columns, so the loads and stores coalesce.
+constexpr int kHeadBatch = 8;
+
+struct HeadFill {
+  static constexpr bool kTile = true;
+  static constexpr int kScratch = 17;  // 16 SH values (of at most one ray a row) and the row's ray
+  const float* d;    // [R, 3] directions
+  const float* emb;  // [R, E] appearance embeddings
+  const void* base;  // [n, 1 + geo] the base stack's output, in the compute dtype
+  void* out;         // [n, C + 2] the field's output: the raw density goes to column C
+  float* head_in;    // [n, 16 + geo + E] f32 (the backward's input), or null
+  int S, geo, E, C;
+
+  template <typename T, typename Put, typename Sync>
+  __device__ void tile(int n, int row0, int rows, int cols, int tid, int nthr, float* sh, Put put,
+                       Sync sync) const {
+    const int valid = max(0, min(rows, n - row0));
+    const int ray0 = row0 / S;
+    const int rays = valid > 0 ? (row0 + valid - 1) / S - ray0 + 1 : 0;
+    int* ray_of = reinterpret_cast<int*>(sh + 16 * rows);  // a row's ray less ray0
+    for (int j = tid; j < rays; j += nthr) {
+      float v[16];
+      sh4(d + 3 * (size_t)(ray0 + j), v);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) sh[16 * j + k] = ray_f32(ray_cast<T>(v[k]));
+    }
+    for (int r = tid; r < valid; r += nthr) ray_of[r] = (row0 + r) / S - ray0;
+    sync();
+    const int width = 16 + geo + E, bw = 1 + geo;
+    const T* b = static_cast<const T*>(base);
+    // the base rows, then the embeddings: per segment of `per_row` columns a
+    // row, kHeadBatch elements a thread at a time, all their loads before
+    // their stores; (r, k) steps by nthr elements
+    auto segment = [&](int per_row, auto load, auto store) {
+      const int step_r = nthr / per_row, step_k = nthr - step_r * per_row;
+      auto next = [&](int& r, int& k) {
+        r += step_r;
+        k += step_k;
+        if (k >= per_row) {
+          k -= per_row;
+          ++r;
+        }
+      };
+      int r0 = tid / per_row, k0 = tid - r0 * per_row;
+      for (int e0 = 0; e0 < rows * per_row; e0 += kHeadBatch * nthr) {
+        float v[kHeadBatch];
+        int r = r0, k = k0;
+#pragma unroll
+        for (int j = 0; j < kHeadBatch; ++j, next(r, k)) v[j] = r < valid ? load(r, k) : 0.f;
+        r = r0;
+        k = k0;
+#pragma unroll
+        for (int j = 0; j < kHeadBatch; ++j, next(r, k)) {
+          if (r >= rows) break;
+          store(r, k, v[j]);
+        }
+        r0 = r;
+        k0 = k;
+      }
+    };
+    auto store_column = [&](int r, int c, float v) {
+      put(r, c, v);
+      if (head_in != nullptr && r < valid) head_in[((size_t)row0 + r) * width + c] = v;
+    };
+    segment(
+        bw, [&](int r, int k) { return ray_f32(b[((size_t)row0 + r) * bw + k]); },
+        [&](int r, int k, float v) {
+          if (k > 0) {
+            store_column(r, 15 + k, v);
+          } else if (r < valid) {
+            static_cast<T*>(out)[((size_t)row0 + r) * (C + 2) + C] = ray_cast<T>(v);
+          }
+        });
+    segment(
+        E, [&](int r, int k) { return ray_f32(ray_cast<T>(emb[(size_t)(ray0 + ray_of[r]) * E + k])); },
+        [&](int r, int k, float v) { store_column(r, 16 + geo + k, v); });
+    // the SH columns, then zeros up to cols
+    for (int e = tid; e < rows * 16; e += nthr) {
+      const int r = e >> 4, c = e & 15;
+      store_column(r, c, r < valid ? sh[16 * ray_of[r] + c] : 0.f);
+    }
+    for (int c = width; c < cols; ++c)
+      for (int r = tid; r < rows; r += nthr) put(r, c, 0.f);
+  }
+};
 
 // One stack's packed weights, in the mma order and the wgmma order (see
 // fused_mlp_fwd.cu launch_fwd, which picks the path that reads them).
@@ -91,34 +204,19 @@ struct Stack {
   const float* bias;
 };
 
-template <typename T>
-cudaError_t ray_fwd(const float* o, const float* d, const float* t, const Stack& st,
-                    const float* freqs, float* x, T* out, int n, int S, const MlpDesc& md,
-                    int bf16, cudaStream_t s) {
-  const int stride = md.out_dim + 1;
-  ray_prologue<T><<<blocks(n), kPointThreads, 0, s>>>(o, d, t, x, out, stride, md.out_dim, n, S);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_fwd(x, st.w, st.w_wg, st.wg_elems, st.bias, freqs, out, stride, n, md, bf16, s);
-}
-
-template <typename T>
-cudaError_t field_fwd(const float* o, const float* d, const float* t, const float* emb,
-                      const Stack& bst, const float* freqs, const Stack& hst, float* x, T* base_out,
-                      float* head_in, T* out, int n, int S, int E, const MlpDesc& base,
-                      const MlpDesc& head, int bf16, cudaStream_t s) {
+// Two launches: the base stack (its input contracted in the kernel) into
+// base_out, then the head, whose kernel assembles its input from SH4(d),
+// base_out and emb, copies the raw density and, when head_in is given,
+// writes the input there for the backward.
+cudaError_t field_fwd(const float* o, const float* d, const float* t, const float* emb, const Stack& bst,
+                      const float* freqs, const Stack& hst, void* base_out, float* head_in, void* out, int n, int S,
+                      int E, const MlpDesc& base, const MlpDesc& head, int bf16, cudaStream_t s) {
   const int C = head.out_dim, geo = base.out_dim - 1;
-  ray_prologue<T><<<blocks(n), kPointThreads, 0, s>>>(o, d, t, x, out, C + 2, C + 1, n, S);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_fwd(RayFill{o, d, t, S, out, C + 2, C + 1}, bst.w, bst.w_wg, bst.wg_elems, bst.bias,
+                                     freqs, base_out, base.out_dim, n, base, bf16, s);
   if (err != cudaSuccess) return err;
-  err = launch_fwd(x, bst.w, bst.w_wg, bst.wg_elems, bst.bias, freqs, base_out, base.out_dim, n, base,
-                   bf16, s);
-  if (err != cudaSuccess) return err;
-  field_head_input<T><<<blocks((long long)n * (16 + geo + E)), kPointThreads, 0, s>>>(
-      d, emb, base_out, head_in, out, n, S, geo, E, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_fwd(head_in, hst.w, hst.w_wg, hst.wg_elems, hst.bias, freqs, out, C + 2, n, head, bf16,
-                    s);
+  return launch_fwd(HeadFill{d, emb, base_out, out, head_in, S, geo, E, C}, hst.w, hst.w_wg, hst.wg_elems, hst.bias,
+                    freqs, out, C + 2, n, head, bf16, s);
 }
 
 }  // namespace
@@ -126,11 +224,11 @@ cudaError_t field_fwd(const float* o, const float* d, const float* t, const floa
 // One fused ray-march forward on `stream`: origins, dirs [n_rays, 3] f32,
 // ts [n_rays * S] f32, the MLP packed as for fused_mlp_fwd (desc, weights,
 // wgmma-order weights, biases, frequencies; in_dim 3 with the encoding),
-// bf16 the compute dtype (0: f32). Scratch x [n, 3] f32; out [n, out_dim +
-// 1] in the compute dtype. Returns the cudaError_t.
+// bf16 the compute dtype (0: f32); out [n, out_dim + 1] in the compute
+// dtype, the selector last. One launch. Returns the cudaError_t.
 extern "C" int fused_ray_fwd(const void* o, const void* d, const void* t, const void* w,
                              const void* w_wg, long long wg_elems, const void* bias,
-                             const void* freqs, void* x, void* out, int n_rays, int S,
+                             const void* freqs, void* out, int n_rays, int S,
                              const int* desc, int desc_len, int bf16, int device, void* stream) {
   MlpDesc md;
   if (!parse_desc(desc, desc_len, md) || md.in_dim != 3 || md.num_freqs <= 0 || n_rays <= 0 ||
@@ -138,33 +236,23 @@ extern "C" int fused_ray_fwd(const void* o, const void* d, const void* t, const 
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int n = n_rays * S;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* of = static_cast<const float*>(o);
-  const float* df = static_cast<const float*>(d);
-  const float* tf = static_cast<const float*>(t);
-  const Stack st{w, w_wg, wg_elems, static_cast<const float*>(bias)};
-  const float* ff = static_cast<const float*>(freqs);
-  float* xf = static_cast<float*>(x);
-  if (bf16) {
-    err = ray_fwd(of, df, tf, st, ff, xf, static_cast<__nv_bfloat16*>(out), n, S, md, bf16, s);
-  } else {
-    err = ray_fwd(of, df, tf, st, ff, xf, static_cast<float*>(out), n, S, md, bf16, s);
-  }
-  return (int)err;
+  const RayFill fill{static_cast<const float*>(o), static_cast<const float*>(d), static_cast<const float*>(t), S,
+                     out, md.out_dim + 1, md.out_dim};
+  return (int)launch_fwd(fill, w, w_wg, wg_elems, static_cast<const float*>(bias), static_cast<const float*>(freqs),
+                         out, md.out_dim + 1, n_rays * S, md, bf16, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // One whole-field forward on `stream`: origins, dirs [n_rays, 3], ts
 // [n_rays * S], emb [n_rays, E] f32; the base stack packed with the
 // encoding (in_dim 3, out 1 + geo) and the head stack without (in_dim
 // 16 + geo + E, sigmoid, out C), each with its wgmma-order weights; bf16
-// the compute dtype of both (0: f32). Scratch x [n, 3] f32 and base_out
-// [n, 1 + geo] in the compute dtype; head_in [n, 16 + geo + E] f32 (kept
-// for the backward); out [n, C + 2] in the compute dtype.
+// the compute dtype of both (0: f32). Scratch base_out [n, 1 + geo] in the
+// compute dtype; head_in [n, 16 + geo + E] f32, written for the backward,
+// or null (nothing written); out [n, C + 2] in the compute dtype.
 extern "C" int fused_field_fwd(const void* o, const void* d, const void* t, const void* emb,
                                const void* bw, const void* bw_wg, long long b_wg_elems,
                                const void* bb, const void* freqs, const void* hw, const void* hw_wg,
-                               long long h_wg_elems, const void* hb, void* x, void* base_out,
+                               long long h_wg_elems, const void* hb, void* base_out,
                                void* head_in, void* out, int n_rays, int S, int E,
                                const int* base_desc, int base_len, const int* head_desc,
                                int head_len, int bf16, int device, void* stream) {
@@ -175,23 +263,10 @@ extern "C" int fused_field_fwd(const void* o, const void* d, const void* t, cons
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int n = n_rays * S;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* of = static_cast<const float*>(o);
-  const float* df = static_cast<const float*>(d);
-  const float* tf = static_cast<const float*>(t);
-  const float* ef = static_cast<const float*>(emb);
   const Stack bst{bw, bw_wg, b_wg_elems, static_cast<const float*>(bb)};
   const Stack hst{hw, hw_wg, h_wg_elems, static_cast<const float*>(hb)};
-  const float* ff = static_cast<const float*>(freqs);
-  float* xf = static_cast<float*>(x);
-  float* hif = static_cast<float*>(head_in);
-  if (bf16) {
-    err = field_fwd(of, df, tf, ef, bst, ff, hst, xf, static_cast<__nv_bfloat16*>(base_out), hif,
-                    static_cast<__nv_bfloat16*>(out), n, S, E, base, head, bf16, s);
-  } else {
-    err = field_fwd(of, df, tf, ef, bst, ff, hst, xf, static_cast<float*>(base_out), hif,
-                    static_cast<float*>(out), n, S, E, base, head, bf16, s);
-  }
-  return (int)err;
+  return (int)field_fwd(static_cast<const float*>(o), static_cast<const float*>(d), static_cast<const float*>(t),
+                        static_cast<const float*>(emb), bst, static_cast<const float*>(freqs), hst, base_out,
+                        static_cast<float*>(head_in), out, n_rays * S, S, E, base, head, bf16,
+                        reinterpret_cast<cudaStream_t>(stream));
 }

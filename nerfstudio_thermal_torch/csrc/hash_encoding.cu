@@ -96,13 +96,50 @@
 // (0.93 before); how much of it its fine levels take, whose rows rarely
 // repeat within a warp, is not measured.
 //
-// The position gradient keeps the first design: one thread per point,
-// looping over the levels, no atomics.
+// Position gradient (8 or more levels, the base field's 16): the same
+// tile mapping, G = 8 groups (256 points) a block of 8 warps. g's tile and
+// the tile's positions are staged in shared memory (an item then waits on
+// device memory once, for its rows; with the positions loaded per item it
+// waited twice). Each item writes its point's term of its level,
+// scaling_l * d_off (the three dimensions), into a shared [phase levels][3]
+// [256] buffer; the levels go 4 at a time, and after each phase one thread
+// per point adds the phase's terms in level order to its running sums in
+// registers, so the levels are summed in order 0..L-1, as the first design
+// sums them, with no atomics: two runs give the same bits. Fewer than
+// 8 levels (the proposals' 5) walk them one thread per point (the first
+// design), which was faster there: a tile of 5 levels pays its staging and
+// barriers for little work.
+//
+// Sizing, on the model's points (H100 80GB HBM3, 700 W; the 8 calls of a
+// thermal-nerfacto training step, ms per step; each shape a build of this
+// file with its constants changed, timed on the recorded calls by
+// chip_smoke.py's hash_model_phase, every shape's d_pos bitwise equal; the
+// first design, walking every call, read 1.095-1.106 in other calls):
+// - the final shape, G = 8, 8 warps, phases of 4 levels, one item at a
+//   time: 0.912-0.919 (16-level calls 0.164-0.166 each, against 0.209-0.213
+//   walked; the 5-level calls walked, 0.085 / 0.041). Phases of 2 levels
+//   0.935, 1 0.941, 8 1.113, 16 (all levels at once: 49 KB of terms a
+//   block) 2.096; G = 16 with 16 warps 0.930, G = 8 with 16 warps 1.005, G
+//   = 4 with 4 warps 0.976 (4 with 8: 1.059), G = 2 with 4 warps 1.039;
+//   two or four items' gathers before their terms (73 / 127 registers)
+//   0.935 / 0.980.
+// - Tried on the way, every call tiled: all levels in one phase with the
+//   positions read per item, G = 8 and 16 warps (84 KB of shared memory a
+//   block, 2 blocks an SM) 2.46 (16-level calls 0.53); G = 4 1.34, G = 2
+//   1.40, G = 1 1.54; with the positions staged G = 4 1.18; phases of 4
+//   levels with G = 8 and 8 warps 1.06, where the 5-level calls took
+//   0.137 / 0.064 against 0.084 / 0.042 walked. Without the __syncwarp
+//   between an item's gathers and their use, 0.21 per 16-level call
+//   instead of 0.165 (a step 1.097-1.106, as slow as the walk): in the
+//   SASS (cuobjdump) ptxas issues each of the 8 gathers just before its
+//   use, so their latencies add up; with the fence the 8 go out together.
 //
 // Numerics: products and sums use __fmul_rn / __fadd_rn / __fsub_rn, so
 // nvcc cannot contract them into FMAs: the forward and the position
 // gradient round exactly as the plain versions' separate multiplies and
-// adds (the forward's corners are summed in order 0..7 as before). The
+// adds (the forward's corners are summed in order 0..7 as before; the
+// position gradient's levels in order, where the plain version sums them
+// in its own order, so the two agree to f32 rounding of that sum). The
 // table gradient sums a group's terms in a shuffle tree and its atomics in
 // an order that changes from run to run, so its sums agree with the plain
 // version's only to f32 rounding of a reordered sum.
@@ -114,16 +151,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;  // the position gradient's block
-// The forward's and the table gradient's tiles: G groups of 32 consecutive
-// points, one point per lane; a block of at most kMaxWarps warps takes the
-// tile's G * L (group, level) items in turn, item = level * G + group, warp
-// w the items w, w + warps, ..., with as many warps as spread the items
-// evenly (tile_warps).
-constexpr int kFwdGroups = 8, kBwdGroups = 1;
-constexpr int kMaxWarps = 16;
+// The tiles of the forward, the table gradient and the position gradient:
+// G groups of 32 consecutive points, one point per lane; a block of at most
+// kMaxWarps warps (the position gradient: kPosWarps) takes the tile's G * L
+// (group, level) items in turn, item = level * G + group, warp w the items
+// w, w + warps, ..., with as many warps as spread the items evenly
+// (tile_warps). The position gradient's tile takes its levels kPosPhase at
+// a time. Its shape is the fastest of those the header lists.
+constexpr int kFwdGroups = 8, kBwdGroups = 1, kPosGroups = 8;
+constexpr int kMaxWarps = 16, kPosWarps = 8, kPosPhase = 4;
+static_assert(kPosWarps * 32 >= kPosGroups * 32, "the position gradient's sums take one point a thread");
+// The position gradient of fewer levels than this walks them one thread per
+// point (see the header).
+constexpr int kPosTiledLevels = 8;
+constexpr int kWalkThreads = 256;
+constexpr size_t kSmemLimit = 232448;  // shared memory one block may use
 constexpr uint32_t kFull = 0xffffffffu;
 constexpr uint32_t kNoRow = 0xffffffffu;  // a lane that adds nothing (rows are < 2^30)
 
@@ -184,10 +230,10 @@ __host__ __device__ __forceinline__ size_t tile_bytes(int groups, int num_levels
 }
 
 // Warps of a block for G * L items: the fewest items a warp can take with
-// at most kMaxWarps warps, then the fewest warps that take them all.
-__host__ __forceinline__ int tile_warps(int groups, int num_levels) {
+// at most max_warps warps, then the fewest warps that take them all.
+__host__ __forceinline__ int tile_warps(int groups, int num_levels, int max_warps) {
   const int items = groups * num_levels;
-  const int per_warp = (items + kMaxWarps - 1) / kMaxWarps;
+  const int per_warp = (items + max_warps - 1) / max_warps;
   return (items + per_warp - 1) / per_warp;
 }
 
@@ -382,13 +428,103 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 }
 
-// d_pos[n, d], one thread per point, looping over the levels.
+// One point's term of one level of the position gradient: d_off *
+// scaling per dimension, d_off summed over the corners in order 0..7,
+// every product and sum rounded as the plain version rounds them.
+__device__ __forceinline__ void pos_terms(float2 gv, const Corners& k, const float2 v[8], float scaling,
+                                          float t[3]) {
+  float d_off[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float gdf = __fadd_rn(__fmul_rn(gv.x, v[c].x), __fmul_rn(gv.y, v[c].y));
+    const float wx = (c & 4) ? k.wc[0] : k.wf[0];
+    const float wy = (c & 2) ? k.wc[1] : k.wf[1];
+    const float wz = (c & 1) ? k.wc[2] : k.wf[2];
+    const float sx = (c & 4) ? gdf : -gdf;
+    const float sy = (c & 2) ? gdf : -gdf;
+    const float sz = (c & 1) ? gdf : -gdf;
+    d_off[0] = __fadd_rn(d_off[0], __fmul_rn(__fmul_rn(sx, wy), wz));
+    d_off[1] = __fadd_rn(d_off[1], __fmul_rn(__fmul_rn(sy, wx), wz));
+    d_off[2] = __fadd_rn(d_off[2], __fmul_rn(__fmul_rn(sz, wx), wy));
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) t[d] = __fmul_rn(d_off[d], scaling);
+}
+
+// d_pos[n, d] on the tile mapping: block b owns the kGroups * 32 points
+// from b * that; a warp's item is one level of 32 of them, lane = point;
+// g's tile and the tile's positions come through shared memory, so an
+// item waits on global memory once, for its rows. The levels go kPosPhase
+// at a time: each item writes its point's terms into a shared [phase
+// levels][3][32 G] f32 buffer (lane = point: no bank conflict), then one
+// thread per point adds the phase's levels in order to its sums, which it
+// keeps in registers; after the last phase it writes d_pos. The levels are
+// summed in order 0..L-1, with no atomics.
 template <bool kBf16G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kMaxWarps)
     hash_encode_bwd_pos_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
                                const typename PairOf<kBf16G>::T* __restrict__ g, const float* __restrict__ scalings,
-                               float* __restrict__ dpos, long long n_points, int num_levels,
-                               int log2_t) {
+                               float* __restrict__ dpos, long long n_points, int num_levels, int log2_t) {
+  using Pair = typename PairOf<kBf16G>::T;
+  constexpr int kPoints = 32 * kPosGroups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Pair* tile = reinterpret_cast<Pair*>(smem);
+  float* terms = reinterpret_cast<float*>(smem + tile_bytes(kPosGroups, num_levels, sizeof(Pair)));
+  const int phase = min(kPosPhase, num_levels);
+  float* pos_s = terms + kPoints * phase * 3;
+  const long long n0 = (long long)blockIdx.x * kPoints;
+  const int rows = (int)min((long long)kPoints, n_points - n0);
+  copy_tile_in(tile, g + n0 * num_levels, rows, num_levels);
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) pos_s[i] = __ldg(pos + 3 * n0 + i);
+  __syncthreads();
+  const int tid = threadIdx.x, lane = tid & 31, warps = blockDim.x >> 5;
+  const int stride = tile_stride(num_levels);
+  const uint32_t mask = (1u << log2_t) - 1u;
+  float acc[3] = {0.f, 0.f, 0.f};  // thread i's point i (blockDim.x >= kPoints)
+  for (int l0 = 0; l0 < num_levels; l0 += phase) {
+    const int levels = min(phase, num_levels - l0);
+    for (int item = tid >> 5; item < kPosGroups * levels; item += warps) {
+      const int l = l0 + item / kPosGroups, r = (item % kPosGroups) * 32 + lane;
+      Corners k;
+      float2 v[8];
+      if (r < rows) {
+        const float p[3] = {pos_s[3 * r], pos_s[3 * r + 1], pos_s[3 * r + 2]};
+        corner_factors(p, __ldg(scalings + l), k);
+        gather_level(table + ((size_t)l << log2_t), k, mask, v);
+      }
+      // all 8 gathers are issued before any is used: without this fence
+      // the compiler uses each row right after its load, the loads wait
+      // one after another, and a 16-level call takes 0.21 ms, not 0.165
+      __syncwarp();
+      if (r >= rows) continue;
+      float t[3];
+      pos_terms(from_pair<kBf16G>(tile[r * stride + l]), k, v, __ldg(scalings + l), t);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) terms[((l - l0) * 3 + d) * kPoints + r] = t[d];
+    }
+    __syncthreads();
+    if (tid < rows) {
+      for (int lv = 0; lv < levels; ++lv) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], terms[(lv * 3 + d) * kPoints + tid]);
+      }
+    }
+    __syncthreads();  // the next phase overwrites the terms
+  }
+  if (tid < rows) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dpos[3 * (n0 + tid) + d] = acc[d];
+  }
+}
+
+// d_pos[n, d], one thread per point walking its levels (the first design,
+// kept for few levels: see the header), summing them in order 0..L-1.
+template <bool kBf16G>
+__global__ void __launch_bounds__(kWalkThreads)
+    hash_encode_bwd_pos_walk_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
+                                    const typename PairOf<kBf16G>::T* __restrict__ g,
+                                    const float* __restrict__ scalings, float* __restrict__ dpos, long long n_points,
+                                    int num_levels, int log2_t) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_points) return;
   float p[3];
@@ -396,57 +532,58 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t mask = (1u << log2_t) - 1u;
   float acc[3] = {0.f, 0.f, 0.f};
   for (int l = 0; l < num_levels; ++l) {
-    const float2 gv = from_pair<kBf16G>(g[n * num_levels + l]);
     const float scaling = __ldg(scalings + l);
     Corners k;
     corner_factors(p, scaling, k);
     float2 v[8];
     gather_level(table + ((size_t)l << log2_t), k, mask, v);
-    float d_off[3] = {0.f, 0.f, 0.f};
+    float t[3];
+    pos_terms(from_pair<kBf16G>(g[n * num_levels + l]), k, v, scaling, t);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float gdf = __fadd_rn(__fmul_rn(gv.x, v[c].x), __fmul_rn(gv.y, v[c].y));
-      const float wx = (c & 4) ? k.wc[0] : k.wf[0];
-      const float wy = (c & 2) ? k.wc[1] : k.wf[1];
-      const float wz = (c & 1) ? k.wc[2] : k.wf[2];
-      const float sx = (c & 4) ? gdf : -gdf;
-      const float sy = (c & 2) ? gdf : -gdf;
-      const float sz = (c & 1) ? gdf : -gdf;
-      d_off[0] = __fadd_rn(d_off[0], __fmul_rn(__fmul_rn(sx, wy), wz));
-      d_off[1] = __fadd_rn(d_off[1], __fmul_rn(__fmul_rn(sy, wx), wz));
-      d_off[2] = __fadd_rn(d_off[2], __fmul_rn(__fmul_rn(sz, wx), wy));
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], __fmul_rn(d_off[d], scaling));
+    for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], t[d]);
   }
-  dpos[3 * n] = acc[0];
-  dpos[3 * n + 1] = acc[1];
-  dpos[3 * n + 2] = acc[2];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) dpos[3 * n + d] = acc[d];
 }
 
-unsigned int blocks(long long threads) { return (unsigned int)((threads + kThreads - 1) / kThreads); }
-
-// groups: the kernel's tile (0: none); its staged f32 tile must fit in
-// shared memory.
-bool bad_shape(long long n, int num_levels, int log2_t, int groups) {
-  return n <= 0 || num_levels <= 0 || log2_t < 0 || log2_t > 30 ||
-         tile_bytes(groups, num_levels, sizeof(float2)) > 232448;
+// The tiled position gradient's shared memory: the staged g tile, the
+// [phase levels][3][32 G] f32 terms, then the tile's [32 G, 3] positions.
+size_t pos_smem(int num_levels, size_t pair_bytes) {
+  return tile_bytes(kPosGroups, num_levels, pair_bytes) +
+         (size_t)32 * kPosGroups * (std::min(kPosPhase, num_levels) + 1) * 3 * sizeof(float);
 }
 
-// One launch of a tiled kernel (the forward or the table gradient) of
-// `groups` * 32 points a block, the staged tile in dynamic shared memory
-// (allowed above 48 KB where a large L needs it).
+bool bad_shape(long long n, int num_levels, int log2_t, size_t smem) {
+  return n <= 0 || num_levels <= 0 || log2_t < 0 || log2_t > 30 || smem > kSmemLimit;
+}
+
+// One launch of a tiled kernel of `groups` * 32 points a block and at most
+// max_warps warps, with smem bytes of dynamic shared memory (allowed above
+// 48 KB where a large L needs it).
 template <typename... Params, typename... Args>
-cudaError_t launch_tiled(void (*kernel)(Params...), int groups, size_t pair_bytes, long long n, int num_levels,
-                         cudaStream_t s, Args... args) {
-  const size_t smem = tile_bytes(groups, num_levels, pair_bytes);
+cudaError_t launch_tiled(void (*kernel)(Params...), int groups, int max_warps, size_t smem, long long n,
+                         int num_levels, cudaStream_t s, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long points = 32LL * groups;
-  kernel<<<(unsigned int)((n + points - 1) / points), 32 * tile_warps(groups, num_levels), smem, s>>>(
+  kernel<<<(unsigned int)((n + points - 1) / points), 32 * tile_warps(groups, num_levels, max_warps), smem, s>>>(
       args...);
+  return cudaGetLastError();
+}
+
+// The position gradient: the tile mapping from kPosTiledLevels levels on
+// (while its shared memory fits: L <= 105 with an f32 g), else the walk.
+template <bool kBf16G>
+cudaError_t launch_bwd_pos(const float* p, const float2* t, const typename PairOf<kBf16G>::T* g, const float* sc,
+                           float* dp, long long n, int num_levels, int log2_t, cudaStream_t s) {
+  const size_t smem = pos_smem(num_levels, sizeof(typename PairOf<kBf16G>::T));
+  if (num_levels >= kPosTiledLevels && smem <= kSmemLimit)
+    return launch_tiled(hash_encode_bwd_pos_kernel<kBf16G>, kPosGroups, kPosWarps, smem, n, num_levels, s, p,
+                        t, g, sc, dp, n, num_levels, log2_t);
+  hash_encode_bwd_pos_walk_kernel<kBf16G><<<(unsigned int)((n + kWalkThreads - 1) / kWalkThreads), kWalkThreads, 0,
+                                            s>>>(p, t, g, sc, dp, n, num_levels, log2_t);
   return cudaGetLastError();
 }
 
@@ -455,12 +592,15 @@ cudaError_t launch_tiled(void (*kernel)(Params...), int groups, size_t pair_byte
 // Each function returns the cudaError_t of its launch (0 on success). The
 // pointers are device pointers: pos [n, 3] f32, table and d_table
 // [L * 2^log2_t, 2] f32, scalings [L] f32, out and g [n, 2L] in bf16 (flag
-// 1) or f32 (flag 0), d_pos [n, 3] f32; out and g 16-byte aligned. d_table
-// must be zeroed by the caller; the other outputs are written in full.
+// 1) or f32 (flag 0), d_pos [n, 3] f32; out and g 16-byte aligned (the
+// tiles move 16 bytes at a time). d_table must be zeroed by the caller;
+// the other outputs are written in full.
 extern "C" int hash_encode_fwd(const void* pos, const void* table, const void* scalings,
                                void* out, long long n, int num_levels, int log2_t,
                                int out_bf16, int device, void* stream) {
-  if (bad_shape(n, num_levels, log2_t, kFwdGroups)) return (int)cudaErrorInvalidValue;
+  const size_t pair = out_bf16 ? sizeof(__nv_bfloat162) : sizeof(float2);
+  const size_t smem = tile_bytes(kFwdGroups, num_levels, pair);
+  if (bad_shape(n, num_levels, log2_t, smem)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -468,11 +608,11 @@ extern "C" int hash_encode_fwd(const void* pos, const void* table, const void* s
   const float2* t = static_cast<const float2*>(table);
   const float* sc = static_cast<const float*>(scalings);
   if (out_bf16) {
-    err = launch_tiled(hash_encode_fwd_kernel<kFwdGroups, true>, kFwdGroups, sizeof(__nv_bfloat162), n, num_levels,
-                       s, p, t, sc, static_cast<__nv_bfloat162*>(out), n, num_levels, log2_t);
+    err = launch_tiled(hash_encode_fwd_kernel<kFwdGroups, true>, kFwdGroups, kMaxWarps, smem, n, num_levels, s, p,
+                       t, sc, static_cast<__nv_bfloat162*>(out), n, num_levels, log2_t);
   } else {
-    err = launch_tiled(hash_encode_fwd_kernel<kFwdGroups, false>, kFwdGroups, sizeof(float2), n, num_levels,
-                       s, p, t, sc, static_cast<float2*>(out), n, num_levels, log2_t);
+    err = launch_tiled(hash_encode_fwd_kernel<kFwdGroups, false>, kFwdGroups, kMaxWarps, smem, n, num_levels, s, p,
+                       t, sc, static_cast<float2*>(out), n, num_levels, log2_t);
   }
   return (int)err;
 }
@@ -480,7 +620,8 @@ extern "C" int hash_encode_fwd(const void* pos, const void* table, const void* s
 extern "C" int hash_encode_bwd_table(const void* pos, const void* g, const void* scalings,
                                      void* dtable, long long n, int num_levels, int log2_t,
                                      int g_bf16, int device, void* stream) {
-  if (bad_shape(n, num_levels, log2_t, kBwdGroups)) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_bytes(kBwdGroups, num_levels, g_bf16 ? sizeof(__nv_bfloat162) : sizeof(float2));
+  if (bad_shape(n, num_levels, log2_t, smem)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -488,12 +629,11 @@ extern "C" int hash_encode_bwd_table(const void* pos, const void* g, const void*
   const float* sc = static_cast<const float*>(scalings);
   float2* dt = static_cast<float2*>(dtable);
   if (g_bf16) {
-    err = launch_tiled(hash_encode_bwd_table_kernel<kBwdGroups, true>, kBwdGroups,
-                       sizeof(__nv_bfloat162), n, num_levels, s, p, static_cast<const __nv_bfloat162*>(g), sc, dt,
-                       n, num_levels, log2_t);
+    err = launch_tiled(hash_encode_bwd_table_kernel<kBwdGroups, true>, kBwdGroups, kMaxWarps, smem, n, num_levels,
+                       s, p, static_cast<const __nv_bfloat162*>(g), sc, dt, n, num_levels, log2_t);
   } else {
-    err = launch_tiled(hash_encode_bwd_table_kernel<kBwdGroups, false>, kBwdGroups, sizeof(float2), n,
-                       num_levels, s, p, static_cast<const float2*>(g), sc, dt, n, num_levels, log2_t);
+    err = launch_tiled(hash_encode_bwd_table_kernel<kBwdGroups, false>, kBwdGroups, kMaxWarps, smem, n, num_levels,
+                       s, p, static_cast<const float2*>(g), sc, dt, n, num_levels, log2_t);
   }
   return (int)err;
 }
@@ -510,11 +650,9 @@ extern "C" int hash_encode_bwd_pos(const void* pos, const void* table, const voi
   const float* sc = static_cast<const float*>(scalings);
   float* dp = static_cast<float*>(dpos);
   if (g_bf16) {
-    hash_encode_bwd_pos_kernel<true><<<blocks(n), kThreads, 0, s>>>(
-        p, t, static_cast<const __nv_bfloat162*>(g), sc, dp, n, num_levels, log2_t);
+    err = launch_bwd_pos<true>(p, t, static_cast<const __nv_bfloat162*>(g), sc, dp, n, num_levels, log2_t, s);
   } else {
-    hash_encode_bwd_pos_kernel<false><<<blocks(n), kThreads, 0, s>>>(
-        p, t, static_cast<const float2*>(g), sc, dp, n, num_levels, log2_t);
+    err = launch_bwd_pos<false>(p, t, static_cast<const float2*>(g), sc, dp, n, num_levels, log2_t, s);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -18,7 +18,10 @@ versions in both directions; CUDA tensors launch the kernels (built with
 nvcc at first use, ops/cuda/build.py) or raise. The ray node skips the
 whole input-gradient chain (layer 0's dX product, encoding backward,
 contraction VJP, per-ray sums) when (o, d, t) need no gradient or `input_grads` is False, as the
-TPU kernel's `need_input_grads=False` does.
+TPU kernel's `need_input_grads=False` does. The field node has its
+forward kernel write the head input [R * S, 16 + geo + E] f32, which its
+backward reads, only when a backward can follow (grad mode on and an input
+that needs a gradient): a render chunk allocates and writes none.
 
 Numerics (both versions, the TPU kernels' rounding points): pos = o + t d
 (one product, one sum; the kernels use IEEE-rounded intrinsics so that no
@@ -261,9 +264,9 @@ _LL = ctypes.c_longlong
 
 
 def _bind_fwd(lib: ctypes.CDLL) -> None:
-    lib.fused_ray_fwd.argtypes = [_P] * 5 + [_LL] + [_P] * 4 + [_I, _I, _IP, _I, _I, _I, _P]
+    lib.fused_ray_fwd.argtypes = [_P] * 5 + [_LL] + [_P] * 3 + [_I, _I, _IP, _I, _I, _I, _P]
     lib.fused_ray_fwd.restype = _I
-    lib.fused_field_fwd.argtypes = ([_P] * 6 + [_LL] + [_P] * 4 + [_LL] + [_P] * 5
+    lib.fused_field_fwd.argtypes = ([_P] * 6 + [_LL] + [_P] * 4 + [_LL] + [_P] * 4
                                     + [_I, _I, _I, _IP, _I, _IP, _I, _I, _I, _P])
     lib.fused_field_fwd.restype = _I
 
@@ -309,6 +312,10 @@ def _check_rays(origins, dirs, ts, num_samples, emb=None) -> int:
     return r
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def launch_ray(origins, dirs, ts, num_samples: int, packed: fm.Packed) -> torch.Tensor:
     """One ray-march forward: -> [R S, out + 1] in the compute dtype."""
     r = _check_rays(origins, dirs, ts, num_samples)
@@ -316,11 +323,10 @@ def launch_ray(origins, dirs, ts, num_samples: int, packed: fm.Packed) -> torch.
     out = torch.empty(n, packed.out_dim + 1, dtype=packed.compute_dtype, device=origins.device)
     if n == 0:
         return out
-    x = torch.empty(n, 3, dtype=torch.float32, device=origins.device)
     desc, desc_len = _desc(packed)
     err = load_library("fwd").fused_ray_fwd(
         origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), packed.weights.data_ptr(), *fm.wgmma_args(packed),
-        packed.biases.data_ptr(), packed.freqs.data_ptr(), x.data_ptr(), out.data_ptr(),
+        packed.biases.data_ptr(), packed.freqs.data_ptr(), out.data_ptr(),
         r, num_samples, desc, desc_len, _bf16(packed.compute_dtype), *build.device_and_stream(origins),
     )
     if err != 0:
@@ -330,29 +336,30 @@ def launch_ray(origins, dirs, ts, num_samples: int, packed: fm.Packed) -> torch.
     return out
 
 
-def launch_field(origins, dirs, ts, emb, num_samples: int, base: fm.Packed, head: fm.Packed):
+def launch_field(origins, dirs, ts, emb, num_samples: int, base: fm.Packed, head: fm.Packed,
+                 head_input: bool = True):
     """One whole-field forward: -> (out [R S, C + 2] in the compute dtype,
-    the head input [R S, 16 + geo + E] f32 the backward reads)."""
+    the head input [R S, 16 + geo + E] f32 the backward reads, or None
+    without `head_input`: then no head input is allocated or written)."""
     r = _check_rays(origins, dirs, ts, num_samples, emb)
     n, dev, cdt = r * num_samples, origins.device, base.compute_dtype
     out = torch.empty(n, head.out_dim + 2, dtype=cdt, device=dev)
-    head_in = torch.empty(n, head.desc[1], dtype=torch.float32, device=dev)
+    head_in = torch.empty(n, head.desc[1], dtype=torch.float32, device=dev) if head_input else None
     if n == 0:
         return out, head_in
-    x = torch.empty(n, 3, dtype=torch.float32, device=dev)
     base_out = torch.empty(n, base.out_dim, dtype=cdt, device=dev)
     (bd, bl), (hd, hl) = _desc(base), _desc(head)
     err = load_library("fwd").fused_field_fwd(
         origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), emb.data_ptr(), base.weights.data_ptr(),
         *fm.wgmma_args(base), base.biases.data_ptr(), base.freqs.data_ptr(), head.weights.data_ptr(),
-        *fm.wgmma_args(head), head.biases.data_ptr(), x.data_ptr(), base_out.data_ptr(), head_in.data_ptr(),
-        out.data_ptr(), r, num_samples, emb.shape[1], bd, bl, hd, hl, _bf16(cdt),
-        *build.device_and_stream(origins),
+        *fm.wgmma_args(head), head.biases.data_ptr(), base_out.data_ptr(), _ptr(head_in), out.data_ptr(), r,
+        num_samples, emb.shape[1], bd, bl, hd, hl, _bf16(cdt), *build.device_and_stream(origins),
     )
     if err != 0:
         raise RuntimeError(f"fused_field_fwd kernel launch failed ({base.fwd_path} base, {head.fwd_path} "
                            f"head): cudaError {err}")
     fused_field_mlp.launches += 1
+    fused_field_mlp.head_input_launches += int(head_input)
     return out, head_in
 
 
@@ -397,12 +404,11 @@ def fused_ray_mlp_bwd(origins, dirs, ts, g, num_samples: int, packed: fm.Packed,
     lib = load_library("bwd")
     ws, scratch = _bwd_buffers(lib, [packed], n, origins)
     desc, desc_len = _desc(packed)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = lib.fused_ray_bwd(
         origins.data_ptr(), dirs.data_ptr(), ts.data_ptr(), g.data_ptr(), packed.weights.data_ptr(),
         packed.weights_t.data_ptr(), packed.biases.data_ptr(), packed.freqs.data_ptr(), ws.data_ptr(),
         scratch.data_ptr(), x.data_ptr(), dx.data_ptr(), d_pos.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        ptr(d_o), ptr(d_d), ptr(d_t), r, num_samples, desc, desc_len,
+        _ptr(d_o), _ptr(d_d), _ptr(d_t), r, num_samples, desc, desc_len,
         _bf16(packed.compute_dtype), int(need_input_grads), *build.device_and_stream(origins),
     )
     if err != 0:
@@ -553,10 +559,11 @@ def _split_field_params(params, n_base: int):
 
 class _FusedFieldMLP(torch.autograd.Function):
     """fused_field_mlp as one autograd node. On CUDA the forward keeps the
-    head input it assembles, and the backward reads it."""
+    head input it assembles when a backward can follow (`grad`), and the
+    backward reads it."""
 
     @staticmethod
-    def forward(ctx, origins, dirs, ts, emb, spec, caches, n_base, *params):
+    def forward(ctx, origins, dirs, ts, emb, spec, caches, n_base, grad, *params):
         num_samples, skips, freq_encoding, compute_dtype = spec
         bw, bb, hw, hb = _split_field_params(params, n_base)
         ctx.spec, ctx.n_base = spec, n_base
@@ -565,11 +572,10 @@ class _FusedFieldMLP(torch.autograd.Function):
         if origins.device.type == "cpu":
             return fused_field_mlp_plain(origins, dirs, ts, emb, bw, bb, hw, hb, num_samples, skips,
                                          freq_encoding, compute_dtype)
-        grads = any(ctx.needs_input_grad)
-        base = fm.prepare(3, bw, bb, None, skips, freq_encoding, compute_dtype, transposed=grads, cache=caches[0])
-        head = fm.prepare(hw[0].shape[0], hw, hb, "sigmoid", (), None, compute_dtype, transposed=grads,
+        base = fm.prepare(3, bw, bb, None, skips, freq_encoding, compute_dtype, transposed=grad, cache=caches[0])
+        head = fm.prepare(hw[0].shape[0], hw, hb, "sigmoid", (), None, compute_dtype, transposed=grad,
                           cache=caches[1])
-        out, head_in = launch_field(origins, dirs, ts, emb, num_samples, base, head)
+        out, head_in = launch_field(origins, dirs, ts, emb, num_samples, base, head, head_input=grad)
         ctx.packs, ctx.head_in = (base, head), head_in
         return out
 
@@ -589,7 +595,7 @@ class _FusedFieldMLP(torch.autograd.Function):
             )
             dbw, dbb = fm.unpack_grads(gbw, gbb, base.desc, base.shapes)
             dhw, dhb = fm.unpack_grads(ghw, ghb, head.desc, head.shapes)
-        return (d_o, d_d, d_t, d_emb, None, None, None,
+        return (d_o, d_d, d_t, d_emb, None, None, None, None,
                 *_param_grads(dbw, dbb, bw, bb), *_param_grads(dhw, dhb, hw, hb))
 
 
@@ -620,18 +626,23 @@ def fused_field_mlp(
         _check_stack(base_weights, base_biases, origins.device, compute_dtype)
         _check_stack(head_weights, head_biases, origins.device, compute_dtype)
     spec = (num_samples, skips, freq_encoding, compute_dtype)
-    return _FusedFieldMLP.apply(origins, dirs, ts, emb, spec, pack_caches, len(base_weights),
-                                *base_weights, *base_biases, *head_weights, *head_biases)
+    params = (*base_weights, *base_biases, *head_weights, *head_biases)
+    # a backward can follow only with grad mode on and an input that needs a
+    # gradient (autograd's needs_input_grad does not see torch.no_grad)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (origins, dirs, ts, emb, *params))
+    return _FusedFieldMLP.apply(origins, dirs, ts, emb, spec, pack_caches, len(base_weights), grad, *params)
 
 
 # Kernel launches since the last reset; the CPU path does not count. The
 # ray forward and backward also count their launches by stack (the packed
-# descriptor as a tuple), and the backward those of its launches that
-# computed input gradients.
+# descriptor as a tuple), the ray backward those of its launches that
+# computed input gradients, and the whole-field forward those that wrote
+# the head input.
 fused_ray_mlp.launches = 0
 fused_ray_mlp.stack_launches = collections.Counter()
 fused_ray_mlp_bwd.launches = 0
 fused_ray_mlp_bwd.input_grad_launches = 0
 fused_ray_mlp_bwd.stack_launches = collections.Counter()
 fused_field_mlp.launches = 0
+fused_field_mlp.head_input_launches = 0
 fused_field_mlp_bwd.launches = 0

@@ -31,7 +31,11 @@ Fused ray-march and whole-field kernels, with the fused MLP's tolerances:
 outputs 2e-2 (bf16) / 1e-4 (f32) absolute plus relative, every gradient
 (d_o, d_d, d_t, d_emb, every dW and db) relative L2 3e-2 / 1e-4. The rays
 include samples far outside the unit ball, samples that leave the box
-(selector 0) and samples with tied inf-norm components.
+(selector 0) and samples with tied inf-norm components. The head input the
+whole-field forward writes for its backward equals the plain version's of
+the same base output bitwise, and the output is bitwise the same without
+it. The position gradient of the hash grid is bitwise the same from run to
+run.
 """
 
 import numpy as np
@@ -343,6 +347,38 @@ def test_hash_table_gradient_of_a_row_slice_cotangent(cuda):
     assert _rel_l2(d_table, want) <= 1e-4, _rel_l2(d_table, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [0, 1, 4, 7, 8, 9])
+def test_hash_position_gradient_is_deterministic(cuda, case, dtype):
+    """The position gradient sums each point's levels in one thread, in
+    order, with no atomics: two launches give bitwise-equal d_pos."""
+    table, pos, scal, g, t = (x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _hash_case(case, dtype, case))
+    first = th.hash_encode_bwd_pos(table, pos, g, scal, t)
+    second = th.hash_encode_bwd_pos(table, pos, g, scal, t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("levels", [24, 120])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hash_position_gradient_with_many_levels(cuda, dtype, levels):
+    """Many levels: 24 take the tiled kernel; 120 with an f32 g would not
+    fit its shared memory and take the per-point walk. Both match the plain
+    version (relative L2 1e-5), also for a cotangent that starts off the
+    16-byte alignment (the wrapper copies it)."""
+    gen = torch.Generator().manual_seed(40 + levels)
+    t = 2**10
+    table = (torch.randn(levels * t, 2, generator=gen) * 1e-2).to(cuda)
+    scal = torch.from_numpy(enc.hash_grid_scalings(levels, 4, 1024)).to(cuda)
+    pos = torch.rand(3_001, 3, generator=gen).to(cuda)
+    g = torch.randn(3_001 * 2 * levels + 1, generator=gen).to(cuda).to(dtype)[1:].view(3_001, 2 * levels)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    d_pos = th.hash_encode_bwd_pos(table, pos, g, scal, t)
+    torch.cuda.synchronize()
+    want = enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t)
+    assert _rel_l2(d_pos, want) <= 1e-5, _rel_l2(d_pos, want)
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_hash_encoding_goes_through_the_kernels(cuda, use_pallas):
     """The hash encodings of a thermal-nerfacto model on the card, a small
@@ -469,6 +505,65 @@ def test_field_kernels_match_plain(cuda, channels, dtype):
     for tag, got_l, want_l in zip(("dWb", "dbb", "dWh", "dbh"), (dbw, dbb, dhw, dhb), want[4:]):
         named += [(f"{tag}{i}", a, b) for i, (a, b) in enumerate(zip(got_l, want_l))]
     _grads_close(named, dtype)
+
+
+def _field_case(gen, channels, head_widths, dtype, device):
+    enc, skips, r, s, e = (10, 0.0, 9.0, True), (4,), 256, 32, 32
+    bw, bb = _params(gen, (256,) * 7 + (16,), skips, 63, device)
+    hw, hb = _params(gen, (*head_widths, channels), (), 16 + 15 + e, device)
+    o, d, t = _rays(gen, r, s, device)
+    emb = torch.randn(r, e, generator=gen).to(device)
+    return (o, d, t, emb, bw, bb, hw, hb, s), (skips, enc)
+
+
+@pytest.mark.parametrize("head_widths", [(64, 64), (128, 128)], ids=["narrow_head", "wide_head"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_field_forward_writes_the_head_input_only_when_asked(cuda, dtype, head_widths):
+    """The whole-field forward with and without the head input: the same
+    output bitwise, no head input back without it, and the one it writes
+    equal, bitwise, to the plain _head_input of the same base output (its
+    raw density column, its geo columns); each call counts one launch and,
+    with the head input, one head-input launch. A 128-wide bf16 head runs
+    on the wgmma kernel, which assembles its input the same way."""
+    gen = torch.Generator().manual_seed(310)
+    (o, d, t, emb, bw, bb, hw, hb, s), (skips, enc) = _field_case(gen, 3, head_widths, dtype, cuda)
+    base = fm.prepare(3, bw, bb, None, skips, enc, dtype, transposed=True)
+    head = fm.prepare(63, hw, hb, "sigmoid", (), None, dtype, transposed=True)
+    assert head.fwd_path == {torch.float32: "f32", torch.bfloat16: "narrow" if head_widths[0] == 64 else "wgmma"}[dtype]
+    counts = lambda: (fr.fused_field_mlp.launches, fr.fused_field_mlp.head_input_launches)  # noqa: E731
+    c0 = counts()
+    out, head_in = fr.launch_field(o, d, t, emb, s, base, head)
+    c1 = counts()
+    bare, none = fr.launch_field(o, d, t, emb, s, base, head, head_input=False)
+    c2 = counts()
+    torch.cuda.synchronize()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c2[0] - c1[0], c2[1] - c1[1]) == (1, 1, 1, 0)
+    assert none is None and torch.equal(bare, out)
+    _close(out, fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, enc, dtype), dtype)
+    geo = 15
+    base_k = torch.cat([out[:, 3:4], head_in[:, 16 : 16 + geo].to(dtype)], -1)
+    assert torch.equal(head_in, fr._head_input(d, emb, base_k, s, dtype).float())
+
+
+def test_field_head_input_follows_grad_mode(cuda):
+    """fused_field_mlp writes the head input only where a backward can
+    follow: not under torch.no_grad (every render chunk), and with grad
+    mode on and parameters that need gradients."""
+    gen = torch.Generator().manual_seed(320)
+    (o, d, t, emb, bw, bb, hw, hb, s), (skips, enc) = _field_case(gen, 1, (64, 64), torch.bfloat16, cuda)
+    params = [p.requires_grad_(True) for p in (*bw, *bb, *hw, *hb)]
+    nb, nh = len(bw), len(hw)
+    bw, bb, hw, hb = params[:nb], params[nb : 2 * nb], params[2 * nb : 2 * nb + nh], params[2 * nb + nh :]
+    c0 = fr.fused_field_mlp.launches, fr.fused_field_mlp.head_input_launches
+    with torch.no_grad():
+        fr.fused_field_mlp(o, d, t, emb, bw, bb, hw, hb, s, skips, enc, torch.bfloat16)
+    c1 = fr.fused_field_mlp.launches, fr.fused_field_mlp.head_input_launches
+    out = fr.fused_field_mlp(o, d, t, emb, bw, bb, hw, hb, s, skips, enc, torch.bfloat16)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    c2 = fr.fused_field_mlp.launches, fr.fused_field_mlp.head_input_launches
+    assert (c1[0] - c0[0], c1[1] - c0[1], c2[0] - c1[0], c2[1] - c1[1]) == (1, 0, 1, 1)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in params)
 
 
 def test_fused_models_go_through_the_kernels(cuda):

@@ -187,6 +187,84 @@ def test_fused_field_mlp_and_vjp_match_jax(channels, dtype):
     check_grads(named, dtype)
 
 
+def emulate_head_fill(dirs, emb, base, num_samples, rows, cols, dtype):
+    """The whole-field head kernels' input assembly (csrc/fused_ray_fwd.cu
+    HeadFill) over every tile of `rows` rows (16: a warp of the narrow
+    kernel; 64: the f32 kernel's block, a wgmma warpgroup): SH4 once per
+    ray the tile's rows reach, rounded to the compute dtype, and each row's
+    ray less the tile's first; the base row's columns 1.. into columns 16..,
+    its column 0 (the raw density) into the output instead; the row's ray's
+    embedding rounded to the compute dtype after them; the SH columns from
+    the per-ray buffer; zeros past the row count and past 16 + geo + E.
+    Returns (x0 [tiles * rows, cols] f32,
+    the head input written [n, 16 + geo + E], the raw density copied
+    [n])."""
+    n, bw, e = base.shape[0], base.shape[1], emb.shape[1]
+    width = 15 + bw + e
+    x0 = torch.full((-(-n // rows) * rows, cols), float("nan"))
+    head_in, raw = torch.full((n, width), float("nan")), torch.full((n,), float("nan"), dtype=base.dtype)
+    for row0 in range(0, n, rows):
+        valid = max(0, min(rows, n - row0))
+        ray0 = row0 // num_samples
+        rays = (row0 + valid - 1) // num_samples - ray0 + 1
+        assert rays <= rows  # the kernels' scratch holds `rows` rays
+        sh = sh_encoding(dirs[ray0 : ray0 + rays].float(), 4).to(dtype).float()
+        ray_of = [(row0 + r) // num_samples - ray0 for r in range(valid)]
+        x0[row0 : row0 + rows] = 0.0
+        for r in range(valid):
+            row = row0 + r
+            raw[row] = base[row, 0]
+            x0[row, 16 : 15 + bw] = base[row, 1:].float()
+            x0[row, 15 + bw : width] = emb[ray0 + ray_of[r]].to(dtype).float()
+            x0[row, :16] = sh[ray_of[r]]
+            head_in[row] = x0[row, :width]
+    return x0, head_in, raw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,num_samples,n_rays", [(16, 32, 3), (16, 5, 7), (64, 48, 3), (64, 1, 70), (64, 5, 27)])
+def test_head_input_assembly_matches_plain(rows, num_samples, n_rays, dtype):
+    """The kernels' head-input assembly, SH4 once per ray and broadcast to
+    the ray's samples, equals the plain _head_input bitwise (x0 and the
+    head input it writes), pads with zeros, copies the raw density; for
+    tiles that split rays (S not dividing the tile), for one sample per ray
+    and for a ragged last tile."""
+    cdt = TORCH_DTYPE[dtype]
+    rng = np.random.default_rng(rows + num_samples)
+    _, dirs, _ = make_rays(13, n_rays, 1)
+    emb = torch.tensor(rng.normal(size=(n_rays, 4)).astype(np.float32))
+    base = torch.tensor(rng.normal(size=(n_rays * num_samples, 1 + 7)).astype(np.float32)).to(cdt)
+    dirs = torch.tensor(dirs)
+    x0, head_in, raw = emulate_head_fill(dirs, emb, base, num_samples, rows, 32, cdt)
+    want = fr._head_input(dirs, emb, base, num_samples, cdt).float()
+    n, width = want.shape
+    assert torch.equal(x0[:n, :width], want) and torch.equal(head_in, want)
+    assert not bool(x0[:n, width:].any()) and not bool(x0[n:].any())
+    assert torch.equal(raw, base[:, 0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_input_assembly_matches_jax_field_block(dtype):
+    """The head input the port assembles from JAX's own base output equals
+    the head input of JAX's `_field_fwd_block` (its SH4 of the directions
+    and its embeddings broadcast by the ray matrix, rounded to the compute
+    dtype) within the file's output tolerance."""
+    s, e, skips, enc = 4, 4, (2,), (4, 0.0, 3.0, True)
+    _, bw, bb = make_case(5, 3, (32, 32, 32), 16, skips, enc, n=1)
+    _, hw, hb = make_case(6, 16 + 15 + e, (16, 16), 3, (), None, n=1)
+    o, d, ts = make_rays(7, 20, s)
+    emb = np.random.default_rng(8).normal(size=(20, e)).astype(np.float32)
+    cdt = jnp.dtype(dtype)
+    bw_c, bb_c = jfm._field_cast(list(map(jnp.asarray, bw)), list(map(jnp.asarray, bb)), cdt)
+    hw_c, hb_c = jfm._field_cast(list(map(jnp.asarray, hw)), list(map(jnp.asarray, hb)), cdt)
+    *_, saved = jfm._field_fwd_block(*map(jnp.asarray, (o, d, ts, emb)), bw_c, bb_c, hw_c, hb_c, s, skips, enc,
+                                     cdt, save=True)
+    base = torch.tensor(np.asarray(saved[9][-1], np.float32)).to(TORCH_DTYPE[dtype])
+    want = np.asarray(saved[12], np.float32)
+    _, head_in, _ = emulate_head_fill(torch.tensor(d), torch.tensor(emb), base, s, 16, want.shape[1], TORCH_DTYPE[dtype])
+    np.testing.assert_allclose(head_in.numpy(), want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
 def test_contraction_backward_at_ties_matches_jax():
     """`contract_bwd` is JAX's `_contract_bwd` written out: at tied
     inf-norm components every tied component gets the gradient (autograd

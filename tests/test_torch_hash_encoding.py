@@ -406,6 +406,86 @@ def test_tiled_scatter_emulation_matches_plain(kind):
         assert atomics * WARP == lanes_added  # every lane of a warp on the same 8 rows
 
 
+def emulate_tiled_pos(table, pos, g, scal, t, groups, phase):
+    """The position gradient as the tiled kernel forms it: per tile of 32 G
+    points, the levels `phase` at a time; per (group, level) item of a
+    phase (lane = point), d_off of the lane's point at that level (corners
+    in order 0..7, every product and sum rounded to f32) times the level's
+    scaling into the phase's [levels][3][32 G] terms; then one thread per
+    point adds the phase's levels in order to its running sums. Returns
+    d_pos [N, 3] f32 and the number of items."""
+    num_levels, n, tile = len(scal), len(pos), 32 * groups
+    hf, hc, wf, wc = tenc._hash_factors(torch.as_tensor(pos), torch.as_tensor(scal), t)
+    offset = tenc._level_offset(num_levels, t, "cpu")
+    table = torch.as_tensor(table)
+    d_pos = np.zeros((n, 3), np.float32)
+    items = 0
+    for n0 in range(0, n, tile):
+        rows = min(tile, n - n0)
+        acc = np.zeros((rows, 3), np.float32)
+        for l0 in range(0, num_levels, phase):
+            levels = min(phase, num_levels - l0)
+            terms = np.full((levels, 3, tile), np.nan, np.float32)
+            for item in range(groups * levels):
+                lv, grp = l0 + item // groups, item % groups
+                lanes = n0 + grp * WARP + np.arange(WARP)
+                lanes = torch.as_tensor(lanes[lanes < n0 + rows])
+                if len(lanes) == 0:
+                    continue
+                items += 1
+                gv = torch.as_tensor(g[lanes.numpy(), 2 * lv : 2 * lv + 2])
+                d_off = [torch.zeros(len(lanes)) for _ in range(3)]
+                for bits in tenc._CORNER_BITS:
+                    idx = tenc._corner_index([h[lv, lanes] for h in hf], [h[lv, lanes] for h in hc], bits,
+                                             offset[lv])
+                    rows_c = table[idx]
+                    gdf = gv[:, 0] * rows_c[:, 0] + gv[:, 1] * rows_c[:, 1]
+                    wx, wy, wz = (w[lv, lanes] for w in tenc._corner_weights(wf, wc, bits))
+                    sx, sy, sz = (gdf if b else -gdf for b in bits)
+                    d_off[0] = d_off[0] + (sx * wy) * wz
+                    d_off[1] = d_off[1] + (sy * wx) * wz
+                    d_off[2] = d_off[2] + (sz * wx) * wy
+                for d in range(3):
+                    terms[lv - l0, d, lanes.numpy() - n0] = (d_off[d] * float(scal[lv])).numpy()
+            for lv in range(levels):  # one thread per point, levels in order
+                acc = (acc + terms[lv, :, :rows].T).astype(np.float32)
+        d_pos[n0 : n0 + rows] = acc
+    return d_pos, items
+
+
+POS_KINDS = ["rays", "tile_plus_one", "zero_tile"]
+
+
+@pytest.mark.parametrize("groups,phase", [(8, 4), (4, 16)])
+@pytest.mark.parametrize("levels,log2_t,res", [(16, 10, (16, 512)), (5, 9, (16, 128))])
+@pytest.mark.parametrize("kind", POS_KINDS)
+def test_tiled_pos_emulation_matches_plain(kind, levels, log2_t, res, groups, phase):
+    """An emulation of the position-gradient kernel's tile map (G groups of
+    32 points a block, items of one level of 32 points, the levels taken a
+    phase at a time through staged terms, a per-point running sum over the
+    levels in order; the kernel's shape, G = 8 with phases of 4 levels, and
+    G = 4 with one phase) equals the plain position gradient within 1e-6
+    relative L2 (the plain version sums the levels in its own order), on
+    ray-ordered points, for N one past a tile multiple, and with a whole
+    tile of zero g (whose d_pos is exactly zero); every level of every warp
+    of points is one item."""
+    n_rays = {"rays": 5, "tile_plus_one": 11, "zero_tile": 9}[kind]
+    table, pos, scal, t, g = ray_inputs(POS_KINDS.index(kind) + 30, levels, log2_t, n_rays, 48, *res)
+    if kind == "tile_plus_one":
+        n = 32 * groups * (len(pos) // (32 * groups)) + 1
+        pos, g = pos[:n], g[:n]
+    if kind == "zero_tile":
+        g[256:512] = 0.0
+    want = tenc.hash_encode_bwd_pos_plain(torch.as_tensor(table), torch.as_tensor(pos), torch.as_tensor(g),
+                                          torch.as_tensor(scal), t).numpy().astype(np.float64)
+    got, items = emulate_tiled_pos(table, pos, g, scal, t, groups, phase)
+    assert np.isfinite(got).all()
+    assert np.linalg.norm(got - want) <= 1e-6 * np.linalg.norm(want)
+    assert items == levels * -(-len(pos) // WARP)
+    if kind == "zero_tile":
+        np.testing.assert_array_equal(got[256:512], 0.0)
+
+
 def emulate_copy_tile(values, num_levels, pair_bytes, tile):
     """copy_tile_out of csrc/hash_encoding.cu over a whole [N, L] array of
     pairs (given as pair ids), tiles of `tile` points: per tile, the

@@ -3,6 +3,7 @@
 batch sampler, for comparing samplers and trees on one machine.
 
     python3 train_timing.py [--sampler native|python] [--root DIR] [--label NAME]
+                            [--hash] [--field]
 
 Trains each of chip_smoke.py's three configurations (thermal-nerfacto-tpu,
 thermal-nerfacto, thermal-nerfacto-tpu+fused) for 30 steps of 8192 rays on
@@ -17,12 +18,20 @@ and the card's nvidia-smi name and power limit.
 --hash times thermal-nerfacto alone, and more of it: its 1080p frame
 (six renders through render_camera_device, the first a warm-up), the
 device time of one 512 x 64 render chunk and of training steps 30-34
-(torch.profiler, the sum of kernel times), and the three hash kernels on
+(torch.profiler, the sum of kernel times; and of each hash kernel in
+steps 36-40), and the three hash kernels on
 the positions and cotangents the model produced (the 8 hash calls of one
 render chunk and of training step 9, timed by this checkout's
 chip_smoke.hash_model_phase, which also holds each against the plain
 versions). Prints `HASH {json}` with those numbers besides the TIMING
 line.
+
+--field times thermal-nerfacto-tpu+fused alone: its 1080p frame (six
+renders, the first a warm-up) and row 5, the whole-field forward, through
+that checkout's own chip_smoke.field_split_phase where it has one (CUDA-event
+ms as a training step and as a render chunk call it, the device ms of each
+kernel it launches, row 3's cross density on the same rays). Prints
+`FIELD {json}`.
 
 --root imports chip_smoke.py and nerfstudio_thermal_torch from another
 checkout (for instance an older commit unpacked with git archive), so that
@@ -104,6 +113,30 @@ def hash_render(cs, here, smi):
     return calls, frames[1:], chunk_ms
 
 
+def fused_frames(cs):
+    """thermal-nerfacto-tpu+fused's 1080p frame as chip_smoke.py's
+    slice_phase builds it: seconds of six renders, the first a warm-up."""
+    import numpy as np
+    import torch
+    from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
+
+    cfg = cs.method_config("thermal-nerfacto-tpu+fused").model
+    aabb = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
+    model = ThermalNerfactoModel(cfg, aabb, device="cuda", num_train_data=2, metadata={"is_thermal": [0, 1]}, seed=0)
+    c2w = np.eye(4, dtype=np.float32)[:3]
+    c2w[0, 3] = 2.0
+    cam = cs.make_camera(1920, 1080, 1400.0, c2w)
+    frames = []
+    with torch.no_grad():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.render_camera_device(cam, 0)
+            torch.cuda.synchronize()
+            frames.append(time.perf_counter() - t0)
+    return frames[1:]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sampler", choices=("native", "python"), default="native")
@@ -112,6 +145,8 @@ def main() -> int:
     parser.add_argument("--label", default="", help="copied into every output line")
     parser.add_argument("--hash", action="store_true",
                         help="thermal-nerfacto only: frame, device time and the hash kernels on the model's points")
+    parser.add_argument("--field", action="store_true",
+                        help="thermal-nerfacto-tpu+fused only: its frame and the whole-field forward's split")
     args = parser.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -130,6 +165,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.field:
+        frames = fused_frames(cs)
+        split = cs.field_split_phase() if hasattr(cs, "field_split_phase") else {}
+        print("FIELD " + json.dumps({"label": args.label, "root": root.name, "device": smi, "frame_s": frames,
+                                     **split}), flush=True)
+        return 0
     hash_out = {}
     if args.hash:
         render_calls, hash_out["frame_s"], hash_out["chunk_device_ms"] = hash_render(cs, here, smi)
@@ -154,6 +195,9 @@ def main() -> int:
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             if args.hash:
                 hash_out["step_device_ms"] = device_ms(lambda i: trainer.train_iteration(STEPS + i), 5)
+                steps = iter(range(STEPS + 5, STEPS + 11))
+                split = here.kernel_split(lambda: trainer.train_iteration(next(steps)))
+                hash_out["step_hash_kernels_ms"] = {k: v for k, v in split.items() if "hash_encode" in k}
             sample_ms = []
             for step in range(STEPS, 2 * STEPS):
                 t0 = time.perf_counter()
