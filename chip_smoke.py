@@ -94,7 +94,22 @@ Phases, each fatal on failure:
    whole-field forward at 1,048,576 points as a training step and as a
    render chunk call it, its time (CUDA events) and each kernel's device
    ms (torch.profiler), beside row 3's cross density on the same rays;
-11. a JSON line of the ported kernels (rows 3 and 4 at their three shapes:
+11. the entry points, for each method: a second sphere scene (10 RGB and
+   10 thermal frames, so the 0.9 split holds one of each out for eval);
+   `scripts.train.main` (ns-train) trains the method at full width for 41
+   steps with an eval ray batch and an eval image at steps 20 and 40 and the
+   whole eval set at 40 (for +fused, the three knobs set by flags), and
+   must write finite eval_* batch losses, an eval image's PSNR, SSIM and
+   LPIPS, the eval_all means of both modalities and the eval PNGs (a
+   failed eval, which the trainer prints and trains past, fails the
+   phase); every kernel of the method's path must have launched;
+   `scripts.eval.main` (ns-eval) reloads config.yml and the checkpoint,
+   launches the render kernels, and must give the step-40 eval_all metrics
+   within 1e-4; the card's PSNR, SSIM and LPIPS of each eval image must
+   equal the CPU's on the same pixels within 1e-4 relative; ms/step with
+   evals on, s per eval image, rays/s, and the SSIM and LPIPS ms per
+   640x480 image on the card;
+12. a JSON line of the ported kernels (rows 3 and 4 at their three shapes:
    the cross density and both proposal stacks, each with the launches of
    its stack in the fused training run; the hash kernels with their sums
    on the model's points as the extra fields model_render_chunk and
@@ -115,7 +130,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -162,6 +176,18 @@ STEP_LOSS_TOL = 2e-2
 STEP_LOSS_TOL_F32, STEP_GRAD_TOL_F32, STEP_CAMERA_GRAD_TOL_F32 = 4e-4, 1e-3, 2e-2
 F32_CHECK_FREQS = 4
 TRAIN_STEPS, TIMED_FROM = 30, 10
+# The entry-point phase: ns-train for 41 steps with an eval batch and an eval
+# image at steps 20 and 40 and the whole eval set at 40, on a scene of 10
+# pairs, whose 0.9 split holds one RGB and one thermal frame out for eval
+# (in that order: the scene writes its RGB frames first). ns-eval reloads the
+# run (the final checkpoint, written after step 40 with the same parameters)
+# and must give the step-40 eval_all metrics within ENTRY_EVAL_TOL absolute:
+# the same deterministic renders and metrics. The card's metrics of one eval
+# image must equal the CPU's on the same pixels within ENTRY_CPU_TOL
+# relative (f32 both, no TF32; a layout or TF32 fault in the VGG would show).
+ENTRY_STEPS, ENTRY_EVERY, ENTRY_EVAL_ALL, ENTRY_PAIRS = 41, 20, 40, 10
+ENTRY_EVAL_HEIGHTS = {20: 480, 40: 512}  # the eval image of each eval step: RGB, then thermal
+ENTRY_EVAL_TOL, ENTRY_CPU_TOL = 1e-4, 1e-4
 # Hash kernels against their plain versions. Forward: the same f32 products
 # and sums in the same order (no FMA contraction), so equal up to 1e-6
 # absolute, plus one bf16 step (2^-8 relative) for a bf16 output. Table
@@ -1220,21 +1246,6 @@ def slice_phase(method_name: str):
     return counts, timings[-1][1], lambda out_dir: profile_chunk(model, cam_a, out_dir, method_name)
 
 
-def write_png(path: Path, img: np.ndarray) -> None:
-    """uint8 [H, W, 1 or 3] as a PNG, with the standard library only."""
-    h, w, c = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return len(body).to_bytes(4, "big") + kind + body + (zlib.crc32(kind + body) & 0xFFFFFFFF).to_bytes(4, "big")
-
-    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, {1: 0, 3: 2}[c], 0, 0, 0])
-    path.write_bytes(
-        b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b"")
-    )
-
-
 def look_at(eye: np.ndarray) -> np.ndarray:
     """OpenGL camera-to-world looking at the origin, z up."""
     forward = -eye / np.linalg.norm(eye)
@@ -1273,6 +1284,8 @@ def render_sphere(c2w: np.ndarray, w: int, h: int, focal: float, thermal: bool) 
 def write_scene(root: Path, num_pairs: int = 8) -> Path:
     """transforms.json + images/ (RGB 640x480) + images_thermal/ (grey
     640x512): the ThermalNerf layout, RGB frames first."""
+    from nerfstudio_thermal_torch.utils.writer import write_png
+
     frames = []
     for modality, (w, h), sub in (("rgb", (640, 480), "images"), ("thermal", (640, 512), "images_thermal")):
         (root / sub).mkdir(parents=True, exist_ok=True)
@@ -1418,6 +1431,154 @@ def train_phase(method_name: str, scene_dir: Path, run_dir: Path):
         f"{rays / step_s:,.0f} rays/s (peak memory {peak / 2**30:.1f} GiB)")
     trainer.train_iteration = iteration
     return counts, step_s, rays, lambda out_dir: profile_step(trainer, out_dir, method_name), stacks
+
+
+def entry_points_phase(name: str, scene_dir: Path, out_dir: Path) -> dict:
+    """ns-train with its eval cadences, then ns-eval, for one configuration
+    at full width, through the scripts' main() as a user runs them. Fails on
+    any eval record, image or metric that is missing or wrong: the trainer
+    prints a failed eval and trains on, so a quiet log is no success."""
+    from nerfstudio_thermal_torch.data.datasets import decode_png
+    from nerfstudio_thermal_torch.scripts import eval as ns_eval
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+    from nerfstudio_thermal_torch.utils.colormaps import apply_depth_colormap
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+    from nerfstudio_thermal_torch.utils.lpips import lpips, lpips_metric_name
+    from nerfstudio_thermal_torch.utils.math import psnr, ssim
+
+    method, _, variant = name.partition("+")
+    argv = [method, "--data", str(scene_dir), "--max-num-iterations", str(ENTRY_STEPS), "--output-dir", str(out_dir),
+            "--trainer.steps-per-eval-batch", str(ENTRY_EVERY), "--trainer.steps-per-eval-image", str(ENTRY_EVERY),
+            "--trainer.steps-per-eval-all-images", str(ENTRY_EVAL_ALL)]
+    if variant:
+        argv += [a for knob in FUSED_KNOBS for a in (f"--model.{knob.replace('_', '-')}", "True")]
+    path_kernels = sorted(set(METHODS[name]["chunk"]) | set(METHODS[name]["step"](True)))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = ns_train.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"{name}: ns-train returned {rc}")
+    idle = [k for k in path_kernels if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"{name}: ns-train launched no {idle} (launches {counts})")
+    runs = list(out_dir.glob(f"*/{method}/*/config.yml"))
+    if len(runs) != 1:
+        raise AssertionError(f"{name}: ns-train left {len(runs)} runs under {out_dir}")
+    run = runs[0].parent
+
+    records = [json.loads(line) for line in (run / "events.jsonl").read_text().splitlines()]
+
+    def group(prefix, step):
+        return [{k[len(prefix):]: v for k, v in r.items() if k.startswith(prefix)} for r in records
+                if r["step"] == step and any(k.startswith(prefix) for k in r)]
+
+    def finite(values, keys, what):
+        bad = [k for k in keys if k not in values or not math.isfinite(values[k])]
+        if bad:
+            raise AssertionError(f"{name} {what}: {bad} missing or not finite in {sorted(values)}")
+
+    evals = {}
+    for step in (ENTRY_EVERY, ENTRY_EVAL_ALL):
+        recs = group("eval/", step)
+        batch = [r for r in recs if "eval_rgb_loss" in r]
+        image = [r for r in recs if "psnr_rgb" in r or "psnr_thermal" in r]
+        if len(batch) != 1 or len(image) != 1:
+            raise AssertionError(f"{name} step {step}: {len(batch)} eval batch and {len(image)} eval image records")
+        finite(batch[0], [k for k in batch[0]] + ["eval_thermal_loss", "eval_psnr_rgb"], f"eval batch {step}")
+        modality = "rgb" if "psnr_rgb" in image[0] else "thermal"
+        finite(image[0], [f"psnr_{modality}", f"ssim_{modality}", lpips_metric_name(modality)], f"eval image {step}")
+        evals[step] = (batch[0], image[0])
+        h = ENTRY_EVAL_HEIGHTS[step]
+        for img, width in (("img", 3 * 640), ("depth", 2 * 640), ("accumulation", 640), ("prop_depth_0", 640),
+                           ("prop_depth_1_thermal", 640)):
+            shape = decode_png(run / "images" / f"eval_{img}" / f"step-{step:09d}.png").shape
+            if shape != (h, width, 3):
+                raise AssertionError(f"{name}: eval image {img} at step {step} has shape {shape}")
+    eval_all = group("eval_all/", ENTRY_EVAL_ALL)
+    if len(eval_all) != 1 or any(group("eval_all/", s) for s in range(ENTRY_EVAL_ALL)):
+        raise AssertionError(f"{name}: eval_all records at steps "
+                             f"{sorted({r['step'] for r in records if any(k.startswith('eval_all/') for k in r)})}")
+    eval_all = eval_all[0]
+    metric_keys = [f"{m}_{mod}" for mod in ("rgb", "thermal") for m in ("psnr", "ssim")]
+    metric_keys += [lpips_metric_name(mod) for mod in ("rgb", "thermal")]
+    finite(eval_all, metric_keys + ["num_rays_per_sec", "fps"], "eval_all")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = ns_eval.main(["--load-config", str(run / "config.yml"), "--output-path", str(run / "eval.json")])
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"{name}: ns-eval returned {rc}")
+    idle = [k for k in METHODS[name]["chunk"] if eval_counts[k] == 0]
+    if idle:
+        raise AssertionError(f"{name}: ns-eval launched no {idle}")
+    result = json.loads((run / "eval.json").read_text())
+    if set(result) != {"experiment_name", "method_name", "checkpoint", "lpips_provenance", "results"}:
+        raise AssertionError(f"{name}: ns-eval wrote {sorted(result)}")
+    diffs = {k: abs(result["results"][k] - eval_all[k]) for k in metric_keys + [k + "_std" for k in metric_keys]}
+    if max(diffs.values()) > ENTRY_EVAL_TOL:
+        raise AssertionError(f"{name}: ns-eval results differ from the step-{ENTRY_EVAL_ALL} eval_all: {diffs}")
+
+    # the card's metrics of each eval image against the CPU's on the same pixels
+    _, trainer = eval_setup(run / "config.yml", device="cuda")
+    pipeline = trainer.pipeline
+    cpu_errs, ms = {}, {}
+    for idx in range(len(pipeline.datamanager.eval_dataset)):
+        pred = pipeline.render_eval_camera(idx)
+        modality = "thermal" if pipeline.datamanager.eval_dataset.get_is_thermal(idx) else "rgb"
+        gt = torch.as_tensor(pipeline.datamanager.eval_dataset.get_image(idx)[..., :3], device=pred["rgb"].device)
+        pred = pred["rgb"] if modality == "rgb" else pred["rgb_thermal"].repeat(1, 1, 3)
+        if modality == "thermal":
+            gt = gt[..., :1].repeat(1, 1, 3)
+        card = {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)), "lpips": lpips(pred, gt)}
+        cpu = {"psnr": float(psnr(pred.cpu(), gt.cpu())), "ssim": float(ssim(pred.cpu(), gt.cpu())),
+               "lpips": lpips(pred.cpu(), gt.cpu())}
+        for k in card:
+            cpu_errs[f"{k}_{modality}"] = abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
+        if modality == "rgb":
+            # where an eval image's time goes: the render, then its metrics and
+            # images (of which LPIPS and SSIM on the card, the depth colormaps
+            # on the host)
+            batch = {"image": pipeline.datamanager.eval_dataset.get_image(idx), "is_thermal": 0.0}
+            ms["render"] = cuda_ms(lambda: pipeline.render_eval_camera(idx), 3, warmup=1)
+            outputs = pipeline.render_eval_camera(idx)
+            ms["metrics_and_images"] = cuda_ms(lambda: pipeline.compute_image_metrics(outputs, batch), 3, warmup=1)
+            host = {k: v.float().cpu().numpy() for k, v in outputs.items()}
+            depths = [k for k in host if k.startswith(("depth", "prop_depth_"))]
+            ms["colormaps"] = cuda_ms(lambda: [apply_depth_colormap(host[k], accumulation=host["accumulation"])
+                                               for k in depths], 3, warmup=1)
+            ms["ssim"] = cuda_ms(lambda: ssim(pred, gt), 10)
+            ms["lpips"] = cuda_ms(lambda: lpips(pred, gt), 10)
+    if len(cpu_errs) != 6 or max(cpu_errs.values()) > ENTRY_CPU_TOL:
+        raise AssertionError(f"{name}: the card's eval metrics differ from the CPU's: {cpu_errs}")
+    del trainer, pipeline
+    torch.cuda.empty_cache()
+
+    s_per_image = 1.0 / result["results"]["fps"]
+    batch_losses = {step: round(b["eval_rgb_loss"], 5) for step, (b, _) in evals.items()}
+    path_counts = {k: counts[k] for k in path_kernels}
+    log(f"{name} entry points: ns-train {ENTRY_STEPS} steps with evals at {ENTRY_EVERY} and {ENTRY_EVAL_ALL} "
+        f"(eval_all at {ENTRY_EVAL_ALL}) in {train_s:.2f} s, {train_s / ENTRY_STEPS * 1e3:.1f} ms/step with evals on "
+        f"(setup included); launches {path_counts}; eval batch rgb losses {batch_losses}; "
+        f"eval_all psnr rgb {eval_all['psnr_rgb']:.3f} / thermal {eval_all['psnr_thermal']:.3f} dB, "
+        f"ssim {eval_all['ssim_rgb']:.4f} / {eval_all['ssim_thermal']:.4f}, "
+        f"{lpips_metric_name('rgb')} {eval_all[lpips_metric_name('rgb')]:.4f}")
+    log(f"{name} ns-eval: {eval_s:.2f} s (setup included), results equal to the step-{ENTRY_EVAL_ALL} eval_all "
+        f"within {max(diffs.values()):.2e} (limit {ENTRY_EVAL_TOL}); {s_per_image:.3f} s per eval image (1 / fps), "
+        f"{result['results']['num_rays_per_sec']:,.0f} rays/s, {result['results']['fps']:.2f} fps "
+        f"(in training: {1.0 / eval_all['fps']:.3f} s, {eval_all['num_rays_per_sec']:,.0f} rays/s); "
+        f"card vs CPU metrics max rel {max(cpu_errs.values()):.2e} (limit {ENTRY_CPU_TOL}); "
+        f"on the card per 640x480 image: ssim {ms['ssim']:.3f} ms, lpips {ms['lpips']:.3f} ms")
+    log(f"{name} eval image split (640x480, RGB): render {ms['render']:.1f} ms, then metrics and images "
+        f"{ms['metrics_and_images']:.1f} ms, of which {len(depths)} depth colormaps on the host "
+        f"{ms['colormaps']:.1f}, lpips {ms['lpips']:.1f}, ssim {ms['ssim']:.2f}")
+    return {"train_s": train_s, "eval_s": eval_s, "s_per_image": s_per_image,
+            "rays_per_sec": result["results"]["num_rays_per_sec"], "fps": result["results"]["fps"], **ms}
 
 
 def step_start(trainer):
@@ -1657,6 +1818,11 @@ def main() -> int:
         for line in stage_lines():
             log(line)
         field_split_phase()
+        t0 = time.perf_counter()
+        entry_scene = write_scene(Path(tmp) / "sphere_eval", num_pairs=ENTRY_PAIRS)
+        log(f"scene: {ENTRY_PAIRS} RGB 640x480 + {ENTRY_PAIRS} thermal 640x512 frames written in "
+            f"{time.perf_counter() - t0:.2f} s (1 + 1 held out for eval)")
+        entries = {m: entry_points_phase(m, entry_scene, Path(tmp) / m / "outputs") for m in METHODS}
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -1735,6 +1901,10 @@ def main() -> int:
         _, step_s, rays, _, _ = trains[m]
         log(f"{m}: 1080p frame {frame_s:.3f} s, {1920 * 1080 / frame_s:,.0f} rays/s; "
             f"train {step_s * 1e3:.2f} ms/step, {rays / step_s:,.0f} rays/s ({smi})")
+    for m, e in entries.items():
+        log(f"{m}: ns-train {e['train_s'] / ENTRY_STEPS * 1e3:.1f} ms/step with evals on; ns-eval "
+            f"{e['s_per_image']:.3f} s per eval image, {e['rays_per_sec']:,.0f} rays/s; ssim {e['ssim']:.3f} ms, "
+            f"lpips {e['lpips']:.3f} ms per 640x480 image ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

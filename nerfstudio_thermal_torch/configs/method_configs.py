@@ -2,9 +2,11 @@
 
 `thermal-nerfacto` and `thermal-nerfacto-tpu` under the JAX package's
 names, with their trainer, ThermalNerf dataparser, data manager, model and
-eight optimizer groups, and `setup_trainer`, which wires dataparser ->
-data manager -> model -> pipeline -> trainer as the JAX package's does.
-The CLI (`configs/cli.py`, `scripts/train.py`) is later work.
+eight optimizer groups; `descriptions` for ns-train's method list;
+`resolve_model_class`; and `setup_trainer`, which wires dataparser -> data
+manager -> model -> pipeline -> trainer as the JAX package's does. The
+JAX package's other methods and its plugin registry are not registered
+here (ROADMAP A3, A8 and A9).
 """
 
 import copy
@@ -135,10 +137,23 @@ _METHODS: Dict[str, Callable[[], MethodConfig]] = {
 }
 
 
+descriptions: Dict[str, str] = {name: make().description for name, make in _METHODS.items()}
+
+
 def get_method_config(name: str) -> MethodConfig:
     if name not in _METHODS:
-        raise KeyError(f"unknown method '{name}'; available: {sorted(_METHODS)}")
+        raise KeyError(
+            f"unknown method '{name}'; available: {sorted(_METHODS)} (the JAX package's other methods are "
+            "ROADMAP A3 and A8, plugin methods A9)"
+        )
     return _METHODS[name]()
+
+
+def resolve_model_class(model_config) -> type:
+    """Model config -> model class, the most derived config first."""
+    if isinstance(model_config, ThermalNerfactoModelConfig):
+        return ThermalNerfactoModel
+    return NerfactoModel
 
 
 def setup_trainer(
@@ -148,8 +163,7 @@ def setup_trainer(
 ) -> Trainer:
     """Dataparser -> data manager -> model -> pipeline -> trainer. The model
     is built on `device` (CUDA unless the caller asks for the CPU) from the
-    trainer's seed: a ThermalNerfactoModel for a thermal config, else a
-    NerfactoModel."""
+    trainer's seed, of the class `resolve_model_class` gives."""
     if config.dynamic_batch is not None:
         raise NotImplementedError("the dynamic-batch pipeline (MethodConfig.dynamic_batch) is not ported yet")
     if config.data is not None:
@@ -159,8 +173,7 @@ def setup_trainer(
     metadata = dict(datamanager.train_dataparser_outputs.metadata)
     if "is_thermal" not in metadata:
         metadata["is_thermal"] = list(datamanager.train_dataset.is_thermal)
-    model_cls = ThermalNerfactoModel if isinstance(config.model, ThermalNerfactoModelConfig) else NerfactoModel
-    model = model_cls(
+    model = resolve_model_class(config.model)(
         config.model,
         scene_aabb=datamanager.train_dataparser_outputs.scene_box,
         num_train_data=len(datamanager.train_dataset),

@@ -1,8 +1,9 @@
 """Data manager (counterpart of nerfstudio_thermal_tpu/data/datamanagers.py).
 
-`VanillaDataManager` owns the train and eval datasets and the train pixel
-sampler, and gives one host batch per step (the eval batches come with the
-eval surface). Ray generation happens in the train step, on the device. As
+`VanillaDataManager` owns the train and eval datasets and their pixel
+samplers (the eval one seeded with seed + 1), and gives one host batch per
+training step, eval ray batches, and whole eval images in turn. Ray
+generation happens in the train step, on the device. As
 in the JAX package, `use_native_sampler` (on by default) samples through
 the C++ batch sampler (data/native_sampler.py) when the dataset qualifies
 and the library builds, and through the Python PixelSampler otherwise. The
@@ -10,7 +11,7 @@ prefetching manager of the JAX package is later work.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -44,6 +45,11 @@ class VanillaDataManager:
             PixelSamplerConfig(config.train_num_rays_per_batch, config.patch_size),
             self.train_dataset, seed=config.seed,
         )
+        self.eval_pixel_sampler = PixelSampler(
+            PixelSamplerConfig(config.eval_num_rays_per_batch, config.patch_size),
+            self.eval_dataset, seed=config.seed + 1,
+        )
+        self._eval_image_index = 0
         self._native = self._try_native_sampler() if config.use_native_sampler else None
 
     def _try_native_sampler(self):
@@ -74,8 +80,22 @@ class VanillaDataManager:
     def train_cameras(self):
         return self.train_dataset.cameras
 
+    @property
+    def eval_cameras(self):
+        return self.eval_dataset.cameras
+
     def next_train(self, step: int) -> Dict[str, np.ndarray]:
         n = self.config.train_num_rays_per_batch
         if self._native is not None:
             return self._native.sample(n, step=step)
         return self.train_pixel_sampler.sample(n, step=step)
+
+    def next_eval(self, step: int) -> Dict[str, np.ndarray]:
+        return self.eval_pixel_sampler.sample(step=step)
+
+    def next_eval_image(self, step: int) -> Tuple[int, Dict[str, np.ndarray]]:
+        """(camera index, {"image": [H, W, C], "is_thermal": float}), cycling
+        over the eval set."""
+        idx = self._eval_image_index
+        self._eval_image_index = (self._eval_image_index + 1) % len(self.eval_dataset)
+        return idx, {"image": self.eval_dataset.get_image(idx), "is_thermal": self.eval_dataset.get_is_thermal(idx)}

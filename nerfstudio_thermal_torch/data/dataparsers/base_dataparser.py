@@ -1,7 +1,8 @@
 """Dataparser base types (counterpart of nerfstudio_thermal_tpu/data/dataparsers/base_dataparser.py).
 
 `DataparserOutputs`: image filenames, the port's `Cameras` (CPU tensors),
-the scene box, the dataparser transform and scale, and per-image metadata.
+the scene box, the dataparser transform and scale, and per-image metadata;
+`as_dict` gives the transform and scale for dataparser_transforms.json.
 """
 
 from dataclasses import dataclass, field
@@ -22,6 +23,14 @@ class DataparserOutputs:
     dataparser_transform: np.ndarray = field(default_factory=lambda: np.eye(4, dtype=np.float32)[:3])
     dataparser_scale: float = 1.0
     metadata: Dict[str, Any] = field(default_factory=dict)
+
+    def as_dict(self) -> dict:
+        """The transform and scale, as ns-train writes them to
+        dataparser_transforms.json."""
+        return {
+            "dataparser_transform": np.asarray(self.dataparser_transform).tolist(),
+            "dataparser_scale": float(self.dataparser_scale),
+        }
 
 
 @dataclass

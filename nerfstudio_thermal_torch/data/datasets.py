@@ -144,6 +144,10 @@ class InputDataset:
             )
         return self._cache[idx]
 
+    def get_is_thermal(self, idx: int) -> float:
+        vals = self.metadata.get("is_thermal")
+        return float(vals[idx]) if vals is not None else 0.0
+
     @property
     def is_thermal(self) -> np.ndarray:
         vals = self.metadata.get("is_thermal")

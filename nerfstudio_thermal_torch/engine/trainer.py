@@ -12,13 +12,16 @@ losses (their sum in sorted key order), backward, one update of every
 group, the counters.
 
 `Trainer.setup` / `train` run the loop with the rays/s and iteration-time
-scalars and checkpoints through torch.save (`train` always saves at the
-end). The eval cadences, the viewer, the profiler and gradient
-accumulation are later work; the eval cadences raise when reached with
-eval data present.
+scalars, the three eval cadences (an eval ray batch's losses and metrics,
+one eval image with its metrics and images, and the whole eval set's mean
+metrics, each skipped while the eval split is empty) and checkpoints
+through torch.save (`train` always saves at the end). As in the JAX
+package, a failing eval batch or eval image is printed and training goes
+on. The viewer, the profiler and gradient accumulation are later work.
 """
 
 import time
+import traceback
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Optional
@@ -35,9 +38,6 @@ from nerfstudio_thermal_torch.models.nerfacto import proposal_anneal, proposal_u
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
 from nerfstudio_thermal_torch.utils.precision import pin_precision
 from nerfstudio_thermal_torch.utils.writer import EventName, Writer
-
-_EVAL_SLICE = "evaluation during training arrives with the eval-surface slice of the port"
-
 
 @dataclass
 class TrainState:
@@ -87,6 +87,18 @@ def _batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _uses_random_background(model) -> bool:
+    color = model.config.background_color
+    return isinstance(color, str) and color == "random"
+
+
+def _random_background(outputs, generator: torch.Generator) -> torch.Tensor:
+    """U[0, 1) of the prediction's shape ([R, 3], or [R, 4] for RGBT)."""
+    rgb = outputs["rgb"]
+    extra = outputs["rgb_thermal"].shape[-1] if "rgb_thermal" in outputs else 0
+    return torch.rand((*rgb.shape[:-1], rgb.shape[-1] + extra), generator=generator, device=rgb.device)
+
+
 def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
     """(state, batch, uniforms=None, background_uniforms=None) -> scalars.
 
@@ -104,7 +116,7 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
     warmup = cfg.proposal_warmup
     update_every = cfg.proposal_update_every
     thermal = hasattr(model, "field_thermal")
-    random_background = isinstance(cfg.background_color, str) and cfg.background_color == "random"
+    random_background = _uses_random_background(model)
     ray_generator = RayGenerator(cameras)
 
     def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None):
@@ -133,10 +145,8 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
         )
         metrics = model.get_metrics_dict(outputs, batch, train=True)
         if random_background and background_uniforms is None:
-            # the JAX step draws it from its loss key, with the prediction's shape
-            rgb = outputs["rgb"]
-            shape = (*rgb.shape[:-1], rgb.shape[-1] + (outputs["rgb_thermal"].shape[-1] if thermal else 0))
-            background_uniforms = torch.rand(shape, generator=state.generator, device=rgb.device)
+            # the JAX step draws it from its loss key
+            background_uniforms = _random_background(outputs, state.generator)
         loss_dict = model.get_loss_dict(
             outputs, batch, metrics, train=True, background_uniforms=background_uniforms
         )
@@ -183,6 +193,7 @@ class Trainer:
             use_comet=config.use_comet, experiment_name=config.experiment_name,
         )
         self._start_step = 0
+        self._eval_ray_generator = None
 
     def setup(self):
         self.optimizers = build_optimizer(self.optimizer_configs, self.model.param_groups())
@@ -222,12 +233,62 @@ class Trainer:
                     scalars["Device Memory (MB)"] = torch.cuda.memory_allocated(self.device) / 1e6
                 self.writer.write_scalar_dict(scalars, step, group="train")
                 self.writer.console_log(step, scalars)
-            for every in (cfg.steps_per_eval_batch, cfg.steps_per_eval_image, cfg.steps_per_eval_all_images):
-                if every > 0 and step > 0 and step % every == 0 and self._has_eval_data():
-                    raise NotImplementedError(_EVAL_SLICE)
+            if self._due(step, cfg.steps_per_eval_batch):
+                self.eval_batch_iteration(step)
+            if self._due(step, cfg.steps_per_eval_image):
+                self.eval_iteration(step)
+            if self._due(step, cfg.steps_per_eval_all_images):
+                with torch.no_grad():
+                    metrics = self.pipeline.get_average_eval_image_metrics(step)
+                self.writer.write_scalar_dict(metrics, step, group="eval_all")
             if step > 0 and step % cfg.steps_per_save == 0:
                 self.save_checkpoint(step)
         self.save_checkpoint(cfg.max_num_iterations)
+
+    def _due(self, step: int, every: int) -> bool:
+        return every > 0 and step > 0 and step % every == 0 and self._has_eval_data()
+
+    # evals ------------------------------------------------------------
+
+    def eval_batch_iteration(self, step: int) -> None:
+        """Losses and metrics of one eval ray batch (train=False), written
+        as eval_* under the group "eval"."""
+        try:
+            if self._eval_ray_generator is None:
+                self._eval_ray_generator = RayGenerator(self.datamanager.eval_cameras.to(self.device))
+            batch = _batch_to(self.datamanager.next_eval(step), self.device)
+            model = self.model
+            with torch.no_grad():
+                outputs = model(self._eval_ray_generator(batch["ray_indices"]), train=False)
+                metrics = model.get_metrics_dict(outputs, batch, train=False)
+                background_uniforms = None
+                if _uses_random_background(model):
+                    # drawn from the step, as the JAX package draws it from PRNGKey(step)
+                    generator = torch.Generator(device=self.device).manual_seed(step)
+                    background_uniforms = _random_background(outputs, generator)
+                losses = model.get_loss_dict(
+                    outputs, batch, metrics, train=False, background_uniforms=background_uniforms
+                )
+            scalars = {f"eval_{k}": float(v) for k, v in {**losses, **metrics}.items()}
+            self.writer.write_scalar_dict(scalars, step, group="eval")
+        except Exception:  # an eval must not stop training (the reference's rule)
+            print(f"eval batch failed at step {step}:")
+            traceback.print_exc()
+
+    def eval_iteration(self, step: int) -> None:
+        """The next eval image: its metrics (group "eval") and its images
+        (images/eval_<name>/step-<N>.png)."""
+        try:
+            with torch.no_grad():
+                metrics, images = self.pipeline.get_eval_image_metrics_and_images(step)
+            metrics.pop("_num_rays", None)
+            self.writer.write_scalar_dict(metrics, step, group="eval")
+            self.writer.console_log(step, metrics)
+            for name, img in images.items():
+                self.writer.write_image(f"eval/{name}", img, step)
+        except Exception:  # an eval must not stop training (the reference's rule)
+            print(f"eval failed at step {step}:")
+            traceback.print_exc()
 
     # checkpoints ------------------------------------------------------
 
@@ -242,6 +303,7 @@ class Trainer:
                 "generator": self.state.generator.get_state(),
                 "model": self.model.state_dict(),
                 "optimizers": self.optimizers.state_dict(),
+                "eval_image_index": self.datamanager._eval_image_index,
             },
             path,
         )
@@ -270,5 +332,6 @@ class Trainer:
         self.state.steps_since_update = int(ckpt["steps_since_update"])
         self.state.steps_since_update_thermal = int(ckpt["steps_since_update_thermal"])
         self.state.generator.set_state(ckpt["generator"].cpu())
+        self.datamanager._eval_image_index = int(ckpt.get("eval_image_index", 0))
         self._start_step = self.state.step
         print(f"Loaded checkpoint {path} at step {self._start_step}")

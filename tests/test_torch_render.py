@@ -15,6 +15,8 @@ Tolerances on every image output:
   neighbouring bf16 numbers, which moves colours by about one bf16 step.
 """
 
+import json
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -118,8 +120,9 @@ def test_precision_pinned_by_entry_points():
 
 def test_unported_paths_raise(tmp_path):
     """What the port does not carry yet raises and names its slice or says
-    it is not ported: a shared proposal network, the shared and rgb_only
-    density modes, and the trainer's eval cadences."""
+    it is not ported: a shared proposal network and the shared and rgb_only
+    density modes. The trainer's eval cadence, which raised before the eval
+    surface was ported, now runs and writes its record."""
     from tests.fixtures import make_synthetic_rgbt_dataset
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
@@ -144,8 +147,11 @@ def test_unported_paths_raise(tmp_path):
     method.trainer.steps_per_eval_batch = 2
     trainer = setup_trainer(method, base_dir=tmp_path / "run", device="cpu")
     trainer.setup()
-    with pytest.raises(NotImplementedError, match="eval-surface slice"):
-        trainer.train()
+    trainer.train()
+    records = [json.loads(line) for line in (tmp_path / "run" / "events.jsonl").read_text().splitlines()]
+    evals = [r for r in records if "eval/eval_rgb_loss" in r]
+    assert [r["step"] for r in evals] == [2]
+    assert all(np.isfinite(v) for k, v in evals[0].items() if k.startswith("eval/eval_"))
 
 
 @torch.no_grad()
