@@ -1,12 +1,14 @@
 """Method registry (counterpart of nerfstudio_thermal_tpu/configs/method_configs.py).
 
-`thermal-nerfacto` and `thermal-nerfacto-tpu` under the JAX package's
-names, with their trainer, ThermalNerf dataparser, data manager, model and
-eight optimizer groups; `descriptions` for ns-train's method list;
-`resolve_model_class`; and `setup_trainer`, which wires dataparser -> data
-manager -> model -> pipeline -> trainer as the JAX package's does. The
-JAX package's other methods and its plugin registry are not registered
-here (ROADMAP A3, A8 and A9).
+`thermal-nerfacto` and `thermal-nerfacto-tpu` (the ThermalNerf
+dataparser, eight optimizer groups) and the nerfacto family `nerfacto`,
+`nerfacto-tpu`, `nerfacto-big` and `nerfacto-huge` (the Nerfstudio
+dataparser, three groups), under the JAX package's names and with its
+fields; `descriptions` for ns-train's method list; `resolve_model_class`;
+and `setup_trainer`, which wires dataparser -> data manager -> model ->
+pipeline -> trainer as the JAX package's does. The JAX package's other
+methods and its plugin registry are not registered here (ROADMAP A8 and
+A9).
 """
 
 import copy
@@ -67,6 +69,76 @@ def _camera_opt():
     )
 
 
+def make_nerfacto() -> MethodConfig:
+    return MethodConfig(
+        method_name="nerfacto",
+        description="Recommended real-time model for unbounded scenes.",
+        trainer=TrainerConfig(
+            max_num_iterations=30000,
+            steps_per_eval_batch=500,
+            steps_per_save=2000,
+            mixed_precision=True,
+            method_name="nerfacto",
+        ),
+        dataparser=NerfstudioDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=4096, eval_num_rays_per_batch=4096),
+        model=NerfactoModelConfig(
+            eval_num_rays_per_chunk=1 << 15,
+            camera_optimizer=CameraOptimizerConfig(mode="SO3xR3"),
+            compute_dtype="bfloat16",
+        ),
+        optimizers={
+            "proposal_networks": _field_opt(),
+            "fields": _field_opt(),
+            "camera_opt": _camera_opt(),
+        },
+    )
+
+
+def make_nerfacto_big() -> MethodConfig:
+    """nerfacto with wider MLPs, a 2^21-row grid to 4096 and (512, 256) +
+    128 samples."""
+    cfg = make_nerfacto()
+    cfg.method_name = "nerfacto-big"
+    cfg.trainer.method_name = "nerfacto-big"
+    cfg.trainer.max_num_iterations = 100000
+    cfg.description = "Larger nerfacto for bigger scenes."
+    cfg.datamanager.train_num_rays_per_batch = 8192
+    m = cfg.model
+    m.num_nerf_samples_per_ray = 128
+    m.num_proposal_samples_per_ray = (512, 256)
+    m.hidden_dim = 128
+    m.hidden_dim_color = 128
+    m.appearance_embed_dim = 128
+    m.max_res = 4096
+    m.log2_hashmap_size = 21
+    return cfg
+
+
+def make_nerfacto_huge() -> MethodConfig:
+    """nerfacto with 256-wide MLPs, a 2^21-row grid to 8192, a 7-level
+    second proposal grid to 2048 and (512, 512) + 64 samples."""
+    cfg = make_nerfacto()
+    cfg.method_name = "nerfacto-huge"
+    cfg.trainer.method_name = "nerfacto-huge"
+    cfg.trainer.max_num_iterations = 100000
+    cfg.description = "Even larger nerfacto; long training."
+    cfg.datamanager.train_num_rays_per_batch = 16384
+    m = cfg.model
+    m.num_nerf_samples_per_ray = 64
+    m.num_proposal_samples_per_ray = (512, 512)
+    m.proposal_net_args_list = [
+        {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 5, "max_res": 512, "use_linear": False},
+        {"hidden_dim": 16, "log2_hashmap_size": 17, "num_levels": 7, "max_res": 2048, "use_linear": False},
+    ]
+    m.hidden_dim = 256
+    m.hidden_dim_color = 256
+    m.appearance_embed_dim = 32
+    m.max_res = 8192
+    m.log2_hashmap_size = 21
+    return cfg
+
+
 def make_thermal_nerfacto() -> MethodConfig:
     return MethodConfig(
         method_name="thermal-nerfacto",
@@ -123,7 +195,8 @@ def _tpu_variant(base: MethodConfig, name: str) -> MethodConfig:
     m.compute_dtype = "bfloat16"
     m.freq_final_init_scale = 0.1
     m.use_pallas = True
-    m.density_loss_rays_fraction = 0.25
+    if hasattr(m, "density_loss_rays_fraction"):
+        m.density_loss_rays_fraction = 0.25
     m.proposal_camera_gradients = False
     m.num_proposal_samples_per_ray = (128, 48)
     m.num_nerf_samples_per_ray = 32
@@ -132,8 +205,12 @@ def _tpu_variant(base: MethodConfig, name: str) -> MethodConfig:
 
 
 _METHODS: Dict[str, Callable[[], MethodConfig]] = {
+    "nerfacto": make_nerfacto,
     "thermal-nerfacto": make_thermal_nerfacto,
+    "nerfacto-tpu": lambda: _tpu_variant(make_nerfacto(), "nerfacto-tpu"),
     "thermal-nerfacto-tpu": lambda: _tpu_variant(make_thermal_nerfacto(), "thermal-nerfacto-tpu"),
+    "nerfacto-big": make_nerfacto_big,
+    "nerfacto-huge": make_nerfacto_huge,
 }
 
 
@@ -144,7 +221,7 @@ def get_method_config(name: str) -> MethodConfig:
     if name not in _METHODS:
         raise KeyError(
             f"unknown method '{name}'; available: {sorted(_METHODS)} (the JAX package's other methods are "
-            "ROADMAP A3 and A8, plugin methods A9)"
+            "ROADMAP A8, plugin methods A9)"
         )
     return _METHODS[name]()
 

@@ -2,15 +2,15 @@
 
 A schedule maps the step (counted from 0, before the update) to a learning
 rate. It is evaluated on the host with f32 scalar tensors, the arithmetic
-the JAX package does inside its step; exp and log of the two math
-libraries may differ in the last bit. This slice carries the exponential decay of the nerfacto
-family; the multi-step and cosine schedules wait for the models that use
-them.
+the JAX package does inside its step; exp, log, cos and pow of the two
+math libraries may differ in the last bit. The exponential decay of the
+nerfacto family, the multi-step decay and the cosine decay with a linear
+warm-up.
 """
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -19,6 +19,11 @@ import torch
 class SchedulerConfig:
     def make(self, lr_init: float) -> Callable[[int], float]:
         raise NotImplementedError
+
+
+def f32(v) -> torch.Tensor:
+    """An f32 scalar tensor: the schedules' (and RAdam's) host arithmetic."""
+    return torch.tensor(v, dtype=torch.float32)
 
 
 @dataclass
@@ -31,9 +36,6 @@ class ExponentialDecaySchedulerConfig(SchedulerConfig):
 
     def make(self, lr_init: float) -> Callable[[int], float]:
         lr_final = self.lr_final if self.lr_final is not None else lr_init
-
-        def f32(v) -> torch.Tensor:
-            return torch.tensor(v, dtype=torch.float32)
 
         def schedule(step: int) -> float:
             s = f32(float(step))
@@ -48,5 +50,44 @@ class ExponentialDecaySchedulerConfig(SchedulerConfig):
                 return float(warm)
             t = torch.clamp((s - self.warmup_steps) / max(self.max_steps - self.warmup_steps, 1), 0.0, 1.0)
             return float(torch.exp(torch.log(f32(lr_init)) * (1 - t) + torch.log(f32(lr_final)) * t))
+
+        return schedule
+
+
+@dataclass
+class MultiStepSchedulerConfig(SchedulerConfig):
+    """lr_init * gamma ** (the number of milestones the step has reached)."""
+
+    max_steps: int = 1000000
+    gamma: float = 0.33
+    milestones: Tuple[int, ...] = (500000, 750000, 900000)
+
+    def make(self, lr_init: float) -> Callable[[int], float]:
+        def schedule(step: int) -> float:
+            n = sum(step >= m for m in self.milestones)
+            return float(f32(lr_init) * torch.pow(f32(self.gamma), f32(float(n))))
+
+        return schedule
+
+
+@dataclass
+class CosineDecaySchedulerConfig(SchedulerConfig):
+    """A linear warm-up to lr_init over warm_up_end steps, then a cosine
+    decay to learning_rate_alpha * lr_init at max_steps."""
+
+    warm_up_end: int = 5000
+    learning_rate_alpha: float = 0.05
+    max_steps: int = 300000
+
+    def make(self, lr_init: float) -> Callable[[int], float]:
+        def schedule(step: int) -> float:
+            s = f32(float(step))
+            if step < self.warm_up_end:
+                factor = s / max(self.warm_up_end, 1)
+            else:
+                alpha = self.learning_rate_alpha
+                progress = (s - self.warm_up_end) / max(self.max_steps - self.warm_up_end, 1)
+                factor = (torch.cos(math.pi * torch.clamp(progress, 0.0, 1.0)) + 1.0) * 0.5 * (1 - alpha) + alpha
+            return float(lr_init * factor)
 
         return schedule

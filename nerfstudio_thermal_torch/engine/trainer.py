@@ -17,18 +17,24 @@ one eval image with its metrics and images, and the whole eval set's mean
 metrics, each skipped while the eval split is empty) and checkpoints
 through torch.save (`train` always saves at the end). As in the JAX
 package, a failing eval batch or eval image is printed and training goes
-on. The viewer, the profiler and gradient accumulation are later work.
+on. With `gradient_accumulation_steps` k > 1 the optimizers are wrapped in
+`MultiSteps` (optax.MultiSteps): every step still counts (the step, the
+proposal-update counters and the checkpoints' step advance once a step),
+but the parameters, the moments and the learning-rate schedules move only
+on every k-th step, from the mean of the k gradients. The viewer and the
+profiler are later work.
 """
 
 import time
 import traceback
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from nerfstudio_thermal_torch.engine.optimizers import (
+    MultiSteps,
     OptimizerGroupConfig,
     Optimizers,
     build_optimizer,
@@ -92,22 +98,25 @@ def _uses_random_background(model) -> bool:
     return isinstance(color, str) and color == "random"
 
 
-def _random_background(outputs, generator: torch.Generator) -> torch.Tensor:
-    """U[0, 1) of the prediction's shape ([R, 3], or [R, 4] for RGBT)."""
+def _random_background(model, outputs, generator: torch.Generator) -> torch.Tensor:
+    """U[0, 1) of the blended prediction's shape: [R, 3], or [R, 4] for the
+    thermal model (RGBT in every density mode; rgb_only pads a zero thermal
+    channel)."""
     rgb = outputs["rgb"]
-    extra = outputs["rgb_thermal"].shape[-1] if "rgb_thermal" in outputs else 0
-    return torch.rand((*rgb.shape[:-1], rgb.shape[-1] + extra), generator=generator, device=rgb.device)
+    channels = 4 if hasattr(model, "output_suffixes") else rgb.shape[-1]
+    return torch.rand((*rgb.shape[:-1], channels), generator=generator, device=rgb.device)
 
 
-def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
-    """(state, batch, uniforms=None, background_uniforms=None) -> scalars.
+def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras) -> Callable:
+    """(state, batch, uniforms=None, background_uniforms=None, tv_uniforms=None) -> scalars.
 
     Updates the model's parameters, the optimizers and `state` in place.
     `uniforms` ({"rgb": [...], "thermal": [...]}, one draw per sampling
-    level) replaces the jitter the state's generator would draw, and
+    level) replaces the jitter the state's generator would draw,
     `background_uniforms` the draw of a random background (U[0, 1) of the
-    prediction's shape, [R, 3] or [R, 4] for RGBT) that the loss blends;
-    a test passes the JAX package's draws there."""
+    prediction's shape, [R, 3] or [R, 4] for RGBT) that the loss blends,
+    and `tv_uniforms` ({"rgb": [P, 3], "thermal": [P, 3]}) the density TV
+    loss's points; a test passes the JAX package's draws there."""
     cfg = model.config
     use_anneal = cfg.use_proposal_weight_anneal
     use_anneal_t = getattr(cfg, "use_proposal_thermal_weight_anneal", False)
@@ -115,11 +124,11 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
     anneal_slope = cfg.proposal_weights_anneal_slope
     warmup = cfg.proposal_warmup
     update_every = cfg.proposal_update_every
-    thermal = hasattr(model, "field_thermal")
+    thermal = hasattr(model, "output_suffixes")
     random_background = _uses_random_background(model)
     ray_generator = RayGenerator(cameras)
 
-    def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None):
+    def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None, tv_uniforms=None):
         step = state.step
         anneal = proposal_anneal(step, anneal_iters, anneal_slope) if use_anneal else 1.0
         updated, new_ssu = proposal_updated(step, state.steps_since_update, warmup, update_every)
@@ -146,9 +155,10 @@ def make_ray_train_step(model, optimizers: Optimizers, cameras) -> Callable:
         metrics = model.get_metrics_dict(outputs, batch, train=True)
         if random_background and background_uniforms is None:
             # the JAX step draws it from its loss key
-            background_uniforms = _random_background(outputs, state.generator)
+            background_uniforms = _random_background(model, outputs, state.generator)
         loss_dict = model.get_loss_dict(
-            outputs, batch, metrics, train=True, background_uniforms=background_uniforms
+            outputs, batch, metrics, train=True, background_uniforms=background_uniforms,
+            tv_uniforms=tv_uniforms, generator=state.generator,
         )
         loss = sum(loss_dict[k] for k in sorted(loss_dict))
         loss.backward()
@@ -173,7 +183,6 @@ class Trainer:
         for name, unported in (
             ("profiler", config.profiler != "none"),
             ("viewer", config.vis != "none"),
-            ("gradient accumulation", config.gradient_accumulation_steps > 1),
             ("data parallelism over several devices", config.num_devices not in (None, 1)),
         ):
             if unported:
@@ -197,6 +206,8 @@ class Trainer:
 
     def setup(self):
         self.optimizers = build_optimizer(self.optimizer_configs, self.model.param_groups())
+        if self.config.gradient_accumulation_steps > 1:
+            self.optimizers = MultiSteps(self.optimizers, self.config.gradient_accumulation_steps)
         generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
         self.state = TrainState(generator=generator)
         self.cameras = self.datamanager.train_cameras.to(self.device)
@@ -265,7 +276,7 @@ class Trainer:
                 if _uses_random_background(model):
                     # drawn from the step, as the JAX package draws it from PRNGKey(step)
                     generator = torch.Generator(device=self.device).manual_seed(step)
-                    background_uniforms = _random_background(outputs, generator)
+                    background_uniforms = _random_background(model, outputs, generator)
                 losses = model.get_loss_dict(
                     outputs, batch, metrics, train=False, background_uniforms=background_uniforms
                 )

@@ -32,6 +32,23 @@ from nerfstudio_thermal_torch.ops.encodings import NeRFEncoding, SHEncoding
 from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
 
+def density_tv_points(aabb: torch.Tensor, uniforms: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """The density TV loss's base-network inputs: points aabb[0] + extent *
+    uniforms ([P, 3] in [0, 1)) and their 6 axis neighbours one extent /
+    voxel_size away, [7 P, 3] (the points, then the neighbour blocks), each
+    zeroed unless it lies in (0, 1)^3 in world coordinates."""
+    scaled = aabb[0] + (aabb[1] - aabb[0]) * uniforms.float()
+    width = (aabb[1] - aabb[0]) / voxel_size
+    offsets = torch.tensor(
+        [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+        dtype=torch.float32, device=scaled.device,
+    )
+    neighbors = scaled[None] - offsets[:, None, :] * width
+    points = torch.cat([scaled[None], neighbors], dim=0).reshape(-1, 3)
+    selector = torch.all((points > 0.0) & (points < 1.0), dim=-1)
+    return points * selector[..., None]
+
+
 class NerfactoField(nn.Module):
     def __init__(
         self,
@@ -235,6 +252,19 @@ class NerfactoField(nn.Module):
         density, geo_feat = self.get_density_from_rays(ray_samples)
         rgb = self.get_outputs(ray_samples, geo_feat, train=train)
         return {FieldHeadNames.DENSITY: density, FieldHeadNames.RGB: rgb}
+
+    def sample_and_density(self, uniforms: torch.Tensor, voxel_size: float) -> torch.Tensor:
+        """Densities at points and their 6 axis neighbours, for the density
+        TV loss (`density_tv_points`): [7 P, 1], the points first, then the
+        neighbour blocks. As in the JAX module (and the reference's
+        get_density_only), the world positions feed the base network
+        directly: no contraction, the in-(0, 1)^3 selector on the world
+        coordinates, no average_init_density."""
+        positions = density_tv_points(self.aabb, uniforms, voxel_size)
+        if self.field_encoding == "freq" and not self.use_pallas:
+            positions = self.position_encoding(positions)
+        h = self.base_network(positions)
+        return trunc_exp(h[..., :1].float())
 
 
 ThermalNerfactoField = NerfactoField

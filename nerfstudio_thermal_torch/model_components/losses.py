@@ -1,12 +1,12 @@
 """Losses of the nerfacto family and the thermal cross-spectral losses
 (counterpart of nerfstudio_thermal_tpu/model_components/losses.py).
 
-This slice carries what the thermal-nerfacto training step uses: mse, l1,
-`masked_mean`, the proposal (interlevel) and distortion losses, and the
+The port carries what the nerfacto and thermal-nerfacto training steps
+use: mse, l1, `masked_mean`, the proposal (interlevel) and distortion
+losses, the radiance-field gradient scaling, the density TV loss and the
 2x2-patch thermal losses (`tv_pixel_loss`, `pixel_grad`,
 `cross_channel_loss`). As in the JAX package, the patch losses are masked
-means over the static 2x2 patch layout, each patch modality-pure. The
-density TV loss waits for the hash-grid slice (it samples the hash field).
+means over the static 2x2 patch layout, each patch modality-pure.
 """
 
 from typing import List
@@ -83,6 +83,38 @@ def distortion_loss(weights_list: List[torch.Tensor], ray_samples_list: List[Ray
     c = ray_samples_to_sdist(ray_samples_list[-1])
     w = weights_list[-1][..., 0]
     return torch.mean(lossfun_distortion(c, w))
+
+
+class _ScaleGradient(torch.autograd.Function):
+    """Identity forward; the backward multiplies the cotangent by `scaling`
+    (JAX's `_scale_gradient` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, value, scaling):
+        ctx.save_for_backward(scaling)
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, g):
+        (scaling,) = ctx.saved_tensors
+        return g * scaling, None
+
+
+def scale_gradients_by_distance_squared(field_outputs: dict, ray_samples: RaySamples) -> dict:
+    """Radiance-field gradient scaling for unbiased near-camera training:
+    each output's gradient times clamp(mid-distance^2, 0, 1) per sample."""
+    ray_dist = (ray_samples.starts + ray_samples.ends) / 2.0
+    scaling = torch.clamp(ray_dist**2, 0.0, 1.0).detach()
+    return {k: _ScaleGradient.apply(v, scaling) for k, v in field_outputs.items()}
+
+
+def tv_density_loss(densities: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """L1 between the densities at points and at their 6 neighbour offsets;
+    densities [7 * num_samples, 1], the points first, then the 6 neighbour
+    blocks."""
+    base = densities[:num_samples]
+    reps = densities[num_samples:].shape[0] // num_samples
+    return torch.mean(torch.abs(densities[num_samples:] - base.repeat(reps, 1)))
 
 
 def tv_pixel_loss(pred_thermal: torch.Tensor, is_thermal: torch.Tensor) -> torch.Tensor:

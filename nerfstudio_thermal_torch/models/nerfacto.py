@@ -27,6 +27,7 @@ from nerfstudio_thermal_torch.model_components.losses import (
     distortion_loss,
     interlevel_loss,
     mse_loss,
+    scale_gradients_by_distance_squared,
 )
 from nerfstudio_thermal_torch.model_components.ray_samplers import proposal_sample
 from nerfstudio_thermal_torch.model_components.scene_colliders import NearFarCollider
@@ -155,9 +156,16 @@ class NerfactoModel(Model):
             freq_final_init_scale=cfg.freq_final_init_scale,
         )
 
-    def _build_proposal_nets(self) -> nn.ModuleList:
+    def _build_proposal_nets(self, shared: Optional[bool] = None) -> nn.ModuleList:
+        """One net per proposal iteration, or when `shared` (by default
+        use_same_proposal_network) the one net (param subtree "0") that every
+        iteration calls."""
         cfg = self.config
         args_list = cfg.proposal_net_args_list
+        if cfg.use_same_proposal_network if shared is None else shared:
+            if len(args_list) != 1:
+                raise ValueError("use_same_proposal_network takes one proposal_net_args_list entry")
+            return nn.ModuleList([self._build_proposal_net(args_list[0])])
         return nn.ModuleList(
             self._build_proposal_net(args_list[min(i, len(args_list) - 1)])
             for i in range(cfg.num_proposal_iterations)
@@ -166,10 +174,6 @@ class NerfactoModel(Model):
     def _populate_common(self) -> None:
         """Compute dtype, collider and the (RGB) proposal networks."""
         cfg = self.config
-        if cfg.use_same_proposal_network:
-            raise NotImplementedError("use_same_proposal_network is not ported yet")
-        if cfg.use_gradient_scaling:
-            raise NotImplementedError("use_gradient_scaling is not ported yet")
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.collider = NearFarCollider(cfg.near_plane, cfg.far_plane)
         self.proposal_networks = self._build_proposal_nets()
@@ -236,12 +240,15 @@ class NerfactoModel(Model):
         return groups
 
     def _density_fns(self, nets: nn.ModuleList):
+        """One density fn per proposal iteration; iteration i calls net
+        min(i, len(nets) - 1), so one shared net serves every iteration."""
         detach = not self.config.proposal_camera_gradients
 
         def fn(samples, net):
             return net(ray_samples=map_tensors(samples, torch.Tensor.detach) if detach else samples)
 
-        return [lambda samples, net=net: fn(samples, net) for net in nets]
+        picked = [nets[min(i, len(nets) - 1)] for i in range(self.config.num_proposal_iterations)]
+        return [lambda samples, net=net: fn(samples, net) for net in picked]
 
     def _sample(
         self,
@@ -283,6 +290,8 @@ class NerfactoModel(Model):
         eval outputs, as in the JAX package."""
         cfg = self.config
         field_outputs = field(ray_samples, train=train)
+        if cfg.use_gradient_scaling:
+            field_outputs = scale_gradients_by_distance_squared(field_outputs, ray_samples)
         weights = ray_samples.get_weights(field_outputs[FieldHeadNames.DENSITY])
         weights_list = weights_list + [weights]
         ray_samples_list = ray_samples_list + [ray_samples]
@@ -346,7 +355,11 @@ class NerfactoModel(Model):
     def get_loss_dict(
         self, outputs, batch, metrics_dict, *, train: bool = True,
         background_uniforms: Optional[torch.Tensor] = None,
+        tv_uniforms: Optional[Dict[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
+        """tv_uniforms and generator serve the thermal model's density TV
+        loss; nerfacto has none."""
         cfg = self.config
         pred_rgb, gt_rgb = renderers.blend_background_for_loss_rgb(
             outputs["rgb"], outputs["accumulation"], batch["image"],

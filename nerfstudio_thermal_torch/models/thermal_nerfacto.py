@@ -1,18 +1,26 @@
-"""ThermalNerfacto in separate density mode, eval and training
+"""ThermalNerfacto, eval and training
 (counterpart of nerfstudio_thermal_tpu/models/thermal_nerfacto.py).
 
-Two full pipelines, RGB and thermal, each with its own proposal stack and
-field; each modality's rays go through its shared camera optimizer (off
-unless configured) and, in training, its per-camera optimizer (frozen on
-the other modality's cameras). The cross-field densities (each field at
-the other's samples) feed the cross-spectral density loss in training, on
-a ray prefix of `density_loss_rays_fraction`, and the "removal" renderings
-at eval, which keep only the samples whose RGB and thermal densities agree
-and reuse the per-sample colours of the render passes. The base MLP runs 4
-times per step or eval chunk.
+Three density modes, the paper's ablations among them:
+- `separate` (the default): two full pipelines, RGB and thermal, each with
+  its own proposal stack and field; each modality's rays go through its
+  shared camera optimizer (off unless configured) and, in training, its
+  per-camera optimizer (frozen on the other modality's cameras). The
+  cross-field densities (each field at the other's samples) feed the
+  cross-spectral density loss in training, on a ray prefix of
+  `density_loss_rays_fraction`, and the "removal" renderings at eval,
+  which keep only the samples whose RGB and thermal densities agree and
+  reuse the per-sample colours of the render passes. The base MLP runs 4
+  times per step or eval chunk.
+- `shared`: one field with a 4-channel RGBT head ("rgbt", split into "rgb"
+  and "rgb_thermal"), one proposal stack, the RGB camera optimizers only.
+- `rgb_only`: one 3-channel field; the thermal loss, pixel TV and
+  cross-channel losses and the thermal PSNR are left out.
 
-The other density modes (rgb_only, shared) and `fused_modalities` are
-later work and raise.
+The density TV losses (`tv_rgb_loss_mult`, `tv_thermal_loss_mult`; the
+thermal one in separate mode only) sample `num_density_tv_samples` points
+in the aabb with their 6 neighbours (`NerfactoField.sample_and_density`).
+`fused_modalities` is not ported (ROADMAP A5) and raises.
 """
 
 from dataclasses import dataclass, field as dataclass_field
@@ -25,6 +33,7 @@ from nerfstudio_thermal_torch.cameras.camera_optimizers import (
     build_camera_optimizer,
 )
 from nerfstudio_thermal_torch.cameras.rays import RayBundle, map_tensors
+from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames
 from nerfstudio_thermal_torch.fields.nerfacto_field import ThermalNerfactoField
 from nerfstudio_thermal_torch.model_components import renderers
 from nerfstudio_thermal_torch.model_components.losses import (
@@ -33,6 +42,8 @@ from nerfstudio_thermal_torch.model_components.losses import (
     interlevel_loss,
     l1_loss,
     mse_loss,
+    scale_gradients_by_distance_squared,
+    tv_density_loss,
     tv_pixel_loss,
 )
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
@@ -82,25 +93,30 @@ def _removal(density, cross_density, rgb_samples, ray_samples, diff, background_
     return renderers.render_rgb(rgb_samples, weights, background_color=background_color, train=False)
 
 
+def draw_tv_uniforms(num_points: int, generator: torch.Generator) -> torch.Tensor:
+    """The density TV loss's points, U[0, 1) [num_points, 3] from the
+    step's generator (the JAX package draws them from its loss key)."""
+    return torch.rand((num_points, 3), generator=generator, device=generator.device)
+
+
 class ThermalNerfactoModel(NerfactoModel):
     config: ThermalNerfactoModelConfig
 
     def populate_modules(self) -> None:
         cfg = self.config
-        if cfg.density_mode != "separate":
-            raise NotImplementedError(
-                f"density_mode={cfg.density_mode!r} arrives with a later slice of the "
-                "port; the port has 'separate'"
-            )
+        if cfg.density_mode not in ("separate", "shared", "rgb_only"):
+            raise ValueError(f"density_mode={cfg.density_mode!r}: one of separate, shared, rgb_only")
         if cfg.fused_modalities:
             raise NotImplementedError(
                 "fused_modalities is not ported yet: it is the last item of ROADMAP.md "
-                "queue A6 (models)"
+                "queue A5 (the rest of thermal-nerfacto's config surface)"
             )
         self._populate_common()
-        self.field = ThermalNerfactoField(**self._field_kwargs(), num_channels=3)
-        self.field_thermal = ThermalNerfactoField(**self._field_kwargs(), num_channels=1)
-        self.proposal_networks_thermal = self._build_proposal_nets()
+        separate = cfg.density_mode == "separate"
+        self.output_suffixes = ("", "_thermal") if separate else ("",)
+        self.field = ThermalNerfactoField(
+            **self._field_kwargs(), num_channels=3 + (cfg.density_mode == "shared")
+        )
 
         # each modality's optimizers are frozen on the other modality's cameras
         is_thermal = list(self.metadata.get("is_thermal", [0] * self.num_train_data))
@@ -110,13 +126,18 @@ class ThermalNerfactoModel(NerfactoModel):
         self.camera_optimizer = build_camera_optimizer(
             cfg.camera_optimizer, n, non_trainable_camera_indices=thermal_idx
         )
-        self.camera_optimizer_thermal = build_camera_optimizer(
-            cfg.camera_optimizer_thermal, n, non_trainable_camera_indices=rgb_idx,
-            suffix="_thermal",
-        )
         self.shared_camera_optimizer = build_camera_optimizer(
             cfg.shared_camera_optimizer, n, non_trainable_camera_indices=thermal_idx,
             suffix="_shared",
+        )
+        if not separate:
+            return
+        self.field_thermal = ThermalNerfactoField(**self._field_kwargs(), num_channels=1)
+        # one net per iteration, use_same_proposal_network or not (as in JAX)
+        self.proposal_networks_thermal = self._build_proposal_nets(shared=False)
+        self.camera_optimizer_thermal = build_camera_optimizer(
+            cfg.camera_optimizer_thermal, n, non_trainable_camera_indices=rgb_idx,
+            suffix="_thermal",
         )
         self.shared_camera_optimizer_thermal = build_camera_optimizer(
             cfg.shared_camera_optimizer_thermal, n, non_trainable_camera_indices=rgb_idx,
@@ -125,9 +146,10 @@ class ThermalNerfactoModel(NerfactoModel):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         super().reset_parameters(generator)
-        self.field_thermal.reset_parameters(generator)
-        for net in self.proposal_networks_thermal:
-            net.reset_parameters(generator)
+        if self.config.density_mode == "separate":
+            self.field_thermal.reset_parameters(generator)
+            for net in self.proposal_networks_thermal:
+                net.reset_parameters(generator)
 
     def get_outputs(
         self,
@@ -145,6 +167,7 @@ class ThermalNerfactoModel(NerfactoModel):
         sampling level of each modality (training)."""
         cfg = self.config
         uniforms = uniforms or {}
+        separate = cfg.density_mode == "separate"
 
         bundle_rgb = self.shared_camera_optimizer.apply_to_raybundle(ray_bundle)
         if train:
@@ -155,8 +178,18 @@ class ThermalNerfactoModel(NerfactoModel):
         )
         outputs, weights_list, ray_samples_list = self._get_outputs_for_field(
             self.field, ray_samples, weights_list, ray_samples_list, train=train,
-            keep_sample_rgb=True,
+            keep_sample_rgb=separate,
         )
+        if train:
+            outputs["weights_list"] = weights_list
+            outputs["ray_samples_list"] = ray_samples_list
+        if cfg.density_mode == "shared":
+            rgbt = outputs["rgb"]
+            outputs["rgbt"] = rgbt
+            outputs["rgb"] = rgbt[..., :3]
+            outputs["rgb_thermal"] = rgbt[..., 3:]
+        if not separate:
+            return outputs
 
         bundle_t = self.shared_camera_optimizer_thermal.apply_to_raybundle(ray_bundle)
         if train:
@@ -179,14 +212,19 @@ class ThermalNerfactoModel(NerfactoModel):
             num_rays = ray_samples.starts.shape[0]
             k = max(int(num_rays * frac) // 256 * 256, min(256, num_rays)) if frac < 1.0 else num_rays
             prefix = lambda t: t[:k]  # noqa: E731
-            outputs["density2"], _ = self.field.get_density_from_rays(map_tensors(ray_samples_t, prefix))
-            outputs["density2_thermal"], _ = self.field_thermal.get_density_from_rays(
-                map_tensors(ray_samples, prefix)
-            )
+            samples_t_k, samples_k = map_tensors(ray_samples_t, prefix), map_tensors(ray_samples, prefix)
+            for name, field, samples in (
+                ("density2", self.field, samples_t_k),
+                ("density2_thermal", self.field_thermal, samples_k),
+            ):
+                density, _ = field.get_density_from_rays(samples)
+                if cfg.use_gradient_scaling:
+                    density = scale_gradients_by_distance_squared(
+                        {FieldHeadNames.DENSITY: density}, samples
+                    )[FieldHeadNames.DENSITY]
+                outputs[name] = density
 
         if train:
-            outputs["weights_list"] = weights_list
-            outputs["ray_samples_list"] = ray_samples_list
             outputs["weights_list_thermal"] = weights_list_t
             outputs["ray_samples_list_thermal"] = ray_samples_list_t
             return outputs
@@ -210,53 +248,78 @@ class ThermalNerfactoModel(NerfactoModel):
         opts = (
             self.camera_optimizer,
             self.shared_camera_optimizer,
-            self.camera_optimizer_thermal,
-            self.shared_camera_optimizer_thermal,
+            getattr(self, "camera_optimizer_thermal", None),
+            getattr(self, "shared_camera_optimizer_thermal", None),
         )
-        return [opt for opt in opts if opt.mode != "off"]
+        return [opt for opt in opts if opt is not None and opt.mode != "off"]
 
     def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
         is_thermal = batch["is_thermal"]
         gt = renderers.blend_background_rgbt(
             batch["image"], is_thermal, background_color=self.config.background_color
         )
-        metrics = {
-            "psnr_rgb": psnr(outputs["rgb"], gt[..., :3], mask=(1.0 - is_thermal)[..., None]),
-            "psnr_thermal": psnr(outputs["rgb_thermal"], gt[..., 3:], mask=is_thermal[..., None]),
-        }
+        metrics = {"psnr_rgb": psnr(outputs["rgb"], gt[..., :3], mask=(1.0 - is_thermal)[..., None])}
+        if self.config.density_mode != "rgb_only":
+            metrics["psnr_thermal"] = psnr(outputs["rgb_thermal"], gt[..., 3:], mask=is_thermal[..., None])
         if train:
-            metrics["distortion"] = distortion_loss(
-                outputs["weights_list"], outputs["ray_samples_list"]
-            ) + distortion_loss(outputs["weights_list_thermal"], outputs["ray_samples_list_thermal"])
+            metrics["distortion"] = sum(
+                distortion_loss(outputs[f"weights_list{s}"], outputs[f"ray_samples_list{s}"])
+                for s in self.output_suffixes
+            )
             for opt in self._active_camera_optimizers():
                 metrics.update(opt.metrics())
         return metrics
 
+    def _tv_density(self, field, key: str, tv_uniforms, generator) -> Optional[torch.Tensor]:
+        """The density TV loss of one field (unscaled), at tv_uniforms[key]
+        ([P, 3] in [0, 1)) or at points drawn from `generator`; None when
+        neither is given (the JAX package skips it without a loss key)."""
+        cfg = self.config
+        n = cfg.num_density_tv_samples
+        uniforms = (tv_uniforms or {}).get(key)
+        if uniforms is None:
+            if generator is None:
+                return None
+            uniforms = draw_tv_uniforms(n, generator)
+        dens = field.sample_and_density(uniforms.to(field.aabb.device), float(cfg.max_res))
+        return tv_density_loss(dens, n)
+
     def get_loss_dict(
         self, outputs, batch, metrics_dict, *, train: bool = True,
         background_uniforms: Optional[torch.Tensor] = None,
+        tv_uniforms: Optional[Dict[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
+        """tv_uniforms: {"rgb": [P, 3], "thermal": [P, 3]}, the density TV
+        loss's points (training); without them they come from `generator`."""
         cfg = self.config
         is_thermal = batch["is_thermal"]
-        pred4 = torch.cat([outputs["rgb"], outputs["rgb_thermal"]], dim=-1)
+        rgb_only = cfg.density_mode == "rgb_only"
+        thermal = torch.zeros_like(outputs["rgb"][..., :1]) if rgb_only else outputs["rgb_thermal"]
+        pred4 = torch.cat([outputs["rgb"], thermal], dim=-1)
         pred_rgb, gt_rgb = renderers.blend_background_for_loss_rgbt(
             pred4, outputs["accumulation"], batch["image"], is_thermal,
             background_color=cfg.background_color, uniforms=background_uniforms,
         )
-        if train and (cfg.tv_rgb_loss_mult > 0 or cfg.tv_thermal_loss_mult > 0):
-            raise NotImplementedError(
-                "the density TV loss (tv_*_loss_mult > 0, the fields' sample_and_density) "
-                "arrives with a later slice of the port"
-            )
         loss_dict = {}
+        if train:
+            tv_fields = [("tv_rgb_loss", cfg.tv_rgb_loss_mult, "field", "rgb")]
+            if cfg.density_mode == "separate":
+                tv_fields.append(("tv_thermal_loss", cfg.tv_thermal_loss_mult, "field_thermal", "thermal"))
+            for name, mult, attr, key in tv_fields:
+                if mult > 0:
+                    tv = self._tv_density(getattr(self, attr), key, tv_uniforms, generator)
+                    if tv is not None:
+                        loss_dict[name] = mult * tv
         # masked channels, mean over the whole batch (as the reference does)
         rgb_mask = (1.0 - is_thermal)[:, None]
         loss_dict["rgb_loss"] = mse_loss(gt_rgb[..., :3] * rgb_mask, pred_rgb[..., :3] * rgb_mask)
-        t_mask = is_thermal[:, None]
-        loss_dict["thermal_loss"] = cfg.thermal_loss_mult * mse_loss(
-            gt_rgb[..., 3:] * t_mask, pred_rgb[..., 3:] * t_mask
-        )
-        if cfg.density_loss_mult > 0:
+        if not rgb_only:
+            t_mask = is_thermal[:, None]
+            loss_dict["thermal_loss"] = cfg.thermal_loss_mult * mse_loss(
+                gt_rgb[..., 3:] * t_mask, pred_rgb[..., 3:] * t_mask
+            )
+        if cfg.density_mode == "separate" and cfg.density_loss_mult > 0:
             # cross-spectral density L1 with the asymmetric detach; the cross
             # evals may cover a ray prefix
             d2, d2t = outputs["density2"], outputs["density2_thermal"]
@@ -271,16 +334,16 @@ class ThermalNerfactoModel(NerfactoModel):
                 loss_dict["density_loss"] = cfg.density_loss_mult * (
                     density_loss + cfg.rgb_density_loss_mult * density_loss_rgb
                 )
-        if cfg.tv_pixel_loss_mult > 0:
+        if not rgb_only and cfg.tv_pixel_loss_mult > 0:
             loss_dict["tv_pixel_loss"] = cfg.tv_pixel_loss_mult * tv_pixel_loss(pred_rgb[..., 3:], is_thermal)
-        if cfg.cross_channel_loss_mult > 0:
+        if not rgb_only and cfg.cross_channel_loss_mult > 0:
             loss_dict["cross_channel_loss"] = cfg.cross_channel_loss_mult * cross_channel_loss(
                 pred_rgb[..., 3:], gt_rgb[..., :3], is_thermal
             )
         if train:
             il = 0.0
             dl = 0.0
-            for s in ("", "_thermal"):
+            for s in self.output_suffixes:
                 il = il + cfg.interlevel_loss_mult * interlevel_loss(
                     outputs[f"weights_list{s}"], outputs[f"ray_samples_list{s}"]
                 )
@@ -291,4 +354,3 @@ class ThermalNerfactoModel(NerfactoModel):
             for opt in self._active_camera_optimizers():
                 loss_dict[f"camera_opt_regularizer{opt.suffix}"] = opt.regularization_loss()
         return loss_dict
-

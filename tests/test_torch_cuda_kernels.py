@@ -27,11 +27,18 @@ points, the cases hold the points the tiled kernels find hard: ray-major
 depth-sorted samples, every point in one cell, N one past a tile multiple,
 whole tiles with g = 0, and points on integer coordinates at every level.
 
+The fused MLP also runs on the density TV loss's 35,000 raw points
+(mostly zeroed) with the TV loss's cotangent; the hash kernels also on
+nerfacto-big's and nerfacto-huge's grids (2^21 rows a level, up to 8192)
+and on the huge model's 7-level proposal grid.
+
 Fused ray-march and whole-field kernels, with the fused MLP's tolerances:
 outputs 2e-2 (bf16) / 1e-4 (f32) absolute plus relative, every gradient
 (d_o, d_d, d_t, d_emb, every dW and db) relative L2 3e-2 / 1e-4. The rays
 include samples far outside the unit ball, samples that leave the box
-(selector 0) and samples with tied inf-norm components. The head input the
+(selector 0) and samples with tied inf-norm components. The whole field
+runs with C = 3, 1 and 4 colour channels (the shared density mode's RGBT
+head). The head input the
 whole-field forward writes for its backward equals the plain version's of
 the same base output bitwise, and the output is bitwise the same without
 it. The position gradient of the hash grid is bitwise the same from run to
@@ -265,6 +272,11 @@ HASH_CASES = [
     (16, 19, 128 * 64, 16, 2048, "zero_tiles"),
     (16, 19, 3_000, 16, 2048, "integer"),
     (2, 8, 1_000, 4, 16, "integer"),
+    # the nerfacto-big / -huge grids: 2^21 rows a level to 4096 and 8192,
+    # and the huge second proposal's 7 levels (fewer than 8: the walk)
+    (16, 21, 1024 * 48, 16, 8192, "rays"),
+    (16, 21, 50_000, 16, 4096, "uniform"),
+    (7, 17, 256 * 512 + 1, 16, 2048, "rays"),
 ]
 
 
@@ -478,8 +490,10 @@ def test_ray_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("channels", [3, 1, 4])
 def test_field_kernels_match_plain(cuda, channels, dtype):
+    """C = 3 (RGB), 1 (thermal) and 4 (the shared density mode's RGBT
+    head): output rows of C + 2, the head's C columns of g."""
     gen = torch.Generator().manual_seed(300 + channels)
     enc, skips, r, s, e = (10, 0.0, 9.0, True), (4,), 256, 32, 32
     bw, bb = _params(gen, (256,) * 7 + (16,), skips, 63, cuda)
@@ -601,3 +615,63 @@ def test_fused_models_go_through_the_kernels(cuda):
     # both directions
     assert sorted((fr.fused_ray_mlp_bwd.stack_launches - stacks_before).values()) == [2, 2, 2]
     assert sorted((fr.fused_ray_mlp.stack_launches - fwd_stacks_before).values()) == [2, 2, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_on_the_density_tv_points(cuda, dtype):
+    """Rows 1-2 on the density TV loss's 7 x 5000 raw points (not a
+    multiple of any tile; most outside (0, 1)^3 and zeroed) through
+    thermal-nerfacto-tpu's base stack, with the TV loss's cotangent (the
+    density column only)."""
+    from nerfstudio_thermal_torch.fields.nerfacto_field import density_tv_points
+
+    gen = torch.Generator().manual_seed(400)
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3], device=cuda)
+    x = density_tv_points(aabb, torch.rand(5000, 3, generator=gen).to(cuda), 2048.0).contiguous()
+    assert x.shape == (35000, 3) and 0 < int((x == 0).all(-1).sum()) < 35000
+    enc, skips, dims = (10, 0.0, 9.0, True), (4,), (256,) * 7 + (16,)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(3, enc), cuda)
+    f0 = fm.fused_mlp.launches
+    got = fm.fused_mlp(x, ws, bs, "relu", None, skips, enc, dtype)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == f0 + 1
+    _close(got, fm.fused_mlp_plain(x, ws, bs, "relu", None, skips, enc, dtype), dtype)
+    g = torch.zeros(x.shape[0], dims[-1], device=cuda, dtype=dtype)
+    g[:, 0] = torch.randn(x.shape[0], generator=gen).to(cuda).to(dtype)
+    dx, dws, dbs = fm.fused_mlp_bwd(x, g, ws, bs, "relu", None, skips, enc, dtype)
+    torch.cuda.synchronize()
+    want = fm.fused_mlp_bwd_plain(x, g, ws, bs, "relu", None, skips, enc, dtype)
+    named = [("dx", dx, want[0])] + [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, want[1]))]
+    _grads_close(named + [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, want[2]))], dtype)
+
+
+def test_shared_fused_model_goes_through_the_kernels(cuda):
+    """thermal-nerfacto-tpu with the fused knobs in the shared density mode,
+    cut to small widths, on the card: one RGBT field through the
+    whole-field kernel (output [N, 4 + 2]) and two proposals through the
+    ray march; no thermal hierarchy, no cross density, no fused-MLP kernel;
+    finite 4-channel colours and gradients."""
+    cfg = get_method_config("thermal-nerfacto-tpu").model
+    cfg.fused_raymarch = cfg.fused_field = cfg.fused_raymarch_proposals = True
+    cfg.density_mode = "shared"
+    cfg.freq_num_layers, cfg.freq_hidden_dim = 4, 128
+    cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray = (16, 8), 8
+    model = ThermalNerfactoModel(cfg, [[-1.0] * 3, [1.0] * 3], 2, {"is_thermal": [0, 1]}, device=cuda, seed=3)
+    from nerfstudio_thermal_torch.cameras.rays import RayBundle
+
+    n = 512
+    gen = torch.Generator().manual_seed(6)
+    bundle = RayBundle(
+        origins=(torch.rand(n, 3, generator=gen) * 0.2 + torch.tensor([2.0, 0.0, 0.0])).to(cuda),
+        directions=torch.nn.functional.normalize(torch.tensor([-1.0, 0.0, 0.0]) + 0.3 * torch.randn(n, 3, generator=gen), dim=-1).to(cuda),
+        pixel_area=torch.ones(n, 1, device=cuda), camera_indices=torch.zeros(n, 1, dtype=torch.int32, device=cuda),
+    )
+    counters = (fm.fused_mlp, fr.fused_ray_mlp, fr.fused_field_mlp, fr.fused_ray_mlp_bwd, fr.fused_field_mlp_bwd)
+    before = [c.launches for c in counters]
+    out = model(bundle, train=True, generator=torch.Generator(device=cuda).manual_seed(0))
+    assert out["rgbt"].shape == (n, 4) and "density2" not in out
+    (out["rgbt"].sum() + sum(w.sum() for w in out["weights_list"])).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 1, 2, 1]
+    assert bool(torch.isfinite(out["rgbt"]).all())
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.field.parameters())

@@ -119,22 +119,33 @@ def test_precision_pinned_by_entry_points():
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the port does not carry yet raises and names its slice or says
-    it is not ported: a shared proposal network and the shared and rgb_only
-    density modes. The trainer's eval cadence, which raised before the eval
-    surface was ported, now runs and writes its record."""
+    """What the port does not carry yet raises and names its ROADMAP item:
+    fused_modalities (A5). A shared proposal network with two proposal arg
+    entries is refused (the JAX package asserts one), and an unknown
+    density mode too. The shared and rgb_only density modes, which raised
+    before their slice, now build one field (4 and 3 channels) and no
+    thermal hierarchy; the trainer's eval cadence, which raised before the
+    eval surface was ported, now runs and writes its record."""
     from tests.fixtures import make_synthetic_rgbt_dataset
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
     cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
-    cfg.use_same_proposal_network = True
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    cfg.fused_modalities = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A5"):
         ThermalNerfactoModel(cfg, AABB, 2, device="cpu")
-    for mode in ("shared", "rgb_only"):
+    cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
+    cfg.use_same_proposal_network = True
+    with pytest.raises(ValueError, match="one proposal_net_args_list entry"):
+        ThermalNerfactoModel(cfg, AABB, 2, device="cpu")
+    cfg.density_mode, cfg.use_same_proposal_network = "thermal_only", False
+    with pytest.raises(ValueError, match="density_mode"):
+        ThermalNerfactoModel(cfg, AABB, 2, device="cpu")
+    for mode, channels in (("shared", 4), ("rgb_only", 3)):
         cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
         cfg.density_mode = mode
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ThermalNerfactoModel(cfg, AABB, 2, {"is_thermal": [0, 1]}, device="cpu")
+        model = ThermalNerfactoModel(cfg, AABB, 2, {"is_thermal": [0, 1]}, device="cpu")
+        assert model.field.num_channels == channels and not hasattr(model, "field_thermal")
+        assert not any(name.endswith("_thermal") for name in model.param_groups())
     with pytest.raises(KeyError):
         get_method_config("no-such-method")
 
