@@ -147,6 +147,35 @@ Phases, each fatal on failure:
      and --trainer.gradient-accumulation-steps 2 for 6 steps (parameters
      change only on every second step, every group then), then ns-eval on
      its config.yml.
+14. the render surface, fused_modalities and the trainer's profiler (after
+   phase 13; the JSON line's extra fields ns_render_launches and
+   fused_modalities_launches read it):
+   - ns-render (`scripts.render.main`, as a user runs it) on phase 11's
+     thermal-nerfacto run: camera-path, a 3-frame JSON path at 1920x1080
+     with rgb, rgb_thermal, depth, removal and removal_thermal, and a
+     1-frame path with --removal-min-density-diff 0.1 (every render must
+     see the threshold); interpolated --rgb-poses-only true, spiral (30
+     frames) and dataset at the eval cameras' sizes; and the 3-frame path on
+     the thermal-nerfacto-tpu+fused run. Every PNG frame must decode to its
+     camera's size and each run's launches must be what its chunks imply
+     (row 8: 8 hash forwards a chunk; rows 3 and 5: 6 ray-march and 2
+     whole-field forwards). Seconds per 1080p frame through the command,
+     split into render (render_camera_device + synchronize) and host work
+     (PNG encodes and depth colormaps timed apart, the rest transfers);
+   - every camera type (and a perspective frame with crop_aabb): a 32x24
+     frame through render_camera_device on the card and on the CPU's plain
+     path from the run's checkpoint, phase 7's tolerance (the crop frame's
+     faint rays, whose expected depth is a ratio of rounding residues,
+     held to the frame's clip range, and their weight sums logged); one 1920x1080
+     frame with include_per_sample and one without, with their peak memory;
+   - thermal-nerfacto-tpu and thermal-nerfacto with fused_modalities in
+     turns with the same method unfused (unfused, fused, fused, unfused),
+     30 steps each through phase 8's checks (losses finite or witnessed,
+     every group changes, each step's launches: the flag runs the
+     sequential path with a 3-channel thermal head, so a step launches what
+     an unfused step does); ms/step of each run;
+   - ns-train of thermal-nerfacto with --trainer.profiler xla for 16
+     steps: its profiler_traces/trace.json must name the hash kernels.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -159,6 +188,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -300,6 +330,7 @@ TAGS = {
     "tv+scaling+one-proposal": dict(
         tv_rgb_loss_mult=TV_SMOKE_MULT, tv_thermal_loss_mult=TV_SMOKE_MULT, use_gradient_scaling=True,
         use_same_proposal_network=True, proposal_net_args_list=ONE_PROPOSAL),
+    "fused_modalities": dict(fused_modalities=True),
 }
 
 
@@ -343,6 +374,25 @@ SURFACE = {
 # (configuration, (levels, log2 T) of the calls kept)
 SURFACE_HASH = {"nerfacto-huge": ((16, 21), (7, 17)), "nerfacto-big": ((16, 21),)}
 
+# Phase 14, the render surface. ns-render renders RENDER_PATH_FRAMES frames
+# of a camera path at 1920x1080 with RENDER_NAMES on the entry points' runs;
+# each camera type renders a TYPE_HW frame on the card and on the CPU.
+# fused_modalities runs the sequential path with a 3-channel thermal head:
+# every field, proposal net and cross density once per modality
+# (thermal-nerfacto-tpu: the fused MLP for the two fields and the two cross
+# densities).
+RENDER_PATH_FRAMES = 3
+RENDER_NAMES = ("rgb", "rgb_thermal", "depth", "removal", "removal_thermal")
+RENDER_HW = (1080, 1920)
+TYPE_HW = (24, 32)
+CROP_BOX = [[-0.3, -0.3, -0.3], [0.3, 0.3, 0.3]]
+PROFILE_STEPS = 16  # the "xla" profiler traces the steps after 10 through 15
+FUSED_MODALITIES = {
+    f"{m}:fused_modalities": dict(chunk=METHODS[m]["chunk"], step=METHODS[m]["step"],
+                                  step_grad_tol=METHODS[m]["step_grad_tol"])
+    for m in ("thermal-nerfacto-tpu", "thermal-nerfacto")
+}
+
 
 def method_config(name: str):
     """The registered method, with the fused knobs on for a "+fused" name
@@ -362,8 +412,9 @@ def method_config(name: str):
 
 
 def spec(name: str) -> dict:
-    """A configuration's launch counts (and step limits): METHODS or SURFACE."""
-    return METHODS[name] if name in METHODS else SURFACE[name]
+    """A configuration's launch counts (and step limits): METHODS, SURFACE
+    or FUSED_MODALITIES."""
+    return METHODS.get(name) or SURFACE.get(name) or FUSED_MODALITIES[name]
 
 
 def log(msg: str) -> None:
@@ -1700,7 +1751,7 @@ def entry_points_phase(name: str, scene_dir: Path, out_dir: Path) -> dict:
     log(f"{name} eval image split (640x480, RGB): render {ms['render']:.1f} ms, then metrics and images "
         f"{ms['metrics_and_images']:.1f} ms, of which {len(depths)} depth colormaps on the host "
         f"{ms['colormaps']:.1f}, lpips {ms['lpips']:.1f}, ssim {ms['ssim']:.2f}")
-    return {"train_s": train_s, "eval_s": eval_s, "s_per_image": s_per_image,
+    return {"run": run, "train_s": train_s, "eval_s": eval_s, "s_per_image": s_per_image,
             "rays_per_sec": result["results"]["num_rays_per_sec"], "fps": result["results"]["fps"], **ms}
 
 
@@ -1740,7 +1791,8 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
 
     def recorded(*args):
         u = draw(*args)
-        draws.append(u)
+        if args[2] is None:  # a draw from the generator, not uniforms passed through
+            draws.append(u)
         return u
 
     def recorded_tv(*args):
@@ -2114,6 +2166,364 @@ def surface_entry_phase(scene_dir: Path, out_dir: Path, steps: int = 6) -> dict:
     return {"train_s": train_s}
 
 
+@contextlib.contextmanager
+def timed_render():
+    """While ns-render runs: the seconds of its eval_setup and of each
+    render_camera_device call (ended by torch.cuda.synchronize), the
+    removal threshold each render saw, and of the host work the seconds
+    of the depth colormaps and of the PNG encodes (with their bytes)."""
+    from nerfstudio_thermal_torch.models import base_model
+    from nerfstudio_thermal_torch.scripts import render as render_script
+    from nerfstudio_thermal_torch.utils import colormaps, eval_utils
+
+    render_fn, setup_fn = base_model.Model.render_camera_device, eval_utils.eval_setup
+    png_fn, depth_fn = render_script.write_png, colormaps.apply_depth_colormap
+    times = {"setup": 0.0, "render": [], "removal_min_density_diff": set(), "png": 0.0, "png_bytes": 0,
+             "colormap": 0.0}
+
+    def png(path, img):
+        t0 = time.perf_counter()
+        png_fn(path, img)
+        times["png"] += time.perf_counter() - t0
+        times["png_bytes"] += Path(path).stat().st_size
+
+    def depth(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = depth_fn(*args, **kwargs)
+        times["colormap"] += time.perf_counter() - t0
+        return out
+
+    def render(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_fn(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        times["render"].append(time.perf_counter() - t0)
+        times["removal_min_density_diff"].add(getattr(self.config, "removal_min_density_diff", None))
+        return out
+
+    def setup(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = setup_fn(*args, **kwargs)
+        times["setup"] += time.perf_counter() - t0
+        return out
+
+    base_model.Model.render_camera_device, eval_utils.eval_setup = render, setup
+    render_script.write_png, colormaps.apply_depth_colormap = png, depth
+    try:
+        yield times
+    finally:
+        base_model.Model.render_camera_device, eval_utils.eval_setup = render_fn, setup_fn
+        render_script.write_png, colormaps.apply_depth_colormap = png_fn, depth_fn
+
+
+def write_camera_path(path: Path, cameras, frames: int, hw) -> Path:
+    """A camera-path JSON of `frames` poses from the first eval camera
+    toward the second, at the first one's vertical fov, rendered at hw."""
+    from nerfstudio_thermal_torch.cameras import camera_paths
+
+    poses = camera_paths.get_interpolated_camera_path(cameras, steps=frames).camera_to_worlds.numpy()
+    fov = math.degrees(2 * math.atan(float(cameras.height[0]) / (2 * float(cameras.fy[0]))))
+    bottom = np.array([[0.0, 0.0, 0.0, 1.0]])
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({
+        "render_height": hw[0], "render_width": hw[1],
+        "camera_path": [{"camera_to_world": np.concatenate([p, bottom]).ravel().tolist(), "fov": fov}
+                        for p in poses[:frames]],
+    }))
+    return path
+
+
+def ns_render(name: str, mode: str, run: Path, out: Path, args, names, shapes) -> dict:
+    """ns-render through its main() on the card, rendering `names`: `shapes`
+    the (h, w) of each camera it renders. Every output's PNG frames must
+    decode to their camera's size, and the kernels of the method's render
+    path must have launched what its chunks imply (counts zeroed just
+    before, read just after)."""
+    from nerfstudio_thermal_torch.configs.serialization import load_config
+    from nerfstudio_thermal_torch.data.datasets import decode_png
+    from nerfstudio_thermal_torch.scripts import render as ns_render_script
+
+    chunk = load_config(run / "config.yml").model.eval_num_rays_per_chunk
+    root = out / f"{name}_{mode}"
+    target = root if mode == "dataset" else root / "frames"
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_render() as times:
+        rc = ns_render_script.main([mode, "--load-config", str(run / "config.yml"), "--output-path", str(target),
+                                    "--rendered-output-names", *names, *args])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"{name}: ns-render {mode} returned {rc}")
+    chunks = sum(-(-(h * w) // chunk) for h, w in shapes)
+    want = expected_counts(METHODS[name]["chunk"], chunks)
+    if counts != want:
+        raise AssertionError(f"{name} ns-render {mode}: launches {counts}, expected {want} ({chunks} chunks)")
+    if len(times["render"]) != len(shapes):
+        raise AssertionError(f"{name} ns-render {mode}: {len(times['render'])} renders for {len(shapes)} cameras")
+    pngs = sorted(root.rglob("*.png"))
+    got = collections.Counter(decode_png(p).shape for p in pngs)
+    expect = collections.Counter((h, w, 3) for h, w in shapes for _ in names)
+    if got != expect:
+        raise AssertionError(f"{name} ns-render {mode}: PNG frames {dict(got)}, expected {dict(expect)}")
+    render_s = sum(times["render"])
+    return {"total": total, "setup": times["setup"], "render": render_s,
+            "host": total - times["setup"] - render_s, "frames": len(shapes), "pngs": len(pngs),
+            "png": times["png"], "png_bytes": times["png_bytes"], "colormap": times["colormap"],
+            "counts": counts, "diffs": times["removal_min_density_diff"]}
+
+
+def type_camera(kind, c2w: np.ndarray, h: int, w: int):
+    """A camera of type `kind` at the pose c2w, its intrinsics sized so the
+    frame sees the scene (the spherical types: the full sphere, fx = w / 2,
+    fy = h), with twelve distortion parameters (OpenCV coefficients in the
+    first six for the types that undistort; fisheye624's twelve for it)."""
+    from nerfstudio_thermal_torch.cameras.cameras import Cameras, CameraType
+
+    focal = {CameraType.FISHEYE: w / 2.0, CameraType.ORTHOPHOTO: 2.0 * w}.get(kind, 0.9 * w)
+    fx, fy = (w / 2.0, float(h)) if kind in (
+        CameraType.EQUIRECTANGULAR, CameraType.OMNIDIRECTIONALSTEREO_L, CameraType.OMNIDIRECTIONALSTEREO_R,
+        CameraType.VR180_L, CameraType.VR180_R) else (focal, focal)
+    dist = np.zeros(12, np.float32)
+    if kind == CameraType.FISHEYE624:
+        dist[:] = [0.02, -0.01, 0.005, 0.0, 0.0, 0.0, 0.001, -0.001, 0.0005, 0.0, 0.0005, 0.0]
+    else:
+        dist[[0, 4]] = [0.02, 0.001]
+    return Cameras(
+        camera_to_worlds=torch.as_tensor(c2w[:3, :4], dtype=torch.float32)[None],
+        fx=torch.full((1,), fx), fy=torch.full((1,), fy), cx=torch.full((1,), w / 2.0),
+        cy=torch.full((1,), h / 2.0), width=torch.full((1,), w, dtype=torch.int32),
+        height=torch.full((1,), h, dtype=torch.int32), distortion_params=torch.as_tensor(dist)[None],
+        camera_type=torch.full((1,), kind.value, dtype=torch.int32),
+    )
+
+
+def crop_depth_check(name, key, cam, h, w, cpu_depth, card_depth, close, cpu_acc, card_acc):
+    """The expected depths of a crop_aabb frame. On a ray with accumulation
+    above 1e-3 (CPU) the depth must agree with the CPU's (`close`, returned
+    for those rays). A ray that misses the box has near == far, so its
+    sample deltas are rounding residues of either sign, and so are its
+    weights and their sum; its expected depth, their ratio, is bound only
+    by the clip to the chunk's sample range (render_depth_expected). On
+    those faint rays the card's and the CPU's depths must each lie in
+    [least near, greatest far] of the frame (crop_near_far of its rays),
+    and the log line reads their weight sums and how far the two differ."""
+    from nerfstudio_thermal_torch.models.base_model import crop_near_far
+
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    coords = torch.stack([ys, xs], dim=-1).reshape(-1, 2).float() + 0.5
+    rays = cam.generate_rays(torch.zeros(h * w, dtype=torch.long), coords)
+    nears, fars = (t.reshape(-1).numpy() for t in crop_near_far(rays.origins, rays.directions,
+                                                                 torch.tensor(CROP_BOX, dtype=torch.float32)))
+    a, b, close = cpu_depth.reshape(-1), card_depth.reshape(-1), close.reshape(-1)
+    cpu_acc, card_acc = cpu_acc.reshape(-1), card_acc.reshape(-1)
+    faint = cpu_acc <= 1e-3
+    if not faint.any():
+        return close
+    lo, hi = float(nears.min()), float(fars.max())
+    tol = 1e-4 * (1.0 + hi)
+    inside = lambda d: (d >= lo - tol) & (d <= hi + tol)  # noqa: E731
+    bad = faint & ~(inside(a) & inside(b))
+    if bad.any():
+        raise AssertionError(f"{name} crop_aabb {key}: {int(bad.sum())} faint rays outside [{lo}, {hi}], e.g. "
+                             f"card {b[bad][:3]}, CPU {a[bad][:3]}")
+    diff = np.abs(a - b)[faint]
+    log(f"{name} crop_aabb {key}: {int(faint.sum())} of {faint.size} rays with accumulation <= 1e-3 "
+        f"({int((faint & (nears == fars)).sum())} miss the box, near == far), each inside [least near {lo:.4f}, "
+        f"greatest far {hi:.4f}] on the card and the CPU; their weight sums card [{card_acc[faint].min():.3g}, "
+        f"{card_acc[faint].max():.3g}], CPU [{cpu_acc[faint].min():.3g}, {cpu_acc[faint].max():.3g}]; depth card - "
+        f"CPU max {diff.max():.4g}, median {np.median(diff):.4g}, {close[faint].mean() * 100:.2f}% within 2e-2")
+    return close[~faint]
+
+
+def camera_types_phase(name: str, run: Path, smi: str) -> dict:
+    """Every camera type through render_camera_device on the card and on the
+    CPU's plain path (the run's checkpoint on both): each per-ray output
+    within 2e-2 x (1 + |CPU|) on 99% of pixels (as phase 7's render check;
+    the median depths are step functions of the cumulative weight). One
+    perspective frame also with crop_aabb (its expected depths as
+    crop_depth_check holds them); then one 1920x1080 frame with
+    include_per_sample and one without, with their peak memory."""
+    from nerfstudio_thermal_torch.cameras.cameras import CameraType
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    _, card = eval_setup(run / "config.yml", device="cuda")
+    _, cpu = eval_setup(run / "config.yml", device="cpu")
+    c2w = cpu.datamanager.eval_cameras.camera_to_worlds[0].numpy()
+    h, w = TYPE_HW
+    cpu.model.config.eval_num_rays_per_chunk = h * w  # one unpadded chunk: the CPU renders no padding rays
+    cases = [(kind.name, kind, None) for kind in CameraType] + [("PERSPECTIVE+crop_aabb", CameraType.PERSPECTIVE,
+                                                                 CROP_BOX)]
+    per_chunk = METHODS[name]["chunk"]
+    chunk = card.model.config.eval_num_rays_per_chunk
+    agree, plain_acc = {}, None
+    for label, kind, crop in cases:
+        cam = type_camera(kind, c2w, h, w)
+        reset_counts()
+        got = card.model.get_outputs_for_camera(cam, 0, crop_aabb=crop)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if launches != expected_counts(per_chunk, -(-(h * w) // chunk)):
+            raise AssertionError(f"{name} camera {label}: launches {launches}")
+        ref = cpu.model.get_outputs_for_camera(cam, 0, crop_aabb=crop)
+        if set(got) != set(ref):
+            raise AssertionError(f"{name} camera {label}: outputs {sorted(got)} on the card, {sorted(ref)} on the CPU")
+        worst = 1.0
+        for key, a in ref.items():
+            b = got[key]
+            ok = np.abs(a - b) <= 2e-2 * (1.0 + np.abs(a))
+            if crop is not None and key.startswith("expected_depth"):
+                ok = crop_depth_check(name, key, cam, h, w, a, b, ok, ref["accumulation" + key[len("expected_depth"):]],
+                                      got["accumulation" + key[len("expected_depth"):]])
+            if ok.mean() < 0.99 or not np.isfinite(b).all():
+                raise AssertionError(f"{name} camera {label} {key}: {ok.mean():.4f} of pixels agree with the CPU")
+            worst = min(worst, float(ok.mean()))
+        if label == "PERSPECTIVE":
+            plain_acc = got["accumulation"]
+        elif crop is not None and np.allclose(got["accumulation"], plain_acc):
+            raise AssertionError(f"{name}: crop_aabb did not change the render")
+        agree[label] = worst
+    log(f"{name} camera types {w}x{h} on the card against the CPU's plain path: "
+        + ", ".join(f"{k} {v * 100:.2f}%" for k, v in agree.items())
+        + " of pixels within 2e-2 (the worst output of each)")
+    del cpu
+
+    cam = make_camera(RENDER_HW[1], RENDER_HW[0], 1400.0, c2w)
+    peaks = {}
+    for per_sample in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = card.model.render_camera_device(cam, 0, include_per_sample=per_sample)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peaks[per_sample] = (torch.cuda.max_memory_allocated() - resident, resident, dt, read_counts())
+        shapes = {k: tuple(v.shape) for k, v in out.items() if v.dim() == 3}
+        if per_sample != bool(shapes) or any(s[0] != RENDER_HW[0] * RENDER_HW[1] or s[2] != 1 for s in shapes.values()):
+            raise AssertionError(f"{name} 1080p include_per_sample={per_sample}: per-sample outputs {shapes}")
+        if per_sample:
+            per_sample_shapes = shapes
+        del out
+    if peaks[True][3] != peaks[False][3] or not any(peaks[True][3].values()):
+        raise AssertionError(f"{name}: per-sample render launches {peaks[True][3]}, per-ray {peaks[False][3]}")
+    log(f"{name} 1920x1080 render_camera_device with include_per_sample: {per_sample_shapes}, peak memory "
+        f"{peaks[True][0] / 2**30:.2f} GiB above the {peaks[True][1] / 2**30:.2f} GiB resident, "
+        f"{peaks[True][2]:.3f} s; "
+        f"per-ray outputs only: {peaks[False][0] / 2**30:.2f} GiB, {peaks[False][2]:.3f} s ({smi})")
+    del card
+    torch.cuda.empty_cache()
+    return {"agree": agree, "per_sample_peak": peaks[True][0], "per_ray_peak": peaks[False][0]}
+
+
+def render_surface_phase(entries: dict, scene_dir: Path, out_dir: Path, smi: str) -> dict:
+    """Phase 14: ns-render through the command on the entry points' runs,
+    every camera type, fused_modalities training and the "xla" profiler."""
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    t_phase = time.perf_counter()
+    result = {"ns_render": {}}
+    name = HASH_METHOD
+    run = entries[name]["run"]
+    _, trainer = eval_setup(run / "config.yml", device="cpu")
+    eval_cams = trainer.datamanager.eval_cameras
+    rgb = [i for i, t in enumerate(trainer.datamanager.eval_dataset.is_thermal) if t == 0]
+    eval_hw = [(int(eval_cams.height[i]), int(eval_cams.width[i])) for i in range(len(eval_cams))]
+    del trainer
+    path = write_camera_path(out_dir / "camera_path.json", eval_cams, RENDER_PATH_FRAMES, RENDER_HW)
+    one = write_camera_path(out_dir / "camera_path_1.json", eval_cams, 1, RENDER_HW)
+    diff = ["--removal-min-density-diff", "0.1"]
+    runs = [  # (method, mode, flags, output names, each camera's (h, w))
+        (name, "camera-path", ["--camera-path-filename", str(path)], RENDER_NAMES, [RENDER_HW] * RENDER_PATH_FRAMES),
+        (name, "camera-path", ["--camera-path-filename", str(one), *diff], ("removal", "removal_thermal"),
+         [RENDER_HW]),
+        (name, "interpolated", ["--rgb-poses-only", "true", "--interpolation-steps", "2"], ("rgb",),
+         [eval_hw[rgb[0]]] * 2),
+        (name, "spiral", [], ("rgb",), [eval_hw[0]] * 30),
+        (name, "dataset", [], ("rgb", "rgb_thermal", "depth_thermal"), eval_hw),
+        ("thermal-nerfacto-tpu+fused", "camera-path", ["--camera-path-filename", str(path)], RENDER_NAMES,
+         [RENDER_HW] * RENDER_PATH_FRAMES),
+    ]
+    for i, (m, mode, args, names, shapes) in enumerate(runs):
+        r = ns_render(m, mode, entries[m]["run"], out_dir / str(i), args, names, shapes)
+        per_frame = (r["total"] - r["setup"]) / r["frames"]
+        flags = " ".join(a for a in args if a != "--camera-path-filename" and not a.endswith(".json"))
+        log(f"{m} ns-render {mode} {flags}: {r['frames']} frames "
+            f"at {shapes[0][1]}x{shapes[0][0]}, outputs {list(names)}, {r['pngs']} PNGs decoded at their cameras' "
+            f"sizes; launches {({k: v for k, v in r['counts'].items() if v})} ({METHODS[m]['chunk']} per chunk); "
+            f"{per_frame:.3f} s per frame through the command: render {r['render'] / r['frames']:.3f} s "
+            f"(render_camera_device + synchronize), host {r['host'] / r['frames']:.3f} s (PNG encodes "
+            f"{r['png'] / r['frames']:.3f} s of {r['png_bytes'] / r['frames'] / 2**20:.2f} MiB, depth colormaps "
+            f"{r['colormap'] / r['frames']:.3f} s, the rest transfers and frame arithmetic); "
+            f"setup {r['setup']:.2f} s ({smi})")
+        if diff[0] in args and r["diffs"] != {0.1}:
+            raise AssertionError(f"{m}: ns-render rendered with removal_min_density_diff {r['diffs']}")
+        if mode == "camera-path" and diff[0] not in args:
+            result["ns_render"][m] = {"s_per_frame": per_frame, "render_s": r["render"] / r["frames"],
+                                      "host_s": r["host"] / r["frames"], "png_s": r["png"] / r["frames"],
+                                      "counts": r["counts"]}
+            log(f"{m} ns-render 1080p: {per_frame:.3f} s per frame through the command (render "
+                f"{r['render'] / r['frames']:.3f} + host {r['host'] / r['frames']:.3f}) beside PERF.md's "
+                f"render_camera_device line of 1.42-2.94 s per 1080p frame ({smi})")
+
+    result["camera_types"] = camera_types_phase(name, run, smi)
+
+    log(f"phase 14 ns-render and camera types: {time.perf_counter() - t_phase:.1f} s")
+    # fused_modalities against the same method unfused, in turns (unfused,
+    # fused, fused, unfused) at this point of the run: the host-bound steps
+    # drift over a run, so phase 8's earlier runs are no fair yardstick
+    fused = {}
+    for m in FUSED_MODALITIES:
+        base = m.partition(":")[0]
+        runs = collections.defaultdict(list)
+        for i, config in enumerate((base, m, m, base)):
+            run_dir = out_dir / f"{i}_{config.replace(':', '_')}"
+            counts, step_s, _, _, _, trainer = train_phase(config, scene_dir, run_dir)
+            del trainer
+            HASH_MODEL_CALLS.pop("train_step", None)  # phase 8b read its own
+            torch.cuda.empty_cache()
+            runs[config].append((step_s, counts))
+        per_step = {c: {k: round(v / TRAIN_STEPS, 2) for k, v in runs[c][0][1].items() if v} for c in (base, m)}
+        if per_step[m] != per_step[base]:
+            raise AssertionError(f"{m}: kernel launches a step {per_step[m]}, unfused {per_step[base]}")
+        ms = {c: [r[0] * 1e3 for r in runs[c]] for c in (base, m)}
+        fused[m] = {"step_s": float(np.mean(ms[m])) / 1e3, "unfused_step_s": float(np.mean(ms[base])) / 1e3,
+                    "counts": runs[m][0][1], "runs_ms": ms}
+        log(f"{m}: train {' / '.join(f'{v:.2f}' for v in ms[m])} ms/step (steps {TIMED_FROM}-{TRAIN_STEPS - 1}), "
+            f"unfused {' / '.join(f'{v:.2f}' for v in ms[base])}, in turns (unfused, fused, fused, unfused); kernel "
+            f"launches per step {per_step[m]}, as unfused ({smi})")
+    result["fused_modalities"] = fused
+    log(f"phase 14 fused_modalities: {time.perf_counter() - t_phase:.1f} s")
+
+    reset_counts()
+    out = out_dir / "profiled"
+    rc = ns_train.main([name, "--data", str(scene_dir), "--max-num-iterations", str(PROFILE_STEPS),
+                        "--output-dir", str(out), "--trainer.profiler", "xla"])
+    counts = read_counts()
+    traces = list(out.glob(f"*/{name}/*/profiler_traces/trace.json"))
+    if rc != 0 or len(traces) != 1:
+        raise AssertionError(f"ns-train --trainer.profiler xla returned {rc}, traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = collections.Counter(match.group(0) for e in events if e.get("cat") == "kernel"
+                                  for match in [re.search(r"hash_encode\w*", e.get("name", ""))] if match)
+    idle = [k for k in METHODS[name]["step"](True) if counts[k] == 0]
+    if not kernels or idle:
+        raise AssertionError(f"the profiler trace names no hash kernel ({len(events)} events) or ns-train launched "
+                             f"no {idle}")
+    log(f"{name} ns-train --trainer.profiler xla, {PROFILE_STEPS} steps: {traces[0].name} "
+        f"({traces[0].stat().st_size / 2**20:.1f} MiB, {len(events)} events) names the port's kernels "
+        f"{dict(kernels)}")
+    result["profiler_kernels"] = dict(kernels)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -2226,6 +2636,8 @@ def main() -> int:
         step_vs_cpu_phase("thermal-nerfacto-tpu:rgb_only", scene, Path(tmp) / "rgb_only" / "step_f32",
                           f32_freqs=F32_CHECK_FREQS)
         surface_entry_phase(entry_scene, Path(tmp) / "surface_entry")
+        # phase 14: the render surface (ns-render, camera types), fused_modalities and the profiler
+        render_surface = render_surface_phase(entries, scene, Path(tmp) / "render_surface", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -2313,6 +2725,12 @@ def main() -> int:
         counted = {m: r["launches"][name] for m, r in surface.items() if r["launches"].get(name)}
         if counted:
             rec["config_surface_launches"] = counted
+        # phase 14: launches of the 1080p ns-render camera paths and of the fused_modalities runs
+        for field, runs in (("ns_render_launches", render_surface["ns_render"]),
+                            ("fused_modalities_launches", render_surface["fused_modalities"])):
+            counted = {m: r["counts"][name] for m, r in runs.items() if r["counts"].get(name)}
+            if counted:
+                rec[field] = counted
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -2326,6 +2744,15 @@ def main() -> int:
         frames = ", ".join(f"{label} frame {dt:.3f} s" for label, dt in r["frames"].items())
         log(f"{m}: train {r['step_s'] * 1e3:.2f} ms/step (steps {SURFACE_TIMED_FROM}-{SURFACE_STEPS - 1}), "
             f"{r['rays'] / r['step_s']:,.0f} rays/s, peak memory {r['peak'] / 2**30:.2f} GiB; {frames} ({smi})")
+    for m, r in render_surface["ns_render"].items():
+        log(f"{m}: ns-render camera-path 1920x1080 {r['s_per_frame']:.3f} s per frame through the command (render "
+            f"{r['render_s']:.3f} s, host {r['host_s']:.3f} s) ({smi})")
+    for m, r in render_surface["fused_modalities"].items():
+        log(f"{m}: train {r['step_s'] * 1e3:.2f} ms/step, unfused {r['unfused_step_s'] * 1e3:.2f} ms/step (means of "
+            f"two runs each, in turns) ({smi})")
+    log(f"thermal-nerfacto 1080p include_per_sample peak memory "
+        f"{render_surface['camera_types']['per_sample_peak'] / 2**30:.2f} GiB (per-ray outputs only "
+        f"{render_surface['camera_types']['per_ray_peak'] / 2**30:.2f} GiB) ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Camera math helpers (counterpart of the ray-generation and pose parts
-of nerfstudio_thermal_tpu/cameras/camera_utils.py): undistortion for ray
-generation, and the numpy pose orientation and centering the dataparsers
-call. The fisheye624 projection waits for its camera type."""
+of nerfstudio_thermal_tpu/cameras/camera_utils.py): the OpenCV
+undistortion and the fisheye624 unprojection for ray generation, and the
+numpy pose orientation and centering the dataparsers call."""
 
 from typing import Tuple
 
@@ -57,6 +57,63 @@ def radial_and_tangential_undistort(
         x = x + torch.where(ok, x_num / denom, zero)
         y = y + torch.where(ok, y_num / denom, zero)
     return torch.stack([x, y], dim=-1)
+
+
+def fisheye624_unproject(pix: torch.Tensor, camera_params: torch.Tensor, max_iters: int = 5) -> torch.Tensor:
+    """Pixels to OpenGL camera-space directions (z = -1 plane) under the
+    Fisheye624 model (radial k0..k5, tangential p0 p1, thin prism s0..s3).
+    It has no analytic inverse: two Newton solves of `max_iters` fixed
+    iterations, one inverting the tangential and thin-prism terms, one the
+    radial polynomial for theta.
+
+    pix [..., 2] (u, v); camera_params [..., 16] [fx fy cx cy k0..k5 p0 p1 s0..s3]."""
+    eps = 1e-6
+    ks = [camera_params[..., 4 + i] for i in range(6)]
+    p0, p1 = camera_params[..., 10], camera_params[..., 11]
+    s0, s1, s2, s3 = (camera_params[..., 12 + i] for i in range(4))
+    uv_dist = (pix - camera_params[..., 2:4]) / camera_params[..., 0:2]
+
+    def distort_est(xr, yr):
+        xr_sq, yr_sq = xr * xr, yr * yr
+        rd_sq = xr_sq + yr_sq
+        rd_4 = rd_sq * rd_sq
+        u = xr + (2.0 * xr_sq + rd_sq) * p0 + 2.0 * xr * yr * p1 + s0 * rd_sq + s1 * rd_4
+        v = yr + (2.0 * yr_sq + rd_sq) * p1 + 2.0 * xr * yr * p0 + s2 * rd_sq + s3 * rd_4
+        return u, v
+
+    xr, yr = uv_dist[..., 0], uv_dist[..., 1]
+    for _ in range(max_iters):
+        u, v = distort_est(xr, yr)
+        sq_norm = xr * xr + yr * yr
+        t1 = 2.0 * (s0 + 2.0 * s1 * sq_norm)
+        t2 = 2.0 * (s2 + 2.0 * s3 * sq_norm)
+        a = 1.0 + 6.0 * xr * p0 + 2.0 * yr * p1 + xr * t1
+        b = 2.0 * (xr * p1 + yr * p0) + yr * t1
+        c = 2.0 * (xr * p1 + yr * p0) + xr * t2
+        d = 1.0 + 6.0 * yr * p1 + 2.0 * xr * p0 + yr * t2
+        det = a * d - b * c
+        e, f = uv_dist[..., 0] - u, uv_dist[..., 1] - v
+        xr, yr = xr + (d * e - b * f) / det, yr + (-c * e + a * f) / det
+
+    xr_yr = torch.stack([xr, yr], dim=-1)
+    xr_yr_norm = torch.linalg.norm(xr_yr, dim=-1)
+    th = xr_yr_norm
+    for _ in range(max_iters):
+        th_radial = torch.ones_like(th)
+        dthd_th = torch.ones_like(th)
+        for k in range(6):
+            th_radial = th_radial + ks[k] * th ** (2 + k * 2)
+            dthd_th = dthd_th + (3.0 + 2.0 * k) * ks[k] * th ** (2 + k * 2)
+        th_radial = th_radial * th
+        step = (xr_yr_norm - th_radial) / dthd_th
+        step = torch.where(torch.abs(dthd_th) > eps, step, torch.sign(step) * eps * 10.0)
+        th = th + step
+
+    close = (torch.abs(th) < eps) & (torch.abs(xr_yr_norm) < eps)
+    scale = torch.where(close, torch.ones_like(th), torch.tan(th) / torch.clamp(xr_yr_norm, min=eps))[..., None]
+    ray_dir = xr_yr * scale
+    # OpenCV -> OpenGL: flip y and z
+    return torch.stack([ray_dir[..., 0], -ray_dir[..., 1], -torch.ones_like(th)], dim=-1)
 
 
 def normalize_with_norm(x: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -149,6 +149,13 @@ def map_tensors(container, fn):
     )
 
 
+def map_all_tensors(container, fn):
+    """`map_tensors` with the metadata's tensors mapped too."""
+    return dataclasses.replace(
+        map_tensors(container, fn), metadata={k: fn(v) for k, v in container.metadata.items()}
+    )
+
+
 def get_weights(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
     """[..., S, 1] deltas and densities -> [..., S, 1] weights."""
     delta_density = deltas * densities

@@ -21,8 +21,10 @@ on. With `gradient_accumulation_steps` k > 1 the optimizers are wrapped in
 `MultiSteps` (optax.MultiSteps): every step still counts (the step, the
 proposal-update counters and the checkpoints' step advance once a step),
 but the parameters, the moments and the learning-rate schedules move only
-on every k-th step, from the mean of the k gradients. The viewer and the
-profiler are later work.
+on every k-th step, from the mean of the k gradients. `profiler` "basic"
+times the loop's spans on the host and prints them at exit; "xla" writes a
+torch.profiler trace of steps 10-15 (utils/profiler.py). The viewer is
+later work.
 """
 
 import time
@@ -42,6 +44,7 @@ from nerfstudio_thermal_torch.engine.optimizers import (
 from nerfstudio_thermal_torch.model_components.ray_generators import RayGenerator
 from nerfstudio_thermal_torch.models.nerfacto import proposal_anneal, proposal_updated
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
+from nerfstudio_thermal_torch.utils import profiler
 from nerfstudio_thermal_torch.utils.precision import pin_precision
 from nerfstudio_thermal_torch.utils.writer import EventName, Writer
 
@@ -79,6 +82,8 @@ class TrainerConfig:
     use_comet: bool = False
     gradient_accumulation_steps: int = 1
     profiler: str = "none"
+    """'none' | 'basic' (host timings, printed at exit) | 'xla' (a
+    torch.profiler trace of steps 10-15; the name is the JAX package's)."""
     vis: str = "none"
     viewer_port: int = 7007
 
@@ -180,8 +185,9 @@ class Trainer:
         optimizer_configs: Dict[str, OptimizerGroupConfig],
         base_dir: Optional[Path] = None,
     ):
+        if config.profiler not in ("none", "basic", "xla"):
+            raise ValueError(f"profiler={config.profiler!r}: one of none, basic, xla")
         for name, unported in (
-            ("profiler", config.profiler != "none"),
             ("viewer", config.vis != "none"),
             ("data parallelism over several devices", config.num_devices not in (None, 1)),
         ):
@@ -203,17 +209,29 @@ class Trainer:
         )
         self._start_step = 0
         self._eval_ray_generator = None
+        self._trace_profiler = None
 
-    def setup(self):
+    def setup(self, eval_only: bool = False):
+        """Optimizers, state and the checkpoint of `load_dir`. eval_only: the
+        run is reloaded to evaluate or render (eval_setup), which draw no
+        jitter, so a checkpoint whose jitter generator belongs to another
+        device (a run trained on the card, reloaded on the CPU) starts a
+        fresh one; a training run refuses it instead, since its jitter
+        would no longer follow the run it resumes."""
         self.optimizers = build_optimizer(self.optimizer_configs, self.model.param_groups())
         if self.config.gradient_accumulation_steps > 1:
             self.optimizers = MultiSteps(self.optimizers, self.config.gradient_accumulation_steps)
         generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
         self.state = TrainState(generator=generator)
         self.cameras = self.datamanager.train_cameras.to(self.device)
-        self._load_checkpoint()
+        self._load_checkpoint(eval_only)
         self._train_step = make_ray_train_step(self.model, self.optimizers, self.cameras)
+        if self.config.profiler == "basic":
+            profiler.setup_profiler(True, self.base_dir)
+        elif self.config.profiler == "xla":
+            self._trace_profiler = profiler.TraceProfiler(self.base_dir)
 
+    @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         batch = _batch_to(self.datamanager.next_train(step), self.device)
         return self._train_step(self.state, batch)
@@ -231,6 +249,8 @@ class Trainer:
         t_last = time.perf_counter()
         for step in range(self._start_step, cfg.max_num_iterations):
             scalars = self.train_iteration(step)
+            if self._trace_profiler is not None:
+                self._trace_profiler.step(step)
             if step % cfg.steps_per_log == 0:
                 scalars = {k: float(v) for k, v in scalars.items()}
                 t_now = time.perf_counter()
@@ -249,11 +269,13 @@ class Trainer:
             if self._due(step, cfg.steps_per_eval_image):
                 self.eval_iteration(step)
             if self._due(step, cfg.steps_per_eval_all_images):
-                with torch.no_grad():
+                with torch.no_grad(), profiler.time_function("Trainer.eval_all_images"):
                     metrics = self.pipeline.get_average_eval_image_metrics(step)
                 self.writer.write_scalar_dict(metrics, step, group="eval_all")
             if step > 0 and step % cfg.steps_per_save == 0:
                 self.save_checkpoint(step)
+        if self._trace_profiler is not None:
+            self._trace_profiler.close()
         self.save_checkpoint(cfg.max_num_iterations)
 
     def _due(self, step: int, every: int) -> bool:
@@ -261,6 +283,7 @@ class Trainer:
 
     # evals ------------------------------------------------------------
 
+    @profiler.time_function
     def eval_batch_iteration(self, step: int) -> None:
         """Losses and metrics of one eval ray batch (train=False), written
         as eval_* under the group "eval"."""
@@ -286,6 +309,7 @@ class Trainer:
             print(f"eval batch failed at step {step}:")
             traceback.print_exc()
 
+    @profiler.time_function
     def eval_iteration(self, step: int) -> None:
         """The next eval image: its metrics (group "eval") and its images
         (images/eval_<name>/step-<N>.png)."""
@@ -303,6 +327,7 @@ class Trainer:
 
     # checkpoints ------------------------------------------------------
 
+    @profiler.time_function
     def save_checkpoint(self, step: int) -> Path:
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         path = self.checkpoint_dir / f"step-{step:09d}.ckpt"
@@ -324,7 +349,7 @@ class Trainer:
                     p.unlink()
         return path
 
-    def _load_checkpoint(self):
+    def _load_checkpoint(self, eval_only: bool = False):
         load_dir = self.config.load_dir
         if load_dir is None:
             return
@@ -342,7 +367,17 @@ class Trainer:
         self.state.step = int(ckpt["step"])
         self.state.steps_since_update = int(ckpt["steps_since_update"])
         self.state.steps_since_update_thermal = int(ckpt["steps_since_update_thermal"])
-        self.state.generator.set_state(ckpt["generator"].cpu())
+        generator_state = ckpt["generator"].cpu()
+        if generator_state.numel() == self.state.generator.get_state().numel():
+            self.state.generator.set_state(generator_state)
+        elif eval_only:
+            # a CUDA generator's state does not fit the CPU's (or the reverse)
+            print(f"checkpoint {path.name}: its jitter generator is another device's; starting a fresh one")
+        else:
+            raise ValueError(
+                f"checkpoint {path.name}: its jitter generator belongs to another device than "
+                f"{self.device}; resume the run on the device it was trained on"
+            )
         self.datamanager._eval_image_index = int(ckpt.get("eval_image_index", 0))
         self._start_step = self.state.step
         print(f"Loaded checkpoint {path} at step {self._start_step}")

@@ -20,7 +20,14 @@ Three density modes, the paper's ablations among them:
 The density TV losses (`tv_rgb_loss_mult`, `tv_thermal_loss_mult`; the
 thermal one in separate mode only) sample `num_density_tv_samples` points
 in the aabb with their 6 neighbours (`NerfactoField.sample_and_density`).
-`fused_modalities` is not ported (ROADMAP A5) and raises.
+
+`fused_modalities` (separate mode; off by default as in the JAX package,
+where it vmaps both modalities' training pipelines over one stacked axis)
+gives the thermal field a 3-channel head, channel 0 the thermal value, so
+that its parameters have the RGB field's layout. The port runs it on the
+sequential path: every field and proposal net is a kernel launched once
+per modality with that modality's weights either way, and JAX's fused
+outputs are the sequential outputs of the same parameters and jitter.
 """
 
 from dataclasses import dataclass, field as dataclass_field
@@ -106,11 +113,6 @@ class ThermalNerfactoModel(NerfactoModel):
         cfg = self.config
         if cfg.density_mode not in ("separate", "shared", "rgb_only"):
             raise ValueError(f"density_mode={cfg.density_mode!r}: one of separate, shared, rgb_only")
-        if cfg.fused_modalities:
-            raise NotImplementedError(
-                "fused_modalities is not ported yet: it is the last item of ROADMAP.md "
-                "queue A5 (the rest of thermal-nerfacto's config surface)"
-            )
         self._populate_common()
         separate = cfg.density_mode == "separate"
         self.output_suffixes = ("", "_thermal") if separate else ("",)
@@ -132,7 +134,10 @@ class ThermalNerfactoModel(NerfactoModel):
         )
         if not separate:
             return
-        self.field_thermal = ThermalNerfactoField(**self._field_kwargs(), num_channels=1)
+        # fused_modalities: a 3-channel head, channel 0 the thermal value
+        self.field_thermal = ThermalNerfactoField(
+            **self._field_kwargs(), num_channels=3 if cfg.fused_modalities else 1
+        )
         # one net per iteration, use_same_proposal_network or not (as in JAX)
         self.proposal_networks_thermal = self._build_proposal_nets(shared=False)
         self.camera_optimizer_thermal = build_camera_optimizer(
@@ -203,7 +208,8 @@ class ThermalNerfactoModel(NerfactoModel):
             keep_sample_rgb=True,
         )
         for k, v in thermal_outputs.items():
-            outputs[f"{k}_thermal"] = v
+            # fused_modalities pads the thermal head to 3 channels
+            outputs[f"{k}_thermal"] = v[..., :1] if k == "rgb" else v
 
         if cfg.density_loss_mult > 0 or not train:
             # cross-field densities: each field at the other field's samples,

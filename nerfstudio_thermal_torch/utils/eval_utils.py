@@ -28,5 +28,5 @@ def eval_setup(
     config.trainer.load_dir = base_dir / "nerfstudio_models"
     config.trainer.load_step = load_step
     trainer = setup_trainer(config, base_dir=base_dir, device=device)
-    trainer.setup()
+    trainer.setup(eval_only=True)
     return config, trainer

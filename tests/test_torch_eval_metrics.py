@@ -139,12 +139,15 @@ def test_colormaps_match_jax(case):
 
 
 def test_colormap_tables_are_matplotlibs():
+    """The port's tables equal matplotlib's (through the JAX package), magma
+    among them; "pca", which neither package carries, raises and lists the
+    names the port carries."""
     ramp = np.linspace(0, 1, 256, dtype=np.float32)[:, None]
-    for name in ("turbo", "viridis", "default"):
+    for name in ("turbo", "viridis", "default", "magma"):
         np.testing.assert_array_equal(colormaps.apply_float_colormap(ramp, name),
                                       jax_colormaps.apply_float_colormap(ramp, name))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        colormaps.apply_float_colormap(ramp, "magma")
+    with pytest.raises(NotImplementedError, match="magma, inferno, plasma, cividis"):
+        colormaps.apply_float_colormap(ramp, "pca")
 
 
 @pytest.mark.parametrize("shape,dtype", [((7, 9), np.float32), ((7, 9, 1), np.float32), ((7, 9, 3), np.float32),

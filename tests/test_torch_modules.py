@@ -216,15 +216,6 @@ def test_ray_generator():
     _close_rays(got, want)
 
 
-def test_non_perspective_cameras_raise():
-    with pytest.raises(NotImplementedError):
-        tcams.Cameras(
-            camera_to_worlds=torch.zeros(1, 3, 4), fx=torch.ones(1), fy=torch.ones(1),
-            cx=torch.ones(1), cy=torch.ones(1), width=torch.ones(1), height=torch.ones(1),
-            camera_type=torch.tensor([tcams.CameraType.FISHEYE.value]),
-        )
-
-
 @pytest.mark.parametrize("mode", ["SO3xR3", "SE3", "shared_SO3xR3"])
 def test_camera_optimizer_apply(mode):
     rng = np.random.default_rng(5)

@@ -119,20 +119,22 @@ def test_precision_pinned_by_entry_points():
 
 
 def test_unported_paths_raise(tmp_path):
-    """What the port does not carry yet raises and names its ROADMAP item:
-    fused_modalities (A5). A shared proposal network with two proposal arg
-    entries is refused (the JAX package asserts one), and an unknown
-    density mode too. The shared and rgb_only density modes, which raised
-    before their slice, now build one field (4 and 3 channels) and no
-    thermal hierarchy; the trainer's eval cadence, which raised before the
-    eval surface was ported, now runs and writes its record."""
+    """A shared proposal network with two proposal arg entries is refused
+    (the JAX package asserts one), and an unknown density mode too.
+    fused_modalities, which raised before its slice, now builds the
+    thermal field with a 3-channel head (channel 0 is the thermal value).
+    The shared and rgb_only density modes, which raised before their
+    slice, now build one field (4 and 3 channels) and no thermal
+    hierarchy; the trainer's eval cadence, which raised before the eval
+    surface was ported, now runs and writes its record."""
     from tests.fixtures import make_synthetic_rgbt_dataset
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
     cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
     cfg.fused_modalities = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A5"):
-        ThermalNerfactoModel(cfg, AABB, 2, device="cpu")
+    model = ThermalNerfactoModel(cfg, AABB, 2, {"is_thermal": [0, 1]}, device="cpu")
+    assert (model.field.num_channels, model.field_thermal.num_channels) == (3, 3)
+    assert model.field_thermal.mlp_head.layers[-1].weight.shape[0] == 3
     cfg = tiny(get_method_config("thermal-nerfacto-tpu").model, "float32")
     cfg.use_same_proposal_network = True
     with pytest.raises(ValueError, match="one proposal_net_args_list entry"):
