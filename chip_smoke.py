@@ -177,6 +177,34 @@ Phases, each fatal on failure:
    - ns-train of thermal-nerfacto with --trainer.profiler xla for 16
      steps: its profiler_traces/trace.json must name the hash kernels.
 
+15. the data path and the instant-ngp family (after phase 14; the JSON
+   line's hash kernels carry its numbers as extra fields):
+   - the JPEG fixtures of tests/data/jpeg decode (the port's baseline
+     decoder, built with g++) to the Pillow hashes of their manifest, the
+     progressive one is refused; a 1920x1080 decode and its 0.5x BILINEAR
+     resize are timed on the host;
+   - the blender, instant_ngp and COLMAP (JPEG) scenes parse through
+     build_dataparser (camera counts, sizes, scene boxes);
+   - instant-ngp trains 48 steps through ns-train at full width (16
+     levels, T = 2^19, 192 samples, 4096 rays to start, bf16) on a 10-frame
+     RGB sphere scene: the grid updates at steps 0, 16 and 32 (occupied
+     cells, live samples per ray), the dynamic batch after each, launches
+     per step (row 8 once, twice on a grid update; rows 7/9 once; row 10
+     never), every loss finite, ms/step over steps 34-47 (one batch size),
+     rays/s and samples/s, peak memory; step 32's hash calls (the grid
+     update's 2^18 points and the step's samples) go through phase 8b's
+     checks and timings (rows 7-9 only); an f32 256-ray step on the card
+     against the CPU's (phase 9's limits, the grid after the update within
+     1e-5 rel L2 and the same live samples) with a bf16 control that must
+     break a limit; a 1920x1080 and a 640x512 frame from the run's
+     checkpoint (every sample, no grid: one hash forward a chunk), and
+     ns-eval of the run;
+   - instant-ngp-bounded trains 24 steps through ns-train on an
+     instant_ngp-format scene (no contraction, near 0.01) and renders a
+     640x480 frame whose black background keeps rgb <= accumulation;
+   - nerfacto trains 20 steps on the COLMAP JPEG scene through phase 8's
+     checks (rows 7-10 with camera gradients).
+
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
 CUDA; imports nothing of JAX.
@@ -406,15 +434,20 @@ def method_config(name: str):
         assert variant == "fused", name
         for knob in FUSED_KNOBS:
             setattr(method.model, knob, True)
+    if tag == "colmap":  # phase 15: the method on a COLMAP scene
+        from nerfstudio_thermal_torch.data.dataparsers.colmap_dataparser import ColmapDataParserConfig
+
+        method.dataparser = ColmapDataParserConfig()
+        return method
     for key, value in TAGS[tag].items() if tag else ():
         setattr(method.model, key, copy.deepcopy(value))
     return method
 
 
 def spec(name: str) -> dict:
-    """A configuration's launch counts (and step limits): METHODS, SURFACE
-    or FUSED_MODALITIES."""
-    return METHODS.get(name) or SURFACE.get(name) or FUSED_MODALITIES[name]
+    """A configuration's launch counts (and step limits): METHODS, SURFACE,
+    FUSED_MODALITIES or DATA_SURFACE."""
+    return METHODS.get(name) or SURFACE.get(name) or FUSED_MODALITIES.get(name) or DATA_SURFACE[name]
 
 
 def log(msg: str) -> None:
@@ -765,10 +798,10 @@ def hash_cost(kname: str, n: int, levels: int, t: int, rows: int, dtype):
     }[kname]
 
 
-def hash_calls(table, pos, scal, t, g, dtype) -> dict:
+def hash_calls(table, pos, scal, t, g, dtype, with_pos: bool = True) -> dict:
     """(kernel, plain version) of each hash function on one case, by kernel
-    name: the forward in `dtype`, and with a cotangent g the table and
-    position gradients."""
+    name: the forward in `dtype`, and with a cotangent g the table and (with
+    `with_pos`: the call's positions need a gradient) position gradients."""
     from nerfstudio_thermal_torch.ops import encodings as enc
     from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
@@ -777,6 +810,7 @@ def hash_calls(table, pos, scal, t, g, dtype) -> dict:
     if g is not None:
         calls["hash_encode_bwd_table"] = (lambda: th.hash_encode_bwd_table(pos, g, scal, t),
                                           lambda: enc.hash_encode_bwd_table_plain(pos, g, scal, t, 2))
+    if g is not None and with_pos:
         calls["hash_encode_bwd_pos"] = (lambda: th.hash_encode_bwd_pos(table, pos, g, scal, t),
                                         lambda: enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t))
     return calls
@@ -865,7 +899,7 @@ def hash_model_phase(scopes=None):
             n, levels = pos.shape[0], scal.shape[0]
             rows = hash_rows_touched(pos, scal, t)
             name = f"{scope}[{i}] L{levels} T2^{t.bit_length() - 1}"
-            calls = hash_calls(table, pos, scal, t, g, rec["dtype"])
+            calls = hash_calls(table, pos, scal, t, g, rec["dtype"], rec.get("with_pos", True))
             for kname, (kernel, plain) in calls.items():
                 checks = [(rec["dtype"], kernel, plain)]
                 if kname == "hash_encode_fwd" and rec["dtype"] != torch.float32:
@@ -2524,6 +2558,402 @@ def render_surface_phase(entries: dict, scene_dir: Path, out_dir: Path, smi: str
 
 
 
+
+# Phase 15: the data path and the instant-ngp family. The JPEG fixtures of
+# tests/data/jpeg decode to the Pillow hashes of their manifest (the card's
+# machine has no Pillow); the blender, instant_ngp and COLMAP (JPEG) scenes
+# parse through build_dataparser; instant-ngp trains NGP_STEPS steps through
+# ns-train at full width on a 10-frame RGB sphere scene (the dynamic batch
+# and the occupancy grid live; launches per step: row 8 once for the field,
+# twice on a grid-update step, whose density pass runs it on 2^18 points;
+# rows 7/9 once; row 10 never: no camera optimizer, so no position needs a
+# gradient), its step NGP_CAPTURE_STEP (a grid update and a step) is
+# recorded for the hash kernels, an f32 card step is held against the CPU's
+# with a bf16 control, a 1920x1080 and a 640x512 frame render (every sample,
+# no grid: 254 and 40 chunks of 8192 rays), and ns-eval reloads the run;
+# instant-ngp-bounded trains NGP_BOUNDED_STEPS steps through ns-train on an
+# instant_ngp-format scene and renders with its black background; nerfacto
+# trains COLMAP_STEPS steps on the COLMAP JPEG scene through train_phase
+# (rows 7-10 with camera gradients).
+JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+NGP_STEPS, NGP_BOUNDED_STEPS, COLMAP_STEPS = 48, 24, 20
+NGP_CAPTURE_STEP = 32  # a grid update (2^18 points) and the step's own hash calls
+NGP_TIMED = range(34, 48)  # after the update of step 32 the batch holds until step 48
+NGP_PAIRS = 10  # the 0.9 split holds one frame out for ns-eval
+NGP_SAMPLES = 192  # instant-ngp's samples per ray
+NGP_RENDERS = {"1080p": (1920, 1080, 1400.0), "640x512": (640, 512, 500.0)}
+# f32 card step against the CPU's (phase 9's limits): instant-ngp's step has
+# one hash field and narrow f32 MLPs; the grid after the step's update must
+# agree within NGP_GRID_TOL relative L2 (f32 densities, the hash forward
+# equal up to 1e-6 absolute) and give the same live samples per ray.
+NGP_GRID_TOL = 1e-5
+DATA_SURFACE = {
+    "nerfacto:colmap": dict(scene="colmap", chunk={"hash_encode_fwd": 3}, step=_hash_step(1)),
+}
+
+
+def ngp_step_counts(step: int, every: int = 16) -> dict:
+    """Hash launches of an instant-ngp training step."""
+    return {"hash_encode_fwd": 1 + (step % every == 0), "hash_encode_bwd_table": 1}
+
+
+def image_io_phase(smi: str) -> dict:
+    """The JPEG fixtures against their manifest, the progressive one raises;
+    host times of a 1920x1080 decode and of its 0.5x resize (medians of 5)."""
+    import hashlib
+
+    from nerfstudio_thermal_torch.data import jpeg
+    from nerfstudio_thermal_torch.data.datasets import resize_like_pil
+
+    t0 = time.perf_counter()
+    jpeg.load_library()
+    build_s = time.perf_counter() - t0
+    manifest = json.loads((JPEG_DIR / "manifest.json").read_text())
+    checked, refused = 0, []
+    for name, rec in sorted(manifest.items()):
+        if rec.get("port_raises"):
+            try:
+                jpeg.decode_jpeg(JPEG_DIR / name)
+            except NotImplementedError as e:
+                refused.append(f"{name}: {str(e).split(': ', 1)[-1]}")
+                continue
+            raise AssertionError(f"{name} decoded; the baseline decoder must refuse it")
+        arr = jpeg.decode_jpeg(JPEG_DIR / name)
+        if hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or list(arr.shape) != rec["shape"]:
+            raise AssertionError(f"{name}: the decode does not match Pillow's ({arr.shape}, manifest {rec['shape']})")
+        checked += 1
+    if not refused:
+        raise AssertionError("no fixture exercised the decoder's refusal")
+    big = JPEG_DIR / "frame_1920x1080.jpg"
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        arr = jpeg.decode_jpeg(big)
+        times.append(time.perf_counter() - t0)
+    decode_ms = float(np.median(times)) * 1e3
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        small = resize_like_pil(arr, 960, 540)
+        times.append(time.perf_counter() - t0)
+    resize_ms = float(np.median(times)) * 1e3
+    if small.shape != (540, 960, 3):
+        raise AssertionError(f"resize gave {small.shape}")
+    log(f"image_io: decoder built in {build_s:.2f} s; {checked} JPEG fixtures decode to their manifest's Pillow "
+        f"hashes; refused: {'; '.join(refused)}; 1920x1080 decode {decode_ms:.1f} ms, 0.5x BILINEAR resize "
+        f"{resize_ms:.1f} ms (host, median of 5) ({smi})")
+    return {"decode_ms": decode_ms, "resize_ms": resize_ms, "fixtures": checked}
+
+
+def write_ingp_scene(root: Path, num: int = NGP_PAIRS, w: int = 640, h: int = 480) -> Path:
+    """An instant_ngp-format scene of the sphere: one transforms.json with
+    shared intrinsics and aabb_scale 4, PNG frames."""
+    from nerfstudio_thermal_torch.utils.writer import write_png
+
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    frames, focal = [], 0.8 * w
+    for i in range(num):
+        ang = 2 * np.pi * i / num
+        c2w = look_at(np.array([3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.2]))
+        write_png(root / "images" / f"f_{i:03d}.png", render_sphere(c2w, w, h, focal, False))
+        frames.append({"file_path": f"images/f_{i:03d}.png", "transform_matrix": c2w.tolist()})
+    meta = {"fl_x": focal, "fl_y": focal, "cx": w / 2, "cy": h / 2, "w": w, "h": h, "aabb_scale": 4,
+            "frames": frames}
+    (root / "transforms.json").write_text(json.dumps(meta))
+    return root
+
+
+def write_blender_scene(root: Path, num: int = 4, size: int = 200) -> Path:
+    from nerfstudio_thermal_torch.utils.writer import write_png
+
+    (root / "train").mkdir(parents=True, exist_ok=True)
+    frames, angle_x = [], 0.69
+    focal = 0.5 * size / np.tan(0.5 * angle_x)
+    for i in range(num):
+        c2w = look_at(np.array([4.0 * np.cos(i), 4.0 * np.sin(i), 1.0]))
+        write_png(root / "train" / f"r_{i}.png", render_sphere(c2w, size, size, focal, False))
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": c2w.tolist()})
+    for split in ("train", "val", "test"):
+        (root / f"transforms_{split}.json").write_text(json.dumps({"camera_angle_x": angle_x, "frames": frames}))
+    return root
+
+
+def parsers_phase(tmp: Path) -> dict:
+    """The blender, instant_ngp and COLMAP (JPEG) scenes through
+    build_dataparser, as the trainer builds its parser."""
+    from nerfstudio_thermal_torch.configs.dataparser_configs import build_dataparser, dataparser_configs
+    from nerfstudio_thermal_torch.data.datasets import load_image
+
+    scenes = {
+        "blender-data": write_blender_scene(tmp / "blender"),
+        "instant-ngp-data": write_ingp_scene(tmp / "ingp"),
+        "colmap": JPEG_DIR / "colmap_sphere",
+    }
+    for key, data in scenes.items():
+        cfg = copy.deepcopy(dataparser_configs[key])
+        cfg.data = data
+        t0 = time.perf_counter()
+        out = build_dataparser(cfg).get_dataparser_outputs("train")
+        img = load_image(out.image_filenames[0])
+        dt = time.perf_counter() - t0
+        c = out.cameras
+        if img.shape[:2] != (int(c.height[0]), int(c.width[0])) or not np.isfinite(img).all():
+            raise AssertionError(f"{key}: first image {img.shape} against camera {int(c.height[0])}x{int(c.width[0])}")
+        if not bool(torch.isfinite(c.camera_to_worlds).all()):
+            raise AssertionError(f"{key}: non-finite poses")
+        log(f"parsers {key} ({type(build_dataparser(cfg)).__name__}): {len(out.image_filenames)} train cameras "
+            f"{int(c.width[0])}x{int(c.height[0])}, fx {float(c.fx[0]):.1f}, scene box "
+            f"{np.asarray(out.scene_box).tolist()}, scale {out.dataparser_scale:.4f}, first image "
+            f"{Path(out.image_filenames[0]).suffix} {img.shape} ({dt:.2f} s with the decode)")
+    return scenes
+
+
+@contextlib.contextmanager
+def capturing_trainer(on_setup):
+    """While open, every trainer that ns-train (scripts.train) sets up is
+    handed to on_setup first."""
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+
+    inner = ns_train.setup_trainer
+
+    def wrapped(*args, **kwargs):
+        trainer = inner(*args, **kwargs)
+        on_setup(trainer)
+        return trainer
+
+    ns_train.setup_trainer = wrapped
+    try:
+        yield
+    finally:
+        ns_train.setup_trainer = inner
+
+
+def ngp_train(name: str, scene: Path, out_dir: Path, steps: int, capture_step=None) -> dict:
+    """ns-train of an instant-ngp method at full width for `steps` steps,
+    each synchronized and timed, with its launches (against
+    ngp_step_counts), its ray batch, the dynamic batch's override after it,
+    the grid on update steps, and every loss finite. Returns the records,
+    the run directory and the peak memory."""
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+
+    records, holder = [], {}
+
+    def on_setup(trainer):
+        holder["trainer"] = trainer
+        iteration = trainer.train_iteration
+        every = trainer.model.config.grid_update_every
+
+        def counted(step):
+            rays = trainer.datamanager.num_rays_override or trainer.datamanager.config.train_num_rays_per_batch
+            c0 = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == capture_step:
+                with recording_hash_calls() as calls:
+                    out = iteration(step)
+                HASH_MODEL_CALLS[f"{name} train step {step}"] = calls
+            else:
+                out = iteration(step)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v - c0[k] for k, v in read_counts().items()}
+            if launches != expected_counts(ngp_step_counts(step, every)):
+                raise AssertionError(f"{name} step {step}: launches {launches}, expected {ngp_step_counts(step, every)}")
+            rec = {"step": step, "rays": rays, "s": dt, "override": trainer.datamanager.num_rays_override,
+                   **{k: float(v) for k, v in out.items()}}
+            if not all(math.isfinite(rec[k]) for k in out if "loss" in k):
+                raise AssertionError(f"{name} step {step}: non-finite loss {rec}")
+            if step % every == 0:
+                grid = trainer.state.extra
+                rec["occupied"] = float((grid.densities > trainer.model.config.alpha_thre).float().mean())
+            records.append(rec)
+            return out
+
+        trainer.train_iteration = counted
+
+    argv = [name, "--data", str(scene), "--output-dir", str(out_dir), "--experiment-name", "smoke",
+            "--max-num-iterations", str(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with capturing_trainer(on_setup):
+        if ns_train.main(argv, device="cuda") != 0:
+            raise AssertionError(f"ns-train {name} failed")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (run,) = (out_dir / "smoke" / name).glob("*")
+    if len(records) != steps:
+        raise AssertionError(f"{name}: {len(records)} steps ran, expected {steps}")
+    del holder
+    return {"records": records, "run": run, "peak": peak, "counts": counts}
+
+
+def ngp_render(model, label: str, w: int, h: int, focal: float, c2w) -> tuple:
+    """One frame through render_camera_device (every sample, no grid):
+    launches (one hash forward a chunk), finite outputs; seconds."""
+    cam = make_camera(w, h, focal, c2w)
+    n_chunks = -(-(w * h) // model.config.eval_num_rays_per_chunk)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.render_camera_device(cam, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if read_counts() != expected_counts({"hash_encode_fwd": 1}, n_chunks):
+        raise AssertionError(f"render {label}: launches {read_counts()}, expected one hash forward x {n_chunks}")
+    check_image_outputs(out, h, w, {"rgb": 3, "accumulation": 1, "depth": 1, "expected_depth": 1})
+    return out, dt, n_chunks
+
+
+def ngp_step_vs_cpu(scene: Path, run_dir: Path) -> None:
+    """One f32 instant-ngp step of 256 rays at full width on the card and
+    on the CPU from the same seeded params, batch, sampler jitter, grid
+    draws (2^18 cells and jitters) and background; a bf16 card step is the
+    control that must break a limit."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
+
+    method = get_method_config("instant-ngp")
+    method.data = scene
+    method.datamanager.train_num_rays_per_batch = 256
+    method.model.compute_dtype = "float32"
+    control = copy.deepcopy(method)
+    control.model.compute_dtype = "bfloat16"
+    runs = {"cpu": ("cpu", method), "cuda": ("cuda", method), "control": ("cuda", control)}
+    gen = torch.Generator().manual_seed(11)
+    res, samples = method.model.grid_resolution, method.model.num_samples_per_ray
+    draws = (torch.randint(0, res**3, (2**18,), generator=gen), torch.rand(2**18, 3, generator=gen))
+    uniforms = {"rgb": [torch.rand(256, samples + 1, generator=gen)]}
+    background = torch.rand(256, 3, generator=gen)
+    results, batch = {}, None
+    for label, (dev, m) in runs.items():
+        tr = setup_trainer(copy.deepcopy(m), base_dir=run_dir / label, device=dev)
+        tr.setup()
+        batch = batch or tr.datamanager.next_train(0)
+        t0 = time.perf_counter()
+        scalars = tr._train_step(
+            tr.state, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
+            uniforms={"rgb": [u.to(dev) for u in uniforms["rgb"]]}, background_uniforms=background.to(dev),
+            extra_draws=tuple(d.to(dev) for d in draws))
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten().float().cpu()
+                           for p in tr.model.param_groups()["fields"]])
+        results[label] = ({k: float(v) for k, v in scalars.items()}, grads, tr.state.extra.densities.cpu(),
+                          time.perf_counter() - t0)
+        del tr
+    want_s, want_g, want_grid, cpu_s = results["cpu"]
+    reads = {}
+    for label in ("cuda", "control"):
+        got_s, got_g, got_grid, _ = results[label]
+        losses = {k: abs(got_s[k] - w) / max(abs(w), 1e-3) for k, w in want_s.items() if k != "num_samples_per_ray"}
+        reads[label] = (losses, rel_l2(got_g, want_g), rel_l2(got_grid, want_grid),
+                        got_s["num_samples_per_ray"], want_s["num_samples_per_ray"])
+        log(f"instant-ngp step_vs_cpu {'float32' if label == 'cuda' else 'bfloat16 control'} (256 rays, full width, "
+            f"CPU step {cpu_s:.1f} s): losses/metrics up to {max(losses.values()):.2e} rel (tol "
+            f"{STEP_LOSS_TOL_F32:g}); fields gradient rel L2 {reads[label][1]:.2e} (tol {STEP_GRAD_TOL_F32:g}); grid "
+            f"after the update rel L2 {reads[label][2]:.2e} (tol {NGP_GRID_TOL:g}); live samples per ray "
+            f"{reads[label][3]:.4f} / CPU {reads[label][4]:.4f}")
+    losses, grad, grid, spr, cpu_spr = reads["cuda"]
+    if max(losses.values()) > STEP_LOSS_TOL_F32 or grad > STEP_GRAD_TOL_F32 or grid > NGP_GRID_TOL or spr != cpu_spr:
+        raise AssertionError(f"instant-ngp f32 step disagrees with the CPU: {reads['cuda']}")
+    losses, grad, _, _, _ = reads["control"]
+    if max(losses.values()) <= STEP_LOSS_TOL_F32 and grad <= STEP_GRAD_TOL_F32:
+        raise AssertionError("instant-ngp: the bf16 control stays within every f32 limit: the limits cannot tell "
+                             "the f32 path from a bf16 one")
+
+
+def ngp_phase(rgb_scene: Path, ingp_scene: Path, tmp: Path, smi: str) -> dict:
+    """Phase 15's instant-ngp family (see the comment above JPEG_DIR)."""
+    from nerfstudio_thermal_torch.scripts import eval as ns_eval
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    t_phase = time.perf_counter()
+    result = {}
+    ngp = ngp_train("instant-ngp", rgb_scene, tmp / "ngp", NGP_STEPS, capture_step=NGP_CAPTURE_STEP)
+    recs = ngp["records"]
+    for r in recs:
+        if "occupied" in r:
+            log(f"instant-ngp step {r['step']}: grid update, {r['occupied'] * 100:.2f}% of the 128^3 cells above "
+                f"alpha_thre; live samples per ray {r['num_samples_per_ray']:.2f} of {NGP_SAMPLES}; {r['rays']} rays this "
+                f"step, dynamic batch -> {r['override']} rays")
+    sizes = [r["rays"] for r in recs]
+    if len(set(sizes)) < 2:
+        raise AssertionError(f"instant-ngp: the ray batch never changed ({sorted(set(sizes))})")
+    timed = [r for r in recs if r["step"] in NGP_TIMED]
+    if len({r["rays"] for r in timed}) != 1:
+        raise AssertionError(f"instant-ngp: the timed stretch changed its batch ({[r['rays'] for r in timed]})")
+    step_s = float(np.mean([r["s"] for r in timed]))
+    rays = timed[0]["rays"]
+    live = float(np.mean([r["num_samples_per_ray"] for r in timed]))
+    result["instant-ngp"] = {"step_s": step_s, "rays": rays, "live": live, "peak": ngp["peak"],
+                             "sizes": sizes, "update_s": [r["s"] for r in recs if r["step"] % 16 == 0]}
+    log(f"instant-ngp train: {NGP_STEPS} steps through ns-train, batches {sizes[0]} -> {sorted(set(sizes))}, "
+        f"launches per step {ngp_step_counts(1)} ({ngp_step_counts(0)} on a grid update; hash_encode_bwd_pos 0), "
+        f"losses finite; steps {NGP_TIMED.start}-{NGP_TIMED.stop - 1}: {step_s * 1e3:.2f} ms/step at {rays} rays, "
+        f"{rays / step_s:,.0f} rays/s, {rays * NGP_SAMPLES / step_s:,.0f} samples/s evaluated, {rays * live / step_s:,.0f} "
+        f"live samples/s ({live:.2f} live a ray); grid-update steps {[round(s * 1e3, 1) for s in result['instant-ngp']['update_s']]} ms; "
+        f"peak memory {ngp['peak'] / 2**30:.2f} GiB ({smi})")
+    step_calls = HASH_MODEL_CALLS[f"instant-ngp train step {NGP_CAPTURE_STEP}"]
+    if [rec["g"] is not None for rec in step_calls] != [False, True] or step_calls[0]["pos"].shape[0] != 2**18:
+        raise AssertionError(f"instant-ngp step {NGP_CAPTURE_STEP}: recorded "
+                             f"{[(r['pos'].shape[0], r['g'] is not None) for r in step_calls]}, expected the grid "
+                             "update's 2^18 points (no cotangent) and the step's samples (with one)")
+    for rec in step_calls:
+        rec["with_pos"] = False  # no position gradient on this path
+    ngp_step_vs_cpu(rgb_scene, tmp / "ngp_step")
+
+    config_path = ngp["run"] / "config.yml"
+    _, trainer = eval_setup(config_path, device="cuda")
+    model = trainer.model
+    c2w = trainer.datamanager.train_cameras.camera_to_worlds[0].numpy()
+    frames, render_launches = {}, {}
+    for label, (w, h, focal) in NGP_RENDERS.items():
+        out, dt, n_chunks = ngp_render(model, label, w, h, focal, c2w)
+        frames[label] = dt
+        render_launches[label] = read_counts()
+        log(f"instant-ngp render {label}: {n_chunks} chunks of {model.config.eval_num_rays_per_chunk} rays x {NGP_SAMPLES} "
+            f"samples, one hash forward a chunk, outputs finite; {dt:.3f} s/frame, {w * h / dt:,.0f} rays/s, "
+            f"{w * h * NGP_SAMPLES / dt:,.0f} samples/s ({smi})")
+        del out
+    result["instant-ngp"].update(frames=frames, render_launches=render_launches, counts=ngp["counts"])
+    del trainer, model
+    torch.cuda.empty_cache()
+    out_json = tmp / "ngp_eval.json"
+    t0 = time.perf_counter()
+    if ns_eval.main(["--load-config", str(config_path), "--output-path", str(out_json)], device="cuda") != 0:
+        raise AssertionError("ns-eval of the instant-ngp run failed")
+    scores = json.loads(out_json.read_text())["results"]
+    if not all(math.isfinite(v) for v in scores.values()) or "psnr_rgb" not in scores:
+        raise AssertionError(f"ns-eval of the instant-ngp run: {scores}")
+    log(f"instant-ngp ns-eval: {time.perf_counter() - t0:.2f} s, psnr_rgb {scores['psnr_rgb']:.3f}, ssim_rgb "
+        f"{scores['ssim_rgb']:.4f}")
+
+    bounded = ngp_train("instant-ngp-bounded", ingp_scene, tmp / "ngp_bounded", NGP_BOUNDED_STEPS)
+    recs = bounded["records"]
+    timed = [r for r in recs if r["step"] >= 17]
+    step_s = float(np.mean([r["s"] for r in timed]))
+    _, trainer = eval_setup(bounded["run"] / "config.yml", device="cuda")
+    out, dt, n_chunks = ngp_render(trainer.model, "640x480", 640, 480, 0.8 * 640,
+                                   trainer.datamanager.train_cameras.camera_to_worlds[0].numpy())
+    over = float((out["rgb"] - out["accumulation"]).max())
+    if over > 1e-3:
+        raise AssertionError(f"instant-ngp-bounded: rgb exceeds the accumulation by {over} (the background is not black)")
+    log(f"instant-ngp-bounded train: {NGP_BOUNDED_STEPS} steps through ns-train, batches "
+        f"{sorted({r['rays'] for r in recs})}, losses finite; steps 17-{NGP_BOUNDED_STEPS - 1}: {step_s * 1e3:.2f} "
+        f"ms/step at {timed[0]['rays']} rays; render 640x480 {dt:.3f} s, black background (rgb <= accumulation "
+        f"+ {max(over, 0.0):.1e}); peak memory {bounded['peak'] / 2**30:.2f} GiB ({smi})")
+    result["instant-ngp-bounded"] = {"step_s": step_s, "rays": timed[0]["rays"], "frame_s": dt}
+    del trainer, out
+    torch.cuda.empty_cache()
+
+    counts, step_s, rays, _, _, trainer = train_phase("nerfacto:colmap", JPEG_DIR / "colmap_sphere",
+                                                      tmp / "nerfacto_colmap", COLMAP_STEPS, 2)
+    log(f"nerfacto on the COLMAP JPEG scene: {COLMAP_STEPS} steps, {step_s * 1e3:.2f} ms/step, "
+        f"{rays / step_s:,.0f} rays/s; launches {dict((k, v) for k, v in counts.items() if v)} ({smi})")
+    result["nerfacto:colmap"] = {"step_s": step_s, "rays": rays, "launches": {k: v for k, v in counts.items() if v}}
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"phase 15 instant-ngp family and COLMAP: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -2638,6 +3068,14 @@ def main() -> int:
         surface_entry_phase(entry_scene, Path(tmp) / "surface_entry")
         # phase 14: the render surface (ns-render, camera types), fused_modalities and the profiler
         render_surface = render_surface_phase(entries, scene, Path(tmp) / "render_surface", smi)
+        # phase 15: the data path (JPEG, parsers) and the instant-ngp family
+        image_io = image_io_phase(smi)
+        data_scenes = parsers_phase(Path(tmp) / "parsers")
+        ngp_scene = write_scene(Path(tmp) / "sphere_ngp", num_pairs=NGP_PAIRS, thermal=False)
+        ngp = ngp_phase(ngp_scene, data_scenes["instant-ngp-data"], Path(tmp) / "ngp", smi)
+        ngp_hash = hash_model_phase({k: v for k, v in HASH_MODEL_CALLS.items() if k.startswith("instant-ngp")})
+        HASH_MODEL_CALLS.clear()
+        torch.cuda.empty_cache()
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -2731,6 +3169,18 @@ def main() -> int:
             counted = {m: r["counts"][name] for m, r in runs.items() if r["counts"].get(name)}
             if counted:
                 rec[field] = counted
+        # phase 15: the hash kernels on instant-ngp's own points, and their
+        # launches in its ns-train run, a 1080p render and the COLMAP run
+        for scope, sums in ngp_hash.items():
+            if name in sums:
+                rec["model_" + scope.replace(" ", "_").replace("-", "_")] = sums[name]
+        if name.startswith("hash_encode"):
+            rec["instant_ngp_launches"] = {
+                "train": ngp["instant-ngp"]["counts"][name],
+                "per_step": ngp_step_counts(1).get(name, 0), "per_grid_update_step": ngp_step_counts(0).get(name, 0),
+                "render_1080p": ngp["instant-ngp"]["render_launches"]["1080p"][name],
+            }
+            rec["nerfacto_colmap_launches"] = ngp["nerfacto:colmap"]["launches"].get(name, 0)
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -2753,6 +3203,17 @@ def main() -> int:
     log(f"thermal-nerfacto 1080p include_per_sample peak memory "
         f"{render_surface['camera_types']['per_sample_peak'] / 2**30:.2f} GiB (per-ray outputs only "
         f"{render_surface['camera_types']['per_ray_peak'] / 2**30:.2f} GiB) ({smi})")
+    log(f"image_io: 1920x1080 JPEG decode {image_io['decode_ms']:.1f} ms, 0.5x resize {image_io['resize_ms']:.1f} ms "
+        f"(host) ({smi})")
+    r = ngp["instant-ngp"]
+    log(f"instant-ngp: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays ({r['rays'] / r['step_s']:,.0f} rays/s, "
+        f"{r['live']:.2f} live samples a ray), batches {sorted(set(r['sizes']))}, peak memory {r['peak'] / 2**30:.2f} "
+        f"GiB; " + ", ".join(f"{k} frame {v:.3f} s" for k, v in r["frames"].items()) + f" ({smi})")
+    r = ngp["instant-ngp-bounded"]
+    log(f"instant-ngp-bounded: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays; 640x480 frame "
+        f"{r['frame_s']:.3f} s ({smi})")
+    r = ngp["nerfacto:colmap"]
+    log(f"nerfacto on the COLMAP JPEG scene: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,40 +1,44 @@
 """Method registry (counterpart of nerfstudio_thermal_tpu/configs/method_configs.py).
 
 `thermal-nerfacto` and `thermal-nerfacto-tpu` (the ThermalNerf
-dataparser, eight optimizer groups) and the nerfacto family `nerfacto`,
+dataparser, eight optimizer groups), the nerfacto family `nerfacto`,
 `nerfacto-tpu`, `nerfacto-big` and `nerfacto-huge` (the Nerfstudio
-dataparser, three groups), under the JAX package's names and with its
+dataparser, three groups), and `instant-ngp` (Nerfstudio dataparser) and
+`instant-ngp-bounded` (instant_ngp dataparser), one group each, with the
+dynamic-batch pipeline; under the JAX package's names and with its
 fields; `descriptions` for ns-train's method list; `resolve_model_class`;
-and `setup_trainer`, which wires dataparser -> data manager -> model ->
-pipeline -> trainer as the JAX package's does. The JAX package's other
-methods and its plugin registry are not registered here (ROADMAP A8 and
-A9).
+and `setup_trainer`, which wires dataparser (through `build_dataparser`)
+-> data manager -> model -> pipeline -> trainer as the JAX package's
+does. The JAX package's other methods and its plugin registry are not
+registered here (ROADMAP A8 and A9).
 """
 
 import copy
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from nerfstudio_thermal_torch.cameras.camera_optimizers import CameraOptimizerConfig
+from nerfstudio_thermal_torch.configs.dataparser_configs import build_dataparser
 from nerfstudio_thermal_torch.data.datamanagers import VanillaDataManager, VanillaDataManagerConfig
+from nerfstudio_thermal_torch.data.dataparsers.instant_ngp_dataparser import InstantNGPDataParserConfig
 from nerfstudio_thermal_torch.data.dataparsers.nerfstudio_dataparser import (
-    Nerfstudio,
     NerfstudioDataParserConfig,
-    ThermalNerf,
     ThermalNerfDataParserConfig,
 )
 from nerfstudio_thermal_torch.engine.optimizers import AdamOptimizerConfig, OptimizerGroupConfig
 from nerfstudio_thermal_torch.engine.schedulers import ExponentialDecaySchedulerConfig
 from nerfstudio_thermal_torch.engine.trainer import Trainer, TrainerConfig
+from nerfstudio_thermal_torch.models.instant_ngp import InstantNGPModel, InstantNGPModelConfig
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 from nerfstudio_thermal_torch.models.thermal_nerfacto import (
     ThermalNerfactoModel,
     ThermalNerfactoModelConfig,
 )
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
+from nerfstudio_thermal_torch.pipelines.dynamic_batch import DynamicBatchPipeline, DynamicBatchPipelineConfig
 
 
 @dataclass
@@ -49,10 +53,8 @@ class MethodConfig:
     optimizers: Dict[str, OptimizerGroupConfig] = field(default_factory=dict)
     data: Optional[Path] = None
     description: str = ""
-    dynamic_batch: Optional[Any] = None
-    """The JAX package's DynamicBatchPipelineConfig (instant-ngp); the
-    dynamic-batch pipeline is not ported yet, and setup_trainer raises when
-    this is set."""
+    dynamic_batch: Optional[DynamicBatchPipelineConfig] = None
+    """When set, the pipeline is a DynamicBatchPipeline (instant-ngp)."""
 
 
 def _field_opt():
@@ -204,6 +206,38 @@ def _tpu_variant(base: MethodConfig, name: str) -> MethodConfig:
     return cfg
 
 
+def make_instant_ngp() -> MethodConfig:
+    return MethodConfig(
+        method_name="instant-ngp",
+        description="Instant-NGP: hash field with occupancy-grid skipping.",
+        trainer=TrainerConfig(
+            max_num_iterations=30000, steps_per_eval_batch=500,
+            steps_per_save=2000, mixed_precision=True, method_name="instant-ngp",
+        ),
+        dataparser=NerfstudioDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=4096, eval_num_rays_per_batch=4096),
+        model=InstantNGPModelConfig(eval_num_rays_per_chunk=8192, compute_dtype="bfloat16"),
+        dynamic_batch=DynamicBatchPipelineConfig(),
+        optimizers={"fields": _field_opt()},
+    )
+
+
+def make_instant_ngp_bounded() -> MethodConfig:
+    """instant-ngp on the instant_ngp parser's scenes: 8192 rays, no scene
+    contraction, near plane 0.01, black background."""
+    cfg = make_instant_ngp()
+    cfg.method_name = "instant-ngp-bounded"
+    cfg.trainer.method_name = "instant-ngp-bounded"
+    cfg.description = "Instant-NGP for bounded real/synthetic scenes."
+    cfg.dataparser = InstantNGPDataParserConfig()
+    cfg.datamanager.train_num_rays_per_batch = 8192
+    m = cfg.model
+    m.disable_scene_contraction = True
+    m.near_plane = 0.01
+    m.background_color = "black"
+    return cfg
+
+
 _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "nerfacto": make_nerfacto,
     "thermal-nerfacto": make_thermal_nerfacto,
@@ -211,6 +245,8 @@ _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "thermal-nerfacto-tpu": lambda: _tpu_variant(make_thermal_nerfacto(), "thermal-nerfacto-tpu"),
     "nerfacto-big": make_nerfacto_big,
     "nerfacto-huge": make_nerfacto_huge,
+    "instant-ngp": make_instant_ngp,
+    "instant-ngp-bounded": make_instant_ngp_bounded,
 }
 
 
@@ -228,6 +264,8 @@ def get_method_config(name: str) -> MethodConfig:
 
 def resolve_model_class(model_config) -> type:
     """Model config -> model class, the most derived config first."""
+    if isinstance(model_config, InstantNGPModelConfig):
+        return InstantNGPModel
     if isinstance(model_config, ThermalNerfactoModelConfig):
         return ThermalNerfactoModel
     return NerfactoModel
@@ -241,12 +279,9 @@ def setup_trainer(
     """Dataparser -> data manager -> model -> pipeline -> trainer. The model
     is built on `device` (CUDA unless the caller asks for the CPU) from the
     trainer's seed, of the class `resolve_model_class` gives."""
-    if config.dynamic_batch is not None:
-        raise NotImplementedError("the dynamic-batch pipeline (MethodConfig.dynamic_batch) is not ported yet")
     if config.data is not None:
         config.dataparser.data = Path(config.data)
-    parser_cls = ThermalNerf if isinstance(config.dataparser, ThermalNerfDataParserConfig) else Nerfstudio
-    datamanager = VanillaDataManager(config.datamanager, parser_cls(config.dataparser))
+    datamanager = VanillaDataManager(config.datamanager, build_dataparser(config.dataparser))
     metadata = dict(datamanager.train_dataparser_outputs.metadata)
     if "is_thermal" not in metadata:
         metadata["is_thermal"] = list(datamanager.train_dataset.is_thermal)
@@ -258,5 +293,8 @@ def setup_trainer(
         device=device,
         seed=config.trainer.seed,
     )
-    pipeline = VanillaPipeline(datamanager, model)
+    if config.dynamic_batch is not None:
+        pipeline = DynamicBatchPipeline(datamanager, model, config.dynamic_batch)
+    else:
+        pipeline = VanillaPipeline(datamanager, model)
     return Trainer(config.trainer, pipeline, config.optimizers, base_dir=base_dir)

@@ -11,7 +11,7 @@ prefetching manager of the JAX package is later work.
 """
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -50,6 +50,9 @@ class VanillaDataManager:
             self.eval_dataset, seed=config.seed + 1,
         )
         self._eval_image_index = 0
+        self.num_rays_override: Optional[int] = None
+        """Rays of the next training batches when set (the dynamic-batch
+        pipeline sets it); the config's train_num_rays_per_batch otherwise."""
         self._native = self._try_native_sampler() if config.use_native_sampler else None
 
     def _try_native_sampler(self):
@@ -85,7 +88,7 @@ class VanillaDataManager:
         return self.eval_dataset.cameras
 
     def next_train(self, step: int) -> Dict[str, np.ndarray]:
-        n = self.config.train_num_rays_per_batch
+        n = self.num_rays_override or self.config.train_num_rays_per_batch
         if self._native is not None:
             return self._native.sample(n, step=step)
         return self.train_pixel_sampler.sample(n, step=step)

@@ -1,7 +1,8 @@
 """Dataparser base types (counterpart of nerfstudio_thermal_tpu/data/dataparsers/base_dataparser.py).
 
 `DataparserOutputs`: image filenames, the port's `Cameras` (CPU tensors),
-the scene box, the dataparser transform and scale, and per-image metadata;
+the scene box, the dataparser transform and scale, and per-image metadata
+(`make_cameras` builds the Cameras from a parser's numpy arrays);
 `as_dict` gives the transform and scale for dataparser_transforms.json.
 """
 
@@ -10,8 +11,15 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from nerfstudio_thermal_torch.cameras.cameras import Cameras
+
+
+def make_cameras(**arrays) -> Cameras:
+    """The port's Cameras (CPU tensors) from the numpy arrays a JAX parser
+    hands its Cameras; None stays None."""
+    return Cameras(**{k: None if v is None else torch.as_tensor(np.asarray(v)) for k, v in arrays.items()})
 
 
 @dataclass

@@ -1,0 +1,65 @@
+"""D-NeRF (dynamic blender) dataparser (counterpart of
+nerfstudio_thermal_tpu/data/dataparsers/dnerf_dataparser.py): the blender
+format plus a per-frame `time` on the Cameras, so ray bundles carry
+times.
+"""
+
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+from nerfstudio_thermal_torch.cameras.cameras import CameraType
+from nerfstudio_thermal_torch.data.dataparsers.base_dataparser import (
+    DataParser,
+    DataParserConfig,
+    DataparserOutputs,
+    make_cameras,
+)
+from nerfstudio_thermal_torch.data.dataparsers.blender_dataparser import frame_filename, split_meta
+
+
+@dataclass
+class DNeRFDataParserConfig(DataParserConfig):
+    data: Path = Path("data/dnerf/lego")
+    scale_factor: float = 1.0
+    alpha_color: str = "white"
+
+
+class DNeRF(DataParser):
+    config: DNeRFDataParserConfig
+    includes_time: bool = True
+
+    def _generate_dataparser_outputs(self, split: str = "train", **kwargs):
+        from nerfstudio_thermal_torch.data.datasets import image_size
+
+        data = Path(self.config.data)
+        meta = split_meta(data, split)
+        image_filenames = [frame_filename(data, frame) for frame in meta["frames"]]
+        poses = np.stack([np.asarray(frame["transform_matrix"], np.float32) for frame in meta["frames"]])
+        times = [float(frame.get("time", 0.0)) for frame in meta["frames"]]
+        poses = poses[:, :3, :4]
+        poses[:, :3, 3] *= self.config.scale_factor
+
+        w, h = image_size(image_filenames[0])
+        focal = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
+        n = len(image_filenames)
+        cameras = make_cameras(
+            camera_to_worlds=poses.astype(np.float32),
+            fx=np.full((n,), focal, np.float32),
+            fy=np.full((n,), focal, np.float32),
+            cx=np.full((n,), w / 2, np.float32),
+            cy=np.full((n,), h / 2, np.float32),
+            width=np.full((n,), w, np.int32),
+            height=np.full((n,), h, np.int32),
+            distortion_params=np.zeros((n, 6), np.float32),
+            camera_type=np.full((n,), CameraType.PERSPECTIVE.value, np.int32),
+            times=np.asarray(times, np.float32),
+        )
+        aabb = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)
+        return DataparserOutputs(
+            image_filenames=image_filenames,
+            cameras=cameras,
+            scene_box=aabb,
+            dataparser_scale=self.config.scale_factor,
+        )

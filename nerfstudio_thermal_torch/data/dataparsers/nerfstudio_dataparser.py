@@ -80,9 +80,9 @@ class Nerfstudio(DataParser):
             df = 0
             if test_img.exists():
                 try:
-                    from nerfstudio_thermal_torch.data.datasets import png_size
+                    from nerfstudio_thermal_torch.data.datasets import image_size
 
-                    w, h = png_size(test_img)
+                    w, h = image_size(test_img)
                     while max(h, w) // (2 ** (df + 1)) > MAX_AUTO_RESOLUTION and (
                         data_dir / f"{downsample_folder_prefix}{2 ** (df + 1)}" / filepath.name
                     ).exists():

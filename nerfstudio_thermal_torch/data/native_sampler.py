@@ -12,41 +12,26 @@ loaded.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
-_SOURCE = Path(__file__).resolve().parents[1] / "native" / "batch_sampler.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
+from nerfstudio_thermal_torch.data import native_build
+
+_SOURCE = native_build.NATIVE_DIR / "batch_sampler.cpp"
+_BUILD_DIR = native_build.BUILD_DIR
 _lib = None
 _load_failed = False
 
 
 def library_path() -> Path:
-    digest = hashlib.sha1(_SOURCE.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"libbatch_sampler-{digest}.so"
+    return native_build.library_path(_SOURCE, "libbatch_sampler", _BUILD_DIR)
 
 
 def build() -> Path:
-    """Compile the library if it is missing (into a temporary name, then
-    renamed, so concurrent builds never load a partial file)."""
-    path = library_path()
-    if not path.exists():
-        compiler = shutil.which(os.environ.get("CXX", "g++"))
-        if compiler is None:
-            raise RuntimeError("no C++ compiler to build the native batch sampler")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([compiler, *_FLAGS, "-o", str(tmp), str(_SOURCE)], check=True, capture_output=True,
-                       timeout=120)
-        os.replace(tmp, path)
-    return path
+    """Compile the library if it is missing."""
+    return native_build.build_library(_SOURCE, "libbatch_sampler", _BUILD_DIR)
 
 
 def _load():

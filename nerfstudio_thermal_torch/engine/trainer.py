@@ -15,7 +15,13 @@ group, the counters.
 scalars, the three eval cadences (an eval ray batch's losses and metrics,
 one eval image with its metrics and images, and the whole eval set's mean
 metrics, each skipped while the eval split is empty) and checkpoints
-through torch.save (`train` always saves at the end). As in the JAX
+through torch.save (`train` always saves at the end). A model's extra
+state (`init_extra_state`: instant-ngp's occupancy grid) rides in
+`TrainState.extra`, is updated at the start of each step, reaches the
+forward through `extra_forward_kwargs`, and is saved and restored with the
+checkpoint; after each step the pipeline's `after_train_iteration` (the
+dynamic-batch pipeline) sees the step's scalars, and the logged rays/s
+counts the data manager's `num_rays_override` when it is set. As in the JAX
 package, a failing eval batch or eval image is printed and training goes
 on. With `gradient_accumulation_steps` k > 1 the optimizers are wrapped in
 `MultiSteps` (optax.MultiSteps): every step still counts (the step, the
@@ -27,11 +33,12 @@ torch.profiler trace of steps 10-15 (utils/profiler.py). The viewer is
 later work.
 """
 
+import dataclasses
 import time
 import traceback
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -56,6 +63,7 @@ class TrainState:
     step: int = 0
     steps_since_update: int = 0  # proposal update counter (rgb)
     steps_since_update_thermal: int = 0
+    extra: Any = None  # the model's auxiliary state (instant-ngp's occupancy grid)
 
 
 @dataclass
@@ -113,9 +121,12 @@ def _random_background(model, outputs, generator: torch.Generator) -> torch.Tens
 
 
 def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras) -> Callable:
-    """(state, batch, uniforms=None, background_uniforms=None, tv_uniforms=None) -> scalars.
+    """(state, batch, uniforms=None, background_uniforms=None, tv_uniforms=None, extra_draws=None) -> scalars.
 
     Updates the model's parameters, the optimizers and `state` in place.
+    The step first updates the model's extra state (`update_extra_state`,
+    from the parameters the step starts from; `extra_draws` replaces its
+    draws), then runs the forward with `extra_forward_kwargs`.
     `uniforms` ({"rgb": [...], "thermal": [...]}, one draw per sampling
     level) replaces the jitter the state's generator would draw,
     `background_uniforms` the draw of a random background (U[0, 1) of the
@@ -123,18 +134,21 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
     and `tv_uniforms` ({"rgb": [P, 3], "thermal": [P, 3]}) the density TV
     loss's points; a test passes the JAX package's draws there."""
     cfg = model.config
-    use_anneal = cfg.use_proposal_weight_anneal
+    # a model without proposal networks (instant-ngp) takes the JAX step's defaults
+    use_anneal = getattr(cfg, "use_proposal_weight_anneal", True)
     use_anneal_t = getattr(cfg, "use_proposal_thermal_weight_anneal", False)
-    anneal_iters = cfg.proposal_weights_anneal_max_num_iters
-    anneal_slope = cfg.proposal_weights_anneal_slope
-    warmup = cfg.proposal_warmup
-    update_every = cfg.proposal_update_every
+    anneal_iters = getattr(cfg, "proposal_weights_anneal_max_num_iters", 1000)
+    anneal_slope = getattr(cfg, "proposal_weights_anneal_slope", 10.0)
+    warmup = getattr(cfg, "proposal_warmup", 5000)
+    update_every = getattr(cfg, "proposal_update_every", 5)
     thermal = hasattr(model, "output_suffixes")
     random_background = _uses_random_background(model)
     ray_generator = RayGenerator(cameras)
 
-    def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None, tv_uniforms=None):
+    def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None, tv_uniforms=None,
+                   extra_draws=None):
         step = state.step
+        state.extra = model.update_extra_state(state.extra, step, generator=state.generator, draws=extra_draws)
         anneal = proposal_anneal(step, anneal_iters, anneal_slope) if use_anneal else 1.0
         updated, new_ssu = proposal_updated(step, state.steps_since_update, warmup, update_every)
         kwargs = {}
@@ -156,6 +170,7 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
         outputs = model(
             bundle, train=True, anneal=anneal, updated=updated,
             uniforms=uniforms, generator=state.generator, **kwargs,
+            **model.extra_forward_kwargs(state.extra),
         )
         metrics = model.get_metrics_dict(outputs, batch, train=True)
         if random_background and background_uniforms is None:
@@ -222,7 +237,7 @@ class Trainer:
         if self.config.gradient_accumulation_steps > 1:
             self.optimizers = MultiSteps(self.optimizers, self.config.gradient_accumulation_steps)
         generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
-        self.state = TrainState(generator=generator)
+        self.state = TrainState(generator=generator, extra=self.model.init_extra_state())
         self.cameras = self.datamanager.train_cameras.to(self.device)
         self._load_checkpoint(eval_only)
         self._train_step = make_ray_train_step(self.model, self.optimizers, self.cameras)
@@ -234,7 +249,13 @@ class Trainer:
     @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         batch = _batch_to(self.datamanager.next_train(step), self.device)
-        return self._train_step(self.state, batch)
+        scalars = self._train_step(self.state, batch)
+        after = getattr(self.pipeline, "after_train_iteration", None)
+        if after is not None:
+            # DynamicBatchPipeline sizes the next ray batch (it reads a
+            # device scalar only on its update_every steps)
+            after(scalars, step)
+        return scalars
 
     def _has_eval_data(self) -> bool:
         n = len(self.datamanager.eval_dataset)
@@ -256,7 +277,10 @@ class Trainer:
                 t_now = time.perf_counter()
                 iter_time = (t_now - t_last) / max(cfg.steps_per_log, 1)
                 t_last = t_now
-                num_rays = self.datamanager.config.train_num_rays_per_batch
+                num_rays = (
+                    getattr(self.datamanager, "num_rays_override", None)
+                    or self.datamanager.config.train_num_rays_per_batch
+                )
                 scalars[EventName.TRAIN_RAYS_PER_SEC] = num_rays / max(iter_time, 1e-9)
                 scalars[EventName.ITER_TRAIN_TIME] = iter_time
                 scalars[EventName.ETA] = (cfg.max_num_iterations - step) * iter_time
@@ -340,6 +364,7 @@ class Trainer:
                 "model": self.model.state_dict(),
                 "optimizers": self.optimizers.state_dict(),
                 "eval_image_index": self.datamanager._eval_image_index,
+                **({"extra": dataclasses.asdict(self.state.extra)} if self.state.extra is not None else {}),
             },
             path,
         )
@@ -379,5 +404,8 @@ class Trainer:
                 f"{self.device}; resume the run on the device it was trained on"
             )
         self.datamanager._eval_image_index = int(ckpt.get("eval_image_index", 0))
+        if "extra" in ckpt and self.state.extra is not None:
+            restored = {k: v.to(self.device) if isinstance(v, torch.Tensor) else v for k, v in ckpt["extra"].items()}
+            self.state.extra = dataclasses.replace(self.state.extra, **restored)
         self._start_step = self.state.step
         print(f"Loaded checkpoint {path} at step {self._start_step}")

@@ -97,6 +97,19 @@ class Model(nn.Module):
     def get_outputs(self, ray_bundle: RayBundle, *, train: bool = False, **kwargs) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
+    # Auxiliary training state the trainer carries beside the parameters
+    # (instant-ngp's occupancy grid): made once, updated at the start of
+    # each train step (draws from the step's generator, or `draws` where a
+    # test passes them), handed to the train step's forward as keywords.
+    def init_extra_state(self) -> Any:
+        return None
+
+    def update_extra_state(self, extra: Any, step: int, generator=None, draws=None) -> Any:
+        return extra
+
+    def extra_forward_kwargs(self, extra: Any) -> Dict[str, Any]:
+        return {}
+
     def forward(self, ray_bundle: RayBundle, *, train: bool = False, **kwargs) -> Dict[str, torch.Tensor]:
         """Collider, then get_outputs (training takes the anneal, update
         flags and jitter draws as keyword arguments)."""

@@ -23,7 +23,14 @@ Layouts handled:
 - the top-level groups below.
 A key the port does not expect, or one it expects and does not find,
 raises: a silent partial load would compare different models.
+
+`load_jax_extra` / `export_jax_extra` carry the trainer's extra state
+(instant-ngp's occupancy grid: its `densities`) the same way, from the
+JAX TrainState's `extra` (e.g. `jax.tree.map(np.asarray, state.extra)`
+as a dict, or the grid itself) and back.
 """
+
+import dataclasses
 
 from typing import Any, Dict, Mapping
 
@@ -210,3 +217,34 @@ def export_jax_tree(model: nn.Module, grads: bool = False) -> Dict[str, Any]:
             continue
         tree[group] = export_module(module, grads)
     return tree
+
+
+def load_jax_extra(extra: Any, jax_extra: Any) -> Any:
+    """The port's extra state (a dataclass such as OccupancyGridState) with
+    the arrays of the JAX one (its dataclass or a dict of its array
+    fields) copied in; the static fields must agree."""
+    source = jax_extra if isinstance(jax_extra, Mapping) else {
+        f.name: getattr(jax_extra, f.name) for f in dataclasses.fields(jax_extra)
+    }
+    updates = {}
+    for f in dataclasses.fields(extra):
+        value = getattr(extra, f.name)
+        if f.name not in source:
+            raise KeyError(f"extra: missing {f.name}")
+        if isinstance(value, torch.Tensor):
+            new = torch.tensor(np.asarray(source[f.name]), dtype=value.dtype)
+            if new.shape != value.shape:
+                raise ValueError(f"extra/{f.name}: JAX shape {tuple(new.shape)} != port shape {tuple(value.shape)}")
+            updates[f.name] = new.to(value.device)
+        elif np.asarray(source[f.name]).tolist() != np.asarray(value).tolist():
+            raise ValueError(f"extra/{f.name}: JAX {source[f.name]} != port {value}")
+    return dataclasses.replace(extra, **updates)
+
+
+def export_jax_extra(extra: Any) -> Dict[str, np.ndarray]:
+    """The array fields of the port's extra state as numpy arrays."""
+    return {
+        f.name: getattr(extra, f.name).detach().cpu().numpy().copy()
+        for f in dataclasses.fields(extra)
+        if isinstance(getattr(extra, f.name), torch.Tensor)
+    }
