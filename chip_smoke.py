@@ -204,6 +204,33 @@ Phases, each fatal on failure:
      640x480 frame whose black background keeps rgb <= accumulation;
    - nerfacto trains 20 steps on the COLMAP JPEG scene through phase 8's
      checks (rows 7-10 with camera gradients).
+16. vanilla-nerf, mipnerf, tensorf and depth-nerfacto (after phase 15; the
+   JSON line's rows 1-2 and hash kernels carry its numbers as extra
+   fields: nerf_stacks, model_<method>_train_step, <method>_launches):
+   - rows 1-2 on the frequency NeRF's base stacks (8 x 256, skip at 4, the
+     last layer 256, over a 63- or 99-wide input encoded outside the
+     kernel), bf16 and f32, against their plain versions: the forward at
+     1,048,576 points, the backward at 262,144, with plain, library and
+     bound times;
+   - vanilla-nerf (4096 rays) and mipnerf (1024 rays) train 30 steps each
+     through ns-train on an 8-frame 800x800 blender scene, with the
+     default use_pallas off (no launch) and on (rows 1-2 twice a step,
+     the coarse and the fine pass); every loss finite, the field changed;
+     step 9's two fused-MLP calls held against the plain versions on their
+     own inputs and cotangents and timed; frames from the reloaded run
+     (vanilla-nerf 1920x1080 and 640x512, mipnerf 640x512; row 1 twice a
+     chunk), ns-eval, and an f32 256-ray step against the CPU's at 4
+     position frequencies with a bf16 control (phase 9's limits);
+   - tensorf trains 30 steps with its grids upsampled after steps 10 and
+     20 (128 -> 196 -> 300: the grids, zero moments and the kept count
+     checked after each), renders 640x512, and its ns-eval must raise as
+     the JAX package's reload does (the checkpoint's 300^2 grids against
+     the config's 128);
+   - depth-nerfacto trains 30 steps on a 10-frame sphere scene with 16-bit
+     depth PNGs (depth_loss and depth_mae finite every step, eval batches'
+     depth_mae, rows 7-10 by proposal update), its step-9 hash calls go
+     through phase 8b's checks and timings, a 640x512 frame, ns-eval;
+   - ms/step, seconds per frame and peak memory of each method.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -2954,6 +2981,565 @@ def ngp_phase(rgb_scene: Path, ingp_scene: Path, tmp: Path, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: vanilla-nerf, mipnerf, tensorf and depth-nerfacto.
+#
+# vanilla-nerf and mipnerf run their 8 x 256 base stacks (skip at 4, the last
+# layer 256 wide) over an input encoded outside the kernel: 63 wide (10
+# frequencies) and 99 wide (mipnerf's 16-frequency integrated encoding). With
+# use_pallas each training step runs rows 1 and 2 twice (the coarse and the
+# fine pass's field), each render chunk row 1 twice; without it nothing
+# launches. tensorf launches no kernel (XLA gathers and a 2 x 128 head in
+# JAX). depth-nerfacto launches what nerfacto does (rows 7-10; its camera
+# optimizer gives row 10). The f32 card-vs-CPU step holds phase 9's limits
+# at 4 position frequencies (CLASSIC_F32_FREQS): at the methods' 10 or 16
+# the card's and the CPU's ray positions differ in the last bit, and the
+# top frequencies (up to 2 pi 2^15 rad per unit) amplify that (ROADMAP C4).
+
+CLASSIC_STEPS, CLASSIC_TIMED_FROM, CLASSIC_CAPTURE_STEP = 30, 10, 9
+BLENDER_FRAMES, BLENDER_SIZE, BLENDER_VAL = 8, 800, 2  # the synthetic scenes' frames; val frames kept
+DEPTH_FRAMES = 10  # the 0.9 split holds one frame out for ns-eval
+CLASSIC_RENDERS = {"1080p": (1920, 1080, 1400.0), "640x512": (640, 512, 500.0)}
+NERF_STACKS = {"vanilla-nerf": 63, "mipnerf": 99}  # the base stack's input width
+NERF_DIMS = (256,) * 8
+NERF_FWD_N, NERF_BWD_N = 1 << 20, 1 << 18
+CLASSIC_F32_FREQS = 4
+TENSORF_UPSAMPLES = (10, 20)  # within the run: 128 -> 196 -> 300
+CLASSIC = {
+    # launches a training step / a render chunk; renders; the run's flags
+    "vanilla-nerf": dict(step={"fused_mlp_fwd": 2, "fused_mlp_bwd": 2}, chunk={"fused_mlp_fwd": 2},
+                         renders=("1080p", "640x512"), flags=["--pipeline.model.use-pallas", "True"]),
+    "mipnerf": dict(step={"fused_mlp_fwd": 2, "fused_mlp_bwd": 2}, chunk={"fused_mlp_fwd": 2},
+                    renders=("640x512",), flags=["--pipeline.model.use-pallas", "True"]),
+    "tensorf": dict(step={}, chunk={}, renders=("640x512",),
+                    flags=["--pipeline.model.upsampling-iters", ",".join(map(str, TENSORF_UPSAMPLES))]),
+    "depth-nerfacto": dict(step=None, chunk={"hash_encode_fwd": 3}, renders=("640x512",),
+                           flags=["--pipeline.datamanager.dataparser.auto-scale-poses", "False",
+                                  "--steps-per-eval-batch", "10"]),
+}
+
+
+def write_classic_blender(root: Path) -> Path:
+    """The blender scene at the synthetic scenes' size: BLENDER_FRAMES
+    frames of 800 x 800, the val (and test) split cut to BLENDER_VAL."""
+    write_blender_scene(root, num=BLENDER_FRAMES, size=BLENDER_SIZE)
+    for split in ("val", "test"):
+        meta = json.loads((root / f"transforms_{split}.json").read_text())
+        meta["frames"] = meta["frames"][:BLENDER_VAL]
+        (root / f"transforms_{split}.json").write_text(json.dumps(meta))
+    return root
+
+
+def write_depth_scene(root: Path, num: int = DEPTH_FRAMES, w: int = 640, h: int = 480) -> Path:
+    """The RGB sphere scene in the Nerfstudio layout with a 16-bit depth PNG
+    per frame: the z-depth of the ray-sphere hit in millimetres, 0 (no
+    depth) where the ray misses."""
+    from nerfstudio_thermal_torch.utils.writer import write_png
+
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "depths").mkdir(parents=True, exist_ok=True)
+    frames, focal = [], 0.8 * w
+    ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
+    cam = np.stack([(xs - w / 2) / focal, -(ys - h / 2) / focal, -np.ones_like(xs)], -1)
+    for i in range(num):
+        ang = 2 * np.pi * i / num
+        c2w = look_at(np.array([3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.2]))
+        write_png(root / "images" / f"frame_{i:04d}.png", render_sphere(c2w, w, h, focal, False))
+        norm = np.linalg.norm(cam, axis=-1)
+        d = (cam @ c2w[:3, :3].T) / norm[..., None]
+        o = c2w[:3, 3]
+        b = d @ o
+        disc = b * b - (o @ o - 1.0)
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        z_mm = np.where(disc > 0, np.rint(t / norm * 1000.0), 0.0).astype(np.uint16)
+        write_png(root / "depths" / f"frame_{i:04d}.png", z_mm[..., None])
+        frames.append({"file_path": f"images/frame_{i:04d}.png", "depth_file_path": f"depths/frame_{i:04d}.png",
+                       "transform_matrix": c2w.tolist(), "fl_x": focal, "fl_y": focal, "cx": w / 2, "cy": h / 2,
+                       "w": w, "h": h})
+    (root / "transforms.json").write_text(json.dumps({"frames": frames}))
+    return root
+
+
+@contextlib.contextmanager
+def recording_mlp_calls():
+    """While open, every fused-MLP call of the port's MLP modules (the
+    models' entry to rows 1 and 2) appends a record to the yielded list:
+    its input, weights and biases (cloned: the step's update follows), spec
+    and, where its backward runs, the cotangent its output receives. The
+    call computes and counts as before."""
+    from nerfstudio_thermal_torch.ops import mlp as mlp_module
+
+    calls, inner = [], mlp_module.fused_mlp
+
+    def recorded(x, weights, biases, activation, out_activation, skips, freq, dtype, cache=None):
+        out = inner(x, weights, biases, activation, out_activation, skips, freq, dtype, cache)
+        rec = {"x": x.detach().clone(), "ws": [w.detach().clone() for w in weights],
+               "bs": [b.detach().clone() for b in biases], "spec": (out_activation, tuple(skips), freq, dtype),
+               "g": None}
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.update(g=g.detach().clone()))
+        calls.append(rec)
+        return out
+
+    mlp_module.fused_mlp = recorded
+    try:
+        yield calls
+    finally:
+        mlp_module.fused_mlp = inner
+
+
+def mlp_model_phase(scope: str, calls) -> dict:
+    """Rows 1 and 2 on the inputs and cotangents a model's training step
+    gave them (recording_mlp_calls), each held against its plain version
+    (phase 3's and 4's tolerances) and timed with its bound. Returns the
+    sums per step by kernel name."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+
+    sums = {k: {"ms": 0.0, "bound_ms": 0.0, "calls": 0, "points": 0} for k in ("fused_mlp_fwd", "fused_mlp_bwd")}
+    for i, rec in enumerate(calls):
+        out_act, skips, freq, dtype = rec["spec"]
+        x, ws, bs, g = rec["x"].float().contiguous(), rec["ws"], rec["bs"], rec["g"]
+        n, in_dim = x.shape
+        packed = fm.prepare(in_dim, ws, bs, out_act, skips, freq, dtype, transposed=True)
+        got = fm.launch(x, packed)
+        torch.cuda.synchronize()
+        fwd_err = check_fwd(f"{scope}[{i}] fused_mlp_fwd", got, fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips,
+                                                                                   freq, dtype), dtype)
+        macs = mlp_macs(ws)
+        peak = (lambda f: bound3(*f, 0.0)) if dtype == torch.bfloat16 else (lambda f: bound3(f[0], 0.0, f[1]))
+        line = f"mlp_model {scope}[{i}] {str(dtype)[6:]} [{packed.fwd_path} path] n={n} in {in_dim}: forward " \
+               f"max_abs_err={fwd_err:.3e}"
+        ms = cuda_ms(lambda: fm.launch(x, packed), iters=10)
+        b_ms = peak((n * (in_dim * 4 + ws[-1].shape[1] * 2) + param_bytes(ws, bs, False), 2.0 * n * macs))[0]
+        s = sums["fused_mlp_fwd"]
+        s["ms"], s["bound_ms"], s["calls"], s["points"] = s["ms"] + ms, s["bound_ms"] + b_ms, s["calls"] + 1, s["points"] + n
+        line += f" kernel {ms:.3f} ms (bound {b_ms:.3f})"
+        if g is not None:
+            g = g.to(dtype).contiguous()
+            dx, dw, db = fm.launch_bwd(x, g, packed)
+            dws, dbs = fm.unpack_grads(dw, db, packed.desc, packed.shapes)
+            torch.cuda.synchronize()
+            want = fm.fused_mlp_bwd_plain(x, g, ws, bs, "relu", out_act, skips, freq, dtype)
+            named = [("dx", dx.to(dtype).float(), want[0].float())]
+            named += [(f"dW{j}", a, b) for j, (a, b) in enumerate(zip(dws, want[1]))]
+            named += [(f"db{j}", a, b) for j, (a, b) in enumerate(zip(dbs, want[2]))]
+            worst, key, _ = check_bwd(f"{scope}[{i}] fused_mlp_bwd", named, dtype)
+            ms = cuda_ms(lambda: fm.launch_bwd(x, g, packed), iters=5)
+            b_ms = peak((n * (in_dim * 8 + ws[-1].shape[1] * 2) + param_bytes(ws, bs, True), 6.0 * n * macs))[0]
+            s = sums["fused_mlp_bwd"]
+            s["ms"], s["bound_ms"] = s["ms"] + ms, s["bound_ms"] + b_ms
+            s["calls"], s["points"] = s["calls"] + 1, s["points"] + n
+            line += f"; backward worst rel L2 {worst:.3e} ({key}) kernel {ms:.3f} ms (bound {b_ms:.3f})"
+            del dx, dw, db, dws, dbs, want, named
+        log(line + " ok")
+        del got, packed
+    torch.cuda.empty_cache()
+    for kname, s in sums.items():
+        log(f"mlp_model {kname} per {scope}: {s['calls']} calls, {s['points']} points, kernel {s['ms']:.3f} ms, "
+            f"bound {s['bound_ms']:.3f} ms")
+    return sums
+
+
+def nerf_stack_phase() -> dict:
+    """Rows 1 and 2 on the frequency NeRF's base stacks (63- and 99-wide
+    encoded inputs, 8 x 256, skip at 4, the last layer 256), bf16 and f32,
+    against their plain versions: the forward at NERF_FWD_N points, the
+    backward at NERF_BWD_N; each timed with plain, library (the
+    torch.matmul chain) and bound. Returns {"fwd": {case: record}, "bwd":
+    {...}}."""
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(16)
+    out = {"fwd": {}, "bwd": {}}
+    for name, in_dim in NERF_STACKS.items():
+        ws, bs = mlp_params(gen, in_dim, NERF_DIMS, (4,), None)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{name.replace('-', '_')}_{in_dim}_{str(dtype)[6:]}"
+            bf16 = dtype == torch.bfloat16
+            macs = mlp_macs(ws)
+            wb, bb = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
+
+            def timed_bound(nbytes, flops):
+                return bound3(nbytes, flops, 0.0) if bf16 else bound3(nbytes, 0.0, flops)
+
+            x = (torch.rand(NERF_FWD_N, in_dim, generator=gen) * 2 - 1).cuda().to(dtype).float()
+            packed = fm.prepare(in_dim, ws, bs, None, (4,), None, dtype, transposed=True)
+            got = fm.launch(x, packed)
+            torch.cuda.synchronize()
+            err = check_fwd(f"fused_mlp_fwd {tag}", got, fm.fused_mlp_plain(x, ws, bs, "relu", None, (4,), None, dtype),
+                            dtype)
+            rec = {"ms": cuda_ms(lambda: fm.launch(x, packed), iters=10 if bf16 else 3),
+                   "plain_ms": cuda_ms(lambda: fm.fused_mlp_plain(x, ws, bs, "relu", None, (4,), None, dtype), 2),
+                   "library_ms": cuda_ms(lambda: library_mlp(x, wb, bb, (4,), None, None, dtype), iters=5),
+                   "max_abs_err": err, "n": NERF_FWD_N, "path": packed.fwd_path}
+            rec["bound_ms"], rec["bound_by"], _ = timed_bound(
+                NERF_FWD_N * (in_dim * 4 + NERF_DIMS[-1] * 2) + param_bytes(ws, bs, False), 2.0 * NERF_FWD_N * macs)
+            out["fwd"][tag] = rec
+            log(f"nerf_stack rows 1 {tag} [{packed.fwd_path} path]: n={NERF_FWD_N} max_abs_err={err:.3e} (tol "
+                f"{TOL[dtype]:g} abs+rel) ok | kernel {rec['ms']:.3f} ms ({2.0 * NERF_FWD_N * macs / rec['ms'] / 1e9:.1f} "
+                f"TFLOP/s), plain {rec['plain_ms']:.3f} ms, torch.matmul chain {rec['library_ms']:.3f} ms, bound "
+                f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+            del x, got
+            x = x_b = (torch.rand(NERF_BWD_N, in_dim, generator=gen) * 2 - 1).cuda().to(dtype).float()
+            g = (torch.randn(NERF_BWD_N, NERF_DIMS[-1], generator=gen) / NERF_BWD_N).cuda().to(dtype)
+            dx, dw, db = fm.launch_bwd(x_b, g, packed)
+            dws, dbs = fm.unpack_grads(dw, db, packed.desc, packed.shapes)
+            torch.cuda.synchronize()
+            want = fm.fused_mlp_bwd_plain(x_b, g, ws, bs, "relu", None, (4,), None, dtype)
+            named = [("dx", dx.to(dtype).float(), want[0].float())]
+            named += [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, want[1]))]
+            named += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, want[2]))]
+            worst, key, berr = check_bwd(f"fused_mlp_bwd {tag}", named, dtype)
+            del dx, dw, db, dws, dbs, want, named
+            wr = [w.requires_grad_(True) for w in (wb + bb)]
+            xr = x_b.to(dtype).clone().requires_grad_(True)
+
+            def library():
+                o = library_mlp(xr, wr[: len(ws)], wr[len(ws):], (4,), None, None, dtype)
+                return torch.autograd.grad(o, [xr, *wr], g)
+
+            rec = {"ms": cuda_ms(lambda: fm.launch_bwd(x_b, g, packed), iters=5 if bf16 else 2),
+                   "plain_ms": cuda_ms(lambda: fm.fused_mlp_bwd_plain(x_b, g, ws, bs, "relu", None, (4,), None, dtype), 1),
+                   "library_ms": cuda_ms(library, iters=3), "max_abs_err": berr, "n": NERF_BWD_N}
+            rec["bound_ms"], rec["bound_by"], _ = timed_bound(
+                NERF_BWD_N * (in_dim * 8 + NERF_DIMS[-1] * 2) + param_bytes(ws, bs, True), 6.0 * NERF_BWD_N * macs)
+            out["bwd"][tag] = rec
+            log(f"nerf_stack rows 2 {tag}: n={NERF_BWD_N} worst rel L2 {worst:.3e} ({key}; tol {BWD_TOL[dtype]:g}) ok | "
+                f"kernel {rec['ms']:.3f} ms ({6.0 * NERF_BWD_N * macs / rec['ms'] / 1e9:.1f} TFLOP/s), plain "
+                f"{rec['plain_ms']:.3f} ms, torch.matmul chain fwd+grad {rec['library_ms']:.3f} ms, bound "
+                f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+            del x, g, packed, wr, xr
+            torch.cuda.empty_cache()
+    return out
+
+
+def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps: int = CLASSIC_STEPS,
+                  capture_step=None, on_step=None) -> dict:
+    """ns-train of `name` at full width for `steps` steps, each synchronized
+    and timed, with its launches (`per_step`, or with None nerfacto's, by
+    proposal_updated), every loss finite, every param group changed. capture_step: that step's fused-MLP and hash calls are
+    recorded for mlp_model_phase / hash_model_phase. on_step(trainer, step,
+    scalars) runs after each step. Returns the records, the run, the counts,
+    the peak memory and the trainer."""
+    from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+
+    records, holder, captured = [], {}, {}
+
+    def on_setup(trainer):
+        holder["trainer"] = trainer
+        iteration = trainer.train_iteration
+        groups = trainer.model.param_groups()
+        holder["before"] = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
+
+        def counted(step):
+            ssu = trainer.state.steps_since_update
+            c0 = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == capture_step:
+                with recording_mlp_calls() as mlp_calls, recording_hash_calls() as hash_calls:
+                    out = iteration(step)
+                torch.cuda.synchronize()
+                captured.update(mlp=mlp_calls, hash=hash_calls)
+            else:
+                out = iteration(step)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v - c0[k] for k, v in read_counts().items()}
+            want = per_step
+            if want is None:
+                cfg = trainer.model.config
+                updated, _ = proposal_updated(step, ssu, cfg.proposal_warmup, cfg.proposal_update_every)
+                want = _hash_step(1)(updated)
+            if launches != expected_counts(want):
+                raise AssertionError(f"{name} step {step}: launches {launches}, expected {want}")
+            scalars = {k: float(v) for k, v in out.items()}
+            bad = [k for k, v in scalars.items() if "loss" in k and not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{name} step {step}: non-finite losses {bad}")
+            records.append({"step": step, "s": dt, **scalars})
+            if on_step is not None:
+                on_step(trainer, step, scalars)
+            return out
+
+        trainer.train_iteration = counted
+
+    argv = [name, "--data", str(scene), "--output-dir", str(out_dir), "--experiment-name", "smoke",
+            "--max-num-iterations", str(steps), *flags]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with capturing_trainer(on_setup):
+        if ns_train.main(argv, device="cuda") != 0:
+            raise AssertionError(f"ns-train {name} failed")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    trainer = holder["trainer"]
+    if len(records) != steps:
+        raise AssertionError(f"{name}: {len(records)} steps ran, expected {steps}")
+    groups = trainer.model.param_groups()
+    unchanged = [k for k, ps in groups.items()
+                 if all(a.shape == p.shape and torch.equal(a, p.detach()) for a, p in zip(holder["before"][k], ps))]
+    nonfinite = [k for k, p in trainer.model.named_parameters() if not bool(torch.isfinite(p).all())]
+    if unchanged or nonfinite:
+        raise AssertionError(f"{name}: groups {unchanged} unchanged, parameters {nonfinite} not finite")
+    (run,) = (out_dir / "smoke" / name).glob("*")
+    step_s = float(np.mean([r["s"] for r in records[CLASSIC_TIMED_FROM:]]))
+    return {"records": records, "run": run, "counts": counts, "peak": peak, "step_s": step_s, "trainer": trainer,
+            **captured}
+
+
+def classic_render(model, name: str, label: str, c2w) -> float:
+    """One frame through render_camera_device: launches (CLASSIC's per
+    chunk), finite outputs of the right shapes; seconds."""
+    w, h, focal = CLASSIC_RENDERS[label]
+    cam = make_camera(w, h, focal, c2w)
+    n_chunks = -(-(w * h) // model.config.eval_num_rays_per_chunk)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.render_camera_device(cam, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if read_counts() != expected_counts(CLASSIC[name]["chunk"], n_chunks):
+        raise AssertionError(f"{name} render {label}: launches {read_counts()}, expected {CLASSIC[name]['chunk']} x "
+                             f"{n_chunks}")
+    check_image_outputs(out, h, w, {"rgb": 3, "accumulation": 1, "depth": 1, "expected_depth": 1})
+    return dt, n_chunks, read_counts()
+
+
+def classic_step_vs_cpu(name: str, scene: Path, run_dir: Path) -> dict:
+    """One f32 step of 256 rays (use_pallas: rows 1-2 in f32) on the card and
+    on the CPU from the same seeded params, batch and both jitter draws, the
+    fields at CLASSIC_F32_FREQS position frequencies; a bf16 card step is
+    the control that must break a limit (phase 9's)."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
+    from nerfstudio_thermal_torch.fields.vanilla_nerf_field import NeRFField
+    from nerfstudio_thermal_torch.models import mipnerf, vanilla_nerf
+
+    def field(**kw):
+        kw["position_num_frequencies"] = CLASSIC_F32_FREQS
+        return NeRFField(**kw)
+
+    method = get_method_config(name)
+    method.data = scene
+    method.datamanager.train_num_rays_per_batch = 256
+    method.model.compute_dtype, method.model.use_pallas = "float32", True
+    control = copy.deepcopy(method)
+    control.model.compute_dtype = "bfloat16"
+    runs = {"cpu": ("cpu", method), "cuda": ("cuda", method), "control": ("cuda", control)}
+    m = method.model
+    gen = torch.Generator().manual_seed(21)
+    uniforms = [torch.rand(256, m.num_coarse_samples + 1, generator=gen),
+                torch.rand(256, m.num_importance_samples + 1, generator=gen)]
+    inner = vanilla_nerf.NeRFField, mipnerf.NeRFField
+    vanilla_nerf.NeRFField = mipnerf.NeRFField = field
+    try:
+        trainers = {label: setup_trainer(copy.deepcopy(mm), base_dir=run_dir / label, device=dev)
+                    for label, (dev, mm) in runs.items()}
+    finally:
+        vanilla_nerf.NeRFField, mipnerf.NeRFField = inner
+    batch = trainers["cpu"].datamanager.next_train(0)
+    results, launches = {}, {}
+    for label, tr in trainers.items():
+        dev = runs[label][0]
+        tr.setup()
+        c0 = read_counts()
+        scalars = tr._train_step(tr.state, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
+                                 uniforms={"rgb": [u.to(dev) for u in uniforms]})
+        launches[label] = {k: v - c0[k] for k, v in read_counts().items() if v - c0[k]}
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten().float().cpu()
+                           for p in tr.model.param_groups()["fields"]])
+        results[label] = ({k: float(v) for k, v in scalars.items()}, grads)
+    del trainers
+    if launches["cuda"] != {"fused_mlp_fwd": 2, "fused_mlp_bwd": 2}:
+        raise AssertionError(f"{name} f32 step: launches {launches['cuda']}")
+    want_s, want_g = results["cpu"]
+    reads = {}
+    for label in ("cuda", "control"):
+        got_s, got_g = results[label]
+        losses = {k: abs(got_s[k] - w) / max(abs(w), 1e-3) for k, w in want_s.items()}
+        reads[label] = (max(losses.values()), rel_l2(got_g, want_g))
+        log(f"{name} step_vs_cpu {'float32' if label == 'cuda' else 'bfloat16 control'} (256 rays, "
+            f"{CLASSIC_F32_FREQS} position frequencies, use_pallas): losses/metrics up to {reads[label][0]:.2e} rel "
+            f"(tol {STEP_LOSS_TOL_F32:g}); fields gradient rel L2 {reads[label][1]:.2e} (tol {STEP_GRAD_TOL_F32:g})")
+    if reads["cuda"][0] > STEP_LOSS_TOL_F32 or reads["cuda"][1] > STEP_GRAD_TOL_F32 or not all(
+            math.isfinite(v) for v in results["cuda"][0].values()):
+        raise AssertionError(f"{name} f32 step disagrees with the CPU: {reads['cuda']}")
+    if reads["control"][0] <= STEP_LOSS_TOL_F32 and reads["control"][1] <= STEP_GRAD_TOL_F32:
+        raise AssertionError(f"{name}: the bf16 control stays within every f32 limit")
+    return {"f32": reads["cuda"], "control": reads["control"]}
+
+
+def classic_eval(name: str, config_path: Path, out_json: Path, expect) -> tuple:
+    """ns-eval of a run: finite metrics including `expect`; (seconds,
+    metrics)."""
+    from nerfstudio_thermal_torch.scripts import eval as ns_eval
+
+    t0 = time.perf_counter()
+    if ns_eval.main(["--load-config", str(config_path), "--output-path", str(out_json)], device="cuda") != 0:
+        raise AssertionError(f"ns-eval of the {name} run failed")
+    scores = json.loads(out_json.read_text())["results"]
+    if not all(math.isfinite(v) for v in scores.values()) or not set(expect) <= set(scores):
+        raise AssertionError(f"ns-eval of the {name} run: {scores}")
+    return time.perf_counter() - t0, scores
+
+
+def classic_renders(name: str, model, c2w, smi: str) -> tuple:
+    frames, launches = {}, {}
+    for label in CLASSIC[name]["renders"]:
+        dt, n_chunks, counts = classic_render(model, name, label, c2w)
+        frames[label], launches[label] = dt, counts
+        log(f"{name} render {label}: {n_chunks} chunks of {model.config.eval_num_rays_per_chunk} rays, launches "
+            f"{CLASSIC[name]['chunk'] or 'none'} a chunk, outputs finite; {dt:.3f} s/frame ({smi})")
+    return frames, launches
+
+
+def train_line(name: str, run: dict, smi: str, extra: str = "") -> str:
+    rays = run["trainer"].datamanager.config.train_num_rays_per_batch
+    recs = run["records"]
+    return (f"{name} train: {CLASSIC_STEPS} steps of {rays} rays through ns-train, every loss finite, every "
+            f"param group changed, launches {dict((k, v) for k, v in run['counts'].items() if v) or 'none'}; "
+            f"steps {CLASSIC_TIMED_FROM}-{CLASSIC_STEPS - 1}: {run['step_s'] * 1e3:.2f} ms/step, "
+            f"{rays / run['step_s']:,.0f} rays/s, peak memory {run['peak'] / 2**30:.2f} GiB; loss "
+            f"{recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}{extra} ({smi})")
+
+
+def classic_phase(tmp: Path, smi: str) -> dict:
+    """Phase 16: vanilla-nerf, mipnerf, tensorf and depth-nerfacto (see the
+    comment above CLASSIC_STEPS). Returns each method's records, and rows
+    1-2 on the NeRF stacks ("stacks") and rows 7-10 on depth-nerfacto's
+    points ("depth_hash")."""
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    t_phase = time.perf_counter()
+    result = {"stacks": nerf_stack_phase()}
+    t0 = time.perf_counter()
+    blender = write_classic_blender(tmp / "blender")
+    depth_scene = write_depth_scene(tmp / "depth")
+    log(f"scenes: blender {BLENDER_FRAMES} x {BLENDER_SIZE}x{BLENDER_SIZE}, depth sphere {DEPTH_FRAMES} x 640x480 "
+        f"with 16-bit depth PNGs (mm), written in {time.perf_counter() - t0:.2f} s")
+
+    for name in ("vanilla-nerf", "mipnerf"):
+        sp = CLASSIC[name]
+        # the default use_pallas=False runs the eager stacks: no kernel
+        plain = classic_train(name, blender, tmp / name / "eager", [], {})
+        plain_s, plain_peak = plain["step_s"], plain["peak"]
+        del plain
+        run = classic_train(name, blender, tmp / name / "fused", sp["flags"], sp["step"],
+                            capture_step=CLASSIC_CAPTURE_STEP)
+        calls = run.pop("mlp")
+        run.pop("hash")
+        if [c["x"].shape[1] for c in calls] != [NERF_STACKS[name]] * 2 or any(c["g"] is None for c in calls):
+            raise AssertionError(f"{name} step {CLASSIC_CAPTURE_STEP}: recorded fused-MLP calls "
+                                 f"{[(tuple(c['x'].shape), c['g'] is not None) for c in calls]}")
+        log(train_line(name, run, smi, f"; eager (use_pallas off) {plain_s * 1e3:.2f} ms/step, peak "
+                                      f"{plain_peak / 2**30:.2f} GiB, no launches"))
+        model_sums = mlp_model_phase(f"{name} train step {CLASSIC_CAPTURE_STEP}", calls)
+        del calls
+        c2w = run["trainer"].datamanager.train_cameras.camera_to_worlds[0].numpy()
+        rays = run["trainer"].datamanager.config.train_num_rays_per_batch
+        del run["trainer"]
+        torch.cuda.empty_cache()
+        _, trainer = eval_setup(run["run"] / "config.yml", device="cuda")
+        frames, render_launches = classic_renders(name, trainer.model, c2w, smi)
+        del trainer
+        torch.cuda.empty_cache()
+        eval_s, scores = classic_eval(name, run["run"] / "config.yml", tmp / f"{name}.json", ("psnr_rgb", "ssim_rgb"))
+        log(f"{name} ns-eval: {eval_s:.2f} s for {BLENDER_VAL} {BLENDER_SIZE}x{BLENDER_SIZE} eval images, psnr_rgb "
+            f"{scores['psnr_rgb']:.3f}, ssim_rgb {scores['ssim_rgb']:.4f}")
+        step_check = classic_step_vs_cpu(name, blender, tmp / name / "step")
+        result[name] = {"step_s": run["step_s"], "eager_step_s": plain_s, "rays": rays, "peak": run["peak"],
+                        "frames": frames, "render_launches": render_launches, "counts": run["counts"],
+                        "model_train_step": model_sums, "eval_s": eval_s, **step_check}
+        torch.cuda.empty_cache()
+
+    name = "tensorf"
+    schedule = {}
+
+    def grids_grow(trainer, step, scalars):
+        """After each upsample: the grids and their moments at the new
+        resolution, the moments zero, the step count kept."""
+        model = trainer.model
+        if not schedule:
+            schedule.update(model.resolution_schedule())
+        if step not in schedule:
+            return
+        r, f = schedule[step], model.field
+        opt = trainer.optimizers.groups["fields"]
+        shapes = {k: tuple(getattr(f, k).shape) for k in ("density_planes", "density_lines", "color_planes",
+                                                           "color_lines")}
+        moments = [(m, p) for m, p in zip(opt.mu, opt.params) if p.dim() in (3, 4)]
+        if (f.resolution != r or shapes["density_planes"][1:3] != (r, r) or shapes["color_lines"][1] != r
+                or any(m.shape != p.shape or bool(m.any()) for m, p in moments) or opt.count != step + 1):
+            raise AssertionError(f"tensorf after step {step}: resolution {f.resolution}, grids {shapes}, count "
+                                 f"{opt.count}; expected {r} with zero moments and count {step + 1}")
+        log(f"tensorf step {step}: grids upsampled to {r}^2 ({shapes}), their Adam moments zero, count {opt.count}")
+
+    run = classic_train(name, blender, tmp / name, CLASSIC[name]["flags"], {}, on_step=grids_grow)
+    if sorted(schedule) != list(TENSORF_UPSAMPLES) or schedule[TENSORF_UPSAMPLES[-1]] != 300:
+        raise AssertionError(f"tensorf's schedule {schedule}")
+    log(train_line(name, run, smi, f"; grids {sorted(schedule.values())} after steps {sorted(schedule)}, every "
+                                  "later step finite"))
+    trainer = run.pop("trainer")
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    frames, render_launches = classic_renders(name, trainer.model, trainer.datamanager.train_cameras
+                                              .camera_to_worlds[0].numpy(), smi)
+    del trainer
+    torch.cuda.empty_cache()
+    # the run's checkpoint holds 300^2 grids; as in JAX the reload builds the
+    # field at the config's 128 and the first evaluation raises
+    try:
+        classic_eval(name, run["run"] / "config.yml", tmp / "tensorf.json", ())
+    except ValueError as e:
+        if "density_planes" not in str(e) or "resolution 128" not in str(e):
+            raise
+        log(f"tensorf ns-eval of the upsampled run raises, as the JAX package's first apply does: {e}")
+    else:
+        raise AssertionError("tensorf: ns-eval reloaded a run with upsampled grids")
+    result[name] = {"step_s": run["step_s"], "rays": rays, "peak": run["peak"], "frames": frames,
+                    "render_launches": render_launches, "schedule": schedule}
+    torch.cuda.empty_cache()
+
+    name = "depth-nerfacto"
+    depth_losses = []
+    run = classic_train(name, depth_scene, tmp / name, CLASSIC[name]["flags"], None,
+                        capture_step=CLASSIC_CAPTURE_STEP,
+                        on_step=lambda tr, step, s: depth_losses.append((s.get("depth_loss"), s.get("depth_mae"))))
+    if any(d is None or not math.isfinite(d) or m is None or not math.isfinite(m) for d, m in depth_losses):
+        raise AssertionError(f"depth-nerfacto: depth_loss / depth_mae missing or not finite: {depth_losses}")
+    run.pop("mlp")
+    calls = run.pop("hash")
+    if len(calls) != 3 or any(rec["g"] is None for rec in calls):
+        raise AssertionError(f"depth-nerfacto step {CLASSIC_CAPTURE_STEP}: {len(calls)} hash calls")
+    HASH_MODEL_CALLS[f"depth-nerfacto train step {CLASSIC_CAPTURE_STEP}"] = calls
+    events = [json.loads(line) for line in (run["run"] / "events.jsonl").read_text().splitlines()]
+    eval_mae = [e["eval/eval_depth_mae"] for e in events if "eval/eval_depth_mae" in e]
+    if len(eval_mae) < 2 or not all(math.isfinite(v) for v in eval_mae):
+        raise AssertionError(f"depth-nerfacto: eval batches' depth_mae {eval_mae}")
+    log(train_line(name, run, smi, f"; depth_loss {depth_losses[0][0]:.4g} -> {depth_losses[-1][0]:.4g}, depth_mae "
+                                  f"{depth_losses[0][1]:.4f} -> {depth_losses[-1][1]:.4f} (train), eval batches "
+                                  f"{[round(v, 4) for v in eval_mae]}"))
+    c2w = run["trainer"].datamanager.train_cameras.camera_to_worlds[0].numpy()
+    rays = run["trainer"].datamanager.config.train_num_rays_per_batch
+    del run["trainer"]
+    torch.cuda.empty_cache()
+    _, trainer = eval_setup(run["run"] / "config.yml", device="cuda")
+    frames, render_launches = classic_renders(name, trainer.model, c2w, smi)
+    del trainer
+    torch.cuda.empty_cache()
+    eval_s, scores = classic_eval(name, run["run"] / "config.yml", tmp / "depth.json", ("psnr_rgb",))
+    log(f"depth-nerfacto ns-eval: {eval_s:.2f} s, psnr_rgb {scores['psnr_rgb']:.3f}")
+    result[name] = {"step_s": run["step_s"], "rays": rays, "peak": run["peak"], "frames": frames,
+                    "render_launches": render_launches, "counts": run["counts"], "eval_s": eval_s}
+    result["depth_hash"] = hash_model_phase({k: v for k, v in HASH_MODEL_CALLS.items() if k.startswith(name)})
+    HASH_MODEL_CALLS.clear()
+    torch.cuda.empty_cache()
+    log(f"phase 16 vanilla-nerf, mipnerf, tensorf, depth-nerfacto: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -3076,6 +3662,8 @@ def main() -> int:
         ngp_hash = hash_model_phase({k: v for k, v in HASH_MODEL_CALLS.items() if k.startswith("instant-ngp")})
         HASH_MODEL_CALLS.clear()
         torch.cuda.empty_cache()
+        # phase 16: vanilla-nerf, mipnerf, tensorf and depth-nerfacto
+        classic = classic_phase(Path(tmp) / "classic", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -3181,6 +3769,26 @@ def main() -> int:
                 "render_1080p": ngp["instant-ngp"]["render_launches"]["1080p"][name],
             }
             rec["nerfacto_colmap_launches"] = ngp["nerfacto:colmap"]["launches"].get(name, 0)
+    # phase 16's numbers as extra fields: rows 1-2 on the NeRF stacks and on
+    # vanilla-nerf's and mipnerf's own inputs, their launches in those runs;
+    # rows 7-10 on depth-nerfacto's points and their launches
+    for rec, way in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        rec["nerf_stacks"] = classic["stacks"][way]
+        for m in NERF_STACKS:
+            c = classic[m]
+            rec["model_" + m.replace("-", "_") + "_train_step"] = c["model_train_step"][rec["name"]]
+            rec[m.replace("-", "_") + "_launches"] = {
+                "train": c["counts"][rec["name"]], "per_step": CLASSIC[m]["step"][rec["name"]],
+                **{f"render_{k}": v[rec["name"]] for k, v in c["render_launches"].items()}}
+    for rec in kernels:
+        if rec["name"].startswith("hash_encode"):
+            c = classic["depth-nerfacto"]
+            sums = classic["depth_hash"].get(f"depth-nerfacto train step {CLASSIC_CAPTURE_STEP}", {})
+            if rec["name"] in sums:
+                rec["model_depth_nerfacto_train_step"] = sums[rec["name"]]
+            rec["depth_nerfacto_launches"] = {
+                "train": c["counts"][rec["name"]],
+                **{f"render_{k}": v[rec["name"]] for k, v in c["render_launches"].items()}}
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -3214,6 +3822,12 @@ def main() -> int:
         f"{r['frame_s']:.3f} s ({smi})")
     r = ngp["nerfacto:colmap"]
     log(f"nerfacto on the COLMAP JPEG scene: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays ({smi})")
+    for m in CLASSIC:
+        r = classic[m]
+        frames = ", ".join(f"{label} frame {dt:.3f} s" for label, dt in r["frames"].items())
+        extra = f" (eager {r['eager_step_s'] * 1e3:.2f} ms/step)" if "eager_step_s" in r else ""
+        log(f"{m}: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays{extra}, peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB; {frames} ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ from typing import Dict, Optional
 
 import torch
 
-from nerfstudio_thermal_torch.utils.math import cumsum
+from nerfstudio_thermal_torch.utils.math import conical_frustum_to_gaussian_diag, cumsum
 
 
 def spacing_fn(kind: str, x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +122,19 @@ class RaySamples:
         """Sample midpoints in world space."""
         mids = (self.starts + self.ends) / 2.0
         return self.origins[..., None, :] + self.directions[..., None, :] * mids
+
+    def get_gaussian_blob(self):
+        """The conical frustums' gaussians (means, cov_diag) for the
+        integrated positional encoding; the cone's radius gives its
+        cross-section the pixel's area."""
+        cone_radius = torch.sqrt(self.pixel_area) / 1.7724538509055159
+        return conical_frustum_to_gaussian_diag(
+            origins=self.origins[..., None, :],
+            directions=self.directions[..., None, :],
+            starts=self.starts,
+            ends=self.ends,
+            radius=cone_radius[..., None, :],
+        )
 
     def spacing_to_euclidean(self, s: torch.Tensor) -> torch.Tensor:
         return spacing_fn_inv(self.spacing_kind, s * self.s_far + (1.0 - s) * self.s_near)

@@ -3,10 +3,11 @@
 `thermal-nerfacto` and `thermal-nerfacto-tpu` (the ThermalNerf
 dataparser, eight optimizer groups), the nerfacto family `nerfacto`,
 `nerfacto-tpu`, `nerfacto-big` and `nerfacto-huge` (the Nerfstudio
-dataparser, three groups), and `instant-ngp` (Nerfstudio dataparser) and
-`instant-ngp-bounded` (instant_ngp dataparser), one group each, with the
-dynamic-batch pipeline; under the JAX package's names and with its
-fields; `descriptions` for ns-train's method list; `resolve_model_class`;
+dataparser, three groups) with `depth-nerfacto`, `instant-ngp` (Nerfstudio
+dataparser) and `instant-ngp-bounded` (instant_ngp dataparser), one group
+each, with the dynamic-batch pipeline, and `vanilla-nerf`, `mipnerf` and
+`tensorf` (the blender dataparser, one group); under the JAX package's
+names and with its fields; `descriptions` for ns-train's method list; `resolve_model_class`;
 and `setup_trainer`, which wires dataparser (through `build_dataparser`)
 -> data manager -> model -> pipeline -> trainer as the JAX package's
 does. The JAX package's other methods and its plugin registry are not
@@ -14,6 +15,7 @@ registered here (ROADMAP A8 and A9).
 """
 
 import copy
+import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, Optional, Union
@@ -23,6 +25,7 @@ import torch
 from nerfstudio_thermal_torch.cameras.camera_optimizers import CameraOptimizerConfig
 from nerfstudio_thermal_torch.configs.dataparser_configs import build_dataparser
 from nerfstudio_thermal_torch.data.datamanagers import VanillaDataManager, VanillaDataManagerConfig
+from nerfstudio_thermal_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
 from nerfstudio_thermal_torch.data.dataparsers.instant_ngp_dataparser import InstantNGPDataParserConfig
 from nerfstudio_thermal_torch.data.dataparsers.nerfstudio_dataparser import (
     NerfstudioDataParserConfig,
@@ -31,12 +34,16 @@ from nerfstudio_thermal_torch.data.dataparsers.nerfstudio_dataparser import (
 from nerfstudio_thermal_torch.engine.optimizers import AdamOptimizerConfig, OptimizerGroupConfig
 from nerfstudio_thermal_torch.engine.schedulers import ExponentialDecaySchedulerConfig
 from nerfstudio_thermal_torch.engine.trainer import Trainer, TrainerConfig
+from nerfstudio_thermal_torch.models.depth_nerfacto import DepthNerfactoModel, DepthNerfactoModelConfig
 from nerfstudio_thermal_torch.models.instant_ngp import InstantNGPModel, InstantNGPModelConfig
+from nerfstudio_thermal_torch.models.mipnerf import MipNerfModel, MipNerfModelConfig
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+from nerfstudio_thermal_torch.models.tensorf import TensoRFModel, TensoRFModelConfig
 from nerfstudio_thermal_torch.models.thermal_nerfacto import (
     ThermalNerfactoModel,
     ThermalNerfactoModelConfig,
 )
+from nerfstudio_thermal_torch.models.vanilla_nerf import NeRFModel, VanillaModelConfig
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
 from nerfstudio_thermal_torch.pipelines.dynamic_batch import DynamicBatchPipeline, DynamicBatchPipelineConfig
 
@@ -238,6 +245,63 @@ def make_instant_ngp_bounded() -> MethodConfig:
     return cfg
 
 
+def _one_group(lr: float, lr_final: float, max_steps: int) -> Dict[str, OptimizerGroupConfig]:
+    return {
+        "fields": OptimizerGroupConfig(
+            optimizer=AdamOptimizerConfig(lr=lr, eps=1e-8),
+            scheduler=ExponentialDecaySchedulerConfig(lr_final=lr_final, max_steps=max_steps),
+        )
+    }
+
+
+def make_vanilla_nerf() -> MethodConfig:
+    return MethodConfig(
+        method_name="vanilla-nerf",
+        description="Original NeRF (coarse/fine frequency-encoded fields).",
+        trainer=TrainerConfig(max_num_iterations=300000, method_name="vanilla-nerf"),
+        dataparser=BlenderDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=4096, eval_num_rays_per_batch=4096),
+        model=VanillaModelConfig(eval_num_rays_per_chunk=1 << 14, compute_dtype="bfloat16"),
+        optimizers=_one_group(5e-4, 5e-5, 300000),
+    )
+
+
+def make_mipnerf() -> MethodConfig:
+    return MethodConfig(
+        method_name="mipnerf",
+        description="MipNeRF: integrated positional encodings over cone frustums.",
+        trainer=TrainerConfig(max_num_iterations=1000000, method_name="mipnerf"),
+        dataparser=BlenderDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=1024, eval_num_rays_per_batch=1024),
+        model=MipNerfModelConfig(eval_num_rays_per_chunk=1 << 14, compute_dtype="bfloat16"),
+        optimizers=_one_group(5e-4, 5e-6, 1000000),
+    )
+
+
+def make_tensorf() -> MethodConfig:
+    return MethodConfig(
+        method_name="tensorf",
+        description="TensoRF: vector-matrix tensor-decomposed radiance field.",
+        trainer=TrainerConfig(max_num_iterations=30000, method_name="tensorf"),
+        dataparser=BlenderDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=4096, eval_num_rays_per_batch=4096),
+        model=TensoRFModelConfig(eval_num_rays_per_chunk=1 << 14),
+        optimizers=_one_group(1e-2, 1e-3, 30000),
+    )
+
+
+def make_depth_nerfacto() -> MethodConfig:
+    """nerfacto with DepthNerfactoModelConfig carrying nerfacto's model
+    settings."""
+    cfg = make_nerfacto()
+    cfg.method_name = "depth-nerfacto"
+    cfg.trainer.method_name = "depth-nerfacto"
+    cfg.description = "Nerfacto with depth supervision (DS-NeRF/URF losses)."
+    base = cfg.model
+    cfg.model = DepthNerfactoModelConfig(**{f.name: getattr(base, f.name) for f in dataclasses.fields(base)})
+    return cfg
+
+
 _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "nerfacto": make_nerfacto,
     "thermal-nerfacto": make_thermal_nerfacto,
@@ -247,6 +311,10 @@ _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "nerfacto-huge": make_nerfacto_huge,
     "instant-ngp": make_instant_ngp,
     "instant-ngp-bounded": make_instant_ngp_bounded,
+    "vanilla-nerf": make_vanilla_nerf,
+    "mipnerf": make_mipnerf,
+    "depth-nerfacto": make_depth_nerfacto,
+    "tensorf": make_tensorf,
 }
 
 
@@ -264,10 +332,16 @@ def get_method_config(name: str) -> MethodConfig:
 
 def resolve_model_class(model_config) -> type:
     """Model config -> model class, the most derived config first."""
-    if isinstance(model_config, InstantNGPModelConfig):
-        return InstantNGPModel
-    if isinstance(model_config, ThermalNerfactoModelConfig):
-        return ThermalNerfactoModel
+    for config_cls, model_cls in (
+        (TensoRFModelConfig, TensoRFModel),
+        (InstantNGPModelConfig, InstantNGPModel),
+        (DepthNerfactoModelConfig, DepthNerfactoModel),
+        (ThermalNerfactoModelConfig, ThermalNerfactoModel),
+        (MipNerfModelConfig, MipNerfModel),
+        (VanillaModelConfig, NeRFModel),
+    ):
+        if isinstance(model_config, config_cls):
+            return model_cls
     return NerfactoModel
 
 

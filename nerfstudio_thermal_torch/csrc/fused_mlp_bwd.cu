@@ -46,7 +46,9 @@
 // Nothing goes through device memory but x, g, dx and one dW/db slab per
 // CTA; two CTAs fit on an SM.
 //
-// Wide path (8 x 256 with its skip; f32 always) streams, as the TPU's
+// Wide path (8 x 256 with its skip, a 16-wide output layer or, in the
+// frequency NeRF's base stack, a 256-wide one over a 63- or 99-wide
+// pre-encoded input; f32 always) streams, as the TPU's
 // _fwd_save/_bwd_saved pair does, because every layer's activations (3.5
 // KB a point) do not fit in shared memory beside the gradient buffers:
 //   1. walk (one CTA per 64 points: 16 warps of 32 rows x 32 columns in
@@ -211,8 +213,11 @@ __host__ __device__ inline Smem smem_layout(const MlpDesc& d, int es) {
   off = fwd_end > walk_end ? fwd_end : walk_end;
   s.dx0 = off;
   off += align16((size_t)kBM * s.d_stride * 4);
+  // the last layer's f32 pre-activation, kept only for a sigmoid head
+  // (y(1-y)); without one a 256-wide output layer leaves its 66 KB to the
+  // ring
   s.fpre = off;
-  off += align16((size_t)kBM * s.o_stride * 4);
+  if (d.out_sigmoid) off += align16((size_t)kBM * s.o_stride * 4);
   // relu masks of the hidden layers, one bit per activation > 0
   s.words = (wid + 31) / 32;
   s.mask = off;

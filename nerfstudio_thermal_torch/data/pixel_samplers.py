@@ -5,7 +5,11 @@ equal ray counts per image (which balances RGB and thermal images in a
 thermal dataset), per-ray `is_thermal` from the per-image metadata. With a
 step the draw is a pure function of (seed, step), through numpy's
 `default_rng((seed, step))`, so it gives the JAX package's batches exactly
-and a resumed run replays the same batches.
+and a resumed run replays the same batches. A dataset with depth files
+adds each ray's `depth_image` [R, 1] (the JAX sampler's normal and
+semantics batches come with the methods that read them).
+`PairPixelSampler` draws neighbouring pixel pairs for the depth-ranking
+loss.
 """
 
 from dataclasses import dataclass
@@ -34,8 +38,6 @@ class PixelSampler:
         self.rng = np.random.default_rng(seed)
         p = config.patch_size
         self.num_rays_per_batch = (config.num_rays_per_batch // (p * p)) * (p * p)
-        if dataset.metadata.get("depth_filenames"):
-            raise NotImplementedError("depth supervision is not ported yet")
 
     def _sample_in_image(self, idx: int, num_rays: int, rng) -> np.ndarray:
         """[num_rays, 2] integer (y, x) in one image."""
@@ -57,7 +59,8 @@ class PixelSampler:
     def sample(self, num_rays: Optional[int] = None, step: Optional[int] = None) -> Dict[str, np.ndarray]:
         """A ray batch: equal ray counts per image, patch-aligned:
         {"ray_indices": [R, 3] int32 (camera, y, x), "image": [R, C] f32,
-        "is_thermal": [R] f32}."""
+        "is_thermal": [R] f32}, and "depth_image" [R, 1] f32 with depth
+        files."""
         rng = np.random.default_rng((self.seed, step)) if step is not None else self.rng
         num_rays = num_rays or self.num_rays_per_batch
         n_images = len(self.dataset)
@@ -99,8 +102,39 @@ class PixelSampler:
             m = cam_idx == idx
             img = self.dataset.get_image(int(idx))
             image_vals[m] = img[yx[m, 0], yx[m, 1]]
-        return {
+        batch = {
             "ray_indices": np.concatenate([cam_idx[:, None], yx], axis=-1).astype(np.int32),
             "image": image_vals,
             "is_thermal": self.dataset.is_thermal[cam_idx].astype(np.float32),
         }
+        if self.dataset.metadata.get("depth_filenames"):
+            depth = np.zeros((num_rays, 1), np.float32)
+            for idx in np.unique(cam_idx):
+                m = cam_idx == idx
+                depth[m] = self.dataset.get_depth(int(idx))[yx[m, 0], yx[m, 1]][:, :1]
+            batch["depth_image"] = depth
+        return batch
+
+
+class PairPixelSampler(PixelSampler):
+    """Pixels in pairs, an anchor and a neighbour within `radius`, laid out
+    [anchor, neighbour, anchor, neighbour, ...]: the layout of
+    depth_ranking_loss."""
+
+    def __init__(self, config: PixelSamplerConfig, dataset: InputDataset, seed: int = 0, radius: int = 2):
+        super().__init__(config, dataset, seed)
+        self.radius = radius
+        self.num_rays_per_batch = config.num_rays_per_batch // 2 * 2
+
+    def _sample_in_image(self, idx: int, num_rays: int, rng) -> np.ndarray:
+        h, w = self.dataset.get_image(idx).shape[:2]
+        r = self.radius
+        n_pairs = max(num_rays // 2, 1)
+        ys = rng.integers(r, max(h - r, r + 1), n_pairs)
+        xs = rng.integers(r, max(w - r, r + 1), n_pairs)
+        dy = rng.integers(-r, r + 1, n_pairs)
+        dx = rng.integers(-r, r + 1, n_pairs)
+        yx = np.empty((n_pairs * 2, 2), np.int64)
+        yx[0::2, 0], yx[0::2, 1] = ys, xs
+        yx[1::2, 0], yx[1::2, 1] = np.clip(ys + dy, 0, h - 1), np.clip(xs + dx, 0, w - 1)
+        return yx[:num_rays]

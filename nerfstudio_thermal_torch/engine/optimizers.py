@@ -17,6 +17,10 @@ adam(eps). The semantics are optax's rather than torch.optim's:
   rectified direction r m_hat / (sqrt(v_hat) + eps) where the variance
   estimate is tractable (rho >= 5, optax's threshold) and m_hat elsewhere.
 `MultiSteps` is optax.MultiSteps over all groups: gradient accumulation.
+`replace_params` swaps parameters for new ones of another shape (TensoRF's
+grid upsampling): their moments and accumulated gradients restart at zero
+and the counts stay, as the JAX package's refinement leaves its optimizer
+state.
 """
 
 from dataclasses import dataclass, field
@@ -131,6 +135,17 @@ class Adam:
             torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
 
+    def replace_params(self, swapped: Dict[nn.Parameter, nn.Parameter]) -> List[int]:
+        """Put each old parameter's replacement in its place, with zero
+        moments of its shape; the count stays. Returns the replaced
+        positions."""
+        where = [i for i, p in enumerate(self.params) if p in swapped]
+        for i in where:
+            self.params[i] = swapped[self.params[i]]
+            self.mu[i] = torch.zeros_like(self.params[i])
+            self.nu[i] = torch.zeros_like(self.params[i])
+        return where
+
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": [t.clone() for t in self.mu], "nu": [t.clone() for t in self.nu]}
 
@@ -154,6 +169,11 @@ class Optimizers:
     def step(self) -> None:
         for opt in self.groups.values():
             opt.step()
+
+    def replace_params(self, swapped: Dict[nn.Parameter, nn.Parameter]) -> Dict[str, List[int]]:
+        """Swap parameters in every group (Adam.replace_params); returns
+        the replaced positions per group."""
+        return {name: opt.replace_params(swapped) for name, opt in self.groups.items()}
 
     def state_dict(self) -> Dict:
         return {name: opt.state_dict() for name, opt in self.groups.items()}
@@ -200,6 +220,15 @@ class MultiSteps:
                 opt.step(self.acc[name])
                 self.acc[name] = [torch.zeros_like(p) for p in opt.params]
         return emit
+
+    def replace_params(self, swapped: Dict[nn.Parameter, nn.Parameter]) -> Dict[str, List[int]]:
+        """Optimizers.replace_params, and a zero gradient mean for each new
+        parameter."""
+        where = self.inner.replace_params(swapped)
+        for name, positions in where.items():
+            for i in positions:
+                self.acc[name][i] = torch.zeros_like(self.groups[name].params[i])
+        return where
 
     def state_dict(self) -> Dict:
         return {

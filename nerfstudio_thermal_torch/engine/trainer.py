@@ -19,8 +19,10 @@ through torch.save (`train` always saves at the end). A model's extra
 state (`init_extra_state`: instant-ngp's occupancy grid) rides in
 `TrainState.extra`, is updated at the start of each step, reaches the
 forward through `extra_forward_kwargs`, and is saved and restored with the
-checkpoint; after each step the pipeline's `after_train_iteration` (the
-dynamic-batch pipeline) sees the step's scalars, and the logged rays/s
+checkpoint; after each step a model with `wants_host_refinement`
+(TensoRF) may refine its parameters on the host (`_maybe_refine`), then
+the pipeline's `after_train_iteration` (the dynamic-batch pipeline) sees
+the step's scalars, and the logged rays/s
 counts the data manager's `num_rays_override` when it is set. As in the JAX
 package, a failing eval batch or eval image is printed and training goes
 on. With `gradient_accumulation_steps` k > 1 the optimizers are wrapped in
@@ -250,12 +252,26 @@ class Trainer:
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         batch = _batch_to(self.datamanager.next_train(step), self.device)
         scalars = self._train_step(self.state, batch)
+        self._maybe_refine(step)
         after = getattr(self.pipeline, "after_train_iteration", None)
         if after is not None:
             # DynamicBatchPipeline sizes the next ray batch (it reads a
             # device scalar only on its update_every steps)
             after(scalars, step)
         return scalars
+
+    def _maybe_refine(self, step: int) -> None:
+        """A model's host-side refinement after the step (TensoRF's grid
+        upsampling): it swaps parameters in the model and the optimizers,
+        so the fused MLPs' packed weights of the old tensors are dropped."""
+        model = self.model
+        if not hasattr(model, "wants_host_refinement") or not model.wants_host_refinement(step):
+            return
+        model.refine_host(self.optimizers, step)
+        for module in model.modules():
+            cache = getattr(module, "pack_cache", None)
+            if cache is not None:
+                cache.entries.clear()
 
     def _has_eval_data(self) -> bool:
         n = len(self.datamanager.eval_dataset)
@@ -387,7 +403,14 @@ class Trainer:
         else:
             path = load_dir / f"step-{self.config.load_step:09d}.ckpt"
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        before = [p for ps in self.model.param_groups().values() for p in ps]
         self.model.load_state_dict(ckpt["model"])
+        # a model may take a parameter at the checkpoint's shape (TensoRF's
+        # grids after an upsample): the optimizers follow it
+        after = [p for ps in self.model.param_groups().values() for p in ps]
+        swapped = {old: new for old, new in zip(before, after) if old is not new}
+        if swapped:
+            self.optimizers.replace_params(swapped)
         self.optimizers.load_state_dict(ckpt["optimizers"])
         self.state.step = int(ckpt["step"])
         self.state.steps_since_update = int(ckpt["steps_since_update"])

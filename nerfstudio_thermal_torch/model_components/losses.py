@@ -5,8 +5,10 @@ The port carries what the nerfacto and thermal-nerfacto training steps
 use: mse, l1, `masked_mean`, the proposal (interlevel) and distortion
 losses, the radiance-field gradient scaling, the density TV loss and the
 2x2-patch thermal losses (`tv_pixel_loss`, `pixel_grad`,
-`cross_channel_loss`). As in the JAX package, the patch losses are masked
-means over the static 2x2 patch layout, each patch modality-pure.
+`cross_channel_loss`), and depth-nerfacto's depth losses (DS-NeRF, URF)
+with SparseNeRF's depth ranking. As in the JAX package, the patch losses
+are masked means over the static 2x2 patch layout, each patch
+modality-pure.
 """
 
 from typing import List
@@ -156,3 +158,68 @@ def cross_channel_loss(
     diff = torch.abs(pixel_grad(pred_thermal, patch_size) - pixel_grad(gt_gray, patch_size))
     per_patch = diff[0] + diff[1] + diff[2] + diff[3]
     return masked_mean(per_patch, rgb_mask) / patch_size**2
+
+
+# Depth supervision ------------------------------------------------------
+
+URF_SIGMA_SCALE_FACTOR = 3.0
+
+
+def ds_nerf_depth_loss(weights, termination_depth, steps, lengths, sigma):
+    """Depth-supervised NeRF's loss (Deng et al. 2022). As in the JAX
+    package the gaussian's exponent divides by 2 sigma, not 2 sigma^2."""
+    depth_mask = (termination_depth > 0).float()
+    loss = -torch.log(weights + EPS) * torch.exp(-((steps - termination_depth[:, None]) ** 2) / (2 * sigma)) * lengths
+    loss = torch.sum(loss, dim=-2) * depth_mask
+    return torch.mean(loss)
+
+
+def urban_radiance_field_depth_loss(weights, termination_depth, predicted_depth, steps, sigma):
+    """Urban Radiance Fields' lidar losses (Rematas et al. 2022): expected
+    depth, line-of-sight near the surface and empty space before it."""
+    depth_mask = (termination_depth > 0).float()
+    expected_depth_loss = (termination_depth - predicted_depth) ** 2
+    std = sigma / URF_SIGMA_SCALE_FACTOR
+    term = termination_depth[:, None]
+    log_prob = -0.5 * ((steps - term) / std) ** 2 - torch.log(std * torch.sqrt(torch.tensor(2.0 * torch.pi)))
+    near_mask = (steps <= term + sigma) & (steps >= term - sigma)
+    near = torch.sum(near_mask * (weights - torch.exp(log_prob)) ** 2, dim=-2)
+    empty_mask = steps < term - sigma
+    empty = torch.sum(empty_mask * weights**2, dim=-2)
+    return torch.mean((expected_depth_loss + near + empty) * depth_mask)
+
+
+def depth_loss(
+    weights,
+    ray_samples: RaySamples,
+    termination_depth,
+    predicted_depth,
+    sigma,
+    directions_norm,
+    is_euclidean: bool,
+    depth_loss_type: str = "ds_nerf",
+):
+    """The depth loss of `depth_loss_type` (ds_nerf | urf). A z-depth
+    (is_euclidean False) becomes a distance along the ray by the
+    direction's norm before normalisation."""
+    if not is_euclidean:
+        termination_depth = termination_depth * directions_norm
+    steps = (ray_samples.starts + ray_samples.ends) / 2.0
+    if depth_loss_type == "ds_nerf":
+        lengths = ray_samples.ends - ray_samples.starts
+        return ds_nerf_depth_loss(weights, termination_depth, steps, lengths, sigma)
+    if depth_loss_type == "urf":
+        return urban_radiance_field_depth_loss(weights, termination_depth, predicted_depth, steps, sigma)
+    raise NotImplementedError(f"depth loss type {depth_loss_type}")
+
+
+def depth_ranking_loss(rendered_depth: torch.Tensor, gt_depth: torch.Tensor) -> torch.Tensor:
+    """SparseNeRF's depth ranking over PairPixelSampler's [anchor,
+    neighbour, ...] rays: the mean margin of the pairs whose rendered order
+    disagrees with the GT's (NaN when none does)."""
+    m = 1e-4
+    dpt_diff = gt_depth[::2, :] - gt_depth[1::2, :]
+    out_diff = rendered_depth[::2, :] - rendered_depth[1::2, :] + m
+    differing_signs = torch.sign(dpt_diff) != torch.sign(out_diff)
+    per = torch.where(differing_signs, out_diff * torch.sign(out_diff), torch.full_like(out_diff, float("nan")))
+    return torch.nanmean(per)

@@ -8,7 +8,8 @@ are the CPU path and the yardstick of the CUDA kernels
 autograd node, which picks the plain versions for CPU tensors and the
 kernels for CUDA tensors.
 
-`NeRFEncoding` keeps the JAX module's arithmetic, which differs from the
+`NeRFEncoding` (with `covs`, MipNeRF's integrated encoding) keeps the JAX
+module's arithmetic, which differs from the
 in-kernel encoding of the fused MLP (ops/cuda/fused_mlp.py): here the input
 is scaled by 2*pi, then by 2^e, and the cosine is sin(x + pi/2).
 
@@ -24,11 +25,13 @@ so no [N, L, 8, 3] buffer is built.
 """
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from nerfstudio_thermal_torch.utils.math import expected_sin
 
 # Instant-NGP spatial-hash primes.
 _HASH_PRIMES = (1, 2654435761, 805459861)
@@ -63,7 +66,11 @@ class NeRFEncoding:
         d = self.in_dim * self.num_frequencies * 2
         return d + self.in_dim if self.include_input else d
 
-    def __call__(self, in_tensor: torch.Tensor) -> torch.Tensor:
+    def __call__(self, in_tensor: torch.Tensor, covs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """covs: optional [..., in_dim] gaussian variances, which make this
+        MipNeRF's integrated positional encoding: each sin is damped by
+        exp(-var / 2), var = covs * 2^(2e) (the variance does not carry
+        the mean's 2*pi, as in the JAX package)."""
         scaled = (2.0 * math.pi) * in_tensor
         exps = torch.linspace(
             self.min_freq_exp, self.max_freq_exp, self.num_frequencies,
@@ -71,7 +78,12 @@ class NeRFEncoding:
         )
         freqs = torch.pow(2.0, exps)
         scaled = (scaled[..., None] * freqs).reshape(*scaled.shape[:-1], -1)
-        encoded = torch.sin(torch.cat([scaled, scaled + math.pi / 2.0], dim=-1))
+        both = torch.cat([scaled, scaled + math.pi / 2.0], dim=-1)
+        if covs is None:
+            encoded = torch.sin(both)
+        else:
+            input_var = (covs[..., :, None] * freqs**2).reshape(*covs.shape[:-1], -1)
+            encoded = expected_sin(both, torch.cat([input_var, input_var], dim=-1))
         if self.include_input:
             encoded = torch.cat([encoded, in_tensor], dim=-1)
         return encoded

@@ -19,6 +19,11 @@ Layouts handled:
   base field's `mlp_base/{encoding, mlp}` and the hash proposal fields'
   `encoding` beside `mlp`, or `Dense_0` with `use_linear`;
 - `embedding_appearance` in a field;
+- the frequency NeRFField (vanilla-nerf, mipnerf): `mlp_base` (flat when
+  `use_pallas` fuses it), `density_head`, `mlp_head`; vanilla-nerf's two
+  fields are `fields/{coarse, fine}`;
+- the TensoRFField: its four grids as they are, `basis/kernel` (no bias)
+  and `mlp_head`;
 - `pose_adjustment` of the camera optimizers;
 - the top-level groups below.
 A key the port does not expect, or one it expects and does not find,
@@ -41,6 +46,8 @@ from torch import nn
 from nerfstudio_thermal_torch.cameras.camera_optimizers import CameraOptimizer
 from nerfstudio_thermal_torch.fields.density_fields import HashMLPDensityField, MLPDensityField
 from nerfstudio_thermal_torch.fields.nerfacto_field import NerfactoField
+from nerfstudio_thermal_torch.fields.tensorf_field import GRID_KEYS, TensoRFField
+from nerfstudio_thermal_torch.fields.vanilla_nerf_field import NeRFField
 from nerfstudio_thermal_torch.ops.encodings import HashEncoding
 from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
@@ -108,6 +115,18 @@ def load_module(module: nn.Module, tree: Mapping, where: str) -> None:
             _copy(module.embedding_appearance, tree["embedding_appearance"], f"{where}/embedding_appearance")
         load_module(module.base_network, tree[base], f"{where}/{base}")
         load_mlp(module.mlp_head, tree["mlp_head"], f"{where}/mlp_head")
+    elif isinstance(module, NeRFField):
+        _check_keys(tree, ["mlp_base", "density_head", "mlp_head"], where)
+        load_mlp(module.mlp_base, tree["mlp_base"], f"{where}/mlp_base")
+        _load_dense(module.density_head, tree["density_head"], f"{where}/density_head")
+        load_mlp(module.mlp_head, tree["mlp_head"], f"{where}/mlp_head")
+    elif isinstance(module, TensoRFField):
+        _check_keys(tree, [*GRID_KEYS, "basis", "mlp_head"], where)
+        for name in GRID_KEYS:
+            _copy(getattr(module, name), tree[name], f"{where}/{name}")
+        _check_keys(tree["basis"], ["kernel"], f"{where}/basis")
+        _copy(module.basis.weight, np.asarray(tree["basis"]["kernel"]).T, f"{where}/basis/kernel")
+        load_mlp(module.mlp_head, tree["mlp_head"], f"{where}/mlp_head")
     elif isinstance(module, MLP):
         load_mlp(module, tree, where)
     elif isinstance(module, HashEncoding):
@@ -135,6 +154,10 @@ def load_module(module: nn.Module, tree: Mapping, where: str) -> None:
         _check_keys(tree, [str(i) for i in range(len(module))], where)
         for i, sub in enumerate(module):
             load_module(sub, tree[str(i)], f"{where}/{i}")
+    elif isinstance(module, nn.ModuleDict):
+        _check_keys(tree, list(module.keys()), where)
+        for k, sub in module.items():
+            load_module(sub, tree[k], f"{where}/{k}")
     else:
         raise TypeError(f"{where}: no JAX layout known for {type(module).__name__}")
 
@@ -173,6 +196,10 @@ def export_mlp(mlp: MLP, grads: bool = False, flat: bool = False) -> Dict[str, A
     return tree
 
 
+def _export_dense(layer: nn.Linear, grads: bool) -> Dict[str, np.ndarray]:
+    return {"kernel": _value(layer.weight, grads).T.copy(), "bias": _value(layer.bias, grads)}
+
+
 def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
     if isinstance(module, NerfactoField):
         tree = {
@@ -181,6 +208,17 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
         }
         if module.appearance_embedding_dim > 0:
             tree["embedding_appearance"] = _value(module.embedding_appearance, grads)
+        return tree
+    if isinstance(module, NeRFField):
+        return {
+            "mlp_base": export_mlp(module.mlp_base, grads),
+            "density_head": _export_dense(module.density_head, grads),
+            "mlp_head": export_mlp(module.mlp_head, grads),
+        }
+    if isinstance(module, TensoRFField):
+        tree = {name: _value(getattr(module, name), grads) for name in GRID_KEYS}
+        tree["basis"] = {"kernel": _value(module.basis.weight, grads).T.copy()}
+        tree["mlp_head"] = export_mlp(module.mlp_head, grads)
         return tree
     if isinstance(module, MLP):
         return export_mlp(module, grads)
@@ -191,10 +229,7 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
     if isinstance(module, HashMLPDensityField):
         tree = {"encoding": export_module(module.encoding, grads)}
         if module.use_linear:
-            tree["Dense_0"] = {
-                "kernel": _value(module.linear.weight, grads).T.copy(),
-                "bias": _value(module.linear.bias, grads),
-            }
+            tree["Dense_0"] = _export_dense(module.linear, grads)
         else:
             tree["mlp"] = export_mlp(module.mlp, grads)
         return tree
@@ -204,6 +239,8 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
         return {"pose_adjustment": _value(module.pose_adjustment, grads)}
     if isinstance(module, nn.ModuleList):
         return {str(i): export_module(sub, grads) for i, sub in enumerate(module)}
+    if isinstance(module, nn.ModuleDict):
+        return {k: export_module(sub, grads) for k, sub in module.items()}
     raise TypeError(f"no JAX layout known for {type(module).__name__}")
 
 

@@ -6,6 +6,8 @@ Here it is `torch.cumsum`: the same sums in another order, so the two
 agree to f32 rounding, not bitwise. `safe_norm` and the masked `psnr` serve
 the training losses and metrics; `psnr` and `ssim` also score whole eval
 images, on whatever device the image lives on.
+`conical_frustum_to_gaussian_diag` and `expected_sin` are MipNeRF's
+integrated positional encoding's halves, in the JAX package's op order.
 """
 
 from typing import Optional
@@ -38,6 +40,27 @@ def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     s = torch.sum(x * x, dim=dim)
     nonzero = s > 0
     return torch.where(nonzero, torch.sqrt(torch.where(nonzero, s, torch.ones_like(s))), torch.zeros_like(s))
+
+
+def conical_frustum_to_gaussian_diag(origins, directions, starts, ends, radius):
+    """Gaussian approximation of a conical frustum: (means [..., 3],
+    cov_diag [..., 3]), the diagonal being all the integrated positional
+    encoding reads."""
+    mu = (starts + ends) / 2.0
+    hw = (ends - starts) / 2.0
+    means = origins + directions * (mu + (2.0 * mu * hw**2.0) / (3.0 * mu**2.0 + hw**2.0))
+    dir_variance = (hw**2) / 3 - (4 / 15) * ((hw**4 * (12 * mu**2 - hw**2)) / (3 * mu**2 + hw**2) ** 2)
+    radius_variance = radius**2 * ((mu**2) / 4 + (5 / 12) * hw**2 - 4 / 15 * (hw**4) / (3 * mu**2 + hw**2))
+    # diag(cov) = dir_var * d_i^2 + radius_var * (1 - d_i^2 / |d|^2)
+    d_sq = directions**2
+    d_mag_sq = torch.clamp(torch.sum(d_sq, dim=-1, keepdim=True), min=1e-10)
+    cov_diag = dir_variance * d_sq + radius_variance * (1.0 - d_sq / d_mag_sq)
+    return means, cov_diag
+
+
+def expected_sin(x_means: torch.Tensor, x_vars: torch.Tensor) -> torch.Tensor:
+    """E[sin(y)] for y ~ N(x_means, x_vars)."""
+    return torch.exp(-0.5 * x_vars) * torch.sin(x_means)
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -23,14 +23,19 @@ class EventName:
 
 
 def write_png(path: Path, img: np.ndarray) -> None:
-    """uint8 [H, W, 1 or 3] as an 8-bit grey or RGB PNG."""
+    """uint8 [H, W, 1 or 3] as an 8-bit grey or RGB PNG; uint16 [H, W, 1]
+    as a 16-bit grey one (a depth map in millimetres)."""
     h, w, c = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(img).reshape(h, w * c)], axis=1)
+    depth = 16 if img.dtype == np.uint16 else 8
+    if depth == 16 and c != 1:
+        raise ValueError("16-bit PNGs are written grey only")
+    data = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8).reshape(h, -1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), data], axis=1)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return len(body).to_bytes(4, "big") + kind + body + (zlib.crc32(kind + body) & 0xFFFFFFFF).to_bytes(4, "big")
 
-    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, {1: 0, 3: 2}[c], 0, 0, 0])
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([depth, {1: 0, 3: 2}[c], 0, 0, 0])
     Path(path).write_bytes(
         b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
         + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b"")

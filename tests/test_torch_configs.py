@@ -115,3 +115,30 @@ def test_setup_trainer_trains_the_default_model(tmp_path):
     assert losses and all(torch.isfinite(torch.tensor(v)) for v in losses.values()), losses
     unchanged = [name for name, ps in groups.items() if all(torch.equal(a, p) for a, p in zip(before[name], ps))]
     assert not unchanged, unchanged
+
+
+SLICE_13 = ["vanilla-nerf", "mipnerf", "depth-nerfacto", "tensorf"]
+
+
+@pytest.mark.parametrize("name", SLICE_13)
+def test_method_config_equals_jax(name, tmp_path):
+    """vanilla-nerf, mipnerf, depth-nerfacto and tensorf: the registration
+    equals the JAX package's field for field (model, dataparser, data
+    manager, trainer, optimizers), its to_dict tree and its description;
+    config.yml round trips; the model config resolves to the model class
+    of the same name; ns-train's method list names it."""
+    from nerfstudio_thermal_tpu.configs.method_configs import get_method_config as jax_method_config
+    from nerfstudio_thermal_tpu.configs.method_configs import resolve_model_class as jax_resolve
+    from nerfstudio_thermal_tpu.configs.serialization import to_dict as jax_to_dict
+
+    from nerfstudio_thermal_torch.configs.method_configs import descriptions, get_method_config, resolve_model_class
+    from nerfstudio_thermal_torch.configs.serialization import load_config, save_config, to_dict
+    from tests.test_torch_config_cli import _port_tags
+
+    port, want = get_method_config(name), jax_method_config(name)
+    assert _field_differences(type(port), type(want), name, port, want) == []
+    assert to_dict(port) == _port_tags(jax_to_dict(want))
+    assert descriptions[name] == want.description
+    assert resolve_model_class(port.model).__name__ == jax_resolve(want.model).__name__
+    save_config(port, tmp_path / "config.yml")
+    assert load_config(tmp_path / "config.yml") == port

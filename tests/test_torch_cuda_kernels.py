@@ -6,7 +6,9 @@ machine with a card and no JAX installation:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Fused MLP, tolerances as in tests/test_torch_fused_mlp.py: f32 1e-4 (same
+Fused MLP (also on the frequency NeRF's base stacks: 63- and 99-wide
+pre-encoded inputs, 8 x 256 with the last layer 256), tolerances as in
+tests/test_torch_fused_mlp.py: f32 1e-4 (same
 exact products and sums in another order), bf16 2e-2 (one flipped bf16
 rounding moves later layers by about one bf16 step). The backward is held
 per tensor by the relative L2 error ||got - want|| / ||want||: at most 1e-4
@@ -92,6 +94,12 @@ CASES = [
     (3, (64, 64, 1), (), (7, 0.0, 6.0, True), None, torch.bfloat16, 100),
     (63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 65536),
     (63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 1),
+    # the frequency NeRF's base stacks on pre-encoded inputs (vanilla-nerf
+    # 63 wide, mipnerf 99: two x0 atoms), the last layer 256 wide
+    (63, (256,) * 8, (4,), None, None, torch.bfloat16, 65536),
+    (99, (256,) * 8, (4,), None, None, torch.bfloat16, 20001),
+    (63, (256,) * 8, (4,), None, None, torch.float32, 4096),
+    (99, (256,) * 8, (4,), None, None, torch.float32, 3001),
 ]
 
 
@@ -162,6 +170,8 @@ PLAN_CASES = [
     (32, (128, 128, 128, 16), (2,), None, None),
     (3, (272, 16), (), (4, 0.0, 3.0, True), None),
     (3, (512, 16), (), (4, 0.0, 3.0, True), None),
+    (63, (256,) * 8, (4,), None, None),
+    (99, (256,) * 8, (4,), None, None),
 ]
 
 
@@ -189,6 +199,30 @@ def test_forward_plan_matches_the_library(cuda, case):
             assert (plan, total) == (want_plan, want_total)
         else:
             assert (plan, total) == ([], 0)
+
+
+@pytest.mark.parametrize("case", [0, 3, 9, 10, 11, 12])
+def test_walk_smem_matches_the_library(cuda, case):
+    """The CPU tests' copy of the backward walk's shared memory
+    (tests/torch_fused_mlp_plan.py walk_smem) gives what the library plans,
+    in both compute dtypes, with and without a sigmoid head; the NeRF
+    stacks' walk fits without one."""
+    import ctypes
+
+    in_dim, dims, skips, enc, _, _, _ = CASES[case]
+    gen = torch.Generator().manual_seed(700 + case)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(in_dim, enc), torch.device("cpu"))
+    lib = fm.load_library("bwd")
+    for dtype in (torch.bfloat16, torch.float32):
+        for out_act in (None, "sigmoid"):
+            desc = fm.prepare(in_dim, ws, bs, out_act, skips, enc, dtype).desc
+            out = (ctypes.c_longlong * 4)()
+            c_desc = (ctypes.c_int * len(desc))(*desc)
+            assert lib.fused_mlp_bwd_sizes(c_desc, len(desc), 4096, int(dtype == torch.bfloat16), 0, out) == 0
+            if not out[3]:  # the walk (not the one-pass kernel)
+                assert out[2] == plan_rule.walk_smem(desc, dtype == torch.bfloat16), (dtype, out_act)
+            if case >= 9 and out_act is None:
+                assert out[2] <= fm.SMEM_LIMIT
 
 
 BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
@@ -675,3 +709,36 @@ def test_shared_fused_model_goes_through_the_kernels(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 1, 2, 1]
     assert bool(torch.isfinite(out["rgbt"]).all())
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.field.parameters())
+
+
+@pytest.mark.parametrize("name", ["vanilla-nerf", "mipnerf"])
+def test_nerf_models_go_through_the_kernels(cuda, name):
+    """vanilla-nerf and mipnerf with use_pallas on the card: a training
+    forward and backward launch the fused-MLP forward twice (the coarse and
+    the fine pass's base stacks) and its backward twice, the wgmma path for
+    bf16; the losses are finite and every parameter gets a finite
+    gradient. Without use_pallas nothing launches."""
+    from nerfstudio_thermal_torch.cameras.rays import RayBundle
+    from nerfstudio_thermal_torch.configs.method_configs import resolve_model_class
+
+    n = 256
+    gen = torch.Generator().manual_seed(9)
+    o = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1) * 4.0
+    bundle = RayBundle(
+        origins=o.to(cuda), directions=torch.nn.functional.normalize(-o + 0.3 * torch.randn(n, 3, generator=gen), dim=-1).to(cuda),
+        pixel_area=torch.full((n, 1), 1e-6, device=cuda), camera_indices=torch.zeros(n, 1, dtype=torch.int32, device=cuda),
+    )
+    for use_pallas in (True, False):
+        cfg = get_method_config(name).model
+        cfg.use_pallas = use_pallas
+        model = resolve_model_class(cfg)(cfg, [[-1.5] * 3, [1.5] * 3], 1, device=cuda, seed=1)
+        before = (fm.fused_mlp.launches, fm.fused_mlp_bwd.launches, fm.fused_mlp.path_launches["wgmma"])
+        out = model(bundle, train=True, generator=torch.Generator(device=cuda).manual_seed(0))
+        gt = torch.rand(n, 3, generator=gen).to(cuda)
+        loss = sum(model.get_loss_dict(out, {"image": gt}, {}).values())
+        loss.backward()
+        torch.cuda.synchronize()
+        after = (fm.fused_mlp.launches, fm.fused_mlp_bwd.launches, fm.fused_mlp.path_launches["wgmma"])
+        assert [a - b for a, b in zip(after, before)] == ([2, 2, 2] if use_pallas else [0, 0, 0])
+        assert bool(torch.isfinite(loss))
+        assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())

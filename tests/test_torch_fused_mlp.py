@@ -183,6 +183,10 @@ PROPOSAL_F5 = (3, (64, 64, 1), (), (5, 0.0, 4.0, True), None)
 PROPOSAL_F7 = (3, (64, 64, 1), (), (7, 0.0, 6.0, True), None)
 COLOUR_HEAD = (63, (64, 64, 3), (), None, "sigmoid")
 BASE_8X256 = (3, (256,) * 7 + (16,), (4,), (10, 0.0, 9.0, True), None)
+# the frequency NeRF's base stacks, on inputs encoded outside the kernel
+# (vanilla-nerf 63 wide, mipnerf's integrated encoding 99): two x0 atoms at 99
+NERF_BASE = (63, (256,) * 8, (4,), None, None)
+MIPNERF_BASE = (99, (256,) * 8, (4,), None, None)
 
 
 def _stack(spec, seed=0, n=37):
@@ -252,7 +256,7 @@ def _unpack_wgmma_slice(flat, nw):
 
 
 @pytest.mark.parametrize("spec", [BASE_8X256, (3, (40, 24, 24, 6), (2,), (4, 0.0, 3.0, True), "sigmoid"),
-                                  (32, (128, 128, 128, 16), (2,), None, None)])
+                                  (32, (128, 128, 128, 16), (2,), None, None), MIPNERF_BASE])
 def test_wgmma_layout_unpacks_to_the_weights(spec):
     """Every layer's slices in the wgmma order hold exactly its padded
     [x0 rows | h rows] weights: x0's rows first (layer 0 and the skip
@@ -293,13 +297,15 @@ def test_wgmma_layout_unpacks_to_the_weights(spec):
 
 def test_forward_path_rule():
     """The proposal stacks and the colour head take the narrow one-pass
-    kernel, the 8 x 256 stacks (with or without the skip) the wgmma kernel,
+    kernel, the 8 x 256 stacks (with or without the skip, the NeRF stacks
+    with their pre-encoded 63- or 99-wide input) the wgmma kernel,
     f32 compute the f32 kernel; a stack wider than 256 has no bf16 kernel.
     The rule's copy, held to the kernel library on the card
     (test_torch_cuda_kernels.py test_forward_plan_matches_the_library)."""
     for spec, path in ((PROPOSAL_F5, "narrow"), (PROPOSAL_F7, "narrow"), (COLOUR_HEAD, "narrow"),
                        (BASE_8X256, "wgmma"), ((3, (256,) * 7 + (16,), (), (10, 0.0, 9.0, True), None), "wgmma"),
-                       ((3, (64, 64, 64, 16), (2,), (4, 0.0, 3.0, True), None), "wgmma")):
+                       ((3, (64, 64, 64, 16), (2,), (4, 0.0, 3.0, True), None), "wgmma"),
+                       (NERF_BASE, "wgmma"), (MIPNERF_BASE, "wgmma")):
         in_dim, _, skips, enc, out_act = spec
         _, ws, bs = _stack(spec)
         desc = fm.prepare(in_dim, ws, bs, out_act, skips, enc, torch.bfloat16).desc

@@ -29,6 +29,7 @@ import torch
 from nerfstudio_thermal_tpu.ops.pallas.fused_mlp import fused_mlp as jax_fused_mlp
 
 from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+from tests import torch_fused_mlp_plan as plan_rule
 from tests.test_torch_fused_mlp import CASES, TORCH_DTYPE, _unpack_bf16, make_case
 
 torch.set_num_threads(1)
@@ -260,3 +261,36 @@ def test_transposed_pack_is_the_transpose():
         np.testing.assert_array_equal(wl[:27, :24].numpy(), ws[2][:27].to(dtype).float().numpy())
         np.testing.assert_array_equal(wl[32:56, :24].numpy(), ws[2][27:].to(dtype).float().numpy())
         assert float(wl[27:32].abs().sum()) == 0.0 and float(wl[56:].abs().sum()) == 0.0
+
+
+NERF_STACKS = {
+    # the frequency NeRF's base stacks: vanilla-nerf's 63-wide and mipnerf's
+    # 99-wide encoded input, 8 x 256 with the skip at 4, the last layer 256
+    "vanilla-nerf": (63, (256,) * 8, (4,)),
+    "mipnerf": (99, (256,) * 8, (4,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NERF_STACKS))
+def test_nerf_base_stacks_fit_the_backward(name):
+    """The backward's walk keeps the last layer's f32 pre-activation only
+    for a sigmoid head: without it the NeRF stacks' 256-wide output fits
+    (bf16 227,328 bytes at the 112-wide input), with it they would not;
+    thermal-nerfacto-tpu's base stack (16 wide out) fits either way. The
+    rule's copy, held to the library on the card
+    (tests/test_torch_cuda_kernels.py)."""
+    in_dim, dims, skips = NERF_STACKS[name]
+    prev, ws = in_dim, []
+    for i, d in enumerate(dims):
+        ws.append(torch.zeros(prev + (in_dim if i in skips else 0), d))
+        prev = d
+    bs = [torch.zeros(d) for d in dims]
+    for dtype in (torch.bfloat16, torch.float32):
+        desc = fm.prepare(in_dim, ws, bs, None, skips, None, dtype).desc
+        assert desc[2] == (64 if in_dim == 63 else 112) and desc[9 + 5 * 7 + 1] == 256
+        bf16 = dtype == torch.bfloat16
+        assert plan_rule.walk_smem(desc, bf16) <= plan_rule.SMEM_LIMIT, dtype
+        assert plan_rule.walk_smem([*desc[:8], 1, *desc[9:]], bf16) > plan_rule.SMEM_LIMIT, dtype
+    base = [torch.zeros(i, o) for i, o in [(63, 256)] + [(256, 256)] * 3 + [(319, 256)] + [(256, 256)] * 2 + [(256, 16)]]
+    desc = fm.prepare(63, base, [torch.zeros(w.shape[1]) for w in base], None, (4,), None, torch.bfloat16).desc
+    assert plan_rule.walk_smem([*desc[:8], 1, *desc[9:]], True) <= plan_rule.SMEM_LIMIT

@@ -1,11 +1,14 @@
-"""A Python copy of the fused-MLP forward's path rule and wgmma plan.
+"""A Python copy of the fused-MLP forward's path rule and wgmma plan, and of
+the backward walk's shared memory.
 
-The kernel library decides both (nerfstudio_thermal_torch/csrc/
-fused_mlp_fwd.cu: fwd_path, make_wg_plan, wg_smem, f32_smem); the wrapper
-asks it through `fused_mlp.forward_plan`, which needs the built library
-and so a card. This copy lets the CPU tests emulate the paths and check
-the wgmma weight layout; tests/test_torch_cuda_kernels.py holds it equal
-to the library's answer on the card. It imports neither torch nor JAX.
+The kernel libraries decide these (nerfstudio_thermal_torch/csrc/
+fused_mlp_fwd.cu: fwd_path, make_wg_plan, wg_smem, f32_smem;
+fused_mlp_bwd.cu: smem_layout); the wrapper asks them through
+`fused_mlp.forward_plan` and `fused_mlp.bwd_sizes`, which need the built
+libraries and so a card. This copy lets the CPU tests emulate the paths,
+check the wgmma weight layout and see which stacks the backward's walk
+fits; tests/test_torch_cuda_kernels.py holds it equal to the libraries'
+answers on the card. It imports neither torch nor JAX.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -85,3 +88,30 @@ def forward_path(desc: Sequence[int], bf16: bool) -> Optional[str]:
     if wgmma_plan(desc)[0] is not None and wg_smem(desc) <= SMEM_LIMIT:
         return "wgmma"
     return None
+
+
+WALK_ROWS = 64  # points per CTA of the backward's walk
+WALK_RING = 3 * 4 * 16 * 32 * 16  # the bf16 walk's weight ring: 3 slots of 4 k-tiles x 256 columns (bytes)
+
+
+def walk_smem(desc: Sequence[int], bf16: bool) -> int:
+    """As the backward's smem_layout (the walk of a stack that is not
+    narrow): x0, two activation buffers as wide as the widest hidden or
+    output layer (f32: a dh buffer overlapping the second), dx0, the last
+    layer's f32 pre-activation for a sigmoid head only, the relu masks,
+    and for bf16 the db partials and the weight ring."""
+    es, pad = (2, 8) if bf16 else (4, 1)
+    ls = layers(desc)
+    in_pad, hid_pad, out_pad = desc[2], desc[6], ls[-1][1]
+    wid = max(hid_pad, out_pad)
+    x0 = _round_up(WALK_ROWS * (in_pad + pad) * es, 16)
+    h = _round_up(WALK_ROWS * (wid + pad) * es, 16)
+    fwd_end = x0 + 2 * h
+    walk_end = fwd_end if bf16 else x0 + h + _round_up(WALK_ROWS * (wid + 4) * 4, 16)
+    off = max(fwd_end, walk_end) + _round_up(WALK_ROWS * (in_pad + 4) * 4, 16)
+    if desc[8]:  # out_sigmoid
+        off += _round_up(WALK_ROWS * (out_pad + 4) * 4, 16)
+    off += _round_up(max(len(ls) - 1, 1) * WALK_ROWS * ((wid + 31) // 32) * 4, 16)
+    if bf16:
+        off += _round_up(2 * wid * 4, 16) + WALK_RING
+    return off
