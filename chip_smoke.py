@@ -8,18 +8,27 @@ Phases, each fatal on failure:
 2. build every kernel from csrc/ with nvcc (sm_90a): the fused-MLP forward
    and backward, the hash-grid kernels and the fused ray-march /
    whole-field forward and backward, one nvcc per source, started
-   together; build seconds and registers;
+   together; build seconds and registers; then `cuobjdump -sass` of the
+   built libraries: every exact-f32 kernel (the forward over each x0
+   fill, the backward's walk and dW stage) runs FFMA and holds no
+   tensor-core instruction (HMMA, HGMMA, ...), or the run fails;
 3. the fused-MLP forward kernel against its plain PyTorch version on the
    card, at the main path's shape and in the other supported modes, each
    line naming the path that ran (the wgmma kernel of the 8 x 256 stacks,
    the one-pass narrow kernel of the 64-wide ones, the f32 kernel);
    kernel, plain, library (a chain of torch.matmul calls, a yardstick the
-   port never calls) and bound times;
+   port never calls) and bound times: bf16 at the base stack, f32 (bound
+   at 67 TFLOP/s FMA) at the base stack (1,048,576 points), a 3 x 64
+   proposal stack (4,194,304) and the colour head (1,048,576), and f32 at
+   a ragged N (100,003: the base, the RGBT head, a stack with 288-wide
+   hidden layers run in column passes) untimed;
 4. the fused-MLP backward kernel against its plain version (dx, every dW,
    every db) in the same modes; at the base shape (N = 262,144, the RGB
-   field's points per training step) kernel, plain, bound, library
-   (forward + torch.autograd.grad through the torch.matmul chain) and
-   forward + backward kernel times;
+   field's points per training step), bf16 and f32, and at f32 also the
+   proposal stack (4,194,304) and the colour head (1,048,576), kernel,
+   plain, bound, library (forward + torch.autograd.grad through the
+   torch.matmul chain) and forward + backward kernel times, and the
+   workspace's bytes;
 5. the three hash-grid kernels (forward, table gradient, position
    gradient) against their plain versions, in bf16 and f32, at the
    thermal-nerfacto base field's shape (L = 16, T = 2^19, 8192 rays x 48
@@ -40,7 +49,7 @@ Phases, each fatal on failure:
    samples leave the unit ball and the box and samples with tied inf-norm
    components; the whole-field forward's head input (written for the
    backward) equal to the plain version's bitwise, and its output the same
-   without it; kernel (the field forward as a training step calls it,
+   without it; in both dtypes kernel (the field forward as a training step calls it,
    writing the head input, and as ms_render as a render chunk does, with
    none), plain, library (a chain of
    PyTorch ops and torch.matmul calls, a yardstick the port never calls)
@@ -86,7 +95,9 @@ Phases, each fatal on failure:
    exact f32 (and for thermal-nerfacto-tpu with 4 encoding frequencies,
    where every group is held to 1e-3); each f32 step also runs on the card
    in bf16, a control held against the CPU's f32 step, which must break
-   every f32 limit in at least one loss or group;
+   every f32 limit in at least one loss or group; the f32 card steps'
+   launches are counted (every kernel of the method's step launched, every
+   fused-MLP forward on the f32 path) for the JSON line's f32 entries;
 10. the stage split of every timed backward of phases 4 and 6 (device ms
    per call from torch.profiler: the one-pass kernel of a narrow stack, or
    the walk, the dW tiles and the slab sums, and the per-point and per-ray
@@ -113,9 +124,11 @@ Phases, each fatal on failure:
    the cross density and both proposal stacks, each with the launches of
    its stack in the fused training run; the hash kernels with their sums
    on the model's points as the extra fields model_render_chunk and
-   model_train_step; row 5 and 6 at C = 4 as the extra field c4; phase
-   13's numbers as the extra fields below), then the total wall time and
-   the contract line.
+   model_train_step; row 5 and 6 at C = 4 as the extra field c4; rows
+   1-6 at f32 compute as the entries fused_mlp_fwd_f32 ...
+   fused_field_mlp_bwd_f32, with the launches of phase 9's f32 steps and
+   the NeRF stacks' f32 numbers of phase 16; phase 13's numbers as the
+   extra fields below), then the total wall time and the contract line.
 13. the rest of thermal-nerfacto's config surface and the nerfacto family
    (after phase 11; the JSON line reads it):
    - rows 1-2 on the density TV loss's 7 x 5000 raw points (the base
@@ -587,14 +600,67 @@ def library_mlp(x, ws, bs, skips, freq, out_act, dtype):
     return h
 
 
+# The f32 kernels' functions in each library that holds them (mangled-name
+# parts): the forward over each fill, the walk and the dW stage. None of them
+# may hold a tensor-core instruction: f32 compute is exact f32 FMA on the
+# CUDA cores (the TPU's Precision.HIGHEST), never TF32 or bf16 products.
+F32_FUNCTIONS = {
+    "fused_mlp_fwd": ("fused_mlp_fwd_f32INS_5XFill",),
+    "fused_mlp_bwd": ("fused_mlp_bwd_walk_f32", "fused_mlp_bwd_dw_f32"),
+    "fused_ray_fwd": ("fused_mlp_fwd_f32INS_7RayFill", "fused_mlp_fwd_f32INS_8HeadFill"),
+    "fused_ray_bwd": ("fused_mlp_bwd_walk_f32", "fused_mlp_bwd_dw_f32"),
+}
+TENSOR_CORE_OPS = {"HMMA", "HGMMA", "IMMA", "IGMMA", "BMMA", "BGMMA", "DMMA", "QGMMA", "OMMA"}
+
+
+def sass_check() -> dict:
+    """cuobjdump -sass of each built library that holds an f32 kernel: every
+    function of F32_FUNCTIONS is there, runs FFMA, and holds no tensor-core
+    instruction. Returns {function: FFMA count}."""
+    from nerfstudio_thermal_torch.ops.cuda import build
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    found = {}
+    for lib, wanted in F32_FUNCTIONS.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))], capture_output=True, text=True,
+                              check=True).stdout
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            fname = body.split("\n", 1)[0].strip()
+            key = next((w for w in wanted if w in fname), None)
+            if key is None:
+                continue
+            ops = {op.split(".")[0] for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)}
+            bad = sorted(ops & TENSOR_CORE_OPS)
+            ffma = len(re.findall(r"\bFFMA\b", body))
+            if bad or not ffma:
+                raise AssertionError(f"sass_check: {lib} {fname}: tensor-core instructions {bad}, {ffma} FFMA")
+            found[f"{lib}:{key}"] = ffma
+        missing = [w for w in wanted if f"{lib}:{w}" not in found]
+        if missing:
+            raise AssertionError(f"sass_check: {lib} holds no function named like {missing}")
+    log("sass_check: f32 kernels without a tensor-core instruction: "
+        + ", ".join(f"{k} ({v} FFMA)" for k, v in found.items()))
+    return found
+
+
 def kernel_phase():
-    """Kernel vs plain on the card. Returns the main-shape record."""
+    """Kernel vs plain on the card. Returns the timed cases' records by
+    name (base_8x256_skip4_bf16 is row 1's main shape)."""
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 
     cases = [
         # name, in_dim, dims, skips, freq, out_act, dtype, n, timed
         ("base_8x256_skip4_bf16", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.bfloat16, 1 << 20, True),
-        ("base_f32", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.float32, 1 << 17, False),
+        # the f32 kernel (exact f32 on the CUDA cores): the base stack, a
+        # proposal stack and the colour head at phase 6's points, and ragged N
+        ("base_f32", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.float32, 1 << 20, True),
+        ("proposal_f5_3x64_f32", 3, (64, 64, 1), (), (5, 0.0, 4.0, True), None, torch.float32, 4_194_304, True),
+        ("colour_head_3x64_f32", 63, (64, 64, 3), (), None, "sigmoid", torch.float32, 1 << 20, True),
+        ("ragged_n_base_f32", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.float32, 100_003, False),
+        ("ragged_n_rgbt_head_f32", 63, (64, 64, 4), (), None, "sigmoid", torch.float32, 100_003, False),
+        # products wider than 256 in column passes (288-wide hidden layers
+        # that overwrite what they read: the spill rows)
+        ("column_passes_f32", 12, (288, 288, 20), (1,), None, "sigmoid", torch.float32, 100_003, False),
         ("sigmoid_4x128_bf16", 3, (128,) * 3 + (3,), (), (6, 0.0, 5.0, True), "sigmoid", torch.bfloat16, 1 << 18, False),
         ("no_encoding_bf16", 32, (128,) * 4 + (16,), (2,), None, None, torch.bfloat16, 1 << 18, False),
         ("no_skip_8x256_bf16", 3, BASE_DIMS, (), BASE_FREQ, None, torch.bfloat16, 1 << 18, False),
@@ -603,7 +669,7 @@ def kernel_phase():
         ("ragged_n_head_bf16", 63, (64, 64, 3), (), None, "sigmoid", torch.bfloat16, 100_003, False),
     ]
     gen = torch.Generator().manual_seed(0)
-    main = None
+    recs = {}
     for name, in_dim, dims, skips, freq, out_act, dtype, n, timed in cases:
         ws, bs = mlp_params(gen, in_dim, dims, skips, freq)
         x = torch.rand(n, in_dim, generator=gen).cuda()
@@ -621,11 +687,15 @@ def kernel_phase():
             bb = [b.to(dtype) for b in bs]
             library_ms = cuda_ms(lambda: library_mlp(x, wb, bb, skips, freq, out_act, dtype), iters=10)
             flops = 2.0 * n * mlp_macs(ws)
-            nbytes = n * (in_dim * 4 + dims[-1] * 2) + param_bytes(ws, bs, False)
-            bound_ms, bound_by, _ = bound3(nbytes, flops, 0.0)
-            main = {
+            if dtype == torch.bfloat16:
+                nbytes = n * (in_dim * 4 + dims[-1] * 2) + param_bytes(ws, bs, False)
+                bound_ms, bound_by, _ = bound3(nbytes, flops, 0.0)
+            else:
+                nbytes = n * (in_dim + dims[-1]) * 4 + 4 * sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+                bound_ms, bound_by, _ = bound3(nbytes, 0.0, flops)  # f32 products at the FMA peak
+            recs[name] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "max_abs_err": max_err, "flops": flops,
+                "bound_by": bound_by, "max_abs_err": max_err, "flops": flops, "n": n,
             }
             line += (
                 f" | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms,"
@@ -634,7 +704,7 @@ def kernel_phase():
         log(line)
         del ws, bs, x, got, want
     torch.cuda.empty_cache()
-    return main
+    return recs
 
 
 def rel_l2(got, want) -> float:
@@ -643,20 +713,29 @@ def rel_l2(got, want) -> float:
 
 
 def backward_phase():
-    """Backward kernel vs plain on the card. Returns the main-shape record."""
+    """Backward kernel vs plain on the card. Returns the timed cases'
+    records by name (base_8x256_skip4_bf16 is row 2's main shape)."""
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 
     cases = [
         # name, in_dim, dims, skips, freq, out_act, dtype, n, timed
         ("base_8x256_skip4_bf16", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.bfloat16, 1 << 18, True),
-        ("base_f32", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.float32, 1 << 16, False),
+        # the f32 walk and dW stage (exact f32 on the CUDA cores): the base
+        # stack, a proposal stack and the colour head at the forward's
+        # points, ragged N, and column passes
+        ("base_f32", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.float32, 1 << 18, True),
+        ("proposal_f5_3x64_f32", 3, (64, 64, 1), (), (5, 0.0, 4.0, True), None, torch.float32, 4_194_304, True),
+        ("colour_head_3x64_f32", 63, (64, 64, 3), (), None, "sigmoid", torch.float32, 1 << 20, True),
+        ("ragged_n_base_f32", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.float32, 100_003, False),
+        ("ragged_n_rgbt_head_f32", 63, (64, 64, 4), (), None, "sigmoid", torch.float32, 100_003, False),
+        ("column_passes_f32", 12, (288, 288, 20), (1,), None, "sigmoid", torch.float32, 100_003, False),
         ("sigmoid_4x128_bf16", 3, (128,) * 3 + (3,), (), (6, 0.0, 5.0, True), "sigmoid", torch.bfloat16, 1 << 18, False),
         ("no_encoding_bf16", 32, (128,) * 4 + (16,), (2,), None, None, torch.bfloat16, 1 << 18, False),
         ("no_skip_8x256_bf16", 3, BASE_DIMS, (), BASE_FREQ, None, torch.bfloat16, 1 << 17, False),
         ("ragged_n_base_bf16", 3, BASE_DIMS, (4,), BASE_FREQ, None, torch.bfloat16, 100_003, False),
     ]
     gen = torch.Generator().manual_seed(1)
-    main = None
+    recs = {}
     for name, in_dim, dims, skips, freq, out_act, dtype, n, timed in cases:
         ws, bs = mlp_params(gen, in_dim, dims, skips, freq)
         x = torch.rand(n, in_dim, generator=gen).cuda()
@@ -688,13 +767,16 @@ def backward_phase():
             library_ms = cuda_ms(library, iters=10)
             park_stage_call(f"fused_mlp_bwd {name} n={n}", fm.launch_bwd, x, g, packed)
             flops = 6.0 * n * mlp_macs(ws)  # recompute + dX + dW
-            nbytes = n * (in_dim * 4 + dims[-1] * 2 + in_dim * 4) + sum(
-                w.numel() * (2 + 4) + b.numel() * (4 + 4) for w, b in zip(ws, bs)
+            es = 2 if dtype == torch.bfloat16 else 4
+            nbytes = n * (in_dim * 4 + dims[-1] * es + in_dim * 4) + sum(
+                w.numel() * (es + 4) + b.numel() * (4 + 4) for w, b in zip(ws, bs)
             )
-            bound_ms, bound_by, _ = bound3(nbytes, flops, 0.0)
-            main = {
+            bound_ms, bound_by, _ = bound3(nbytes, flops, 0.0) if es == 2 else bound3(nbytes, 0.0, flops)
+            sizes = fm.bwd_sizes(fm.load_library("bwd"), packed, n, x)
+            recs[name] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "pair_ms": pair_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+                "workspace_bytes": sizes.ws_elems * es, "scratch_bytes": sizes.scratch_floats * 4,
             }
             line += (
                 f" | kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms,"
@@ -704,7 +786,7 @@ def backward_phase():
         log(line)
         del ws, bs, x, g, dx, dws, dbs, want, named
     torch.cuda.empty_cache()
-    return main
+    return recs
 
 
 def counters():
@@ -731,10 +813,12 @@ def counters():
 
 
 def reset_counts() -> None:
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
     from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
 
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    fm.fused_mlp.path_launches.clear()
     fr.fused_ray_mlp.stack_launches.clear()
     fr.fused_ray_mlp_bwd.stack_launches.clear()
 
@@ -1105,13 +1189,13 @@ RAY_CASES = [
 
 def ray_kernel_phase():
     """The ray-march forward and backward kernels against their plain
-    versions at the main path's shapes, bf16 (timed) and f32. Returns the
-    records of the bf16 cases, by kernel name and case."""
+    versions at the main path's shapes, bf16 and f32, each timed. Returns
+    the records by kernel name (f32: the name with _f32) and case."""
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
     from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
 
     gen = torch.Generator().manual_seed(3)
-    recs = {"fused_ray_mlp_fwd": {}, "fused_ray_mlp_bwd": {}}
+    recs = {k + sfx: {} for k in ("fused_ray_mlp_fwd", "fused_ray_mlp_bwd") for sfx in ("", "_f32")}
     for name, dims, skips, freq, r_fwd, r_bwd, s, need in RAY_CASES:
         ws, bs = mlp_params(gen, 3, dims, skips, freq)
         nf = freq[0]
@@ -1129,19 +1213,23 @@ def ray_kernel_phase():
             line = (f"kernel_vs_plain fused_ray_mlp_fwd {tag} [{packed.fwd_path} path]: n={n} ({r_fwd} x {s}) "
                     f"max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel), {zeros} samples with selector 0, ok")
             del got, want
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: fr.launch_ray(o, d, t, s, packed), iters=10)
-                plain_ms = cuda_ms(lambda: fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, freq, dtype), iters=3)
-                wb, bb = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
-                library_ms = cuda_ms(lambda: library_ray(o, d, t, s, wb, bb, skips, freq, dtype), iters=5)
+            bf16, sfx = dtype == torch.bfloat16, "" if dtype == torch.bfloat16 else "_f32"
+            ms = cuda_ms(lambda: fr.launch_ray(o, d, t, s, packed), iters=10 if bf16 else 3)
+            plain_ms = cuda_ms(lambda: fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, freq, dtype), iters=3)
+            wb, bb = [w.to(dtype) for w in ws], [b.to(dtype) for b in bs]
+            library_ms = cuda_ms(lambda: library_ray(o, d, t, s, wb, bb, skips, freq, dtype), iters=5)
+            if bf16:
                 nbytes = r_fwd * 24 + n * (4 + (dims[-1] + 1) * 2) + param_bytes(ws, bs, False)
                 bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * mlp_macs(ws), n * (40 + 9 * nf))
-                recs["fused_ray_mlp_fwd"][name] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n, "stack": tuple(packed.desc),
-                }
-                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
-                         f"bound {bound_ms:.4f} ms ({term})")
+            else:
+                nbytes = r_fwd * 24 + n * (4 + (dims[-1] + 1) * 4) + 4 * sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+                bound_ms, bound_by, term = bound3(nbytes, 0.0, n * (40 + 9 * nf) + 2.0 * n * mlp_macs(ws))
+            recs["fused_ray_mlp_fwd" + sfx][name] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": max_err, "n": n, "stack": tuple(packed.desc),
+            }
+            line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+                     f"bound {bound_ms:.4f} ms ({term})")
             log(line)
             # backward
             o, d, t = ray_inputs(gen, r_bwd, s)
@@ -1160,30 +1248,31 @@ def ray_kernel_phase():
             line = (f"bwd_kernel_vs_plain fused_ray_mlp_bwd {tag}: n={n} ({r_bwd} x {s}) input grads {need}, "
                     f"worst rel L2 {worst:.3e} ({key}), max |err| {max_err:.3e} (tol {BWD_TOL[dtype]:g} rel L2) ok")
             del named, dws, dbs, w_dws, w_dbs, dw, db
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: fr.fused_ray_mlp_bwd(o, d, t, gk, s, packed, need), iters=5)
-                plain_ms = cuda_ms(lambda: fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, freq, dtype, need), iters=2)
-                wb = [w.to(dtype).requires_grad_(True) for w in ws]
-                bb = [b.to(dtype).requires_grad_(True) for b in bs]
-                ins = [x.clone().requires_grad_(need) for x in (o, d, t)]
+            ms = cuda_ms(lambda: fr.fused_ray_mlp_bwd(o, d, t, gk, s, packed, need), iters=5 if bf16 else 3)
+            plain_ms = cuda_ms(lambda: fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, freq, dtype, need), iters=2)
+            wb = [w.to(dtype).requires_grad_(True) for w in ws]
+            bb = [b.to(dtype).requires_grad_(True) for b in bs]
+            ins = [x.clone().requires_grad_(need) for x in (o, d, t)]
 
-                def library():
-                    out = library_ray(*ins, s, wb, bb, skips, freq, dtype)
-                    return torch.autograd.grad(out, (ins if need else []) + wb + bb, g)
+            def library():
+                out = library_ray(*ins, s, wb, bb, skips, freq, dtype)
+                return torch.autograd.grad(out, (ins if need else []) + wb + bb, g)
 
-                library_ms = cuda_ms(library, iters=3)
-                park_stage_call(f"fused_ray_mlp_bwd {tag} n={n}", fr.fused_ray_mlp_bwd, o, d, t, gk, s, packed, need)
-                nbytes = (r_bwd * 24 + n * (4 + dims[-1] * 2) + param_bytes(ws, bs, True)
-                          + (r_bwd * 24 + n * 4 if need else 0))
-                f32_ops = n * (40 + 9 * nf + ((21 * nf + 45) if need else 0))
-                macs = 3 * mlp_macs(ws) - (0 if need else input_grad_macs(ws, skips))
-                bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, f32_ops)
-                recs["fused_ray_mlp_bwd"][name] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n, "stack": tuple(packed.desc),
-                }
-                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
-                         f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
+            library_ms = cuda_ms(library, iters=3)
+            park_stage_call(f"fused_ray_mlp_bwd {tag} n={n}", fr.fused_ray_mlp_bwd, o, d, t, gk, s, packed, need)
+            es = 2 if bf16 else 4
+            nbytes = (r_bwd * 24 + n * (4 + dims[-1] * es) + (param_bytes(ws, bs, True) if bf16 else 8 * sum(
+                      w.numel() + b.numel() for w, b in zip(ws, bs))) + (r_bwd * 24 + n * 4 if need else 0))
+            f32_ops = n * (40 + 9 * nf + ((21 * nf + 45) if need else 0))
+            macs = 3 * mlp_macs(ws) - (0 if need else input_grad_macs(ws, skips))
+            bound_ms, bound_by, term = (bound3(nbytes, 2.0 * n * macs, f32_ops) if bf16
+                                        else bound3(nbytes, 0.0, f32_ops + 2.0 * n * macs))
+            recs["fused_ray_mlp_bwd" + sfx][name] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": max_err, "n": n, "stack": tuple(packed.desc),
+            }
+            line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
+                     f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
             log(line)
             del o, d, t, g, gk, packed
             torch.cuda.empty_cache()
@@ -1243,13 +1332,13 @@ def field_split_phase():
 def field_kernel_phase():
     """The whole-field forward and backward kernels against their plain
     versions at the main path's shapes (base 8 x 256, head 63 -> 64 -> 64
-    -> C, E = 32), bf16 (timed) and f32. Returns the bf16 records by kernel
-    name and C."""
+    -> C, E = 32), bf16 and f32, each timed. Returns the records by kernel
+    name (f32: the name with _f32) and C."""
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
     from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
 
     gen = torch.Generator().manual_seed(4)
-    recs = {"fused_field_mlp_fwd": {}, "fused_field_mlp_bwd": {}}
+    recs = {k + sfx: {} for k in ("fused_field_mlp_fwd", "fused_field_mlp_bwd") for sfx in ("", "_f32")}
     e, skips = 32, (4,)
     for c, r_fwd, r_bwd, s in FIELD_CASES:
         bw, bb = mlp_params(gen, 3, BASE_DIMS, skips, BASE_FREQ)
@@ -1276,22 +1365,29 @@ def field_kernel_phase():
                     f"max_abs_err={max_err:.3e} (tol {TOL[dtype]:g} abs+rel), head input equal to the plain "
                     f"_head_input, output without it bitwise equal, ok")
             del got, want, head_in, bare
-            if dtype == torch.bfloat16:
-                # a training step's call (head input written), and a render
-                # chunk's (none)
-                ms = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head), iters=10)
-                ms_render = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head, head_input=False), iters=10)
-                plain_ms = cuda_ms(lambda: fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=3)
-                wbs = [[x.to(dtype) for x in z] for z in (bw, bb, hw, hb)]
-                library_ms = cuda_ms(lambda: library_field(o, d, t, emb, s, *wbs, skips, BASE_FREQ, dtype), iters=5)
+            bf16, sfx = dtype == torch.bfloat16, "" if dtype == torch.bfloat16 else "_f32"
+            # a training step's call (head input written), and a render
+            # chunk's (none)
+            ms = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head), iters=10 if bf16 else 3)
+            ms_render = cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head, head_input=False),
+                                iters=10 if bf16 else 3)
+            plain_ms = cuda_ms(lambda: fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=3)
+            wbs = [[x.to(dtype) for x in z] for z in (bw, bb, hw, hb)]
+            library_ms = cuda_ms(lambda: library_field(o, d, t, emb, s, *wbs, skips, BASE_FREQ, dtype), iters=5)
+            f32_ops = n * (40 + 9 * BASE_FREQ[0]) + r_fwd * 30
+            if bf16:
                 nbytes = r_fwd * (24 + 4 * e) + n * (4 + (c + 2) * 2) + param_bytes(bw + hw, bb + hb, False)
-                bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, n * (40 + 9 * BASE_FREQ[0]) + r_fwd * 30)
-                recs["fused_field_mlp_fwd"][c] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n, "ms_render": ms_render,
-                }
-                line += (f" | kernel {ms:.3f} ms ({ms_render:.3f} ms without the head input), plain {plain_ms:.3f} "
-                         f"ms, library {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
+                bound_ms, bound_by, term = bound3(nbytes, 2.0 * n * macs, f32_ops)
+            else:
+                nbytes = r_fwd * (24 + 4 * e) + n * (4 + (c + 2) * 4) + 4 * sum(
+                    w.numel() + b.numel() for w, b in zip(bw + hw, bb + hb))
+                bound_ms, bound_by, term = bound3(nbytes, 0.0, f32_ops + 2.0 * n * macs)
+            recs["fused_field_mlp_fwd" + sfx][c] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": max_err, "n": n, "ms_render": ms_render,
+            }
+            line += (f" | kernel {ms:.3f} ms ({ms_render:.3f} ms without the head input), plain {plain_ms:.3f} "
+                     f"ms, library {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
             log(line)
             o, d, t = ray_inputs(gen, r_bwd, s)
             emb = torch.randn(r_bwd, e, generator=gen).cuda()
@@ -1310,29 +1406,32 @@ def field_kernel_phase():
             line = (f"bwd_kernel_vs_plain fused_field_mlp_bwd {tag}: n={n} ({r_bwd} x {s}) worst rel L2 {worst:.3e} "
                     f"({key}), max |err| {max_err:.3e} (tol {BWD_TOL[dtype]:g} rel L2) ok")
             del named, want
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: fr.fused_field_mlp_bwd(o, d, t, emb, g, head_in, s, base, head), iters=5)
-                plain_ms = cuda_ms(lambda: fr.fused_field_mlp_bwd_plain(o, d, t, emb, g, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=2)
-                wbs = [[x.to(dtype).requires_grad_(True) for x in z] for z in (bw, bb, hw, hb)]
-                ins = [x.clone().requires_grad_(True) for x in (o, d, t, emb)]
+            ms = cuda_ms(lambda: fr.fused_field_mlp_bwd(o, d, t, emb, g, head_in, s, base, head),
+                         iters=5 if bf16 else 3)
+            plain_ms = cuda_ms(lambda: fr.fused_field_mlp_bwd_plain(o, d, t, emb, g, bw, bb, hw, hb, s, skips, BASE_FREQ, dtype), iters=2)
+            wbs = [[x.to(dtype).requires_grad_(True) for x in z] for z in (bw, bb, hw, hb)]
+            ins = [x.clone().requires_grad_(True) for x in (o, d, t, emb)]
 
-                def library():
-                    out = library_field(*ins, s, *wbs, skips, BASE_FREQ, dtype)
-                    return torch.autograd.grad(out, ins + [x for z in wbs for x in z], g)
+            def library():
+                out = library_field(*ins, s, *wbs, skips, BASE_FREQ, dtype)
+                return torch.autograd.grad(out, ins + [x for z in wbs for x in z], g)
 
-                library_ms = cuda_ms(library, iters=3)
-                park_stage_call(f"fused_field_mlp_bwd {tag} n={n}", fr.fused_field_mlp_bwd, o, d, t, emb, g, head_in,
-                                s, base, head)
-                nbytes = (r_bwd * (24 + 4 * e) * 2 + n * (4 + (c + 2) * 2 + 4)
-                          + param_bytes(bw + hw, bb + hb, True))
-                f32_ops = n * (40 + 30 * BASE_FREQ[0] + 45 + 54) + r_bwd * 100
-                bound_ms, bound_by, term = bound3(nbytes, 6.0 * n * macs, f32_ops)
-                recs["fused_field_mlp_bwd"][c] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "max_abs_err": max_err, "n": n,
-                }
-                line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
-                         f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
+            library_ms = cuda_ms(library, iters=3)
+            park_stage_call(f"fused_field_mlp_bwd {tag} n={n}", fr.fused_field_mlp_bwd, o, d, t, emb, g, head_in,
+                            s, base, head)
+            es = 2 if bf16 else 4
+            nbytes = (r_bwd * (24 + 4 * e) * 2 + n * (4 + (c + 2) * es + 4)
+                      + (param_bytes(bw + hw, bb + hb, True) if bf16
+                         else 8 * sum(w.numel() + b.numel() for w, b in zip(bw + hw, bb + hb))))
+            f32_ops = n * (40 + 30 * BASE_FREQ[0] + 45 + 54) + r_bwd * 100
+            bound_ms, bound_by, term = (bound3(nbytes, 6.0 * n * macs, f32_ops) if bf16
+                                        else bound3(nbytes, 0.0, f32_ops + 6.0 * n * macs))
+            recs["fused_field_mlp_bwd" + sfx][c] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": max_err, "n": n,
+            }
+            line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (forward + autograd.grad) "
+                     f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({term})")
             log(line)
             del o, d, t, emb, g, head_in, base, head
             torch.cuda.empty_cache()
@@ -1905,8 +2004,12 @@ def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path, f32_freq
     same seeded params, batch and jitter. With f32_freqs the MLPs run in f32
     and the base field's encoding has that many frequencies (the f32
     limits), and the card also runs the step in bf16: a control that must
-    exceed every f32 limit in at least one loss or group."""
+    exceed every f32 limit in at least one loss or group. Returns, for an
+    f32 step, the card step's launch counts (the f32 kernels: every kernel
+    of the method's training step must have launched, every fused-MLP
+    forward on the f32 path)."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
 
     method = train_method(method_name, scene_dir, 256)
     loss_tol, tag = STEP_LOSS_TOL, method.model.compute_dtype
@@ -1934,12 +2037,25 @@ def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path, f32_freq
     gen = torch.Generator().manual_seed(7)
     levels = len(method.model.num_proposal_samples_per_ray) + 1
     uniforms = {m: [torch.rand(256, 1, generator=gen) for _ in range(levels)] for m in ("rgb", "thermal")}
-    results = {}
+    results, f32_counts = {}, None
     for label, tr in trainers.items():
         dev = runs[label][0]
         b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         u = {m: [t.to(dev) for t in us] for m, us in uniforms.items()}
-        scalars = tr._train_step(tr.state, b, uniforms=u)
+        if label == "cuda" and f32_freqs is not None:
+            torch.cuda.synchronize()
+            reset_counts()
+            scalars = tr._train_step(tr.state, b, uniforms=u)
+            torch.cuda.synchronize()
+            f32_counts = {**read_counts(), "fused_mlp_fwd_f32_path": fm.fused_mlp.path_launches["f32"]}
+            tables = (METHODS, SURFACE, FUSED_MODALITIES, DATA_SURFACE)  # a tagged name may have no entry
+            step = next(t[k] for k in (method_name, method_name.split(":")[0]) for t in tables if k in t)["step"]
+            missed = [k for k, v in step(True).items() if v and not f32_counts[k]]
+            if missed or f32_counts["fused_mlp_fwd_f32_path"] != f32_counts["fused_mlp_fwd"]:
+                raise AssertionError(f"{method_name} f32 step: kernels {missed} never launched, or a fused-MLP "
+                                     f"forward left the f32 path ({f32_counts})")
+        else:
+            scalars = tr._train_step(tr.state, b, uniforms=u)
         grads = {
             name: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten().float().cpu() for p in ps])
             for name, ps in tr.model.param_groups().items()
@@ -1961,7 +2077,7 @@ def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path, f32_freq
         if not bool(torch.isfinite(got_g[name]).all()) or err > grad_tols[name]:
             raise AssertionError(f"{method_name} step_vs_cpu {tag}: gradient of {name} rel L2 {err:.3e}")
     if "control" not in results:
-        return
+        return None
     ctl_s, ctl_g = results["control"]
     ctl_loss = {k: abs(ctl_s[k] - w) / max(abs(w), 1e-3) for k, w in want_s.items()}
     ctl_grad = {name: rel_l2(ctl_g[name], w) for name, w in want_g.items()}
@@ -1979,6 +2095,8 @@ def step_vs_cpu_phase(method_name: str, scene_dir: Path, run_dir: Path, f32_freq
             raise AssertionError(f"{method_name} step_vs_cpu {tag}: the bf16 control keeps its {what} within the "
                                  f"f32 limit {tol:g} (at most {max(reads.values()):.3e}): the limit cannot tell "
                                  "the f32 path from a bf16 one")
+    log(f"{method_name} f32 step launches on the card: " + ", ".join(f"{k} {v}" for k, v in f32_counts.items() if v))
+    return f32_counts
 
 
 TV_POINTS = 7 * 5000  # the density TV loss's points: num_density_tv_samples and 6 neighbours each
@@ -3168,7 +3286,7 @@ def nerf_stack_phase() -> dict:
             torch.cuda.synchronize()
             err = check_fwd(f"fused_mlp_fwd {tag}", got, fm.fused_mlp_plain(x, ws, bs, "relu", None, (4,), None, dtype),
                             dtype)
-            rec = {"ms": cuda_ms(lambda: fm.launch(x, packed), iters=10 if bf16 else 3),
+            rec = {"ms": cuda_ms(lambda: fm.launch(x, packed), iters=10 if bf16 else 5),
                    "plain_ms": cuda_ms(lambda: fm.fused_mlp_plain(x, ws, bs, "relu", None, (4,), None, dtype), 2),
                    "library_ms": cuda_ms(lambda: library_mlp(x, wb, bb, (4,), None, None, dtype), iters=5),
                    "max_abs_err": err, "n": NERF_FWD_N, "path": packed.fwd_path}
@@ -3198,7 +3316,7 @@ def nerf_stack_phase() -> dict:
                 o = library_mlp(xr, wr[: len(ws)], wr[len(ws):], (4,), None, None, dtype)
                 return torch.autograd.grad(o, [xr, *wr], g)
 
-            rec = {"ms": cuda_ms(lambda: fm.launch_bwd(x_b, g, packed), iters=5 if bf16 else 2),
+            rec = {"ms": cuda_ms(lambda: fm.launch_bwd(x_b, g, packed), iters=5),
                    "plain_ms": cuda_ms(lambda: fm.fused_mlp_bwd_plain(x_b, g, ws, bs, "relu", None, (4,), None, dtype), 1),
                    "library_ms": cuda_ms(library, iters=3), "max_abs_err": berr, "n": NERF_BWD_N}
             rec["bound_ms"], rec["bound_by"], _ = timed_bound(
@@ -3605,6 +3723,7 @@ def main() -> int:
         fm.load_library(kind)
         fr.load_library(kind)
     th.load_library()
+    sass_check()
 
     fwd_kernel = kernel_phase()
     bwd_kernel = backward_phase()
@@ -3622,9 +3741,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         for m in METHODS:
             step_vs_cpu_phase(m, scene, Path(tmp) / m / "step")
+        f32_steps = {}
         for m, freqs in (("thermal-nerfacto-tpu", 10), ("thermal-nerfacto-tpu+fused", 10),
                          ("thermal-nerfacto-tpu", F32_CHECK_FREQS)):
-            step_vs_cpu_phase(m, scene, Path(tmp) / m / f"step_f32_{freqs}", f32_freqs=freqs)
+            f32_steps[(m, freqs)] = step_vs_cpu_phase(m, scene, Path(tmp) / m / f"step_f32_{freqs}", f32_freqs=freqs)
         for line in stage_lines():
             log(line)
         field_split_phase()
@@ -3697,10 +3817,10 @@ def main() -> int:
     kernels = [
         {"name": "fused_mlp_fwd", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_fwd.cu",
          "replaces": pallas + "fused_mlp.py:318 (row 1)", "launches": tpu_counts["fused_mlp_fwd"],
-         **{k: fwd_kernel[k] for k in keys}},
+         **{k: fwd_kernel["base_8x256_skip4_bf16"][k] for k in keys}},
         {"name": "fused_mlp_bwd", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_bwd.cu",
          "replaces": pallas + "fused_mlp.py:413 (row 2)", "launches": tpu_counts["fused_mlp_bwd"],
-         **{k: bwd_kernel[k] for k in keys}},
+         **{k: bwd_kernel["base_8x256_skip4_bf16"][k] for k in keys}},
         {"name": "hash_encode_fwd", "route": "cuda", "source": hash_source,
          "replaces": pallas + "hash_encoding.py:103 (row 8; also the XLA row-gather forward of row 7, "
                      "hash_gather.py:229)",
@@ -3739,6 +3859,42 @@ def main() -> int:
          **{k: field_kernels["fused_field_mlp_bwd"][3][k] for k in keys},
          "c4": {k: field_kernels["fused_field_mlp_bwd"][4][k] for k in keys}},
     ]
+    # rows 1-6 at f32 compute: the exact-f32 kernels (csrc/fused_mlp_f32.cuh),
+    # each with its launches in phase 9's f32 card steps at 10 frequencies
+    # (thermal-nerfacto-tpu: rows 1-2; +fused: rows 3-6) and its other timed
+    # shapes as extra fields
+    tpu32, fused32 = f32_steps[("thermal-nerfacto-tpu", 10)], f32_steps[("thermal-nerfacto-tpu+fused", 10)]
+    f32_note = " at f32 compute: the exact-f32 kernel"
+    kernels += [
+        {"name": "fused_mlp_fwd_f32", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_fwd.cu",
+         "replaces": pallas + "fused_mlp.py:318 (row 1" + f32_note + ")", "launches": tpu32["fused_mlp_fwd_f32_path"],
+         **{k: fwd_kernel["base_f32"][k] for k in keys},
+         **{case: {k: fwd_kernel[case][k] for k in keys + ("n",)}
+            for case in ("proposal_f5_3x64_f32", "colour_head_3x64_f32")}},
+        {"name": "fused_mlp_bwd_f32", "route": "cuda", "source": "nerfstudio_thermal_torch/csrc/fused_mlp_bwd.cu",
+         "replaces": pallas + "fused_mlp.py:413 (row 2" + f32_note + ")", "launches": tpu32["fused_mlp_bwd"],
+         **{k: bwd_kernel["base_f32"][k] for k in keys + ("workspace_bytes", "scratch_bytes")},
+         **{case: {k: bwd_kernel[case][k] for k in keys + ("n",)}
+            for case in ("proposal_f5_3x64_f32", "colour_head_3x64_f32")}},
+        {"name": "fused_ray_mlp_fwd_f32", "route": "cuda", "source": ray_fwd_source,
+         "replaces": pallas + "fused_mlp.py:774 (row 3" + f32_note + ")", "launches": fused32["fused_ray_mlp_fwd"],
+         **{k: ray_kernels["fused_ray_mlp_fwd_f32"]["cross_density"][k] for k in keys},
+         **{case: {k: ray_kernels["fused_ray_mlp_fwd_f32"][case][k] for k in keys + ("n",)}
+            for case in ("proposal_0", "proposal_1")}},
+        {"name": "fused_ray_mlp_bwd_f32", "route": "cuda", "source": ray_bwd_source,
+         "replaces": pallas + "fused_mlp.py:797 (row 4" + f32_note + ")", "launches": fused32["fused_ray_mlp_bwd"],
+         **{k: ray_kernels["fused_ray_mlp_bwd_f32"]["cross_density"][k] for k in keys},
+         **{case: {k: ray_kernels["fused_ray_mlp_bwd_f32"][case][k] for k in keys + ("n",)}
+            for case in ("proposal_0", "proposal_1")}},
+        {"name": "fused_field_mlp_fwd_f32", "route": "cuda", "source": ray_fwd_source,
+         "replaces": pallas + "fused_mlp.py:1160 (row 5" + f32_note + ")", "launches": fused32["fused_field_mlp_fwd"],
+         **{k: field_kernels["fused_field_mlp_fwd_f32"][3][k] for k in keys + ("ms_render",)},
+         **{f"c{c}": {k: field_kernels["fused_field_mlp_fwd_f32"][c][k] for k in keys + ("ms_render",)} for c in (1, 4)}},
+        {"name": "fused_field_mlp_bwd_f32", "route": "cuda", "source": ray_bwd_source,
+         "replaces": pallas + "fused_mlp.py:1185 (row 6" + f32_note + ")", "launches": fused32["fused_field_mlp_bwd"],
+         **{k: field_kernels["fused_field_mlp_bwd_f32"][3][k] for k in keys},
+         **{f"c{c}": {k: field_kernels["fused_field_mlp_bwd_f32"][c][k] for k in keys} for c in (1, 4)}},
+    ]
     # phase 13's numbers as extra fields: rows 1-2 on the TV points, the
     # hash kernels on nerfacto-big's and nerfacto-huge's points, and each
     # kernel's launches in each configuration's run (training and renders)
@@ -3773,13 +3929,17 @@ def main() -> int:
     # vanilla-nerf's and mipnerf's own inputs, their launches in those runs;
     # rows 7-10 on depth-nerfacto's points and their launches
     for rec, way in ((kernels[0], "fwd"), (kernels[1], "bwd")):
-        rec["nerf_stacks"] = classic["stacks"][way]
+        rec["nerf_stacks"] = {tag: r for tag, r in classic["stacks"][way].items() if not tag.endswith("float32")}
         for m in NERF_STACKS:
             c = classic[m]
             rec["model_" + m.replace("-", "_") + "_train_step"] = c["model_train_step"][rec["name"]]
             rec[m.replace("-", "_") + "_launches"] = {
                 "train": c["counts"][rec["name"]], "per_step": CLASSIC[m]["step"][rec["name"]],
                 **{f"render_{k}": v[rec["name"]] for k, v in c["render_launches"].items()}}
+    for rec in kernels:
+        way = {"fused_mlp_fwd_f32": "fwd", "fused_mlp_bwd_f32": "bwd"}.get(rec["name"])
+        if way:
+            rec["nerf_stacks"] = {tag: r for tag, r in classic["stacks"][way].items() if tag.endswith("float32")}
     for rec in kernels:
         if rec["name"].startswith("hash_encode"):
             c = classic["depth-nerfacto"]

@@ -48,7 +48,8 @@
 //
 // Wide path (8 x 256 with its skip, a 16-wide output layer or, in the
 // frequency NeRF's base stack, a 256-wide one over a 63- or 99-wide
-// pre-encoded input; f32 always) streams, as the TPU's
+// pre-encoded input; f32 compute always, with the kernels described
+// below) streams, as the TPU's
 // _fwd_save/_bwd_saved pair does, because every layer's activations (3.5
 // KB a point) do not fit in shared memory beside the gradient buffers:
 //   1. walk (one CTA per 64 points: 16 warps of 32 rows x 32 columns in
@@ -71,15 +72,39 @@
 //      stages (one loads while the other multiplies), read with
 //      ldmatrix.trans.
 //   3. fixed-order sums of the partial slabs give dW and db.
-// Products run as bf16 mma.sync m16n8k16 with f32 accumulation; the f32
-// compute path is a plain FMA loop on the CUDA cores (no TF32) on the wide
-// path. The wide path's workspace costs about 7.3 KB a point of device
+// Products run as bf16 mma.sync m16n8k16 with f32 accumulation. The wide
+// path's workspace costs about 7.3 KB a point of device
 // memory (1.9 GB at N = 262,144) and as much traffic each way. Its walk
 // runs mma.sync at ~130 TFLOP/s, latency-bound with one 64-point CTA per
 // SM (its 213 KB of shared memory allow no second); wgmma and more points
 // per CTA are what it still gives up. Loading the weights costs it little:
 // with the copies left out, an 8-warp version of the walk took 11% less
 // time (H100, bf16).
+//
+// f32 compute (exact f32 products on the CUDA cores: no TF32, no
+// tensor-core instruction) runs the wide path's three stages with kernels
+// of its own on fused_mlp_f32.cuh's register-tiled FMA product. The walk
+// (fused_mlp_bwd_walk_f32) takes 128 points a CTA of 512 threads; every
+// product, the recompute's against W and the walk's against W^T, reads
+// its weights through one two-slot cp.async ring of 16-row K-slices, in
+// the order F32WalkSeq gives, and keeps each thread's 8 x 8 outputs in
+// registers until the product's barrier. x0 becomes dx0 once the
+// recompute is done, one buffer holds the activations and then dh
+// (k-major), and the relu masks go to the workspace as two 32-bit words a
+// thread (its register tile's bits), read back by the same thread. The dW
+// stage (fused_mlp_bwd_dw_f32) takes tiles of 128 rows x the layer's
+// register-tile width (256, 128 or 64) over 32-point chunks in two cp.async
+// stages, in at most four full waves of one CTA an SM. What bounds them: the
+// products, 6 x 491,520 FLOP a point on the NeRF stack, 11.5 ms at 262,144
+// points at 67 TFLOP/s. Measured (H100, 700 W; chip_smoke.py): ~22 ms
+// there, walk ~14.9 and dW ~7.0 (the design it replaced, 64 points a CTA,
+// every weight read from L2 by every thread, 64 x 64 dW tiles: 129.4).
+// Tried and slower: the masks read back from the activations, the k steps
+// unrolled by 4, dW tiles 256 wide for a 64-wide layer, at most two waves
+// of dW CTAs. What the walk still gives up: one CTA an SM
+// (its 205-231 KB of shared memory), so its epilogues and barriers idle
+// the SM; its products run at ~34 TFLOP/s against the forward kernel's ~39
+// (the base stack; chip_smoke.py's bwd_stages and kernel lines).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. No --use_fast_math: the top frequency reaches
@@ -94,14 +119,17 @@
 #include <utility>
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_f32.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 16;
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kBM = 64;         // points per CTA, walk kernel
-constexpr int kTile32 = 64;     // dW tile edge, f32 path
-constexpr int kChunk = 32;      // points per shared-memory stage, f32 dW kernel
+constexpr int kBM = 64;         // points per CTA, bf16 walk kernel
+constexpr int kDw32TileM = kF32Rows;       // dW tile rows, f32 dW kernel (an F32Tile's points)
+constexpr int kDw32Chunk = 32;             // points per stage, f32 dW kernel (two stages)
+constexpr int kDw32Smem = 2 * kDw32Chunk * (kDw32TileM + kF32MaxWidth) * 4;  // its dynamic shared memory
+constexpr int kF32Dbw = 1024;   // floats of the f32 walk's db partials (GY / 4 warps x NT columns)
 constexpr int kSumGroup = 64;   // slabs summed per block in the first stage
 constexpr int kNarrowRows = 128;   // points per tile of the one-pass kernel: 8 warps x 16
 constexpr int kNarrowWidth = 64;   // widest padded layer the one-pass kernel takes
@@ -148,8 +176,8 @@ struct MlpDesc {
 // dtype) and float offsets into the scratch buffer.
 struct Plan {
   int narrow;          // 1: the one-pass kernel (no workspace), 0: three stages
-  int rows;            // points padded to a multiple of kBM
-  int walk_blocks;     // rows / kBM
+  int rows;            // points padded to a multiple of the walk's block (bf16 kBM, f32 kF32Rows)
+  int walk_blocks;     // walk CTAs, one per block of points
   int tasks;           // dW tiles over all layers
   int splits;          // point ranges per dW tile
   int rows_per_split;  // multiple of the dW chunk
@@ -158,11 +186,12 @@ struct Plan {
   int total_w;         // sum k_pad * n_pad
   int total_b;         // sum n_pad
   int tile_m[kMaxLayers];  // bf16 dW tile rows per layer (columns: kDwTileArea / rows)
-  size_t dw_smem;          // dynamic shared memory of the bf16 dW kernel
+  size_t dw_smem;          // dynamic shared memory of the dW kernel
   long long ws_elems;
   long long x0;
   long long act[kMaxLayers];  // hidden outputs, layers 0..L-2: [rows, n_pad]
   long long dh[kMaxLayers];   // dhc of every layer: [rows, n_pad]
+  long long mask;             // f32: relu-mask words, [hidden layers' column passes][walk_blocks][kF32Threads] uint2
   long long dw_slab;          // [splits (narrow: grid), total_w]
   long long db_slab;          // [walk_blocks (narrow: grid), total_b]
   long long db_tmp;           // [ceil(walk_blocks / kSumGroup), total_b]
@@ -172,45 +201,39 @@ struct Plan {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-__host__ __device__ inline int layer_tiles(const LayerDesc& L, int tile) {
-  return cdiv(L.k_pad, tile) * cdiv(L.n_pad, tile);
+// f32 dW tiles of a layer: kDw32TileM rows x f32_tile_width(n_pad) columns
+// (the F32Tile the layer's width takes: 256, 128 or 64).
+__host__ __device__ inline int dw32_tiles(const LayerDesc& L) {
+  return cdiv(L.k_pad, kDw32TileM) * cdiv(L.n_pad, f32_tile_width(L.n_pad));
 }
 
-// Shared memory of the walk kernel (bytes), for element size es (2 or 4).
-// bf16: the walk's dh is formed on the accumulators, so dhc ping-pongs
-// between the two activation buffers; the warps' db partials and a ring of
-// weight K-slices (kStages x kSliceKt k-tiles of up to 256 columns, in
-// B-fragment order) follow. f32: dhc and an f32 dh buffer share the
-// activation buffers' bytes.
+// Shared memory of the bf16 walk kernel (bytes). Its dh is formed on the
+// accumulators, so dhc ping-pongs between the two activation buffers; the
+// warps' db partials and a ring of weight K-slices (kStages x kSliceKt
+// k-tiles of up to 256 columns, in B-fragment order) follow.
 struct Smem {
-  int x0_stride, h_stride, f_stride, d_stride, o_stride, words, wid;
-  size_t x0, ha, hb, dhc, dhf, dx0, fpre, mask, dbw, ring, total;
+  int x0_stride, h_stride, d_stride, o_stride, words, wid;
+  size_t x0, ha, hb, dx0, fpre, mask, dbw, ring, total;
 };
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16; }
 
-__host__ __device__ inline Smem smem_layout(const MlpDesc& d, int es) {
+__host__ __device__ inline Smem smem_layout(const MlpDesc& d) {
   Smem s;
-  const int pad = es == 2 ? 8 : 1;
   const int out_pad = d.layers[d.num_layers - 1].n_pad;
   const int wid = d.hid_pad > out_pad ? d.hid_pad : out_pad;  // widest dh
   s.wid = wid;
-  s.x0_stride = d.in_pad + pad;
-  s.h_stride = wid + pad;
-  s.f_stride = wid + 4;
+  s.x0_stride = d.in_pad + 8;
+  s.h_stride = wid + 8;
   s.d_stride = d.in_pad + 4;
   s.o_stride = out_pad + 4;
   size_t off = 0;
   s.x0 = off;
-  off += align16((size_t)kBM * s.x0_stride * es);
-  const size_t h_bytes = align16((size_t)kBM * s.h_stride * es);
+  off += align16((size_t)kBM * s.x0_stride * 2);
+  const size_t h_bytes = align16((size_t)kBM * s.h_stride * 2);
   s.ha = off;
   s.hb = off + h_bytes;
-  s.dhc = off;
-  s.dhf = off + h_bytes;
-  const size_t fwd_end = s.hb + h_bytes;
-  const size_t walk_end = es == 2 ? fwd_end : s.dhf + align16((size_t)kBM * s.f_stride * 4);
-  off = fwd_end > walk_end ? fwd_end : walk_end;
+  off = s.hb + h_bytes;
   s.dx0 = off;
   off += align16((size_t)kBM * s.d_stride * 4);
   // the last layer's f32 pre-activation, kept only for a sigmoid head
@@ -223,13 +246,33 @@ __host__ __device__ inline Smem smem_layout(const MlpDesc& d, int es) {
   s.mask = off;
   off += align16((size_t)(d.num_layers > 1 ? d.num_layers - 1 : 1) * kBM * s.words * 4);
   s.dbw = off;
+  off += align16((size_t)2 * wid * 4);
   s.ring = off;
-  if (es == 2) {
-    off += align16((size_t)2 * wid * 4);
-    s.ring = off;
-    off += (size_t)kStages * kSliceKt * 16 * 32 * 16;
-  }
+  off += (size_t)kStages * kSliceKt * 16 * 32 * 16;
   s.total = off;
+  return s;
+}
+
+// Shared memory of the f32 walk kernel (bytes): x0 (k-major, in_pad rows;
+// after the forward recompute it holds dx0), one activation / dh buffer as
+// wide as the widest hidden or output layer (wid rows) and its spill rows
+// past 256 (fused_mlp_f32.cuh), the weight ring and the warps' db
+// partials. The relu masks go to the workspace.
+struct Walk32Smem {
+  int wid;
+  size_t x0, h, ring, dbw, total;
+};
+
+__host__ __device__ inline Walk32Smem walk32_smem(const MlpDesc& d) {
+  Walk32Smem s;
+  const int out_pad = d.layers[d.num_layers - 1].n_pad;
+  const int wid = d.hid_pad > out_pad ? d.hid_pad : out_pad;
+  s.wid = wid;
+  s.x0 = 0;
+  s.h = s.x0 + (size_t)d.in_pad * kF32Stride * 4;
+  s.ring = s.h + (size_t)(wid + f32_spill_rows(wid)) * kF32Stride * 4;
+  s.dbw = s.ring + (size_t)kF32Stages * kF32Slot * 4;
+  s.total = s.dbw + (size_t)kF32Dbw * 4;
   return s;
 }
 
@@ -262,14 +305,6 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
 
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // The weight slices of every product of the bf16 walk, in the order the
 // walk multiplies them: the forward's layers (the last only for a sigmoid
@@ -420,83 +455,25 @@ __device__ __forceinline__ void product_wide(const __nv_bfloat16* src0, int stri
   }
 }
 
-// The same product in exact f32 on the CUDA cores: K segments of k0 and
-// k_total - k0 columns, B row-major [K, n_cols]. Thread (rg, cl) owns rows
-// 4 rg .. 4 rg + 3 and columns cl + 16 j of each 64-column pass.
-template <class Epi>
-__device__ __forceinline__ void product_f32(const float* src0, int stride0, int k0,
-                                            const float* src1, int stride1, int k_total,
-                                            const float* __restrict__ wl, int n_cols, Epi epi) {
-  const int rg = threadIdx.x >> 4, cl = threadIdx.x & 15;
-  for (int nb = 0; nb < n_cols; nb += 64) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < k_total; ++k) {
-      const float* src = k < k0 ? src0 + k : src1 + (k - k0);
-      const int stride = k < k0 ? stride0 : stride1;
-      float a[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = src[(rg * 4 + i) * stride];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = nb + cl + 16 * j;
-        wv[j] = c < n_cols ? __ldg(wl + (size_t)k * n_cols + c) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = nb + cl + 16 * j;
-      if (c >= n_cols) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) epi(rg * 4 + i, c, acc[i][j]);
-    }
+// Copy a [kBM, n] bf16 tile from shared memory (row stride `stride`) to
+// the workspace rows starting at dst (row stride n), 16 bytes at a time.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int stride, int n) {
+  const int chunks = n / 8;
+  for (int i = threadIdx.x; i < kBM * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i - r * chunks) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * n + c) = *reinterpret_cast<const uint4*>(src + r * stride + c);
   }
 }
 
-// Copy a [kBM, n] tile from shared memory (row stride `stride`) to the
-// workspace rows starting at dst (row stride n), 16 bytes at a time in bf16.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* dst, const T* src, int stride, int n) {
-  if constexpr (sizeof(T) == 2) {
-    const int chunks = n / 8;
-    for (int i = threadIdx.x; i < kBM * chunks; i += blockDim.x) {
-      const int r = i / chunks, c = (i - r * chunks) * 8;
-      *reinterpret_cast<uint4*>(dst + (size_t)r * n + c) =
-          *reinterpret_cast<const uint4*>(src + r * stride + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBM * n; i += blockDim.x) {
-      const int r = i / n, c = i - r * n;
-      dst[(size_t)r * n + c] = src[r * stride + c];
-    }
-  }
-}
-
-// Column sums of dhf[:, 0:n] over the block's rows, in row order, into the
-// CTA's db partial.
-__device__ __forceinline__ void column_sums(const float* dhf, int f_stride, int n, float* dbp) {
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    float colsum = 0.f;
-    for (int r = 0; r < kBM; ++r) colsum += dhf[r * f_stride + c];
-    dbp[c] = colsum;
-  }
-}
-
-// Encoding (or raw input) of the block's kBM points into x0 (shared
-// memory) and the workspace, zero beyond enc_dim and beyond n.
+// Encoding (or raw input) of the block's `rows` points into x0 (shared
+// memory; value c of row r at r * rs + c * cs) and the workspace, zero
+// beyond enc_dim and beyond n.
 template <typename T>
 __device__ __forceinline__ void encode_block(const float* __restrict__ x,
-                                             const float* __restrict__ freqs, T* x0, int x0_stride,
-                                             T* ws_x0, int row0, int n, const MlpDesc& d) {
+                                             const float* __restrict__ freqs, T* x0, int rs, int cs,
+                                             T* ws_x0, int row0, int rows, int n, const MlpDesc& d) {
   const int F = d.num_freqs, D = d.in_dim, nf = D * F;
-  for (int i = threadIdx.x; i < kBM * d.in_pad; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * d.in_pad; i += blockDim.x) {
     const int r = i / d.in_pad, c = i - r * d.in_pad;
     const int row = row0 + r;
     float v = 0.f;
@@ -512,23 +489,24 @@ __device__ __forceinline__ void encode_block(const float* __restrict__ x,
       }
     }
     const T tv = from_f32<T>(v);
-    x0[r * x0_stride + c] = tv;
+    x0[r * rs + c * cs] = tv;
     ws_x0[(size_t)row * d.in_pad + c] = tv;
   }
 }
 
-// dx of the block's points from dx0 (shared memory, f32): the encoding
-// backward in f32, or dx0 (rounded to T unless dx_exact).
+// dx of the block's `rows` points from dx0 (shared memory, f32; column c
+// of row r at r * rs + c * cs): the encoding backward in f32, or dx0
+// (rounded to T unless dx_exact).
 template <typename T>
 __device__ __forceinline__ void dx_block(const float* __restrict__ x, const float* __restrict__ freqs,
-                                         const float* dx0, int d_stride, float* __restrict__ dx,
-                                         int row0, int n, const MlpDesc& d) {
+                                         const float* dx0, int rs, int cs, float* __restrict__ dx,
+                                         int row0, int rows, int n, const MlpDesc& d) {
   const int F = d.num_freqs, D = d.in_dim, nf = D * F;
-  for (int i = threadIdx.x; i < kBM * D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
     const int r = i / D, dd = i - r * D;
     const int row = row0 + r;
     if (row >= n) continue;
-    const float* d0 = dx0 + r * d_stride;
+    const float* d0 = dx0 + r * rs;
     float acc;
     if (F > 0) {
       const float xv = x[(size_t)row * D + dd];
@@ -537,12 +515,12 @@ __device__ __forceinline__ void dx_block(const float* __restrict__ x, const floa
         const float f = freqs[k];
         const float pre = xv * f;
         const int c = dd * F + k;
-        const float dpre = d0[c] * cosf(pre) - d0[nf + c] * sinf(pre);
+        const float dpre = d0[c * cs] * cosf(pre) - d0[(nf + c) * cs] * sinf(pre);
         acc += dpre * f;
       }
-      if (d.include_input) acc += d0[2 * nf + dd];
+      if (d.include_input) acc += d0[(2 * nf + dd) * cs];
     } else {
-      acc = d.dx_exact ? d0[dd] : to_f32(from_f32<T>(d0[dd]));
+      acc = d.dx_exact ? d0[dd * cs] : to_f32(from_f32<T>(d0[dd * cs]));
     }
     dx[(size_t)row * D + dd] = acc;
   }
@@ -562,7 +540,7 @@ fused_mlp_bwd_walk_bf16(const float* __restrict__ x, const __nv_bfloat16* __rest
                         int n, MlpDesc d, Plan plan) {
   using B16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem s = smem_layout(d, 2);
+  const Smem s = smem_layout(d);
   B16* x0 = reinterpret_cast<B16*>(smem + s.x0);
   B16* ha = reinterpret_cast<B16*>(smem + s.ha);
   B16* hb = reinterpret_cast<B16*>(smem + s.hb);
@@ -581,7 +559,7 @@ fused_mlp_bwd_walk_bf16(const float* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) stream.issue(d);
 
-  encode_block(x, freqs, x0, s.x0_stride, ws + plan.x0, row0, n, d);
+  encode_block(x, freqs, x0, s.x0_stride, 1, ws + plan.x0, row0, kBM, n, d);
   for (int i = threadIdx.x; i < kBM * d.in_pad; i += blockDim.x) {
     dx0[(i / d.in_pad) * s.d_stride + i % d.in_pad] = 0.f;
   }
@@ -747,149 +725,352 @@ fused_mlp_bwd_walk_bf16(const float* __restrict__ x, const __nv_bfloat16* __rest
 
   if (d.no_dx) return;
   __syncthreads();
-  dx_block<B16>(x, freqs, dx0, s.d_stride, dx, row0, n, d);
+  dx_block<B16>(x, freqs, dx0, s.d_stride, 1, dx, row0, kBM, n, d);
 }
 
-// Kernel 1, f32: recompute, walk back, dx and per-CTA db partials.
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_bwd_walk_f32(const float* __restrict__ x, const float* __restrict__ g,
-                       const void* __restrict__ w, const void* __restrict__ wt,
-                       const float* __restrict__ bias, const float* __restrict__ freqs,
-                       float* ws, float* __restrict__ scratch, float* __restrict__ dx, int n,
-                       MlpDesc d, Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem s = smem_layout(d, 4);
-  float* x0 = reinterpret_cast<float*>(smem + s.x0);
-  float* ha = reinterpret_cast<float*>(smem + s.ha);
-  float* hb = reinterpret_cast<float*>(smem + s.hb);
-  float* dhc = reinterpret_cast<float*>(smem + s.dhc);
-  float* dhf = reinterpret_cast<float*>(smem + s.dhf);
-  float* dx0 = reinterpret_cast<float*>(smem + s.dx0);
-  float* fpre = reinterpret_cast<float*>(smem + s.fpre);
-  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + s.mask);
-  float* dbp = scratch + plan.db_slab + (size_t)blockIdx.x * plan.total_b;
-  const int row0 = blockIdx.x * kBM;
-  const int L = d.num_layers;
+// Kernel 1, f32 (fused_mlp_f32.cuh): recompute, walk back, dx and per-CTA
+// db partials, one CTA of kF32Threads threads per kF32Rows points. Every
+// product is the register-tiled f32 product, its weights (W, then W^T)
+// streamed through one ring in the order F32WalkSeq gives.
 
-  encode_block(x, freqs, x0, s.x0_stride, ws + plan.x0, row0, n, d);
-  for (int i = threadIdx.x; i < kBM * d.in_pad; i += blockDim.x) {
-    dx0[(i / d.in_pad) * s.d_stride + i % d.in_pad] = 0.f;
+// Whether the walk forms the x0 columns of layer li's dh W^T (layer 0 and
+// the skip layers, only when dx is wanted).
+__host__ __device__ inline bool walk_x0_pass(const MlpDesc& d, int li) {
+  return !d.no_dx && (li == 0 || d.layers[li].skip);
+}
+
+// Mask slot of column block cb (columns cb * 256 ...) of hidden layer li:
+// the hidden layers' column passes in order.
+__host__ __device__ inline int walk32_mask_slot(const MlpDesc& d, int li, int cb) {
+  int slot = cb;
+  for (int l = 0; l < li; ++l) slot += f32_passes(d.layers[l].n_pad);
+  return slot;
+}
+
+// The f32 walk's products in order, each as its column passes
+// (f32_pass_col0): the forward's layers (the last only for a sigmoid
+// head), then from the last layer down the x0 columns of its dh W^T
+// (walk_x0_pass) and its h columns (layers > 0). W^T of a layer is
+// row-major [n_pad, k_pad] at the layer's offset.
+// Whether the input or a layer of a stack is wider than one column pass
+// (the walk's kWide).
+__host__ __device__ inline bool f32_walk_wide(const MlpDesc& d) {
+  if (d.in_pad > kF32MaxWidth) return true;
+  for (int li = 0; li < d.num_layers; ++li)
+    if (d.layers[li].n_pad > kF32MaxWidth) return true;
+  return false;
+}
+
+template <bool kWide>
+struct F32WalkSeq {
+  const float* w;
+  const float* wt;
+  const MlpDesc* d;
+
+  __device__ int forward_products() const { return d->num_layers - (d->out_sigmoid ? 0 : 1); }
+  __device__ int count() const {
+    int c = 0;
+    for (int li = 0; li < forward_products(); ++li) c += f32_passes(d->layers[li].n_pad);
+    for (int li = 0; li < d->num_layers; ++li)
+      c += (walk_x0_pass(*d, li) ? f32_passes(d->in_pad) : 0) + (li > 0 ? f32_passes(d->layers[li - 1].n_pad) : 0);
+    return c;
   }
-  __syncthreads();
-
-  // forward recompute; the last layer only for a sigmoid head (its f32
-  // pre-activation feeds y(1-y))
-  bool flip = false;
-  for (int li = 0; li < L; ++li) {
-    const LayerDesc Ld = d.layers[li];
-    const bool last = li == L - 1;
-    if (last && !d.out_sigmoid) break;
-    const int k0 = (li == 0 || Ld.skip) ? d.in_pad : 0;
-    const float* hin = flip ? hb : ha;
-    float* hout = flip ? ha : hb;
-    const float* bl = bias + Ld.b_off;
-    const float* wl = static_cast<const float*>(w) + Ld.w_off;
-    if (!last) {
-      product_f32(x0, s.x0_stride, k0, hin, s.h_stride, Ld.k_pad, wl, Ld.n_pad,
-                 [&](int r, int c, float v) {
-                   hout[r * s.h_stride + c] = fmaxf(v + bl[c], 0.f);
-                 });
-    } else {
-      product_f32(x0, s.x0_stride, k0, hin, s.h_stride, Ld.k_pad, wl, Ld.n_pad,
-                 [&](int r, int c, float v) { fpre[r * s.o_stride + c] = v + bl[c]; });
+  // pass i of the product of B's columns [col0, col0 + ncols), if i < the
+  // passes of ncols; else i less those passes
+  __device__ static bool pass(int& i, const float* m, int ld, int col0, int ncols, int k, F32Operand& op) {
+    const int p = f32_passes(ncols);
+    if (i >= p) {
+      i -= p;
+      return false;
     }
-    __syncthreads();
-    if (!last) {
-      store_tile(ws + plan.act[li] + (size_t)row0 * Ld.n_pad, hout, s.h_stride, Ld.n_pad);
-      uint32_t* ml = mask + (size_t)li * kBM * s.words;
-      for (int i = threadIdx.x; i < kBM * s.words; i += blockDim.x) {
-        const int r = i / s.words, c0 = (i - r * s.words) * 32;
-        uint32_t bits = 0;
-        for (int b = 0; b < 32 && c0 + b < Ld.n_pad; ++b)
-          bits |= (to_f32(hout[r * s.h_stride + c0 + b]) > 0.f ? 1u : 0u) << b;
-        ml[i] = bits;
+    const int c0 = f32_pass_col0(ncols, i);
+    op = F32Operand{m, ld, col0 + c0, f32_pass_cols(ncols, c0), k};
+    return true;
+  }
+  __device__ F32Operand operator()(int i) const {
+    F32Operand op{wt, 0, 0, 0, 0};
+    if (!kWide) {  // one pass a product
+      if (i < forward_products()) {
+        const LayerDesc& L = d->layers[i];
+        return F32Operand{w + L.w_off, L.n_pad, 0, L.n_pad, L.k_pad};
       }
+      i -= forward_products();
+      for (int li = d->num_layers - 1; li >= 0; --li) {
+        const LayerDesc& L = d->layers[li];
+        if (walk_x0_pass(*d, li) && i-- == 0) return F32Operand{wt + L.w_off, L.k_pad, 0, d->in_pad, L.n_pad};
+        const int h0 = L.skip ? d->in_pad : 0;
+        if (li > 0 && i-- == 0) return F32Operand{wt + L.w_off, L.k_pad, h0, L.k_pad - h0, L.n_pad};
+      }
+      return op;
     }
-    flip = !flip;
+    for (int li = 0; li < forward_products(); ++li) {
+      const LayerDesc& L = d->layers[li];
+      if (pass(i, w + L.w_off, L.n_pad, 0, L.n_pad, L.k_pad, op)) return op;
+    }
+    for (int li = d->num_layers - 1; li >= 0; --li) {
+      const LayerDesc& L = d->layers[li];
+      if (walk_x0_pass(*d, li) && pass(i, wt + L.w_off, L.k_pad, 0, d->in_pad, L.n_pad, op)) return op;
+      const int h0 = L.skip ? d->in_pad : 0;
+      if (li > 0 && pass(i, wt + L.w_off, L.k_pad, h0, L.k_pad - h0, L.n_pad, op)) return op;
+    }
+    return op;
+  }
+};
+
+// Columns [c0, c0 + nc) of layer li's dh in the thread's register tile
+// (v, already masked): their sums over the block's points into the CTA's
+// db partial (each thread its points in order, then the warp's 4 row
+// groups by a fixed butterfly, then the warps in order), and dhc into the
+// workspace and into h (in place, or into the spill rows after h's wid).
+template <int TM, int TN>
+__device__ __forceinline__ void walk32_dh(const F32Tile<TM, TN>& t, float (&v)[TM][TN], int li, int c0, int nc,
+                                          float* h, bool spilled, int wid, float* dbw, float* ws, float* dbp,
+                                          int row0, const MlpDesc& d, const Plan& plan) {
+  constexpr int NT = F32Tile<TM, TN>::NT, WY = F32Tile<TM, TN>::GY / 4;
+  const LayerDesc& L = d.layers[li];
+  float* dst = ws + plan.dh[li] + (size_t)row0 * L.n_pad + c0;
+#pragma unroll
+  for (int j = 0; j < TN; j += 4) {
+    if (t.col(j) >= nc) continue;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      *reinterpret_cast<float4*>(dst + (size_t)t.point(i) * L.n_pad + t.col(j)) =
+          make_float4(v[i][j], v[i][j + 1], v[i][j + 2], v[i][j + 3]);
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    float colsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) colsum += v[i][j];
+    colsum += __shfl_xor_sync(0xffffffffu, colsum, 8);
+    colsum += __shfl_xor_sync(0xffffffffu, colsum, 16);
+    const int c = t.col(j);
+    if (c >= nc) continue;
+    if ((threadIdx.x & 31) < 8) dbw[(threadIdx.x >> 5) % WY * NT + c] = colsum;
+#pragma unroll
+    for (int i = 0; i < TM; i += 4)
+      store_points4(h, f32_out_row(c, c0, spilled, wid), t.point(i), v[i][j], v[i + 1][j], v[i + 2][j], v[i + 3][j]);
   }
   __syncthreads();
+  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
+    float sum = 0.f;
+    for (int k = 0; k < WY; ++k) sum += dbw[k * NT + c];
+    dbp[L.b_off + c0 + c] = sum;
+  }
+}
 
-  // last layer: dh from g
-  {
-    const LayerDesc Ld = d.layers[L - 1];
-    float* dst = ws + plan.dh[L - 1] + (size_t)row0 * Ld.n_pad;
-    for (int i = threadIdx.x; i < kBM * Ld.n_pad; i += blockDim.x) {
-      const int r = i / Ld.n_pad, c = i - r * Ld.n_pad;
-      const int row = row0 + r;
-      float v = 0.f;
+// Columns [c0, c0 + nc) of a hidden layer of the forward recompute:
+// relu(acc + b) into the workspace and into h in place (a pass past column
+// 256 of a layer that reads h into the spill rows, copied into h after
+// the layer's last pass), the relu-mask words into the workspace.
+template <bool kWide, int TM, int TN>
+__device__ __forceinline__ void walk32_forward(const F32Tile<TM, TN>& t, const float* x0, float* h, int wid,
+                                               F32Stream<F32WalkSeq<kWide>>& st, const float* __restrict__ bias, float* ws,
+                                               int row0, int li, int c0, int nc, const MlpDesc& d, const Plan& plan) {
+  const LayerDesc& L = d.layers[li];
+  const int k0 = (li == 0 || L.skip) ? d.in_pad : 0;
+  float acc[TM][TN];
+  f32_product(t, x0, k0, h, L.k_pad, nc, st, acc);
+  float* dst = ws + plan.act[li] + (size_t)row0 * L.n_pad + c0;
+  const bool spilled = kWide && k0 < L.k_pad && c0 > 0;
+  uint32_t bits[2] = {0u, 0u};  // bit i * TN + j: activation (i, j) > 0
+#pragma unroll
+  for (int j = 0; j < TN; j += 4) {
+    const int c = t.col(j);
+    if (c >= nc) continue;
+    float b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) b[e] = __ldg(bias + L.b_off + c0 + c + e);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j + e] = fmaxf(acc[i][j + e] + b[e], 0.f);
+        const int bit = i * TN + j + e;
+        bits[bit >> 5] |= (acc[i][j + e] > 0.f ? 1u : 0u) << (bit & 31);
+      }
+      *reinterpret_cast<float4*>(dst + (size_t)t.point(i) * L.n_pad + c) =
+          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < TM; i += 4)
+        store_points4(h, f32_out_row(c + e, c0, spilled, wid), t.point(i), acc[i][j + e], acc[i + 1][j + e],
+                      acc[i + 2][j + e], acc[i + 3][j + e]);
+  }
+  const int slot = kWide ? walk32_mask_slot(d, li, c0 / kF32MaxWidth) : li;
+  reinterpret_cast<uint2*>(ws + plan.mask)[((size_t)slot * plan.walk_blocks + blockIdx.x) * kF32Threads + threadIdx.x] =
+      make_uint2(bits[0], bits[1]);
+  if (kWide && k0 < L.k_pad && c0 == 0) f32_copy_spill(h, wid, L.n_pad);
+}
+
+// Columns [c0, c0 + nc) of the last layer's dh from g (times y(1 - y) of
+// the recomputed f32 pre-activation for a sigmoid head), zero past n and
+// out_dim.
+template <bool kWide, int TM, int TN>
+__device__ __forceinline__ void walk32_last(const F32Tile<TM, TN>& t, const float* x0, float* h, int wid,
+                                            F32Stream<F32WalkSeq<kWide>>& st, const float* __restrict__ bias,
+                                            const float* __restrict__ g, float* dbw, float* ws, float* dbp, int row0,
+                                            int n, int c0, int nc, const MlpDesc& d, const Plan& plan) {
+  const int li = d.num_layers - 1;
+  const LayerDesc& L = d.layers[li];
+  const int k0 = (li == 0 || L.skip) ? d.in_pad : 0;
+  const bool spilled = kWide && d.out_sigmoid && k0 < L.k_pad && c0 > 0;  // the product still reads h
+  float v[TM][TN];
+  if (d.out_sigmoid) {
+    f32_product(t, x0, k0, h, L.k_pad, nc, st, v);
+  } else {
+    __syncthreads();  // the previous layer's epilogue (or pass) is done with h and dbw
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = c0 + t.col(j);
+    const float b = t.col(j) < nc ? __ldg(bias + L.b_off + c) : 0.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = row0 + t.point(i);
+      float val = 0.f;
       if (row < n && c < d.out_dim) {
-        v = to_f32(g[(size_t)row * d.out_dim + c]);
+        val = g[(size_t)row * d.out_dim + c];
         if (d.out_sigmoid) {
-          const float y = 1.f / (1.f + expf(-fpre[r * s.o_stride + c]));
-          v = v * y * (1.f - y);
+          const float y = 1.f / (1.f + expf(-(v[i][j] + b)));
+          val = val * y * (1.f - y);
         }
       }
-      const float tv = v;
-      dhf[r * s.f_stride + c] = v;
-      dhc[r * s.h_stride + c] = tv;
-      dst[i] = tv;
+      v[i][j] = val;
     }
-    __syncthreads();
-    column_sums(dhf, s.f_stride, Ld.n_pad, dbp + Ld.b_off);
   }
-  __syncthreads();
+  walk32_dh(t, v, li, c0, nc, h, spilled, wid, dbw, ws, dbp, row0, d, plan);
+  if (kWide && d.out_sigmoid && k0 < L.k_pad && c0 == 0) f32_copy_spill(h, wid, L.n_pad);
+}
 
-  // walk back: dh_in = dhc W^T; x0 columns to dx0, the rest masked by the
-  // previous layer's activation, summed into db and rounded into dhc
-  for (int li = L - 1; li >= 0; --li) {
-    if (li == 0 && d.no_dx) break;
-    const LayerDesc Ld = d.layers[li];
-    const int off = (li > 0 && Ld.skip) ? d.in_pad : 0;
-    const float* wl = static_cast<const float*>(wt) + Ld.w_off;
-    product_f32(dhc, s.h_stride, Ld.n_pad, dhc, s.h_stride, Ld.n_pad, wl, Ld.k_pad,
-               [&](int r, int c, float v) {
-                 if (li == 0 || c < off) {
-                   dx0[r * s.d_stride + c] += v;
-                 } else {
-                   dhf[r * s.f_stride + (c - off)] = v;
-                 }
-               });
-    __syncthreads();
-    if (li == 0) break;
-    const LayerDesc P = d.layers[li - 1];
-    const uint32_t* ml = mask + (size_t)(li - 1) * kBM * s.words;
-    float* dst = ws + plan.dh[li - 1] + (size_t)row0 * P.n_pad;
-    for (int i = threadIdx.x; i < kBM * P.n_pad; i += blockDim.x) {
-      const int r = i / P.n_pad, c = i - r * P.n_pad;
-      const float keep = (ml[r * s.words + (c >> 5)] >> (c & 31)) & 1u ? 1.f : 0.f;
-      const float v = dhf[r * s.f_stride + c] * keep;
-      const float tv = v;
-      dhf[r * s.f_stride + c] = v;
-      dhc[r * s.h_stride + c] = tv;
-      dst[i] = tv;
+// Columns [c0, c0 + nc) of the x0 columns of layer li's dh W^T, added to
+// dx0 (the x0 buffer).
+template <bool kWide, int TM, int TN>
+__device__ __forceinline__ void walk32_x0_pass(const F32Tile<TM, TN>& t, float* dx0, const float* h,
+                                               F32Stream<F32WalkSeq<kWide>>& st, int li, int c0, int nc, const MlpDesc& d) {
+  float acc[TM][TN];
+  f32_product(t, h, 0, h, d.layers[li].n_pad, nc, st, acc);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = c0 + t.col(j);
+    if (t.col(j) >= nc) continue;
+#pragma unroll
+    for (int i = 0; i < TM; i += 4) {
+      float4* o = reinterpret_cast<float4*>(dx0 + c * kF32Stride + t.point(i));
+      float4 cur = *o;
+      cur.x += acc[i][j];
+      cur.y += acc[i + 1][j];
+      cur.z += acc[i + 2][j];
+      cur.w += acc[i + 3][j];
+      *o = cur;
     }
-    __syncthreads();
-    column_sums(dhf, s.f_stride, P.n_pad, dbp + P.b_off);
-    __syncthreads();
+  }
+}
+
+// Columns [c0, c0 + nc) of the h columns of layer li's dh W^T, masked by
+// layer li - 1's activation > 0 (the thread's mask words, which
+// walk32_forward wrote for the same register tile): layer li - 1's dh,
+// into h in place (a pass past column 256 into the spill rows, copied
+// into h after the last pass).
+template <bool kWide, int TM, int TN>
+__device__ __forceinline__ void walk32_h_pass(const F32Tile<TM, TN>& t, float* h, int wid,
+                                              F32Stream<F32WalkSeq<kWide>>& st, float* dbw, float* ws, float* dbp, int row0,
+                                              int li, int c0, int nc, const MlpDesc& d, const Plan& plan) {
+  const LayerDesc& P = d.layers[li - 1];
+  float v[TM][TN];
+  f32_product(t, h, 0, h, d.layers[li].n_pad, nc, st, v);
+  const int slot = kWide ? walk32_mask_slot(d, li - 1, c0 / kF32MaxWidth) : li - 1;
+  const uint2 m = reinterpret_cast<const uint2*>(
+      ws + plan.mask)[((size_t)slot * plan.walk_blocks + blockIdx.x) * kF32Threads + threadIdx.x];
+  const uint32_t bits[2] = {m.x, m.y};
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (!((bits[(i * TN + j) >> 5] >> ((i * TN + j) & 31)) & 1u)) v[i][j] = 0.f;
+  walk32_dh(t, v, li - 1, c0, nc, h, kWide && c0 > 0, wid, dbw, ws, dbp, row0, d, plan);
+  if (kWide && c0 == 0) f32_copy_spill(h, wid, P.n_pad);
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(kF32Threads, 1)
+fused_mlp_bwd_walk_f32(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ w,
+                       const float* __restrict__ wt, const float* __restrict__ bias,
+                       const float* __restrict__ freqs, float* ws, float* __restrict__ scratch,
+                       float* __restrict__ dx, int n, const __grid_constant__ MlpDesc d,
+                       const __grid_constant__ Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Walk32Smem s = walk32_smem(d);
+  float* x0 = reinterpret_cast<float*>(smem + s.x0);  // dx0 after the forward recompute
+  float* h = reinterpret_cast<float*>(smem + s.h);
+  const int wid = s.wid;
+  float* dbw = reinterpret_cast<float*>(smem + s.dbw);
+  float* dbp = scratch + plan.db_slab + (size_t)blockIdx.x * plan.total_b;
+  const int row0 = blockIdx.x * kF32Rows;
+  const int L = d.num_layers;
+  const F32WalkSeq<kWide> seq{w, wt, &d};
+  F32Stream<F32WalkSeq<kWide>> st;
+  st.init(seq, reinterpret_cast<float*>(smem + s.ring), seq.count());
+  st.issue();  // the first slice loads while the encoding runs
+
+  encode_block(x, freqs, x0, 1, kF32Stride, ws + plan.x0, row0, kF32Rows, n, d);
+  // every product in its column passes (f32_pass_col0), in the stream's order
+  for (int li = 0; li + 1 < L; ++li) {
+    const int np = d.layers[li].n_pad;
+    for (int q = 0; q < f32_npasses<kWide>(np); ++q) {
+      const int c0 = f32_col0<kWide>(np, q), nc = f32_cols<kWide>(np, c0);
+      with_f32_tile(nc, [&](auto t) { walk32_forward<kWide>(t, x0, h, wid, st, bias, ws, row0, li, c0, nc, d, plan); });
+    }
+  }
+  const int out_pad = d.layers[L - 1].n_pad;
+  for (int q = 0; q < f32_npasses<kWide>(out_pad); ++q) {
+    const int c0 = f32_col0<kWide>(out_pad, q), nc = f32_cols<kWide>(out_pad, c0);
+    with_f32_tile(nc, [&](auto t) {
+      walk32_last<kWide>(t, x0, h, wid, st, bias, g, dbw, ws, dbp, row0, n, c0, nc, d, plan);
+    });
+  }
+
+  // x0 is no longer read: it becomes dx0
+  if (!d.no_dx)
+    for (int i = threadIdx.x; i < d.in_pad * kF32Stride; i += blockDim.x) x0[i] = 0.f;
+  for (int li = L - 1; li >= 0; --li) {
+    if (walk_x0_pass(d, li))
+      for (int q = 0; q < f32_npasses<kWide>(d.in_pad); ++q) {
+        const int c0 = f32_col0<kWide>(d.in_pad, q), nc = f32_cols<kWide>(d.in_pad, c0);
+        with_f32_tile(nc, [&](auto t) { walk32_x0_pass<kWide>(t, x0, h, st, li, c0, nc, d); });
+      }
+    if (li > 0) {
+      const int np = d.layers[li - 1].n_pad;
+      for (int q = 0; q < f32_npasses<kWide>(np); ++q) {
+        const int c0 = f32_col0<kWide>(np, q), nc = f32_cols<kWide>(np, c0);
+        with_f32_tile(nc, [&](auto t) {
+          walk32_h_pass<kWide>(t, h, wid, st, dbw, ws, dbp, row0, li, c0, nc, d, plan);
+        });
+      }
+    }
   }
 
   // dx: the encoding backward in f32, or dx0
   if (d.no_dx) return;
-  dx_block<float>(x, freqs, dx0, s.d_stride, dx, row0, n, d);
+  __syncthreads();
+  dx_block<float>(x, freqs, x0, 1, kF32Stride, dx, row0, kF32Rows, n, d);
 }
 
 // Which layer and tile a dW CTA owns.
-__device__ __forceinline__ void dw_task(const MlpDesc& d, int tile, int& li, int& m0, int& n0) {
+__device__ __forceinline__ void dw32_task(const MlpDesc& d, int& li, int& m0, int& n0) {
   int t = blockIdx.x;
   li = 0;
   for (; li < d.num_layers - 1; ++li) {
-    const int c = layer_tiles(d.layers[li], tile);
+    const int c = dw32_tiles(d.layers[li]);
     if (t < c) break;
     t -= c;
   }
-  const int tn = cdiv(d.layers[li].n_pad, tile);
-  m0 = (t / tn) * tile;
-  n0 = (t % tn) * tile;
+  const int tile_n = f32_tile_width(d.layers[li].n_pad);
+  const int tn = cdiv(d.layers[li].n_pad, tile_n);
+  m0 = (t / tn) * kDw32TileM;
+  n0 = (t % tn) * tile_n;
 }
 
 // Row m of layer li's weight (padded layout) reads column m of x0 or of the
@@ -1036,54 +1217,105 @@ fused_mlp_bwd_dw_bf16(const __nv_bfloat16* __restrict__ ws, float* __restrict__ 
       }
 }
 
-// Kernel 2, f32: the same partial tile with FMA. Thread (tm, tn) owns rows
-// 4 tm .. 4 tm + 3 and columns tn + 16 j of a 64 x 64 tile.
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_bwd_dw_f32(const float* __restrict__ ws, float* __restrict__ scratch, MlpDesc d,
-                     Plan plan) {
-  __shared__ float As[kChunk][kTile32 + 1];
-  __shared__ float Bs[kChunk][kTile32 + 1];
-  int li, m0, n0;
-  dw_task(d, kTile32, li, m0, n0);
-  const LayerDesc Ld = d.layers[li];
-  const int m_valid = min(kTile32, Ld.k_pad - m0);
-  const int n_valid = min(kTile32, Ld.n_pad - n0);
+// Kernel 2, f32: the partial dW tile of one layer over one range of points,
+// x_in^T dh with FMA on the CUDA cores, in fused_mlp_f32.cuh's register
+// tiles (the F32Tile of the layer's width, its points being dW's rows:
+// kDw32TileM x 256, 128 or 64), each value summed over the points in
+// order. Chunks of kDw32Chunk points stream through two cp.async stages
+// ([point][row] of x_in, then of dh), one loading while the other
+// multiplies. Rows and columns past the layer's stay unwritten in the
+// stages and unread in the output, and a warp with none of them valid
+// skips the products.
+template <int TM, int TN>
+__device__ __forceinline__ void dw32_tile(const F32Tile<TM, TN>& t, float* stages, const float* __restrict__ ws,
+                                          float* __restrict__ scratch, int li, int m0, int n0, const MlpDesc& d,
+                                          const Plan& plan) {
+  constexpr int NT = F32Tile<TM, TN>::NT, stage = kDw32Chunk * (kDw32TileM + NT);
+  const LayerDesc& Ld = d.layers[li];
+  const int m_valid = min(kDw32TileM, Ld.k_pad - m0);
+  const int n_valid = min(NT, Ld.n_pad - n0);
   const int p_begin = blockIdx.y * plan.rows_per_split;
   const int p_end = min(p_begin + plan.rows_per_split, plan.rows);
-  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int p = p_begin; p < p_end; p += kChunk) {
-    for (int i = threadIdx.x; i < kChunk * kTile32; i += blockDim.x) {
-      const int pr = i / kTile32, c = i - pr * kTile32;
-      As[pr][c] = c < m_valid ? *x_in_col(ws, d, plan, li, m0 + c, p + pr) : 0.f;
-      Bs[pr][c] = c < n_valid ? ws[plan.dh[li] + (size_t)(p + pr) * Ld.n_pad + n0 + c] : 0.f;
+  const int chunks = (p_end - p_begin) / kDw32Chunk;
+  const bool active = t.ty / 4 * 16 < m_valid && t.active(n_valid);
+  auto issue = [&](int c) {
+    if (c < chunks) {
+      const int p = p_begin + c * kDw32Chunk;
+      float* As = stages + (c & 1) * stage;
+      float* Bs = As + kDw32Chunk * kDw32TileM;
+      const int ma = m_valid / 4, nb = n_valid / 4;
+      for (int i = threadIdx.x; i < kDw32Chunk * (ma + nb); i += blockDim.x) {
+        const int pr = i / (ma + nb), ch = i - pr * (ma + nb);
+        if (ch < ma) {
+          cp_async16(As + pr * kDw32TileM + ch * 4, x_in_col(ws, d, plan, li, m0 + ch * 4, p + pr));
+        } else {
+          const int cb = ch - ma;
+          cp_async16(Bs + pr * NT + cb * 4, ws + plan.dh[li] + (size_t)(p + pr) * Ld.n_pad + n0 + cb * 4);
+        }
+      }
     }
-    __syncthreads();
-    for (int k = 0; k < kChunk; ++k) {
-      float a[4], b[4];
+    cp_async_commit();
+  };
+  issue(0);
+  float acc[TM][TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][tm * 4 + i];
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tn + 16 * j];
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c landed for every thread; the other stage is free
+    issue(c + 1);
+    if (!active) continue;
+    const float* As = stages + (c & 1) * stage + t.ty * 4;
+    const float* Bs = stages + (c & 1) * stage + kDw32Chunk * kDw32TileM + t.tx * 4;
+#pragma unroll 8
+    for (int pr = 0; pr < kDw32Chunk; ++pr) {
+      float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(As + pr * kDw32TileM + 64 * h);
+        a[4 * h] = v.x;
+        a[4 * h + 1] = v.y;
+        a[4 * h + 2] = v.z;
+        a[4 * h + 3] = v.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(Bs + pr * NT + (NT / 2) * h);
+        b[4 * h] = v.x;
+        b[4 * h + 1] = v.y;
+        b[4 * h + 2] = v.z;
+        b[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
   }
   float* out = scratch + plan.dw_slab + (size_t)blockIdx.y * plan.total_w + Ld.w_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i) {
+    const int m = t.point(i);
+    if (m >= m_valid) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = tm * 4 + i, c = tn + 16 * j;
-      if (m < m_valid && c < n_valid) out[(size_t)(m0 + m) * Ld.n_pad + n0 + c] = acc[i][j];
+    for (int j = 0; j < TN; j += 4) {
+      const int c = t.col(j);
+      if (c < n_valid)
+        *reinterpret_cast<float4*>(out + (size_t)(m0 + m) * Ld.n_pad + n0 + c) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
     }
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+fused_mlp_bwd_dw_f32(const float* __restrict__ ws, float* __restrict__ scratch, const __grid_constant__ MlpDesc d,
+                     const __grid_constant__ Plan plan) {
+  extern __shared__ __align__(16) float stages[];
+  int li, m0, n0;
+  dw32_task(d, li, m0, n0);
+  with_f32_tile(d.layers[li].n_pad, [&](auto t) { dw32_tile(t, stages, ws, scratch, li, m0, n0, d, plan); });
 }
 
 // out[y][i] = sum over slabs k in [y * group, min((y + 1) * group, count))
@@ -1573,14 +1805,15 @@ Plan make_plan(const MlpDesc& d, int n, int bf16, int num_sms) {
     p.scratch_floats = p.db_slab + (long long)p.grid * p.total_b;
     return p;
   }
-  p.smem = smem_layout(d, bf16 ? 2 : 4).total;
-  p.rows = cdiv(n, kBM) * kBM;
-  p.walk_blocks = p.rows / kBM;
+  const int unit = bf16 ? kBM : kF32Rows;
+  p.smem = bf16 ? smem_layout(d).total : walk32_smem(d).total;
+  p.rows = cdiv(n, unit) * unit;
+  p.walk_blocks = p.rows / unit;
   p.tasks = 0;
-  p.dw_smem = 0;
+  p.dw_smem = bf16 ? 0 : kDw32Smem;
   for (int i = 0; i < d.num_layers; ++i) {
     if (!bf16) {
-      p.tasks += layer_tiles(d.layers[i], kTile32);
+      p.tasks += dw32_tiles(d.layers[i]);
       continue;
     }
     p.tile_m[i] = dw_tile_m(d.layers[i]);
@@ -1589,9 +1822,10 @@ Plan make_plan(const MlpDesc& d, int n, int bf16, int num_sms) {
     const size_t smem = (size_t)kDwStages * kDwChunk * (tm + 8 + tn + 8) * 2;
     p.dw_smem = smem > p.dw_smem ? smem : p.dw_smem;
   }
-  // about four CTAs per SM over all tiles and point ranges
-  int splits = cdiv(4 * num_sms, p.tasks);
-  const int chunk = bf16 ? kDwChunk : kChunk;
+  // about four CTAs per SM over all tiles and point ranges; f32 (one CTA an
+  // SM) rounds down, so that no last wave of a few CTAs adds a round
+  int splits = bf16 ? cdiv(4 * num_sms, p.tasks) : 4 * num_sms / p.tasks;
+  const int chunk = bf16 ? kDwChunk : kDw32Chunk;
   const int max_splits = p.rows / chunk;
   splits = splits < 1 ? 1 : (splits > max_splits ? max_splits : splits);
   p.rows_per_split = cdiv(cdiv(p.rows, splits), chunk) * chunk;
@@ -1607,6 +1841,8 @@ Plan make_plan(const MlpDesc& d, int n, int bf16, int num_sms) {
     p.dh[i] = off;
     off += (long long)p.rows * d.layers[i].n_pad;
   }
+  p.mask = off;
+  if (!bf16) off += (long long)walk32_mask_slot(d, d.num_layers - 1, 0) * p.walk_blocks * kF32Threads * 2;
   p.ws_elems = off;
   p.dw_slab = 0;
   p.db_slab = p.dw_slab + (long long)p.splits * p.total_w;
@@ -1660,13 +1896,17 @@ cudaError_t launch_all(const float* x, const T* g, const void* w, const void* wt
     if (err != cudaSuccess) return err;
     fused_mlp_bwd_dw_bf16<<<grid, kThreads, plan.dw_smem, s>>>(ws, scratch, d, plan);
   } else {
-    err = cudaFuncSetAttribute(fused_mlp_bwd_walk_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)plan.smem);
+    const auto walk = f32_walk_wide(d) ? fused_mlp_bwd_walk_f32<true> : fused_mlp_bwd_walk_f32<false>;
+    err = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return err;
-    fused_mlp_bwd_walk_f32<<<plan.walk_blocks, kThreads, plan.smem, s>>>(
-        x, g, w, wt, bias, freqs, ws, scratch, dx, n, d, plan);
+    walk<<<plan.walk_blocks, kF32Threads, plan.smem, s>>>(
+        x, g, static_cast<const float*>(w), static_cast<const float*>(wt), bias, freqs, ws, scratch, dx, n, d,
+        plan);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    fused_mlp_bwd_dw_f32<<<grid, kThreads, 0, s>>>(ws, scratch, d, plan);
+    err = cudaFuncSetAttribute(fused_mlp_bwd_dw_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)plan.dw_smem);
+    if (err != cudaSuccess) return err;
+    fused_mlp_bwd_dw_f32<<<grid, kF32Threads, plan.dw_smem, s>>>(ws, scratch, d, plan);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_slabs<<<dim3(cdiv(plan.total_w, 256), 1), 256, 0, s>>>(scratch + plan.dw_slab, dw,

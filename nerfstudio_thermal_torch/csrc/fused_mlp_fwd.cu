@@ -65,8 +65,23 @@
 // every weight slice from L2 again (0.86 MB per tile), and the producer
 // waits for a slot freed by both warpgroups.
 //
-// f32 path: a plain FMA loop on the CUDA cores (no TF32, no tensor cores),
-// one CTA of 256 threads per 64 points.
+// f32 path (f32 compute: exact f32 products, as the TPU's Precision.HIGHEST;
+// no TF32, no tensor-core instruction): fused_mlp_fwd_f32, one CTA of 512
+// threads per 128 points, on fused_mlp_f32.cuh's register-tiled FMA
+// product. What bounds it: the products on the CUDA cores, 2 x 491,520
+// FLOP a point for the NeRF stack, 15.4 ms per 1,048,576 points at 67
+// TFLOP/s. x0 and the hidden activations sit in shared memory k-major, so
+// a thread's 8 points at one k are two float4 loads; each layer's weights
+// stream through a two-slot cp.async ring of 16-row K-slices that the whole
+// CTA reads (one copy per CTA instead of every thread reading its own from
+// L2); a thread keeps its 8 x 8 outputs (8 x 4 or 4 x 4 for narrower
+// layers) in registers until the layer's barrier, then writes them over
+// the one activation buffer with bias and relu, so 128 points fit (x0 +
+// h + ring: 227,072 bytes at the 99-wide input). The last layer stores
+// from registers, 16 bytes at a time where the output's rows allow.
+// Measured (H100, 700 W; chip_smoke.py): 26.5 ms on the NeRF stack at
+// 1,048,576 points (38.8 TFLOP/s; the design it replaced, 64 points a CTA
+// with every weight read from L2 by every thread, 250.6 ms).
 //
 // Each kernel is a template over its x0 fill, the code that says where the
 // x0 tile comes from (see "x0 fills" below): here x [n, in_dim] f32
@@ -85,13 +100,13 @@
 #include <tuple>
 
 #include "fused_mlp_common.cuh"
+#include "fused_mlp_f32.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kBM32 = 64;           // points per CTA, f32 path
-constexpr int kThreads = 256;       // 8 warps, f32 and narrow paths
+constexpr int kThreads = 256;       // 8 warps, narrow path
 constexpr int kNarrowRows = 128;    // points per tile of the narrow path: 8 warps x 16
 constexpr int kNarrowWidth = 64;    // widest padded layer the narrow path takes
 constexpr int kWgRows = 128;        // points per tile of the wide path: 2 warpgroups x 64
@@ -167,106 +182,173 @@ struct XFill {
 };
 
 // ---------------------------------------------------------------------------
-// f32 path
+// f32 path (fused_mlp_f32.cuh): one CTA of kF32Threads threads per
+// kF32Rows points, every layer's output kept in registers until a barrier
+// and then written over the one activation buffer.
 
-// x0 tile: the encoded (or raw) input of `rows` points from a point fill,
-// zero beyond enc_dim and beyond the last point.
-template <typename Fill>
-__device__ void fill_x0(float* x0, int stride, const Fill& fill, const float* sc,
-                        const float* __restrict__ freqs, int row0, int n, int rows,
-                        const MlpDesc& d) {
-  const int F = d.num_freqs, nf = d.in_dim * F;
-  for (int i = threadIdx.x; i < rows * d.in_pad; i += blockDim.x) {
-    const int r = i / d.in_pad, c = i - r * d.in_pad;
-    const int row = row0 + r;
-    float v = 0.f;
-    if (row < n && c < d.enc_dim) {
-      if (F > 0 && c < 2 * nf) {
-        const int cc = c < nf ? c : c - nf;
-        const int dd = cc / F;
-        const float pre = fill.value(sc, row, r, dd) * freqs[cc - dd * F];  // one product
-        v = c < nf ? sinf(pre) : cosf(pre);
-      } else {
-        v = fill.value(sc, row, r, F > 0 ? c - 2 * nf : c);
-      }
+// Shared memory of the f32 kernel (bytes): x0 and the hidden activations
+// (k-major, in_pad and hid_pad rows of kF32Stride floats) with the spill
+// rows of a hidden layer wider than 256, the weight ring and the fill's
+// scratch, `scratch` floats a row.
+struct F32Smem {
+  size_t x0, h, ring, sc, total;
+};
+
+__host__ __device__ inline F32Smem f32_smem(const MlpDesc& d, int scratch = 0) {
+  F32Smem s;
+  s.x0 = 0;
+  s.h = s.x0 + (size_t)d.in_pad * kF32Stride * 4;
+  s.ring = s.h + (size_t)(d.hid_pad + f32_spill_rows(d.hid_pad)) * kF32Stride * 4;
+  s.sc = s.ring + (size_t)kF32Stages * kF32Slot * 4;
+  s.total = s.sc + (size_t)kF32Rows * scratch * 4;
+  return s;
+}
+
+// Whether a stack has a layer wider than one column pass (the forward's
+// kWide).
+__host__ __device__ inline bool f32_fwd_wide(const MlpDesc& d) {
+  for (int li = 0; li < d.num_layers; ++li)
+    if (d.layers[li].n_pad > kF32MaxWidth) return true;
+  return false;
+}
+
+// The f32 kernel's products: the column passes of each layer's weights,
+// row-major [k_pad, n_pad], layer by layer (product i is layer i when no
+// layer is wider than 256).
+template <bool kWide>
+struct F32FwdSeq {
+  const float* w;
+  const MlpDesc* d;
+  __device__ int count() const {
+    int c = 0;
+    for (int li = 0; li < d->num_layers; ++li) c += f32_npasses<kWide>(d->layers[li].n_pad);
+    return c;
+  }
+  __device__ F32Operand operator()(int i) const {
+    if (!kWide) {
+      const LayerDesc& L = d->layers[i];
+      return F32Operand{w + L.w_off, L.n_pad, 0, L.n_pad, L.k_pad};
     }
-    x0[r * stride + c] = v;
+    for (int li = 0;; ++li) {
+      const LayerDesc& L = d->layers[li];
+      const int p = f32_passes(L.n_pad);
+      if (i < p) {
+        const int c0 = f32_pass_col0(L.n_pad, i);
+        return F32Operand{w + L.w_off, L.n_pad, c0, f32_pass_cols(L.n_pad, c0), L.k_pad};
+      }
+      i -= p;
+    }
+  }
+};
+
+// x0 tile, k-major: the encoded (or raw) input of the block's points from a
+// point fill, one sincosf per (row, dimension, frequency) for the sin and
+// the cos column; zero beyond enc_dim and beyond the last point.
+template <typename Fill>
+__device__ void fill_x0_f32(float* x0, const Fill& fill, const float* sc, const float* __restrict__ freqs, int row0,
+                            int n, const MlpDesc& d) {
+  const int F = d.num_freqs, nf = d.in_dim * F;
+  for (int i = threadIdx.x; i < kF32Rows * nf; i += blockDim.x) {
+    const int r = i % kF32Rows, j = i / kF32Rows, dd = j / F;
+    const int row = row0 + r;
+    float sv = 0.f, cv = 0.f;
+    if (row < n) sincosf(fill.value(sc, row, r, dd) * freqs[j - dd * F], &sv, &cv);  // one product
+    x0[j * kF32Stride + r] = sv;
+    x0[(nf + j) * kF32Stride + r] = cv;
+  }
+  for (int i = threadIdx.x; i < kF32Rows * (d.in_pad - 2 * nf); i += blockDim.x) {
+    const int r = i % kF32Rows, c = 2 * nf + i / kF32Rows;
+    const int row = row0 + r;
+    x0[c * kF32Stride + r] = row < n && c < d.enc_dim ? fill.value(sc, row, r, c - 2 * nf) : 0.f;
   }
 }
 
-template <typename Fill>
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_fwd_f32(const Fill fill, const float* __restrict__ w, const float* __restrict__ bias,
-                  const float* __restrict__ freqs, float* __restrict__ out, int out_stride, int n, MlpDesc d) {
-  extern __shared__ float smem32[];
-  const int x0_stride = d.in_pad + 1;
-  const int h_stride = d.hid_pad + 1;
-  float* x0 = smem32;
-  float* hbuf0 = x0 + kBM32 * x0_stride;
-  float* hbuf1 = hbuf0 + kBM32 * h_stride;
-  float* sc = hbuf1 + kBM32 * h_stride;  // the fill's scratch
-  const int row0 = blockIdx.x * kBM32;
-  if constexpr (Fill::kTile) {
-    fill.template tile<float>(n, row0, kBM32, d.in_pad, threadIdx.x, blockDim.x, sc,
-                              [&](int r, int c, float v) { x0[r * x0_stride + c] = v; }, [] { __syncthreads(); });
-  } else {
-    fill.template prepare<float>(n, row0, kBM32, threadIdx.x, blockDim.x, sc);
-    if constexpr (Fill::kScratch > 0) __syncthreads();
-    fill_x0(x0, x0_stride, fill, sc, freqs, row0, n, kBM32, d);
+// One column pass (columns [c0, c0 + nc)) of a layer: the product of
+// [x0 | h] (x0 for layer 0 and skip layers) with the layer's weights, then
+// bias and relu into h in place (a pass past column 256 of a layer that
+// reads h into the spill rows, copied into h after the layer's last pass),
+// or for the last layer bias, output activation and the store of the
+// block's rows (16 bytes at a time where the output's rows allow).
+template <bool kWide, int TM, int TN>
+__device__ __forceinline__ void f32_fwd_layer(const F32Tile<TM, TN>& t, float* x0, float* h,
+                                              F32Stream<F32FwdSeq<kWide>>& st, const float* __restrict__ bias,
+                                              float* __restrict__ out, int out_stride, int row0, int n, int li, int c0,
+                                              int nc, const MlpDesc& d) {
+  const LayerDesc& L = d.layers[li];
+  const bool last = li == d.num_layers - 1;
+  const int k0 = (li == 0 || L.skip) ? d.in_pad : 0;
+  float acc[TM][TN];
+  f32_product(t, x0, k0, h, L.k_pad, nc, st, acc);
+  float b[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) b[j] = t.col(j) < nc ? __ldg(bias + L.b_off + c0 + t.col(j)) : 0.f;
+  if (!last) {
+    const bool reads_h = k0 < L.k_pad;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (t.col(j) >= nc) continue;
+      const int r = f32_out_row(t.col(j), c0, kWide && reads_h && c0 > 0, d.hid_pad);
+#pragma unroll
+      for (int i = 0; i < TM; i += 4)
+        store_points4(h, r, t.point(i), fmaxf(acc[i][j] + b[j], 0.f), fmaxf(acc[i + 1][j] + b[j], 0.f),
+                      fmaxf(acc[i + 2][j] + b[j], 0.f), fmaxf(acc[i + 3][j] + b[j], 0.f));
+    }
+    if (kWide && reads_h && c0 == 0) f32_copy_spill(h, d.hid_pad, L.n_pad);
+    return;
   }
-  __syncthreads();
-
-  const int rg = threadIdx.x >> 4;  // rows rg*4 .. rg*4+3
-  const int cl = threadIdx.x & 15;  // columns cl + 16 j
-  bool flip = false;
-  for (int li = 0; li < d.num_layers; ++li) {
-    const LayerDesc L = d.layers[li];
-    const bool last = li == d.num_layers - 1;
-    const int kx0 = (li == 0 || L.skip) ? d.in_pad : 0;
-    const float* hin = flip ? hbuf1 : hbuf0;
-    float* hout = flip ? hbuf0 : hbuf1;
-    const float* wl = w + L.w_off;
-    for (int nb = 0; nb < L.n_pad; nb += 64) {
-      float acc[4][4];
+  const bool vec = ((out_stride | d.out_dim) & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + t.point(i);
+    if (row >= n) continue;
+    float* o = out + (size_t)row * out_stride;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k = 0; k < L.k_pad; ++k) {
-        const float* src = k < kx0 ? x0 + k : hin + (k - kx0);
-        const int stride = k < kx0 ? x0_stride : h_stride;
-        float a[4], wv[4];
+    for (int j = 0; j < TN; j += 4) {
+      const int c = c0 + t.col(j);
+      float v[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = src[(rg * 4 + i) * stride];
+      for (int e = 0; e < 4; ++e) v[e] = out_act(acc[i][j + e] + b[j + e], d.out_sigmoid);
+      if (vec && c < d.out_dim) {
+        *reinterpret_cast<float4*>(o + c) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = nb + cl + 16 * j;
-          wv[j] = c < L.n_pad ? __ldg(wl + (size_t)k * L.n_pad + c) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = nb + cl + 16 * j;
-        if (c >= L.n_pad) continue;
-        const float b = bias[L.b_off + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = rg * 4 + i;
-          const float v = acc[i][j] + b;
-          if (!last) {
-            hout[r * h_stride + c] = fmaxf(v, 0.f);
-          } else if (row0 + r < n && c < d.out_dim) {
-            out[(size_t)(row0 + r) * out_stride + c] = out_act(v, d.out_sigmoid);
-          }
-        }
+        for (int e = 0; e < 4; ++e)
+          if (c + e < d.out_dim) o[c + e] = v[e];
       }
     }
-    __syncthreads();
-    flip = !flip;
+  }
+}
+
+template <typename Fill, bool kWide>
+__global__ void __launch_bounds__(kF32Threads, 1)
+fused_mlp_fwd_f32(const Fill fill, const float* __restrict__ w, const float* __restrict__ bias,
+                  const float* __restrict__ freqs, float* __restrict__ out, int out_stride, int n,
+                  const __grid_constant__ MlpDesc d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const F32Smem s = f32_smem(d, Fill::kScratch);
+  float* x0 = reinterpret_cast<float*>(smem + s.x0);
+  float* h = reinterpret_cast<float*>(smem + s.h);
+  float* sc = reinterpret_cast<float*>(smem + s.sc);  // the fill's scratch
+  const int row0 = blockIdx.x * kF32Rows;
+  const F32FwdSeq<kWide> seq{w, &d};
+  F32Stream<F32FwdSeq<kWide>> st;
+  st.init(seq, reinterpret_cast<float*>(smem + s.ring), seq.count());
+  st.issue();  // the first slice loads while the fill runs
+  if constexpr (Fill::kTile) {
+    fill.template tile<float>(n, row0, kF32Rows, d.in_pad, threadIdx.x, blockDim.x, sc,
+                              [&](int r, int c, float v) { x0[c * kF32Stride + r] = v; }, [] { __syncthreads(); });
+  } else {
+    fill.template prepare<float>(n, row0, kF32Rows, threadIdx.x, blockDim.x, sc);
+    if constexpr (Fill::kScratch > 0) __syncthreads();
+    fill_x0_f32(x0, fill, sc, freqs, row0, n, d);
+  }
+  // (the first product's slice wait is the barrier after the fill)
+  for (int li = 0; li < d.num_layers; ++li) {
+    const int np = d.layers[li].n_pad;
+    for (int q = 0; q < f32_npasses<kWide>(np); ++q) {
+      const int c0 = f32_col0<kWide>(np, q), nc = f32_cols<kWide>(np, c0);
+      with_f32_tile(nc, [&](auto t) { f32_fwd_layer<kWide>(t, x0, h, st, bias, out, out_stride, row0, n, li, c0, nc, d); });
+    }
   }
 }
 
@@ -794,12 +876,10 @@ int narrow_blocks_per_sm(Kernel kernel, size_t smem) {
   return blocks;
 }
 
-// Shared memory of the f32 kernel: x0 and two hidden buffers of kBM32 rows,
-// each row padded by one float, then the fill's scratch, `scratch` floats
-// a row.
-size_t f32_smem(const MlpDesc& d, int scratch = 0) {
-  return (size_t)kBM32 * (d.in_pad + 1) * 4 + 2 * (size_t)kBM32 * (d.hid_pad + 1) * 4 +
-         (size_t)kBM32 * scratch * 4;
+// Whether the f32 kernel takes a stack: its shared memory fits (a product
+// wider than 256 columns runs in column passes).
+bool f32_ok(const MlpDesc& d) {
+  return f32_smem(d).total <= (size_t)kSmemLimit;
 }
 
 // The forward path of a stack: the f32 kernel for f32 compute; for bf16
@@ -808,7 +888,7 @@ size_t f32_smem(const MlpDesc& d, int scratch = 0) {
 // (A fill's scratch takes a little more: launch_fwd refuses the rare stack
 // whose total then no longer fits.)
 int fwd_path(const MlpDesc& d, int bf16) {
-  if (!bf16) return f32_smem(d) <= (size_t)kSmemLimit ? kPathF32 : -1;
+  if (!bf16) return f32_ok(d) ? kPathF32 : -1;
   if (narrow_ok(d)) return kPathNarrow;
   WgPlan p;
   long long elems = 0;
@@ -828,13 +908,13 @@ cudaError_t launch_fwd(const Fill& fill, const void* w, const void* w_wg, long l
   cudaError_t err;
   const int path = fwd_path(d, bf16);
   if (path == kPathF32) {
-    const size_t smem = f32_smem(d, Fill::kScratch);
+    const size_t smem = f32_smem(d, Fill::kScratch).total;
     if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
-    const auto kernel = fused_mlp_fwd_f32<Fill>;
+    const auto kernel = f32_fwd_wide(d) ? fused_mlp_fwd_f32<Fill, true> : fused_mlp_fwd_f32<Fill, false>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<cdiv(n, kBM32), kThreads, smem, s>>>(fill, static_cast<const float*>(w), bias, freqs,
-                                                   static_cast<float*>(out), out_stride, n, d);
+    kernel<<<cdiv(n, kF32Rows), kF32Threads, smem, s>>>(fill, static_cast<const float*>(w), bias, freqs,
+                                                         static_cast<float*>(out), out_stride, n, d);
   } else if (path == kPathNarrow) {
     const size_t smem = narrow_smem(d, Fill::kScratch).total;
     if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;

@@ -15,11 +15,15 @@ kernel or raises.
 
 The forward has three paths, chosen by the kernel library from the
 descriptor and the compute dtype (`forward_plan` asks it which): the f32
-kernel; for bf16 the one-pass narrow kernel (no skip layer, every padded
-width <= 64: the proposal stacks, the colour head) or the wgmma kernel
-(every other stack whose padded widths are <= 256: the 8 x 256 base
-stacks), which reads the weights in its own order, laid out by the plan
-the library returns (`Packed.weights_wg`, `_pack_wgmma`).
+kernel (exact f32 FMA on the CUDA cores in register tiles, csrc/
+fused_mlp_f32.cuh, products wider than 256 in column passes, for every
+stack whose shared memory fits; the f32 backward likewise), which reads
+the row-major weights and their transposes as `pack` lays them out; for bf16 the one-pass narrow kernel
+(no skip layer, every padded width <= 64: the proposal stacks, the colour
+head) or the wgmma kernel (every other stack whose padded widths are <=
+256: the 8 x 256 base stacks), which reads the weights in its own order,
+laid out by the plan the library returns (`Packed.weights_wg`,
+`_pack_wgmma`).
 
 Numerics (both versions): the frequency table is 2*pi*exp2(e_k) in f32;
 pre = x_d * f_k is one product; the encoding [sin(pre), cos(pre), x] is

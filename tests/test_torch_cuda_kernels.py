@@ -254,6 +254,142 @@ def test_backward_kernel_matches_plain(cuda, case):
         assert _rel_l2(got, want) <= BWD_TOL[dtype], (name, _rel_l2(got, want))
 
 
+@pytest.mark.parametrize("n", [1, 100_003])
+@pytest.mark.parametrize("name", sorted(plan_rule.F32_STACKS))
+def test_f32_kernels_match_plain_and_repeat(cuda, name, n):
+    """The exact-f32 forward and backward (csrc/fused_mlp_f32.cuh: register
+    tiles on the CUDA cores, no tensor-core instruction) on every f32 stack
+    of the registered methods, at one point and at a ragged N: the plain
+    versions' values (1e-4, 1e-4 relative L2 a tensor), the f32 path, and
+    the same bits from a second launch (each sum over k, over a block's
+    points and over the slabs in one fixed order, no atomics)."""
+    _check_f32_stack(cuda, plan_rule.F32_STACKS[name][0], 900 + n % 97 + len(name), n)
+
+
+@pytest.mark.parametrize("n", [1, 100_003])
+@pytest.mark.parametrize("name", sorted(plan_rule.F32_PASS_STACKS))
+def test_f32_column_passes_match_plain_and_repeat(cuda, name, n):
+    """Stacks with products wider than 256 (column passes, spill rows, a
+    272-wide input) on the f32 kernels: the plain versions' values and
+    gradients (1e-4) and the same bits from a second launch; the mirror's
+    forward path and backward plan are the libraries'."""
+    import ctypes
+
+    spec = plan_rule.F32_PASS_STACKS[name]
+    desc = _check_f32_stack(cuda, spec, 960 + n % 97 + len(name), n)
+    assert fm.forward_plan(desc, torch.float32)[0] == plan_rule.forward_path(desc, False) == "f32"
+    out = (ctypes.c_longlong * 4)()
+    c_desc = (ctypes.c_int * len(desc))(*desc)
+    assert fm.load_library("bwd").fused_mlp_bwd_sizes(c_desc, len(desc), n, 0, 0, out) == 0
+    plan = plan_rule.f32_bwd_plan(desc, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (out[0], out[1], out[2], out[3]) == (plan["ws_elems"], plan["scratch_floats"],
+                                                plan_rule.walk_smem(desc, False), 0)
+
+
+def _check_f32_stack(cuda, spec, seed, n):
+    """One f32 stack at n points: forward and backward against the plain
+    versions, two launches bit for bit; returns the descriptor."""
+    in_dim, dims, skips, enc, out_act = spec
+    gen = torch.Generator().manual_seed(seed)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(in_dim, enc), cuda)
+    x = torch.rand(n, in_dim, generator=gen).to(cuda)
+    g = torch.randn(n, dims[-1], generator=gen).to(cuda)
+    packed = fm.prepare(in_dim, ws, bs, out_act, skips, enc, torch.float32, transposed=True)
+    assert packed.fwd_path == "f32"
+    f0 = fm.fused_mlp.path_launches["f32"]
+    first, second = fm.launch(x, packed), fm.launch(x, packed)
+    grads, again = fm.launch_bwd(x, g, packed), fm.launch_bwd(x, g, packed)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.path_launches["f32"] == f0 + 2
+    assert torch.equal(first, second) and all(torch.equal(a, b) for a, b in zip(grads, again))
+    _close(first, fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips, enc, torch.float32), torch.float32)
+    dws, dbs = fm.unpack_grads(grads[1], grads[2], packed.desc, packed.shapes)
+    w_dx, w_dws, w_dbs = fm.fused_mlp_bwd_plain(x, g, ws, bs, "relu", out_act, skips, enc, torch.float32)
+    named = [("dx", grads[0], w_dx)] + [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, w_dws))]
+    _grads_close(named + [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, w_dbs))], torch.float32)
+    return packed.desc
+
+
+@pytest.mark.parametrize("name", sorted(plan_rule.F32_STACKS))
+def test_f32_backward_plan_matches_the_library(cuda, name):
+    """The CPU tests' copy of the f32 backward's plan
+    (tests/torch_fused_mlp_plan.py f32_bwd_plan, walk_smem) gives the
+    library's workspace, scratch and walk shared memory at the stack's
+    main-path points, on this card's SM count."""
+    import ctypes
+
+    (in_dim, dims, skips, enc, out_act), n, _ = plan_rule.F32_STACKS[name]
+    gen = torch.Generator().manual_seed(950)
+    ws, bs = _params(gen, dims, skips, fm.encoding_dim(in_dim, enc), torch.device("cpu"))
+    desc = fm.prepare(in_dim, ws, bs, out_act, skips, enc, torch.float32).desc
+    out = (ctypes.c_longlong * 4)()
+    c_desc = (ctypes.c_int * len(desc))(*desc)
+    assert fm.load_library("bwd").fused_mlp_bwd_sizes(c_desc, len(desc), n, 0, 0, out) == 0
+    plan = plan_rule.f32_bwd_plan(desc, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (out[0], out[1], out[2], out[3]) == (plan["ws_elems"], plan["scratch_floats"],
+                                                plan_rule.walk_smem(desc, False), 0)
+
+
+F32_RAY_CASES = [
+    # rows 3-6 at f32 at a ragged N: (kind, layer widths incl. output or C, rays, samples)
+    ("ray", (256,) * 7 + (16,), 100_003, 1),
+    ("ray", (64, 64, 1), 1, 1),
+    ("field", 4, 100_003, 1),
+    ("field", 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("case", range(len(F32_RAY_CASES)))
+def test_f32_ray_and_field_kernels_at_ragged_n(cuda, case):
+    """Rows 3-6 on the f32 kernels (the ray march's and the whole field's
+    fills over csrc/fused_mlp_f32.cuh) at a ragged N and at one point: the
+    plain versions' values and gradients (1e-4), and the same bits from a
+    second launch."""
+    kind, widths, r, s = F32_RAY_CASES[case]
+    gen = torch.Generator().manual_seed(980 + case)
+    dtype = torch.float32
+    o, d, t = _rays(gen, max(r, 3), s, cuda)  # _rays sets rays 0-2 apart
+    o, d, t = o[:r], d[:r], t[: r * s]
+    if kind == "ray":
+        enc, skips = ((10, 0.0, 9.0, True), (4,)) if widths[0] == 256 else ((5, 0.0, 4.0, True), ())
+        ws, bs = _params(gen, widths, skips, fm.encoding_dim(3, enc), cuda)
+        packed = fm.prepare(3, ws, bs, None, skips, enc, dtype, transposed=True)
+        outs = [fr.launch_ray(o, d, t, s, packed) for _ in range(2)]
+        want = fr.fused_ray_mlp_plain(o, d, t, ws, bs, s, None, skips, enc, dtype)
+        g = torch.randn(r * s, widths[-1] + 1, generator=gen).to(cuda)
+        runs = [fr.fused_ray_mlp_bwd(o, d, t, g[:, :-1].contiguous(), s, packed, True) for _ in range(2)]
+        torch.cuda.synchronize()
+        flat = [[*rn[0], rn[1], rn[2]] for rn in runs]
+        dws, dbs = fm.unpack_grads(runs[0][1], runs[0][2], packed.desc, packed.shapes)
+        w_o, w_d, w_t, w_dws, w_dbs = fr.fused_ray_mlp_bwd_plain(o, d, t, g, ws, bs, s, None, skips, enc, dtype, True)
+        named = [("d_o", flat[0][0], w_o), ("d_d", flat[0][1], w_d), ("d_t", flat[0][2], w_t)]
+        named += [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, w_dws))]
+        named += [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, w_dbs))]
+    else:
+        enc, skips, e = (10, 0.0, 9.0, True), (4,), 32
+        bw, bb = _params(gen, (256,) * 7 + (16,), skips, 63, cuda)
+        hw, hb = _params(gen, (64, 64, widths), (), 16 + 15 + e, cuda)
+        emb = torch.randn(r, e, generator=gen).to(cuda)
+        base = fm.prepare(3, bw, bb, None, skips, enc, dtype, transposed=True)
+        head = fm.prepare(63, hw, hb, "sigmoid", (), None, dtype, transposed=True)
+        fwd = [fr.launch_field(o, d, t, emb, s, base, head) for _ in range(2)]
+        outs = [f[0] for f in fwd]
+        want = fr.fused_field_mlp_plain(o, d, t, emb, bw, bb, hw, hb, s, skips, enc, dtype)
+        g = torch.randn(r * s, widths + 2, generator=gen).to(cuda)
+        runs = [fr.fused_field_mlp_bwd(o, d, t, emb, g, fwd[0][1], s, base, head) for _ in range(2)]
+        torch.cuda.synchronize()
+        flat = [[*rn[:4], *rn[4]] for rn in runs]
+        dbw, dbb = fm.unpack_grads(runs[0][4][0], runs[0][4][1], base.desc, base.shapes)
+        dhw, dhb = fm.unpack_grads(runs[0][4][2], runs[0][4][3], head.desc, head.shapes)
+        w = fr.fused_field_mlp_bwd_plain(o, d, t, emb, g, bw, bb, hw, hb, s, skips, enc, dtype)
+        named = list(zip(("d_o", "d_d", "d_t", "d_emb"), flat[0][:4], w[:4]))
+        for tag, got_l, want_l in zip(("dWb", "dbb", "dWh", "dbh"), (dbw, dbb, dhw, dhb), w[4:]):
+            named += [(f"{tag}{i}", a, b) for i, (a, b) in enumerate(zip(got_l, want_l))]
+    assert torch.equal(outs[0], outs[1]) and all(torch.equal(a, b) for a, b in zip(*flat))
+    _close(outs[0], want, dtype)
+    _grads_close(named, dtype)
+
+
 @pytest.mark.parametrize("path", ["narrow", "wide"])
 def test_backward_is_deterministic(cuda, path):
     """Two launches on the same inputs give bitwise-equal dx, dW and db, on

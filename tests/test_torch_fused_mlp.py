@@ -16,7 +16,14 @@ weights, so a layout fault shows here and not only on the card: the
 mma-fragment order (the narrow forward and the backward), the narrow
 forward's data flow (16-row warp tiles, each layer's rounded accumulators
 as the next layer's A), and the wgmma path's swizzled K-slices, unpacked by
-an independent reading of the byte layout. These hold exactly (1e-6).
+an independent reading of the byte layout. These hold exactly (1e-6). The
+exact-f32 kernels (csrc/fused_mlp_f32.cuh) are emulated the same way: every
+registered f32 stack fits 227 KB, each register tile owns every output
+once, and the 128-point k-major tiles, 16-row weight slices, column passes
+of products wider than 256 (with the spill rows of a layer that reads the
+activations it overwrites) and k order give the plain f32 forward (1e-6
+abs, 1e-5 rel: the same terms, a product and an add where the kernel fuses
+them) at ragged N.
 """
 
 import numpy as np
@@ -314,3 +321,175 @@ def test_forward_path_rule():
     _, ws, bs = _stack((3, (272, 16), (), (4, 0.0, 3.0, True), None))
     desc = fm.prepare(3, ws, bs, None, (), (4, 0.0, 3.0, True), torch.bfloat16).desc
     assert plan_rule.forward_path(desc, True) is None and plan_rule.forward_path(desc, False) == "f32"
+
+
+@pytest.mark.parametrize("name", sorted(plan_rule.F32_STACKS))
+def test_f32_plan_fits_every_registered_stack(name):
+    """Every f32 stack of the registered methods takes the f32 forward
+    kernel with its fill's scratch and the f32 backward's walk, each within
+    227 KB of shared memory, and the dW stage's splits keep to four waves
+    of one CTA an SM on a 132-SM card (the rule's copy, held to the
+    libraries on the card)."""
+    spec, n, scratch = plan_rule.F32_STACKS[name]
+    in_dim, _, skips, enc, out_act = spec
+    _, ws, bs = _stack(spec, n=1)
+    desc = fm.prepare(in_dim, ws, bs, out_act, skips, enc, torch.float32).desc
+    assert plan_rule.forward_path(desc, False) == "f32"
+    assert plan_rule.f32_smem(desc, scratch) <= plan_rule.SMEM_LIMIT
+    assert plan_rule.walk_smem(desc, False) <= plan_rule.SMEM_LIMIT
+    plan = plan_rule.f32_bwd_plan(desc, n, 132)
+    assert plan["tasks"] * plan["splits"] <= 4 * 132 and plan["rows_per_split"] % plan_rule.F32_DW_CHUNK == 0
+    assert plan["rows_per_split"] * plan["splits"] >= plan["rows"] >= n
+
+
+def f32_tile_owners(ncols: int):
+    """As F32Tile<TM, TN> (csrc/fused_mlp_f32.cuh) for a product ncols
+    wide: (TM, TN, NT, each thread's ty, its points [512, TM] and columns
+    [512, TN])."""
+    tm, tn = plan_rule.f32_tile(ncols)
+    gy = plan_rule.F32_ROWS // tm
+    nt = plan_rule.F32_THREADS // gy * tn
+    tid = np.arange(plan_rule.F32_THREADS)
+    w, lane = tid // 32, tid % 32
+    ty = (w % (gy // 4)) * 4 + lane // 8
+    tx = (w // (gy // 4)) * 8 + lane % 8
+    i, j = np.arange(tm), np.arange(tn)
+    points = ty[:, None] * 4 + (i & 3)[None, :] + (i >> 2)[None, :] * 64
+    cols = tx[:, None] * 4 + (j & 3)[None, :] + (j >> 2)[None, :] * (nt // 2)
+    return tm, tn, nt, ty, points, cols
+
+
+@pytest.mark.parametrize("ncols", [16, 64, 96, 128, 144, 256])
+def test_f32_register_tiles_own_each_output_once(ncols):
+    """The f32 kernels' register tiles give every (point, column) of a
+    128-point product exactly one owner; a warp's 4 rows and 8 columns of
+    threads read 64 and 128 contiguous bytes a k step."""
+    tm, tn, nt, ty, points, cols = f32_tile_owners(ncols)
+    assert nt >= ncols and (nt // 2 < ncols or nt == 64)
+    owned = np.zeros((plan_rule.F32_ROWS, nt), np.int64)
+    np.add.at(owned, (points[:, :, None], cols[:, None, :]), 1)
+    assert (owned == 1).all()
+    for warp in range(plan_rule.F32_THREADS // 32):
+        lanes = slice(32 * warp, 32 * warp + 32)
+        assert len(set(points[lanes, 0])) == 4 and np.ptp(points[lanes, 0]) == 12
+        assert len(set(cols[lanes, 0])) == 8 and np.ptp(cols[lanes, 0]) == 28
+
+
+def f32_operand(flat, off, ld, col0, ncols, k):
+    """A product's B as the kernels' ring receives it (F32Operand): rows
+    [0, k) of the row-major matrix at `off` with ld columns, its columns
+    [col0, col0 + ncols), copied in slices of 16 rows."""
+    slices = [flat[off + (16 * s + r) * ld + col0 : off + (16 * s + r) * ld + col0 + ncols]
+              for s in range(k // 16) for r in range(16)]
+    return torch.stack(slices)
+
+
+def f32_product(a_rows, b):
+    """[128 points, ncols] = A B with A k-major ([k, 128]), each output's
+    k terms added in order k = 0, 1, ... (the kernels' FMA chain; here a
+    product and an add)."""
+    acc = torch.zeros(a_rows.shape[1], b.shape[1])
+    for k in range(b.shape[0]):
+        acc += a_rows[k][:, None] * b[k][None, :]
+    return acc
+
+
+def f32_encode_tile(x, packed, row0):
+    """The f32 kernels' x0 tile, k-major [in_pad, 128]: the encoding (or
+    raw input) of points row0 .. row0 + 127, zero past enc_dim and past
+    the last point."""
+    in_pad, enc_dim, nf_per, include = packed.desc[2:6]
+    x0 = torch.zeros(in_pad, plan_rule.F32_ROWS)
+    xr = x[row0 : row0 + plan_rule.F32_ROWS]
+    if nf_per:
+        pre = (xr[:, :, None] * packed.freqs).reshape(xr.shape[0], -1)
+        vals = torch.cat([torch.sin(pre), torch.cos(pre)] + ([xr] if include else []), -1)
+    else:
+        vals = xr
+    x0[:enc_dim, : xr.shape[0]] = vals.t()
+    return x0
+
+
+def f32_store(h, spill, c0, rows, reads_h):
+    """A column pass's k rows (rows [nc, 128], columns c0 ..) written as
+    the kernels write them: over h in place, or into the spill rows when
+    the pass lies past column 256 of a product that reads h."""
+    if reads_h and c0 > 0:
+        spill[c0 - plan_rule.F32_MAX_WIDTH : c0 - plan_rule.F32_MAX_WIDTH + rows.shape[0]] = rows
+    else:
+        h[c0 : c0 + rows.shape[0]] = rows
+
+
+def f32_copy_spill(h, spill, width):
+    """After a layer's last pass (columns [0, 256)): the spill rows into h
+    behind them."""
+    rows = plan_rule.f32_spill_rows(width)
+    h[plan_rule.F32_MAX_WIDTH : plan_rule.F32_MAX_WIDTH + rows] = spill[:rows]
+
+
+def _emulate_f32_forward(x, packed, out_act):
+    """The f32 forward kernel's data flow: 128-point tiles, x0 and one
+    hidden buffer k-major, every layer the product of [x0 rows | h rows]
+    with its slices of the row-major weights in column passes of at most
+    256 (the kernel's order), bias and relu written over h in place (a pass
+    past 256 of a layer that reads h into the spill rows until its last
+    pass), the last layer's rows below n stored."""
+    n = x.shape[0]
+    nl, in_pad, hid_pad = packed.desc[0], packed.desc[2], packed.desc[6]
+    out = []
+    for row0 in range(0, n, plan_rule.F32_ROWS):
+        x0 = f32_encode_tile(x, packed, row0)
+        h = torch.full((hid_pad, plan_rule.F32_ROWS), float("nan"))
+        spill = torch.full((plan_rule.f32_spill_rows(hid_pad), plan_rule.F32_ROWS), float("nan"))
+        for li in range(nl):
+            k_pad, n_pad, skip, w_off, b_off = packed.desc[9 + 5 * li : 14 + 5 * li]
+            k0 = in_pad if li == 0 or skip else 0
+            res = torch.zeros(plan_rule.F32_ROWS, n_pad)
+            for c0, nc in plan_rule.f32_pass_cols(n_pad):
+                a_rows = torch.cat([x0[:k0], h[: k_pad - k0]])
+                acc = f32_product(a_rows, f32_operand(packed.weights, w_off, n_pad, c0, nc, k_pad))
+                acc = acc + packed.biases[b_off + c0 : b_off + c0 + nc]
+                if li < nl - 1:
+                    f32_store(h, spill, c0, torch.relu(acc).t(), k0 < k_pad)
+                else:
+                    res[:, c0 : c0 + nc] = acc
+            if li < nl - 1 and k0 < k_pad:
+                f32_copy_spill(h, spill, n_pad)
+        out.append(fm._apply_act(res, out_act)[: n - row0, : packed.out_dim])
+    return torch.cat(out)
+
+
+F32_EMULATION_STACKS = {
+    # every register tile shape (8 x 8 past 128 columns, 8 x 4 past 64, 4 x
+    # 4), a skip layer whose x0 and h rows meet inside a 16-row slice pair,
+    # the encoding, and a sigmoid head
+    "wide_skip_enc": (3, (200, 96, 144, 48, 20), (2,), (4, 0.0, 3.0, True), None),
+    "head_sigmoid": (63, (64, 64, 3), (), None, "sigmoid"),
+    **plan_rule.F32_PASS_STACKS,
+}
+
+
+def test_f32_column_passes_cover_each_column_once():
+    """The column passes of a product (f32_pass_col0 / f32_pass_cols)
+    cover its columns once, at most 256 each, with block 0 last (the pass
+    after which a layer's spill rows are copied back)."""
+    for ncols in (16, 256, 272, 512, 528, 784):
+        passes = plan_rule.f32_pass_cols(ncols)
+        cols = [c for c0, nc in passes for c in range(c0, c0 + nc)]
+        assert sorted(cols) == list(range(ncols)) and all(nc <= 256 for _, nc in passes)
+        assert passes[-1][0] == 0 and len(passes) == -(-ncols // 256)
+
+
+@pytest.mark.parametrize("n", [1, 77, 300])
+@pytest.mark.parametrize("name", sorted(F32_EMULATION_STACKS))
+def test_f32_forward_emulation_matches_plain(name, n):
+    """The f32 forward's tiles, k-major buffers, weight slices, column
+    passes and k order give the plain f32 forward's values, for ragged N."""
+    spec = F32_EMULATION_STACKS[name]
+    in_dim, _, skips, enc, out_act = spec
+    x, ws, bs = _stack(spec, seed=8, n=n)
+    packed = fm.prepare(in_dim, ws, bs, out_act, skips, enc, torch.float32)
+    assert plan_rule.forward_path(packed.desc, False) == "f32"
+    want = fm.fused_mlp_plain(x, ws, bs, "relu", out_act, skips, enc, torch.float32)
+    got = _emulate_f32_forward(x, packed, out_act)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-5)

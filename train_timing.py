@@ -3,7 +3,7 @@
 batch sampler, for comparing samplers and trees on one machine.
 
     python3 train_timing.py [--sampler native|python] [--root DIR] [--label NAME]
-                            [--hash] [--field]
+                            [--hash] [--field] [--f32]
 
 Trains each of chip_smoke.py's three configurations (thermal-nerfacto-tpu,
 thermal-nerfacto, thermal-nerfacto-tpu+fused) for 30 steps of 8192 rays on
@@ -32,6 +32,18 @@ that checkout's own chip_smoke.field_split_phase where it has one (CUDA-event
 ms as a training step and as a render chunk call it, the device ms of each
 kernel it launches, row 3's cross density on the same rays). Prints
 `FIELD {json}`.
+
+--f32 times rows 1-6 at f32 compute: each f32 kernel at the shapes
+chip_smoke.py times it (rows 1-2 on thermal-nerfacto-tpu's base stack,
+a 3 x 64 proposal stack and the colour head, and both NeRF stacks; rows
+3-6 at phase 6's shapes), CUDA-event ms through the kernel wrappers
+(prepare, launch, launch_bwd, launch_ray, fused_ray_mlp_bwd, launch_field,
+fused_field_mlp_bwd; this checkout's f32_kernel_times), and the peak
+device memory of one row-2 backward beyond what was allocated before it;
+then ms/step (steps 10-29 of 30) with --pipeline.model.compute-dtype
+float32 of thermal-nerfacto-tpu+fused (8192 rays, the sphere scene) and of
+vanilla-nerf with use_pallas (4096 rays, through that checkout's
+chip_smoke.classic_train on its blender scene). Prints `F32 {json}`.
 
 --root imports chip_smoke.py and nerfstudio_thermal_torch from another
 checkout (for instance an older commit unpacked with git archive), so that
@@ -137,6 +149,104 @@ def fused_frames(cs):
     return frames[1:]
 
 
+def f32_kernel_times(here, iters: int = 3) -> tuple:
+    """CUDA-event ms of each f32 kernel of rows 1-6 on the package imported
+    (a --root checkout's), at chip_smoke.py's shapes, inputs from fixed
+    seeds; `here` is this checkout's chip_smoke (local_smoke). Also the
+    device memory one row-2 backward allocates at its peak beyond what
+    was allocated before it (its outputs, workspace and scratch), by
+    stack. Returns (ms by kernel and shape, peak bytes by stack)."""
+    import torch
+    from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
+    from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
+
+    f32, gen, out, peak = torch.float32, torch.Generator().manual_seed(21), {}, {}
+    stacks = {
+        # name: (in_dim, widths, skips, frequencies, out_act), forward points, backward points
+        "base": ((3, here.BASE_DIMS, (4,), here.BASE_FREQ, None), 1 << 20, 1 << 18),
+        "proposal_f5": ((3, (64, 64, 1), (), (5, 0.0, 4.0, True), None), 4_194_304, 4_194_304),
+        "colour_head": ((63, (64, 64, 3), (), None, "sigmoid"), 1 << 20, 1 << 20),
+        "vanilla_nerf_63": ((63, here.NERF_DIMS, (4,), None, None), 1 << 20, 1 << 18),
+        "mipnerf_99": ((99, here.NERF_DIMS, (4,), None, None), 1 << 20, 1 << 18),
+    }
+    for name, ((in_dim, dims, skips, freq, out_act), n_fwd, n_bwd) in stacks.items():
+        ws, bs = here.mlp_params(gen, in_dim, dims, skips, freq)
+        packed = fm.prepare(in_dim, ws, bs, out_act, skips, freq, f32, transposed=True)
+        x = torch.rand(n_fwd, in_dim, generator=gen).cuda()
+        out[f"row1 {name} n={n_fwd}"] = here.cuda_ms(lambda: fm.launch(x, packed), iters, warmup=1)
+        if n_bwd:
+            x = x[:n_bwd].contiguous()
+            g = torch.randn(n_bwd, dims[-1], generator=gen).cuda()
+            out[f"row2 {name} n={n_bwd}"] = here.cuda_ms(lambda: fm.launch_bwd(x, g, packed), iters, warmup=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            grads = fm.launch_bwd(x, g, packed)
+            torch.cuda.synchronize()
+            peak[f"row2 {name} n={n_bwd}"] = torch.cuda.max_memory_allocated() - before
+            del grads
+        del x, packed
+        torch.cuda.empty_cache()
+    for name, dims, skips, freq, r_fwd, r_bwd, s, need in here.RAY_CASES:
+        ws, bs = here.mlp_params(gen, 3, dims, skips, freq)
+        packed = fm.prepare(3, ws, bs, None, skips, freq, f32, transposed=True)
+        o, d, t = here.ray_inputs(gen, r_fwd, s)
+        out[f"row3 {name} n={r_fwd * s}"] = here.cuda_ms(lambda: fr.launch_ray(o, d, t, s, packed), iters, warmup=1)
+        o, d, t = here.ray_inputs(gen, r_bwd, s)
+        g = torch.randn(r_bwd * s, dims[-1], generator=gen).cuda()
+        out[f"row4 {name} n={r_bwd * s}"] = here.cuda_ms(lambda: fr.fused_ray_mlp_bwd(o, d, t, g, s, packed, need),
+                                                         iters, warmup=1)
+        del o, d, t, g, packed
+        torch.cuda.empty_cache()
+    c, r_fwd, r_bwd, s = here.FIELD_CASES[0]
+    bw, bb = here.mlp_params(gen, 3, here.BASE_DIMS, (4,), here.BASE_FREQ)
+    hw, hb = here.mlp_params(gen, 63, (64, 64, c), (), None)
+    base = fm.prepare(3, bw, bb, None, (4,), here.BASE_FREQ, f32, transposed=True)
+    head = fm.prepare(63, hw, hb, "sigmoid", (), None, f32, transposed=True)
+    o, d, t = here.ray_inputs(gen, r_fwd, s)
+    emb = torch.randn(r_fwd, 32, generator=gen).cuda()
+    out[f"row5 C={c} n={r_fwd * s}"] = here.cuda_ms(lambda: fr.launch_field(o, d, t, emb, s, base, head), iters,
+                                                    warmup=1)
+    o, d, t = here.ray_inputs(gen, r_bwd, s)
+    emb = torch.randn(r_bwd, 32, generator=gen).cuda()
+    g = torch.randn(r_bwd * s, c + 2, generator=gen).cuda()
+    _, head_in = fr.launch_field(o, d, t, emb, s, base, head)
+    out[f"row6 C={c} n={r_bwd * s}"] = here.cuda_ms(
+        lambda: fr.fused_field_mlp_bwd(o, d, t, emb, g, head_in, s, base, head), iters, warmup=1)
+    return out, peak
+
+
+def f32_steps(cs, tmp: Path) -> dict:
+    """ms/step (steps 10-29 of 30) with f32 compute: thermal-nerfacto-tpu+fused
+    at 8192 rays and vanilla-nerf with use_pallas at 4096, on the --root
+    checkout's scenes and trainers."""
+    import torch
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+
+    out = {}
+    scene = cs.write_scene(tmp / "sphere")
+    method = cs.train_method("thermal-nerfacto-tpu+fused", scene, 8192)
+    method.model.compute_dtype = "float32"
+    method.trainer.max_num_iterations = STEPS
+    trainer = setup_trainer(method, base_dir=tmp / "fused_f32", device="cuda")
+    trainer.setup()
+    step_ms = []
+    for step in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_iteration(step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["thermal-nerfacto-tpu+fused"] = statistics.mean(step_ms[TIMED_FROM:])
+    del trainer
+    torch.cuda.empty_cache()
+    blender = cs.write_classic_blender(tmp / "blender")
+    flags = [*cs.CLASSIC["vanilla-nerf"]["flags"], "--pipeline.model.compute-dtype", "float32"]
+    run = cs.classic_train("vanilla-nerf", blender, tmp / "vanilla_f32", flags, cs.CLASSIC["vanilla-nerf"]["step"])
+    out["vanilla-nerf use_pallas"] = run["step_s"] * 1e3
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sampler", choices=("native", "python"), default="native")
@@ -147,6 +257,8 @@ def main() -> int:
                         help="thermal-nerfacto only: frame, device time and the hash kernels on the model's points")
     parser.add_argument("--field", action="store_true",
                         help="thermal-nerfacto-tpu+fused only: its frame and the whole-field forward's split")
+    parser.add_argument("--f32", action="store_true",
+                        help="rows 1-6 at f32 compute: the f32 kernels, and f32 ms/step of +fused and vanilla-nerf")
     args = parser.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -159,12 +271,19 @@ def main() -> int:
     import nerfstudio_thermal_torch  # noqa: F401  (the package of --root, before local_smoke)
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
 
-    here = local_smoke() if args.hash else None
+    here = local_smoke() if args.hash or args.f32 else None
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.f32:
+        kernels, peak = f32_kernel_times(here)
+        with tempfile.TemporaryDirectory() as tmp:
+            steps = f32_steps(cs, Path(tmp))
+        print("F32 " + json.dumps({"label": args.label, "root": root.name, "device": smi, "kernels_ms": kernels,
+                                   "bwd_peak_bytes": peak, "ms_step": steps}), flush=True)
+        return 0
     if args.field:
         frames = fused_frames(cs)
         split = cs.field_split_phase() if hasattr(cs, "field_split_phase") else {}
