@@ -244,6 +244,38 @@ Phases, each fatal on failure:
      depth_mae, rows 7-10 by proposal update), its step-9 hash calls go
      through phase 8b's checks and timings, a 640x512 frame, ns-eval;
    - ms/step, seconds per frame and peak memory of each method.
+17. neus, neus-facto and semantic-nerfw (after phase 16; the JSON line's
+   hash_encode_bwd_pos_vjp entry and the hash kernels' extra fields
+   model_neus_facto_train_step_9, neus_facto_launches and
+   semantic_nerfw_launches read it):
+   - neus-facto (2048 rays, (256, 96) + 48 samples, the 16-level 2^19 SDF
+     grid to 2048, two 5-level proposal grids) trains 30 steps through
+     ns-train on phase 15's RGB sphere scene: every loss finite, every
+     group changed, each step's launches (rows 7-10 and the position
+     gradient's VJP: 3 forwards, 3 table gradients, 2 position gradients,
+     1 VJP); ms/step over steps 10-29, peak memory. The SDF's first-order
+     gradient alone launches one forward and one position gradient and no
+     table scatter, with and without create_graph;
+   - step 9's VJP call (the SDF grid's, on the model's points) against its
+     plain version (dg, d_table, d_pos2) and timed with plain and bound (no
+     library call computes it), and step 9's three hash calls through
+     phase 8b's checks and timings;
+   - ns-eval of the run, a 640x512 frame (rgb, depth, normal, normal_vis;
+     3 forwards and 1 position gradient a chunk), ns-render of the eval
+     frame;
+   - an f32 256-ray step on the card against the CPU's from the run's
+     parameters (every loss, each group's gradient), and before it the
+     eikonal loss alone: its SDF-grid table gradient, which only the
+     second derivative reaches, must match the CPU's plain path and not be
+     zero (its norm's ratio to the full step's printed);
+   - neus (1024 rays, 64 + 4 x 16 samples, 8 x 256 SDF net, background
+     NeRFField) 12 steps through ns-train and a 640x512 frame;
+   - semantic-nerfw 12 steps on a Sitcoms3D-format scene the script writes
+     with semantic labels (semantics_loss finite every step) and a 640x512
+     frame whose semantics_colormap holds class colours only;
+   - neus-facto 6 steps on an sdfstudio-format scene with the sphere's
+     analytic depth and normals as monocular priors (normal_loss and
+     depth_loss finite every step).
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -804,6 +836,7 @@ def counters():
         "hash_encode_fwd": (th.hash_encode_fwd, "launches"),
         "hash_encode_bwd_table": (th.hash_encode_bwd_table, "launches"),
         "hash_encode_bwd_pos": (th.hash_encode_bwd_pos, "launches"),
+        "hash_encode_bwd_pos_vjp": (th.hash_encode_bwd_pos_vjp, "launches"),
         "fused_ray_mlp_fwd": (fr.fused_ray_mlp, "launches"), "fused_ray_mlp_bwd": (fr.fused_ray_mlp_bwd, "launches"),
         "fused_ray_mlp_bwd_input_grads": (fr.fused_ray_mlp_bwd, "input_grad_launches"),
         "fused_field_mlp_fwd": (fr.fused_field_mlp, "launches"),
@@ -968,7 +1001,8 @@ def recording_hash_calls():
     def recorded(table, positions, scalings, table_size, compute_dtype=torch.float32):
         out = inner(table, positions, scalings, table_size, compute_dtype)
         rec = {"table": table.detach(), "pos": positions.detach().reshape(-1, 3).float().cpu(),
-               "scal": scalings.detach(), "t": table_size, "dtype": compute_dtype, "g": None}
+               "scal": scalings.detach(), "t": table_size, "dtype": compute_dtype, "g": None,
+               "with_pos": positions.requires_grad}
         if out.requires_grad:
             out.register_hook(lambda g: rec.update(g=g.detach().reshape(rec["pos"].shape[0], -1).cpu()))
         calls.append(rec)
@@ -3332,13 +3366,15 @@ def nerf_stack_phase() -> dict:
 
 
 def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps: int = CLASSIC_STEPS,
-                  capture_step=None, on_step=None) -> dict:
+                  capture_step=None, on_step=None, timed_from: int = CLASSIC_TIMED_FROM) -> dict:
     """ns-train of `name` at full width for `steps` steps, each synchronized
-    and timed, with its launches (`per_step`, or with None nerfacto's, by
-    proposal_updated), every loss finite, every param group changed. capture_step: that step's fused-MLP and hash calls are
-    recorded for mlp_model_phase / hash_model_phase. on_step(trainer, step,
-    scalars) runs after each step. Returns the records, the run, the counts,
-    the peak memory and the trainer."""
+    and timed (from step `timed_from`), with its launches (`per_step`, or
+    with None nerfacto's, by proposal_updated), every loss finite, every
+    param group changed. capture_step: that step's fused-MLP, hash and
+    hash-VJP calls are recorded for mlp_model_phase / hash_model_phase /
+    vjp_model_phase. on_step(trainer, step, scalars) runs after each step.
+    Returns the records, the run, the counts, the peak memory and the
+    trainer."""
     from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
     from nerfstudio_thermal_torch.scripts import train as ns_train
 
@@ -3356,10 +3392,11 @@ def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if step == capture_step:
-                with recording_mlp_calls() as mlp_calls, recording_hash_calls() as hash_calls:
+                with recording_mlp_calls() as mlp_calls, recording_hash_calls() as hash_calls, \
+                        recording_vjp_calls() as vjp_calls:
                     out = iteration(step)
                 torch.cuda.synchronize()
-                captured.update(mlp=mlp_calls, hash=hash_calls)
+                captured.update(mlp=mlp_calls, hash=hash_calls, vjp=vjp_calls)
             else:
                 out = iteration(step)
             torch.cuda.synchronize()
@@ -3403,7 +3440,7 @@ def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps:
     if unchanged or nonfinite:
         raise AssertionError(f"{name}: groups {unchanged} unchanged, parameters {nonfinite} not finite")
     (run,) = (out_dir / "smoke" / name).glob("*")
-    step_s = float(np.mean([r["s"] for r in records[CLASSIC_TIMED_FROM:]]))
+    step_s = float(np.mean([r["s"] for r in records[timed_from:]]))
     return {"records": records, "run": run, "counts": counts, "peak": peak, "step_s": step_s, "trainer": trainer,
             **captured}
 
@@ -3658,6 +3695,583 @@ def classic_phase(tmp: Path, smi: str) -> dict:
     return result
 
 
+# Phase 17: the surface methods (neus, neus-facto) and semantic-nerfw. neus-facto
+# trains SURF_STEPS steps through ns-train (timed from SURF_TIMED_FROM; its hash
+# calls and the position gradient's VJP calls recorded at SURF_CAPTURE_STEP);
+# neus and semantic-nerfw SURF_SHORT_STEPS (timed from SURF_SHORT_TIMED_FROM), the
+# mono-prior neus-facto run MONO_STEPS. Launches a neus-facto training step: the
+# two proposal grids' forward and table gradient (their positions need no
+# gradient; the proposals update every step), the SDF grid's forward, the
+# normals' position gradient (create_graph: the new node's forward is row 10),
+# and in the backward the VJP of that position gradient, the SDF grid's table
+# gradient and the position gradient of the detached sample positions (a leaf
+# of the graph, which torch's backward also forms); a render chunk: the three
+# forwards and the normals' position gradient (no graph). neus runs no hash
+# kernel (no grid; its background NeRFField runs eager, as in JAX).
+SURF_STEPS, SURF_TIMED_FROM, SURF_CAPTURE_STEP = 30, 10, 9
+SURF_SHORT_STEPS, SURF_SHORT_TIMED_FROM, MONO_STEPS = 12, 2, 6
+SURF_RENDER = (640, 512, 500.0)
+NEUS_FACTO_STEP = {"hash_encode_fwd": 3, "hash_encode_bwd_table": 3, "hash_encode_bwd_pos": 2,
+                   "hash_encode_bwd_pos_vjp": 1}
+NEUS_FACTO_CHUNK = {"hash_encode_fwd": 3, "hash_encode_bwd_pos": 1}
+SEMANTIC_CHUNK = {"hash_encode_fwd": 3}
+# The VJP kernel against its plain version: dg (the corners in the same
+# order) and d_pos2 (the levels in another order) relative L2 1e-5, d_table
+# (row 7's atomics) 1e-4.
+VJP_TOLS = {"dg": 1e-5, "d_table": 1e-4, "d_pos2": 1e-5}
+# The f32 neus-facto step, card against CPU (256 rays, the 30-step run's
+# parameters): the same f32 functions in other orders, and the SDF's second
+# derivative through softplus(100 x) / 100 scales a rounding by up to 100
+# (the CPU step against JAX's reads up to ~1e-3, tests/
+# test_torch_surface_models.py): losses 1e-3 relative, each group's gradient
+# 5e-3 relative L2 (H100: losses 4.8e-7, groups <= 3.3e-6; the step's
+# SDF-grid table gradient alone reads 5.9e-3, a few rays' final samples
+# moving where an inverse-CDF lookup meets a flat step of the proposal
+# weights). The eikonal loss alone, on the same final samples on both
+# devices: its SDF-grid table gradient 1e-4 relative L2 (H100: 3.2e-6,
+# the CPU against itself with every parameter one ulp away 2.5e-6); a
+# dropped second derivative reads 1 (the gradient missing).
+SURF_STEP_LOSS_TOL, SURF_STEP_GRAD_TOL, EIKONAL_TABLE_TOL = 1e-3, 5e-3, 1e-4
+
+
+@contextlib.contextmanager
+def recording_vjp_calls():
+    """While open, every backward of the hash grid's position-gradient node
+    (`_HashEncodeBwdPos`: the VJP kernel on the card) appends a record: the
+    table, positions, g, the cotangent v, the scalings, T and which outputs
+    it forms (dg, d_table, d_pos2). Positions, g and v are copied to the
+    host. The backward computes and counts as before."""
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    calls, inner = [], th._HashEncodeBwdPos.backward
+
+    def recorded(ctx, v):
+        table, positions, g, scalings = ctx.saved_tensors
+        calls.append({"table": table.detach(), "pos": positions.detach().float().cpu(), "g": g.detach().float().cpu(),
+                      "v": v.detach().float().cpu(), "scal": scalings.detach(), "t": ctx.table_size,
+                      "need": tuple(th._wanted(ctx, i) for i in (2, 0, 1))})
+        return inner(ctx, v)
+
+    th._HashEncodeBwdPos.backward = staticmethod(recorded)
+    try:
+        yield calls
+    finally:
+        th._HashEncodeBwdPos.backward = staticmethod(inner)
+
+
+def vjp_cost(n: int, levels: int, t: int, rows: int, need) -> tuple:
+    """Bytes the VJP must move (positions, v and g in; the rows its
+    positions touch; dg, the dense d_table and d_pos2 out, as asked) and
+    its f32 operations per (point, level): 15 for the corners and weights,
+    then per corner 9 (a_c), 4 (dg), 2 (scatter) and 17 (d_pos2)."""
+    need_g, need_table, need_pos = need
+    nl = n * levels
+    nbytes = n * 24 + nl * 8 + rows * 8 + need_g * nl * 8 + need_table * levels * t * 8 + need_pos * n * 12
+    ops = nl * (15 + 8 * (9 + 4 * need_g + 2 * need_table + 17 * need_pos))
+    return nbytes, ops
+
+
+def vjp_model_phase(scope: str, calls) -> dict:
+    """The VJP kernel on the calls a training step recorded: each held
+    against hash_encode_bwd_pos_vjp_plain (VJP_TOLS) and timed with its
+    plain version and its bound (no single PyTorch call computes it).
+    Returns the sums over the calls and the first call's record."""
+    from nerfstudio_thermal_torch.ops import encodings as enc
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    if not calls:
+        raise AssertionError(f"{scope}: no VJP call recorded")
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "cases": 0, "points": 0, "rows": 0}
+    for i, rec in enumerate(calls):
+        table, scal, t = rec["table"], rec["scal"], rec["t"]
+        pos, g, v = (rec[k].to(table.device).contiguous() for k in ("pos", "g", "v"))
+        n, levels = pos.shape[0], scal.shape[0]
+        need = rec["need"]
+        kernel = lambda: th.hash_encode_bwd_pos_vjp(table, pos, g, v, scal, t, *need)  # noqa: E731
+        plain = lambda: enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, *need)  # noqa: E731
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        errs = []
+        for name, a, b in zip(("dg", "d_table", "d_pos2"), got, want):
+            if (a is None) != (b is None):
+                raise AssertionError(f"{scope}[{i}] VJP: {name} formed by one side only")
+            if a is None:
+                continue
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{scope}[{i}] VJP {name}: shape {tuple(a.shape)} or not finite")
+            err, rel = float((a - b).abs().max()), rel_l2(a, b)
+            if rel > VJP_TOLS[name]:
+                raise AssertionError(f"{scope}[{i}] VJP {name} disagrees with its plain version: max |err| {err:.3e}, "
+                                     f"rel L2 {rel:.3e} (tol {VJP_TOLS[name]:g})")
+            sums["max_abs_err"] = max(sums["max_abs_err"], err)
+            errs.append(f"{name} max_abs_err={err:.3e} rel L2 {rel:.3e} (tol {VJP_TOLS[name]:g})")
+        rows = hash_rows_touched(pos, scal, t)
+        ms, plain_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=3)
+        bound_ms, bound_by = bound(*vjp_cost(n, levels, t, rows, need))
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            sums[k] += val
+        sums["cases"] += 1
+        sums["points"] += n
+        sums["rows"] += rows
+        sums["bound_by"] = bound_by
+        log(f"vjp_model hash_encode_bwd_pos_vjp {scope}[{i}] L{levels} T2^{t.bit_length() - 1}: n={n}, outputs "
+            f"{dict(zip(('dg', 'd_table', 'd_pos2'), need))}; " + "; ".join(errs) + f" ok; table rows touched "
+            f"{rows} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        del pos, g, v, got, want
+        torch.cuda.empty_cache()
+    return sums
+
+
+def sphere_geometry(c2w: np.ndarray, w: int, h: int, focal: float):
+    """Per pixel: the unit ray direction, whether it hits the unit sphere,
+    the distance to the hit and the normal there (render_sphere's rays)."""
+    ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
+    d = np.stack([(xs - w / 2) / focal, -(ys - h / 2) / focal, -np.ones_like(xs)], -1) @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = c2w[:3, 3]
+    b = d @ o
+    disc = b * b - (o @ o - 1.0)
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    return d, disc > 0, t, o + t[..., None] * d
+
+
+def ring_pose(i: int, num: int) -> np.ndarray:
+    ang = 2 * np.pi * i / num
+    return look_at(np.array([3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.2]))
+
+
+def write_sitcoms_scene(root: Path, num: int = 8, w: int = 640, h: int = 480) -> Path:
+    """A Sitcoms3D-format sphere scene with semantics: images_4/ (w x h, the
+    full-resolution intrinsics 4x), segmentations_4/thing/ label images (1
+    where the ray hits the sphere, 0 for the sky), cameras.json (the poses
+    rotated back by the parser's z-up rotation) and panoptic_classes.json
+    (classes sky and sphere)."""
+    from nerfstudio_thermal_torch.utils.writer import write_png
+
+    (root / "images_4").mkdir(parents=True, exist_ok=True)
+    (root / "segmentations_4" / "thing").mkdir(parents=True, exist_ok=True)
+    rot = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float64)
+    frames, focal = [], 0.8 * w
+    for i in range(num):
+        c2w = ring_pose(i, num)
+        write_png(root / "images_4" / f"f{i:03d}.png", render_sphere(c2w, w, h, focal, False))
+        hit = sphere_geometry(c2w, w, h, focal)[1]
+        write_png(root / "segmentations_4" / "thing" / f"f{i:03d}.png", hit.astype(np.uint8)[..., None])
+        pose = np.eye(4)
+        pose[:3] = rot.T @ c2w[:3]
+        frames.append({"image_name": f"f{i:03d}.png", "camtoworld": pose.tolist(),
+                       "intrinsics": [[4 * focal, 0, 2.0 * w], [0, 4 * focal, 2.0 * h], [0, 0, 1]]})
+    (root / "cameras.json").write_text(json.dumps({"frames": frames, "bbox": [[-1.5] * 3, [1.5] * 3]}))
+    (root / "panoptic_classes.json").write_text(json.dumps(
+        {"thing": ["sky", "sphere"], "thing_colors": [[90, 160, 220], [230, 120, 40]]}))
+    return root
+
+
+def write_sdfstudio_scene(root: Path, num: int = 8, w: int = 320, h: int = 240) -> Path:
+    """An sdfstudio-format sphere scene with monocular priors: the analytic
+    distance to the sphere (npy, in the parser's millimetres; 6 where the
+    ray misses) and the sphere's normal mapped to [0, 1] (0.5 where it
+    misses), OpenCV camera-to-world poses."""
+    from nerfstudio_thermal_torch.utils.writer import write_png
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames, focal = [], 0.8 * w
+    for i in range(num):
+        c2w = ring_pose(i, num)
+        write_png(root / f"rgb_{i:03d}.png", render_sphere(c2w, w, h, focal, False))
+        _, hit, t, n = sphere_geometry(c2w, w, h, focal)
+        np.save(root / f"depth_{i:03d}.npy", (np.where(hit, t, 6.0) * 1000.0).astype(np.float32))
+        np.save(root / f"normal_{i:03d}.npy", np.where(hit[..., None], (n + 1.0) / 2.0, 0.5).astype(np.float32))
+        cv = c2w.copy()
+        cv[:3, 1:3] *= -1
+        frames.append({"rgb_path": f"rgb_{i:03d}.png", "camtoworld": cv.tolist(),
+                       "intrinsics": [[focal, 0, w / 2, 0], [0, focal, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                       "mono_depth_path": f"depth_{i:03d}.npy", "mono_normal_path": f"normal_{i:03d}.npy"})
+    meta = {"height": h, "width": w, "scene_box": {"aabb": [[-1.5] * 3, [1.5] * 3]}, "frames": frames,
+            "has_mono_prior": True}
+    (root / "meta_data.json").write_text(json.dumps(meta))
+    return root
+
+
+def direct_train(name: str, method, run_dir: Path, steps: int, per_step, timed_from: int, check=None) -> dict:
+    """`steps` steps of a method config through setup_trainer ->
+    Trainer.setup -> train_iteration (a scene that ns-train's flags cannot
+    name the parser of), each synchronized and timed, with its launches
+    (`per_step`, or None: nerfacto's by proposal_updated), every loss
+    finite, every param group changed; check(step, scalars) per step."""
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+    from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = setup_trainer(method, base_dir=run_dir, device="cuda")
+    trainer.setup()
+    groups = trainer.model.param_groups()
+    before = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
+    records = []
+    reset_counts()
+    for step in range(steps):
+        ssu = trainer.state.steps_since_update
+        c0 = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_iteration(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v - c0[k] for k, v in read_counts().items()}
+        want = per_step
+        if want is None:
+            cfg = trainer.model.config
+            want = _hash_step(1)(proposal_updated(step, ssu, cfg.proposal_warmup, cfg.proposal_update_every)[0])
+        if launches != expected_counts(want):
+            raise AssertionError(f"{name} step {step}: launches {launches}, expected {want}")
+        scalars = {k: float(v) for k, v in out.items()}
+        bad = [k for k, v in scalars.items() if "loss" in k and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name} step {step}: non-finite losses {bad}")
+        if check is not None:
+            check(step, scalars)
+        records.append({"step": step, "s": dt, **scalars})
+    unchanged = [k for k, ps in groups.items() if all(torch.equal(a, p.detach()) for a, p in zip(before[k], ps))]
+    nonfinite = [k for k, p in trainer.model.named_parameters() if not bool(torch.isfinite(p).all())]
+    if unchanged or nonfinite:
+        raise AssertionError(f"{name}: groups {unchanged} unchanged, parameters {nonfinite} not finite")
+    return {"records": records, "counts": read_counts(), "peak": torch.cuda.max_memory_allocated(),
+            "step_s": float(np.mean([r["s"] for r in records[timed_from:]])), "trainer": trainer}
+
+
+def surface_render(model, name: str, chunk: dict, expect: dict, c2w) -> tuple:
+    """One SURF_RENDER frame through render_camera_device: launches `chunk`
+    a chunk, finite outputs of `expect`'s channels; (seconds, chunks)."""
+    w, h, focal = SURF_RENDER
+    cam = make_camera(w, h, focal, c2w)
+    n_chunks = -(-(w * h) // model.config.eval_num_rays_per_chunk)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = model.render_camera_device(cam, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if read_counts() != expected_counts(chunk, n_chunks):
+        raise AssertionError(f"{name} render: launches {read_counts()}, expected {chunk} x {n_chunks}")
+    check_image_outputs(out, h, w, expect)
+    return dt, n_chunks, out
+
+
+def first_order_launches(field) -> None:
+    """The SDF's first-order gradient (the normals), with and without its
+    graph: one grid forward and one position gradient, no table scatter."""
+    pts = torch.rand(8192, 3, generator=torch.Generator().manual_seed(4)).cuda() * 2.0 - 1.0
+    for train in (True, False):
+        torch.cuda.synchronize()
+        reset_counts()
+        _, _, grad = field.get_sdf_and_gradient(pts, train=train)
+        torch.cuda.synchronize()
+        want = expected_counts({"hash_encode_fwd": 1, "hash_encode_bwd_pos": 1})
+        if read_counts() != want or grad.requires_grad != train or not bool(torch.isfinite(grad).all()):
+            raise AssertionError(f"neus-facto first-order SDF gradient (create_graph={train}): launches "
+                                 f"{read_counts()}, expected {want}")
+        del grad
+    log("neus-facto first-order SDF gradient (8192 points): one grid forward and one position-gradient launch, no "
+        "table scatter, with and without create_graph")
+
+
+def second_derivative_share(scene: Path, run_dir: Path, state: dict, smi: str) -> dict:
+    """neus-facto's training steps (2048 rays, from the 30-step run's
+    parameters) with the SDF gradient's graph (create_graph: the eikonal
+    loss's double backward, the VJP kernel among it) and without it (the
+    gradient taken without its graph, so the eikonal loss sends nothing
+    back): wall ms/step over 8 steps after 2, and device ms/step summed
+    from torch.profiler over 3 steps, of each. The difference is the
+    second derivative's share of the step."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
+    from nerfstudio_thermal_torch.fields.sdf_field import SDFField
+
+    method = get_method_config("neus-facto")
+    method.data = scene
+    trainer = setup_trainer(method, base_dir=run_dir, device="cuda")
+    trainer.model.load_state_dict(state)
+    trainer.setup()
+    step = [SURF_STEPS]
+
+    def one():
+        trainer.train_iteration(step[0])
+        step[0] += 1
+
+    def measure():
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            one()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 8 * 1e3, sum(kernel_split(one, iters=3).values())
+
+    def first_order_only(self, positions, train=True):
+        shape = positions.shape[:-1]
+        with torch.enable_grad():
+            x = positions.reshape(-1, 3).detach().requires_grad_(True)
+            out = self.forward_geonetwork(x)
+            (grad,) = torch.autograd.grad(out[:, :1], x, grad_outputs=torch.ones_like(out[:, :1]), retain_graph=True)
+        return out[:, :1].reshape(*shape, 1), out[:, 1:].reshape(*shape, -1), grad.reshape(*shape, 3)
+
+    with_graph = measure()
+    inner = SDFField.get_sdf_and_gradient
+    SDFField.get_sdf_and_gradient = first_order_only
+    try:
+        without = measure()
+    finally:
+        SDFField.get_sdf_and_gradient = inner
+    del trainer
+    torch.cuda.empty_cache()
+    share = {"wall": 1.0 - without[0] / with_graph[0], "device": 1.0 - without[1] / with_graph[1]}
+    log(f"neus-facto second derivative: {with_graph[0]:.2f} ms/step wall, {with_graph[1]:.2f} ms/step on the device; "
+        f"without the SDF gradient's graph {without[0]:.2f} / {without[1]:.2f} ms: the second derivative takes "
+        f"{share['wall'] * 100:.1f}% of the wall time and {share['device'] * 100:.1f}% of the device time ({smi})")
+    return {"with_ms": with_graph, "without_ms": without, "share": share}
+
+
+def surface_step_vs_cpu(scene: Path, run_dir: Path, state: dict) -> dict:
+    """One f32 neus-facto step of 256 rays on the card and on the CPU from
+    the 30-step run's parameters (`state`), the same batch and jitter: every
+    loss, each group's gradient; before it, the eikonal loss alone (times
+    eikonal_loss_mult, as the step weighs it) of the SDF field on the CPU
+    model's final samples of the batch, whose SDF-grid table gradient
+    (reached only through the second derivative: the VJP on the card, its
+    plain version on the CPU) must match and not be zero."""
+    from nerfstudio_thermal_torch.cameras.rays import map_tensors
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
+    from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames
+    from nerfstudio_thermal_torch.model_components.ray_generators import RayGenerator
+
+    method = get_method_config("neus-facto")
+    method.data = scene
+    method.datamanager.train_num_rays_per_batch = 256
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        trainers[dev] = setup_trainer(copy.deepcopy(method), base_dir=run_dir / dev, device=dev)
+        trainers[dev].model.load_state_dict(state)
+        trainers[dev].setup()
+    batch = trainers["cpu"].datamanager.next_train(0)
+    gen = torch.Generator().manual_seed(17)
+    uniforms = [torch.rand(256, 1, generator=gen) for _ in range(3)]
+    witness, results = {}, {}
+
+    # the witness's samples: the CPU model's final (SDF) samples of the
+    # batch, the same on both devices (an inverse-CDF lookup into a flat
+    # CDF step would move a sample on a rounding difference of the
+    # proposal densities)
+    cpu = trainers["cpu"]
+    with torch.no_grad():
+        bundle = cpu.model.collider(RayGenerator(cpu.cameras)(torch.as_tensor(batch["ray_indices"])), train=True)
+        samples = cpu.model.sample_and_forward_field(bundle, train=True, uniforms=uniforms, generator=None,
+                                                     cos_anneal_ratio=0.5)["ray_samples"]
+    samples = map_tensors(samples, torch.Tensor.detach)
+
+    def eikonal_table_grad(tr, b, u):
+        model = tr.model
+        model.zero_grad(set_to_none=True)
+        c0 = read_counts()
+        out = model.field(map_tensors(samples, lambda x: x.to(model.device)), train=True)
+        eik = torch.mean((torch.linalg.vector_norm(out[FieldHeadNames.GRADIENT], dim=-1) - 1.0) ** 2)
+        eik = eik * method.model.eikonal_loss_mult
+        eik.backward()
+        launches = {k: v - c0[k] for k, v in read_counts().items() if v - c0[k]}
+        table = model.field.grid_encoding.hash_table.grad.detach().cpu().clone()
+        model.zero_grad(set_to_none=True)
+        return float(eik.detach()), table, launches
+
+    for dev, tr in trainers.items():
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        u = {"rgb": [x.to(dev) for x in uniforms]}
+        model = tr.model
+        witness[dev] = eikonal_table_grad(tr, b, u)
+        if dev == "cpu":  # the CPU's own spread: every parameter one ulp away
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1.0 + 2.0**-23 * torch.randint(-1, 2, p.shape, generator=gen).float())
+            witness["cpu_ulp"] = eikonal_table_grad(tr, b, u)
+            model.load_state_dict(state)
+        scalars = tr._train_step(tr.state, b, uniforms=u)
+        grads = {name: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).flatten().float().cpu()
+                                  for p in ps]) for name, ps in model.param_groups().items()}
+        table = model.field.grid_encoding.hash_table.grad.detach().cpu().clone()
+        results[dev] = ({k: float(v) for k, v in scalars.items()}, grads, table)
+    del trainers
+    torch.cuda.empty_cache()
+    (want_s, want_g, want_t), (got_s, got_g, got_t) = results["cpu"], results["cuda"]
+    loss_err = {k: abs(got_s[k] - w) / max(abs(w), 1e-3) for k, w in want_s.items()}
+    grad_err = {name: rel_l2(got_g[name], w) for name, w in want_g.items()}
+    log("neus-facto step_vs_cpu float32 (256 rays, full width, the 30-step run's parameters): losses/metrics up to "
+        f"{max(loss_err.values()):.2e} rel ({max(loss_err, key=loss_err.get)}; tol {SURF_STEP_LOSS_TOL:g}); "
+        "gradients rel L2 " + ", ".join(f"{k} {v:.2e}" for k, v in grad_err.items()) + f" (tol {SURF_STEP_GRAD_TOL:g})")
+    if (any(not math.isfinite(got_s[k]) or e > SURF_STEP_LOSS_TOL for k, e in loss_err.items())
+            or any(e > SURF_STEP_GRAD_TOL or not bool(torch.isfinite(got_g[k]).all()) for k, e in grad_err.items())):
+        raise AssertionError(f"neus-facto f32 step disagrees with the CPU: losses {loss_err}, gradients {grad_err}")
+    (cpu_eik, cpu_table, _), (eik, table, launches) = witness["cpu"], witness["cuda"]
+    err, norm = rel_l2(table, cpu_table), float(table.norm())
+    spread = rel_l2(witness["cpu_ulp"][1], cpu_table)
+    ratio = norm / max(float(got_t.norm()), 1e-30)
+    log(f"neus-facto eikonal-alone witness: loss card {eik:.6g} cpu {cpu_eik:.6g}; SDF-grid table gradient rel L2 "
+        f"{err:.2e} against the CPU's plain path (tol {EIKONAL_TABLE_TOL:g}; the CPU against itself with every "
+        f"parameter one ulp away: {spread:.2e}), norm {norm:.4e}, {ratio:.4f} of the full step's table gradient "
+        f"({float(got_t.norm()):.4e}; the step's table gradient card vs CPU rel L2 {rel_l2(got_t, want_t):.2e}); "
+        f"launches {launches}")
+    if norm == 0.0 or err > EIKONAL_TABLE_TOL or launches.get("hash_encode_bwd_pos_vjp") != 1:
+        raise AssertionError(f"neus-facto eikonal witness: table gradient norm {norm}, rel L2 {err:.3e}, launches "
+                             f"{launches}")
+    if abs(eik - cpu_eik) > SURF_STEP_LOSS_TOL * max(abs(cpu_eik), 1e-3):
+        raise AssertionError(f"neus-facto eikonal witness: loss card {eik} cpu {cpu_eik}")
+    return {"loss_err": max(loss_err.values()), "grad_err": grad_err, "eikonal_table_err": err,
+            "eikonal_table_norm": norm, "eikonal_ratio": ratio, "eikonal_ulp_spread": spread}
+
+
+def surface_methods_phase(tmp: Path, scene: Path, smi: str) -> dict:
+    """Phase 17: neus-facto (ns-train, the first-order gradient's launches,
+    the VJP on the model's calls, rows 7-10 on its grid's calls, ns-eval, a
+    640x512 frame, an ns-render frame, the card-vs-CPU step with the
+    eikonal witness), neus (12 steps, a frame), semantic-nerfw on a
+    Sitcoms3D scene with semantics (12 steps, a frame with
+    semantics_colormap) and neus-facto with the mono priors on an
+    sdfstudio scene (6 steps). `scene` is an RGB Nerfstudio-layout sphere
+    scene with an eval frame."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config
+    from nerfstudio_thermal_torch.data.dataparsers.scene_parsers import Sitcoms3DDataParserConfig
+    from nerfstudio_thermal_torch.data.dataparsers.sdfstudio_dataparser import SDFStudioDataParserConfig
+    from nerfstudio_thermal_torch.data.datasets import decode_png
+    from nerfstudio_thermal_torch.scripts import render as ns_render_script
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    t_phase = time.perf_counter()
+    result = {}
+    c2w = ring_pose(1, 8)
+
+    # neus-facto through ns-train, with its calls recorded at one step
+    run = classic_train("neus-facto", scene, tmp / "neus-facto", [], NEUS_FACTO_STEP, steps=SURF_STEPS,
+                        capture_step=SURF_CAPTURE_STEP, timed_from=SURF_TIMED_FROM)
+    trainer = run.pop("trainer")
+    vjp_calls, hash_calls = run.pop("vjp"), run.pop("hash")
+    run.pop("mlp")
+    levels = [rec["scal"].shape[0] for rec in hash_calls]
+    sdf_levels = trainer.model.field.grid_encoding.num_levels
+    want = sorted([net.encoding.num_levels for net in trainer.model.proposal_networks] + [sdf_levels])
+    if sorted(levels) != want or len(vjp_calls) != 1 or vjp_calls[0]["scal"].shape[0] != sdf_levels:
+        raise AssertionError(f"neus-facto step {SURF_CAPTURE_STEP}: hash calls of {levels} levels, {len(vjp_calls)} VJP "
+                             "calls; expected the two proposals, the SDF grid and one VJP")
+    recs = run["records"]
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    samples = rays * trainer.model.config.num_neus_samples_per_ray
+    log(f"neus-facto train: {SURF_STEPS} steps of {rays} rays ({samples} SDF points a step, each with its second "
+        f"derivative) through ns-train, every loss finite, every param group changed, launches a step "
+        f"{NEUS_FACTO_STEP}; steps {SURF_TIMED_FROM}-{SURF_STEPS - 1}: {run['step_s'] * 1e3:.2f} ms/step, "
+        f"{rays / run['step_s']:,.0f} rays/s, peak memory {run['peak'] / 2**30:.2f} GiB; loss {recs[0]['loss']:.4f} -> "
+        f"{recs[-1]['loss']:.4f}, eikonal {recs[0]['eikonal_loss']:.4f} -> {recs[-1]['eikonal_loss']:.4f} ({smi})")
+    first_order_launches(trainer.model.field)
+    state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    result["second_derivative"] = second_derivative_share(scene, tmp / "neus-facto_share", state, smi)
+    result["vjp"] = vjp_model_phase(f"neus-facto train step {SURF_CAPTURE_STEP}", vjp_calls)
+    result["hash"] = hash_model_phase({f"neus-facto train step {SURF_CAPTURE_STEP}": hash_calls})
+    del vjp_calls, hash_calls
+    eval_s, scores = classic_eval("neus-facto", run["run"] / "config.yml", tmp / "neus-facto.json", ("psnr_rgb",))
+    log(f"neus-facto ns-eval: {eval_s:.2f} s, psnr_rgb {scores['psnr_rgb']:.3f}")
+    _, reloaded = eval_setup(run["run"] / "config.yml", device="cuda")
+    frame_s, n_chunks, _ = surface_render(reloaded.model, "neus-facto", NEUS_FACTO_CHUNK,
+                                          {"rgb": 3, "depth": 1, "normal": 3, "normal_vis": 3}, c2w)
+    del reloaded
+    torch.cuda.empty_cache()
+    log(f"neus-facto render 640x512: {n_chunks} chunks of 2048 rays, launches {NEUS_FACTO_CHUNK} a chunk, rgb, depth, "
+        f"normal and normal_vis finite; {frame_s:.3f} s/frame ({smi})")
+    frames = tmp / "neus-facto_render"
+    reset_counts()
+    t0 = time.perf_counter()
+    if ns_render_script.main(["dataset", "--load-config", str(run["run"] / "config.yml"), "--output-path", str(frames),
+                              "--rendered-output-names", "rgb", "normal_vis"]) != 0:
+        raise AssertionError("neus-facto ns-render failed")
+    render_s = time.perf_counter() - t0
+    pngs = sorted(frames.rglob("*.png"))
+    frame = json.loads((scene / "transforms.json").read_text())["frames"][0]
+    h, w = int(frame["h"]), int(frame["w"])
+    want = expected_counts(NEUS_FACTO_CHUNK, -(-(h * w) // 2048))
+    if len(pngs) != 2 or any(decode_png(p).shape != (h, w, 3) for p in pngs) or read_counts() != want:
+        raise AssertionError(f"neus-facto ns-render: {[decode_png(p).shape for p in pngs]}, launches {read_counts()}, "
+                             f"expected {want}")
+    log(f"neus-facto ns-render dataset: 1 eval frame ({w}x{h}), rgb and normal_vis, launches {NEUS_FACTO_CHUNK} a "
+        f"chunk, {render_s:.2f} s through the command ({smi})")
+    result["neus-facto"] = {"step_s": run["step_s"], "rays": rays, "peak": run["peak"], "frame_s": frame_s,
+                            "counts": run["counts"], "eval_s": eval_s, "ns_render_s": render_s,
+                            **surface_step_vs_cpu(scene, tmp / "neus-facto_step", state)}
+    del state
+    torch.cuda.empty_cache()
+
+    # neus at full width: no hash kernel
+    run = classic_train("neus", scene, tmp / "neus", [], {}, steps=SURF_SHORT_STEPS,
+                        timed_from=SURF_SHORT_TIMED_FROM)
+    trainer = run.pop("trainer")
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    frame_s, n_chunks, _ = surface_render(trainer.model, "neus", {}, {"rgb": 3, "depth": 1, "normal_vis": 3,
+                                                                      "bg_rgb": 3}, c2w)
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"neus train: {SURF_SHORT_STEPS} steps of {rays} rays through ns-train (64 + 4 x 16 samples a ray, 8 x 256 "
+        f"SDF net, background NeRFField), every loss finite, every param group changed, no kernel launch; steps "
+        f"{SURF_SHORT_TIMED_FROM}-{SURF_SHORT_STEPS - 1}: {run['step_s'] * 1e3:.2f} ms/step, peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB; render 640x512: {n_chunks} chunks, {frame_s:.3f} s/frame ({smi})")
+    result["neus"] = {"step_s": run["step_s"], "rays": rays, "peak": run["peak"], "frame_s": frame_s}
+
+    # semantic-nerfw on a Sitcoms3D scene with semantic labels
+    sitcoms = write_sitcoms_scene(tmp / "sitcoms")
+    method = get_method_config("semantic-nerfw")
+    method.dataparser = Sitcoms3DDataParserConfig(data=sitcoms)
+    method.data = sitcoms
+    sem_losses = []
+    run = direct_train("semantic-nerfw", method, tmp / "semantic-nerfw", SURF_SHORT_STEPS, None,
+                       SURF_SHORT_TIMED_FROM, check=lambda s, sc: sem_losses.append(sc.get("semantics_loss")))
+    if any(v is None or not math.isfinite(v) for v in sem_losses):
+        raise AssertionError(f"semantic-nerfw: semantics_loss {sem_losses}")
+    trainer = run.pop("trainer")
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    frame_s, n_chunks, out = surface_render(trainer.model, "semantic-nerfw", SEMANTIC_CHUNK,
+                                            {"rgb": 3, "semantics": 2, "semantics_colormap": 3}, c2w)
+    palette = trainer.model.semantic_colormap
+    if not bool((out["semantics_colormap"][:, None, :] == palette[None]).all(-1).any(-1).all()):
+        raise AssertionError("semantic-nerfw: a semantics_colormap pixel is not a class colour")
+    del trainer, out
+    torch.cuda.empty_cache()
+    log(f"semantic-nerfw train: {SURF_SHORT_STEPS} steps of {rays} rays on a Sitcoms3D scene (8 frames 640x480, "
+        f"classes sky and sphere), semantics_loss {sem_losses[0]:.4f} -> {sem_losses[-1]:.4f}, every loss finite, "
+        f"launches {dict((k, v) for k, v in run['counts'].items() if v)}; steps {SURF_SHORT_TIMED_FROM}-"
+        f"{SURF_SHORT_STEPS - 1}: {run['step_s'] * 1e3:.2f} ms/step, peak memory {run['peak'] / 2**30:.2f} GiB; "
+        f"render 640x512 with semantics_colormap: {n_chunks} chunks, {frame_s:.3f} s/frame ({smi})")
+    result["semantic-nerfw"] = {"step_s": run["step_s"], "rays": rays, "peak": run["peak"], "frame_s": frame_s,
+                                "counts": run["counts"]}
+
+    # neus-facto with the monocular priors on an sdfstudio scene
+    sdf_scene = write_sdfstudio_scene(tmp / "sdfstudio")
+    method = get_method_config("neus-facto")
+    method.dataparser = SDFStudioDataParserConfig(data=sdf_scene, include_mono_prior=True)
+    method.data = sdf_scene
+    method.model.mono_normal_loss_mult, method.model.mono_depth_loss_mult = 0.05, 0.1
+    priors = []
+    run = direct_train("neus-facto:mono", method, tmp / "neus-facto_mono", MONO_STEPS, NEUS_FACTO_STEP, 1,
+                       check=lambda s, sc: priors.append((sc.get("normal_loss"), sc.get("depth_loss"))))
+    if any(n is None or d is None or not (math.isfinite(n) and math.isfinite(d)) for n, d in priors):
+        raise AssertionError(f"neus-facto mono priors: normal_loss / depth_loss {priors}")
+    del run["trainer"]
+    torch.cuda.empty_cache()
+    log(f"neus-facto with mono priors: {MONO_STEPS} steps on an sdfstudio scene (8 frames 320x240, the sphere's "
+        f"analytic depth and normals), normal_loss {priors[0][0]:.4f} -> {priors[-1][0]:.4f}, depth_loss "
+        f"{priors[0][1]:.4f} -> {priors[-1][1]:.4f}, launches a step {NEUS_FACTO_STEP}; {run['step_s'] * 1e3:.2f} "
+        f"ms/step ({smi})")
+    result["mono"] = {"step_s": run["step_s"]}
+    log(f"phase 17 neus, neus-facto, semantic-nerfw: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -3784,6 +4398,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         # phase 16: vanilla-nerf, mipnerf, tensorf and depth-nerfacto
         classic = classic_phase(Path(tmp) / "classic", smi)
+        # phase 17: neus, neus-facto (the hash grid's second derivative) and semantic-nerfw
+        surface17 = surface_methods_phase(Path(tmp) / "surface17", ngp_scene, smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -3949,6 +4565,29 @@ def main() -> int:
             rec["depth_nerfacto_launches"] = {
                 "train": c["counts"][rec["name"]],
                 **{f"render_{k}": v[rec["name"]] for k, v in c["render_launches"].items()}}
+    # phase 17: the position gradient's VJP (no TPU kernel: JAX differentiates
+    # hash_encode's jnp backward), timed on neus-facto's own SDF-grid call,
+    # with its launches; rows 7-10 on neus-facto's grids as extra fields
+    nf = surface17["neus-facto"]
+    vjp = surface17["vjp"]
+    kernels.append({
+        "name": "hash_encode_bwd_pos_vjp", "route": "cuda", "source": hash_source,
+        "replaces": "none: no pallas_call computes it (XLA differentiates the jnp backward of hash_encode's custom "
+                    "VJP, nerfstudio_thermal_tpu/ops/encodings.py:159 _hash_encode_bwd)",
+        "launches": nf["counts"]["hash_encode_bwd_pos_vjp"],
+        **{k: vjp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "model_neus_facto_train_step": vjp, "per_step": NEUS_FACTO_STEP["hash_encode_bwd_pos_vjp"],
+        "per_render_chunk": NEUS_FACTO_CHUNK.get("hash_encode_bwd_pos_vjp", 0),
+    })
+    for rec in kernels:
+        if rec["name"].startswith("hash_encode"):
+            for scope, sums in surface17["hash"].items():
+                if rec["name"] in sums:
+                    rec["model_" + scope.replace(" ", "_").replace("-", "_")] = sums[rec["name"]]
+            rec["neus_facto_launches"] = {"train": nf["counts"][rec["name"]],
+                                          "per_step": NEUS_FACTO_STEP.get(rec["name"], 0),
+                                          "per_render_chunk": NEUS_FACTO_CHUNK.get(rec["name"], 0)}
+            rec["semantic_nerfw_launches"] = surface17["semantic-nerfw"]["counts"][rec["name"]]
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -3988,6 +4627,11 @@ def main() -> int:
         extra = f" (eager {r['eager_step_s'] * 1e3:.2f} ms/step)" if "eager_step_s" in r else ""
         log(f"{m}: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays{extra}, peak memory "
             f"{r['peak'] / 2**30:.2f} GiB; {frames} ({smi})")
+    for m in ("neus-facto", "neus", "semantic-nerfw"):
+        r = surface17[m]
+        log(f"{m}: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays, peak memory {r['peak'] / 2**30:.2f} GiB; "
+            f"640x512 frame {r['frame_s']:.3f} s ({smi})")
+    log(f"neus-facto with mono priors: {surface17['mono']['step_s'] * 1e3:.2f} ms/step ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

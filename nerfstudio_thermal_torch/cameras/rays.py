@@ -175,3 +175,13 @@ def get_weights(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
     alphas = 1.0 - torch.exp(-delta_density)
     trans = torch.exp(-cumsum(delta_density, dim=-2, exclusive=True))
     return torch.nan_to_num(alphas * trans)
+
+
+def get_weights_and_transmittance_from_alphas(alphas: torch.Tensor):
+    """[..., S, 1] alphas -> (weights, transmittance), each [..., S, 1]:
+    the transmittance before each sample is the product of 1 - alpha +
+    1e-7 over the samples in front of it (the JAX package's + 1e-7, whose
+    last entry the surface models take as the background's share)."""
+    ones = torch.ones_like(alphas[..., :1, :])
+    trans = torch.cumprod(torch.cat([ones, 1.0 - alphas + 1e-7], dim=-2), dim=-2)[..., :-1, :]
+    return alphas * trans, trans

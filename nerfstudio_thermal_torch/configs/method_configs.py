@@ -6,12 +6,16 @@ dataparser, eight optimizer groups), the nerfacto family `nerfacto`,
 dataparser, three groups) with `depth-nerfacto`, `instant-ngp` (Nerfstudio
 dataparser) and `instant-ngp-bounded` (instant_ngp dataparser), one group
 each, with the dynamic-batch pipeline, and `vanilla-nerf`, `mipnerf` and
-`tensorf` (the blender dataparser, one group); under the JAX package's
-names and with its fields; `descriptions` for ns-train's method list; `resolve_model_class`;
-and `setup_trainer`, which wires dataparser (through `build_dataparser`)
--> data manager -> model -> pipeline -> trainer as the JAX package's
-does. The JAX package's other methods and its plugin registry are not
-registered here (ROADMAP A8 and A9).
+`tensorf` (the blender dataparser, one group), the surface methods `neus`
+(`fields` and `field_background`, cosine schedules) and `neus-facto`
+(`fields` with a cosine schedule, `proposal_networks` with a multi-step
+one), and `semantic-nerfw` (nerfacto's groups, 4096 rays); under the JAX
+package's names and with its fields; `descriptions` for ns-train's method
+list; `resolve_model_class`; and `setup_trainer`, which wires dataparser
+(through `build_dataparser`) -> data manager -> model -> pipeline ->
+trainer as the JAX package's does. The JAX package's other methods
+(splatfacto, generfacto) and its plugin registry are not registered here
+(ROADMAP A8 and A9).
 """
 
 import copy
@@ -32,12 +36,19 @@ from nerfstudio_thermal_torch.data.dataparsers.nerfstudio_dataparser import (
     ThermalNerfDataParserConfig,
 )
 from nerfstudio_thermal_torch.engine.optimizers import AdamOptimizerConfig, OptimizerGroupConfig
-from nerfstudio_thermal_torch.engine.schedulers import ExponentialDecaySchedulerConfig
+from nerfstudio_thermal_torch.engine.schedulers import (
+    CosineDecaySchedulerConfig,
+    ExponentialDecaySchedulerConfig,
+    MultiStepSchedulerConfig,
+)
 from nerfstudio_thermal_torch.engine.trainer import Trainer, TrainerConfig
 from nerfstudio_thermal_torch.models.depth_nerfacto import DepthNerfactoModel, DepthNerfactoModelConfig
 from nerfstudio_thermal_torch.models.instant_ngp import InstantNGPModel, InstantNGPModelConfig
 from nerfstudio_thermal_torch.models.mipnerf import MipNerfModel, MipNerfModelConfig
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+from nerfstudio_thermal_torch.models.neus import NeuSModel, NeuSModelConfig
+from nerfstudio_thermal_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
+from nerfstudio_thermal_torch.models.semantic_nerfw import SemanticNerfWModel, SemanticNerfWModelConfig
 from nerfstudio_thermal_torch.models.tensorf import TensoRFModel, TensoRFModelConfig
 from nerfstudio_thermal_torch.models.thermal_nerfacto import (
     ThermalNerfactoModel,
@@ -302,6 +313,67 @@ def make_depth_nerfacto() -> MethodConfig:
     return cfg
 
 
+def _cosine_group(lr: float, warm_up_end: int, max_steps: int) -> OptimizerGroupConfig:
+    return OptimizerGroupConfig(
+        optimizer=AdamOptimizerConfig(lr=lr, eps=1e-15),
+        scheduler=CosineDecaySchedulerConfig(warm_up_end=warm_up_end, learning_rate_alpha=0.05, max_steps=max_steps),
+    )
+
+
+def make_neus() -> MethodConfig:
+    return MethodConfig(
+        method_name="neus",
+        description="NeuS: neural implicit surfaces by volume rendering. (slow)",
+        trainer=TrainerConfig(
+            max_num_iterations=100000, steps_per_eval_batch=5000, steps_per_save=20000, steps_per_eval_image=500,
+            steps_per_eval_all_images=0, mixed_precision=False, method_name="neus",
+        ),
+        dataparser=NerfstudioDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=1024, eval_num_rays_per_batch=1024),
+        model=NeuSModelConfig(eval_num_rays_per_chunk=1024),
+        optimizers={"fields": _cosine_group(5e-4, 5000, 300000), "field_background": _cosine_group(5e-4, 5000, 300000)},
+    )
+
+
+def make_neus_facto() -> MethodConfig:
+    """NeuS on nerfacto's proposal sampling: a 2 x 256 SDF net on the hash
+    grid, a 2 x 256 colour net, no background model."""
+    return MethodConfig(
+        method_name="neus-facto",
+        description="NeuS-Facto: NeuS with proposal-network sampling. (slow)",
+        trainer=TrainerConfig(
+            max_num_iterations=20001, steps_per_eval_batch=5000, steps_per_save=2000, steps_per_eval_image=5000,
+            steps_per_eval_all_images=0, mixed_precision=False, method_name="neus-facto",
+        ),
+        dataparser=NerfstudioDataParserConfig(),
+        datamanager=VanillaDataManagerConfig(train_num_rays_per_batch=2048, eval_num_rays_per_batch=2048),
+        model=NeuSFactoModelConfig(
+            sdf_num_layers=2, sdf_num_layers_color=2, sdf_hidden_dim=256, sdf_bias=0.5, sdf_beta_init=0.8,
+            sdf_use_grid_feature=True, background_model="none", eval_num_rays_per_chunk=2048,
+        ),
+        optimizers={
+            "proposal_networks": OptimizerGroupConfig(
+                optimizer=AdamOptimizerConfig(lr=1e-2, eps=1e-15),
+                scheduler=MultiStepSchedulerConfig(max_steps=20001, milestones=(10000, 1500, 18000)),
+            ),
+            "fields": _cosine_group(5e-4, 500, 20001),
+        },
+    )
+
+
+def make_semantic_nerfw() -> MethodConfig:
+    """nerfacto with SemanticNerfWModelConfig carrying nerfacto's model
+    settings, at 4096 rays."""
+    cfg = make_nerfacto()
+    cfg.method_name = "semantic-nerfw"
+    cfg.trainer.method_name = "semantic-nerfw"
+    cfg.description = "Semantic NeRF-W: semantics head + transient filtering."
+    base = cfg.model
+    cfg.model = SemanticNerfWModelConfig(**{f.name: getattr(base, f.name) for f in dataclasses.fields(base)})
+    cfg.datamanager.train_num_rays_per_batch = 4096
+    return cfg
+
+
 _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "nerfacto": make_nerfacto,
     "thermal-nerfacto": make_thermal_nerfacto,
@@ -315,6 +387,9 @@ _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "mipnerf": make_mipnerf,
     "depth-nerfacto": make_depth_nerfacto,
     "tensorf": make_tensorf,
+    "neus": make_neus,
+    "neus-facto": make_neus_facto,
+    "semantic-nerfw": make_semantic_nerfw,
 }
 
 
@@ -324,8 +399,8 @@ descriptions: Dict[str, str] = {name: make().description for name, make in _METH
 def get_method_config(name: str) -> MethodConfig:
     if name not in _METHODS:
         raise KeyError(
-            f"unknown method '{name}'; available: {sorted(_METHODS)} (the JAX package's other methods are "
-            "ROADMAP A8, plugin methods A9)"
+            f"unknown method '{name}'; available: {sorted(_METHODS)} (the JAX package's splatfacto and "
+            "generfacto are ROADMAP A8, plugin methods A9)"
         )
     return _METHODS[name]()
 
@@ -333,6 +408,9 @@ def get_method_config(name: str) -> MethodConfig:
 def resolve_model_class(model_config) -> type:
     """Model config -> model class, the most derived config first."""
     for config_cls, model_cls in (
+        (NeuSFactoModelConfig, NeuSFactoModel),
+        (NeuSModelConfig, NeuSModel),
+        (SemanticNerfWModelConfig, SemanticNerfWModel),
         (TensoRFModelConfig, TensoRFModel),
         (InstantNGPModelConfig, InstantNGPModel),
         (DepthNerfactoModelConfig, DepthNerfactoModel),

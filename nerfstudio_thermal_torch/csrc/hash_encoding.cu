@@ -1,9 +1,9 @@
 // Multiresolution hash-grid encoding for Hopper (sm_90a): forward, table
-// gradient and position gradient, bound to Python through a plain C
-// interface (ctypes). Wrapper, autograd node and the launch checks live in
-// nerfstudio_thermal_torch/ops/cuda/hash_encoding.py; the plain PyTorch
-// versions of the same three functions in nerfstudio_thermal_torch/ops/
-// encodings.py.
+// gradient, position gradient and the position gradient's VJP, bound to
+// Python through a plain C interface (ctypes). Wrappers, autograd nodes and
+// the launch checks live in nerfstudio_thermal_torch/ops/cuda/
+// hash_encoding.py; the plain PyTorch versions of the same four functions
+// in nerfstudio_thermal_torch/ops/encodings.py.
 //
 // Function (nerfstudio_thermal_tpu/ops/encodings.py:hash_encode and its
 // custom VJP): for point n and level l, scaled_d = pos[n, d] * scaling[l]
@@ -30,6 +30,11 @@
 //   * (+-1) * (product of the other two weights): hash_encoding.py:
 //   _bwd_pos_kernel. It re-gathers the corner rows instead of keeping the
 //   hybrid's [8, L, N, F] residual stack.
+// - hash_encode_bwd_pos_vjp (no TPU kernel: JAX differentiates the jnp
+//   backward of hash_encode's custom VJP, ops/encodings.py:_hash_encode_bwd):
+//   the VJP of d_pos for a cotangent v, giving dg, d_table and d_pos2, the
+//   second derivative an SDF's eikonal loss takes through the grid. See
+//   the comment above its kernel.
 // A one-hot matmul is the TPU's way around having no vector gather; Hopper
 // has gathers and atomics, so these kernels gather and scatter directly.
 //
@@ -587,6 +592,150 @@ cudaError_t launch_bwd_pos(const float* p, const float2* t, const typename PairO
   return cudaGetLastError();
 }
 
+
+// The position gradient's VJP: for the cotangent v [N, 3] of d_pos, per
+// point n, level l (scaling s) and corner c (its row r_c, trilinear factors
+// w_{c,d}, sg_{c,d} = +1 on a ceil bit and -1 on a floor bit):
+//   a_c = s * sum_d v_d sg_{c,d} prod_{e != d} w_{c,e}
+//   dg[n, 2l + f] = sum_c a_c r_c[f]                      (in corner order)
+//   d_table[r_c, f] += g[n, 2l + f] a_c                   (atomics)
+//   d_pos2[n, k] += s^2 sum_c (g . r_c) sg_{c,k} sum_{d != k} v_d sg_{c,d}
+//                   prod_{e not in {d, k}} w_{c,e}        (levels in order)
+// each rounded as hash_encode_bwd_pos_vjp_plain rounds it (no FMA
+// contraction). Row 10's tile mapping: a block of kPosWarps warps owns
+// 32 * kPosGroups consecutive points, whose positions and v are staged in
+// shared memory; a warp's item is one level of 32 of them, lane = point;
+// the levels go kPosPhase at a time, each item writing its point's d_pos2
+// terms of its level into a shared [phase levels][3][points] buffer that
+// one thread per point then adds in level order. dg is written per (point,
+// level) pair; d_table per corner with row 7's warp-combined atomics (one
+// atomic per distinct row of the warp). A null output pointer skips its
+// work. A simple kernel: g and dg are read and written a pair at a time,
+// not staged (any L fits: the shared memory holds only positions, v and
+// one phase's terms).
+__global__ void __launch_bounds__(32 * kPosWarps)
+    hash_encode_bwd_pos_vjp_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
+                                   const float2* __restrict__ g, const float* __restrict__ v,
+                                   const float* __restrict__ scalings, float2* __restrict__ dg,
+                                   float2* __restrict__ dtable, float* __restrict__ dpos2, long long n_points,
+                                   int num_levels, int log2_t) {
+  constexpr int kPoints = 32 * kPosGroups;
+  extern __shared__ __align__(16) float vjp_smem[];
+  const int phase = min(kPosPhase, num_levels);
+  float* terms = vjp_smem;                    // [phase][3][kPoints]
+  float* pos_s = terms + kPoints * phase * 3;  // [kPoints][3]
+  float* v_s = pos_s + kPoints * 3;            // [kPoints][3]
+  const long long n0 = (long long)blockIdx.x * kPoints;
+  const int rows = (int)min((long long)kPoints, n_points - n0);
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) {
+    pos_s[i] = __ldg(pos + 3 * n0 + i);
+    v_s[i] = __ldg(v + 3 * n0 + i);
+  }
+  __syncthreads();
+  const int tid = threadIdx.x, lane = tid & 31, warps = blockDim.x >> 5;
+  const uint32_t mask = (1u << log2_t) - 1u;
+  const bool want_rows = dg != nullptr || dpos2 != nullptr;
+  float acc[3] = {0.f, 0.f, 0.f};  // thread i's point i (blockDim.x >= kPoints)
+  for (int l0 = 0; l0 < num_levels; l0 += phase) {
+    const int levels = min(phase, num_levels - l0);
+    for (int item = tid >> 5; item < kPosGroups * levels; item += warps) {
+      const int l = l0 + item / kPosGroups, r = (item % kPosGroups) * 32 + lane;
+      const bool live = r < rows;
+      const float s = __ldg(scalings + l);
+      float p[3] = {0.f, 0.f, 0.f}, u[3] = {0.f, 0.f, 0.f};
+      float2 gv = make_float2(0.f, 0.f);
+      if (live) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          p[d] = pos_s[3 * r + d];
+          u[d] = v_s[3 * r + d];
+        }
+        if (dtable != nullptr || dpos2 != nullptr) gv = __ldg(g + (n0 + r) * num_levels + l);
+      }
+      Corners k;
+      corner_factors(p, s, k);
+      float2 rv[8];
+      if (live && want_rows) gather_level(table + ((size_t)l << log2_t), k, mask, rv);
+      // the gathers go out together before their use (row 10's fence)
+      __syncwarp();
+      float a[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float wx = (c & 4) ? k.wc[0] : k.wf[0];
+        const float wy = (c & 2) ? k.wc[1] : k.wf[1];
+        const float wz = (c & 1) ? k.wc[2] : k.wf[2];
+        const float ux = (c & 4) ? u[0] : -u[0];
+        const float uy = (c & 2) ? u[1] : -u[1];
+        const float uz = (c & 1) ? u[2] : -u[2];
+        const float sum = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(ux, wy), wz), __fmul_rn(__fmul_rn(uy, wx), wz)),
+                                    __fmul_rn(__fmul_rn(uz, wx), wy));
+        a[c] = __fmul_rn(s, sum);
+      }
+      if (dg != nullptr && live) {
+        float o0 = 0.f, o1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          o0 = __fadd_rn(o0, __fmul_rn(a[c], rv[c].x));
+          o1 = __fadd_rn(o1, __fmul_rn(a[c], rv[c].y));
+        }
+        dg[(n0 + r) * num_levels + l] = make_float2(o0, o1);
+      }
+      if (dtable != nullptr) {
+        const bool adds = live && (gv.x != 0.f || gv.y != 0.f);
+        if (__any_sync(kFull, adds)) {
+          float2* dl = dtable + ((size_t)l << log2_t);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const uint32_t row = corner_row(k, c, mask);
+            uint32_t peers = __match_any_sync(kFull, adds ? row : kNoRow);
+            if (!adds) peers = 1u << lane;
+            const float2 sum = sum_peers(peers, lane, make_float2(__fmul_rn(gv.x, a[c]), __fmul_rn(gv.y, a[c])));
+            if (adds && lane == __ffs(peers) - 1) atomicAdd(dl + row, sum);
+          }
+        }
+      }
+      if (dpos2 != nullptr && live) {
+        float t[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float wx = (c & 4) ? k.wc[0] : k.wf[0];
+          const float wy = (c & 2) ? k.wc[1] : k.wf[1];
+          const float wz = (c & 1) ? k.wc[2] : k.wf[2];
+          const float ux = (c & 4) ? u[0] : -u[0];
+          const float uy = (c & 2) ? u[1] : -u[1];
+          const float uz = (c & 1) ? u[2] : -u[2];
+          const float gdf = __fadd_rn(__fmul_rn(gv.x, rv[c].x), __fmul_rn(gv.y, rv[c].y));
+          const float gx = (c & 4) ? gdf : -gdf;
+          const float gy = (c & 2) ? gdf : -gdf;
+          const float gz = (c & 1) ? gdf : -gdf;
+          t[0] = __fadd_rn(t[0], __fmul_rn(gx, __fadd_rn(__fmul_rn(uy, wz), __fmul_rn(uz, wy))));
+          t[1] = __fadd_rn(t[1], __fmul_rn(gy, __fadd_rn(__fmul_rn(ux, wz), __fmul_rn(uz, wx))));
+          t[2] = __fadd_rn(t[2], __fmul_rn(gz, __fadd_rn(__fmul_rn(ux, wy), __fmul_rn(uy, wx))));
+        }
+#pragma unroll
+        for (int d = 0; d < 3; ++d) terms[((l - l0) * 3 + d) * kPoints + r] = __fmul_rn(__fmul_rn(t[d], s), s);
+      }
+    }
+    __syncthreads();
+    if (dpos2 != nullptr && tid < rows) {
+      for (int lv = 0; lv < levels; ++lv) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], terms[(lv * 3 + d) * kPoints + tid]);
+      }
+    }
+    __syncthreads();  // the next phase overwrites the terms
+  }
+  if (dpos2 != nullptr && tid < rows) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dpos2[3 * (n0 + tid) + d] = acc[d];
+  }
+}
+
+// The VJP kernel's shared memory: one phase's terms, the tile's positions and v.
+size_t vjp_smem_bytes(int num_levels) {
+  return (size_t)32 * kPosGroups * (std::min(kPosPhase, num_levels) + 2) * 3 * sizeof(float);
+}
+
 }  // namespace
 
 // Each function returns the cudaError_t of its launch (0 on success). The
@@ -655,4 +804,23 @@ extern "C" int hash_encode_bwd_pos(const void* pos, const void* table, const voi
     err = launch_bwd_pos<false>(p, t, static_cast<const float2*>(g), sc, dp, n, num_levels, log2_t, s);
   }
   return (int)err;
+}
+
+// dg [n, 2L] f32, d_table [L * 2^log2_t, 2] f32 (zeroed by the caller) and
+// d_pos2 [n, 3] f32 for the cotangent v [n, 3] f32 of d_pos, with g [n, 2L]
+// f32; a null output pointer skips that output.
+extern "C" int hash_encode_bwd_pos_vjp(const void* pos, const void* table, const void* g, const void* v,
+                                       const void* scalings, void* dg, void* dtable, void* dpos2, long long n,
+                                       int num_levels, int log2_t, int device, void* stream) {
+  const size_t smem = vjp_smem_bytes(num_levels);
+  if (bad_shape(n, num_levels, log2_t, smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  constexpr long long kPoints = 32LL * kPosGroups;
+  hash_encode_bwd_pos_vjp_kernel<<<(unsigned int)((n + kPoints - 1) / kPoints), 32 * kPosWarps, smem, s>>>(
+      static_cast<const float*>(pos), static_cast<const float2*>(table), static_cast<const float2*>(g),
+      static_cast<const float*>(v), static_cast<const float*>(scalings), static_cast<float2*>(dg),
+      static_cast<float2*>(dtable), static_cast<float*>(dpos2), n, num_levels, log2_t);
+  return (int)cudaGetLastError();
 }

@@ -59,7 +59,8 @@ class VanillaDataManager:
         """The C++ sampler when the dataset qualifies (no per-pixel sidecar
         channels, one channel count) and the library builds, else None."""
         md = self.train_dataset.metadata
-        if md.get("depth_filenames") or (md.get("semantics") and md["semantics"].get("filenames")):
+        if (md.get("depth_filenames") or md.get("normal_filenames")
+                or (md.get("semantics") and md["semantics"].get("filenames"))):
             return None
         try:
             from nerfstudio_thermal_torch.data.native_sampler import NativeBatchSampler, native_available

@@ -6,8 +6,9 @@ thermal dataset), per-ray `is_thermal` from the per-image metadata. With a
 step the draw is a pure function of (seed, step), through numpy's
 `default_rng((seed, step))`, so it gives the JAX package's batches exactly
 and a resumed run replays the same batches. A dataset with depth files
-adds each ray's `depth_image` [R, 1] (the JAX sampler's normal and
-semantics batches come with the methods that read them).
+adds each ray's `depth_image` [R, 1], one with normal files its `normal`
+[R, 3] (the surface models' prior) and one with semantic label images its
+`semantics` [R] int32 (semantic-nerfw).
 `PairPixelSampler` draws neighbouring pixel pairs for the depth-ranking
 loss.
 """
@@ -60,7 +61,8 @@ class PixelSampler:
         """A ray batch: equal ray counts per image, patch-aligned:
         {"ray_indices": [R, 3] int32 (camera, y, x), "image": [R, C] f32,
         "is_thermal": [R] f32}, and "depth_image" [R, 1] f32 with depth
-        files."""
+        files, "normal" [R, 3] f32 with normal files, "semantics" [R]
+        int32 with semantic label images."""
         rng = np.random.default_rng((self.seed, step)) if step is not None else self.rng
         num_rays = num_rays or self.num_rays_per_batch
         n_images = len(self.dataset)
@@ -113,6 +115,21 @@ class PixelSampler:
                 m = cam_idx == idx
                 depth[m] = self.dataset.get_depth(int(idx))[yx[m, 0], yx[m, 1]][:, :1]
             batch["depth_image"] = depth
+        if self.dataset.metadata.get("normal_filenames"):
+            normal = np.zeros((num_rays, 3), np.float32)
+            for idx in np.unique(cam_idx):
+                n = self.dataset.get_normal(int(idx))
+                if n is not None:
+                    m = cam_idx == idx
+                    normal[m] = n[yx[m, 0], yx[m, 1]]
+            batch["normal"] = normal
+        sem = self.dataset.metadata.get("semantics")
+        if sem and sem.get("filenames"):
+            labels = np.zeros((num_rays,), np.int32)
+            for idx in np.unique(cam_idx):
+                m = cam_idx == idx
+                labels[m] = self.dataset.get_semantics(int(idx))[yx[m, 0], yx[m, 1]]
+            batch["semantics"] = labels
         return batch
 
 

@@ -15,7 +15,9 @@ the base MLP in one call); with `fused_field` as well, the whole field
 whole-field kernel call (ops/cuda/fused_ray.py). Where the configuration
 cannot fuse (a hash field, no contraction, use_pallas off, no appearance
 embedding), both fall back to the unfused path silently, as the JAX
-module does. The semantic head is later work and raises.
+module does. With `num_semantic_classes` > 0 a semantic head (a 2 x 64
+MLP in the compute dtype) maps the geo features, detached unless
+`pass_semantic_gradients`, to per-sample logits (semantic-nerfw).
 `ThermalNerfactoField` is the same module with `num_channels` in {1, 3, 4}.
 """
 
@@ -70,6 +72,7 @@ class NerfactoField(nn.Module):
         average_init_density: float = 1.0,
         num_channels: int = 3,
         num_semantic_classes: int = 0,
+        pass_semantic_gradients: bool = False,
         compute_dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
         fused_raymarch: bool = False,
@@ -82,8 +85,6 @@ class NerfactoField(nn.Module):
         freq_final_init_scale: float = 1.0,
     ) -> None:
         super().__init__()
-        if num_semantic_classes > 0:
-            raise NotImplementedError("the semantic head is not ported yet")
         self.register_buffer("aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False)
         self.num_images = num_images
         self.geo_feat_dim = geo_feat_dim
@@ -96,6 +97,7 @@ class NerfactoField(nn.Module):
         self.fused_raymarch = fused_raymarch
         self.fused_field = fused_field
         self.num_semantic_classes = num_semantic_classes
+        self.pass_semantic_gradients = pass_semantic_gradients
         self.field_encoding = field_encoding
 
         self.direction_encoding = SHEncoding(levels=4)
@@ -143,6 +145,11 @@ class NerfactoField(nn.Module):
             compute_dtype=compute_dtype,
             fused=use_pallas,
         )
+        if num_semantic_classes > 0:
+            self.mlp_semantics = MLP(
+                in_dim=geo_feat_dim, num_layers=2, layer_width=64, out_dim=num_semantic_classes,
+                compute_dtype=compute_dtype,
+            )
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """JAX initializers: U(-1e-3, 1e-3) hash tables, lecun-normal MLPs
@@ -150,6 +157,8 @@ class NerfactoField(nn.Module):
         appearance table."""
         self.base_network.reset_parameters(generator)
         self.mlp_head.reset_parameters(generator)
+        if self.num_semantic_classes > 0:
+            self.mlp_semantics.reset_parameters(generator)
         if self.appearance_embedding_dim > 0:
             with torch.no_grad():
                 nn.init.normal_(self.embedding_appearance, 0.0, 1.0, generator=generator)
@@ -251,7 +260,12 @@ class NerfactoField(nn.Module):
             return self._fused_field_forward(ray_samples, train)
         density, geo_feat = self.get_density_from_rays(ray_samples)
         rgb = self.get_outputs(ray_samples, geo_feat, train=train)
-        return {FieldHeadNames.DENSITY: density, FieldHeadNames.RGB: rgb}
+        out = {FieldHeadNames.DENSITY: density, FieldHeadNames.RGB: rgb}
+        if self.num_semantic_classes > 0:
+            feat = geo_feat if self.pass_semantic_gradients else geo_feat.detach()
+            sem = self.mlp_semantics(feat.reshape(-1, self.geo_feat_dim))
+            out[FieldHeadNames.SEMANTICS] = sem.reshape(*geo_feat.shape[:-1], self.num_semantic_classes).float()
+        return out
 
     def sample_and_density(self, uniforms: torch.Tensor, voxel_size: float) -> torch.Tensor:
         """Densities at points and their 6 axis neighbours, for the density

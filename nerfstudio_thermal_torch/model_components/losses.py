@@ -6,7 +6,9 @@ use: mse, l1, `masked_mean`, the proposal (interlevel) and distortion
 losses, the radiance-field gradient scaling, the density TV loss and the
 2x2-patch thermal losses (`tv_pixel_loss`, `pixel_grad`,
 `cross_channel_loss`), and depth-nerfacto's depth losses (DS-NeRF, URF)
-with SparseNeRF's depth ranking. As in the JAX package, the patch losses
+with SparseNeRF's depth ranking, and the surface models' monocular
+priors (MonoSDF's normal loss, the scale- and shift-invariant depth loss).
+As in the JAX package, the patch losses
 are masked means over the static 2x2 patch layout, each patch
 modality-pure.
 """
@@ -17,7 +19,7 @@ import torch
 
 from nerfstudio_thermal_torch.cameras.rays import RaySamples
 from nerfstudio_thermal_torch.model_components.ray_samplers import take_below_above
-from nerfstudio_thermal_torch.utils.math import cumsum
+from nerfstudio_thermal_torch.utils.math import cumsum, safe_normalize
 
 EPS = 1.0e-7
 
@@ -223,3 +225,53 @@ def depth_ranking_loss(rendered_depth: torch.Tensor, gt_depth: torch.Tensor) -> 
     differing_signs = torch.sign(dpt_diff) != torch.sign(out_diff)
     per = torch.where(differing_signs, out_diff * torch.sign(out_diff), torch.full_like(out_diff, float("nan")))
     return torch.nanmean(per)
+
+
+def monosdf_normal_loss(normal_pred: torch.Tensor, normal_gt: torch.Tensor) -> torch.Tensor:
+    """MonoSDF's normal prior: the L1 and the angular (1 - cos) distance of
+    the unit normals, each a mean over the rays."""
+    p, g = safe_normalize(normal_pred), safe_normalize(normal_gt)
+    l1 = torch.mean(torch.sum(torch.abs(p - g), dim=-1))
+    cos = torch.mean(1.0 - torch.sum(p * g, dim=-1))
+    return l1 + cos
+
+
+def normalized_depth_scale_and_shift(prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor):
+    """The least-squares scale and shift that align `prediction` to
+    `target` over the masked entries, per leading index ([B, ...] in, [B]
+    out); 0 and 0 where the system is singular (|det| <= 1e-12)."""
+    dims = tuple(range(1, prediction.dim()))
+    m = mask.to(prediction.dtype)
+    a00 = torch.sum(m * prediction * prediction, dims)
+    a01 = torch.sum(m * prediction, dims)
+    a11 = torch.sum(m, dims)
+    b0 = torch.sum(m * prediction * target, dims)
+    b1 = torch.sum(m * target, dims)
+    det = a00 * a11 - a01 * a01
+    safe = torch.abs(det) > 1e-12
+    det_s = torch.where(safe, det, torch.ones_like(det))
+    scale = torch.where(safe, (a11 * b0 - a01 * b1) / det_s, torch.zeros_like(det))
+    shift = torch.where(safe, (-a01 * b0 + a00 * b1) / det_s, torch.zeros_like(det))
+    return scale, shift
+
+
+def scale_and_shift_invariant_depth_loss(
+    prediction: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, alpha: float = 0.5, scales: int = 4
+) -> torch.Tensor:
+    """MiDaS's scale- and shift-invariant depth loss on [B, H, W]: the
+    prediction aligned per batch row, the masked MSE, plus alpha times the
+    multi-scale gradient term (every 2^s-th pixel, s < scales)."""
+    scale, shift = normalized_depth_scale_and_shift(prediction, target, mask)
+    pred = prediction * scale[:, None, None] + shift[:, None, None]
+    m = mask.to(pred.dtype)
+    denom = torch.clamp(torch.sum(m), min=1.0)
+    data = torch.sum(m * (pred - target) ** 2) / denom
+    reg = 0.0
+    for s in range(scales):
+        step = 2**s
+        p, t, mm = pred[:, ::step, ::step], target[:, ::step, ::step], m[:, ::step, ::step]
+        diff = (p - t) * mm
+        gx = torch.abs(diff[:, :, 1:] - diff[:, :, :-1]) * mm[:, :, 1:] * mm[:, :, :-1]
+        gy = torch.abs(diff[:, 1:, :] - diff[:, :-1, :]) * mm[:, 1:, :] * mm[:, :-1, :]
+        reg = reg + (torch.sum(gx) + torch.sum(gy)) / denom
+    return data + alpha * reg

@@ -2,7 +2,7 @@
 
 The renderers of the nerfacto family: RGB (any channel count) with the
 `last_sample`, `random` or a named background, accumulation, median depth
-and expected depth; and the background blending of the GT and predicted
+and expected depth, the surface models' composited normals; and the background blending of the GT and predicted
 RGBT batches for the thermal losses and metrics. A `random` background is
 an optional tensor of uniforms, as the samplers take their jitter.
 """
@@ -13,7 +13,7 @@ import torch
 
 from nerfstudio_thermal_torch.cameras.rays import RaySamples
 from nerfstudio_thermal_torch.model_components.ray_samplers import take_below_above
-from nerfstudio_thermal_torch.utils.math import cumsum
+from nerfstudio_thermal_torch.utils.math import cumsum, safe_normalize
 from nerfstudio_thermal_torch.utils.rgbt_utils import rgb_to_rgbt_image
 
 BACKGROUND_COLORS = {
@@ -85,6 +85,13 @@ def render_depth_expected(weights: torch.Tensor, ray_samples: RaySamples) -> tor
     steps = (ray_samples.starts + ray_samples.ends) / 2.0
     depth = torch.sum(weights * steps, dim=-2) / (torch.sum(weights, dim=-2) + eps)
     return torch.clamp(depth, torch.min(steps), torch.max(steps))
+
+
+def render_normals(normals: torch.Tensor, weights: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Weight-composited normals [..., 3]; `normalize` with a finite
+    gradient at a zero sum (an all-background ray)."""
+    n = torch.sum(weights * normals, dim=-2)
+    return safe_normalize(n) if normalize else n
 
 
 def blend_background_rgb(

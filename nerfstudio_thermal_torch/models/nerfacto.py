@@ -305,6 +305,7 @@ class NerfactoModel(Model):
             "expected_depth": renderers.render_depth_expected(weights, ray_samples),
             "density": field_outputs[FieldHeadNames.DENSITY],
         }
+        self._add_field_outputs(outputs, field_outputs, weights)
         if train:
             return outputs, weights_list, ray_samples_list
         if keep_sample_rgb:
@@ -314,6 +315,9 @@ class NerfactoModel(Model):
                 weights_list[i], ray_samples_list[i]
             )
         return outputs, weights_list, ray_samples_list
+
+    def _add_field_outputs(self, outputs: Dict, field_outputs: Dict, weights: torch.Tensor) -> None:
+        """Outputs of a subclass's extra field heads (semantic-nerfw's)."""
 
     def get_outputs(
         self,

@@ -1,4 +1,4 @@
-"""Hash-grid encoding: hand-written Hopper kernels and their autograd node.
+"""Hash-grid encoding: hand-written Hopper kernels and their autograd nodes.
 
 Counterpart of nerfstudio_thermal_tpu/ops/encodings.py:hash_encode (with its
 custom VJP) and of the TPU kernels that compute the same function:
@@ -13,8 +13,9 @@ points each, lane = point, with the tile of the output (or of g) staged in
 shared memory; the table gradient sums the lanes of a warp that add to the
 same row before one atomic; the position gradient stages each level's
 terms and sums a point's levels in one thread, in order (fewer levels walk
-them one thread per point). The plain PyTorch versions of the three
-functions are in ops/encodings.py.
+them one thread per point); the position gradient's VJP (for an SDF's
+second derivative) keeps that tile mapping. The plain PyTorch versions of
+the four functions are in ops/encodings.py.
 
 `hash_encode` is one autograd node that dispatches on the device of the
 positions: for CPU tensors the forward is `hash_encode_plain` and the
@@ -24,16 +25,23 @@ CUDA tensors all three are kernels, built with nvcc at first use
 fallback from one to the other: a CUDA tensor launches the kernel or
 raises. The node saves only (table, positions, scalings): the backward
 recomputes the corners and re-gathers the rows. It runs the table kernel
-when the table needs a gradient and the position kernel only when the
-positions need one.
+when the table's gradient is wanted (not under torch.autograd.grad of the
+positions alone, as an SDF's normals take it) and the position gradient
+only when the positions need one, through a node of its own,
+`_HashEncodeBwdPos`, so that d_pos keeps its graph under
+create_graph=True (the eikonal loss differentiates it again). That node's
+backward is the fourth kernel, `hash_encode_bwd_pos_vjp` (no TPU kernel
+computes it: JAX differentiates its jnp backward), or its plain version
+on the CPU.
 
 The kernels take F = 2 features per level (the configurations' value); the
-plain versions take any F.
+plain versions take any F. The VJP kernel takes g in f32.
 """
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from nerfstudio_thermal_torch.ops import encodings
 from nerfstudio_thermal_torch.ops.cuda import build
@@ -46,7 +54,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hash_encode_fwd.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
     lib.hash_encode_bwd_table.argtypes = [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
     lib.hash_encode_bwd_pos.argtypes = [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P]
-    for fn in (lib.hash_encode_fwd, lib.hash_encode_bwd_table, lib.hash_encode_bwd_pos):
+    lib.hash_encode_bwd_pos_vjp.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P]
+    for fn in (lib.hash_encode_fwd, lib.hash_encode_bwd_table, lib.hash_encode_bwd_pos, lib.hash_encode_bwd_pos_vjp):
         fn.restype = _I
 
 
@@ -147,9 +156,92 @@ def hash_encode_bwd_pos(table, positions, g, scalings, table_size: int) -> torch
     return d_pos
 
 
+def hash_encode_bwd_pos_vjp(table, positions, g, v, scalings, table_size: int, need_g: bool = True,
+                            need_table: bool = True, need_pos: bool = True):
+    """One launch of the position gradient's VJP for the cotangent v [N, 3]
+    of d_pos: (dg [N, 2L], d_table [L * T, 2], d_pos2 [N, 3]), f32, None
+    for each output not asked for (its pointer is null and the kernel skips
+    its work). g is taken in f32."""
+    _check_kernel_args(table, positions, scalings, table_size, torch.float32)
+    n, num_levels = positions.shape[0], scalings.shape[0]
+    g = g.float().contiguous()
+    _check_g(g, n, num_levels)
+    v = v.float().contiguous()
+    if tuple(v.shape) != (n, 3) or v.device != positions.device:
+        raise ValueError(f"hash_encode_bwd_pos_vjp: v must be [N, 3] on {positions.device}, got {tuple(v.shape)}")
+    dev = positions.device
+    dg = torch.empty(n, 2 * num_levels, device=dev) if need_g else None
+    d_table = torch.zeros(num_levels * table_size, 2, device=dev) if need_table else None
+    d_pos2 = torch.empty(n, 3, device=dev) if need_pos else None
+    if n == 0 or not (need_g or need_table or need_pos):
+        return dg, d_table, d_pos2
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = load_library().hash_encode_bwd_pos_vjp(
+        positions.data_ptr(), table.data_ptr(), g.data_ptr(), v.data_ptr(), scalings.data_ptr(), ptr(dg),
+        ptr(d_table), ptr(d_pos2), n, num_levels, _log2(table_size), *build.device_and_stream(positions),
+    )
+    if err != 0:
+        raise RuntimeError(f"hash_encode_bwd_pos_vjp kernel launch failed: cudaError {err}")
+    hash_encode_bwd_pos_vjp.launches += 1
+    return dg, d_table, d_pos2
+
+
+def _wanted(ctx, i: int) -> bool:
+    """Whether a backward must give its input i a gradient: the input needs
+    one and the engine will run the node that gradient flows to. Under
+    torch.autograd.grad of the positions only (an SDF's normals) the
+    table's node does not run, so its scatter is skipped; `hash_encode`
+    hands the table in through a view so that the engine can be asked (it
+    cannot be asked about a leaf's accumulator under autograd.grad: then
+    the answer is yes)."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    try:
+        return bool(torch._C._will_engine_execute_node(ctx.next_functions[i][0]))
+    except RuntimeError:
+        return True
+
+
+class _HashEncodeBwdPos(torch.autograd.Function):
+    """The position gradient d_pos (row 10: the kernel on CUDA,
+    hash_encode_bwd_pos_plain on the CPU) as an autograd node of its own, so
+    that d_pos keeps its graph under create_graph=True on both devices (an
+    SDF's eikonal loss differentiates it again). Its backward is the VJP:
+    `hash_encode_bwd_pos_vjp` on CUDA, `hash_encode_bwd_pos_vjp_plain` on
+    the CPU, each output only where its input needs it. A third derivative
+    raises (once_differentiable)."""
+
+    @staticmethod
+    def forward(ctx, table, positions, g, scalings, table_size):
+        ctx.table_size = table_size
+        ctx.save_for_backward(table, positions, g, scalings)
+        if positions.device.type == "cpu":
+            return encodings.hash_encode_bwd_pos_plain(table, positions, g, scalings, table_size)
+        return hash_encode_bwd_pos(table, positions, g.contiguous(), scalings, table_size)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v):
+        table, positions, g, scalings = ctx.saved_tensors
+        need_table, need_pos, need_g = (_wanted(ctx, i) for i in range(3))
+        args = (table, positions, g, v, scalings, ctx.table_size, need_g, need_table, need_pos)
+        if positions.device.type == "cpu":
+            dg, d_table, d_pos2 = encodings.hash_encode_bwd_pos_vjp_plain(*args)
+        else:
+            dg, d_table, d_pos2 = hash_encode_bwd_pos_vjp(*args)
+        return (
+            None if d_table is None else d_table.to(table.dtype),
+            None if d_pos2 is None else d_pos2.to(positions.dtype),
+            None if dg is None else dg.to(g.dtype),
+            None,
+            None,
+        )
+
+
 class _HashEncode(torch.autograd.Function):
     """hash_encode as one autograd node: kernels on CUDA, plain versions on
-    the CPU, in both directions."""
+    the CPU, in both directions. The position gradient goes through
+    `_HashEncodeBwdPos`, so it can be differentiated again."""
 
     @staticmethod
     def forward(ctx, table, positions, scalings, table_size, compute_dtype):
@@ -162,24 +254,19 @@ class _HashEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         table, positions, scalings = ctx.saved_tensors
-        need_table, need_pos = ctx.needs_input_grad[:2]
+        need_table, need_pos = _wanted(ctx, 0), _wanted(ctx, 1)
         t = ctx.table_size
         d_table = d_pos = None
-        if positions.device.type == "cpu":
-            if need_table:
-                d_table = encodings.hash_encode_bwd_table_plain(positions, g, scalings, t, table.shape[-1])
-            if need_pos:
-                d_pos = encodings.hash_encode_bwd_pos_plain(table, positions, g, scalings, t)
-        else:
+        if positions.device.type != "cpu":
             g = g.contiguous()
-            if need_table:
+        if need_table:
+            if positions.device.type == "cpu":
+                d_table = encodings.hash_encode_bwd_table_plain(positions, g, scalings, t, table.shape[-1])
+            else:
                 d_table = hash_encode_bwd_table(positions, g, scalings, t)
-            if need_pos:
-                d_pos = hash_encode_bwd_pos(table, positions, g, scalings, t)
-        if d_table is not None:
             d_table = d_table.to(table.dtype)
-        if d_pos is not None:
-            d_pos = d_pos.to(positions.dtype)
+        if need_pos:
+            d_pos = _HashEncodeBwdPos.apply(table, positions, g, scalings, t).to(positions.dtype)
         return d_table, d_pos, None, None, None
 
 
@@ -199,7 +286,8 @@ def hash_encode(
         pos = pos.float().contiguous()
     elif pos.device.type != "cpu":
         raise ValueError(f"hash_encode: unsupported device {pos.device}")
-    out = _HashEncode.apply(table, pos, scalings, table_size, compute_dtype)
+    # a view, so that a backward can ask whether the table's gradient is wanted (_wanted)
+    out = _HashEncode.apply(table.view_as(table), pos, scalings, table_size, compute_dtype)
     return out.reshape(*batch_shape, num_levels * f)
 
 
@@ -207,3 +295,4 @@ def hash_encode(
 hash_encode_fwd.launches = 0
 hash_encode_bwd_table.launches = 0
 hash_encode_bwd_pos.launches = 0
+hash_encode_bwd_pos_vjp.launches = 0

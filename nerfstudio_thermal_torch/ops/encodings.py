@@ -2,7 +2,8 @@
 
 The sinusoidal `NeRFEncoding`, the spherical-harmonic `SHEncoding` and the
 multiresolution hash grid: `HashEncoding`, with the plain PyTorch versions
-of the hash-grid function and of its two gradients. Those plain versions
+of the hash-grid function, of its two gradients and of the position
+gradient's VJP (the SDF fields' second derivative). Those plain versions
 are the CPU path and the yardstick of the CUDA kernels
 (ops/cuda/hash_encoding.py); `HashEncoding` goes through that module's
 autograd node, which picks the plain versions for CPU tensors and the
@@ -283,6 +284,73 @@ def hash_encode_bwd_pos_plain(
     scal = scalings[:, None].float()
     d_pos = torch.stack([(d_off[d] * scal).sum(dim=0) for d in range(3)], dim=-1)
     return d_pos.reshape(positions.shape)
+
+
+def hash_encode_bwd_pos_vjp_plain(
+    table: torch.Tensor,
+    positions: torch.Tensor,
+    g: torch.Tensor,
+    v: torch.Tensor,
+    scalings: torch.Tensor,
+    table_size: int,
+    need_g: bool = True,
+    need_table: bool = True,
+    need_pos: bool = True,
+):
+    """Plain version of the position gradient's VJP: the gradients of
+    <v, hash_encode_bwd_pos_plain(table, positions, g, ...)> for the
+    cotangent v [N, 3], written out (no autograd). Per point, level (scaling
+    s) and corner c, with w_{c,d} its trilinear factors, sg_{c,d} = +1 on a
+    ceil bit and -1 on a floor bit, and row_c its table row:
+        a_c = s * sum_d v_d sg_{c,d} prod_{e != d} w_{c,e}
+        dg[l, f] = sum_c a_c row_c[f]
+        d_table[row_c, f] += g[l, f] a_c
+        d_pos2_k += s^2 sum_c (g . row_c) sg_{c,k}
+                    sum_{d != k} v_d sg_{c,d} prod_{e not in {d, k}} w_{c,e}
+    (the corner rows do not depend on the positions: floor is piecewise
+    constant). Sums in corner order, then d_pos2 over the levels. Returns
+    (dg [..., L * F], d_table [L * T, F], d_pos2 [..., 3]), all f32, None
+    for each output not asked for."""
+    num_levels, f = scalings.shape[0], table.shape[-1]
+    pos = positions.reshape(-1, 3)
+    n = pos.shape[0]
+    g_cols = _grad_cols(g, n, num_levels, f)
+    vx, vy, vz = (v.reshape(n, 3)[:, d].float()[None, :] for d in range(3))
+    hf, hc, wf, wc = _hash_factors(pos, scalings, table_size)
+    level_offset = _level_offset(num_levels, table_size, pos.device)
+    cols = [table[:, fc].float() for fc in range(f)]
+    scal = scalings[:, None].float()
+    zeros = torch.zeros_like(wf[0])
+    dg_cols = [zeros] * f
+    d_cols = [torch.zeros(num_levels * table_size, dtype=torch.float32, device=pos.device) for _ in range(f)]
+    dp = [zeros] * 3
+    for bits in _CORNER_BITS:
+        idx = _corner_index(hf, hc, bits, level_offset)
+        wx, wy, wz = _corner_weights(wf, wc, bits)
+        sx, sy, sz = (1.0 if b else -1.0 for b in bits)
+        ux, uy, uz = vx * sx, vy * sy, vz * sz
+        a = scal * (ux * wy * wz + uy * wx * wz + uz * wx * wy)
+        rows = [cols[fc][idx] for fc in range(f)] if need_g or need_pos else None
+        if need_g:
+            dg_cols = [dg_cols[fc] + a * rows[fc] for fc in range(f)]
+        if need_table:
+            for fc in range(f):
+                d_cols[fc].index_add_(0, idx.reshape(-1), (g_cols[fc] * a).reshape(-1))
+        if need_pos:
+            gdf = zeros
+            for fc in range(f):
+                gdf = gdf + g_cols[fc] * rows[fc]
+            dp[0] = dp[0] + gdf * sx * (uy * wz + uz * wy)
+            dp[1] = dp[1] + gdf * sy * (ux * wz + uz * wx)
+            dp[2] = dp[2] + gdf * sz * (ux * wy + uy * wx)
+    dg = d_table = d_pos2 = None
+    if need_g:
+        dg = torch.stack(dg_cols, dim=-1).transpose(0, 1).reshape(*positions.shape[:-1], num_levels * f)
+    if need_table:
+        d_table = torch.stack(d_cols, dim=-1)
+    if need_pos:
+        d_pos2 = torch.stack([(dp[d] * scal * scal).sum(dim=0) for d in range(3)], dim=-1).reshape(positions.shape)
+    return dg, d_table, d_pos2
 
 
 class HashEncoding(nn.Module):

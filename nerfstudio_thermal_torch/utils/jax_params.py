@@ -18,7 +18,14 @@ Layouts handled:
 - `hash_table` [L * T, F] of a hash encoding, as it is (no transpose): the
   base field's `mlp_base/{encoding, mlp}` and the hash proposal fields'
   `encoding` beside `mlp`, or `Dense_0` with `use_linear`;
-- `embedding_appearance` in a field;
+- `embedding_appearance` in a field, and the hash field's semantic head
+  `mlp_semantics` (semantic-nerfw);
+- the SDF field (neus, neus-facto): its weight-normalised layers
+  `glin{i}` / `clin{i}` with `kernel`, `bias` and `g` as they are (the
+  port keeps JAX's [din, dout] layout), `variance`,
+  `embedding_appearance` and, with the grid, `grid_encoding/hash_table`;
+  the surface models' background NeRFField is the group
+  `field_background`;
 - the frequency NeRFField (vanilla-nerf, mipnerf): `mlp_base` (flat when
   `use_pallas` fuses it), `density_head`, `mlp_head`; vanilla-nerf's two
   fields are `fields/{coarse, fine}`;
@@ -46,6 +53,7 @@ from torch import nn
 from nerfstudio_thermal_torch.cameras.camera_optimizers import CameraOptimizer
 from nerfstudio_thermal_torch.fields.density_fields import HashMLPDensityField, MLPDensityField
 from nerfstudio_thermal_torch.fields.nerfacto_field import NerfactoField
+from nerfstudio_thermal_torch.fields.sdf_field import SDFField, WNDense
 from nerfstudio_thermal_torch.fields.tensorf_field import GRID_KEYS, TensoRFField
 from nerfstudio_thermal_torch.fields.vanilla_nerf_field import NeRFField
 from nerfstudio_thermal_torch.ops.encodings import HashEncoding
@@ -54,6 +62,7 @@ from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 # JAX param group -> attribute of the model
 GROUPS = {
     "fields": "field",
+    "field_background": "field_background",
     "fields_thermal": "field_thermal",
     "proposal_networks": "proposal_networks",
     "proposal_networks_thermal": "proposal_networks_thermal",
@@ -106,15 +115,39 @@ def _base_name(field: NerfactoField) -> str:
     return "mlp_base_net" if field.field_encoding == "freq" else "mlp_base"
 
 
+def _sdf_keys(field: SDFField):
+    return ([f"glin{i}" for i in range(len(field.geo_layers))] + [f"clin{i}" for i in range(len(field.color_layers))]
+            + ["variance", "embedding_appearance"] + ["grid_encoding"] * field.use_grid_feature)
+
+
+def _wn_keys(layer: WNDense):
+    return ["kernel", "bias"] + ["g"] * layer.use_weight_norm
+
+
 def load_module(module: nn.Module, tree: Mapping, where: str) -> None:
     if isinstance(module, NerfactoField):
         has_emb = module.appearance_embedding_dim > 0
+        has_sem = module.num_semantic_classes > 0
         base = _base_name(module)
-        _check_keys(tree, [base, "mlp_head"] + ["embedding_appearance"] * has_emb, where)
+        _check_keys(tree, [base, "mlp_head"] + ["embedding_appearance"] * has_emb + ["mlp_semantics"] * has_sem, where)
         if has_emb:
             _copy(module.embedding_appearance, tree["embedding_appearance"], f"{where}/embedding_appearance")
         load_module(module.base_network, tree[base], f"{where}/{base}")
         load_mlp(module.mlp_head, tree["mlp_head"], f"{where}/mlp_head")
+        if has_sem:
+            load_mlp(module.mlp_semantics, tree["mlp_semantics"], f"{where}/mlp_semantics")
+    elif isinstance(module, SDFField):
+        _check_keys(tree, _sdf_keys(module), where)
+        for prefix, layers in (("glin", module.geo_layers), ("clin", module.color_layers)):
+            for i, layer in enumerate(layers):
+                sub = tree[f"{prefix}{i}"]
+                _check_keys(sub, _wn_keys(layer), f"{where}/{prefix}{i}")
+                for name in _wn_keys(layer):
+                    _copy(getattr(layer, name), sub[name], f"{where}/{prefix}{i}/{name}")
+        _copy(module.variance, tree["variance"], f"{where}/variance")
+        _copy(module.embedding_appearance, tree["embedding_appearance"], f"{where}/embedding_appearance")
+        if module.use_grid_feature:
+            load_module(module.grid_encoding, tree["grid_encoding"], f"{where}/grid_encoding")
     elif isinstance(module, NeRFField):
         _check_keys(tree, ["mlp_base", "density_head", "mlp_head"], where)
         load_mlp(module.mlp_base, tree["mlp_base"], f"{where}/mlp_base")
@@ -208,6 +241,17 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
         }
         if module.appearance_embedding_dim > 0:
             tree["embedding_appearance"] = _value(module.embedding_appearance, grads)
+        if module.num_semantic_classes > 0:
+            tree["mlp_semantics"] = export_mlp(module.mlp_semantics, grads)
+        return tree
+    if isinstance(module, SDFField):
+        tree = {f"{prefix}{i}": {name: _value(getattr(layer, name), grads) for name in _wn_keys(layer)}
+                for prefix, layers in (("glin", module.geo_layers), ("clin", module.color_layers))
+                for i, layer in enumerate(layers)}
+        tree["variance"] = _value(module.variance, grads)
+        tree["embedding_appearance"] = _value(module.embedding_appearance, grads)
+        if module.use_grid_feature:
+            tree["grid_encoding"] = export_module(module.grid_encoding, grads)
         return tree
     if isinstance(module, NeRFField):
         return {

@@ -75,7 +75,8 @@ def _field_differences(port_cls, jax_cls, where, port=None, jax=None):
 def test_every_shared_config_is_found():
     names = {name for _, name in PAIRS}
     assert {"MethodConfig", "TrainerConfig", "VanillaDataManagerConfig", "ModelConfig", "NerfactoModelConfig",
-            "ThermalNerfactoModelConfig", "CameraOptimizerConfig", "AdamOptimizerConfig"} <= names
+            "ThermalNerfactoModelConfig", "CameraOptimizerConfig", "AdamOptimizerConfig", "SurfaceModelConfig",
+            "NeuSModelConfig", "NeuSFactoModelConfig", "SemanticNerfWModelConfig"} <= names
 
 
 @pytest.mark.parametrize("module,name", PAIRS)
@@ -118,11 +119,13 @@ def test_setup_trainer_trains_the_default_model(tmp_path):
 
 
 SLICE_13 = ["vanilla-nerf", "mipnerf", "depth-nerfacto", "tensorf"]
+SLICE_15 = ["neus", "neus-facto", "semantic-nerfw"]
 
 
-@pytest.mark.parametrize("name", SLICE_13)
+@pytest.mark.parametrize("name", SLICE_13 + SLICE_15)
 def test_method_config_equals_jax(name, tmp_path):
-    """vanilla-nerf, mipnerf, depth-nerfacto and tensorf: the registration
+    """vanilla-nerf, mipnerf, depth-nerfacto, tensorf and the surface and
+    semantic methods (neus, neus-facto, semantic-nerfw): the registration
     equals the JAX package's field for field (model, dataparser, data
     manager, trainer, optimizers), its to_dict tree and its description;
     config.yml round trips; the model config resolves to the model class

@@ -45,6 +45,15 @@ whole-field forward writes for its backward equals the plain version's of
 the same base output bitwise, and the output is bitwise the same without
 it. The position gradient of the hash grid is bitwise the same from run to
 run.
+
+The hash position gradient's VJP (the SDF grid's second derivative) is
+held against its plain version per output: dg and d_pos2 relative L2 1e-5
+(dg sums the corners in the same order; d_pos2 the levels in another
+order), d_table 1e-4 (row 7's atomics), each output alone and together,
+N off the 256-point tile; dg and d_pos2 are bitwise the same from run to
+run; an eikonal loss through hash_encode on the card gives the CPU's
+gradients (relative L2 1e-4), with the launches that the first-order
+pass (no table scatter) and the backward imply.
 """
 
 import numpy as np
@@ -559,6 +568,123 @@ def test_hash_position_gradient_with_many_levels(cuda, dtype, levels):
     torch.cuda.synchronize()
     want = enc.hash_encode_bwd_pos_plain(table, pos, g, scal, t)
     assert _rel_l2(d_pos, want) <= 1e-5, _rel_l2(d_pos, want)
+
+
+VJP_CASES = [
+    # (levels, log2 T, points, min_res, max_res): the SDF grid of neus-facto,
+    # a proposal-sized grid, N one past a 256-point tile and below one tile,
+    # and more levels than the 4-level phases divide evenly
+    (16, 19, 50_001, 16, 2048),
+    (5, 17, 100_003, 16, 256),
+    (4, 10, 257, 4, 64),
+    (2, 8, 37, 4, 16),
+    (23, 12, 3_001, 4, 1024),
+]
+VJP_OUTPUTS = {"all": (True, True, True), "dg": (True, False, False), "d_table": (False, True, False),
+               "d_pos2": (False, False, True), "dg+d_pos2": (True, False, True)}
+
+
+def _vjp_case(case, seed):
+    levels, log2_t, n, lo, hi = VJP_CASES[case]
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn(levels * 2**log2_t, 2, generator=gen) * 0.5
+    scal = torch.from_numpy(enc.hash_grid_scalings(levels, lo, hi))
+    pos = torch.rand(n, 3, generator=gen) * 0.96 + 0.02
+    g = torch.randn(n, 2 * levels, generator=gen)
+    v = torch.randn(n, 3, generator=gen)
+    return table, pos, g, v, scal, 2**log2_t
+
+
+@pytest.mark.parametrize("outputs", list(VJP_OUTPUTS))
+@pytest.mark.parametrize("case", range(len(VJP_CASES)))
+def test_hash_vjp_kernel_matches_plain(cuda, case, outputs):
+    """The position gradient's VJP kernel against
+    hash_encode_bwd_pos_vjp_plain, each output alone and together: dg
+    (the 8 corners summed in the same order) and d_pos2 (the levels in
+    another order) relative L2 1e-5, d_table (row 7's atomics) 1e-4; an
+    output not asked for is None, and the call launches once."""
+    table, pos, g, v, scal, t = (x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _vjp_case(case, case))
+    need = dict(zip(("need_g", "need_table", "need_pos"), VJP_OUTPUTS[outputs]))
+    before = th.hash_encode_bwd_pos_vjp.launches
+    got = th.hash_encode_bwd_pos_vjp(table, pos, g, v, scal, t, **need)
+    torch.cuda.synchronize()
+    assert th.hash_encode_bwd_pos_vjp.launches - before == 1
+    want = enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, **need)
+    for name, a, b, tol in zip(("dg", "d_table", "d_pos2"), got, want, (1e-5, 1e-4, 1e-5)):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32 and bool(torch.isfinite(a).all()), name
+            assert _rel_l2(a, b) <= tol, (name, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize("case", [0, 2])
+def test_hash_vjp_dg_and_d_pos2_are_deterministic(cuda, case):
+    """dg and d_pos2 are written per point in a fixed order: two launches
+    give bitwise-equal results."""
+    args = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _vjp_case(case, case)]
+    first, second = th.hash_encode_bwd_pos_vjp(*args), th.hash_encode_bwd_pos_vjp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+
+
+def _eikonal_on(device, table, x, w1, b1, w2, scal, t):
+    """An eikonal loss through hash_encode and a softplus(100 x) / 100
+    layer: the node's graph under create_graph, then backward. Returns the
+    loss, the gradients of the table, x and the weights, the launches of
+    the first-order pass and of the backward (table scatter, position
+    gradient, VJP), and the SDF gradient."""
+    leaves = [a.to(device).clone().requires_grad_() for a in (table, x, w1, b1, w2)]
+    tb, xx, a1, c1, a2 = leaves
+
+    def counts():
+        return (th.hash_encode_bwd_table.launches, th.hash_encode_bwd_pos.launches,
+                th.hash_encode_bwd_pos_vjp.launches)
+
+    feat = th.hash_encode(tb, xx, scal.to(device), t)
+    h = -torch.nn.functional.logsigmoid(-100.0 * (torch.cat([feat, xx], -1) @ a1 + c1)) / 100.0
+    sdf = h @ a2
+    start = counts()
+    (grad,) = torch.autograd.grad(sdf.sum(), xx, create_graph=True)
+    middle = counts()
+    loss = torch.mean((torch.linalg.vector_norm(grad, dim=-1) - 1.0) ** 2)
+    loss.backward()
+    end = counts()
+    first = tuple(b - a for a, b in zip(start, middle))
+    second = tuple(b - a for a, b in zip(middle, end))
+    return float(loss.detach()), [p.grad.cpu() for p in leaves], first, second, grad
+
+
+def test_hash_node_keeps_the_second_derivative_on_the_card(cuda):
+    """d_pos from hash_encode under create_graph=True comes out of
+    _HashEncodeBwdPos on the card, and an eikonal loss through it gives the
+    CPU's gradients (table, positions and weights within relative L2 1e-4:
+    the atomics' order, and the kernels' and torch's own roundings through
+    softplus' 100x second derivative): none of the table's gradient is
+    lost. The first-order pass launches the position gradient and no table
+    scatter; the backward launches the VJP, the table scatter and (for
+    the positions) the position gradient once each."""
+    gen = torch.Generator().manual_seed(5)
+    levels, t = 16, 2**19
+    table = torch.randn(levels * t, 2, generator=gen) * 0.5
+    scal = torch.from_numpy(enc.hash_grid_scalings(levels, 16, 2048))
+    x = torch.rand(3_000, 3, generator=gen) * 0.9 + 0.05
+    w1 = torch.randn(2 * levels + 3, 32, generator=gen) / 6.0
+    b1 = torch.randn(32, generator=gen) * 0.1
+    w2 = torch.randn(32, 1, generator=gen) / 6.0
+    loss, grads, first, second, grad = _eikonal_on(cuda, table, x, w1, b1, w2, scal, t)
+    torch.cuda.synchronize()
+    cpu_loss, cpu_grads, _, _, _ = _eikonal_on(torch.device("cpu"), table, x, w1, b1, w2, scal, t)
+    names, frontier = set(), [grad.grad_fn]
+    for _ in range(4):
+        names.update(type(f).__name__ for f in frontier if f is not None)
+        frontier = [n for f in frontier if f is not None for n, _ in f.next_functions]
+    assert "_HashEncodeBwdPosBackward" in names
+    assert first == (0, 1, 0) and second == (1, 1, 1), (first, second)
+    assert loss == pytest.approx(cpu_loss, rel=1e-5)
+    assert float(grads[0].abs().max()) > 0
+    for name, a, b in zip(("table", "x", "w1", "b1", "w2"), grads, cpu_grads):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_l2(a, b) <= 1e-4, (name, _rel_l2(a, b))
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

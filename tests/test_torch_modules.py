@@ -360,14 +360,17 @@ def test_thermal_nerfacto_field(use_pallas, dtype, tol):
 
 
 def test_hash_fields_raise():
-    """The hash fields build; the semantic head, which they do not carry
-    yet, raises. The fused ray-march and whole-field knobs do not apply to
+    """The hash fields build, with the semantic head too (which
+    tests/test_torch_semantic_nerfw.py holds against JAX's); nothing in
+    them raises. The fused ray-march and whole-field knobs do not apply to
     a hash field: as in the JAX module, it computes what it computes
     without them (the positions path)."""
     assert tnf.NerfactoField(AABB, num_images=2, field_encoding="hash", log2_hashmap_size=10).field_encoding == "hash"
     assert tdf.HashMLPDensityField(aabb=AABB, log2_hashmap_size=10).encoding.out_dim == 16
-    with pytest.raises(NotImplementedError, match="semantic head"):
-        tnf.NerfactoField(AABB, num_images=2, log2_hashmap_size=10, num_semantic_classes=3)
+    semantic = tnf.NerfactoField(AABB, num_images=2, log2_hashmap_size=10, num_levels=4, num_semantic_classes=3)
+    semantic.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert semantic(_ray_samples(15)[1], train=False)[tnf.FieldHeadNames.SEMANTICS].shape == (12, 5, 3)
     plain = tnf.NerfactoField(AABB, num_images=3, log2_hashmap_size=10, num_levels=4)
     plain.reset_parameters(torch.Generator().manual_seed(0))
     fused = tnf.NerfactoField(AABB, num_images=3, log2_hashmap_size=10, num_levels=4, fused_raymarch=True,
