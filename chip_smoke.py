@@ -3703,15 +3703,16 @@ def classic_phase(tmp: Path, smi: str) -> dict:
 # two proposal grids' forward and table gradient (their positions need no
 # gradient; the proposals update every step), the SDF grid's forward, the
 # normals' position gradient (create_graph: the new node's forward is row 10),
-# and in the backward the VJP of that position gradient, the SDF grid's table
-# gradient and the position gradient of the detached sample positions (a leaf
-# of the graph, which torch's backward also forms); a render chunk: the three
+# and in the backward the VJP of that position gradient (dg and d_table: the
+# step differentiates the parameters only, so the detached sample positions,
+# a leaf of the graph, get no gradient, no second row-10 launch and no
+# d_pos2) and the SDF grid's table gradient; a render chunk: the three
 # forwards and the normals' position gradient (no graph). neus runs no hash
 # kernel (no grid; its background NeRFField runs eager, as in JAX).
 SURF_STEPS, SURF_TIMED_FROM, SURF_CAPTURE_STEP = 30, 10, 9
 SURF_SHORT_STEPS, SURF_SHORT_TIMED_FROM, MONO_STEPS = 12, 2, 6
 SURF_RENDER = (640, 512, 500.0)
-NEUS_FACTO_STEP = {"hash_encode_fwd": 3, "hash_encode_bwd_table": 3, "hash_encode_bwd_pos": 2,
+NEUS_FACTO_STEP = {"hash_encode_fwd": 3, "hash_encode_bwd_table": 3, "hash_encode_bwd_pos": 1,
                    "hash_encode_bwd_pos_vjp": 1}
 NEUS_FACTO_CHUNK = {"hash_encode_fwd": 3, "hash_encode_bwd_pos": 1}
 SEMANTIC_CHUNK = {"hash_encode_fwd": 3}
@@ -3719,6 +3720,8 @@ SEMANTIC_CHUNK = {"hash_encode_fwd": 3}
 # order) and d_pos2 (the levels in another order) relative L2 1e-5, d_table
 # (row 7's atomics) 1e-4.
 VJP_TOLS = {"dg": 1e-5, "d_table": 1e-4, "d_pos2": 1e-5}
+# The VJP's outputs (dg, d_table, d_pos2) a neus-facto step asks for, and all three.
+VJP_STEP_OUTPUTS, VJP_ALL_OUTPUTS = (True, True, False), (True, True, True)
 # The f32 neus-facto step, card against CPU (256 rays, the 30-step run's
 # parameters): the same f32 functions in other orders, and the SDF's second
 # derivative through softplus(100 x) / 100 scales a rounding by up to 100
@@ -3772,54 +3775,63 @@ def vjp_cost(n: int, levels: int, t: int, rows: int, need) -> tuple:
 
 
 def vjp_model_phase(scope: str, calls) -> dict:
-    """The VJP kernel on the calls a training step recorded: each held
-    against hash_encode_bwd_pos_vjp_plain (VJP_TOLS) and timed with its
+    """The VJP kernel on the calls a training step recorded, for the output
+    set each call asked for and for all three outputs: each held against
+    hash_encode_bwd_pos_vjp_plain (VJP_TOLS, dg bitwise) and timed with its
     plain version and its bound (no single PyTorch call computes it).
-    Returns the sums over the calls and the first call's record."""
+    Returns the sums over the calls of the asked-for set (and under
+    "all_outputs" those of all three)."""
     from nerfstudio_thermal_torch.ops import encodings as enc
     from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
 
     if not calls:
         raise AssertionError(f"{scope}: no VJP call recorded")
-    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "cases": 0, "points": 0, "rows": 0}
+    keys = ("ms", "plain_ms", "bound_ms", "max_abs_err")
+    sums = {k: 0.0 for k in keys}
+    sums.update(cases=0, points=0, rows=0, all_outputs={k: 0.0 for k in keys})
     for i, rec in enumerate(calls):
         table, scal, t = rec["table"], rec["scal"], rec["t"]
         pos, g, v = (rec[k].to(table.device).contiguous() for k in ("pos", "g", "v"))
         n, levels = pos.shape[0], scal.shape[0]
-        need = rec["need"]
-        kernel = lambda: th.hash_encode_bwd_pos_vjp(table, pos, g, v, scal, t, *need)  # noqa: E731
-        plain = lambda: enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, *need)  # noqa: E731
-        got = kernel()
-        torch.cuda.synchronize()
-        want = plain()
-        errs = []
-        for name, a, b in zip(("dg", "d_table", "d_pos2"), got, want):
-            if (a is None) != (b is None):
-                raise AssertionError(f"{scope}[{i}] VJP: {name} formed by one side only")
-            if a is None:
-                continue
-            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{scope}[{i}] VJP {name}: shape {tuple(a.shape)} or not finite")
-            err, rel = float((a - b).abs().max()), rel_l2(a, b)
-            if rel > VJP_TOLS[name]:
-                raise AssertionError(f"{scope}[{i}] VJP {name} disagrees with its plain version: max |err| {err:.3e}, "
-                                     f"rel L2 {rel:.3e} (tol {VJP_TOLS[name]:g})")
-            sums["max_abs_err"] = max(sums["max_abs_err"], err)
-            errs.append(f"{name} max_abs_err={err:.3e} rel L2 {rel:.3e} (tol {VJP_TOLS[name]:g})")
         rows = hash_rows_touched(pos, scal, t)
-        ms, plain_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=3)
-        bound_ms, bound_by = bound(*vjp_cost(n, levels, t, rows, need))
-        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
-            sums[k] += val
+        for need in dict.fromkeys((tuple(rec["need"]), VJP_ALL_OUTPUTS)):
+            into = sums if need == tuple(rec["need"]) else sums["all_outputs"]
+            kernel = lambda: th.hash_encode_bwd_pos_vjp(table, pos, g, v, scal, t, *need)  # noqa: E731
+            plain = lambda: enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, *need)  # noqa: E731
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            errs, max_err = [], 0.0
+            for name, a, b in zip(("dg", "d_table", "d_pos2"), got, want):
+                if (a is None) != (b is None):
+                    raise AssertionError(f"{scope}[{i}] VJP: {name} formed by one side only")
+                if a is None:
+                    continue
+                if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{scope}[{i}] VJP {name}: shape {tuple(a.shape)} or not finite")
+                err, rel = float((a - b).abs().max()), rel_l2(a, b)
+                if rel > VJP_TOLS[name] or (name == "dg" and err != 0.0):
+                    raise AssertionError(f"{scope}[{i}] VJP {name} disagrees with its plain version: max |err| "
+                                         f"{err:.3e}, rel L2 {rel:.3e} (tol {VJP_TOLS[name]:g}; dg bitwise)")
+                max_err = max(max_err, err)
+                errs.append(f"{name} max_abs_err={err:.3e} rel L2 {rel:.3e} (tol {VJP_TOLS[name]:g})")
+            ms, plain_ms = cuda_ms(kernel, iters=20), cuda_ms(plain, iters=3)
+            bound_ms, bound_by = bound(*vjp_cost(n, levels, t, rows, need))
+            for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                into[k] += val
+            into["max_abs_err"] = max(into["max_abs_err"], max_err)
+            into["bound_by"] = bound_by
+            formed = "+".join(k for k, w in zip(("dg", "d_table", "d_pos2"), need) if w)
+            which = "the step's set" if into is sums else "all three"
+            log(f"vjp_model hash_encode_bwd_pos_vjp {scope}[{i}] L{levels} T2^{t.bit_length() - 1}: n={n}, outputs "
+                f"{formed} ({which}); " + "; ".join(errs) + f" ok; table rows touched "
+                f"{rows} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            del got, want
         sums["cases"] += 1
         sums["points"] += n
         sums["rows"] += rows
-        sums["bound_by"] = bound_by
-        log(f"vjp_model hash_encode_bwd_pos_vjp {scope}[{i}] L{levels} T2^{t.bit_length() - 1}: n={n}, outputs "
-            f"{dict(zip(('dg', 'd_table', 'd_pos2'), need))}; " + "; ".join(errs) + f" ok; table rows touched "
-            f"{rows} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
-        del pos, g, v, got, want
+        del pos, g, v
         torch.cuda.empty_cache()
     return sums
 
@@ -4158,9 +4170,13 @@ def surface_methods_phase(tmp: Path, scene: Path, smi: str) -> dict:
     levels = [rec["scal"].shape[0] for rec in hash_calls]
     sdf_levels = trainer.model.field.grid_encoding.num_levels
     want = sorted([net.encoding.num_levels for net in trainer.model.proposal_networks] + [sdf_levels])
-    if sorted(levels) != want or len(vjp_calls) != 1 or vjp_calls[0]["scal"].shape[0] != sdf_levels:
+    # one VJP, of the SDF grid, forming dg and d_table (the step's backward
+    # differentiates the parameters only: no d_pos2 for the detached positions)
+    if (sorted(levels) != want or len(vjp_calls) != 1 or vjp_calls[0]["scal"].shape[0] != sdf_levels
+            or vjp_calls[0]["need"] != VJP_STEP_OUTPUTS):
         raise AssertionError(f"neus-facto step {SURF_CAPTURE_STEP}: hash calls of {levels} levels, {len(vjp_calls)} VJP "
-                             "calls; expected the two proposals, the SDF grid and one VJP")
+                             f"calls ({[rec['need'] for rec in vjp_calls]}); expected the two proposals, the SDF grid "
+                             f"and one VJP forming {VJP_STEP_OUTPUTS}")
     recs = run["records"]
     rays = trainer.datamanager.config.train_num_rays_per_batch
     samples = rays * trainer.model.config.num_neus_samples_per_ray
@@ -4576,6 +4592,9 @@ def main() -> int:
                     "VJP, nerfstudio_thermal_tpu/ops/encodings.py:159 _hash_encode_bwd)",
         "launches": nf["counts"]["hash_encode_bwd_pos_vjp"],
         **{k: vjp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        # what ms, bound_ms and max_abs_err measure: the outputs the step asks
+        # for (all three: model_neus_facto_train_step's all_outputs)
+        "outputs": "+".join(k for k, w in zip(("dg", "d_table", "d_pos2"), VJP_STEP_OUTPUTS) if w),
         "model_neus_facto_train_step": vjp, "per_step": NEUS_FACTO_STEP["hash_encode_bwd_pos_vjp"],
         "per_render_chunk": NEUS_FACTO_CHUNK.get("hash_encode_bwd_pos_vjp", 0),
     })

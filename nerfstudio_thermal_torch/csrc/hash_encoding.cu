@@ -602,62 +602,179 @@ cudaError_t launch_bwd_pos(const float* p, const float2* t, const typename PairO
 //   d_pos2[n, k] += s^2 sum_c (g . r_c) sg_{c,k} sum_{d != k} v_d sg_{c,d}
 //                   prod_{e not in {d, k}} w_{c,e}        (levels in order)
 // each rounded as hash_encode_bwd_pos_vjp_plain rounds it (no FMA
-// contraction). Row 10's tile mapping: a block of kPosWarps warps owns
-// 32 * kPosGroups consecutive points, whose positions and v are staged in
-// shared memory; a warp's item is one level of 32 of them, lane = point;
-// the levels go kPosPhase at a time, each item writing its point's d_pos2
-// terms of its level into a shared [phase levels][3][points] buffer that
-// one thread per point then adds in level order. dg is written per (point,
-// level) pair; d_table per corner with row 7's warp-combined atomics (one
-// atomic per distinct row of the warp). A null output pointer skips its
-// work. A simple kernel: g and dg are read and written a pair at a time,
-// not staged (any L fits: the shared memory holds only positions, v and
-// one phase's terms).
-__global__ void __launch_bounds__(32 * kPosWarps)
+// contraction). dg only reads the rows, d_table only g, d_pos2 both.
+//
+// What bounds it: d_table's REDs. On neus-facto's SDF-grid call (98,304
+// points, L 16, T 2^19; H100 80GB HBM3, 700 W) the kernel must move 0.036
+// ms of bytes, but the 12.6M corner contributions make 10.1M float2 REDs
+// after row 7's warp combine, and d_table alone takes ~0.17 ms (as row 7's
+// scatter of the same call). The step needs dg and d_table (its backward
+// differentiates the parameters only, so d_pos2 is not asked for).
+//
+// Design:
+// - One body for every output set: a null output pointer skips its work at
+//   run time, and a set without dg or d_pos2 gathers no rows. (A template
+//   with one instance per set was no faster on the step's set and slower
+//   alone: below.)
+// - Row 10's tile: a block owns kVjpGroups groups of 32 consecutive points
+//   (their positions and v staged in shared memory), its warps take the
+//   tile's (group, level) items in turn, item = level * G + group, lane =
+//   point. g's [32 G, 2L] tile is read into shared memory 16 bytes a
+//   thread (copy_tile_in), and each item writes its dg pair in place of
+//   its g pair, so dg leaves the same tile 16 bytes a thread
+//   (copy_tile_out): device memory sees both contiguous.
+// - The levels go kVjpPhase at a time, with a block barrier after each
+//   phase, so a block's warps work on the same levels (their rows meet in
+//   L1 and their REDs on the same table slices in L2; without the barriers
+//   the step's set, whose items are otherwise independent, is slower:
+//   below). With d_pos2, each item writes its point's terms of its level
+//   into a shared [phase][3][32 G] buffer that one thread per point adds in
+//   level order after the phase (row 10's scheme), so d_pos2 sums the
+//   levels 0..L-1 in order, with no atomics: two runs give the same bits.
+// - d_table: row 7's warp combine (__match_any_sync per corner, sum_peers,
+//   one RED per distinct row of the warp), but only at a level where two
+//   neighbouring lanes share a cell (their corner-0 rows are equal): a
+//   warp's lanes match a row of another lane's same corner only in the same
+//   cell, and the model's points are ray-major, so at the fine levels,
+//   where no cell repeats, each lane adds its own 8 REDs without matching
+//   (on the recorded call ~21,200 of the 49,152 (warp, level) items match).
+// - No block-wide combine. Host counts of the recorded call's REDs
+//   (train_timing.py --vjp): 12.58M uncombined, 10.12M warp-combined per
+//   corner, 8.29M over a 256-point tile: levels 0-3 fall 2.2-3.3x from
+//   warp to tile, the fine half (levels 8-15, 6.3M REDs) not at all.
+//   Tried: a shared-memory table of a level's rows (open addressing, at
+//   most 8 probes, else a RED; flushed with one RED per row after each
+//   level, only by warps whose lanes share cells): slower at every shape
+//   and size (below).
+//
+// Sizing (train_timing.py --vjp on neus-facto's step-9 call, H100 80GB
+// HBM3, 700 W; raw launches, ms for dg + d_table / all three; every build
+// dg bitwise and within VJP_TOLS of the plain version; ranges over the
+// runs that timed a build):
+// - The first design (one body, G = 8 with 8 warps, g and dg a pair a lane,
+//   phases of 4 levels, d_table's match at every level): 0.2867-0.2980 /
+//   0.2902-0.3002.
+// - The final shape, G = 8, 8 warps (16 items a warp; 384 blocks, one
+//   wave at 3 blocks an SM), phases of 2 levels, one item at a time, the
+//   match only where lanes share cells: 0.2174-0.2215 / 0.2207-0.2228;
+//   alone dg 0.0594-0.0598, d_table 0.1645-0.1652, d_pos2 0.0647-0.0649.
+//   78 registers (ptxas); shared memory 40 KB for dg + d_table, 46 KB with
+//   d_pos2.
+// - The same shape as a template, one instance per output set (46-74
+//   registers, dg + d_table 58: 4 blocks an SM), in the same call:
+//   0.2205-0.2208 / 0.2214-0.2224; alone dg 0.1246-0.1254, d_pos2
+//   0.0705-0.0707. The rest of this list was timed on the template.
+// - Barriers in the step's set (G = 8, 8 warps; d_pos2's phases of 4): a
+//   barrier every level 0.2199-0.2211, 2 levels 0.2174-0.2207, 4
+//   0.2180-0.2240, 8 0.2193-0.2257, none 0.2261-0.2300. d_pos2's phases
+//   (all three): 1 level 0.2215-0.2232, 2 0.2185-0.2209, 4 0.2192-0.2249,
+//   8 0.2240-0.2282; d_pos2 alone 0.071 at 2 levels, 0.121 at 4.
+// - Other tiles (no barrier in the step's set, d_pos2 in phases of 4): G =
+//   8 with 16 warps 0.2530-0.2534 / 0.2436-0.2446 (two waves at 2 blocks
+//   an SM; with barriers every 4 / 2 levels 0.2444-0.2450 / 0.2453-0.2459),
+//   G = 4 with 4 warps 0.2298-0.2299 / 0.2222-0.2250 (barriers every 4
+//   levels 0.2208-0.2219 / 0.2202-0.2208), 8 warps 0.2539-0.2540 /
+//   0.2416-0.2429, 16 warps 0.2392-0.2398 / 0.2510-0.2515; G = 2 with 2
+//   warps 0.2316-0.2321 / 0.2249-0.2250, 4 warps 0.2494-0.2497 /
+//   0.2429-0.2430, 8 warps 0.2384-0.2386 / 0.2436-0.2447; G = 1 with 4
+//   warps 0.2415-0.2419 / 0.2426; G = 16 with 16 warps 0.2575-0.2588 /
+//   0.2409-0.2420.
+// - Two items' gathers in flight before their use (89-115 registers): G =
+//   8 with 8 / 16 warps 0.2472-0.2479 / 0.2434-0.2439 and 0.2419-0.2420 /
+//   0.2425; G = 4 with 4 / 8 warps 0.2481-0.2489 / 0.2470-0.2479 and
+//   0.2423-0.2425 / 0.2442-0.2444.
+// - The match (G = 8, 16 warps): at every level 0.2571 / 0.2455-0.2466
+//   (d_table alone 0.1762-0.1763 against 0.1564-0.1638), never
+//   0.3473-0.3487 / 0.3694-0.3697 (d_table alone 0.2427-0.2430): a
+//   coarse level's uncombined REDs serialise on their few rows.
+// - The shared-memory combine: G = 8, 8 warps, 2^11 rows 0.2524-0.2528 /
+//   0.3142-0.3145, 2^10 0.2907-0.2937 / 0.2584-0.2635, 2^12 0.3287-0.3295
+//   / 0.4226-0.4227, used at every level 0.2579-0.2590 / 0.4287-0.4290; G =
+//   4, 4 warps, 2^10 0.2963-0.2969 / 0.3297-0.3315; G = 8, 16 warps
+//   0.2910-0.2912 / 0.3598-0.3602; G = 16, 16 warps, 2^12 0.3049-0.3054 /
+//   0.3208-0.3216. Its probes and per-level barriers cost more than the
+//   REDs they save.
+// - What the step's set still pays: d_table alone takes 0.163-0.168 (as
+//   row 7's scatter of the same call) and dg alone ~0.06; the pair ~0.22,
+//   so the gathers hide only in part under the REDs.
+constexpr int kVjpGroups = 8, kVjpWarps = 8, kVjpPhase = 2;
+static_assert(kVjpWarps >= kVjpGroups, "d_pos2's sums take one point a thread");
+
+// d_table[row_c] += g * a_c for one item's 8 corners: row 7's warp combine
+// where two neighbouring lanes share a cell, else one RED a lane and corner.
+// Every lane of the warp calls it; `adds`: this lane contributes.
+__device__ __forceinline__ void vjp_table_reds(float2* __restrict__ dl, const Corners& k, const float a[8],
+                                               float2 gv, bool adds, uint32_t mask, int lane) {
+  if (!__any_sync(kFull, adds)) return;
+  const uint32_t row0 = corner_row(k, 0, mask);
+  const uint32_t below = __shfl_up_sync(kFull, adds ? row0 : kNoRow, 1);
+  const bool combine = __any_sync(kFull, adds && lane > 0 && below == row0);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint32_t row = corner_row(k, c, mask);
+    float2 sum = make_float2(__fmul_rn(gv.x, a[c]), __fmul_rn(gv.y, a[c]));
+    bool lead = adds;
+    if (combine) {
+      uint32_t peers = __match_any_sync(kFull, adds ? row : kNoRow);
+      if (!adds) peers = 1u << lane;  // alone: no shuffle rounds for the lanes that add nothing
+      sum = sum_peers(peers, lane, sum);
+      lead = adds && lane == __ffs(peers) - 1;
+    }
+    if (lead) atomicAdd(dl + row, sum);
+  }
+}
+
+// The VJP on the tile mapping (see above): block b owns the kVjpGroups * 32
+// points from b * that; a null dg / dtable / dpos2 skips that output.
+__global__ void __launch_bounds__(32 * kVjpWarps)
     hash_encode_bwd_pos_vjp_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
                                    const float2* __restrict__ g, const float* __restrict__ v,
                                    const float* __restrict__ scalings, float2* __restrict__ dg,
                                    float2* __restrict__ dtable, float* __restrict__ dpos2, long long n_points,
                                    int num_levels, int log2_t) {
-  constexpr int kPoints = 32 * kPosGroups;
-  extern __shared__ __align__(16) float vjp_smem[];
-  const int phase = min(kPosPhase, num_levels);
-  float* terms = vjp_smem;                    // [phase][3][kPoints]
-  float* pos_s = terms + kPoints * phase * 3;  // [kPoints][3]
-  float* v_s = pos_s + kPoints * 3;            // [kPoints][3]
+  const bool reads_g = dtable != nullptr || dpos2 != nullptr;
+  const bool gathers = dg != nullptr || dpos2 != nullptr;  // the corner rows
+  constexpr int kPoints = 32 * kVjpGroups;
+  extern __shared__ __align__(16) unsigned char vjp_smem[];
+  float2* tile = reinterpret_cast<float2*>(vjp_smem);  // g in, dg out: [kPoints][tile_stride(L)]
+  float* pos_s =
+      reinterpret_cast<float*>(vjp_smem + ((reads_g || dg) ? tile_bytes(kVjpGroups, num_levels, 8) : 0));
+  float* v_s = pos_s + 3 * kPoints;  // [kPoints][3] each
+  float* terms = v_s + 3 * kPoints;  // d_pos2: [phase][3][kPoints]
   const long long n0 = (long long)blockIdx.x * kPoints;
   const int rows = (int)min((long long)kPoints, n_points - n0);
+  if (reads_g) copy_tile_in(tile, g + n0 * num_levels, rows, num_levels);
   for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) {
     pos_s[i] = __ldg(pos + 3 * n0 + i);
     v_s[i] = __ldg(v + 3 * n0 + i);
   }
   __syncthreads();
   const int tid = threadIdx.x, lane = tid & 31, warps = blockDim.x >> 5;
+  const int stride = tile_stride(num_levels);
   const uint32_t mask = (1u << log2_t) - 1u;
-  const bool want_rows = dg != nullptr || dpos2 != nullptr;
-  float acc[3] = {0.f, 0.f, 0.f};  // thread i's point i (blockDim.x >= kPoints)
+  const int phase = min(kVjpPhase, num_levels);
+  float acc[3] = {0.f, 0.f, 0.f};  // d_pos2: thread i's point i
   for (int l0 = 0; l0 < num_levels; l0 += phase) {
     const int levels = min(phase, num_levels - l0);
-    for (int item = tid >> 5; item < kPosGroups * levels; item += warps) {
-      const int l = l0 + item / kPosGroups, r = (item % kPosGroups) * 32 + lane;
+    for (int item = tid >> 5; item < kVjpGroups * levels; item += warps) {
+      const int l = l0 + item / kVjpGroups, r = (item % kVjpGroups) * 32 + lane;
       const bool live = r < rows;
       const float s = __ldg(scalings + l);
       float p[3] = {0.f, 0.f, 0.f}, u[3] = {0.f, 0.f, 0.f};
-      float2 gv = make_float2(0.f, 0.f);
       if (live) {
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
           p[d] = pos_s[3 * r + d];
           u[d] = v_s[3 * r + d];
         }
-        if (dtable != nullptr || dpos2 != nullptr) gv = __ldg(g + (n0 + r) * num_levels + l);
       }
       Corners k;
       corner_factors(p, s, k);
       float2 rv[8];
-      if (live && want_rows) gather_level(table + ((size_t)l << log2_t), k, mask, rv);
-      // the gathers go out together before their use (row 10's fence)
-      __syncwarp();
+      if (gathers) {
+        if (live) gather_level(table + ((size_t)l << log2_t), k, mask, rv);
+        __syncwarp();  // the gathers go out together before their use (row 10's fence)
+      }
       float a[8];
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
@@ -671,30 +788,21 @@ __global__ void __launch_bounds__(32 * kPosWarps)
                                     __fmul_rn(__fmul_rn(uz, wx), wy));
         a[c] = __fmul_rn(s, sum);
       }
-      if (dg != nullptr && live) {
+      float2 gv = make_float2(0.f, 0.f);
+      if (reads_g && live) gv = tile[r * stride + l];
+      if (dg && live) {
         float o0 = 0.f, o1 = 0.f;
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           o0 = __fadd_rn(o0, __fmul_rn(a[c], rv[c].x));
           o1 = __fadd_rn(o1, __fmul_rn(a[c], rv[c].y));
         }
-        dg[(n0 + r) * num_levels + l] = make_float2(o0, o1);
+        tile[r * stride + l] = make_float2(o0, o1);  // in place of g, which this item alone reads
       }
-      if (dtable != nullptr) {
-        const bool adds = live && (gv.x != 0.f || gv.y != 0.f);
-        if (__any_sync(kFull, adds)) {
-          float2* dl = dtable + ((size_t)l << log2_t);
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const uint32_t row = corner_row(k, c, mask);
-            uint32_t peers = __match_any_sync(kFull, adds ? row : kNoRow);
-            if (!adds) peers = 1u << lane;
-            const float2 sum = sum_peers(peers, lane, make_float2(__fmul_rn(gv.x, a[c]), __fmul_rn(gv.y, a[c])));
-            if (adds && lane == __ffs(peers) - 1) atomicAdd(dl + row, sum);
-          }
-        }
+      if (dtable) {
+        vjp_table_reds(dtable + ((size_t)l << log2_t), k, a, gv, live && (gv.x != 0.f || gv.y != 0.f), mask, lane);
       }
-      if (dpos2 != nullptr && live) {
+      if (dpos2 && live) {
         float t[3] = {0.f, 0.f, 0.f};
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
@@ -716,24 +824,29 @@ __global__ void __launch_bounds__(32 * kPosWarps)
         for (int d = 0; d < 3; ++d) terms[((l - l0) * 3 + d) * kPoints + r] = __fmul_rn(__fmul_rn(t[d], s), s);
       }
     }
-    __syncthreads();
-    if (dpos2 != nullptr && tid < rows) {
-      for (int lv = 0; lv < levels; ++lv) {
+    __syncthreads();  // the block's warps leave a phase together (and d_pos2's terms are in)
+    if (dpos2) {
+      if (tid < rows) {
+        for (int lv = 0; lv < levels; ++lv) {
 #pragma unroll
-        for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], terms[(lv * 3 + d) * kPoints + tid]);
+          for (int d = 0; d < 3; ++d) acc[d] = __fadd_rn(acc[d], terms[(lv * 3 + d) * kPoints + tid]);
+        }
       }
+      __syncthreads();  // the next phase overwrites the terms
     }
-    __syncthreads();  // the next phase overwrites the terms
   }
-  if (dpos2 != nullptr && tid < rows) {
+  if (dpos2 && tid < rows) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) dpos2[3 * (n0 + tid) + d] = acc[d];
   }
+  if (dg) copy_tile_out(tile, dg + n0 * num_levels, rows, num_levels);
 }
 
-// The VJP kernel's shared memory: one phase's terms, the tile's positions and v.
-size_t vjp_smem_bytes(int num_levels) {
-  return (size_t)32 * kPosGroups * (std::min(kPosPhase, num_levels) + 2) * 3 * sizeof(float);
+// The VJP's shared memory: the g / dg tile (when it reads g or forms dg),
+// the tile's positions and v, and d_pos2's terms of one phase.
+size_t vjp_smem_bytes(int num_levels, bool with_g, bool with_dg, bool with_pos) {
+  return ((with_g || with_dg) ? tile_bytes(kVjpGroups, num_levels, sizeof(float2)) : 0) +
+         (size_t)32 * kVjpGroups * (6 + (with_pos ? 3 * std::min(kVjpPhase, num_levels) : 0)) * sizeof(float);
 }
 
 }  // namespace
@@ -808,17 +921,25 @@ extern "C" int hash_encode_bwd_pos(const void* pos, const void* table, const voi
 
 // dg [n, 2L] f32, d_table [L * 2^log2_t, 2] f32 (zeroed by the caller) and
 // d_pos2 [n, 3] f32 for the cotangent v [n, 3] f32 of d_pos, with g [n, 2L]
-// f32; a null output pointer skips that output.
+// f32; g and dg 16-byte aligned; a null output pointer skips that output.
+// The g / dg tile must fit shared memory: up to 103 levels with d_pos2,
+// 109 without.
 extern "C" int hash_encode_bwd_pos_vjp(const void* pos, const void* table, const void* g, const void* v,
                                        const void* scalings, void* dg, void* dtable, void* dpos2, long long n,
                                        int num_levels, int log2_t, int device, void* stream) {
-  const size_t smem = vjp_smem_bytes(num_levels);
+  const size_t smem = vjp_smem_bytes(num_levels, dtable != nullptr || dpos2 != nullptr, dg != nullptr,
+                                     dpos2 != nullptr);
   if (bad_shape(n, num_levels, log2_t, smem)) return (int)cudaErrorInvalidValue;
+  if (dg == nullptr && dtable == nullptr && dpos2 == nullptr) return (int)cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  constexpr long long kPoints = 32LL * kPosGroups;
-  hash_encode_bwd_pos_vjp_kernel<<<(unsigned int)((n + kPoints - 1) / kPoints), 32 * kPosWarps, smem, s>>>(
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(hash_encode_bwd_pos_vjp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  constexpr long long kPoints = 32LL * kVjpGroups;
+  hash_encode_bwd_pos_vjp_kernel<<<(unsigned int)((n + kPoints - 1) / kPoints), 32 * kVjpWarps, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float2*>(table), static_cast<const float2*>(g),
       static_cast<const float*>(v), static_cast<const float*>(scalings), static_cast<float2*>(dg),
       static_cast<float2*>(dtable), static_cast<float*>(dpos2), n, num_levels, log2_t);

@@ -8,8 +8,9 @@ and the generator of the sampling jitter. `make_ray_train_step` does what
 the JAX step does, in the same order: ray generation from
 batch["ray_indices"] (the camera optimizers apply inside the model), the
 forward with the proposal anneal and update flags of this step, metrics,
-losses (their sum in sorted key order), backward, one update of every
-group, the counters.
+losses (their sum in sorted key order), backward (of the optimized
+parameters only: `trained_params`), one update of every group, the
+counters.
 
 `Trainer.setup` / `train` run the loop with the rays/s and iteration-time
 scalars, the three eval cadences (an eval ray batch's losses and metrics,
@@ -40,7 +41,7 @@ import time
 import traceback
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -122,6 +123,16 @@ def _random_background(model, outputs, generator: torch.Generator) -> torch.Tens
     return torch.rand((*rgb.shape[:-1], channels), generator=generator, device=rgb.device)
 
 
+def trained_params(optimizers: Union[Optimizers, MultiSteps]) -> List[torch.Tensor]:
+    """The parameters the optimizer groups update that require a gradient:
+    the only leaves a training step's backward differentiates, as JAX's
+    step differentiates the parameters alone. A detached leaf that requires
+    a gradient (the sample positions an SDF field differentiates for its
+    normals) then gets none, and the backward skips what only it reads.
+    Read at each step: TensoRF's upsample swaps parameters in the groups."""
+    return [p for opt in optimizers.groups.values() for p in opt.params if p.requires_grad]
+
+
 def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras) -> Callable:
     """(state, batch, uniforms=None, background_uniforms=None, tv_uniforms=None, extra_draws=None) -> scalars.
 
@@ -183,7 +194,7 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
             tv_uniforms=tv_uniforms, generator=state.generator,
         )
         loss = sum(loss_dict[k] for k in sorted(loss_dict))
-        loss.backward()
+        loss.backward(inputs=trained_params(optimizers))
         optimizers.step()
         state.step = step + 1
         state.steps_since_update = new_ssu

@@ -14,8 +14,9 @@ shared memory; the table gradient sums the lanes of a warp that add to the
 same row before one atomic; the position gradient stages each level's
 terms and sums a point's levels in one thread, in order (fewer levels walk
 them one thread per point); the position gradient's VJP (for an SDF's
-second derivative) keeps that tile mapping. The plain PyTorch versions of
-the four functions are in ops/encodings.py.
+second derivative) keeps that tile mapping, with g and dg staged in one
+tile. The plain PyTorch versions of the four functions are in
+ops/encodings.py.
 
 `hash_encode` is one autograd node that dispatches on the device of the
 positions: for CPU tensors the forward is `hash_encode_plain` and the
@@ -166,6 +167,8 @@ def hash_encode_bwd_pos_vjp(table, positions, g, v, scalings, table_size: int, n
     n, num_levels = positions.shape[0], scalings.shape[0]
     g = g.float().contiguous()
     _check_g(g, n, num_levels)
+    if g.data_ptr() % 16:  # the kernel reads g's tiles 16 bytes at a time
+        g = g.clone()
     v = v.float().contiguous()
     if tuple(v.shape) != (n, 3) or v.device != positions.device:
         raise ValueError(f"hash_encode_bwd_pos_vjp: v must be [N, 3] on {positions.device}, got {tuple(v.shape)}")

@@ -47,12 +47,13 @@ it. The position gradient of the hash grid is bitwise the same from run to
 run.
 
 The hash position gradient's VJP (the SDF grid's second derivative) is
-held against its plain version per output: dg and d_pos2 relative L2 1e-5
-(dg sums the corners in the same order; d_pos2 the levels in another
-order), d_table 1e-4 (row 7's atomics), each output alone and together,
-N off the 256-point tile; dg and d_pos2 are bitwise the same from run to
-run; an eikonal loss through hash_encode on the card gives the CPU's
-gradients (relative L2 1e-4), with the launches that the first-order
+held against its plain version for every output set: dg bitwise and
+within relative L2 1e-5 (it sums the corners in the same order), d_pos2
+1e-5 (the levels in another order), d_table 1e-4 (row 7's atomics), at N
+off the 256-point tile, at neus-facto's exact call, on rays with g zero
+on some levels and points, on grid coordinates and for a misaligned g; dg
+and d_pos2 are bitwise the same from run to run; an eikonal loss through
+hash_encode on the card gives the CPU's gradients (relative L2 1e-4), with the launches that the first-order
 pass (no table scatter) and the backward imply.
 """
 
@@ -571,37 +572,64 @@ def test_hash_position_gradient_with_many_levels(cuda, dtype, levels):
 
 
 VJP_CASES = [
-    # (levels, log2 T, points, min_res, max_res): the SDF grid of neus-facto,
-    # a proposal-sized grid, N one past a 256-point tile and below one tile,
-    # and more levels than the 4-level phases divide evenly
-    (16, 19, 50_001, 16, 2048),
-    (5, 17, 100_003, 16, 256),
-    (4, 10, 257, 4, 64),
-    (2, 8, 37, 4, 16),
-    (23, 12, 3_001, 4, 1024),
+    # (levels, log2 T, points, min_res, max_res, kind): the SDF grid of
+    # neus-facto, a proposal-sized grid, N one past a 256-point tile and
+    # below one tile, more levels than the 4-level phases divide evenly,
+    # neus-facto's exact call (98,304 points) and a case on rays (lanes that
+    # share cells: the combined REDs) whose g is zero on some levels and
+    # some points (the skip path)
+    (16, 19, 50_001, 16, 2048, "uniform"),
+    (5, 17, 100_003, 16, 256, "uniform"),
+    (4, 10, 257, 4, 64, "uniform"),
+    (2, 8, 37, 4, 16, "uniform"),
+    (23, 12, 3_001, 4, 1024, "uniform"),
+    (16, 19, 98_304, 16, 2048, "uniform"),
+    (16, 19, 20_000, 16, 2048, "rays_zero_g"),
 ]
 VJP_OUTPUTS = {"all": (True, True, True), "dg": (True, False, False), "d_table": (False, True, False),
-               "d_pos2": (False, False, True), "dg+d_pos2": (True, False, True)}
+               "d_pos2": (False, False, True), "dg+d_pos2": (True, False, True), "dg+d_table": (True, True, False),
+               "d_table+d_pos2": (False, True, True)}
+VJP_TOLS = (1e-5, 1e-4, 1e-5)  # dg, d_table, d_pos2: relative L2
 
 
 def _vjp_case(case, seed):
-    levels, log2_t, n, lo, hi = VJP_CASES[case]
+    levels, log2_t, n, lo, hi, kind = VJP_CASES[case]
     gen = torch.Generator().manual_seed(seed)
     table = torch.randn(levels * 2**log2_t, 2, generator=gen) * 0.5
     scal = torch.from_numpy(enc.hash_grid_scalings(levels, lo, hi))
     pos = torch.rand(n, 3, generator=gen) * 0.96 + 0.02
     g = torch.randn(n, 2 * levels, generator=gen)
     v = torch.randn(n, 3, generator=gen)
+    if kind == "rays_zero_g":
+        r = -(-n // 48)
+        a, b = torch.rand(r, 1, 3, generator=gen), torch.rand(r, 1, 3, generator=gen)
+        depth = torch.sort(torch.rand(r, 48, 1, generator=gen), dim=1).values
+        pos = (a + depth * (b - a)).reshape(-1, 3)[:n].contiguous()
+        g[256:768] = 0.0  # two whole tiles
+        g[1024:1056, 0::4] = 0.0  # one warp, every other level (both features)
+        g[1024:1056, 1::4] = 0.0
+        g[torch.rand(n, 2 * levels, generator=gen) < 0.1] = 0.0  # scattered points and levels
     return table, pos, g, v, scal, 2**log2_t
+
+
+def _assert_vjp_matches(got, want):
+    """dg bitwise, each output within VJP_TOLS, None where not asked for."""
+    for name, a, b, tol in zip(("dg", "d_table", "d_pos2"), got, want, VJP_TOLS):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32 and bool(torch.isfinite(a).all()), name
+            assert _rel_l2(a, b) <= tol, (name, _rel_l2(a, b))
+            if name == "dg":
+                assert torch.equal(a, b), float((a - b).abs().max())
 
 
 @pytest.mark.parametrize("outputs", list(VJP_OUTPUTS))
 @pytest.mark.parametrize("case", range(len(VJP_CASES)))
 def test_hash_vjp_kernel_matches_plain(cuda, case, outputs):
     """The position gradient's VJP kernel against
-    hash_encode_bwd_pos_vjp_plain, each output alone and together: dg
-    (the 8 corners summed in the same order) and d_pos2 (the levels in
-    another order) relative L2 1e-5, d_table (row 7's atomics) 1e-4; an
+    hash_encode_bwd_pos_vjp_plain, every output set: dg (the 8 corners
+    summed in the same order) bitwise and within relative L2 1e-5, d_pos2
+    (the levels in another order) 1e-5, d_table (row 7's atomics) 1e-4; an
     output not asked for is None, and the call launches once."""
     table, pos, g, v, scal, t = (x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _vjp_case(case, case))
     need = dict(zip(("need_g", "need_table", "need_pos"), VJP_OUTPUTS[outputs]))
@@ -609,22 +637,53 @@ def test_hash_vjp_kernel_matches_plain(cuda, case, outputs):
     got = th.hash_encode_bwd_pos_vjp(table, pos, g, v, scal, t, **need)
     torch.cuda.synchronize()
     assert th.hash_encode_bwd_pos_vjp.launches - before == 1
-    want = enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, **need)
-    for name, a, b, tol in zip(("dg", "d_table", "d_pos2"), got, want, (1e-5, 1e-4, 1e-5)):
-        assert (a is None) == (b is None), name
-        if a is not None:
-            assert a.shape == b.shape and a.dtype == torch.float32 and bool(torch.isfinite(a).all()), name
-            assert _rel_l2(a, b) <= tol, (name, _rel_l2(a, b))
+    _assert_vjp_matches(got, enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, **need))
 
 
-@pytest.mark.parametrize("case", [0, 2])
-def test_hash_vjp_dg_and_d_pos2_are_deterministic(cuda, case):
+@pytest.mark.parametrize("outputs", [k for k, (dg, _, dp) in VJP_OUTPUTS.items() if dg or dp])
+@pytest.mark.parametrize("case", [0, 2, 6])
+def test_hash_vjp_dg_and_d_pos2_are_deterministic(cuda, case, outputs):
     """dg and d_pos2 are written per point in a fixed order: two launches
-    give bitwise-equal results."""
+    for every output set that forms either give bitwise-equal results."""
     args = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _vjp_case(case, case)]
-    first, second = th.hash_encode_bwd_pos_vjp(*args), th.hash_encode_bwd_pos_vjp(*args)
+    need = VJP_OUTPUTS[outputs]
+    first, second = th.hash_encode_bwd_pos_vjp(*args, *need), th.hash_encode_bwd_pos_vjp(*args, *need)
     torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    for name, a, b, formed in zip(("dg", "d_table", "d_pos2"), first, second, need):
+        if formed and name != "d_table":
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("outputs", list(VJP_OUTPUTS))
+def test_hash_vjp_kernel_on_grid_coordinates(cuda, outputs):
+    """Points on grid coordinates (floor == ceil: one row twice, weights 1
+    and 0) and at 0, as a selector-zeroed point gives: every output set
+    matches the plain version (the CPU's
+    test_vjp_plain_on_grid_coordinates holds that against JAX)."""
+    gen = torch.Generator().manual_seed(11)
+    levels, t, n = 4, 2**10, 3_000
+    table = (torch.randn(levels * t, 2, generator=gen) * 0.5).to(cuda)
+    scal = torch.from_numpy(enc.hash_grid_scalings(levels, 4, 64)).to(cuda)
+    pos = torch.rand(n, 3, generator=gen)
+    pos[:1000] = torch.floor(pos[:1000] * 4) / 4
+    pos[1000:1500] = 0.0
+    pos = pos.to(cuda)
+    g, v = torch.randn(n, 2 * levels, generator=gen).to(cuda), torch.randn(n, 3, generator=gen).to(cuda)
+    need = VJP_OUTPUTS[outputs]
+    got = th.hash_encode_bwd_pos_vjp(table, pos, g, v, scal, t, *need)
+    torch.cuda.synchronize()
+    _assert_vjp_matches(got, enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, *need))
+
+
+def test_hash_vjp_of_a_misaligned_cotangent(cuda):
+    """A g that starts off the 16-byte alignment the kernel's tile loads
+    need: the wrapper copies it, and every output matches."""
+    table, pos, g, v, scal, t = (x.to(cuda) if isinstance(x, torch.Tensor) else x for x in _vjp_case(2, 2))
+    view = torch.cat([g.reshape(-1)[:1], g.reshape(-1)])[1:].view_as(g)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = th.hash_encode_bwd_pos_vjp(table, pos, view, v, scal, t)
+    torch.cuda.synchronize()
+    _assert_vjp_matches(got, enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t))
 
 
 def _eikonal_on(device, table, x, w1, b1, w2, scal, t):

@@ -3,7 +3,8 @@
 batch sampler, for comparing samplers and trees on one machine.
 
     python3 train_timing.py [--sampler native|python] [--root DIR] [--label NAME]
-                            [--hash] [--field] [--f32]
+                            [--hash] [--field] [--f32] [--vjp]
+                            [--backward-ab]
 
 Trains each of chip_smoke.py's three configurations (thermal-nerfacto-tpu,
 thermal-nerfacto, thermal-nerfacto-tpu+fused) for 30 steps of 8192 rays on
@@ -44,6 +45,24 @@ then ms/step (steps 10-29 of 30) with --pipeline.model.compute-dtype
 float32 of thermal-nerfacto-tpu+fused (8192 rays, the sphere scene) and of
 vanilla-nerf with use_pallas (4096 rays, through that checkout's
 chip_smoke.classic_train on its blender scene). Prints `F32 {json}`.
+
+--vjp times the hash position gradient's VJP kernel on neus-facto's
+training step 9 (its one VJP call, recorded by that checkout's
+chip_smoke.classic_train over 10 steps of 2048 rays on chip_smoke.py's RGB
+sphere scene): that checkout's kernel through its C entry point
+(hash_encoding.load_library) on preallocated outputs, d_table not zeroed
+between calls, for every set of outputs (dg, d_table, d_pos2), each set
+first held against hash_encode_bwd_pos_vjp_plain (chip_smoke.VJP_TOLS, dg
+bitwise); with the bounds (chip_smoke.vjp_cost), the plain version's ms
+and the REDs d_table needs per level (vjp_red_counts). Prints `VJP {json}`.
+
+--backward-ab trains the three configurations for 70 steps each with the
+training step's backward alternating from step to step between the
+trainer's own (loss.backward of the optimized parameters,
+engine/trainer.py:trained_params) and a plain loss.backward(), and prints
+`BACKWARD {json}` with the median, mean and least ms/step of each over
+steps 10-69 (30 steps each; the two give the same gradients, so the run
+trains as either would).
 
 --root imports chip_smoke.py and nerfstudio_thermal_torch from another
 checkout (for instance an older commit unpacked with git archive), so that
@@ -247,6 +266,118 @@ def f32_steps(cs, tmp: Path) -> dict:
     return out
 
 
+VJP_SETS = {"all": (True, True, True), "dg+d_table": (True, True, False), "dg": (True, False, False),
+            "d_table": (False, True, False), "d_pos2": (False, False, True), "dg+d_pos2": (True, False, True),
+            "d_table+d_pos2": (False, True, True)}
+
+
+def vjp_red_counts(pos, g, scal, t: int) -> dict:
+    """Per level, d_table's REDs on these points (a point adds nothing at a
+    level where its g is zero): one a corner (`corners`), one per distinct
+    row per warp of 32 points and corner (`warp_corner`: row 7's combine),
+    one per distinct row per tile of 256 points (`tile256`: a block-wide
+    combine); and the warps in which two neighbouring points that add share
+    a cell (`warps_sharing`: the VJP combines only in those)."""
+    import torch
+
+    from nerfstudio_thermal_torch.ops import encodings as enc
+
+    n = pos.shape[0]
+    hf, hc, _, _ = enc._hash_factors(pos, scal, t)
+    rows = torch.stack([enc._corner_index(hf, hc, bits, 0) for bits in enc._CORNER_BITS], -1)  # [L, N, 8]
+    point = torch.arange(n, device=pos.device)
+    out = {"corners": [], "warp_corner": [], "tile256": [], "warps_sharing": []}
+    for level in range(scal.shape[0]):
+        live = (g[:, 2 * level] != 0) | (g[:, 2 * level + 1] != 0)
+        r, p = rows[level][live], point[live][:, None]
+        out["corners"].append(r.numel())
+        out["warp_corner"].append(torch.unique(((p // 32) * 8 + torch.arange(8, device=p.device)) * t + r).numel())
+        out["tile256"].append(torch.unique((p // 256) * t + r).numel())
+        share = live[1:] & live[:-1] & (rows[level, 1:, 0] == rows[level, :-1, 0]) & (point[1:] % 32 != 0)
+        out["warps_sharing"].append(torch.unique(point[1:][share] // 32).numel())
+    return out
+
+
+def vjp_timing(cs, tmp: Path, iters: int = 50, rounds: int = 2) -> dict:
+    """--vjp: see the module docstring."""
+    import torch
+
+    from nerfstudio_thermal_torch.ops import encodings as enc
+    from nerfstudio_thermal_torch.ops.cuda import hash_encoding as th
+
+    scene = cs.write_scene(tmp / "sphere_ngp", num_pairs=cs.NGP_PAIRS, thermal=False)
+    run = cs.classic_train("neus-facto", scene, tmp / "neus-facto", [], cs.NEUS_FACTO_STEP,
+                           steps=cs.SURF_CAPTURE_STEP + 1, capture_step=cs.SURF_CAPTURE_STEP, timed_from=0)
+    (rec,) = run.pop("vjp")
+    del run
+    table, scal, t = rec["table"], rec["scal"], rec["t"]
+    pos, g, v = (rec[k].cuda().contiguous() for k in ("pos", "g", "v"))
+    n, levels = pos.shape[0], scal.shape[0]
+    outs = (torch.empty(n, 2 * levels, device="cuda"), torch.zeros(levels * t, 2, device="cuda"),
+            torch.empty(n, 3, device="cuda"))
+    fn = th.load_library().hash_encode_bwd_pos_vjp
+
+    def launch(need):
+        err = fn(pos.data_ptr(), table.data_ptr(), g.data_ptr(), v.data_ptr(), scal.data_ptr(),
+                 *[o.data_ptr() if w else None for o, w in zip(outs, need)], n, levels, t.bit_length() - 1,
+                 torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"hash_encode_bwd_pos_vjp: cudaError {err}")
+
+    rel = {}
+    for set_name, need in VJP_SETS.items():
+        outs[1].zero_()
+        launch(need)
+        torch.cuda.synchronize()
+        want = enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, *need)
+        for name, got, w in zip(("dg", "d_table", "d_pos2"), outs, want):
+            if w is not None:
+                rel[f"{set_name} {name}"] = r = cs.rel_l2(got, w)
+                if not bool(torch.isfinite(got).all()) or r > cs.VJP_TOLS[name] or (
+                        name == "dg" and not torch.equal(got, w)):
+                    raise AssertionError(f"VJP {set_name}: {name} disagrees with the plain version (rel L2 {r:.3e})")
+    ms = {s: [cs.cuda_ms(lambda: launch(need), iters=iters) for _ in range(rounds)] for s, need in VJP_SETS.items()}
+    rows = cs.hash_rows_touched(pos, scal, t)
+    plain = {s: cs.cuda_ms(lambda: enc.hash_encode_bwd_pos_vjp_plain(table, pos, g, v, scal, t, *VJP_SETS[s]),
+                           iters=3) for s in ("dg+d_table", "all")}
+    return {"n": n, "levels": levels, "table_size": t, "need": rec["need"], "ms": ms, "plain_ms": plain,
+            "bound_ms": {s: cs.bound(*cs.vjp_cost(n, levels, t, rows, need))[0] for s, need in VJP_SETS.items()},
+            "rel_l2": rel, "reds": vjp_red_counts(pos, g, scal, t)}
+
+
+def backward_ab(cs, tmp: Path, steps: int = 70) -> dict:
+    """--backward-ab: see the module docstring."""
+    import torch
+
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+    from nerfstudio_thermal_torch.engine import trainer as trainer_module
+
+    restricted = trainer_module.trained_params
+    scene = cs.write_scene(tmp / "sphere")
+    out = {}
+    for name in METHODS:
+        method = cs.train_method(name, scene, 8192)
+        method.trainer.max_num_iterations = steps
+        trainer = setup_trainer(method, base_dir=tmp / name, device="cuda")
+        trainer.setup()
+        ms = {"params": [], "plain": []}
+        for step in range(steps):
+            kind = "plain" if step % 2 else "params"
+            trainer_module.trained_params = restricted if kind == "params" else (lambda optimizers: None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_iteration(step)
+            torch.cuda.synchronize()
+            if step >= TIMED_FROM:
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+        trainer_module.trained_params = restricted
+        out[name] = {k: {"median": statistics.median(v), "mean": statistics.fmean(v), "min": min(v), "steps": len(v)}
+                     for k, v in ms.items()}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sampler", choices=("native", "python"), default="native")
@@ -259,6 +390,10 @@ def main() -> int:
                         help="thermal-nerfacto-tpu+fused only: its frame and the whole-field forward's split")
     parser.add_argument("--f32", action="store_true",
                         help="rows 1-6 at f32 compute: the f32 kernels, and f32 ms/step of +fused and vanilla-nerf")
+    parser.add_argument("--vjp", action="store_true",
+                        help="the hash position gradient's VJP kernel on neus-facto's step-9 call")
+    parser.add_argument("--backward-ab", action="store_true",
+                        help="ms/step with the backward of the parameters only and with a plain backward, interleaved")
     args = parser.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -277,6 +412,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.backward_ab:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = backward_ab(cs, Path(tmp))
+        print("BACKWARD " + json.dumps({"label": args.label, "root": root.name, "device": smi, **out}), flush=True)
+        return 0
+    if args.vjp:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = vjp_timing(cs, Path(tmp))
+        print("VJP " + json.dumps({"label": args.label, "root": root.name, "device": smi, **out}), flush=True)
+        return 0
     if args.f32:
         kernels, peak = f32_kernel_times(here)
         with tempfile.TemporaryDirectory() as tmp:
