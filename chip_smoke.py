@@ -276,6 +276,32 @@ Phases, each fatal on failure:
    - neus-facto 6 steps on an sdfstudio-format scene with the sphere's
      analytic depth and normals as monocular priors (normal_loss and
      depth_loss finite every step).
+18. ns-export and ns-texture on the card (after phase 17; the JSON line's
+   fused_mlp_fwd and hash kernels carry their launches as export_launches),
+   through `scripts.exporter.main` and `scripts.texture.main` with the
+   default device, each command's launches counted by kernel:
+   - neus-facto (phase 17's run): marching-cubes of its SDF at 128 and at
+     256, each exactly one row-8 forward a z-slab (ceil(R / max(1, 262144 //
+     R^2))) and no other launch; one 256-slab's SDF on the card against the
+     CPU's plain path (EXPORT_SDF_TOL); the PLY reads back with V > 0,
+     F > 0, every face index below V and unit normals; then ns-texture of
+     the 128 mesh (rows 8 and 10 a render chunk of the bake's rays);
+   - thermal-nerfacto (phase 11's run): pointcloud --use-thermal-color true
+     (non-empty, colours in [0, 1]), tsdf, poisson, texture and cameras
+     (cameras.json equals the train cameras), each launching row 8 only
+     (8 a render chunk, 1 a grid slab); one eval camera's point cloud at
+     1/16 resolution on the card against the CPU's plain path (the rays
+     whose accumulation lies within EXPORT_ACC_EPS of the threshold are
+     counted and printed, and only they may fall on the other side), the
+     TSDF volume of the card's own depth maps against the CPU's update of
+     the same maps, and the Poisson indicator (cuFFT) against the CPU's
+     solve of the same splat;
+   - thermal-nerfacto-tpu (phase 11's run): marching-cubes through row 1
+     (one fused-MLP forward a slab);
+   - per export: seconds, split into setup (eval_setup), card (renders,
+     grid evaluation, TSDF update and Poisson solve, synchronised) and
+     host (the rest: marching cubes, splats, PLY / OBJ / PNG writes),
+     vertex, face and point counts, and the card's name and power limit.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -4219,7 +4245,7 @@ def surface_methods_phase(tmp: Path, scene: Path, smi: str) -> dict:
     log(f"neus-facto ns-render dataset: 1 eval frame ({w}x{h}), rgb and normal_vis, launches {NEUS_FACTO_CHUNK} a "
         f"chunk, {render_s:.2f} s through the command ({smi})")
     result["neus-facto"] = {"step_s": run["step_s"], "rays": rays, "peak": run["peak"], "frame_s": frame_s,
-                            "counts": run["counts"], "eval_s": eval_s, "ns_render_s": render_s,
+                            "counts": run["counts"], "eval_s": eval_s, "ns_render_s": render_s, "run": run["run"],
                             **surface_step_vs_cpu(scene, tmp / "neus-facto_step", state)}
     del state
     torch.cuda.empty_cache()
@@ -4286,6 +4312,368 @@ def surface_methods_phase(tmp: Path, scene: Path, smi: str) -> dict:
     result["mono"] = {"step_s": run["step_s"]}
     log(f"phase 17 neus, neus-facto, semantic-nerfw: {time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+# Phase 18: ns-export and ns-texture through the commands. evaluate_sdf_grid
+# hands the field slabs of at most EXPORT_SLAB_POINTS points. The SDF slab
+# on the card against the CPU's plain path: f32 both (weight-normalised f32
+# MLPs, no TF32, the hash forward's same products and sums), EXPORT_SDF_TOL
+# absolute. The point cloud at EXPORT_CLOUD_SCALE of one eval camera: bf16
+# MLPs, so depths and colours as phase 7's renders (99% of pixels within
+# 2e-2 (1 + |x|)); a ray whose accumulation lies within EXPORT_ACC_EPS of the
+# threshold may fall on either side and is counted. The TSDF volume from
+# the card's own depth maps against the CPU's update of the same maps:
+# values and colours within EXPORT_TSDF_TOL; a voxel whose projection sits
+# on a pixel, view or truncation edge may decide otherwise on the two
+# devices (f32 products in another order): at most EXPORT_TSDF_FLIPS of the
+# touched voxels. The Poisson indicator: relative L2 EXPORT_CHI_TOL (cuFFT
+# against the CPU's FFT). Exported normals: unit within EXPORT_NORMAL_TOL.
+EXPORT_SLAB_POINTS = 262144
+EXPORT_MC_RES = (128, 256)
+EXPORT_SDF_TOL = 1e-4
+EXPORT_CLOUD_SCALE, EXPORT_ACC_EPS = 0.0625, 1e-2  # 40 x 30 rays: the CPU's full-width render takes ~10 s
+EXPORT_TSDF_TOL, EXPORT_TSDF_FLIPS = 1e-5, 1e-3
+EXPORT_CHI_TOL = 1e-5
+EXPORT_NORMAL_TOL = 1e-3
+EXPORT_TEXTURE_FACES = 20000  # ns-texture's --target-num-faces on the neus-facto mesh
+EXPORT_DENSITY_TEXTURE = ["--resolution", "48", "--px-per-uv-triangle", "4"]  # thermal-nerfacto's texture export
+
+
+@contextlib.contextmanager
+def export_spans():
+    """While open, the export modules' card work is synchronised and
+    timed: renders (get_outputs_for_camera: its chunks counted; the
+    texture bake's render_ray_bundle_chunked: its rays and chunks), the
+    field's grid slabs (counted), the TSDF update and the Poisson solve
+    ("card"), and eval_setup ("setup"). Yields (seconds by span, counts)."""
+    import functools
+
+    from nerfstudio_thermal_torch.exporter import poisson, tsdf_utils
+    from nerfstudio_thermal_torch.models import base_model
+    from nerfstudio_thermal_torch.scripts import exporter
+    from nerfstudio_thermal_torch.utils import eval_utils
+
+    spans, calls = collections.Counter(), collections.Counter()
+
+    def timed(kind, fn, count=None):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if count is not None:
+                count(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[kind] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def camera_chunks(model, cameras, i, *args, **kwargs):
+        calls["renders"] += 1
+        calls["chunks"] += -(-int(cameras.height[i]) * int(cameras.width[i]) // model.config.eval_num_rays_per_chunk)
+
+    def bundle_chunks(model, bundle, *args, **kwargs):
+        n = bundle.origins.shape[0]
+        calls["bake_rays"] += n
+        calls["chunks"] += -(-n // model.config.eval_num_rays_per_chunk)
+
+    def slab(*args):
+        calls["grid"] += 1
+
+    inner_field = exporter.field_callable
+
+    def field_callable(model):
+        fn, sign = inner_field(model)
+        return timed("card", fn, slab), sign
+
+    patches = [
+        (eval_utils, "eval_setup", timed("setup", eval_utils.eval_setup)),
+        (base_model.Model, "get_outputs_for_camera", timed("card", base_model.Model.get_outputs_for_camera,
+                                                           camera_chunks)),
+        (base_model.Model, "render_ray_bundle_chunked", timed("card", base_model.Model.render_ray_bundle_chunked,
+                                                              bundle_chunks)),
+        (tsdf_utils.TSDF, "integrate_tsdf", timed("card", tsdf_utils.TSDF.integrate_tsdf)),
+        (poisson, "solve_indicator", timed("card", poisson.solve_indicator)),
+        (exporter, "field_callable", field_callable),
+    ]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield spans, calls
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def read_ply_mesh_normals(path: Path):
+    """(vertices [V, 3], faces [F, 3], normals [V, 3]) of a PLY that
+    exporter_utils.write_ply_mesh wrote with normals."""
+    data = path.read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode().splitlines()
+    nv = int(next(line for line in header if line.startswith("element vertex")).split()[-1])
+    nf = int(next(line for line in header if line.startswith("element face")).split()[-1])
+    props = [line.split()[1:] for line in header if line.startswith("property") and "list" not in line]
+    vdtype = np.dtype([(name, "<f4" if typ == "float" else "u1") for typ, name in props])
+    vdata = np.frombuffer(data, vdtype, nv, end)
+    fdata = np.frombuffer(data, [("n", "u1"), ("idx", "<i4", (3,))], nf, end + vdtype.itemsize * nv)
+    if not (fdata["n"] == 3).all() or end + vdtype.itemsize * nv + fdata.itemsize * nf != len(data):
+        raise AssertionError(f"{path}: malformed PLY mesh")
+    stack = lambda *keys: np.stack([vdata[k] for k in keys], -1)  # noqa: E731
+    return stack("x", "y", "z"), np.asarray(fdata["idx"]), stack("nx", "ny", "nz")
+
+
+def check_mesh(label: str, path: Path) -> tuple:
+    verts, faces, normals = read_ply_mesh_normals(path)
+    norm = np.linalg.norm(normals, axis=-1)
+    if not (len(verts) > 0 and len(faces) > 0 and faces.min() >= 0 and faces.max() < len(verts)
+            and np.isfinite(verts).all() and np.abs(norm - 1).max() <= EXPORT_NORMAL_TOL):
+        raise AssertionError(f"{label}: {len(verts)} vertices, {len(faces)} faces (indices {faces.min()}.."
+                             f"{faces.max()}), normals' norms {norm.min():.6f}..{norm.max():.6f}")
+    return len(verts), len(faces)
+
+
+def export_phase(entries: dict, neus_run: Path, out: Path, smi: str) -> dict:
+    """Phase 18: ns-export (every mode the port has) and ns-texture on the
+    card, through the commands with their default device."""
+    from nerfstudio_thermal_torch.data.datasets import decode_png
+    from nerfstudio_thermal_torch.exporter import exporter_utils as eu
+    from nerfstudio_thermal_torch.exporter import poisson, texture_utils, tsdf_utils
+    from nerfstudio_thermal_torch.scripts import exporter as ns_export
+    from nerfstudio_thermal_torch.scripts import texture as ns_texture
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    t_phase = time.perf_counter()
+    launches, lines = collections.Counter(), {}
+
+    def run(label, main, argv, per_chunk, per_slab):
+        """One command: its launches must be per_chunk a render chunk plus
+        per_slab a grid slab, exactly."""
+        reset_counts()
+        with export_spans() as (spans, calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = main(argv)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: per_chunk.get(k, 0) * calls["chunks"] + per_slab.get(k, 0) * calls["grid"] for k in counts}
+        if rc != 0 or counts != want:
+            raise AssertionError(f"{label}: returned {rc}, launches {counts}, expected {want} ({dict(calls)})")
+        launches.update(counts)
+        rec = {"s": total, "setup_s": spans["setup"], "card_s": spans["card"],
+               "host_s": total - spans["setup"] - spans["card"], "calls": dict(calls),
+               "counts": {k: v for k, v in counts.items() if v}}
+        lines[label] = rec
+        return rec
+
+    def report(label, rec, what):
+        log(f"export {label}: {rec['s']:.2f} s (setup {rec['setup_s']:.2f}, card {rec['card_s']:.2f}, host "
+            f"{rec['host_s']:.2f}); {what}; launches {rec['counts']} ({rec['calls']}) ({smi})")
+
+    # neus-facto: marching cubes of the SDF at two resolutions, then ns-texture
+    cfg = neus_run / "config.yml"
+    per_chunk_nf = NEUS_FACTO_CHUNK
+    for res in EXPORT_MC_RES:
+        d = out / f"neus-facto_mc{res}"
+        rec = run(f"neus-facto marching-cubes {res}", ns_export.main,
+                  ["marching-cubes", "--load-config", str(cfg), "--output-dir", str(d), "--resolution", str(res)],
+                  per_chunk_nf, {"hash_encode_fwd": 1})
+        slabs = -(-res // max(1, EXPORT_SLAB_POINTS // res**2))
+        if rec["calls"] != {"grid": slabs}:
+            raise AssertionError(f"neus-facto marching-cubes {res}: {rec['calls']}, expected {slabs} slabs and no render")
+        rec["verts"], rec["faces"] = check_mesh(f"neus-facto marching-cubes {res}", d / "sdf_marching_cubes_mesh.ply")
+        report(f"neus-facto marching-cubes {res}^3", rec, f"{slabs} slabs of {EXPORT_SLAB_POINTS // res**2} x {res}^2 "
+               f"points, {rec['verts']} vertices, {rec['faces']} faces, unit normals, indices in range")
+    # one 256^3 slab on the card against the CPU's plain path
+    res = EXPORT_MC_RES[-1]
+    xs = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    gx, gy, gz = np.meshgrid(xs[: EXPORT_SLAB_POINTS // res**2], xs, xs, indexing="ij")
+    pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+    _, card = eval_setup(cfg, device="cuda")
+    _, cpu = eval_setup(cfg, device="cpu")
+    got = ns_export.field_callable(card.pipeline.model)[0](pts)
+    want = ns_export.field_callable(cpu.pipeline.model)[0](pts)
+    err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or err > EXPORT_SDF_TOL:
+        raise AssertionError(f"neus-facto SDF slab: card vs CPU max |diff| {err:.3e} (limit {EXPORT_SDF_TOL})")
+    log(f"export neus-facto SDF slab ({len(pts)} points of the {res}^3 grid): card vs CPU max |diff| {err:.3e} "
+        f"(limit {EXPORT_SDF_TOL}), SDF {want.min():.4f}..{want.max():.4f}")
+    chunk_nf = card.pipeline.model.config.eval_num_rays_per_chunk
+    del card, cpu
+    torch.cuda.empty_cache()
+    mesh = out / f"neus-facto_mc{EXPORT_MC_RES[0]}" / "sdf_marching_cubes_mesh.ply"
+    d = out / "neus-facto_texture"
+    rec = run("neus-facto ns-texture", ns_texture.main,
+              ["--load-config", str(cfg), "--input-mesh-filename", str(mesh), "--output-dir", str(d),
+               "--target-num-faces", str(EXPORT_TEXTURE_FACES)], per_chunk_nf, {})
+    faces = min(lines[f"neus-facto marching-cubes {EXPORT_MC_RES[0]}"]["faces"], EXPORT_TEXTURE_FACES)
+    uv, tw, th, P = texture_utils.unwrap_mesh_per_face(faces, 4)
+    rays = int((texture_utils._texel_to_face(tw, th, P, 4, faces)[0] >= 0).sum())
+    if rec["calls"] != {"bake_rays": rays, "chunks": -(-rays // chunk_nf)} or decode_png(d / "texture.png").shape != (
+            th, tw, 3) or not (d / "mesh.obj").exists():
+        raise AssertionError(f"neus-facto ns-texture: {rec['calls']}, expected {rays} rays; texture "
+                             f"{decode_png(d / 'texture.png').shape}, expected {(th, tw, 3)}")
+    report("neus-facto ns-texture", rec, f"{faces} faces, {rays} texel rays, texture {tw}x{th}")
+
+    # thermal-nerfacto: every mode of the paper's method
+    run_t = entries["thermal-nerfacto"]["run"]
+    cfg = run_t / "config.yml"
+    per_chunk = METHODS["thermal-nerfacto"]["chunk"]
+    _, cpu = eval_setup(cfg, device="cpu")
+    dm = cpu.datamanager
+
+    def chunks(cams):
+        c = cpu.pipeline.model.config.eval_num_rays_per_chunk
+        return sum(-(-int(cams.height[i]) * int(cams.width[i]) // c) for i in range(len(cams)))
+
+    d = out / "thermal_pointcloud"
+    rec = run("thermal-nerfacto pointcloud", ns_export.main,
+              ["pointcloud", "--load-config", str(cfg), "--output-dir", str(d), "--use-thermal-color", "true"],
+              per_chunk, {})
+    points, colors = eu.read_ply(d / "point_cloud.ply")
+    if (rec["calls"] != {"renders": len(dm.eval_cameras), "chunks": chunks(dm.eval_cameras)} or len(points) == 0
+            or colors is None or not (np.isfinite(points).all() and 0 <= colors.min() and colors.max() <= 1)
+            or not (colors == colors[:, :1]).all()):
+        raise AssertionError(f"thermal-nerfacto pointcloud: {rec['calls']}, {len(points)} points, colours "
+                             f"{None if colors is None else (colors.min(), colors.max())}")
+    rec["points"] = len(points)
+    report("thermal-nerfacto pointcloud --use-thermal-color true", rec,
+           f"{len(points)} points of {len(dm.eval_cameras)} eval cameras (stride 4, accumulation > 0.5), grey "
+           f"thermal colours in [0, 1]")
+
+    seen = {}
+    get_mesh, renders = tsdf_utils.TSDF.get_mesh, tsdf_utils.render_cameras_for_export
+
+    def recording_mesh(self):
+        seen["tsdf"] = self
+        return get_mesh(self)
+
+    def recording_renders(*args, **kwargs):
+        seen["renders"] = renders(*args, **kwargs)
+        return seen["renders"]
+
+    tsdf_utils.TSDF.get_mesh, tsdf_utils.render_cameras_for_export = recording_mesh, recording_renders
+    try:
+        d = out / "thermal_tsdf"
+        rec = run("thermal-nerfacto tsdf", ns_export.main, ["tsdf", "--load-config", str(cfg), "--output-dir", str(d)],
+                  per_chunk, {})
+    finally:
+        tsdf_utils.TSDF.get_mesh, tsdf_utils.render_cameras_for_export = get_mesh, renders
+    half = dm.train_cameras.rescale_output_resolution(0.5)
+    if rec["calls"] != {"renders": len(half), "chunks": chunks(half)}:
+        raise AssertionError(f"thermal-nerfacto tsdf: {rec['calls']}, expected {len(half)} renders")
+    rec["verts"], rec["faces"] = check_mesh("thermal-nerfacto tsdf", d / "tsdf_mesh.ply")
+    rgbs, depths, c2ws, Ks = seen["renders"]
+    card_tsdf = seen.pop("tsdf")
+    ref = tsdf_utils.TSDF.from_aabb(np.asarray([[-1.0] * 3, [1.0] * 3], np.float32), [128] * 3, "cpu")
+    for i in range(len(c2ws)):
+        ref.integrate_tsdf(c2ws[i:i + 1], Ks[i:i + 1], depths[i][None], color_images=rgbs[i][None])
+    a, b = (np.concatenate([t.values.cpu().numpy()[..., None], t.weights.cpu().numpy()[..., None],
+                            t.colors.cpu().numpy()], -1) for t in (card_tsdf, ref))
+    same = (a[..., 1] == b[..., 1]) & (np.abs(a - b).max(-1) <= EXPORT_TSDF_TOL)
+    touched = int((b[..., 1] > 0).sum())
+    if touched == 0 or (~same).sum() > EXPORT_TSDF_FLIPS * touched:
+        raise AssertionError(f"thermal-nerfacto tsdf: {(~same).sum()} of {touched} touched voxels differ from the "
+                             f"CPU's update of the same depth maps")
+    report("thermal-nerfacto tsdf 128^3", rec, f"{len(c2ws)} train cameras at 1/2, {rec['verts']} vertices, "
+           f"{rec['faces']} faces; the card's volume against the CPU's update of the same maps: {(~same).sum()} of "
+           f"{touched} touched voxels differ (limit {EXPORT_TSDF_FLIPS:.0e} of them), elsewhere within "
+           f"{EXPORT_TSDF_TOL}")
+    del card_tsdf, ref, seen["renders"]
+
+    solve = poisson.solve_indicator
+
+    def recording_solve(V, h, sigma, device):
+        seen["chi"] = (V, h, sigma, solve(V, h, sigma, device))
+        return seen["chi"][-1]
+
+    poisson.solve_indicator = recording_solve
+    try:
+        d = out / "thermal_poisson"
+        rec = run("thermal-nerfacto poisson", ns_export.main,
+                  ["poisson", "--load-config", str(cfg), "--output-dir", str(d)], per_chunk, {})
+    finally:
+        poisson.solve_indicator = solve
+    rec["verts"], rec["faces"] = check_mesh("thermal-nerfacto poisson", d / "poisson_mesh.ply")
+    V, h, sigma, chi = seen.pop("chi")
+    ref = solve(V, h, sigma, "cpu")
+    chi_err = float(np.linalg.norm(chi - ref) / np.linalg.norm(ref))
+    if rec["calls"]["renders"] != len(dm.eval_cameras) or not chi_err <= EXPORT_CHI_TOL:
+        raise AssertionError(f"thermal-nerfacto poisson: {rec['calls']}, chi card vs CPU rel L2 {chi_err:.3e}")
+    report("thermal-nerfacto poisson 128^3", rec, f"{rec['verts']} vertices, {rec['faces']} faces; chi (cuFFT) "
+           f"against the CPU's solve of the same splat: rel L2 {chi_err:.3e} (limit {EXPORT_CHI_TOL})")
+
+    d = out / "thermal_texture"
+    rec = run("thermal-nerfacto texture", ns_export.main,
+              ["texture", "--load-config", str(cfg), "--output-dir", str(d), *EXPORT_DENSITY_TEXTURE], per_chunk,
+              {"hash_encode_fwd": 1})
+    res = int(EXPORT_DENSITY_TEXTURE[1])
+    slabs = -(-res // max(1, EXPORT_SLAB_POINTS // res**2))
+    if rec["calls"]["grid"] not in (slabs, 2 * slabs) or decode_png(d / "texture.png").ndim != 3:
+        raise AssertionError(f"thermal-nerfacto texture: {rec['calls']}, expected {slabs} slabs (twice after a "
+                             f"fallback to the median level)")
+    report(f"thermal-nerfacto texture ({' '.join(EXPORT_DENSITY_TEXTURE)})", rec,
+           f"{rec['calls']['grid']} density slabs, {rec['calls']['bake_rays']} texel rays, texture "
+           f"{decode_png(d / 'texture.png').shape[1]}x{decode_png(d / 'texture.png').shape[0]}")
+
+    d = out / "thermal_cameras"
+    rec = run("thermal-nerfacto cameras", ns_export.main, ["cameras", "--load-config", str(cfg), "--output-dir",
+                                                          str(d)], per_chunk, {})
+    if json.loads((d / "cameras.json").read_text()) != ns_export.camera_frames(dm.train_cameras) or rec["calls"]:
+        raise AssertionError("thermal-nerfacto cameras: cameras.json differs from the train cameras")
+    report("thermal-nerfacto cameras", rec, f"{len(dm.train_cameras)} train cameras, equal to the run's")
+
+    # one eval camera's point cloud at 1/16 resolution: the card against the CPU
+    _, card = eval_setup(cfg, device="cuda")
+    small = dm.eval_cameras.rescale_output_resolution(EXPORT_CLOUD_SCALE)
+    clouds, accs = {}, {}
+    for name, trainer in (("card", card), ("cpu", cpu)):
+        model = trainer.pipeline.model
+        render = model.get_outputs_for_camera
+
+        def recording(*args, name=name, render=render, **kwargs):
+            out = render(*args, **kwargs)
+            accs[name] = out["accumulation"].reshape(-1)
+            return out
+
+        model.get_outputs_for_camera = recording  # the cloud's own render gives its accumulation
+        try:
+            clouds[name] = eu.generate_point_cloud(model, small, num_cameras=1, min_accumulation=-1.0, stride=1,
+                                                   use_thermal_color=True)
+        finally:
+            del model.get_outputs_for_camera
+    (p_card, c_card), (p_cpu, c_cpu) = clouds["card"], clouds["cpu"]
+    near = np.abs(accs["cpu"] - 0.5) < EXPORT_ACC_EPS
+    flipped = (accs["card"] > 0.5) != (accs["cpu"] > 0.5)
+    close = (np.abs(p_card - p_cpu) <= 2e-2 * (1 + np.abs(p_cpu))).all(-1)
+    close &= (np.abs(c_card - c_cpu) <= 2e-2 * (1 + np.abs(c_cpu))).all(-1)
+    if (flipped & ~near).any() or close.mean() < 0.99:
+        raise AssertionError(f"thermal-nerfacto point cloud: {int((flipped & ~near).sum())} rays off the threshold "
+                             f"change sides; {close.mean():.4f} of points agree")
+    log(f"export thermal-nerfacto point cloud card vs CPU (eval camera 0 at {int(small.width[0])}x"
+        f"{int(small.height[0])}): {close.mean() * 100:.2f}% of points and thermal colours within 2e-2, "
+        f"{int((accs['cpu'] > 0.5).sum())} / {int((accs['card'] > 0.5).sum())} rays above the threshold (CPU / card), "
+        f"{int(near.sum())} within {EXPORT_ACC_EPS} of it, {int(flipped.sum())} on the other side (all of them near)")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+    # thermal-nerfacto-tpu: the density through row 1
+    cfg = entries["thermal-nerfacto-tpu"]["run"] / "config.yml"
+    d = out / "tpu_mc"
+    rec = run("thermal-nerfacto-tpu marching-cubes", ns_export.main,
+              ["marching-cubes", "--load-config", str(cfg), "--output-dir", str(d)], {}, {"fused_mlp_fwd": 1})
+    slabs = -(-128 // max(1, EXPORT_SLAB_POINTS // 128**2))
+    if rec["calls"]["grid"] not in (slabs, 2 * slabs) or set(rec["calls"]) != {"grid"}:
+        raise AssertionError(f"thermal-nerfacto-tpu marching-cubes: {rec['calls']}")
+    rec["verts"], rec["faces"] = check_mesh("thermal-nerfacto-tpu marching-cubes", d / "sdf_marching_cubes_mesh.ply")
+    report("thermal-nerfacto-tpu marching-cubes 128^3", rec, f"{rec['calls']['grid']} density slabs (one fused-MLP "
+           f"forward each), {rec['verts']} vertices, {rec['faces']} faces")
+    total = time.perf_counter() - t_phase
+    log(f"phase 18 ns-export and ns-texture: {total:.1f} s, launches {dict(launches)}")
+    return {"lines": lines, "launches": dict(launches), "s": total}
+
 
 
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
@@ -4416,6 +4804,8 @@ def main() -> int:
         classic = classic_phase(Path(tmp) / "classic", smi)
         # phase 17: neus, neus-facto (the hash grid's second derivative) and semantic-nerfw
         surface17 = surface_methods_phase(Path(tmp) / "surface17", ngp_scene, smi)
+        # phase 18: ns-export and ns-texture on phase 17's and phase 11's runs
+        export = export_phase(entries, surface17["neus-facto"]["run"], Path(tmp) / "export", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -4607,6 +4997,10 @@ def main() -> int:
                                           "per_step": NEUS_FACTO_STEP.get(rec["name"], 0),
                                           "per_render_chunk": NEUS_FACTO_CHUNK.get(rec["name"], 0)}
             rec["semantic_nerfw_launches"] = surface17["semantic-nerfw"]["counts"][rec["name"]]
+    # phase 18: each kernel's launches over the export commands
+    for rec in kernels:
+        if export["launches"].get(rec["name"]):
+            rec["export_launches"] = export["launches"][rec["name"]]
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -4651,6 +5045,10 @@ def main() -> int:
         log(f"{m}: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays, peak memory {r['peak'] / 2**30:.2f} GiB; "
             f"640x512 frame {r['frame_s']:.3f} s ({smi})")
     log(f"neus-facto with mono priors: {surface17['mono']['step_s'] * 1e3:.2f} ms/step ({smi})")
+    for label, r in export["lines"].items():
+        counts = ", ".join(f"{k} {r[k]}" for k in ("verts", "faces", "points") if k in r)
+        log(f"export {label}: {r['s']:.2f} s (setup {r['setup_s']:.2f}, card {r['card_s']:.2f}, host "
+            f"{r['host_s']:.2f}){'; ' + counts if counts else ''} ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -239,6 +239,11 @@ class NerfactoModel(Model):
                 groups[name] = params
         return groups
 
+    def density_fn(self, positions: torch.Tensor) -> torch.Tensor:
+        """The field's density at world positions [..., 3] -> [..., 1] (the
+        marching-cubes and texture exports)."""
+        return self.field.density_fn(positions)
+
     def _density_fns(self, nets: nn.ModuleList):
         """One density fn per proposal iteration; iteration i calls net
         min(i, len(nets) - 1), so one shared net serves every iteration."""

@@ -117,6 +117,22 @@ def assert_step_matches(js, new_state, want, trainer, got, dtype):
     assert trainer.state.steps_since_update == int(new_state.steps_since_update)
 
 
+META = {"is_thermal": [0, 1]}
+_JAX_MODELS = {}
+
+
+def jax_model(method, cut, mode, dtype):
+    """The JAX model of a case on AABB with two cameras, and its params from
+    key 0: built once per case and dtype and shared by the parameter and
+    eval tests (its init compiles once)."""
+    key = (method, cut, mode, dtype)
+    if key not in _JAX_MODELS:
+        jmodel = JModel(with_mode(cut, mode)(jax_method_config(method).model, dtype), AABB, num_train_data=2,
+                        metadata=META)
+        _JAX_MODELS[key] = jmodel, jax.jit(jmodel.init_params)(jax.random.PRNGKey(0))
+    return _JAX_MODELS[key]
+
+
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
     return make_synthetic_rgbt_dataset(tmp_path_factory.mktemp("scene"), num_pairs=4)
@@ -127,11 +143,9 @@ def test_params_carry_both_ways(method, cut, mode):
     """The JAX tree of each mode (no thermal field, proposals or thermal
     camera optimizers; the shared head's last Dense 4 wide) loads into the
     port and exports back unchanged."""
-    meta = {"is_thermal": [0, 1]}
-    jmodel = JModel(with_mode(cut, mode)(jax_method_config(method).model, "float32"), AABB, num_train_data=2,
-                    metadata=meta)
-    params = jax.tree.map(np.asarray, jax.jit(jmodel.init_params)(jax.random.PRNGKey(0)))
-    model = ThermalNerfactoModel(with_mode(cut, mode)(get_method_config(method).model, "float32"), AABB, 2, meta,
+    jmodel, params = jax_model(method, cut, mode, "float32")
+    params = jax.tree.map(np.asarray, params)
+    model = ThermalNerfactoModel(with_mode(cut, mode)(get_method_config(method).model, "float32"), AABB, 2, META,
                                  device="cpu")
     assert not any(k.endswith("_thermal") for k in params) and {"fields", "proposal_networks"} <= set(params)
     load_jax_params(model, params)
@@ -162,11 +176,8 @@ def test_train_step_matches_jax(scene, tmp_path, method, cut, mode, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("method,cut,mode", CASES, ids=IDS)
 def test_eval_outputs_and_metrics_match_jax(method, cut, mode, dtype):
-    meta = {"is_thermal": [0, 1]}
-    jmodel = JModel(with_mode(cut, mode)(jax_method_config(method).model, dtype), AABB, num_train_data=2,
-                    metadata=meta)
-    params = jax.jit(jmodel.init_params)(jax.random.PRNGKey(0))
-    model = ThermalNerfactoModel(with_mode(cut, mode)(get_method_config(method).model, dtype), AABB, 2, meta,
+    jmodel, params = jax_model(method, cut, mode, dtype)
+    model = ThermalNerfactoModel(with_mode(cut, mode)(get_method_config(method).model, dtype), AABB, 2, META,
                                  device="cpu")
     if method == "thermal-nerfacto":
         # scale the hash tables up from their +-1e-3 init so that densities vary

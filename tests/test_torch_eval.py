@@ -86,13 +86,37 @@ def _records(run_dir, group):
     return out
 
 
-def _both_trainers(name, scene, tmp_path):
-    jax_trainer = jax_setup_trainer(_method(jax_method_config, name, scene), base_dir=tmp_path / "jax")
-    jax_trainer.setup()
-    trainer = setup_trainer(_method(get_method_config, name, scene), base_dir=tmp_path / "port", device="cpu")
-    load_jax_params(trainer.model, jax.tree.map(np.asarray, jax_trainer.host_params()))
+def jax_trainer_setup(method, base_dir):
+    """The JAX package's setup_trainer and setup, its model's init_params
+    jitted as one program: the trainer's eager init compiles ~270 small
+    programs (~20 s on this CPU); the port is held to whatever parameters
+    the JAX trainer holds."""
+    trainer = jax_setup_trainer(method, base_dir=base_dir)
+    trainer.model.init_params = jax.jit(trainer.model.init_params)
     trainer.setup()
-    return jax_trainer, trainer
+    return trainer
+
+
+@pytest.fixture(scope="module")
+def both_trainers(scene, tmp_path_factory):
+    """name -> (JAX trainer, the port's trainer holding its parameters),
+    built once per method and shared by the module's tests (their jitted
+    eval functions compile once); each test starts both at eval image 0."""
+    pairs = {}
+
+    def get(name):
+        if name not in pairs:
+            root = tmp_path_factory.mktemp(name)
+            jax_trainer = jax_trainer_setup(_method(jax_method_config, name, scene), root / "jax")
+            trainer = setup_trainer(_method(get_method_config, name, scene), base_dir=root / "port", device="cpu")
+            load_jax_params(trainer.model, jax.tree.map(np.asarray, jax_trainer.host_params()))
+            trainer.setup()
+            pairs[name] = jax_trainer, trainer
+        for t in pairs[name]:
+            t.datamanager._eval_image_index = 0
+        return pairs[name]
+
+    return get
 
 
 def _assert_metrics_close(got, want):
@@ -128,9 +152,9 @@ def test_eval_batches_and_images_match_jax(scene, eval_mode):
 
 
 @pytest.mark.parametrize("name", ["thermal-nerfacto-tpu", "thermal-nerfacto"])
-def test_eval_batch_iteration_matches_jax(scene, tmp_path, name):
+def test_eval_batch_iteration_matches_jax(both_trainers, name):
     """The eval_* scalars the two trainers write for the same eval step."""
-    jax_trainer, trainer = _both_trainers(name, scene, tmp_path)
+    jax_trainer, trainer = both_trainers(name)
     for step in (20, 40):
         jax_trainer.eval_batch_iteration(step)
         trainer.eval_batch_iteration(step)
@@ -143,9 +167,9 @@ def test_eval_batch_iteration_matches_jax(scene, tmp_path, name):
 
 
 @pytest.mark.parametrize("name", ["thermal-nerfacto-tpu", "thermal-nerfacto"])
-def test_eval_image_metrics_and_images_match_jax(scene, tmp_path, name):
+def test_eval_image_metrics_and_images_match_jax(both_trainers, name):
     """One RGB and one thermal eval image: the same metrics and images."""
-    jax_trainer, trainer = _both_trainers(name, scene, tmp_path)
+    jax_trainer, trainer = both_trainers(name)
     params = jax_trainer.host_params()
     n = len(trainer.datamanager.eval_dataset)
     seen = set()
@@ -174,9 +198,9 @@ def test_eval_image_metrics_and_images_match_jax(scene, tmp_path, name):
             "lpips_untrained_thermal"} <= seen
 
 
-def test_average_eval_image_metrics_match_jax(scene, tmp_path):
+def test_average_eval_image_metrics_match_jax(both_trainers):
     """The eval-set mean and std: JAX's key set, and its values."""
-    jax_trainer, trainer = _both_trainers("thermal-nerfacto-tpu", scene, tmp_path)
+    jax_trainer, trainer = both_trainers("thermal-nerfacto-tpu")
     want = jax_trainer.pipeline.get_average_eval_image_metrics(jax_trainer.host_params(), 0)
     got = trainer.pipeline.get_average_eval_image_metrics(0)
     assert set(got) == set(want)

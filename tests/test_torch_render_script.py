@@ -31,9 +31,9 @@ import pytest
 import torch
 
 from nerfstudio_thermal_tpu.configs.method_configs import get_method_config as jax_method_config
-from nerfstudio_thermal_tpu.configs.method_configs import setup_trainer as jax_setup_trainer
 from nerfstudio_thermal_tpu.configs.serialization import save_config as jax_save_config
 from nerfstudio_thermal_tpu.scripts import render as jax_render
+from nerfstudio_thermal_tpu.utils import eval_utils as jax_eval_utils
 
 from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
 from nerfstudio_thermal_torch.configs.serialization import load_config, save_config
@@ -41,7 +41,7 @@ from nerfstudio_thermal_torch.data.datasets import decode_png
 from nerfstudio_thermal_torch.scripts import render
 from nerfstudio_thermal_torch.utils.jax_params import load_jax_params
 from tests.fixtures import make_synthetic_rgbt_dataset
-from tests.test_torch_eval import RGB_HW, T_HW, TURBO_STEP, _method
+from tests.test_torch_eval import RGB_HW, T_HW, TURBO_STEP, _method, jax_trainer_setup
 
 torch.set_num_threads(1)
 
@@ -78,15 +78,44 @@ def camera_path(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_eval_setup():
+    """JAX's ns-render reloads each run once per module: its eval_setup,
+    memoized by config path (seeded with the trainer that wrote the run,
+    which holds the checkpoint's parameters), hands every command the
+    same trainer, so its jitted frame render compiles once per run. JAX bakes the model's
+    removal_min_density_diff into that render when it traces it, and
+    ns-render sets it from --removal-min-density-diff on the model's
+    config: the memo restores the run's value, and drops the traced render
+    when a command had changed it. The port's commands reload their run
+    on every call."""
+    inner, memo = jax_eval_utils.eval_setup, {}
+
+    def eval_setup(config_path, load_step=None):
+        key = (str(config_path), load_step)
+        if key not in memo:
+            loaded = inner(config_path, load_step)
+            memo[key] = loaded, loaded[1].pipeline.model.config.removal_min_density_diff
+        loaded, diff = memo[key]
+        model = loaded[1].pipeline.model
+        if model.config.removal_min_density_diff != diff:
+            model.config.removal_min_density_diff = diff
+            model.__dict__.pop("_render_camera_jit", None)
+        return loaded
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_eval_utils, "eval_setup", eval_setup)
+        yield memo
+
+
 @pytest.fixture(scope="module", params=["thermal-nerfacto-tpu", "thermal-nerfacto"])
-def runs(request, scene, tmp_path_factory):
+def runs(request, scene, tmp_path_factory, shared_jax_eval_setup):
     """(JAX run's config.yml, the port's config.yml) holding the same
     parameters."""
     name = request.param
     root = tmp_path_factory.mktemp(name)
     jax_method = _method(jax_method_config, name, scene)
-    jax_trainer = jax_setup_trainer(jax_method, base_dir=root / "jax")
-    jax_trainer.setup()
+    jax_trainer = jax_trainer_setup(jax_method, root / "jax")
     jax_save_config(jax_method, root / "jax" / "config.yml")
     jax_trainer.save_checkpoint(0)
     method = _method(get_method_config, name, scene)
@@ -95,6 +124,8 @@ def runs(request, scene, tmp_path_factory):
     trainer.setup()
     save_config(method, root / "port" / "config.yml")
     trainer.save_checkpoint(0)
+    shared_jax_eval_setup[str(root / "jax" / "config.yml"), None] = (
+        (jax_method, jax_trainer, jax_trainer.host_params()), jax_trainer.model.config.removal_min_density_diff)
     return root / "jax" / "config.yml", root / "port" / "config.yml"
 
 
