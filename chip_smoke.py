@@ -303,6 +303,34 @@ Phases, each fatal on failure:
      host (the rest: marching cubes, splats, PLY / OBJ / PNG writes),
      vertex, face and point counts, and the card's name and power limit.
 
+19. splatfacto and generfacto (after phase 18; the JSON line's hash
+   kernels carry generfacto's launches and step-9 sums as extra fields):
+   - 19a, splatfacto at the method's defaults (300,000 slots, 50,000
+     random gaussians, SH degree 3, 16 x 16 tiles of capacity 512, window
+     4, random background) on phase 15's RGB sphere scene: 30 steps
+     through ns-train (every loss finite, every group changed, no kernel
+     launch; ms/step over steps 10-29, peak memory); a step split on the
+     device's timeline (binning, forward, losses, backward, Adam) with its
+     wall and busy time; the splat ops (binning, the tile compositing
+     forward and forward + backward) timed at 640x480 and 1080p beside
+     their bounds; 640x512 and 1080p frames; a 320x256 frame card against
+     CPU (SPLAT_FRAME_TOL); tiles against scan and the scan's two-pass
+     backward against autograd of the plain scan on the card; ns-eval,
+     ns-render of a 3-frame camera path and ns-export gaussian-splat
+     (vertices = the alive count); then a 16-step run with refinements at
+     steps 5, 10 and 15 and an opacity reset, each checked against the
+     CPU's refinement of the same state (the alive mask, parameters
+     within SPLAT_REFINE_TOL, the moments, zero in the touched rows);
+   - 19b, generfacto at the JAX config's widths (64 x 64, (256, 96) + 48
+     samples, the field L12 T 2^19, proposals L5 T 2^17, f32, ColorMatch):
+     30 steps through ns-train without --data (launches a step: 3 hash
+     forwards, 3 table gradients, 1 position gradient, 1 VJP), a profiled
+     step by kernel, step 9's hash calls and VJP through phases 8b's and
+     17's checks and timings, a step with the normals and shading on,
+     card against CPU with the draws given (phase 9's f32 limits), and
+     ns-render of the 8 eval-ring cameras (3 forwards and 1 position
+     gradient a frame).
+
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
 CUDA; imports nothing of JAX.
@@ -312,6 +340,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import re
@@ -3446,7 +3475,8 @@ def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps:
 
         trainer.train_iteration = counted
 
-    argv = [name, "--data", str(scene), "--output-dir", str(out_dir), "--experiment-name", "smoke",
+    data = ["--data", str(scene)] if scene is not None else []  # generfacto trains without data
+    argv = [name, *data, "--output-dir", str(out_dir), "--experiment-name", "smoke",
             "--max-num-iterations", str(steps), *flags]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4676,6 +4706,559 @@ def export_phase(entries: dict, neus_run: Path, out: Path, smi: str) -> dict:
 
 
 
+# Phase 19: splatfacto and generfacto. Splatfacto runs no kernel of the
+# table (its ops are torch ops, XLA in the JAX package); its numbers are
+# the splat ops' times with bounds, a CUDA rasterizer's yardstick.
+SPLAT_STEPS, SPLAT_TIMED_FROM = 30, 10
+# the refinement run: refinements after steps 5, 10 and 15, the opacity
+# reset at 10 (reset_alpha_every x refine_every), a densification
+# threshold that a random init's gradients pass
+SPLAT_REFINE_STEPS = 16
+SPLAT_REFINE_FLAGS = ["--pipeline.model.warmup-length", "4", "--pipeline.model.refine-every", "5",
+                      "--pipeline.model.reset-alpha-every", "2", "--pipeline.model.densify-grad-thresh", "2e-5"]
+SPLAT_REFINE_TOL = 1e-6  # parameters, card against the CPU's refinement of the same state
+SPLAT_TILE_TOL = 3e-5  # tiles against scan: the JAX package's test's tolerance
+SPLAT_VJP_TOL = 1e-4  # the two-pass backward against autograd of the plain scan, relative L2
+SPLAT_FRAME_TOL = 1e-4  # a frame of the trained model, card against CPU
+SPLAT_CHECK_HW = (256, 320)  # the card-vs-CPU frame (the CPU rasterizes it too)
+SPLAT_SCAN_HW, SPLAT_SCAN_N = (128, 160), 4096  # tiles against scan: a size the scan affords
+SPLAT_RENDERS = {"640x512": (640, 512, 500.0), "1080p": (1920, 1080, 1400.0)}
+SPLAT_OPS = {"train 640x480": (640, 480, 512.0), "1080p": SPLAT_RENDERS["1080p"]}  # the splat ops' timed frames
+SPLAT_OP_OPS = 30  # f32 operations per (pixel, slot) pair of the compositing forward
+GEN_STEPS, GEN_TIMED_FROM, GEN_CAPTURE_STEP = 30, 10, 9
+GEN_STEP = {"hash_encode_fwd": 3, "hash_encode_bwd_table": 3, "hash_encode_bwd_pos": 1,
+            "hash_encode_bwd_pos_vjp": 1}
+GEN_FRAME = {"hash_encode_fwd": 3, "hash_encode_bwd_pos": 1}
+GEN_KERNELS = {"hash_encode_fwd": "hash_encode_fwd_kernel", "hash_encode_bwd_table": "hash_encode_bwd_table_kernel",
+               "hash_encode_bwd_pos": "hash_encode_bwd_pos_kernel",
+               "hash_encode_bwd_pos_vjp": "hash_encode_bwd_pos_vjp_kernel"}
+
+
+def splat_step_split(trainer, step: int) -> dict:
+    """One splatfacto step split on the device's timeline by CUDA events:
+    binning, the forward without it (projection, SH, gather, compositing),
+    the losses, the backward (with the refinement statistics) and Adam;
+    the step's wall time; and its busy device time from torch.profiler over
+    the next step (host = wall - busy)."""
+    from nerfstudio_thermal_torch.ops import splat_tiles
+
+    model, opt = trainer.model, trainer.optimizers
+    ev = {}
+
+    def mark(key):
+        ev[key] = torch.cuda.Event(enable_timing=True)
+        ev[key].record()
+
+    def wrap(obj, name, before, after):
+        inner = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            mark(before)
+            out = inner(*args, **kwargs)
+            mark(after)
+            return out
+
+        setattr(obj, name, wrapped)
+        return inner
+
+    saved = [(splat_tiles, "bin_gaussians", wrap(splat_tiles, "bin_gaussians", "bin0", "bin1")),
+             (model, "render_camera", wrap(model, "render_camera", "fwd0", "fwd1")),
+             (model, "get_loss_dict", wrap(model, "get_loss_dict", "loss0", "loss1")),
+             (opt, "step", wrap(opt, "step", "adam0", "adam1"))]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        trainer.train_iteration(step)
+        mark("end")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, name, inner in saved:
+            if obj is model or obj is opt:
+                delattr(obj, name) if name in vars(obj) else None
+            else:
+                setattr(obj, name, inner)
+    ms = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
+    binning = ms("bin0", "bin1")
+    split = {"binning": binning, "forward": ms("fwd0", "fwd1") - binning, "losses": ms("loss0", "loss1"),
+             "backward": ms("loss1", "adam0"), "adam": ms("adam0", "adam1"), "timeline": ms("start", "end"),
+             "wall": wall}
+    busy = sum(kernel_split(lambda: trainer.train_iteration(step + 1), iters=1).values())
+    split["busy"], split["host"] = busy, wall - busy
+    return split
+
+
+def splat_op_cost(n: int, h: int, w: int, capacity: int, feats: int, channels: int) -> dict:
+    """Bytes and f32 operations of the splat ops at N slots and an h x w
+    frame: binning reads each slot's centre, depth, radius and mask and
+    writes the [T, K] lists, the mask and the order (its ops: the two
+    sorts' comparisons, N log N and 16 N log 16 N); the compositing
+    forward reads the tiles' feature rows and writes rgb, alpha and depth,
+    SPLAT_OP_OPS a (pixel, slot) pair; its backward reads those again with
+    the outputs' cotangents and writes the rows' gradients, three times
+    the forward's operations (the checkpointed forward, then the chain)."""
+    tiles = -(-h // 16) * -(-w // 16)
+    m = 16 * n
+    pairs = tiles * 256 * capacity
+    rows = tiles * capacity * feats * 4
+    pixels = h * w * (channels + 2) * 4
+    return {
+        "binning": (n * 17 + tiles * capacity * 9 + n * 8, n * math.log2(n) + m * math.log2(m)),
+        "forward": (rows + pixels, pairs * SPLAT_OP_OPS),
+        "forward+backward": (2 * rows + 2 * pixels, 4 * pairs * SPLAT_OP_OPS),
+    }
+
+
+def splat_ops_phase(model, label: str, w: int, h: int, focal: float, c2w, smi: str) -> dict:
+    """The splat ops on the trained model's projection of a w x h camera:
+    binning, the tile compositing forward and forward + backward (a sum
+    loss over rgb, alpha and depth), each timed (CUDA events) beside its
+    bound; no PyTorch call computes a splat rasterizer (library none)."""
+    from nerfstudio_thermal_torch.models import splatfacto as sf
+    from nerfstudio_thermal_torch.ops import splat_tiles
+
+    cfg = model.config
+    cam = make_camera(w, h, focal, c2w).to("cuda")
+    alive = model._alive()
+    with torch.no_grad():
+        xys, depths, conics, radii, comp = sf.project_gaussians(
+            model.xyz, torch.exp(model.scales), model.quats, cam.camera_to_worlds[0], cam.fx[0], cam.fy[0],
+            cam.cx[0], cam.cy[0], w, h)
+        viewdir = torch.nn.functional.normalize(model.xyz - cam.camera_to_worlds[0][:3, 3], dim=-1)
+        basis = sf.sh_basis(cfg.sh_degree, viewdir)
+        feats = torch.cat([model.features_dc[:, None], model.features_rest], 1)
+        colors = torch.clamp(torch.einsum("nb,nbc->nc", basis, feats) + 0.5, min=0.0)
+        opac = torch.sigmoid(model.opacities) * comp
+    valid = alive & (radii > 0)
+    bg = torch.zeros(3, device="cuda")
+    kw = dict(capacity=cfg.tile_capacity, window=cfg.tile_window)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xys, conics, opac, colors)]
+
+    def forward():
+        with torch.no_grad():
+            return splat_tiles.rasterize_tiles(xys, depths, conics, radii, opac, colors, alive, h, w, bg, **kw)
+
+    def forward_backward():
+        rgb, acc, dep = splat_tiles.rasterize_tiles(leaves[0], depths, leaves[1], radii, leaves[2], leaves[3], alive,
+                                                    h, w, bg, **kw)
+        torch.autograd.grad(rgb.sum() + acc.sum() + dep.sum(), leaves)
+
+    calls = {"binning": lambda: splat_tiles.bin_gaussians(xys, depths, radii, valid, h, w, 16, 16, **kw),
+             "forward": forward, "forward+backward": forward_backward}
+    costs = splat_op_cost(xys.shape[0], h, w, cfg.tile_capacity, 10, 3)
+    gauss_idx, slot_mask, _ = calls["binning"]()
+    full = int(slot_mask.all(dim=1).sum())
+    out = {}
+    for name, fn in calls.items():
+        ms = cuda_ms(fn, iters=5)
+        bound_ms, bound_by = bound(*costs[name])
+        out[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"splat_op {name} {label} ({w}x{h}, {xys.shape[0]} slots, {int(valid.sum())} live and in front, "
+            f"{gauss_idx.shape[0]} tiles, {full} tiles at capacity {cfg.tile_capacity}): {ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), library none ({smi})")
+    del leaves, gauss_idx, slot_mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def splat_refine_checked(trainer, checks: list) -> None:
+    """Wrap the trainer's refinement: before each, the card's state (the
+    model, the optimizers' moments, the extra state) is copied to the
+    CPU; after it, the CPU's refinement of that copy must give the same
+    alive mask, parameters within SPLAT_REFINE_TOL and the same moments,
+    zero in every row that was culled or filled."""
+    from nerfstudio_thermal_torch.models.splatfacto import PARAM_KEYS
+
+    inner = trainer._maybe_refine
+
+    def checked(step):
+        model = trainer.model
+        if not model.wants_host_refinement(step):
+            return inner(step)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        cpu_opt = copy.deepcopy(trainer.optimizers)
+        for g in cpu_opt.groups.values():
+            g.params, g.mu, g.nu = [p.cpu() for p in g.params], [t.cpu() for t in g.mu], [t.cpu() for t in g.nu]
+        extra = trainer.state.extra
+        cpu_extra = dataclasses.replace(extra, **{f.name: getattr(extra, f.name).cpu()
+                                                  for f in dataclasses.fields(extra)})
+        before = extra.alive.clone()
+        t0 = time.perf_counter()
+        inner(step)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        want = cpu_model.refine_host(cpu_opt, step, cpu_extra)
+        after = trainer.state.extra.alive
+        if not torch.equal(after.cpu(), want.alive):
+            raise AssertionError(f"splatfacto refinement at step {step}: the card's alive mask differs from the CPU's "
+                                 f"({int((after.cpu() != want.alive).sum())} slots)")
+        errs = {k: float((getattr(model, k).detach().cpu() - getattr(cpu_model, k).detach()).abs().max())
+                for k in PARAM_KEYS}
+        if max(errs.values()) > SPLAT_REFINE_TOL:
+            raise AssertionError(f"splatfacto refinement at step {step}: parameters {errs} (tol {SPLAT_REFINE_TOL})")
+        touched = ((after & ~before) | (before & ~after)).cpu()
+        for name, g in trainer.optimizers.groups.items():
+            for got, ref in zip(g.mu + g.nu, cpu_opt.groups[name].mu + cpu_opt.groups[name].nu):
+                got = got.cpu()
+                if not torch.equal(got, ref) or bool(got[touched].any()):
+                    raise AssertionError(f"splatfacto refinement at step {step}: group {name}'s moments differ from "
+                                         f"the CPU's or are not zero in the touched rows")
+        reset = step % (model.config.reset_alpha_every * model.config.refine_every) == 0
+        checks.append({"step": step, "alive_before": int(before.sum()), "alive_after": int(after.sum()),
+                       "culled": int((before & ~after).sum()), "touched": int(touched.sum()), "reset": reset,
+                       "max_err": max(errs.values()), "card_s": card_s})
+        del cpu_model, cpu_opt
+
+    trainer._maybe_refine = checked
+
+
+def splat_scan_check(smi: str) -> dict:
+    """Tiles against scan and the scan's two-pass backward against autograd
+    of the plain scan, on the card, on SPLAT_SCAN_N seeded gaussians over a
+    SPLAT_SCAN_HW frame (no tile at capacity, so the two rasterizers
+    composite the same lists); with the scan's forward + backward times."""
+    from nerfstudio_thermal_torch.models import splatfacto as sf
+    from nerfstudio_thermal_torch.ops import splat_compose, splat_tiles
+
+    h, w = SPLAT_SCAN_HW
+    n = SPLAT_SCAN_N
+    r = np.random.default_rng(19)
+    sig = r.uniform(0.8, 3.0, n)
+    arrays = (r.uniform([-4, -4], [w + 4, h + 4], (n, 2)), r.uniform(0.5, 5.0, n),
+              np.stack([1 / sig**2, r.uniform(-0.2, 0.2, n) / sig**2, 1 / sig**2], -1), np.ceil(3 * sig),
+              r.uniform(0.05, 1.0, n), r.uniform(0, 1, (n, 3)))
+    xys, depths, conics, radii, opac, colors = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in arrays)
+    alive = torch.tensor(r.uniform(0, 1, n) > 0.1, device="cuda")
+    bg = torch.tensor([0.2, 0.4, 0.6], device="cuda")
+    _, slot_mask, _ = splat_tiles.bin_gaussians(xys, depths, radii, alive & (radii > 0), h, w, 16, 16, 512, 4)
+    if bool(slot_mask.all(dim=1).any()):
+        raise AssertionError("splat scan check: a tile reached capacity; the scene does not hold the comparison")
+    with torch.no_grad():
+        scan = sf.rasterize(xys, depths, conics, radii, opac, colors, alive, h, w, bg, chunk=256)
+        tiles = splat_tiles.rasterize_tiles(xys, depths, conics, radii, opac, colors, alive, h, w, bg)
+    tile_err = max(float((a - b).abs().max()) for a, b in zip(tiles[:2], scan[:2]))
+    if tile_err > SPLAT_TILE_TOL:
+        raise AssertionError(f"splat tiles against scan: max |err| {tile_err:.3e} (tol {SPLAT_TILE_TOL})")
+    # the scan's chunks, depth-sorted, and seeded cotangents
+    order = torch.sort(torch.where(alive & (radii > 0), depths, torch.full_like(depths, float("inf"))),
+                       stable=True).indices
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda") + 0.5, torch.arange(w, device="cuda") + 0.5,
+                            indexing="ij")
+    pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).float()
+    chunks = [t[order].reshape(n // 256, 256, *t.shape[1:]).clone()
+              for t in (xys, conics, radii, opac * alive, colors, depths)]
+    leaves = [c.requires_grad_(i != 2) for i, c in enumerate(chunks)]
+    cot = [torch.tensor(r.normal(size=s), dtype=torch.float32, device="cuda") for s in ((h * w, 3), (h * w, 1), (h * w,))]
+    diff = [leaves[i] for i in (0, 1, 3, 4, 5)]
+    got = torch.autograd.grad(splat_compose.composite_chunks(pix, *leaves), diff, cot)
+    want = torch.autograd.grad(splat_compose.composite_chunks_plain(pix, *leaves), diff, cot)
+    errs = {name: rel_l2(a, b) for name, a, b in zip(("xys", "conics", "opacities", "colours", "depths"), got, want)}
+    if max(errs.values()) > SPLAT_VJP_TOL:
+        raise AssertionError(f"splat composite backward against the plain scan: {errs} (tol {SPLAT_VJP_TOL})")
+    times = {
+        "two-pass": cuda_ms(lambda: torch.autograd.grad(splat_compose.composite_chunks(pix, *leaves), diff, cot), 3),
+        "plain": cuda_ms(lambda: torch.autograd.grad(splat_compose.composite_chunks_plain(pix, *leaves), diff, cot), 3),
+    }
+    log(f"splat tiles vs scan on the card ({w}x{h}, {n} gaussians, no tile at capacity): rgb and alpha max |err| "
+        f"{tile_err:.3e} (tol {SPLAT_TILE_TOL}); scan two-pass backward vs autograd of the plain scan: rel L2 "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {SPLAT_VJP_TOL}); scan forward + backward "
+        f"{times['two-pass']:.2f} ms, plain {times['plain']:.2f} ms ({smi})")
+    return {"tile_err": tile_err, "vjp_errs": errs, **times}
+
+
+def splat_phase(scene: Path, tmp: Path, smi: str) -> dict:
+    """Phase 19a: splatfacto at the method's defaults on phase 15's RGB
+    sphere scene (640x480 frames): 30 steps through ns-train, a step split,
+    the splat ops timed on the trained model, a refinement run checked
+    against the CPU, tiles vs scan and the scan's backward on the card, a
+    frame card vs CPU, 640x512 and 1080p frames, ns-eval, ns-render of a
+    camera path and ns-export gaussian-splat."""
+    from nerfstudio_thermal_torch.configs.serialization import load_config
+    from nerfstudio_thermal_torch.data.datasets import decode_png
+    from nerfstudio_thermal_torch.scripts import exporter as ns_export
+    from nerfstudio_thermal_torch.scripts import render as ns_render_script
+    from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
+
+    t_phase = time.perf_counter()
+    result = {}
+    run = classic_train("splatfacto", scene, tmp / "train", [], {}, steps=SPLAT_STEPS, timed_from=SPLAT_TIMED_FROM)
+    trainer = run["trainer"]
+    model = trainer.model
+    cfg = model.config
+    recs = run["records"]
+    alive = int(trainer.state.extra.alive.sum())
+    log(f"splatfacto train: {SPLAT_STEPS} steps through ns-train ({cfg.max_num_gaussians} slots, {alive} live, SH "
+        f"degree {cfg.sh_degree}, tiles 16x16 capacity {cfg.tile_capacity} window {cfg.tile_window}, random "
+        f"background), every loss finite, every group changed, no kernel launch; steps {SPLAT_TIMED_FROM}-"
+        f"{SPLAT_STEPS - 1}: {run['step_s'] * 1e3:.2f} ms/step, peak memory {run['peak'] / 2**30:.2f} GiB; loss "
+        f"{recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}, psnr {recs[0]['psnr']:.3f} -> {recs[-1]['psnr']:.3f} "
+        f"({smi})")
+    split = splat_step_split(trainer, SPLAT_STEPS)
+    log("splatfacto step split (device timeline, CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in split.items() if k not in ("wall", "busy", "host"))
+        + f"; wall {split['wall']:.2f} ms, device busy {split['busy']:.2f} ms (torch.profiler), host "
+        f"{split['host']:.2f} ms ({smi})")
+    c2w = ring_pose(1, 8)
+    ops = {label: splat_ops_phase(model, label, w, h, f, c2w, smi) for label, (w, h, f) in SPLAT_OPS.items()}
+    frames = {}
+    for label, (w, h, f) in SPLAT_RENDERS.items():
+        cam = make_camera(w, h, f, c2w)
+        model.render_camera_device(cam, 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = model.render_camera_device(cam, 0)
+        torch.cuda.synchronize()
+        frames[label] = time.perf_counter() - t0
+        if any(read_counts().values()):
+            raise AssertionError(f"splatfacto render {label}: kernel launches {read_counts()}")
+        check_image_outputs(out, h, w, {"rgb": 3, "accumulation": 1, "depth": 1, "expected_depth": 1})
+        log(f"splatfacto render {label}: rgb, accumulation and depth finite; {frames[label]:.4f} s/frame ({smi})")
+    # one frame of the trained model, card against CPU
+    h, w = SPLAT_CHECK_HW
+    cam = make_camera(w, h, 0.8 * w, c2w)
+    card = model.render_camera_device(cam, 0)["rgb"].cpu()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu = cpu_model.render_camera_device(cam, 0)["rgb"]
+    frame_err = float((card - cpu).abs().max())
+    if frame_err > SPLAT_FRAME_TOL:
+        raise AssertionError(f"splatfacto frame card vs CPU: max |err| {frame_err:.3e} (tol {SPLAT_FRAME_TOL})")
+    log(f"splatfacto frame {w}x{h} of the trained model, card vs CPU: rgb max |err| {frame_err:.3e} (tol "
+        f"{SPLAT_FRAME_TOL})")
+    del cpu_model, card, cpu
+    result.update(scan=splat_scan_check(smi), ops=ops, frames=frames, split=split, frame_err=frame_err)
+
+    # ns-eval, ns-render of a camera path and ns-export gaussian-splat of the run
+    config_path = run["run"] / "config.yml"
+    eval_s, scores = classic_eval("splatfacto", config_path, tmp / "eval.json", ("psnr_rgb", "ssim_rgb"))
+    _, reloaded = eval_setup(config_path, device="cuda")
+    path = write_camera_path(tmp / "path.json", reloaded.datamanager.eval_cameras, 3, (512, 640))
+    del reloaded
+    frames_dir = tmp / "render"
+    reset_counts()
+    t0 = time.perf_counter()
+    if ns_render_script.main(["camera-path", "--load-config", str(config_path), "--camera-path-filename", str(path),
+                              "--output-path", str(frames_dir / "frames"), "--rendered-output-names", "rgb",
+                              "depth"]) != 0:
+        raise AssertionError("splatfacto ns-render failed")
+    render_s = time.perf_counter() - t0
+    pngs = sorted(frames_dir.rglob("*.png"))
+    if len(pngs) != 6 or any(decode_png(p).shape != (512, 640, 3) for p in pngs) or any(read_counts().values()):
+        raise AssertionError(f"splatfacto ns-render: {len(pngs)} frames, launches {read_counts()}")
+    t0 = time.perf_counter()
+    if ns_export.main(["gaussian-splat", "--load-config", str(config_path), "--output-dir", str(tmp / "export")]) != 0:
+        raise AssertionError("splatfacto ns-export gaussian-splat failed")
+    export_s = time.perf_counter() - t0
+    ply = (tmp / "export" / "splat.ply").read_bytes()
+    vertices = int(re.search(rb"element vertex (\d+)", ply).group(1))
+    if vertices != alive:
+        raise AssertionError(f"splatfacto gaussian-splat: {vertices} vertices, {alive} alive")
+    log(f"splatfacto ns-eval {eval_s:.2f} s (psnr_rgb {scores['psnr_rgb']:.3f}); ns-render camera-path 3 frames "
+        f"640x512 (rgb, depth) {render_s:.2f} s; ns-export gaussian-splat {export_s:.2f} s, {vertices} vertices = "
+        f"the alive count ({smi})")
+    result.update(step_s=run["step_s"], peak=run["peak"], alive=alive, eval_s=eval_s, render_s=render_s,
+                  export_s=export_s)
+    del trainer, model, run
+    torch.cuda.empty_cache()
+
+    # refinement and an opacity reset on the card, each checked against the CPU
+    checks = []
+    with capturing_trainer(lambda t: splat_refine_checked(t, checks)):
+        refine = classic_train("splatfacto", scene, tmp / "refine", SPLAT_REFINE_FLAGS, {}, steps=SPLAT_REFINE_STEPS,
+                               timed_from=1)
+    del refine["trainer"]
+    if [c["step"] for c in checks] != [5, 10, 15] or not any(c["reset"] for c in checks) or not any(
+            c["touched"] for c in checks):
+        raise AssertionError(f"splatfacto refinement run: {checks}")
+    for c in checks:
+        log(f"splatfacto refinement at step {c['step']}: alive {c['alive_before']} -> {c['alive_after']} ({c['culled']} "
+            f"culled, {c['touched']} rows touched){', opacity reset' if c['reset'] else ''}; the CPU's refinement of "
+            f"the same state: the same alive mask, parameters max |err| {c['max_err']:.2e} (tol {SPLAT_REFINE_TOL}), "
+            f"the same moments, zero in the touched rows; {c['card_s'] * 1e3:.1f} ms on the card ({smi})")
+    torch.cuda.empty_cache()
+    result["refinements"] = checks
+    log(f"phase 19a splatfacto: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
+@contextlib.contextmanager
+def recording_samples(into: list):
+    """While open, each generfacto forward's proposal sampling appends its
+    (final samples, every proposal level's samples) to `into`."""
+    from nerfstudio_thermal_torch.models import generfacto
+
+    inner = generfacto.proposal_sample
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        into.append((out[0], out[2]))
+        return out
+
+    generfacto.proposal_sample = recorded
+    try:
+        yield
+    finally:
+        generfacto.proposal_sample = inner
+
+
+@contextlib.contextmanager
+def replaying_samples(recorded: list, device):
+    """While open, each generfacto forward samples what `recording_samples`
+    recorded (on `device`): every proposal net runs on the recorded
+    samples of its level and weights them as proposal_sample does, so two
+    devices' steps see the same sample positions. The hash grid's position
+    gradient is piecewise constant, so a position ~1e-5 away (sampling on
+    another device) may cross a cell face and turn a normal."""
+    from nerfstudio_thermal_torch.cameras.rays import map_tensors
+    from nerfstudio_thermal_torch.models import generfacto
+
+    inner, queue = generfacto.proposal_sample, list(recorded)
+
+    def replayed(bundle, density_fns, **kwargs):
+        final, levels = queue.pop(0)
+        move = lambda samples: map_tensors(samples, lambda t: t.to(device))  # noqa: E731
+        samples = [move(s) for s in levels]
+        return move(final), [s.get_weights(fn(s)) for s, fn in zip(samples, density_fns)], samples
+
+    generfacto.proposal_sample = replayed
+    try:
+        yield
+    finally:
+        generfacto.proposal_sample = inner
+
+
+def generfacto_draws(num_rays: int, levels: int):
+    """Seeded draws of a generfacto step whose shaded branch runs (shade >
+    0.75, choice > 0.5)."""
+    r = np.random.default_rng(18)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return {"light": t(r.normal(size=3)), "shade": t(0.9), "background": t(r.uniform(size=3)), "choice": t(0.7),
+            "uniforms": [t(r.uniform(size=(num_rays, 1))) for _ in range(levels)]}
+
+
+def generfacto_step_vs_cpu(state: dict, tmp: Path) -> dict:
+    """One full-width generfacto step with start_normals_training and
+    start_lambertian_training at 0 (the VJP carries a nonzero cotangent)
+    on the card and on the CPU's plain path, from the trained run's
+    parameters, the same batch and draws, and the CPU's samples replayed
+    on the card (`replaying_samples`): every loss within
+    STEP_LOSS_TOL_F32, every group's gradient within STEP_GRAD_TOL_F32."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
+
+    out, samples = {}, []
+    for device in ("cpu", "cuda"):
+        method = get_method_config("generfacto")
+        method.model.start_normals_training = method.model.start_lambertian_training = 0
+        trainer = setup_trainer(method, base_dir=tmp / device, device=device)
+        trainer.model.load_state_dict(state)
+        trainer.setup()
+        batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in trainer.datamanager.next_train(9).items()}
+        levels = len(method.model.num_proposal_samples_per_ray) + 1
+        draws = generfacto_draws(method.model.render_resolution ** 2, levels)
+        draws = {k: [u.to(device) for u in v] if isinstance(v, list) else v.to(device) for k, v in draws.items()}
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        with recording_samples(samples) if device == "cpu" else replaying_samples(samples, device):
+            scalars = trainer._train_step(trainer.state, batch, draws=draws)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v - c0[k] for k, v in read_counts().items()}
+        grads = {g: [p.grad.detach().cpu() for p in ps] for g, ps in trainer.model.param_groups().items()}
+        out[device] = ({k: float(v) for k, v in scalars.items()}, grads, launches, dt)
+        del trainer
+    (cpu_s, cpu_g, _, cpu_dt), (card_s, card_g, launches, card_dt) = out["cpu"], out["cuda"]
+    if launches != expected_counts(GEN_STEP):
+        raise AssertionError(f"generfacto card step: launches {launches}, expected {GEN_STEP}")
+    losses = {k: abs(card_s[k] - w) / max(abs(w), 1e-3) for k, w in cpu_s.items()}
+    groups = {g: rel_l2(torch.cat([t.reshape(-1) for t in card_g[g]]), torch.cat([t.reshape(-1) for t in w]))
+              for g, w in cpu_g.items()}
+    if max(losses.values()) > STEP_LOSS_TOL_F32 or max(groups.values()) > STEP_GRAD_TOL_F32:
+        raise AssertionError(f"generfacto step card vs CPU: losses {losses}, groups {groups}")
+    if not cpu_s["orientation_loss"] > 0:
+        raise AssertionError(f"generfacto step: orientation_loss {cpu_s['orientation_loss']} (the normals' term off)")
+    log("generfacto step card vs CPU (normals and shading on, shaded branch, the CPU's samples): losses rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in losses.items()) + f" (tol {STEP_LOSS_TOL_F32}); groups rel L2 "
+        + ", ".join(f"{k} {v:.2e}" for k, v in groups.items()) + f" (tol {STEP_GRAD_TOL_F32}); launches {GEN_STEP}; "
+        f"CPU {cpu_dt:.1f} s, card {card_dt * 1e3:.1f} ms")
+    return {"losses": losses, "groups": groups}
+
+
+def generfacto_phase(tmp: Path, smi: str) -> dict:
+    """Phase 19b: generfacto at the JAX config's widths (64 x 64 render,
+    (256, 96) + 48 samples, the field L12 T 2^19, proposals L5 T 2^17, f32,
+    ColorMatch guidance): 30 steps through ns-train without --data (rows
+    8, 7, 10 and the VJP each step), a profiled step by kernel, step 9's
+    hash and VJP calls on the model's points, a card-vs-CPU step with the
+    normals and shading on, and ns-render of the eval ring."""
+    from nerfstudio_thermal_torch.data.datasets import decode_png
+    from nerfstudio_thermal_torch.scripts import render as ns_render_script
+
+    t_phase = time.perf_counter()
+    run = classic_train("generfacto", None, tmp, [], GEN_STEP, steps=GEN_STEPS, capture_step=GEN_CAPTURE_STEP,
+                        timed_from=GEN_TIMED_FROM)
+    trainer = run.pop("trainer")
+    hash_calls, vjp_calls = run.pop("hash"), run.pop("vjp")
+    run.pop("mlp")
+    cfg = trainer.model.config
+    levels = sorted(rec["scal"].shape[0] for rec in hash_calls)
+    if levels != sorted([cfg.num_levels] + [a["num_levels"] for a in cfg.proposal_net_args_list]) or len(
+            vjp_calls) != 1 or vjp_calls[0]["scal"].shape[0] != cfg.num_levels:
+        raise AssertionError(f"generfacto step {GEN_CAPTURE_STEP}: hash calls of {levels} levels, {len(vjp_calls)} VJP "
+                             f"calls; expected both proposals, the field and one VJP of the field's grid")
+    recs = run["records"]
+    rays = cfg.render_resolution ** 2
+    log(f"generfacto train: {GEN_STEPS} steps through ns-train without --data ({rays} rays a step, "
+        f"{tuple(cfg.num_proposal_samples_per_ray)} + {cfg.num_nerf_samples_per_ray} samples, field L{cfg.num_levels} "
+        f"T2^{cfg.log2_hashmap_size}, f32, {cfg.diffusion_model} guidance), every loss finite, every group changed, "
+        f"launches a step {GEN_STEP} ({dict((k, v) for k, v in run['counts'].items() if v)} in all); steps "
+        f"{GEN_TIMED_FROM}-{GEN_STEPS - 1}: {run['step_s'] * 1e3:.2f} ms/step, peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB; loss {recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}, sds "
+        f"{recs[0]['sds_loss']:.4f} -> {recs[-1]['sds_loss']:.4f} ({smi})")
+    # a profiled step: each kernel's device ms, and the launches of the step
+    c0 = read_counts()
+    split = kernel_split(lambda: trainer.train_iteration(GEN_STEPS), iters=1)
+    launches = {k: (v - c0[k]) // 2 for k, v in read_counts().items()}
+    if launches != expected_counts(GEN_STEP):
+        raise AssertionError(f"generfacto profiled step: launches {launches}, expected {GEN_STEP}")
+    kernels = {k: sum(ms for name, ms in split.items() if name == kname or name.startswith(kname + "<"))
+               for k, kname in GEN_KERNELS.items()}
+    if not all(kernels.values()):
+        raise AssertionError(f"generfacto profiled step: kernels {kernels} (each must have run)")
+    busy = sum(split.values())
+    log(f"generfacto profiled step: device busy {busy:.2f} ms, the hash kernels "
+        + ", ".join(f"{k} {v:.3f} ms ({GEN_STEP[k]} launch{'es' if GEN_STEP[k] > 1 else ''})"
+                    for k, v in kernels.items()) + f", other kernels {busy - sum(kernels.values()):.2f} ms ({smi})")
+    state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    result = {"counts": run["counts"], "step_s": run["step_s"], "peak": run["peak"], "busy": busy,
+              "kernels": kernels,
+              "hash": hash_model_phase({f"generfacto train step {GEN_CAPTURE_STEP}": hash_calls}),
+              "vjp": vjp_model_phase(f"generfacto train step {GEN_CAPTURE_STEP}", vjp_calls)}
+    del hash_calls, vjp_calls
+    result["step_vs_cpu"] = generfacto_step_vs_cpu(state, tmp / "step")
+    # ns-render of the eval ring
+    frames = tmp / "ring"
+    reset_counts()
+    t0 = time.perf_counter()
+    if ns_render_script.main(["dataset", "--load-config", str(run["run"] / "config.yml"), "--output-path", str(frames),
+                              "--rendered-output-names", "rgb", "depth", "normals"]) != 0:
+        raise AssertionError("generfacto ns-render failed")
+    render_s = time.perf_counter() - t0
+    pngs = sorted(frames.rglob("*.png"))
+    res = cfg.render_resolution
+    want = expected_counts(GEN_FRAME, 8)
+    if len(pngs) != 24 or any(decode_png(p).shape != (res, res, 3) for p in pngs) or read_counts() != want:
+        raise AssertionError(f"generfacto ns-render: {len(pngs)} frames, launches {read_counts()}, expected {want}")
+    result.update(render_counts=read_counts(), render_s=render_s)
+    log(f"generfacto ns-render dataset: the 8 eval-ring cameras at {res}x{res} (rgb, depth, normals), launches "
+        f"{GEN_FRAME} a frame, {render_s:.2f} s through the command ({smi})")
+    log(f"phase 19b generfacto: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -4806,6 +5389,9 @@ def main() -> int:
         surface17 = surface_methods_phase(Path(tmp) / "surface17", ngp_scene, smi)
         # phase 18: ns-export and ns-texture on phase 17's and phase 11's runs
         export = export_phase(entries, surface17["neus-facto"]["run"], Path(tmp) / "export", smi)
+        # phase 19: splatfacto (on phase 15's RGB scene) and generfacto (no data)
+        splat = splat_phase(ngp_scene, Path(tmp) / "splatfacto", smi)
+        gen = generfacto_phase(Path(tmp) / "generfacto", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -5001,6 +5587,18 @@ def main() -> int:
     for rec in kernels:
         if export["launches"].get(rec["name"]):
             rec["export_launches"] = export["launches"][rec["name"]]
+    # phase 19: rows 7-10 and the VJP on generfacto's path: launches in its
+    # ns-train run (counts zeroed just before) and ns-render of the eval
+    # ring, and step 9's calls on its own points
+    for rec in kernels:
+        if rec["name"].startswith("hash_encode"):
+            rec["generfacto_launches"] = {"train": gen["counts"][rec["name"]], "per_step": GEN_STEP[rec["name"]],
+                                          "ns_render_ring": gen["render_counts"][rec["name"]]}
+            for scope, sums in gen["hash"].items():
+                if rec["name"] in sums:
+                    rec["model_" + scope.replace(" ", "_")] = sums[rec["name"]]
+            if rec["name"] == "hash_encode_bwd_pos_vjp":
+                rec[f"model_generfacto_train_step_{GEN_CAPTURE_STEP}"] = gen["vjp"]
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -5049,6 +5647,13 @@ def main() -> int:
         counts = ", ".join(f"{k} {r[k]}" for k in ("verts", "faces", "points") if k in r)
         log(f"export {label}: {r['s']:.2f} s (setup {r['setup_s']:.2f}, card {r['card_s']:.2f}, host "
             f"{r['host_s']:.2f}){'; ' + counts if counts else ''} ({smi})")
+    label, ops = next(iter(splat["ops"].items()))
+    log(f"splatfacto: train {splat['step_s'] * 1e3:.2f} ms/step, peak memory {splat['peak'] / 2**30:.2f} GiB; "
+        + ", ".join(f"{k} frame {v:.4f} s" for k, v in splat["frames"].items())
+        + f"; {label}: binning {ops['binning']['ms']:.3f} ms, compositing forward {ops['forward']['ms']:.3f} ms, "
+        f"forward + backward {ops['forward+backward']['ms']:.3f} ms ({smi})")
+    log(f"generfacto: train {gen['step_s'] * 1e3:.2f} ms/step, peak memory {gen['peak'] / 2**30:.2f} GiB, device "
+        f"busy {gen['busy']:.2f} ms a step; ns-render of the eval ring {gen['render_s']:.2f} s ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

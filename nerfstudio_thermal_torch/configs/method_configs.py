@@ -9,13 +9,15 @@ each, with the dynamic-batch pipeline, and `vanilla-nerf`, `mipnerf` and
 `tensorf` (the blender dataparser, one group), the surface methods `neus`
 (`fields` and `field_background`, cosine schedules) and `neus-facto`
 (`fields` with a cosine schedule, `proposal_networks` with a multi-step
-one), and `semantic-nerfw` (nerfacto's groups, 4096 rays); under the JAX
-package's names and with its fields; `descriptions` for ns-train's method
-list; `resolve_model_class`; and `setup_trainer`, which wires dataparser
+one), `semantic-nerfw` (nerfacto's groups, 4096 rays), `splatfacto`
+(whole images, six Adam groups over the gaussian attributes) and
+`generfacto` (random cameras, no data); under the JAX package's names and
+with its fields; `descriptions` for ns-train's method list;
+`resolve_model_class`; and `setup_trainer`, which wires dataparser
 (through `build_dataparser`) -> data manager -> model -> pipeline ->
-trainer as the JAX package's does. The JAX package's other methods
-(splatfacto, generfacto) and its plugin registry are not registered here
-(ROADMAP A8 and A9).
+trainer as the JAX package's does (generfacto: no dataparser;
+splatfacto: seed points from a parser's `points3D_xyz`, which none
+writes). The JAX package's plugin registry is not ported (ROADMAP A9).
 """
 
 import copy
@@ -28,7 +30,14 @@ import torch
 
 from nerfstudio_thermal_torch.cameras.camera_optimizers import CameraOptimizerConfig
 from nerfstudio_thermal_torch.configs.dataparser_configs import build_dataparser
-from nerfstudio_thermal_torch.data.datamanagers import VanillaDataManager, VanillaDataManagerConfig
+from nerfstudio_thermal_torch.data.datamanagers import (
+    FullImageDatamanager,
+    FullImageDatamanagerConfig,
+    RandomCamerasDataManager,
+    RandomCamerasDataManagerConfig,
+    VanillaDataManager,
+    VanillaDataManagerConfig,
+)
 from nerfstudio_thermal_torch.data.dataparsers.blender_dataparser import BlenderDataParserConfig
 from nerfstudio_thermal_torch.data.dataparsers.instant_ngp_dataparser import InstantNGPDataParserConfig
 from nerfstudio_thermal_torch.data.dataparsers.nerfstudio_dataparser import (
@@ -43,12 +52,14 @@ from nerfstudio_thermal_torch.engine.schedulers import (
 )
 from nerfstudio_thermal_torch.engine.trainer import Trainer, TrainerConfig
 from nerfstudio_thermal_torch.models.depth_nerfacto import DepthNerfactoModel, DepthNerfactoModelConfig
+from nerfstudio_thermal_torch.models.generfacto import GenerfactoModel, GenerfactoModelConfig
 from nerfstudio_thermal_torch.models.instant_ngp import InstantNGPModel, InstantNGPModelConfig
 from nerfstudio_thermal_torch.models.mipnerf import MipNerfModel, MipNerfModelConfig
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 from nerfstudio_thermal_torch.models.neus import NeuSModel, NeuSModelConfig
 from nerfstudio_thermal_torch.models.neus_facto import NeuSFactoModel, NeuSFactoModelConfig
 from nerfstudio_thermal_torch.models.semantic_nerfw import SemanticNerfWModel, SemanticNerfWModelConfig
+from nerfstudio_thermal_torch.models.splatfacto import SplatfactoModel, SplatfactoModelConfig
 from nerfstudio_thermal_torch.models.tensorf import TensoRFModel, TensoRFModelConfig
 from nerfstudio_thermal_torch.models.thermal_nerfacto import (
     ThermalNerfactoModel,
@@ -374,6 +385,62 @@ def make_semantic_nerfw() -> MethodConfig:
     return cfg
 
 
+def make_splatfacto() -> MethodConfig:
+    """Whole-image batches; one Adam group (eps 1e-15) per gaussian
+    attribute, the means' learning rate decaying 1.6e-4 -> 1.6e-6 over
+    30,000 steps."""
+
+    def _adam(lr, lr_final=None, max_steps=30000):
+        return OptimizerGroupConfig(
+            optimizer=AdamOptimizerConfig(lr=lr, eps=1e-15),
+            scheduler=(
+                ExponentialDecaySchedulerConfig(lr_final=lr_final, max_steps=max_steps)
+                if lr_final is not None else None
+            ),
+        )
+
+    return MethodConfig(
+        method_name="splatfacto",
+        description="Gaussian Splatting model (TPU scan rasterizer).",
+        trainer=TrainerConfig(
+            max_num_iterations=30000, steps_per_eval_image=100, steps_per_eval_batch=0, steps_per_save=2000,
+            steps_per_eval_all_images=1000, mixed_precision=False, method_name="splatfacto",
+        ),
+        dataparser=NerfstudioDataParserConfig(),
+        datamanager=FullImageDatamanagerConfig(),
+        model=SplatfactoModelConfig(),
+        optimizers={
+            "xyz": _adam(1.6e-4, lr_final=1.6e-6, max_steps=30000),
+            "features_dc": _adam(0.0025),
+            "features_rest": _adam(0.0025 / 20),
+            "opacities": _adam(0.05),
+            "scales": _adam(0.005),
+            "quats": _adam(0.001),
+        },
+    )
+
+
+def make_generfacto() -> MethodConfig:
+    """Random cameras and the guidance's loss; no data (the dataparser
+    config is unused)."""
+    return MethodConfig(
+        method_name="generfacto",
+        description="Generative Text to NeRF model (SDS guidance).",
+        trainer=TrainerConfig(
+            max_num_iterations=30000, steps_per_eval_batch=0, steps_per_eval_image=0, steps_per_eval_all_images=0,
+            steps_per_save=2000, mixed_precision=False, method_name="generfacto",
+        ),
+        dataparser=NerfstudioDataParserConfig(),
+        datamanager=RandomCamerasDataManagerConfig(),
+        model=GenerfactoModelConfig(),
+        optimizers={
+            "fields": OptimizerGroupConfig(optimizer=AdamOptimizerConfig(lr=5e-3, eps=1e-15)),
+            "field_background": OptimizerGroupConfig(optimizer=AdamOptimizerConfig(lr=5e-3, eps=1e-15)),
+            "proposal_networks": OptimizerGroupConfig(optimizer=AdamOptimizerConfig(lr=1e-2, eps=1e-15)),
+        },
+    )
+
+
 _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "nerfacto": make_nerfacto,
     "thermal-nerfacto": make_thermal_nerfacto,
@@ -390,6 +457,8 @@ _METHODS: Dict[str, Callable[[], MethodConfig]] = {
     "neus": make_neus,
     "neus-facto": make_neus_facto,
     "semantic-nerfw": make_semantic_nerfw,
+    "splatfacto": make_splatfacto,
+    "generfacto": make_generfacto,
 }
 
 
@@ -398,16 +467,16 @@ descriptions: Dict[str, str] = {name: make().description for name, make in _METH
 
 def get_method_config(name: str) -> MethodConfig:
     if name not in _METHODS:
-        raise KeyError(
-            f"unknown method '{name}'; available: {sorted(_METHODS)} (the JAX package's splatfacto and "
-            "generfacto are ROADMAP A8, plugin methods A9)"
-        )
+        raise KeyError(f"unknown method '{name}'; available: {sorted(_METHODS)} (plugin methods are ROADMAP A9)")
     return _METHODS[name]()
 
 
 def resolve_model_class(model_config) -> type:
-    """Model config -> model class, the most derived config first."""
+    """Model config -> model class, the most derived config first. As in
+    the JAX package, generfacto's config resolves to NerfactoModel here:
+    `setup_trainer` builds its model itself."""
     for config_cls, model_cls in (
+        (SplatfactoModelConfig, SplatfactoModel),
         (NeuSFactoModelConfig, NeuSFactoModel),
         (NeuSModelConfig, NeuSModel),
         (SemanticNerfWModelConfig, SemanticNerfWModel),
@@ -430,21 +499,35 @@ def setup_trainer(
 ) -> Trainer:
     """Dataparser -> data manager -> model -> pipeline -> trainer. The model
     is built on `device` (CUDA unless the caller asks for the CPU) from the
-    trainer's seed, of the class `resolve_model_class` gives."""
+    trainer's seed, of the class `resolve_model_class` gives. A generative
+    config (generfacto) trains from random cameras: no dataparser, no
+    images. Splatfacto starts from a parser's `points3D_xyz` /
+    `points3D_rgb` where they exist (no parser writes them)."""
+    seed = config.trainer.seed
+    if isinstance(config.model, GenerfactoModelConfig):
+        datamanager = RandomCamerasDataManager(config.datamanager)
+        model = GenerfactoModel(
+            config.model, scene_aabb=datamanager.train_dataparser_outputs.scene_box, num_train_data=1,
+            metadata={}, device=device, seed=seed,
+        )
+        return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir)
     if config.data is not None:
         config.dataparser.data = Path(config.data)
-    datamanager = VanillaDataManager(config.datamanager, build_dataparser(config.dataparser))
+    dm_cls = FullImageDatamanager if isinstance(config.datamanager, FullImageDatamanagerConfig) else VanillaDataManager
+    datamanager = dm_cls(config.datamanager, build_dataparser(config.dataparser))
     metadata = dict(datamanager.train_dataparser_outputs.metadata)
     if "is_thermal" not in metadata:
         metadata["is_thermal"] = list(datamanager.train_dataset.is_thermal)
-    model = resolve_model_class(config.model)(
-        config.model,
-        scene_aabb=datamanager.train_dataparser_outputs.scene_box,
-        num_train_data=len(datamanager.train_dataset),
-        metadata=metadata,
-        device=device,
-        seed=config.trainer.seed,
+    common = dict(
+        scene_aabb=datamanager.train_dataparser_outputs.scene_box, num_train_data=len(datamanager.train_dataset),
+        metadata=metadata, device=device, seed=seed,
     )
+    if isinstance(config.model, SplatfactoModelConfig):
+        md = datamanager.train_dataparser_outputs.metadata
+        seed_points = (md["points3D_xyz"], md.get("points3D_rgb")) if md.get("points3D_xyz") is not None else None
+        model = SplatfactoModel(config.model, seed_points=seed_points, **common)
+        return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir)
+    model = resolve_model_class(config.model)(config.model, **common)
     if config.dynamic_batch is not None:
         pipeline = DynamicBatchPipeline(datamanager, model, config.dynamic_batch)
     else:

@@ -6,14 +6,17 @@ training step, eval ray batches, and whole eval images in turn. Ray
 generation happens in the train step, on the device. As
 in the JAX package, `use_native_sampler` (on by default) samples through
 the C++ batch sampler (data/native_sampler.py) when the dataset qualifies
-and the library builds, and through the Python PixelSampler otherwise. The
-prefetching manager of the JAX package is later work.
+and the library builds, and through the Python PixelSampler otherwise.
+`FullImageDatamanager` gives splatfacto one whole image a step and
+`RandomCamerasDataManager` gives generfacto one random camera pose a
+step. The prefetching manager of the JAX package is later work.
 """
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from nerfstudio_thermal_torch.data.dataparsers.base_dataparser import DataParser
 from nerfstudio_thermal_torch.data.datasets import InputDataset
@@ -103,3 +106,153 @@ class VanillaDataManager:
         idx = self._eval_image_index
         self._eval_image_index = (self._eval_image_index + 1) % len(self.eval_dataset)
         return idx, {"image": self.eval_dataset.get_image(idx), "is_thermal": self.eval_dataset.get_is_thermal(idx)}
+
+
+@dataclass
+class FullImageDatamanagerConfig(VanillaDataManagerConfig):
+    cache_images_type: str = "uint8"  # uint8 | float32
+
+
+class FullImageDatamanager(VanillaDataManager):
+    """Whole-image batches for rasterization methods (splatfacto): one full
+    training image and its camera index a step, in a random permutation
+    per epoch that is a pure function of (seed, epoch), so a resumed run
+    replays the same order. Images are cached at first use, as uint8 by
+    default (each read back as x / 255 in f32)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._image_cache: Dict[Tuple[str, int], np.ndarray] = {}
+
+    def _cached_image(self, dataset, tag: str, idx: int) -> np.ndarray:
+        key = (tag, idx)
+        if key not in self._image_cache:
+            img = dataset.get_image(idx)
+            if self.config.cache_images_type == "uint8":
+                img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            self._image_cache[key] = img
+        img = self._image_cache[key]
+        if img.dtype == np.uint8:
+            return img.astype(np.float32) / 255.0
+        return img
+
+    def next_train(self, step: int) -> Dict[str, np.ndarray]:
+        n = len(self.train_dataset)
+        epoch, pos = divmod(step, n)
+        idx = int(np.random.default_rng((self.config.seed, epoch)).permutation(n)[pos])
+        return {
+            "image": self._cached_image(self.train_dataset, "train", idx),
+            "camera_index": np.asarray(idx, np.int32),
+            "is_thermal": self.train_dataset.get_is_thermal(idx),
+        }
+
+    def next_eval(self, step: int) -> Dict[str, np.ndarray]:
+        idx = step % len(self.eval_dataset)
+        return {
+            "image": self._cached_image(self.eval_dataset, "eval", idx),
+            "camera_index": np.asarray(idx, np.int32),
+            "is_thermal": self.eval_dataset.get_is_thermal(idx),
+        }
+
+
+@dataclass
+class RandomCamerasDataManagerConfig(VanillaDataManagerConfig):
+    """Random spherical cameras for generative (text-to-3D) training."""
+
+    radius_mean: float = 2.5
+    radius_std: float = 0.1
+    focal_range: Tuple[float, float] = (0.7, 1.35)
+    vertical_rotation_range: Tuple[float, float] = (-90.0, 0.0)
+    jitter_std: float = 0.01
+    resolution: int = 64
+
+
+class _NoParserOutputs:
+    """What a generative run has in place of parser outputs: no metadata, the
+    [-1, 1]^3 box, an empty transform."""
+
+    metadata: Dict = {}
+    scene_box = np.array([[-1, -1, -1], [1, 1, 1]], np.float32)
+
+    def as_dict(self) -> Dict:
+        return {}
+
+
+class RandomCamerasDataManager:
+    """One random camera pose a step and no images. The eval "dataset" is a
+    fixed ring of 8 look-at cameras for renders; `next_eval_image` raises
+    (there is no ground truth)."""
+
+    def __init__(self, config: RandomCamerasDataManagerConfig, dataparser=None, test_split: str = "val"):
+        from nerfstudio_thermal_torch.cameras.cameras import Cameras, CameraType
+
+        self.config = config
+        self._eval_image_index = 0
+        res = config.resolution
+        n_eval = 8
+        angles = np.linspace(0, 2 * np.pi, n_eval, endpoint=False)
+        c2ws = np.stack([self._look_at(config.radius_mean * np.array([np.cos(a), np.sin(a), 0.4])) for a in angles])
+        focal = res * 1.0
+
+        def full(v, dtype=torch.float32):
+            return torch.full((n_eval,), v, dtype=dtype)
+
+        self._cams = Cameras(
+            camera_to_worlds=torch.as_tensor(c2ws.astype(np.float32)),
+            fx=full(focal), fy=full(focal), cx=full(res / 2), cy=full(res / 2),
+            width=full(res, torch.int32), height=full(res, torch.int32),
+            distortion_params=torch.zeros((n_eval, 6)),
+            camera_type=full(CameraType.PERSPECTIVE.value, torch.int32),
+        )
+        self.train_dataparser_outputs = _NoParserOutputs()
+        self.train_dataset = [None]  # len() == 1 (no images)
+        self.eval_dataset = [None] * n_eval
+
+    @staticmethod
+    def _look_at(eye, target=np.zeros(3), up=np.array([0.0, 0.0, 1.0])):
+        fwd = target - eye
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(fwd, up)
+        right = right / max(np.linalg.norm(right), 1e-9)
+        true_up = np.cross(right, fwd)
+        c2w = np.eye(4, dtype=np.float32)[:3]
+        c2w[:, 0], c2w[:, 1], c2w[:, 2], c2w[:, 3] = right, true_up, -fwd, eye
+        return c2w
+
+    @property
+    def train_cameras(self):
+        return self._cams
+
+    @property
+    def eval_cameras(self):
+        return self._cams
+
+    def next_train(self, step: int) -> Dict[str, np.ndarray]:
+        """A random spherical pose and its view angles, a pure function of
+        (seed, step) so a resumed run replays it."""
+        cfg = self.config
+        r = np.random.default_rng((cfg.seed, step))
+        vertical = r.uniform(*cfg.vertical_rotation_range)  # degrees
+        central = r.uniform(0.0, 360.0)
+        radius = r.normal(cfg.radius_mean, cfg.radius_std)
+        v = np.deg2rad(vertical)
+        h = np.deg2rad(central)
+        eye = radius * np.array([np.cos(h) * np.cos(v), np.sin(h) * np.cos(v), -np.sin(v)])
+        eye = eye + r.normal(0, cfg.jitter_std, 3)
+        c2w = self._look_at(eye)
+        focal = r.uniform(*cfg.focal_range) * cfg.resolution
+        return {
+            "c2w": c2w.astype(np.float32),
+            "focal": np.float32(focal),
+            "vertical": np.float32(-vertical),  # the reference's sign: positive = overhead
+            "central": np.float32(central),
+        }
+
+    def next_eval(self, step: int) -> Dict[str, np.ndarray]:
+        return self.next_train(step)
+
+    def next_eval_image(self, step: int):
+        raise NotImplementedError("generative training has no GT images")
+
+    def num_train_data(self) -> int:
+        return 1

@@ -17,11 +17,15 @@ scalars, the three eval cadences (an eval ray batch's losses and metrics,
 one eval image with its metrics and images, and the whole eval set's mean
 metrics, each skipped while the eval split is empty) and checkpoints
 through torch.save (`train` always saves at the end). A model's extra
-state (`init_extra_state`: instant-ngp's occupancy grid) rides in
-`TrainState.extra`, is updated at the start of each step, reaches the
-forward through `extra_forward_kwargs`, and is saved and restored with the
-checkpoint; after each step a model with `wants_host_refinement`
-(TensoRF) may refine its parameters on the host (`_maybe_refine`), then
+state (`init_extra_state`: instant-ngp's occupancy grid, splatfacto's
+alive mask and densification statistics) rides in `TrainState.extra`, is
+updated at the start of each step, reaches the forward through
+`extra_forward_kwargs`, and is saved and restored with the checkpoint. A
+rasterization model (splatfacto) trains through `make_image_train_step`
+and a generative one (generfacto) through `make_generative_train_step`;
+both skip the eval ray batch. After each step a model with
+`wants_host_refinement` (TensoRF, splatfacto) may refine its parameters
+(`_maybe_refine`), then
 the pipeline's `after_train_iteration` (the dynamic-batch pipeline) sees
 the step's scalars, and the logged rays/s
 counts the data manager's `num_rays_override` when it is set. As in the JAX
@@ -205,6 +209,67 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
     return train_step
 
 
+def make_image_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras) -> Callable:
+    """The whole-image step of a rasterization model (splatfacto):
+    (state, batch, background_uniforms=None) -> scalars, in the JAX step's
+    order: the extra state's step; the whole image of batch["camera_index"]
+    rendered at camera 0's height and width (as in the JAX package, every
+    frame: a scene whose frames differ in size fails in the loss); metrics
+    and losses; the backward of the optimized parameters; the refinement
+    statistics from the means' gradient, before the update; one update of
+    every group. A random background is the (3,) U[0, 1) draw of the
+    state's generator, or `background_uniforms` where a test passes the
+    JAX package's."""
+    height, width = int(cameras.height[0]), int(cameras.width[0])
+    random_background = _uses_random_background(model)
+
+    def train_step(state: TrainState, batch, background_uniforms=None):
+        step = state.step
+        state.extra = model.update_extra_state(state.extra, step, generator=state.generator)
+        optimizers.zero_grad()
+        if random_background and background_uniforms is None:
+            background_uniforms = torch.rand(3, generator=state.generator, device=model.device)
+        outputs = model.render_camera(
+            cameras, batch["camera_index"], alive=state.extra.alive, train=True,
+            background_uniforms=background_uniforms, width=width, height=height,
+        )
+        metrics = model.get_metrics_dict(outputs, batch, train=True)
+        loss_dict = model.get_loss_dict(outputs, batch, metrics, train=True)
+        loss = sum(loss_dict[k] for k in sorted(loss_dict))
+        loss.backward(inputs=trained_params(optimizers))
+        state.extra = model.track_refinement_stats(state.extra, model.xyz.grad, outputs["radii"].detach())
+        optimizers.step()
+        state.step = step + 1
+        scalars = {"loss": loss, **loss_dict, **metrics}
+        return {k: v.detach() for k, v in scalars.items()}
+
+    return train_step
+
+
+def make_generative_train_step(model, optimizers: Union[Optimizers, MultiSteps]) -> Callable:
+    """The text-to-3D step (generfacto): (state, batch, draws=None) ->
+    scalars. The batch is one random camera pose; the model renders its
+    whole low-resolution image, then the guidance's loss and the rest.
+    `draws` replaces the five draws of the state's generator (light,
+    shade, background, choice, sampler jitter; `generative_forward`). The
+    guidance is built here, as the JAX package builds it with its step."""
+    model.get_guidance()
+
+    def train_step(state: TrainState, batch, draws=None):
+        step = state.step
+        optimizers.zero_grad()
+        outputs = model.generative_forward(batch, step=step, train=True, draws=draws, generator=state.generator)
+        loss_dict = model.generative_loss(outputs, batch, step=step)
+        loss = sum(loss_dict[k] for k in sorted(loss_dict))
+        loss.backward(inputs=trained_params(optimizers))
+        optimizers.step()
+        state.step = step + 1
+        scalars = {"loss": loss, **loss_dict}
+        return {k: v.detach() for k, v in scalars.items()}
+
+    return train_step
+
+
 class Trainer:
     def __init__(
         self,
@@ -253,7 +318,12 @@ class Trainer:
         self.state = TrainState(generator=generator, extra=self.model.init_extra_state())
         self.cameras = self.datamanager.train_cameras.to(self.device)
         self._load_checkpoint(eval_only)
-        self._train_step = make_ray_train_step(self.model, self.optimizers, self.cameras)
+        if getattr(self.model, "is_rasterization", False):
+            self._train_step = make_image_train_step(self.model, self.optimizers, self.cameras)
+        elif getattr(self.model, "is_generative", False):
+            self._train_step = make_generative_train_step(self.model, self.optimizers)
+        else:
+            self._train_step = make_ray_train_step(self.model, self.optimizers, self.cameras)
         if self.config.profiler == "basic":
             profiler.setup_profiler(True, self.base_dir)
         elif self.config.profiler == "xla":
@@ -272,11 +342,17 @@ class Trainer:
         return scalars
 
     def _maybe_refine(self, step: int) -> None:
-        """A model's host-side refinement after the step (TensoRF's grid
-        upsampling): it swaps parameters in the model and the optimizers,
-        so the fused MLPs' packed weights of the old tensors are dropped."""
+        """A model's refinement after the step. Splatfacto's edits rows of
+        its pools, the optimizers' moments and the extra state; the model's
+        `_host_alive` snapshot follows the new mask. TensoRF's grid
+        upsampling swaps parameters in the model and the optimizers, so the
+        fused MLPs' packed weights of the old tensors are dropped."""
         model = self.model
         if not hasattr(model, "wants_host_refinement") or not model.wants_host_refinement(step):
+            return
+        if getattr(model, "is_rasterization", False):
+            self.state.extra = model.refine_host(self.optimizers, step, self.state.extra)
+            model._host_alive = self.state.extra.alive.clone()
             return
         model.refine_host(self.optimizers, step)
         for module in model.modules():
@@ -337,7 +413,10 @@ class Trainer:
     @profiler.time_function
     def eval_batch_iteration(self, step: int) -> None:
         """Losses and metrics of one eval ray batch (train=False), written
-        as eval_* under the group "eval"."""
+        as eval_* under the group "eval". Whole-image models (splatfacto,
+        generfacto) skip it: they evaluate whole images only."""
+        if getattr(self.model, "is_rasterization", False) or getattr(self.model, "is_generative", False):
+            return
         try:
             if self._eval_ray_generator is None:
                 self._eval_ray_generator = RayGenerator(self.datamanager.eval_cameras.to(self.device))

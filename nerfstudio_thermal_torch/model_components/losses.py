@@ -89,6 +89,14 @@ def distortion_loss(weights_list: List[torch.Tensor], ray_samples_list: List[Ray
     return torch.mean(lossfun_distortion(c, w))
 
 
+def orientation_loss(weights: torch.Tensor, normals: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """Ref-NeRF's orientation loss per ray: the weighted squared part of
+    each sample's normal that faces away from the camera. weights
+    [..., S, 1], normals [..., S, 3], viewdirs [..., 3] -> [...]."""
+    n_dot_v = torch.sum(normals * -viewdirs[..., None, :], dim=-1)
+    return torch.sum(weights[..., 0] * torch.minimum(n_dot_v.new_zeros(()), n_dot_v) ** 2, dim=-1)
+
+
 class _ScaleGradient(torch.autograd.Function):
     """Identity forward; the backward multiplies the cotangent by `scaling`
     (JAX's `_scale_gradient` custom_vjp)."""

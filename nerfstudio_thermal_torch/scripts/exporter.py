@@ -18,10 +18,12 @@ package's ns-export writes:
   yields no faces falls back to the grid's median level;
 - `texture`: that mesh baked into mesh.obj, mesh.mtl and texture.png;
 - `cameras`: cameras.json, the train cameras' poses and intrinsics.
-`gaussian-splat` needs a splatfacto model, which the port does not have
-yet (ROADMAP A8): it prints the JAX package's error and returns 2. The
-grids are evaluated and the images rendered on the card; marching cubes
-and the file writes run on the host.
+- `gaussian-splat`: splat.ply, a splatfacto model's alive gaussians in
+  the 3DGS convention (Inria's channel-major `f_rest`), the rows with a
+  non-finite value left out; the bytes the JAX package writes. Any other
+  model prints the JAX package's error and returns 2.
+The grids are evaluated and the images rendered on the card; marching
+cubes and the file writes run on the host.
 """
 
 import json
@@ -109,6 +111,47 @@ def camera_frames(cameras) -> list:
     ]
 
 
+def write_splat_ply(model, out: Path):
+    """The 3DGS PLY of a splatfacto model: x y z nx ny nz f_dc_* f_rest_*
+    opacity scale_* rot_* of the gaussians its `_host_alive` snapshot holds
+    (every slot without one), rows with a non-finite value dropped.
+    Returns (path, vertex count)."""
+    p = {k: getattr(model, k).detach().float().cpu().numpy() for k in
+         ("xyz", "features_dc", "features_rest", "opacities", "scales", "quats")}
+    alive = model._host_alive.cpu().numpy() if model._host_alive is not None else np.ones(len(p["xyz"]), bool)
+    pos = p["xyz"][alive]
+    dc = p["features_dc"][alive]
+    n = len(pos)
+    # Inria's ordering: f_rest channel-major
+    rest = p["features_rest"][alive].transpose(0, 2, 1).reshape(n, -1)
+    cols = {"x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2]}
+    for a in "xyz":
+        cols[f"n{a}"] = np.zeros(n, np.float32)
+    for i in range(3):
+        cols[f"f_dc_{i}"] = dc[:, i]
+    for i in range(rest.shape[1]):
+        cols[f"f_rest_{i}"] = rest[:, i]
+    cols["opacity"] = p["opacities"][alive]
+    for i in range(3):
+        cols[f"scale_{i}"] = p["scales"][alive][:, i]
+    for i in range(4):
+        cols[f"rot_{i}"] = p["quats"][alive][:, i]
+    finite = np.ones(n, bool)
+    for v in cols.values():
+        finite &= np.isfinite(v)
+    count = int(finite.sum())
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {count}"]
+    header += [f"property float {k}" for k in cols]
+    header.append("end_header")
+    data = np.empty(count, dtype=[(k, "<f4") for k in cols])
+    for k, v in cols.items():
+        data[k] = v[finite].astype(np.float32)
+    with open(out, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        f.write(data.tobytes())
+    return out, count
+
+
 def field_callable(model):
     """(fn, default level, sign) for meshing: the SDF where the model has
     `sdf_fn`, else minus the density (inside < level). fn maps host points
@@ -174,17 +217,24 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
     if mode not in MODES:
         print(f"error: unknown export mode '{mode}'", file=sys.stderr)
         return 2
-    if mode == "gaussian-splat":
-        # no port model is a splatfacto model yet (ROADMAP A8)
-        print("error: 'gaussian-splat' export requires a splatfacto model", file=sys.stderr)
-        return 2
 
     from nerfstudio_thermal_torch.utils.eval_utils import eval_setup
 
     _, trainer = eval_setup(opts["load_config"], device=device)
     dm, model = trainer.datamanager, trainer.pipeline.model
+    if mode == "gaussian-splat":
+        from nerfstudio_thermal_torch.models.splatfacto import SplatfactoModel
+
+        if not isinstance(model, SplatfactoModel):
+            print("error: 'gaussian-splat' export requires a splatfacto model", file=sys.stderr)
+            return 2
     out_dir = Path(opts["output_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
+
+    if mode == "gaussian-splat":
+        out, n = write_splat_ply(model, out_dir / "splat.ply")
+        print(f"wrote {out} ({n} gaussians)")
+        return 0
 
     if mode == "cameras":
         (out_dir / "cameras.json").write_text(json.dumps(camera_frames(dm.train_cameras), indent=2))

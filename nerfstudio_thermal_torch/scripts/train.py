@@ -6,7 +6,8 @@
         [--pipeline.model.fused-raymarch True] [--<config.path> VALUE ...]
 
 Trains on the card. The run goes to OUTPUT_DIR/EXPERIMENT/METHOD/TIMESTAMP/
-(the experiment defaults to the scene's directory name): config.yml,
+(the experiment defaults to the scene's directory name, or to the method
+for generfacto, which trains without --data): config.yml,
 written before training, for ns-eval to reload; dataparser_transforms.json;
 events.jsonl with the train, eval and eval_all scalars; images/; and
 nerfstudio_models/ with the checkpoint. Every nested config field is a flag
@@ -92,17 +93,19 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
     if positionals:
         print(f"error: unexpected arguments {positionals}", file=sys.stderr)
         return 2
-    if config.data is None:
+    from nerfstudio_thermal_torch.models.generfacto import GenerfactoModelConfig
+
+    if config.data is None and not isinstance(config.model, GenerfactoModelConfig):
         print("error: --data is required", file=sys.stderr)
         return 2
-    if "," in str(config.data):
+    if config.data is not None and "," in str(config.data):
         raise NotImplementedError("multi-scene training (comma-separated --data) is not ported yet (ROADMAP A7)")
     if config.trainer.vis != "none":
         raise NotImplementedError(f"--vis {config.trainer.vis}: the viewer is not ported yet (ROADMAP A9)")
 
     timestamp = time.strftime("%Y-%m-%d_%H%M%S")
     if config.trainer.experiment_name == "experiment":
-        config.trainer.experiment_name = Path(config.data).name
+        config.trainer.experiment_name = Path(config.data).name if config.data is not None else method
     base_dir = Path(config.trainer.output_dir) / config.trainer.experiment_name / method / timestamp
     base_dir.mkdir(parents=True, exist_ok=True)
     save_config(config, base_dir / "config.yml")

@@ -36,10 +36,16 @@ Layouts handled:
 A key the port does not expect, or one it expects and does not find,
 raises: a silent partial load would compare different models.
 
+Splatfacto's tree is flat: one array per group (`xyz`, `features_dc`,
+`features_rest`, `opacities`, `scales`, `quats`), as they are.
+
 `load_jax_extra` / `export_jax_extra` carry the trainer's extra state
-(instant-ngp's occupancy grid: its `densities`) the same way, from the
-JAX TrainState's `extra` (e.g. `jax.tree.map(np.asarray, state.extra)`
-as a dict, or the grid itself) and back.
+(instant-ngp's occupancy grid: its `densities`; splatfacto's `alive`,
+`grad_accum`, `grad_count`, `max_radii` and `step`) the same way, from
+the JAX TrainState's `extra` (e.g. `jax.tree.map(np.asarray,
+state.extra)` as a dict, or the grid itself) and back.
+`load_jax_moments` / `export_jax_moments` carry the optimizers' first or
+second Adam moments in the param tree's layout.
 """
 
 import dataclasses
@@ -56,6 +62,7 @@ from nerfstudio_thermal_torch.fields.nerfacto_field import NerfactoField
 from nerfstudio_thermal_torch.fields.sdf_field import SDFField, WNDense
 from nerfstudio_thermal_torch.fields.tensorf_field import GRID_KEYS, TensoRFField
 from nerfstudio_thermal_torch.fields.vanilla_nerf_field import NeRFField
+from nerfstudio_thermal_torch.models.splatfacto import SplatfactoModel
 from nerfstudio_thermal_torch.ops.encodings import HashEncoding
 from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
@@ -195,8 +202,20 @@ def load_module(module: nn.Module, tree: Mapping, where: str) -> None:
         raise TypeError(f"{where}: no JAX layout known for {type(module).__name__}")
 
 
+def _flat_groups(model: nn.Module):
+    """Splatfacto's flat groups ({name: [parameter]}, one array each in the
+    JAX tree), or None for a model of modules."""
+    return model.param_groups() if isinstance(model, SplatfactoModel) else None
+
+
 def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
     """Copy the JAX model's param groups into `model` in place."""
+    flat = _flat_groups(model)
+    if flat is not None:
+        _check_keys(params, list(flat), "params")
+        for name, (p,) in flat.items():
+            _copy(p, params[name], name)
+        return
     expected = []
     for group, attr in GROUPS.items():
         module = getattr(model, attr, None)
@@ -291,6 +310,9 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
 def export_jax_tree(model: nn.Module, grads: bool = False) -> Dict[str, Any]:
     """The model's param groups (or, with `grads`, their .grad, zeros where
     a parameter has none) as the JAX package's param tree of numpy arrays."""
+    flat = _flat_groups(model)
+    if flat is not None:
+        return {name: _value(p, grads) for name, (p,) in flat.items()}
     tree = {}
     for group, attr in GROUPS.items():
         module = getattr(model, attr, None)
@@ -329,3 +351,31 @@ def export_jax_extra(extra: Any) -> Dict[str, np.ndarray]:
         for f in dataclasses.fields(extra)
         if isinstance(getattr(extra, f.name), torch.Tensor)
     }
+
+
+def _groups_params(optimizers):
+    return [(p, i, opt) for opt in optimizers.groups.values() for i, p in enumerate(opt.params)]
+
+
+def export_jax_moments(model: nn.Module, optimizers, which: str) -> Dict[str, Any]:
+    """The optimizers' first ("mu") or second ("nu") moments in the JAX
+    param tree's layout (through the parameters' .grad slots)."""
+    saved = {id(p): p.grad for p in model.parameters()}
+    for p, i, opt in _groups_params(optimizers):
+        p.grad = getattr(opt, which)[i].clone()
+    tree = export_jax_tree(model, grads=True)
+    for p in model.parameters():
+        p.grad = saved[id(p)]
+    return tree
+
+
+def load_jax_moments(model: nn.Module, optimizers, which: str, tree: Dict[str, Any]) -> None:
+    """Copy a JAX moment tree ("mu" or "nu", the param tree's layout) into
+    the optimizers' moments (through the parameters, restored after)."""
+    saved = [p.detach().clone() for p in model.parameters()]
+    load_jax_params(model, tree)
+    with torch.no_grad():
+        for p, i, opt in _groups_params(optimizers):
+            getattr(opt, which)[i].copy_(p)
+        for p, v in zip(model.parameters(), saved):
+            p.copy_(v)
