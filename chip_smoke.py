@@ -331,12 +331,32 @@ Phases, each fatal on failure:
      ns-render of the 8 eval-ring cameras (3 forwards and 1 position
      gradient a frame).
 
+20. the web viewer (after phase 19), on phase 11's runs of
+   thermal-nerfacto, thermal-nerfacto-tpu and thermal-nerfacto-tpu+fused:
+   - 20a, ns-viewer (`scripts.viewer.serve`, as ns-viewer-torch runs it)
+     driven over the port's own websocket client: the outputs greeting
+     (the probed names), the whole ladder of a 16:9 camera at width 1920
+     (256, 512, 1024, 1920, `final` on the last), each frame byte-equal to
+     the JPEG (`encode_jpeg`) of `make_model_render_fn`'s direct render of
+     its camera on the card, a second and a third camera that drop the
+     second's refinements, a split view and a depth colormap (each equal to
+     its direct render), a point cloud export and a saved camera path;
+     every viewer render's launches must be the method's per-chunk
+     launches times its chunks (rows 8; 1; 3 and 5), counted from 0 over
+     the phase; per bucket: render ms (the server's), encode ms and the
+     launches, and the time from the camera message to the first frame;
+   - 20b, ns-train thermal-nerfacto --vis viewer for 20 steps: a client
+     pauses (the step holds), grants one step, renders the 512 ladder while
+     paused, resumes, and reads train_stats to the end; every loss finite;
+   - 20c, encode_jpeg of a 1920x1080 render on the host, in ms.
+
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
 CUDA; imports nothing of JAX.
 """
 
 import argparse
+import asyncio
 import collections
 import contextlib
 import copy
@@ -347,6 +367,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -5259,6 +5280,339 @@ def generfacto_phase(tmp: Path, smi: str) -> dict:
     return result
 
 
+# Phase 20: the web viewer. ns-viewer (scripts/viewer.serve, as
+# ns-viewer-torch runs it) on phase 11's run of each method, driven over the
+# port's own websocket client: the outputs greeting, the whole resolution
+# ladder of a 16:9 camera at width 1920, each frame byte-equal to the JPEG
+# of a direct render of the same camera, stale refinements dropped, a split
+# view, a depth colormap, a point cloud export and a saved camera path; each
+# frame's launches must be the method's per-chunk launches times its
+# chunks. Then ns-train --vis viewer: pause, one granted step, a 512 frame
+# while paused, resume.
+VIEWER_METHODS = ("thermal-nerfacto", "thermal-nerfacto-tpu", "thermal-nerfacto-tpu+fused")
+VIEWER_TRAIN_METHOD = "thermal-nerfacto"
+VIEWER_TRAIN_STEPS = 20
+VIEWER_TIMEOUT = 120.0  # seconds for any one websocket message
+VIEWER_EYES = ([2.6, 1.2, 0.9], [1.4, -2.4, 0.7], [-2.2, 1.6, 1.1])
+VIEWER_LADDER = (256, 512, 1024, 1920)  # viewer/server.py's RESOLUTION_BUCKETS
+
+
+def viewer_camera(c2w, width: int, **extra) -> str:
+    return json.dumps({"type": "camera", "c2w": c2w.tolist(), "width": width, "aspect": 16 / 9, **extra})
+
+
+async def viewer_recv(client, kind=None):
+    """The next message (of `kind`, skipping others when given): a dict for
+    text, bytes for binary."""
+    while True:
+        raw = await asyncio.wait_for(client.recv(), VIEWER_TIMEOUT)
+        msg = json.loads(raw) if isinstance(raw, str) else raw
+        if kind is None or (isinstance(msg, dict) and msg.get("type") == kind):
+            return msg
+
+
+async def viewer_frame(client):
+    stats = await viewer_recv(client, "stats")
+    if "error" in stats:
+        raise AssertionError(f"viewer render failed: {stats}")
+    jpeg = await asyncio.wait_for(client.recv(), VIEWER_TIMEOUT)
+    if not isinstance(jpeg, bytes):
+        raise AssertionError(f"viewer sent {jpeg!r} where a JPEG was due")
+    return stats, jpeg
+
+
+def viewer_method(name: str, run: Path, encode_ms: dict, smi: str) -> dict:
+    """ns-viewer on one run, as the module comment above describes."""
+    from nerfstudio_thermal_torch.configs.serialization import load_config
+    from nerfstudio_thermal_torch.data.jpeg import decode_jpeg_bytes
+    from nerfstudio_thermal_torch.exporter.exporter_utils import read_ply
+    from nerfstudio_thermal_torch.scripts import viewer as ns_viewer
+    from nerfstudio_thermal_torch.viewer import server as vs
+    from nerfstudio_thermal_torch.viewer import websocket as ws
+
+    chunk = load_config(run / "config.yml").model.eval_num_rays_per_chunk
+    low, top = VIEWER_LADDER[0], VIEWER_LADDER[-1]
+    per_chunk = METHODS[name]["chunk"]
+    t0 = time.perf_counter()
+    server = ns_viewer.serve(run / "config.yml", vs.free_port_pair())
+    setup_s = time.perf_counter() - t0
+    direct = server.render_fn
+    frames = []  # every render the server made: size, output, launches, ms
+
+    def counted(c2w, width, height, output, **kwargs):
+        before = read_counts()
+        t = time.perf_counter()
+        img = direct(c2w, width, height, output, **kwargs)  # ends with the host copy
+        ms = (time.perf_counter() - t) * 1e3
+        after = read_counts()
+        frames.append({"width": width, "height": height, "output": output, "ms": ms,
+                       "launches": {k: after[k] - before[k] for k in after}})
+        return img
+
+    server.render_fn = counted
+    cams = [look_at(np.asarray(e, np.float32))[:3] for e in VIEWER_EYES]
+
+    async def drive():
+        client = await ws.connect(f"ws://127.0.0.1:{server.port + 1}/")
+        out = {"hello": await viewer_recv(client)}
+        t_send = time.perf_counter()
+        await client.send(viewer_camera(cams[0], top))
+        ladder, first = [], None
+        for _ in VIEWER_LADDER:
+            ladder.append(await viewer_frame(client))
+            first = first or (time.perf_counter() - t_send) * 1e3
+        out["ladder"], out["first_frame_ms"] = ladder, first
+        # a second camera, then a third while the second climbs: the second's
+        # refinements are dropped
+        await client.send(viewer_camera(cams[1], top))
+        stale = [await viewer_frame(client)]
+        await client.send(viewer_camera(cams[2], top))
+        while not stale[-1][0]["final"]:
+            stale.append(await viewer_frame(client))
+        out["stale"] = stale
+        await client.send(viewer_camera(cams[0], low, output="rgb", output_split="depth", split_fraction=0.4))
+        out["split"] = await viewer_frame(client)
+        cmap = {"name": "turbo", "invert": True}
+        await client.send(viewer_camera(cams[0], low, output="depth", colormap=cmap))
+        out["depth"] = await viewer_frame(client)
+        await client.send(json.dumps({"type": "export", "kind": "pointcloud"}))
+        out["export"] = await viewer_recv(client, "exported")
+        await client.send(json.dumps({"type": "save_path", "keyframes": [c.tolist() for c in cams], "fps": 10,
+                                      "seconds": 2.0}))
+        out["saved"] = await viewer_recv(client, "saved")
+        await client.close()
+        return out
+
+    try:
+        got = asyncio.run(asyncio.wait_for(drive(), 10 * VIEWER_TIMEOUT))
+    finally:
+        server.stop()
+    names = got["hello"].get("names", [])
+    if got["hello"].get("type") != "outputs" or names != server.output_names or names[:1] != ["rgb"] \
+            or "rgb_thermal" not in names:
+        raise AssertionError(f"{name}: viewer greeting {got['hello']}, probed {server.output_names}")
+    sent = [(s["seq"], s["width"], s["final"]) for s, _ in got["ladder"] + got["stale"]]
+    want = ([(1, w, w == top) for w in VIEWER_LADDER] + [(2, low, False)]
+            + [(3, w, w == top) for w in VIEWER_LADDER])
+    if sent != want:
+        raise AssertionError(f"{name}: frames sent {sent}, expected {want} (stale refinements dropped)")
+    rendered = [(f["width"], f["output"]) for f in frames[:10]]
+    if rendered[4:6] != [(low, "rgb"), (VIEWER_LADDER[1], "rgb")]:
+        raise AssertionError(f"{name}: the second camera's renders {rendered[4:6]}: its 512 refinement, rendered "
+                             "while the third camera arrived, should be the one dropped")
+    # every frame byte-equal to the JPEG of a direct render of its camera
+    checks = [(cams[0], s, j, "rgb", {}) for s, j in got["ladder"]]
+    checks += [(cams[2], s, j, "rgb", {}) for s, j in got["stale"][1:]]
+    checks.append((cams[0], *got["depth"], "depth", {"colormap": {"name": "turbo", "invert": True}}))
+    images = {}
+    checks_from = read_counts()  # the direct renders below are comparisons: left out of the phase's counts
+    for c2w, stats, jpeg, output, kwargs in checks:
+        w, h = stats["width"], stats["height"]
+        img = direct(c2w, w, h, output, **kwargs)
+        if jpeg != vs.to_jpeg(img):
+            raise AssertionError(f"{name}: the viewer's {w}x{h} {output} frame differs from the JPEG of a direct "
+                                 "render of its camera")
+        if decode_jpeg_bytes(jpeg).shape != (h, w, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"{name}: the {w}x{h} frame decodes to the wrong shape or is not finite")
+        images[(w, output)] = img
+    split_stats, split_jpeg = got["split"]
+    split = vs.ViewerServer(direct, [])._render_split(cams[0], low, split_stats["height"], "rgb", None, 60.0,
+                                                       "depth", 0.4)
+    if split_jpeg != vs.to_jpeg(split):
+        raise AssertionError(f"{name}: the split frame differs from a direct split render")
+    checks_to = read_counts()
+    check_launches = {k: checks_to[k] - checks_from[k] for k in checks_to}
+    if "error" in got["export"] or "error" in got["saved"]:
+        raise AssertionError(f"{name}: export {got['export']}, save_path {got['saved']}")
+    points, colors = read_ply(Path(got["export"]["path"]))
+    if len(points) == 0 or not np.isfinite(points).all():
+        raise AssertionError(f"{name}: the viewer's point cloud holds {len(points)} points")
+    path_frames = len(json.loads(Path(got["saved"]["path"]).read_text())["camera_path"])
+    if path_frames != 20:
+        raise AssertionError(f"{name}: the saved camera path has {path_frames} frames, not 20")
+    # launches: each render is the method's per-chunk launches times its chunks
+    for f in frames:
+        n_chunks = -(-f["width"] * f["height"] // chunk)
+        want_counts = expected_counts(per_chunk, n_chunks)
+        if f["launches"] != want_counts:
+            raise AssertionError(f"{name}: a {f['width']}x{f['height']} {f['output']} viewer render launched "
+                                 f"{f['launches']}, expected {want_counts}")
+    buckets = {}
+    for (stats, _), f in zip(got["ladder"], frames[:4]):
+        w = stats["width"]
+        buckets[w] = {"height": stats["height"], "render_ms": stats["render_ms"], "fn_ms": f["ms"],
+                      "encode_ms": encode_ms[name][w][0],
+                      "launches": {k: v for k, v in f["launches"].items() if v}}
+    line = "; ".join(f"{w}x{b['height']} render {b['render_ms']:.1f} ms (render fn {b['fn_ms']:.1f}), encode "
+                     f"{b['encode_ms']:.2f} ms, launches {b['launches']}" for w, b in buckets.items())
+    log(f"viewer {name}: ns-viewer setup {setup_s:.2f} s; camera to first frame {got['first_frame_ms']:.1f} ms; "
+        f"{line}; stale refinement dropped; frames byte-equal to direct renders; split, depth colormap, "
+        f"export ({len(points)} points) and camera path ({path_frames} frames) ({smi})")
+    return {"buckets": buckets, "first_frame_ms": got["first_frame_ms"], "setup_s": setup_s,
+            "image_top": images[(top, "rgb")], "renders": len(frames), "check_launches": check_launches}
+
+
+def viewer_train(scene_dir: Path, out_dir: Path, smi: str) -> dict:
+    """ns-train --vis viewer (phase 20b): pause, one granted step, a 512
+    frame while paused, resume; every logged loss finite."""
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+    from nerfstudio_thermal_torch.viewer import server as vs
+    from nerfstudio_thermal_torch.viewer import websocket as ws
+
+    port = vs.free_port_pair()
+    argv = [VIEWER_TRAIN_METHOD, "--data", str(scene_dir), "--max-num-iterations", str(VIEWER_TRAIN_STEPS),
+            "--output-dir", str(out_dir), "--vis", "viewer", "--viewer-port", str(port),
+            "--trainer.steps-per-log", "1"]
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = ns_train.main(argv)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+            result["error"] = e
+
+    async def status(client):
+        await client.send(json.dumps({"type": "train_control", "action": "status"}))
+        return await viewer_recv(client, "train_state")
+
+    async def drive():
+        for _ in range(600):  # ns-train sets up the run before the viewer listens
+            if "error" in result:
+                raise result["error"]
+            try:
+                client = await ws.connect(f"ws://127.0.0.1:{port + 1}/")
+                break
+            except OSError:
+                await asyncio.sleep(0.5)
+        else:
+            raise AssertionError("ns-train's viewer never came up")
+        stats = []
+        await viewer_recv(client, "outputs")
+        while not stats or stats[-1]["step"] < 3:
+            stats.append(await viewer_recv(client, "train_stats"))
+        await client.send(json.dumps({"type": "train_control", "action": "pause"}))
+        if not (await viewer_recv(client, "train_state"))["paused"]:
+            raise AssertionError("pause did not take")
+        await asyncio.sleep(1.0)
+        held = (await status(client))["step"]
+        await asyncio.sleep(1.5)
+        if (await status(client))["step"] != held:
+            raise AssertionError("training went on while paused")
+        await client.send(json.dumps({"type": "train_control", "action": "step"}))
+        await viewer_recv(client, "train_state")
+        for _ in range(300):
+            if (await status(client))["step"] == held + 1:
+                break
+            await asyncio.sleep(0.1)
+        await asyncio.sleep(1.0)
+        granted = await status(client)
+        if granted["step"] != held + 1 or not granted["paused"]:
+            raise AssertionError(f"a step grant while paused ran to step {granted['step']}, not {held + 1}")
+        t = time.perf_counter()
+        await client.send(viewer_camera(look_at(np.asarray(VIEWER_EYES[0], np.float32))[:3], VIEWER_LADDER[1]))
+        paused_frames = [await viewer_frame(client)]
+        while not paused_frames[-1][0]["final"]:
+            paused_frames.append(await viewer_frame(client))
+        paused_ms = (time.perf_counter() - t) * 1e3
+        if [s["width"] for s, _ in paused_frames] != list(VIEWER_LADDER[:2]) or (await status(client))["step"] != held + 1:
+            raise AssertionError("the 512 ladder while paused failed or training moved")
+        await client.send(json.dumps({"type": "train_control", "action": "resume"}))
+        if (await viewer_recv(client, "train_state"))["paused"]:
+            raise AssertionError("resume did not take")
+        try:  # train_stats until training ends and the viewer closes
+            while True:
+                msg = await viewer_recv(client)
+                if isinstance(msg, dict) and msg.get("type") == "train_stats":
+                    stats.append(msg)
+        except ws.ConnectionClosed:
+            pass
+        return {"stats": stats, "steps": [s["step"] for s in stats], "held": held, "paused_ms": paused_ms}
+
+    reset_counts()
+    thread = threading.Thread(target=run)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        got = asyncio.run(asyncio.wait_for(drive(), 20 * VIEWER_TIMEOUT))
+    finally:
+        thread.join(20 * VIEWER_TIMEOUT)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    if "error" in result:
+        raise result["error"]
+    if result.get("rc") != 0 or thread.is_alive():
+        raise AssertionError(f"ns-train --vis viewer returned {result.get('rc')}")
+    (run,) = out_dir.glob(f"*/{VIEWER_TRAIN_METHOD}/*/events.jsonl")
+    losses = [r["train/loss"] for r in map(json.loads, run.read_text().splitlines()) if "train/loss" in r]
+    if len(losses) != VIEWER_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ns-train --vis viewer logged losses {losses}")
+    if any("loss" not in s or not math.isfinite(s["loss"]) for s in got["stats"]):
+        raise AssertionError(f"a train_stats message lacks a finite loss: {got['stats']}")
+    if got["steps"] != sorted(got["steps"]) or max(got["steps"]) <= got["held"] + 1:
+        raise AssertionError(f"train_stats steps {got['steps']}")
+    idle = [k for k in ("hash_encode_fwd", "hash_encode_bwd_table", "hash_encode_bwd_pos") if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"ns-train --vis viewer launched no {idle}")
+    log(f"viewer ns-train --vis viewer ({VIEWER_TRAIN_METHOD}): {VIEWER_TRAIN_STEPS} steps in {wall_s:.1f} s with "
+        f"a pause at step {got['held']}, one granted step, a 256 + 512 ladder while paused in "
+        f"{got['paused_ms']:.1f} ms; {len(got['stats'])} train_stats, losses finite; launches "
+        f"{ {k: v for k, v in counts.items() if v} } ({smi})")
+    return {"counts": counts, "wall_s": wall_s, "paused_ms": got["paused_ms"]}
+
+
+def viewer_phase(entries: dict, scene_dir: Path, out_dir: Path, smi: str) -> dict:
+    """Phase 20: ns-viewer on each of VIEWER_METHODS' phase-11 runs (launches
+    counted from 0 over all of them), ns-train --vis viewer, and the time of
+    encode_jpeg on a 1920x1080 render (host)."""
+    from nerfstudio_thermal_torch.data.jpeg import encode_jpeg, load_encoder
+    from nerfstudio_thermal_torch.viewer import server as vs
+
+    # the encoder's library builds with g++ at first use: built here, so the
+    # frames' encode ms are steady-state
+    t = time.perf_counter()
+    load_encoder()
+    log(f"viewer: JPEG encoder built and loaded in {time.perf_counter() - t:.2f} s (host, first use)")
+    if tuple(vs.RESOLUTION_BUCKETS) != VIEWER_LADDER:
+        raise AssertionError(f"the viewer's buckets are {vs.RESOLUTION_BUCKETS}, the phase expects {VIEWER_LADDER}")
+    encode_ms = {}
+    current = {}
+    plain_to_jpeg = vs.to_jpeg
+
+    def timed_to_jpeg(img):
+        t = time.perf_counter()
+        out = plain_to_jpeg(img)
+        encode_ms.setdefault(current["name"], {}).setdefault(img.shape[1], []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    reset_counts()
+    out = {}
+    vs.to_jpeg = timed_to_jpeg
+    try:
+        for name in VIEWER_METHODS:
+            current["name"] = name
+            out[name] = viewer_method(name, entries[name]["run"], encode_ms, smi)
+    finally:
+        vs.to_jpeg = plain_to_jpeg
+    counts = {k: v - sum(out[name]["check_launches"][k] for name in VIEWER_METHODS) for k, v in read_counts().items()}
+    path_kernels = sorted({k for name in VIEWER_METHODS for k in METHODS[name]["chunk"]})
+    idle = [k for k in path_kernels if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"the viewer's renders launched no {idle} (launches {counts})")
+    out["counts"] = counts
+    out["train"] = viewer_train(scene_dir, out_dir / "train", smi)
+    img = (np.clip(out[VIEWER_METHODS[0]]["image_top"], 0, 1) * 255).astype(np.uint8)
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        encode_jpeg(img)
+        times.append((time.perf_counter() - t) * 1e3)
+    out["encode_1080_ms"] = float(np.median(times))
+    log(f"viewer: encode_jpeg of a 1920x1080 {VIEWER_METHODS[0]} render {out['encode_1080_ms']:.2f} ms (median of 5, "
+        f"host) ({smi})")
+    return out
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -5392,6 +5746,8 @@ def main() -> int:
         # phase 19: splatfacto (on phase 15's RGB scene) and generfacto (no data)
         splat = splat_phase(ngp_scene, Path(tmp) / "splatfacto", smi)
         gen = generfacto_phase(Path(tmp) / "generfacto", smi)
+        # phase 20: the web viewer on phase 11's runs, and ns-train --vis viewer
+        viewer = viewer_phase(entries, entry_scene, Path(tmp) / "viewer", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -5599,6 +5955,17 @@ def main() -> int:
                     rec["model_" + scope.replace(" ", "_")] = sums[rec["name"]]
             if rec["name"] == "hash_encode_bwd_pos_vjp":
                 rec[f"model_generfacto_train_step_{GEN_CAPTURE_STEP}"] = gen["vjp"]
+    # phase 20: each render kernel's launches per viewer frame, by method and
+    # bucket, and over the whole phase (ns-viewer renders, then ns-train --vis viewer)
+    for rec in kernels:
+        per_frame = {m: {str(w): b["launches"][rec["name"]] for w, b in viewer[m]["buckets"].items()
+                         if rec["name"] in b["launches"]} for m in VIEWER_METHODS}
+        per_frame = {m: v for m, v in per_frame.items() if v}
+        if per_frame:
+            rec["viewer_launches_per_frame"] = per_frame
+            rec["viewer_launches"] = viewer["counts"][rec["name"]]
+        if viewer["train"]["counts"].get(rec["name"]):
+            rec["viewer_train_launches"] = viewer["train"]["counts"][rec["name"]]
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -5654,6 +6021,13 @@ def main() -> int:
         f"forward + backward {ops['forward+backward']['ms']:.3f} ms ({smi})")
     log(f"generfacto: train {gen['step_s'] * 1e3:.2f} ms/step, peak memory {gen['peak'] / 2**30:.2f} GiB, device "
         f"busy {gen['busy']:.2f} ms a step; ns-render of the eval ring {gen['render_s']:.2f} s ({smi})")
+    for m in VIEWER_METHODS:
+        r = viewer[m]
+        log(f"viewer {m}: camera to first frame {r['first_frame_ms']:.1f} ms; "
+            + ", ".join(f"{w} bucket render {b['render_ms']:.1f} ms + encode {b['encode_ms']:.2f} ms"
+                        for w, b in r["buckets"].items()) + f" ({smi})")
+    log(f"viewer: encode_jpeg 1920x1080 {viewer['encode_1080_ms']:.2f} ms (host); ns-train --vis viewer "
+        f"{VIEWER_TRAIN_STEPS} steps in {viewer['train']['wall_s']:.1f} s ({smi})")
     log(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,9 @@ with its fields; `descriptions` for ns-train's method list;
 (through `build_dataparser`) -> data manager -> model -> pipeline ->
 trainer as the JAX package's does (generfacto: no dataparser;
 splatfacto: seed points from a parser's `points3D_xyz`, which none
-writes). The JAX package's plugin registry is not ported (ROADMAP A9).
+writes). Plugin methods (`plugins/registry.py`: the entry-point group
+`nerfstudio.method_configs` and $NERFSTUDIO_METHOD_CONFIGS) are discovered
+at the first `get_method_config` or `method_names` call.
 """
 
 import copy
@@ -68,6 +70,7 @@ from nerfstudio_thermal_torch.models.thermal_nerfacto import (
 from nerfstudio_thermal_torch.models.vanilla_nerf import NeRFModel, VanillaModelConfig
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
 from nerfstudio_thermal_torch.pipelines.dynamic_batch import DynamicBatchPipeline, DynamicBatchPipelineConfig
+from nerfstudio_thermal_torch.plugins.registry import discover_methods
 
 
 @dataclass
@@ -465,10 +468,26 @@ _METHODS: Dict[str, Callable[[], MethodConfig]] = {
 descriptions: Dict[str, str] = {name: make().description for name, make in _METHODS.items()}
 
 
+# methods found by plugins/registry.py: name -> MethodConfig
+_PLUGINS: Dict[str, MethodConfig] = {}
+
+
+def method_names() -> Dict[str, str]:
+    """Every method's description by name, the plugins' included."""
+    discover_methods(_PLUGINS)
+    return {**descriptions, **{k: getattr(v, "description", "") for k, v in _PLUGINS.items()}}
+
+
 def get_method_config(name: str) -> MethodConfig:
-    if name not in _METHODS:
-        raise KeyError(f"unknown method '{name}'; available: {sorted(_METHODS)} (plugin methods are ROADMAP A9)")
-    return _METHODS[name]()
+    discover_methods(_PLUGINS)
+    if name in _METHODS:
+        return _METHODS[name]()
+    if name in _PLUGINS:
+        config = _PLUGINS[name]
+        if not isinstance(config, MethodConfig):
+            raise TypeError(f"plugin method '{name}' is a {type(config).__name__}, not a MethodConfig of this package")
+        return copy.deepcopy(config)
+    raise KeyError(f"unknown method '{name}'; available: {sorted({**_METHODS, **_PLUGINS})}")
 
 
 def resolve_model_class(model_config) -> type:

@@ -1,7 +1,7 @@
-"""JPEG decoding through the port's own baseline decoder
-(nerfstudio_thermal_torch/native/jpeg_decoder.cpp).
+"""JPEG decoding and encoding through the port's own baseline decoder and
+encoder (nerfstudio_thermal_torch/native/jpeg_{decoder,encoder}.cpp).
 
-The source is compiled with g++ into build/native/ at first use and loaded
+Each source is compiled with g++ into build/native/ at first use and loaded
 with ctypes. It computes what Pillow's `np.asarray(Image.open(path))`
 gives with libjpeg-turbo's default settings: [H, W] uint8 for a greyscale
 file, [H, W, 3] RGB otherwise, with no EXIF rotation. There is no
@@ -9,6 +9,12 @@ fallback: when the library cannot be built or loaded, decoding raises. A
 feature outside the decoder's scope (progressive, lossless, hierarchical
 or arithmetic coding, 12-bit samples, CMYK) raises NotImplementedError
 naming it.
+
+`encode_jpeg` writes what Pillow's `Image.save(format="JPEG", quality=q)`
+writes for an RGB image with libjpeg-turbo's defaults (4:2:0, the ISLOW
+DCT, the standard Huffman tables, a JFIF header): the viewer streams its
+frames with it, since the card's machine has no Pillow. It too raises
+when its library cannot be built or loaded.
 """
 
 import ctypes
@@ -20,7 +26,9 @@ import numpy as np
 from nerfstudio_thermal_torch.data.native_build import NATIVE_DIR, build_library
 
 SOURCE = NATIVE_DIR / "jpeg_decoder.cpp"
+ENCODER_SOURCE = NATIVE_DIR / "jpeg_encoder.cpp"
 _lib = None
+_encoder = None
 
 
 def load_library():
@@ -56,11 +64,64 @@ def _call(data: bytes, out, out_size: int, path) -> Tuple[int, int, int]:
 
 def decode_jpeg(path) -> np.ndarray:
     """A JPEG as uint8 [H, W] (greyscale) or [H, W, 3] (RGB)."""
-    data = Path(path).read_bytes()
-    h, w, c = _call(data, None, 0, path)
+    return decode_jpeg_bytes(Path(path).read_bytes(), path)
+
+
+def decode_jpeg_bytes(data: bytes, name="<bytes>") -> np.ndarray:
+    """`decode_jpeg` of a file's bytes; `name` labels errors."""
+    h, w, c = _call(data, None, 0, name)
     out = np.empty((h, w, c), np.uint8)
-    _call(data, out.ctypes.data_as(ctypes.c_void_p), out.nbytes, path)
+    _call(data, out.ctypes.data_as(ctypes.c_void_p), out.nbytes, name)
     return out[..., 0] if c == 1 else out
+
+
+def load_encoder():
+    """The encoder library, built at first use; raises when it cannot be
+    built or loaded."""
+    global _encoder
+    if _encoder is None:
+        try:
+            lib = ctypes.CDLL(str(build_library(ENCODER_SOURCE, "libjpeg_encoder")))
+        except Exception as e:
+            raise RuntimeError(f"the JPEG encoder ({ENCODER_SOURCE.name}) could not be built or loaded: {e}") from e
+        if lib.jpeg_encoder_abi_version() != 1:
+            raise RuntimeError("the JPEG encoder library has an unexpected ABI version")
+        lib.jpeg_encode.restype = ctypes.c_int
+        lib.jpeg_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_size_t),
+        ]
+        _encoder = lib
+    return _encoder
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 85) -> bytes:
+    """A baseline JPEG of uint8 [H, W, 3] (RGB), [H, W, 1] or [H, W]
+    (greyscale, repeated to 3 channels first, as the JAX viewer does),
+    equal bytes to Pillow's at the same quality."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise TypeError(f"encode_jpeg takes uint8 pixels, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[-1] not in (1, 3):
+        raise ValueError(f"encode_jpeg takes [H, W, 3] or [H, W, 1] pixels, got {img.shape}")
+    if img.shape[-1] == 1:
+        img = np.repeat(img, 3, axis=-1)
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    lib = load_encoder()
+    size = ctypes.c_size_t(0)
+    cap = img.nbytes // 2 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        rc = lib.jpeg_encode(img.ctypes.data_as(ctypes.c_void_p), h, w, int(quality),
+                             out.ctypes.data_as(ctypes.c_void_p), cap, ctypes.byref(size))
+        if rc == 0:
+            return out[: size.value].tobytes()
+        if rc != 1:
+            raise ValueError(f"encode_jpeg: cannot encode a {w}x{h} image")
+        cap = size.value
 
 
 def jpeg_size(path) -> Tuple[int, int]:

@@ -36,11 +36,18 @@ proposal-update counters and the checkpoints' step advance once a step),
 but the parameters, the moments and the learning-rate schedules move only
 on every k-th step, from the mean of the k gradients. `profiler` "basic"
 times the loop's spans on the host and prints them at exit; "xla" writes a
-torch.profiler trace of steps 10-15 (utils/profiler.py). The viewer is
-later work.
+torch.profiler trace of steps 10-15 (utils/profiler.py). With `vis`
+"viewer" a training run serves the web viewer (viewer/server.py) against
+the live model: each step runs under `train_lock`, which every viewer
+render and export also takes, and the viewer's pause / resume / step
+controls hold the loop between steps without the lock (the idle time is
+left out of the rays/s window); the train scalars reach the viewer at log
+cadence. An `eval_only` setup serves no viewer.
 """
 
 import dataclasses
+import math
+import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -280,12 +287,8 @@ class Trainer:
     ):
         if config.profiler not in ("none", "basic", "xla"):
             raise ValueError(f"profiler={config.profiler!r}: one of none, basic, xla")
-        for name, unported in (
-            ("viewer", config.vis != "none"),
-            ("data parallelism over several devices", config.num_devices not in (None, 1)),
-        ):
-            if unported:
-                raise NotImplementedError(f"the trainer's {name} is not ported yet")
+        if config.num_devices not in (None, 1):
+            raise NotImplementedError("the trainer's data parallelism over several devices is not ported yet")
         pin_precision()
         self.config = config
         self.pipeline = pipeline
@@ -303,6 +306,14 @@ class Trainer:
         self._start_step = 0
         self._eval_ray_generator = None
         self._trace_profiler = None
+        self._viewer = None
+        self.train_lock = threading.Lock()
+        # viewer pause control: set -> the loop idles between steps without
+        # train_lock, so viewer renders stay live; _step_once grants one
+        # iteration while paused
+        self._pause_event = threading.Event()
+        self._step_once = threading.Event()
+        self._last_logged_step = 0
 
     def setup(self, eval_only: bool = False):
         """Optimizers, state and the checkpoint of `load_dir`. eval_only: the
@@ -328,6 +339,49 @@ class Trainer:
             profiler.setup_profiler(True, self.base_dir)
         elif self.config.profiler == "xla":
             self._trace_profiler = profiler.TraceProfiler(self.base_dir)
+        if self.config.vis == "viewer" and not eval_only:
+            self._start_viewer()
+
+    def _start_viewer(self) -> None:
+        """Serve the web viewer against the live model (renders and
+        exports under train_lock)."""
+        from nerfstudio_thermal_torch.viewer.server import (
+            ViewerServer,
+            make_model_export_fn,
+            make_model_render_fn,
+            probe_output_names,
+        )
+
+        self._viewer = ViewerServer(
+            make_model_render_fn(self.model),
+            output_names=probe_output_names(self.model),
+            port=self.config.viewer_port,
+            train_lock=self.train_lock,
+            save_dir=self.base_dir,
+            export_fn=make_model_export_fn(self.model, self.datamanager.eval_cameras, self.base_dir),
+            train_control=self._viewer_train_control,
+        )
+        self._viewer.start()
+
+    def stop_viewer(self) -> None:
+        """Stop the viewer of a `vis` "viewer" run (a no-op without one)."""
+        if self._viewer is not None:
+            self._viewer.stop()
+            self._viewer = None
+
+    def _viewer_train_control(self, action: str) -> dict:
+        """The viewer's pause / resume / step / status hook; returns the
+        state the client displays."""
+        if action == "pause":
+            self._pause_event.set()
+        elif action == "resume":
+            self._pause_event.clear()
+            self._step_once.set()  # wake the wait loop immediately
+        elif action == "step":
+            self._step_once.set()
+        elif action != "status":
+            raise ValueError(f"unknown train_control action '{action}'")
+        return {"paused": self._pause_event.is_set(), "step": int(self._last_logged_step)}
 
     @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
@@ -372,7 +426,16 @@ class Trainer:
         self.writer.console_log(0, {})
         t_last = time.perf_counter()
         for step in range(self._start_step, cfg.max_num_iterations):
-            scalars = self.train_iteration(step)
+            # viewer pause: idle without train_lock so viewer renders stay
+            # live; a "step" grant runs one iteration
+            if self._pause_event.is_set() and not self._step_once.is_set():
+                while self._pause_event.is_set() and not self._step_once.is_set():
+                    time.sleep(0.05)
+                t_last = time.perf_counter()  # the idle time is not training time
+            self._step_once.clear()
+            self._last_logged_step = step
+            with self.train_lock:
+                scalars = self.train_iteration(step)
             if self._trace_profiler is not None:
                 self._trace_profiler.step(step)
             if step % cfg.steps_per_log == 0:
@@ -384,13 +447,26 @@ class Trainer:
                     getattr(self.datamanager, "num_rays_override", None)
                     or self.datamanager.config.train_num_rays_per_batch
                 )
-                scalars[EventName.TRAIN_RAYS_PER_SEC] = num_rays / max(iter_time, 1e-9)
+                rays_per_sec = num_rays / max(iter_time, 1e-9)
+                remaining = cfg.max_num_iterations - step
+                scalars[EventName.TRAIN_RAYS_PER_SEC] = rays_per_sec
                 scalars[EventName.ITER_TRAIN_TIME] = iter_time
-                scalars[EventName.ETA] = (cfg.max_num_iterations - step) * iter_time
+                scalars[EventName.ETA] = remaining * iter_time
                 if self.device.type == "cuda":
                     scalars["Device Memory (MB)"] = torch.cuda.memory_allocated(self.device) / 1e6
                 self.writer.write_scalar_dict(scalars, step, group="train")
                 self.writer.console_log(step, scalars)
+                if self._viewer is not None:
+                    stats = {
+                        "step": step,
+                        "rays_per_sec": round(rays_per_sec, 1),
+                        "iter_ms": round(iter_time * 1e3, 2),
+                        "eta_s": round(remaining * iter_time, 1),
+                    }
+                    loss = scalars.get("loss")
+                    if loss is not None and math.isfinite(loss):
+                        stats["loss"] = round(loss, 5)
+                    self._viewer.update_train_stats(stats)
             if self._due(step, cfg.steps_per_eval_batch):
                 self.eval_batch_iteration(step)
             if self._due(step, cfg.steps_per_eval_image):

@@ -1,7 +1,9 @@
 """Input encodings (counterpart of nerfstudio_thermal_tpu/ops/encodings.py).
 
-The sinusoidal `NeRFEncoding`, the spherical-harmonic `SHEncoding` and the
-multiresolution hash grid: `HashEncoding`, with the plain PyTorch versions
+The sinusoidal `NeRFEncoding`, the Fourier-feature `FFEncoding` over a
+basis (random: `make_rff_encoding`; MipNeRF-360's polyhedron:
+`make_polyhedron_ff_encoding`), the spherical-harmonic `SHEncoding` and
+the multiresolution hash grid: `HashEncoding`, with the plain PyTorch versions
 of the hash-grid function, of its two gradients and of the position
 gradient's VJP (the SDF fields' second derivative). Those plain versions
 are the CPU path and the yardstick of the CUDA kernels
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerfstudio_thermal_torch.utils.math import expected_sin
+from nerfstudio_thermal_torch.utils.math import expected_sin, generate_polyhedron_basis
 
 # Instant-NGP spatial-hash primes.
 _HASH_PRIMES = (1, 2654435761, 805459861)
@@ -89,6 +91,90 @@ class NeRFEncoding:
             encoded = torch.cat([encoded, in_tensor], dim=-1)
         return encoded
 
+
+
+class FFEncoding:
+    """Fourier-feature encoding over a basis matrix [in_dim, M]: the input
+    scaled by 2*pi, projected through the basis, multiplied by 2^linspace
+    frequencies, then sin of the value and of its pi/2 shift. With `covs`
+    ([..., in_dim, in_dim] covariances) it is the integrated encoding:
+    each sin is damped by exp(-var / 2), var = diag(B^T covs B) * freq^2.
+    Output [..., M * num_frequencies * 2 (+ in_dim if include_input)]."""
+
+    def __init__(
+        self,
+        basis,
+        num_frequencies: int = 1,
+        min_freq_exp: float = 0.0,
+        max_freq_exp: float = 0.0,
+        include_input: bool = False,
+    ) -> None:
+        self.basis = np.asarray(basis, np.float32)
+        self.num_frequencies = num_frequencies
+        self.min_freq_exp = min_freq_exp
+        self.max_freq_exp = max_freq_exp
+        self.include_input = include_input
+
+    @property
+    def in_dim(self) -> int:
+        return self.basis.shape[0]
+
+    @property
+    def out_dim(self) -> int:
+        d = self.basis.shape[1] * self.num_frequencies * 2
+        return d + self.in_dim if self.include_input else d
+
+    def __call__(self, in_tensor: torch.Tensor, covs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = torch.as_tensor(self.basis, device=in_tensor.device)
+        scaled = ((2.0 * math.pi) * in_tensor) @ b  # [..., M]
+        exps = torch.linspace(
+            self.min_freq_exp, self.max_freq_exp, self.num_frequencies,
+            dtype=torch.float32, device=in_tensor.device,
+        )
+        freqs = torch.pow(2.0, exps)
+        scaled = (scaled[..., None] * freqs).reshape(*scaled.shape[:-1], -1)
+        both = torch.cat([scaled, scaled + math.pi / 2.0], dim=-1)
+        if covs is None:
+            encoded = torch.sin(both)
+        else:
+            input_var = torch.sum((covs @ b) * b, dim=-2)  # [..., M]
+            input_var = (input_var[..., None] * freqs**2).reshape(*input_var.shape[:-1], -1)
+            encoded = expected_sin(both, torch.cat([input_var, input_var], dim=-1))
+        if self.include_input:
+            encoded = torch.cat([encoded, in_tensor], dim=-1)
+        return encoded
+
+
+def make_rff_encoding(
+    in_dim: int, num_frequencies: int, scale: float, include_input: bool = False, seed: int = 0
+) -> FFEncoding:
+    """Random Fourier features: a gaussian basis N(0, scale^2) of
+    [in_dim, num_frequencies] from `np.random.default_rng(seed)` (the JAX
+    package's draw, so both build the same basis), one frequency."""
+    if scale <= 0:
+        raise ValueError("RFF encoding scale must be > 0")
+    b = np.random.default_rng(seed).normal(0.0, scale, (in_dim, num_frequencies))
+    return FFEncoding(basis=b.astype(np.float32), num_frequencies=1, include_input=include_input)
+
+
+def make_polyhedron_ff_encoding(
+    num_frequencies: int,
+    min_freq_exp: float,
+    max_freq_exp: float,
+    basis_shape: str = "octahedron",
+    basis_subdivisions: int = 1,
+    include_input: bool = False,
+) -> FFEncoding:
+    """MipNeRF-360's polyhedron Fourier features: the basis is
+    `generate_polyhedron_basis(basis_shape, basis_subdivisions)^T`."""
+    basis = generate_polyhedron_basis(basis_shape, basis_subdivisions).T
+    return FFEncoding(
+        basis=basis,
+        num_frequencies=num_frequencies,
+        min_freq_exp=min_freq_exp,
+        max_freq_exp=max_freq_exp,
+        include_input=include_input,
+    )
 
 def sh_encoding(directions: torch.Tensor, levels: int = 4) -> torch.Tensor:
     """Real spherical-harmonic components of unit directions, levels in [1, 5].

@@ -11,9 +11,12 @@ for generfacto, which trains without --data): config.yml,
 written before training, for ns-eval to reload; dataparser_transforms.json;
 events.jsonl with the train, eval and eval_all scalars; images/; and
 nerfstudio_models/ with the checkpoint. Every nested config field is a flag
-(`configs/cli.py`). Not carried, each raising with its ROADMAP item:
-several comma-separated --data scenes (A7) and --vis viewer (A9); --help
-lists the port's methods without the plugin registry (A9).
+(`configs/cli.py`). `--vis viewer` serves the web viewer on
+http://localhost:VIEWER_PORT (default 7007; websocket on VIEWER_PORT + 1)
+while training, rendering on the card (viewer/server.py), and stops it
+when training ends. --help lists the port's methods and the plugin
+methods (plugins/registry.py). Not carried: several comma-separated --data
+scenes (A7), which raise with their ROADMAP item.
 """
 
 import json
@@ -25,7 +28,7 @@ from typing import List, Optional, Union
 import torch
 
 from nerfstudio_thermal_torch.configs.cli import CLIError, apply_cli_overrides, print_config_help
-from nerfstudio_thermal_torch.configs.method_configs import descriptions, get_method_config, setup_trainer
+from nerfstudio_thermal_torch.configs.method_configs import get_method_config, method_names, setup_trainer
 from nerfstudio_thermal_torch.configs.serialization import save_config
 from nerfstudio_thermal_torch.utils.precision import pin_precision
 
@@ -47,9 +50,8 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: ns-train METHOD [--data PATH] [--<config.path> VALUE ...]\n")
         print("methods:")
-        for name in sorted(descriptions):
-            print(f"  {name:24s} {descriptions[name]}")
-        print("\n(third-party plugin methods are not discovered by the port: ROADMAP A9)")
+        for name, description in sorted(method_names().items()):
+            print(f"  {name:24s} {description}")
         return 0
 
     method = argv[0]
@@ -61,7 +63,7 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
     rest = argv[1:]
     if "-h" in rest or "--help" in rest or "--help-flags" in rest:
         print(f"usage: ns-train {method} --data PATH [--<config.path> VALUE ...]")
-        print(f"\n{descriptions[method]}\n\nflags:")
+        print(f"\n{config.description}\n\nflags:")
         print_config_help(config)
         print("\n(reference-style --pipeline.model.X aliases also accepted)")
         return 0
@@ -100,8 +102,6 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
         return 2
     if config.data is not None and "," in str(config.data):
         raise NotImplementedError("multi-scene training (comma-separated --data) is not ported yet (ROADMAP A7)")
-    if config.trainer.vis != "none":
-        raise NotImplementedError(f"--vis {config.trainer.vis}: the viewer is not ported yet (ROADMAP A9)")
 
     timestamp = time.strftime("%Y-%m-%d_%H%M%S")
     if config.trainer.experiment_name == "experiment":
@@ -115,7 +115,10 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
     trainer.setup()
     dpo = trainer.datamanager.train_dataparser_outputs
     (base_dir / "dataparser_transforms.json").write_text(json.dumps(dpo.as_dict(), indent=2))
-    trainer.train()
+    try:
+        trainer.train()
+    finally:
+        trainer.stop_viewer()
     trainer.writer.close()
     print(f"training complete; outputs in {base_dir}")
     return 0

@@ -32,6 +32,7 @@ Layouts handled:
 - the TensoRFField: its four grids as they are, `basis/kernel` (no bias)
   and `mlp_head`;
 - `pose_adjustment` of the camera optimizers;
+- the standalone `Embedding` table (`ops/embeddings.py`): `embedding`;
 - the top-level groups below.
 A key the port does not expect, or one it expects and does not find,
 raises: a silent partial load would compare different models.
@@ -63,6 +64,7 @@ from nerfstudio_thermal_torch.fields.sdf_field import SDFField, WNDense
 from nerfstudio_thermal_torch.fields.tensorf_field import GRID_KEYS, TensoRFField
 from nerfstudio_thermal_torch.fields.vanilla_nerf_field import NeRFField
 from nerfstudio_thermal_torch.models.splatfacto import SplatfactoModel
+from nerfstudio_thermal_torch.ops.embeddings import Embedding
 from nerfstudio_thermal_torch.ops.encodings import HashEncoding
 from nerfstudio_thermal_torch.ops.mlp import MLP, MLPWithHashEncoding
 
@@ -190,6 +192,9 @@ def load_module(module: nn.Module, tree: Mapping, where: str) -> None:
     elif isinstance(module, CameraOptimizer):
         _check_keys(tree, ["pose_adjustment"], where)
         _copy(module.pose_adjustment, tree["pose_adjustment"], f"{where}/pose_adjustment")
+    elif isinstance(module, Embedding):
+        _check_keys(tree, ["embedding"], where)
+        _copy(module.embedding, tree["embedding"], f"{where}/embedding")
     elif isinstance(module, nn.ModuleList):
         _check_keys(tree, [str(i) for i in range(len(module))], where)
         for i, sub in enumerate(module):
@@ -300,6 +305,8 @@ def export_module(module: nn.Module, grads: bool = False) -> Dict[str, Any]:
         return {"mlp": export_mlp(module.mlp, grads, flat=module.fuses_rays())}
     if isinstance(module, CameraOptimizer):
         return {"pose_adjustment": _value(module.pose_adjustment, grads)}
+    if isinstance(module, Embedding):
+        return {"embedding": _value(module.embedding, grads)}
     if isinstance(module, nn.ModuleList):
         return {str(i): export_module(sub, grads) for i, sub in enumerate(module)}
     if isinstance(module, nn.ModuleDict):

@@ -8,10 +8,15 @@ the training losses and metrics; `psnr` and `ssim` also score whole eval
 images, on whatever device the image lives on.
 `conical_frustum_to_gaussian_diag` and `expected_sin` are MipNeRF's
 integrated positional encoding's halves, in the JAX package's op order.
+`generate_polyhedron_basis` (the Fourier-feature encoding's basis) is a
+numpy copy of the JAX package's.
 """
 
+import itertools
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -119,3 +124,73 @@ def ssim(
     num = (2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)
     den = (mu_x**2 + mu_y**2 + c1) * (sigma_x + sigma_y + c2)
     return torch.mean(num / den)
+
+
+# Polyhedron bases for Fourier features (MipNeRF-360; reference
+# utils/math.py:366-520, adapted from multinerf geopoly)
+
+
+def _columnwise_sq_dist(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    sx = np.sum(x**2, 0)
+    sy = np.sum(y**2, 0)
+    return sx[:, None] + sy[None, :] - 2 * x.T @ y
+
+
+def _tesselate_geodesic(verts: np.ndarray, faces: np.ndarray, v: int, eps: float = 1e-4) -> np.ndarray:
+    if v < 1:
+        raise ValueError("tesselation factor must be >= 1")
+    weights = []
+    for i in range(v + 1):
+        for j in range(v + 1 - i):
+            weights.append((i, j, v - (i + j)))
+    weights = np.asarray(weights, np.float64) / v
+    out = []
+    for face in faces:
+        nv = weights @ verts[face]
+        nv /= np.sqrt(np.sum(nv**2, 1, keepdims=True))
+        out.append(nv)
+    out = np.concatenate(out, 0)
+    sq = _columnwise_sq_dist(out.T, out.T)
+    assignment = np.array([np.min(np.argwhere(d <= eps)) for d in sq])
+    return out[np.unique(assignment)]
+
+
+def generate_polyhedron_basis(
+    basis_shape: str = "octahedron",
+    angular_tesselation: int = 1,
+    remove_symmetries: bool = True,
+    eps: float = 1e-4,
+) -> np.ndarray:
+    """3D Fourier basis from a tesselated polyhedron: [n, 3] f32 (the last
+    axis flipped, as in the reference)."""
+    if basis_shape == "icosahedron":
+        a = (math.sqrt(5) + 1) / 2
+        verts = np.asarray(
+            [(-1, 0, a), (1, 0, a), (-1, 0, -a), (1, 0, -a),
+             (0, a, 1), (0, a, -1), (0, -a, 1), (0, -a, -1),
+             (a, 1, 0), (-a, 1, 0), (a, -1, 0), (-a, -1, 0)],
+            np.float64,
+        ) / math.sqrt(a + 2)
+        faces = np.asarray(
+            [(0, 4, 1), (0, 9, 4), (9, 5, 4), (4, 5, 8), (4, 8, 1),
+             (8, 10, 1), (8, 3, 10), (5, 3, 8), (5, 2, 3), (2, 7, 3),
+             (7, 10, 3), (7, 6, 10), (7, 11, 6), (11, 0, 6), (0, 1, 6),
+             (6, 1, 10), (9, 0, 11), (9, 11, 2), (9, 2, 5), (7, 2, 11)]
+        )
+        verts = _tesselate_geodesic(verts, faces, angular_tesselation, eps)
+    elif basis_shape == "octahedron":
+        verts = np.asarray(
+            [(0, 0, -1), (0, 0, 1), (0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0)],
+            np.float64,
+        )
+        corners = np.asarray(list(itertools.product([-1, 1], repeat=3)), np.float64)
+        pairs = np.argwhere(_columnwise_sq_dist(corners.T, verts.T) == 2)
+        faces = np.sort(pairs[:, 1].reshape(3, -1).T, 1)
+        verts = _tesselate_geodesic(verts, faces, angular_tesselation, eps)
+    else:
+        raise ValueError(f"unknown basis shape {basis_shape}")
+
+    if remove_symmetries:
+        match = _columnwise_sq_dist(verts.T, -verts.T) < eps
+        verts = verts[np.any(np.triu(match), 1)]
+    return verts[:, ::-1].astype(np.float32)

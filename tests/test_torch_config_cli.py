@@ -143,7 +143,7 @@ def test_registry_descriptions_and_model_classes():
         assert descriptions[name] == jax_method_config(name).description
         assert resolve_model_class(get_method_config(name).model) is ThermalNerfactoModel
     assert resolve_model_class(NerfactoModelConfig()) is NerfactoModel
-    with pytest.raises(KeyError, match="A9"):
+    with pytest.raises(KeyError, match="unknown method 'nerfacto-plugin'"):
         get_method_config("nerfacto-plugin")
 
 

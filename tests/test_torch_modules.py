@@ -410,7 +410,8 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "nerfstudio_thermal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    banned = ("jax", "jaxlib", "flax", "optax", "nerfstudio_thermal_tpu", "PIL", "diffusers")  # the card's machine has no Pillow
+    # the card's machine has no Pillow and no websockets
+    banned = ("jax", "jaxlib", "flax", "optax", "nerfstudio_thermal_tpu", "PIL", "diffusers", "websockets")
     for f in files:
         for mod in _imported_modules(f):
             assert mod.split(".")[0] not in banned, f"{f.relative_to(ROOT)} imports {mod}"
