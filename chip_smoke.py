@@ -350,6 +350,31 @@ Phases, each fatal on failure:
      paused, resumes, and reads train_stats to the end; every loss finite;
    - 20c, encode_jpeg of a 1920x1080 render on the host, in ms.
 
+21. data-parallel and multi-scene training (after phase 20; the JSON
+   line's rows 1-2 and 7-10 carry their launches per rank-step as
+   data_parallel_launches_per_rank_step, rows 7-10 the two-scene run's as
+   multi_scene_launches):
+   - 21a, thermal-nerfacto and thermal-nerfacto-tpu at full width (8192
+     rays) for 10 steps plain and in a one-rank NCCL group (the
+     data-parallel path: shard, contributions, gradient and scalar
+     all-reduces): step 0's loss bitwise the plain step's, its scalars
+     and every later step's losses within phase 9's loss limit, the same
+     launches; ms/step of both, peak memory, gradient bytes;
+   - 21b, two gloo ranks sharing the card (this script with --dp-rank, a
+     process each, with a timeout), 4096 rays each of the global 8192,
+     against 21a's plain runs; rank 0 launches what
+     the plain run does, rank 1 on thermal-nerfacto-tpu two base-MLP
+     forwards and backwards a step fewer (the cross-density prefix of
+     2048 rays lies in rank 0's rows); step 0's scalars and the later
+     steps' total loss within phase 9's limit; ms/step of each rank, the
+     gradient all-reduce's ms a step and its bytes;
+   - 21c, `scripts.train.main` (ns-train) thermal-nerfacto --data A,B for
+     20 steps on two 10 + 10 frame scenes: every scalar finite, scene 0's
+     step-0 scalars and later total losses within phase 9's limit of
+     ns-train --data A's (step 0's loss bitwise), twice the one-scene
+     run's launches, ns-eval of each
+     scene's run; ms a step of both scenes against the one-scene run's.
+
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
 CUDA; imports nothing of JAX.
@@ -2037,12 +2062,15 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
     """Training step `step` once more from the state it started from, on
     the card and on the CPU (the plain PyTorch versions of every kernel),
     with the same batch and the card's own jitter draws (recorded as the
-    card draws them again from the same generator state). Raises unless
+    card draws them again from the same generator state: in the samplers,
+    or where the thermal model draws them for its samplers through
+    `RayShard.draw`). Raises unless
     both give non-finite values in exactly the losses `bad`, as the
     training run did, and the finite losses agree within STEP_LOSS_TOL."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
     from nerfstudio_thermal_torch.model_components import ray_samplers
     from nerfstudio_thermal_torch.models import thermal_nerfacto
+    from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
     if method.model.background_color == "random":
         raise AssertionError(f"{method_name}: the witness does not replay a random background's draw")
@@ -2056,7 +2084,7 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
         trainers[dev] = tr
     trainers["cuda"].state.generator.set_state(gen_state)
     batch = trainers["cpu"].datamanager.next_train(step)
-    draws, draw = [], ray_samplers._uniforms
+    draws, draw, shard_draw = [], ray_samplers._uniforms, RayShard.draw
     tv_draws, tv_draw = [], thermal_nerfacto.draw_tv_uniforms
 
     def recorded(*args):
@@ -2065,17 +2093,24 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
             draws.append(u)
         return u
 
+    def recorded_shard(shard, *args):
+        u = shard_draw(shard, *args)
+        draws.append(u)
+        return u
+
     def recorded_tv(*args):
         u = tv_draw(*args)
         tv_draws.append(u)
         return u
 
     ray_samplers._uniforms, thermal_nerfacto.draw_tv_uniforms = recorded, recorded_tv
+    RayShard.draw = recorded_shard  # no random background here: only jitter goes through it
     try:
         card = trainers["cuda"]._train_step(
             trainers["cuda"].state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()})
     finally:
         ray_samplers._uniforms, thermal_nerfacto.draw_tv_uniforms = draw, tv_draw
+        RayShard.draw = shard_draw
     levels = len(method.model.num_proposal_samples_per_ray) + 1
     modalities = ("rgb", "thermal")[: len(getattr(trainers["cuda"].model, "output_suffixes", ("",)))]
     if len(draws) != len(modalities) * levels:
@@ -5613,6 +5648,380 @@ def viewer_phase(entries: dict, scene_dir: Path, out_dir: Path, smi: str) -> dic
     return out
 
 
+# Phase 21: data-parallel training (parallel/mesh.py) and multi-scene
+# training (engine/multi_scene.py) at full width. 21a: each method's
+# PAR_STEPS steps plain and in a one-rank NCCL group (the data-parallel
+# path: shard, contributions, all-reduces), step 0's loss bitwise, the
+# rest within phase 9's limit, the same launches. 21b: two gloo ranks
+# sharing the card (processes of this script, `--dp-rank`), the global
+# batch of 8192 rays split 4096 / 4096, against a plain run; on
+# thermal-nerfacto-tpu the cross-density prefix (2048 rays) lies in rank
+# 0's rows, so rank 1 launches the base MLP twice a step, not 4 times.
+# 21c: ns-train thermal-nerfacto --data A,B for MULTI_STEPS steps, against
+# ns-train --data A (scene 0), then ns-eval of each scene. 21b and 21c
+# compare runs whose gradients are summed in other orders (two ranks; the
+# hash table gradient's atomics), so they run with f32 compute, where the
+# trajectories part by f32 roundings only and every loss of every step
+# holds phase 9's limit: in bf16 a small term moved 2.9% by step 9 (21b)
+# and 1.2% by step 19 (21c). 21b also holds the ranks' parameters after
+# the steps: equal on the two ranks, and against the plain run's by
+# tests/test_torch_parallel.py's flip rule on each group's update.
+PAR_METHODS = ("thermal-nerfacto", "thermal-nerfacto-tpu")
+PAR_KERNELS = {"thermal-nerfacto": ("hash_encode_fwd", "hash_encode_bwd_table", "hash_encode_bwd_pos"),
+               "thermal-nerfacto-tpu": ("fused_mlp_fwd", "fused_mlp_bwd")}
+PAR_STEPS, PAR_TIMED_FROM = 10, 3
+PAR_RANK_TIMEOUT = 420  # seconds for a 21b rank
+MULTI_STEPS = 20
+# 21b's parameters. Step 0's summed gradient, each optimizer group's,
+# against the plain step's within phase 9's f32 limits (relative L2:
+# STEP_GRAD_TOL_F32, the camera groups STEP_CAMERA_GRAD_TOL_F32): both
+# runs start from the same parameters and rays. After the steps,
+# tests/test_torch_parallel.py's flip rule on each group's update: an
+# entry whose update differs from the plain run's by more than PAR_FLIP
+# of the group's largest update moved the other way (Adam moves an entry
+# whose gradient is rounding noise by ~lr either way); fewer than
+# PAR_MAX_FLIPPED of a group's entries may, and the others' updates hold
+# PAR_PARAM_TOL relative L2. The camera groups' updates are logged, not
+# held: step 0's camera gradients agreed exactly in every run, but after
+# 10 steps 1.0-14.6% of camera_opt's and 18.8-44.8% of
+# camera_opt_thermal's entries had moved the other way (four runs; the
+# field and proposal groups 0-12.5%). The scene's poses are exact, so the
+# pose gradients are small and their signs follow the other groups'
+# rounding-sized differences, and Adam (eps 1e-15) moves each entry by
+# about lr whatever its gradient's size.
+PAR_FLIP, PAR_MAX_FLIPPED, PAR_PARAM_TOL = 1e-3, 0.25, 1e-3
+
+
+def dp_run(name: str, scene: Path, run_dir: Path, mesh=None, time_all_reduce: bool = False, f32: bool = False,
+           params_to: Path = None) -> dict:
+    """PAR_STEPS full-width steps of a method through setup_trainer and
+    Trainer.train_iteration on `mesh` (default: create_mesh's, the process
+    group's when one runs), with f32 compute where asked: each step's global
+    losses, the launches (counts zeroed just before the steps, read just
+    after), ms/step from step PAR_TIMED_FROM (a float of each step's scalars
+    ends it), peak memory, and with time_all_reduce the gradient
+    all-reduce's ms a step (synchronised around it) and the bytes it
+    reduces. `params_to` gets each optimizer group's trained parameters,
+    flat, before and after the steps, and their gradients at step 0 as the
+    optimizers take them (summed over the ranks)."""
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+    from nerfstudio_thermal_torch.engine import trainer as trainer_lib
+    from nerfstudio_thermal_torch.parallel.mesh import grad_bytes
+
+    method = train_method(name, scene)
+    if f32:
+        method.model.compute_dtype = "float32"
+    trainer = setup_trainer(method, base_dir=run_dir, device="cuda", mesh=mesh)
+    trainer.setup()
+
+    def group_params(grad: bool = False) -> dict:
+        def flat(p):
+            t = (p.grad if p.grad is not None else torch.zeros_like(p)) if grad else p
+            return t.detach().reshape(-1)
+
+        return {g: torch.cat([flat(p) for p in opt.params if p.requires_grad]).cpu()
+                for g, opt in trainer.optimizers.groups.items()}
+
+    init, grads0, optimizer_step = None, {}, trainer.optimizers.step
+    if params_to is not None:
+        init = group_params()
+
+        def step_and_keep_grads():
+            if not grads0:
+                grads0.update(group_params(grad=True))
+            return optimizer_step()
+
+        trainer.optimizers.step = step_and_keep_grads
+    reduce_s, original = [], trainer_lib.all_reduce_grads
+
+    def timed_all_reduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = original(params)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+        return nbytes
+
+    if time_all_reduce:
+        trainer_lib.all_reduce_grads = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s = [], []
+        for step in range(PAR_STEPS):
+            t0 = time.perf_counter()
+            scalars = trainer.train_iteration(step)
+            losses.append({k: float(v) for k, v in scalars.items()})
+            step_s.append(time.perf_counter() - t0)
+        counts = read_counts()
+    finally:
+        trainer_lib.all_reduce_grads = original
+    if params_to is not None:
+        trainer.optimizers.step = optimizer_step
+        torch.save({"init": init, "final": group_params(), "grads0": grads0}, params_to)
+    bad = [(i, k) for i, rec in enumerate(losses) for k, v in rec.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{name}: non-finite scalars {bad[:5]}")
+    timed = step_s[PAR_TIMED_FROM:]
+    out = {
+        "losses": losses, "counts": counts, "ms": 1e3 * sum(timed) / len(timed), "peak": torch.cuda.max_memory_allocated(),
+        "grad_bytes": grad_bytes(trainer_lib.trained_params(trainer.optimizers)),
+        "reduce_ms": 1e3 * sum(reduce_s[PAR_TIMED_FROM:]) / len(timed) if reduce_s else None,
+        "rays": method.datamanager.train_num_rays_per_batch,
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def is_loss(key: str) -> bool:
+    return key == "loss" or key.endswith("_loss") or key.startswith("camera_opt_regularizer")
+
+
+def check_dp_losses(label: str, got: list, want: list, step0_bitwise: bool) -> float:
+    """Step 0's scalars and the later steps' losses within phase 9's loss
+    limit (STEP_LOSS_TOL relative to max(|value|, 1e-3)); step 0's loss
+    bitwise where asked.
+    Phase 9's limit is a step's from the same parameters; the later steps'
+    metrics (the camera adjustments' norms, the PSNRs) are left out: they
+    follow parameters that several bf16 steps have moved apart (Adam
+    moves a parameter whose gradient is rounding noise either way).
+    Returns the largest relative difference."""
+    worst = 0.0
+    for step, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            raise AssertionError(f"{label} step {step}: scalars {sorted(set(g) ^ set(w))} differ")
+        if step == 0 and step0_bitwise and g["loss"] != w["loss"]:
+            raise AssertionError(f"{label}: step 0's loss {g['loss']!r} is not the plain step's {w['loss']!r}")
+        for k in (w if step == 0 else [k for k in w if is_loss(k)]):
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-3)
+            worst = max(worst, rel)
+            if rel > STEP_LOSS_TOL:
+                raise AssertionError(f"{label} step {step} {k}: {g[k]} against {w[k]}")
+    return worst
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want).clamp_min(1e-30))
+
+
+def check_dp_params(label: str, got: dict, want: dict) -> dict:
+    """A run's saved parameters (dp_run's `params_to`) against the plain
+    run's: step 0's gradients and, by the flip rule, the updates (see
+    PAR_FLIP); returns each group's (gradient rel L2, flipped share, the
+    other updates' rel L2)."""
+    if set(got["final"]) != set(want["final"]) or set(got["grads0"]) != set(want["final"]):
+        raise AssertionError(f"{label}: groups {sorted(got['final'])} against {sorted(want['final'])}")
+    readings = {}
+    for g in want["final"]:
+        camera = "camera_opt" in g
+        grad_err = rel_l2(got["grads0"][g].double(), want["grads0"][g].double())
+        got_d, want_d = (got["final"][g] - want["init"][g]).double(), (want["final"][g] - want["init"][g]).double()
+        flipped = (got_d - want_d).abs() > PAR_FLIP * want_d.abs().max()
+        share = float(flipped.double().mean())
+        err = rel_l2(got_d[~flipped], want_d[~flipped])
+        readings[g] = (grad_err, share, err)
+        if grad_err > (STEP_CAMERA_GRAD_TOL_F32 if camera else STEP_GRAD_TOL_F32) or (
+            not camera and (share >= PAR_MAX_FLIPPED or err > PAR_PARAM_TOL)
+        ):
+            raise AssertionError(f"{label} {g}: step 0's gradient rel L2 {grad_err:.3g}; {share:.3%} of the updates "
+                                 f"flipped, the others' rel L2 {err:.3g} (the groups so far: {readings})")
+    return readings
+
+
+def dp_nccl_phase(scene: Path, tmp: Path, smi: str) -> dict:
+    """21a: each method plain and in a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from nerfstudio_thermal_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    mesh_lib.initialize_distributed(f"tcp://localhost:{mesh_lib.free_port()}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the one-rank group runs {dist.get_backend()}, not NCCL")
+        for name in PAR_METHODS:
+            plain = dp_run(name, scene, tmp / name / "plain", mesh=mesh_lib.SINGLE)
+            nccl = dp_run(name, scene, tmp / name / "nccl")
+            worst = check_dp_losses(f"21a {name}", nccl["losses"], plain["losses"], step0_bitwise=True)
+            if nccl["counts"] != plain["counts"]:
+                raise AssertionError(f"21a {name}: launches {nccl['counts']} against the plain run's {plain['counts']}")
+            idle = [k for k in PAR_KERNELS[name] if nccl["counts"][k] == 0]
+            if idle:
+                raise AssertionError(f"21a {name}: the NCCL run launched no {idle}")
+            per_step = {k: nccl["counts"][k] / PAR_STEPS for k in PAR_KERNELS[name]}
+            log(f"phase 21a {name}: NCCL world 1 {nccl['ms']:.2f} ms/step against plain {plain['ms']:.2f} ms/step "
+                f"(steps {PAR_TIMED_FROM}-{PAR_STEPS - 1}, {nccl['rays']} rays); step 0 loss bitwise "
+                f"{nccl['losses'][0]['loss']!r}; worst scalar rel diff {worst:.3g}; launches per step {per_step}; peak "
+                f"{nccl['peak'] / 2**30:.2f} GiB (plain {plain['peak'] / 2**30:.2f}); gradient bytes "
+                f"{nccl['grad_bytes']:,} ({smi})")
+            out[name] = {"plain": plain, "nccl": nccl}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """A 21b rank: join the gloo group on the card, run every PAR_METHODS
+    method, write its results."""
+    import torch.distributed as dist
+
+    from nerfstudio_thermal_torch.parallel.mesh import initialize_distributed
+
+    spec = json.loads(Path(spec_path).read_text())
+    initialize_distributed(f"tcp://localhost:{spec['port']}", 2, rank, backend="gloo", device="cuda")
+    try:
+        results = {}
+        for name in PAR_METHODS:
+            out = Path(spec["out"])
+            results[name] = dp_run(name, Path(spec["scene"]), out / f"{name}_rank{rank}", time_all_reduce=True,
+                                   f32=True, params_to=out / f"{name}_rank{rank}.pt")
+        (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(results))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_gloo_phase(scene: Path, tmp: Path, smi: str) -> dict:
+    """21b: two gloo ranks on the card, processes of this script, each
+    with a timeout, against plain runs, all with f32 compute."""
+    from nerfstudio_thermal_torch.parallel.mesh import SINGLE, free_port
+
+    tmp.mkdir(parents=True, exist_ok=True)
+    plains = {name: dp_run(name, scene, tmp / name / "plain", mesh=SINGLE, f32=True, params_to=tmp / f"{name}_plain.pt")
+              for name in PAR_METHODS}
+    spec_path = tmp / "spec.json"
+    spec_path.write_text(json.dumps({"scene": str(scene), "out": str(tmp), "port": free_port()}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(spec_path), str(r)],
+                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PAR_RANK_TIMEOUT)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"21b rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    out = {"wall_s": time.perf_counter() - t0}
+    for name in PAR_METHODS:
+        plain = plains[name]
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if r0["losses"] != r1["losses"]:
+            raise AssertionError(f"21b {name}: the ranks logged different global scalars")
+        worst = check_dp_losses(f"21b {name}", r0["losses"], plain["losses"], step0_bitwise=False)
+        p0, p1, pp = (torch.load(tmp / f"{name}_{tag}.pt", weights_only=True) for tag in ("rank0", "rank1", "plain"))
+        for g in pp["final"]:
+            if not (torch.equal(p0["final"][g], p1["final"][g]) and torch.equal(p0["init"][g], pp["init"][g])):
+                raise AssertionError(f"21b {name} {g}: the ranks' parameters differ, or their start from the plain run's")
+        params = check_dp_params(f"21b {name}", p0, pp)
+        if r0["counts"] != plain["counts"]:
+            raise AssertionError(f"21b {name}: rank 0 launched {r0['counts']}, the plain run {plain['counts']}")
+        want1 = dict(plain["counts"])
+        if name == "thermal-nerfacto-tpu":
+            # rank 1 holds no ray of the 2048-ray cross-density prefix
+            for k in ("fused_mlp_fwd", "fused_mlp_bwd"):
+                want1[k] -= 2 * PAR_STEPS
+        if r1["counts"] != want1:
+            raise AssertionError(f"21b {name}: rank 1 launched {r1['counts']}, expected {want1}")
+        per_step = [{k: r["counts"][k] / PAR_STEPS for k in PAR_KERNELS[name]} for r in (r0, r1)]
+        log(f"phase 21b {name} (f32 compute): 2 gloo ranks on one card {r0['ms']:.2f} / {r1['ms']:.2f} ms/step "
+            f"(ranks 0 / 1; plain {plain['ms']:.2f}), all-reduce {r0['reduce_ms']:.2f} / {r1['reduce_ms']:.2f} ms a "
+            f"step of {r0['grad_bytes']:,} gradient bytes; worst scalar rel diff {worst:.3g} against the plain run; "
+            f"parameters after {PAR_STEPS} steps equal on both ranks; against the plain run by group (step 0's "
+            f"gradient rel L2, updates flipped, the others' rel L2) "
+            + ", ".join(f"{g} {a:.3g} {b:.3%} {c:.3g}" for g, (a, b, c) in params.items()) + "; launches "
+            f"per rank-step {per_step[0]} / {per_step[1]}; peak {r0['peak'] / 2**30:.2f} / {r1['peak'] / 2**30:.2f} "
+            f"GiB ({smi})")
+        out[name] = {"rank0": r0, "rank1": r1}
+    return out
+
+
+def multi_scene_phase(scene_a: Path, tmp: Path, smi: str) -> dict:
+    """21c: ns-train --data A,B (two scenes in turn on the card) against
+    ns-train --data A, then ns-eval of each scene."""
+    from nerfstudio_thermal_torch.engine import multi_scene
+    from nerfstudio_thermal_torch.scripts import eval as ns_eval
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+    from nerfstudio_thermal_torch.utils.writer import EventName
+
+    scene_b = write_scene(tmp / "sphere_b", num_pairs=ENTRY_PAIRS)
+    common = ["--max-num-iterations", str(MULTI_STEPS), "--trainer.steps-per-log", "1",
+              "--pipeline.model.compute-dtype", "float32"]
+    captured, original = {}, multi_scene.train_multi_scene
+
+    def capture(*args, **kwargs):
+        captured["summary"] = original(*args, **kwargs)
+        return captured["summary"]
+
+    multi_scene.train_multi_scene = capture
+    try:
+        reset_counts()
+        rc = ns_train.main(["thermal-nerfacto", "--data", f"{scene_a},{scene_b}", "--output-dir", str(tmp / "multi"),
+                            *common])
+        multi_counts = read_counts()
+    finally:
+        multi_scene.train_multi_scene = original
+    if rc != 0:
+        raise AssertionError(f"21c: ns-train --data A,B returned {rc}")
+    summary = captured["summary"]
+    runs = sorted(summary.checkpoint_dir.glob("scene_*"))
+    if [r.name for r in runs] != [f"scene_0_{scene_a.name}", f"scene_1_{scene_b.name}"]:
+        raise AssertionError(f"21c: scene runs {[r.name for r in runs]}")
+
+    def train_records(run: Path) -> list:
+        recs = [json.loads(line) for line in (run / "events.jsonl").read_text().splitlines()]
+        recs = [r for r in recs if "train/loss" in r]
+        if [r["step"] for r in recs] != list(range(MULTI_STEPS)):
+            raise AssertionError(f"21c {run.name}: train records of steps {[r['step'] for r in recs]}")
+        bad = [(r["step"], k) for r in recs for k, v in r.items() if k.startswith("train/") and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"21c {run.name}: non-finite {bad[:5]}")
+        return recs
+
+    scenes = [train_records(r) for r in runs]
+    reset_counts()
+    rc = ns_train.main(["thermal-nerfacto", "--data", str(scene_a), "--output-dir", str(tmp / "solo"),
+                        "--experiment-name", "solo", *common])
+    solo_counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"21c: ns-train --data A returned {rc}")
+    (solo_run,) = (tmp / "solo" / "solo" / "thermal-nerfacto").iterdir()
+    solo = train_records(solo_run)
+    keys = [k for k in scenes[0][0] if k.startswith("train/") and k in solo[0]]
+    worst = check_dp_losses("21c scene 0 against ns-train --data A",
+                            [{k[len("train/"):]: r[k] for k in keys} for r in scenes[0]],
+                            [{k[len("train/"):]: r[k] for k in keys} for r in solo], step0_bitwise=True)
+    if multi_counts != {k: 2 * v for k, v in solo_counts.items()}:
+        raise AssertionError(f"21c: two scenes launched {multi_counts}, one scene {solo_counts}")
+    idle = [k for k in PAR_KERNELS["thermal-nerfacto"] if multi_counts[k] == 0]
+    if idle:
+        raise AssertionError(f"21c: the multi-scene run launched no {idle}")
+    evals = {}
+    for run in runs:
+        rc = ns_eval.main(["--load-config", str(run / "config.yml"), "--output-path", str(run / "eval.json")])
+        result = json.loads((run / "eval.json").read_text())["results"] if rc == 0 else {}
+        if rc != 0 or not all(math.isfinite(v) for v in result.values() if isinstance(v, (int, float))):
+            raise AssertionError(f"21c: ns-eval of {run.name} returned {rc}: {result}")
+        evals[run.name] = result
+    solo_ms = 1e3 * float(np.mean([r[f"train/{EventName.ITER_TRAIN_TIME}"] for r in solo[1:]]))
+    log(f"phase 21c: ns-train thermal-nerfacto --data A,B (f32 compute), {MULTI_STEPS} steps: K=2 {summary.step_s * 1e3:.2f} ms a "
+        f"step of both scenes against K=1 (ns-train --data A) {solo_ms:.2f} ms/step (steps 1-{MULTI_STEPS - 1}, each "
+        f"logged); scene 0 against the one-scene run: step 0 bitwise, worst rel diff {worst:.3g}; launches "
+        f"{ {k: multi_counts[k] for k in PAR_KERNELS['thermal-nerfacto']} } (2 x the one-scene run's); ns-eval psnr "
+        + ", ".join(f"{n} {r.get('psnr_rgb', float('nan')):.2f} / {r.get('psnr_thermal', float('nan')):.2f}"
+                    for n, r in evals.items()) + f" ({smi})")
+    return {"counts": multi_counts, "solo_counts": solo_counts, "k2_ms": summary.step_s * 1e3, "k1_ms": solo_ms}
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -5649,6 +6058,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None,
                         help="write profiler tables of one render chunk and one training step here")
+    parser.add_argument("--dp-rank", nargs=2, default=None, metavar=("SPEC", "RANK"),
+                        help="(internal) run one rank of phase 21b")
     args = parser.parse_args()
 
     t_start = time.perf_counter()
@@ -5660,6 +6071,8 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank[0], int(args.dp_rank[1]))
     from nerfstudio_thermal_torch.ops.cuda import build
     from nerfstudio_thermal_torch.ops.cuda import fused_mlp as fm
     from nerfstudio_thermal_torch.ops.cuda import fused_ray as fr
@@ -5748,6 +6161,12 @@ def main() -> int:
         gen = generfacto_phase(Path(tmp) / "generfacto", smi)
         # phase 20: the web viewer on phase 11's runs, and ns-train --vis viewer
         viewer = viewer_phase(entries, entry_scene, Path(tmp) / "viewer", smi)
+        # phase 21: data-parallel (one NCCL rank, two gloo ranks) and multi-scene training
+        t0 = time.perf_counter()
+        dp = dp_nccl_phase(scene, Path(tmp) / "dp", smi)
+        dp_gloo = dp_gloo_phase(scene, Path(tmp) / "dp_gloo", smi)
+        multi = multi_scene_phase(entry_scene, Path(tmp) / "multi_scene", smi)
+        log(f"phase 21: {time.perf_counter() - t0:.1f} s (21b's two ranks {dp_gloo['wall_s']:.1f} s)")
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -5966,6 +6385,20 @@ def main() -> int:
             rec["viewer_launches"] = viewer["counts"][rec["name"]]
         if viewer["train"]["counts"].get(rec["name"]):
             rec["viewer_train_launches"] = viewer["train"]["counts"][rec["name"]]
+    # phase 21: the launches of rows 1-2 (thermal-nerfacto-tpu) and 7-10
+    # (thermal-nerfacto) per rank-step of the data-parallel runs, and over
+    # the two-scene ns-train run
+    for rec in kernels:
+        for name in PAR_METHODS:
+            if rec["name"] in PAR_KERNELS[name]:
+                rec["data_parallel_launches_per_rank_step"] = {
+                    f"{name} nccl world 1": dp[name]["nccl"]["counts"][rec["name"]] / PAR_STEPS,
+                    **{f"{name} gloo rank {r}": dp_gloo[name][f"rank{r}"]["counts"][rec["name"]] / PAR_STEPS
+                       for r in (0, 1)},
+                }
+        if rec["name"] in PAR_KERNELS["thermal-nerfacto"]:
+            rec["multi_scene_launches"] = {"two scenes": multi["counts"][rec["name"]],
+                                           "one scene": multi["solo_counts"][rec["name"]]}
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]

@@ -68,6 +68,7 @@ from nerfstudio_thermal_torch.models.thermal_nerfacto import (
     ThermalNerfactoModelConfig,
 )
 from nerfstudio_thermal_torch.models.vanilla_nerf import NeRFModel, VanillaModelConfig
+from nerfstudio_thermal_torch.parallel.mesh import Mesh, create_mesh, host_seed
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
 from nerfstudio_thermal_torch.pipelines.dynamic_batch import DynamicBatchPipeline, DynamicBatchPipelineConfig
 from nerfstudio_thermal_torch.plugins.registry import discover_methods
@@ -515,25 +516,31 @@ def setup_trainer(
     config: MethodConfig,
     base_dir: Optional[Path] = None,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Trainer:
     """Dataparser -> data manager -> model -> pipeline -> trainer. The model
     is built on `device` (CUDA unless the caller asks for the CPU) from the
     trainer's seed, of the class `resolve_model_class` gives. A generative
     config (generfacto) trains from random cameras: no dataparser, no
     images. Splatfacto starts from a parser's `points3D_xyz` /
-    `points3D_rgb` where they exist (no parser writes them)."""
+    `points3D_rgb` where they exist (no parser writes them). `mesh`
+    (default: `create_mesh` of trainer.num_devices) places the run's rank;
+    each host samples with the data manager's seed + 7919 x its index, as
+    the JAX package's processes do (on a copy of the data manager's config)."""
+    mesh = mesh if mesh is not None else create_mesh(config.trainer.num_devices)
+    dm_config = dataclasses.replace(config.datamanager, seed=host_seed(config.datamanager.seed, mesh))
     seed = config.trainer.seed
     if isinstance(config.model, GenerfactoModelConfig):
-        datamanager = RandomCamerasDataManager(config.datamanager)
+        datamanager = RandomCamerasDataManager(dm_config)
         model = GenerfactoModel(
             config.model, scene_aabb=datamanager.train_dataparser_outputs.scene_box, num_train_data=1,
             metadata={}, device=device, seed=seed,
         )
-        return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir)
+        return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir, mesh=mesh)
     if config.data is not None:
         config.dataparser.data = Path(config.data)
     dm_cls = FullImageDatamanager if isinstance(config.datamanager, FullImageDatamanagerConfig) else VanillaDataManager
-    datamanager = dm_cls(config.datamanager, build_dataparser(config.dataparser))
+    datamanager = dm_cls(dm_config, build_dataparser(config.dataparser))
     metadata = dict(datamanager.train_dataparser_outputs.metadata)
     if "is_thermal" not in metadata:
         metadata["is_thermal"] = list(datamanager.train_dataset.is_thermal)
@@ -545,10 +552,10 @@ def setup_trainer(
         md = datamanager.train_dataparser_outputs.metadata
         seed_points = (md["points3D_xyz"], md.get("points3D_rgb")) if md.get("points3D_xyz") is not None else None
         model = SplatfactoModel(config.model, seed_points=seed_points, **common)
-        return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir)
+        return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir, mesh=mesh)
     model = resolve_model_class(config.model)(config.model, **common)
     if config.dynamic_batch is not None:
         pipeline = DynamicBatchPipeline(datamanager, model, config.dynamic_batch)
     else:
         pipeline = VanillaPipeline(datamanager, model)
-    return Trainer(config.trainer, pipeline, config.optimizers, base_dir=base_dir)
+    return Trainer(config.trainer, pipeline, config.optimizers, base_dir=base_dir, mesh=mesh)

@@ -43,6 +43,17 @@ render and export also takes, and the viewer's pause / resume / step
 controls hold the loop between steps without the lock (the idle time is
 left out of the rays/s window); the train scalars reach the viewer at log
 cadence. An `eval_only` setup serves no viewer.
+
+Data parallelism (parallel/mesh.py, whose docstring gives the design):
+inside a process group the trainer's mesh spans its ranks, one card
+each. A rank's step takes its rows of its host's batch and a `RayShard`;
+the model returns its contributions to the global losses, the
+gradients of the optimized parameters are summed over the ranks before
+the optimizers step, and the logged scalars are the global values.
+The ranks start from rank 0's parameters. Only the main rank writes
+events, images and checkpoints, runs the evals and serves the viewer.
+The ray-batch models that take a shard (`data_parallel`: thermal-nerfacto
+and thermal-nerfacto-tpu) train so; the others refuse a process group.
 """
 
 import dataclasses
@@ -64,6 +75,15 @@ from nerfstudio_thermal_torch.engine.optimizers import (
 )
 from nerfstudio_thermal_torch.model_components.ray_generators import RayGenerator
 from nerfstudio_thermal_torch.models.nerfacto import proposal_anneal, proposal_updated
+from nerfstudio_thermal_torch.parallel.mesh import (
+    Mesh,
+    RayShard,
+    all_reduce_grads,
+    broadcast_params,
+    create_mesh,
+    reduce_scalars,
+    shard_batch,
+)
 from nerfstudio_thermal_torch.pipelines.base_pipeline import VanillaPipeline
 from nerfstudio_thermal_torch.utils import profiler
 from nerfstudio_thermal_torch.utils.precision import pin_precision
@@ -93,7 +113,8 @@ class TrainerConfig:
     load_dir: Optional[Path] = None
     load_step: Optional[int] = None
     num_devices: Optional[int] = None
-    """Devices of the data-parallel mesh (None: all); the port trains on one."""
+    """Ranks of the data-parallel mesh, one card each (None: every visible
+    card); ns-train spawns them (parallel/mesh.py)."""
     seed: int = 42
     output_dir: Path = Path("outputs")
     experiment_name: str = "experiment"
@@ -125,12 +146,16 @@ def _uses_random_background(model) -> bool:
     return isinstance(color, str) and color == "random"
 
 
-def _random_background(model, outputs, generator: torch.Generator) -> torch.Tensor:
+def _random_background(
+    model, outputs, generator: torch.Generator, shard: Optional[RayShard] = None
+) -> torch.Tensor:
     """U[0, 1) of the blended prediction's shape: [R, 3], or [R, 4] for the
     thermal model (RGBT in every density mode; rgb_only pads a zero thermal
-    channel)."""
+    channel); with a `shard`, its rows of the global batch's draw."""
     rgb = outputs["rgb"]
     channels = 4 if hasattr(model, "output_suffixes") else rgb.shape[-1]
+    if shard is not None:
+        return shard.draw(generator, channels, rgb.device)
     return torch.rand((*rgb.shape[:-1], channels), generator=generator, device=rgb.device)
 
 
@@ -145,7 +170,8 @@ def trained_params(optimizers: Union[Optimizers, MultiSteps]) -> List[torch.Tens
 
 
 def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras) -> Callable:
-    """(state, batch, uniforms=None, background_uniforms=None, tv_uniforms=None, extra_draws=None) -> scalars.
+    """(state, batch, uniforms=None, background_uniforms=None, tv_uniforms=None, extra_draws=None, shard=None)
+    -> scalars.
 
     Updates the model's parameters, the optimizers and `state` in place.
     The step first updates the model's extra state (`update_extra_state`,
@@ -156,7 +182,12 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
     `background_uniforms` the draw of a random background (U[0, 1) of the
     prediction's shape, [R, 3] or [R, 4] for RGBT) that the loss blends,
     and `tv_uniforms` ({"rgb": [P, 3], "thermal": [P, 3]}) the density TV
-    loss's points; a test passes the JAX package's draws there."""
+    loss's points; a test passes the JAX package's draws there. With a
+    `shard` (a data-parallel rank: `batch` holds its rows) the given
+    uniforms and background are the global batch's, the draws from the
+    generator too, and the rank keeps its rows of them; the model returns
+    its contributions, the gradients are summed over the ranks before the
+    update and the returned scalars are the global values."""
     cfg = model.config
     # a model without proposal networks (instant-ngp) takes the JAX step's defaults
     use_anneal = getattr(cfg, "use_proposal_weight_anneal", True)
@@ -170,8 +201,15 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
     ray_generator = RayGenerator(cameras)
 
     def train_step(state: TrainState, batch, uniforms=None, background_uniforms=None, tv_uniforms=None,
-                   extra_draws=None):
+                   extra_draws=None, shard: Optional[RayShard] = None):
         step = state.step
+        sharded = {}
+        if shard is not None:
+            sharded = {"shard": shard}
+            if uniforms is not None:
+                uniforms = {k: [shard.local(u) for u in v] for k, v in uniforms.items()}
+            if background_uniforms is not None:
+                background_uniforms = shard.local(background_uniforms)
         state.extra = model.update_extra_state(state.extra, step, generator=state.generator, draws=extra_draws)
         anneal = proposal_anneal(step, anneal_iters, anneal_slope) if use_anneal else 1.0
         updated, new_ssu = proposal_updated(step, state.steps_since_update, warmup, update_every)
@@ -194,23 +232,28 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
         outputs = model(
             bundle, train=True, anneal=anneal, updated=updated,
             uniforms=uniforms, generator=state.generator, **kwargs,
-            **model.extra_forward_kwargs(state.extra),
+            **model.extra_forward_kwargs(state.extra), **sharded,
         )
-        metrics = model.get_metrics_dict(outputs, batch, train=True)
+        metrics = model.get_metrics_dict(outputs, batch, train=True, **sharded)
         if random_background and background_uniforms is None:
             # the JAX step draws it from its loss key
-            background_uniforms = _random_background(model, outputs, state.generator)
+            background_uniforms = _random_background(model, outputs, state.generator, shard)
         loss_dict = model.get_loss_dict(
             outputs, batch, metrics, train=True, background_uniforms=background_uniforms,
-            tv_uniforms=tv_uniforms, generator=state.generator,
+            tv_uniforms=tv_uniforms, generator=state.generator, **sharded,
         )
         loss = sum(loss_dict[k] for k in sorted(loss_dict))
-        loss.backward(inputs=trained_params(optimizers))
+        params = trained_params(optimizers)
+        loss.backward(inputs=params)
+        if shard is not None:
+            all_reduce_grads(params)
         optimizers.step()
         state.step = step + 1
         state.steps_since_update = new_ssu
         state.steps_since_update_thermal = new_ssu_t
         scalars = {"loss": loss, **loss_dict, **metrics}
+        if shard is not None:
+            return reduce_scalars(scalars)
         return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in scalars.items()}
 
     return train_step
@@ -284,22 +327,29 @@ class Trainer:
         pipeline: VanillaPipeline,
         optimizer_configs: Dict[str, OptimizerGroupConfig],
         base_dir: Optional[Path] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """`mesh`: the data-parallel mesh (default: `create_mesh` of
+        config.num_devices)."""
         if config.profiler not in ("none", "basic", "xla"):
             raise ValueError(f"profiler={config.profiler!r}: one of none, basic, xla")
-        if config.num_devices not in (None, 1):
-            raise NotImplementedError("the trainer's data parallelism over several devices is not ported yet")
         pin_precision()
         self.config = config
         self.pipeline = pipeline
         self.model = pipeline.model
         self.datamanager = pipeline.datamanager
         self.device = self.model.device
+        self.mesh = mesh if mesh is not None else create_mesh(config.num_devices)
+        if self.mesh.distributed and not getattr(self.model, "data_parallel", False):
+            raise NotImplementedError(
+                f"{type(self.model).__name__}: data-parallel training is ported for thermal-nerfacto's model "
+                "only; the other methods' data parallelism is ROADMAP A7's rest"
+            )
         self.optimizer_configs = optimizer_configs
         self.base_dir = Path(base_dir) if base_dir else Path(config.output_dir)
         self.checkpoint_dir = self.base_dir / "nerfstudio_models"
         self.writer = Writer(
-            self.base_dir, steps_per_log=config.steps_per_log,
+            self.base_dir if self.mesh.is_main else None, steps_per_log=config.steps_per_log,
             use_tensorboard=config.use_tensorboard, use_wandb=config.use_wandb,
             use_comet=config.use_comet, experiment_name=config.experiment_name,
         )
@@ -329,6 +379,8 @@ class Trainer:
         self.state = TrainState(generator=generator, extra=self.model.init_extra_state())
         self.cameras = self.datamanager.train_cameras.to(self.device)
         self._load_checkpoint(eval_only)
+        if self.mesh.distributed:
+            broadcast_params(self.model.parameters())
         if getattr(self.model, "is_rasterization", False):
             self._train_step = make_image_train_step(self.model, self.optimizers, self.cameras)
         elif getattr(self.model, "is_generative", False):
@@ -339,7 +391,7 @@ class Trainer:
             profiler.setup_profiler(True, self.base_dir)
         elif self.config.profiler == "xla":
             self._trace_profiler = profiler.TraceProfiler(self.base_dir)
-        if self.config.vis == "viewer" and not eval_only:
+        if self.config.vis == "viewer" and not eval_only and self.mesh.is_main:
             self._start_viewer()
 
     def _start_viewer(self) -> None:
@@ -385,8 +437,16 @@ class Trainer:
 
     @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
-        batch = _batch_to(self.datamanager.next_train(step), self.device)
-        scalars = self._train_step(self.state, batch)
+        batch = self.datamanager.next_train(step)
+        if self.mesh.distributed:
+            # this rank's rows of its host's batch
+            patch = self.datamanager.config.patch_size
+            shard = self.mesh.ray_shard(len(batch["ray_indices"]), patch)
+            scalars = self._train_step(
+                self.state, _batch_to(shard_batch(batch, self.mesh, patch), self.device), shard=shard
+            )
+        else:
+            scalars = self._train_step(self.state, _batch_to(batch, self.device))
         self._maybe_refine(step)
         after = getattr(self.pipeline, "after_train_iteration", None)
         if after is not None:
@@ -423,7 +483,9 @@ class Trainer:
 
     def train(self):
         cfg = self.config
-        self.writer.console_log(0, {})
+        main = self.mesh.is_main
+        if main:
+            self.writer.console_log(0, {})
         t_last = time.perf_counter()
         for step in range(self._start_step, cfg.max_num_iterations):
             # viewer pause: idle without train_lock so viewer renders stay
@@ -443,7 +505,7 @@ class Trainer:
                 t_now = time.perf_counter()
                 iter_time = (t_now - t_last) / max(cfg.steps_per_log, 1)
                 t_last = t_now
-                num_rays = (
+                num_rays = self.mesh.num_hosts * (
                     getattr(self.datamanager, "num_rays_override", None)
                     or self.datamanager.config.train_num_rays_per_batch
                 )
@@ -455,7 +517,8 @@ class Trainer:
                 if self.device.type == "cuda":
                     scalars["Device Memory (MB)"] = torch.cuda.memory_allocated(self.device) / 1e6
                 self.writer.write_scalar_dict(scalars, step, group="train")
-                self.writer.console_log(step, scalars)
+                if main:
+                    self.writer.console_log(step, scalars)
                 if self._viewer is not None:
                     stats = {
                         "step": step,
@@ -475,14 +538,16 @@ class Trainer:
                 with torch.no_grad(), profiler.time_function("Trainer.eval_all_images"):
                     metrics = self.pipeline.get_average_eval_image_metrics(step)
                 self.writer.write_scalar_dict(metrics, step, group="eval_all")
-            if step > 0 and step % cfg.steps_per_save == 0:
+            if step > 0 and step % cfg.steps_per_save == 0 and main:
                 self.save_checkpoint(step)
         if self._trace_profiler is not None:
             self._trace_profiler.close()
-        self.save_checkpoint(cfg.max_num_iterations)
+        if main:
+            self.save_checkpoint(cfg.max_num_iterations)
 
     def _due(self, step: int, every: int) -> bool:
-        return every > 0 and step > 0 and step % every == 0 and self._has_eval_data()
+        """An eval cadence's step (the main rank's only)."""
+        return every > 0 and step > 0 and step % every == 0 and self.mesh.is_main and self._has_eval_data()
 
     # evals ------------------------------------------------------------
 

@@ -13,7 +13,7 @@ are masked means over the static 2x2 patch layout, each patch
 modality-pure.
 """
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -32,9 +32,16 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over the elements where mask is 1."""
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the elements where mask is 1. `count` replaces the mask's
+    sum (a data-parallel rank passes the global count, parallel/mesh.py)."""
+    return torch.sum(values * mask) / torch.clamp(torch.sum(mask) if count is None else count, min=1.0)
+
+
+def patch_rgb_mask(is_thermal: torch.Tensor, patch_size: int = 2) -> torch.Tensor:
+    """1 for each patch_size x patch_size patch of RGB pixels: the mask of
+    the patch losses' masked means."""
+    return (1.0 - is_thermal).reshape(-1, patch_size**2)[:, 0]
 
 
 def ray_samples_to_sdist(ray_samples: RaySamples) -> torch.Tensor:
@@ -129,19 +136,22 @@ def tv_density_loss(densities: torch.Tensor, num_samples: int) -> torch.Tensor:
     return torch.mean(torch.abs(densities[num_samples:] - base.repeat(reps, 1)))
 
 
-def tv_pixel_loss(pred_thermal: torch.Tensor, is_thermal: torch.Tensor) -> torch.Tensor:
+def tv_pixel_loss(
+    pred_thermal: torch.Tensor, is_thermal: torch.Tensor, count: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """2x2-patch total variation of the predicted thermal at RGB pixels.
-    pred_thermal [N, 1] in flattened 2x2-patch order."""
+    pred_thermal [N, 1] in flattened 2x2-patch order; `count`: the RGB
+    patches the mean divides by (default: this batch's)."""
     patch_size = 2
     patches = pred_thermal.reshape(-1, patch_size**2)
-    rgb_mask = (1.0 - is_thermal).reshape(-1, patch_size**2)[:, 0]
+    rgb_mask = patch_rgb_mask(is_thermal, patch_size)
     tv = (
         torch.abs(patches[:, 0] - patches[:, 1])
         + torch.abs(patches[:, 0] - patches[:, 2])
         + torch.abs(patches[:, 1] - patches[:, 3])
         + torch.abs(patches[:, 2] - patches[:, 3])
     )
-    return masked_mean(tv, rgb_mask) / patch_size**2
+    return masked_mean(tv, rgb_mask, count) / patch_size**2
 
 
 def pixel_grad(img: torch.Tensor, patch_size: int = 2) -> torch.Tensor:
@@ -158,16 +168,17 @@ def pixel_grad(img: torch.Tensor, patch_size: int = 2) -> torch.Tensor:
 
 
 def cross_channel_loss(
-    pred_thermal: torch.Tensor, gt_rgb: torch.Tensor, is_thermal: torch.Tensor
+    pred_thermal: torch.Tensor, gt_rgb: torch.Tensor, is_thermal: torch.Tensor,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """L1 between the 2x2-patch gradients of the predicted thermal and of
-    the grayscale GT RGB, at RGB pixels."""
+    the grayscale GT RGB, at RGB pixels (`count`: as tv_pixel_loss's)."""
     patch_size = 2
-    rgb_mask = (1.0 - is_thermal).reshape(-1, patch_size**2)[:, 0]
+    rgb_mask = patch_rgb_mask(is_thermal, patch_size)
     gt_gray = torch.mean(gt_rgb, dim=-1, keepdim=True)
     diff = torch.abs(pixel_grad(pred_thermal, patch_size) - pixel_grad(gt_gray, patch_size))
     per_patch = diff[0] + diff[1] + diff[2] + diff[3]
-    return masked_mean(per_patch, rgb_mask) / patch_size**2
+    return masked_mean(per_patch, rgb_mask, count) / patch_size**2
 
 
 # Depth supervision ------------------------------------------------------

@@ -21,6 +21,17 @@ The density TV losses (`tv_rgb_loss_mult`, `tv_thermal_loss_mult`; the
 thermal one in separate mode only) sample `num_density_tv_samples` points
 in the aabb with their 6 neighbours (`NerfactoField.sample_and_density`).
 
+A data-parallel rank (`shard`, a parallel/mesh.py `RayShard`) returns
+its contributions to the global batch's losses and metrics, which sum
+over the ranks to them: per-ray means weighted by its share of the rays,
+the patch losses' masked means over the global count, the cross-density
+prefix's k from the global ray count (a rank evaluates its own rows of
+it, possibly none), the camera penalties and the density TV loss on the
+main rank only, and the masked PSNRs from summed squared errors. Its
+jitter is its rows of the global batch's draw. Without a shard the model
+runs the same code over `RayShard.full` (every row, weight 1, nothing
+to reduce), which gives the plain values bit for bit.
+
 `fused_modalities` (separate mode; off by default as in the JAX package,
 where it vmaps both modalities' training pipelines over one stacked axis)
 gives the thermal field a 3-channel head, channel 0 the thermal value, so
@@ -31,7 +42,7 @@ outputs are the sequential outputs of the same parameters and jitter.
 """
 
 from dataclasses import dataclass, field as dataclass_field
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -49,12 +60,13 @@ from nerfstudio_thermal_torch.model_components.losses import (
     interlevel_loss,
     l1_loss,
     mse_loss,
+    patch_rgb_mask,
     scale_gradients_by_distance_squared,
     tv_density_loss,
     tv_pixel_loss,
 )
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
-from nerfstudio_thermal_torch.utils.math import psnr
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -100,6 +112,17 @@ def _removal(density, cross_density, rgb_samples, ray_samples, diff, background_
     return renderers.render_rgb(rgb_samples, weights, background_color=background_color, train=False)
 
 
+def _psnr(pred, target, mask, shard: RayShard) -> torch.Tensor:
+    """The masked PSNR (utils/math.py `psnr`) of the global batch on the
+    main rank, 0 on the others (from squared errors and counts summed
+    over the ranks)."""
+    se = (pred - target) ** 2
+    mask = torch.broadcast_to(mask, se.shape)
+    sums = shard.global_sum(torch.stack([torch.sum(se * mask), torch.sum(mask)]))
+    mse = sums[0] / torch.clamp(sums[1], min=1.0)
+    return shard.once(-10.0 * torch.log10(torch.clamp(mse, min=1e-12)))
+
+
 def draw_tv_uniforms(num_points: int, generator: torch.Generator) -> torch.Tensor:
     """The density TV loss's points, U[0, 1) [num_points, 3] from the
     step's generator (the JAX package draws them from its loss key)."""
@@ -108,6 +131,19 @@ def draw_tv_uniforms(num_points: int, generator: torch.Generator) -> torch.Tenso
 
 class ThermalNerfactoModel(NerfactoModel):
     config: ThermalNerfactoModelConfig
+    data_parallel = True  # the losses and metrics take a RayShard
+
+    def _jitter_columns(self) -> List[int]:
+        """The jitter draw's columns at each sampling level of `_sample`."""
+        cfg = self.config
+        levels = [*cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray]
+        return [1 if cfg.use_single_jitter else n + 1 for n in levels]
+
+    def cross_density_rays(self, num_rays: int, train: bool) -> int:
+        """The cross-spectral density loss's ray prefix of a batch of
+        num_rays (training: density_loss_rays_fraction; eval: every ray)."""
+        frac = self.config.density_loss_rays_fraction if train else 1.0
+        return max(int(num_rays * frac) // 256 * 256, min(256, num_rays)) if frac < 1.0 else num_rays
 
     def populate_modules(self) -> None:
         cfg = self.config
@@ -167,12 +203,24 @@ class ThermalNerfactoModel(NerfactoModel):
         updated_thermal: bool = True,
         uniforms: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[RayShard] = None,
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": [...], "thermal": [...]}, one jitter draw per
-        sampling level of each modality (training)."""
+        sampling level of each modality (training); without them the
+        jitter comes from `generator`. With `shard` the jitter is its rows
+        of the global batch's draw and the cross densities cover its rows
+        of the global prefix (the keys are absent when it has none)."""
         cfg = self.config
-        uniforms = uniforms or {}
         separate = cfg.density_mode == "separate"
+        shard = shard or RayShard.full(ray_bundle.origins.shape[0])
+        uniforms = dict(uniforms or {})
+        if train and generator is not None:
+            # in the order the samplers would draw them: rgb's levels, then thermal's
+            for modality in ("rgb", "thermal") if separate else ("rgb",):
+                if modality not in uniforms:
+                    uniforms[modality] = [
+                        shard.draw(generator, c, ray_bundle.origins.device) for c in self._jitter_columns()
+                    ]
 
         bundle_rgb = self.shared_camera_optimizer.apply_to_raybundle(ray_bundle)
         if train:
@@ -214,15 +262,13 @@ class ThermalNerfactoModel(NerfactoModel):
         if cfg.density_loss_mult > 0 or not train:
             # cross-field densities: each field at the other field's samples,
             # in training on a ray prefix (rays are randomly ordered)
-            frac = cfg.density_loss_rays_fraction if train else 1.0
-            num_rays = ray_samples.starts.shape[0]
-            k = max(int(num_rays * frac) // 256 * 256, min(256, num_rays)) if frac < 1.0 else num_rays
+            k = shard.prefix(self.cross_density_rays(shard.num_rays, train))
             prefix = lambda t: t[:k]  # noqa: E731
             samples_t_k, samples_k = map_tensors(ray_samples_t, prefix), map_tensors(ray_samples, prefix)
             for name, field, samples in (
                 ("density2", self.field, samples_t_k),
                 ("density2_thermal", self.field_thermal, samples_k),
-            ):
+            ) if k > 0 else ():
                 density, _ = field.get_density_from_rays(samples)
                 if cfg.use_gradient_scaling:
                     density = scale_gradients_by_distance_squared(
@@ -259,27 +305,31 @@ class ThermalNerfactoModel(NerfactoModel):
         )
         return [opt for opt in opts if opt is not None and opt.mode != "off"]
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
+    def get_metrics_dict(
+        self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
+    ) -> Dict[str, torch.Tensor]:
         is_thermal = batch["is_thermal"]
+        shard = shard or RayShard.full(is_thermal.shape[0])
         gt = renderers.blend_background_rgbt(
             batch["image"], is_thermal, background_color=self.config.background_color
         )
-        metrics = {"psnr_rgb": psnr(outputs["rgb"], gt[..., :3], mask=(1.0 - is_thermal)[..., None])}
+        metrics = {"psnr_rgb": _psnr(outputs["rgb"], gt[..., :3], (1.0 - is_thermal)[..., None], shard)}
         if self.config.density_mode != "rgb_only":
-            metrics["psnr_thermal"] = psnr(outputs["rgb_thermal"], gt[..., 3:], mask=is_thermal[..., None])
+            metrics["psnr_thermal"] = _psnr(outputs["rgb_thermal"], gt[..., 3:], is_thermal[..., None], shard)
         if train:
             metrics["distortion"] = sum(
                 distortion_loss(outputs[f"weights_list{s}"], outputs[f"ray_samples_list{s}"])
                 for s in self.output_suffixes
-            )
+            ) * shard.weight
             for opt in self._active_camera_optimizers():
-                metrics.update(opt.metrics())
+                metrics.update({k: shard.once(v) for k, v in opt.metrics().items()})
         return metrics
 
-    def _tv_density(self, field, key: str, tv_uniforms, generator) -> Optional[torch.Tensor]:
+    def _tv_density(self, field, key: str, tv_uniforms, generator, shard: RayShard) -> Optional[torch.Tensor]:
         """The density TV loss of one field (unscaled), at tv_uniforms[key]
         ([P, 3] in [0, 1)) or at points drawn from `generator`; None when
-        neither is given (the JAX package skips it without a loss key)."""
+        neither is given (the JAX package skips it without a loss key).
+        A rank other than the main one draws the points and contributes 0."""
         cfg = self.config
         n = cfg.num_density_tv_samples
         uniforms = (tv_uniforms or {}).get(key)
@@ -287,6 +337,8 @@ class ThermalNerfactoModel(NerfactoModel):
             if generator is None:
                 return None
             uniforms = draw_tv_uniforms(n, generator)
+        if not shard.main:
+            return torch.zeros((), device=field.aabb.device)
         dens = field.sample_and_density(uniforms.to(field.aabb.device), float(cfg.max_res))
         return tv_density_loss(dens, n)
 
@@ -295,11 +347,15 @@ class ThermalNerfactoModel(NerfactoModel):
         background_uniforms: Optional[torch.Tensor] = None,
         tv_uniforms: Optional[Dict[str, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[RayShard] = None,
     ) -> Dict[str, torch.Tensor]:
         """tv_uniforms: {"rgb": [P, 3], "thermal": [P, 3]}, the density TV
-        loss's points (training); without them they come from `generator`."""
+        loss's points (training); without them they come from `generator`.
+        With `shard`: this rank's contributions (the module docstring)."""
         cfg = self.config
         is_thermal = batch["is_thermal"]
+        shard = shard or RayShard.full(is_thermal.shape[0])
+        weight = shard.weight
         rgb_only = cfg.density_mode == "rgb_only"
         thermal = torch.zeros_like(outputs["rgb"][..., :1]) if rgb_only else outputs["rgb_thermal"]
         pred4 = torch.cat([outputs["rgb"], thermal], dim=-1)
@@ -314,18 +370,21 @@ class ThermalNerfactoModel(NerfactoModel):
                 tv_fields.append(("tv_thermal_loss", cfg.tv_thermal_loss_mult, "field_thermal", "thermal"))
             for name, mult, attr, key in tv_fields:
                 if mult > 0:
-                    tv = self._tv_density(getattr(self, attr), key, tv_uniforms, generator)
+                    tv = self._tv_density(getattr(self, attr), key, tv_uniforms, generator, shard)
                     if tv is not None:
                         loss_dict[name] = mult * tv
         # masked channels, mean over the whole batch (as the reference does)
         rgb_mask = (1.0 - is_thermal)[:, None]
-        loss_dict["rgb_loss"] = mse_loss(gt_rgb[..., :3] * rgb_mask, pred_rgb[..., :3] * rgb_mask)
+        loss_dict["rgb_loss"] = mse_loss(gt_rgb[..., :3] * rgb_mask, pred_rgb[..., :3] * rgb_mask) * weight
         if not rgb_only:
             t_mask = is_thermal[:, None]
             loss_dict["thermal_loss"] = cfg.thermal_loss_mult * mse_loss(
                 gt_rgb[..., 3:] * t_mask, pred_rgb[..., 3:] * t_mask
-            )
-        if cfg.density_mode == "separate" and cfg.density_loss_mult > 0:
+            ) * weight
+        if cfg.density_mode == "separate" and cfg.density_loss_mult > 0 and "density2" not in outputs:
+            # no row of this rank lies in the global prefix
+            loss_dict["density_loss"] = outputs["rgb"].new_zeros(())
+        elif cfg.density_mode == "separate" and cfg.density_loss_mult > 0:
             # cross-spectral density L1 with the asymmetric detach; the cross
             # evals may cover a ray prefix
             d2, d2t = outputs["density2"], outputs["density2_thermal"]
@@ -340,11 +399,18 @@ class ThermalNerfactoModel(NerfactoModel):
                 loss_dict["density_loss"] = cfg.density_loss_mult * (
                     density_loss + cfg.rgb_density_loss_mult * density_loss_rgb
                 )
+            # this rank's rows' share of the mean over the global prefix
+            loss_dict["density_loss"] = loss_dict["density_loss"] * (
+                k / self.cross_density_rays(shard.num_rays, train)
+            )
+        if not rgb_only and (cfg.tv_pixel_loss_mult > 0 or cfg.cross_channel_loss_mult > 0):
+            # the patch losses' masked means divide by the global batch's RGB patches
+            count = shard.global_sum(torch.sum(patch_rgb_mask(is_thermal)))
         if not rgb_only and cfg.tv_pixel_loss_mult > 0:
-            loss_dict["tv_pixel_loss"] = cfg.tv_pixel_loss_mult * tv_pixel_loss(pred_rgb[..., 3:], is_thermal)
+            loss_dict["tv_pixel_loss"] = cfg.tv_pixel_loss_mult * tv_pixel_loss(pred_rgb[..., 3:], is_thermal, count)
         if not rgb_only and cfg.cross_channel_loss_mult > 0:
             loss_dict["cross_channel_loss"] = cfg.cross_channel_loss_mult * cross_channel_loss(
-                pred_rgb[..., 3:], gt_rgb[..., :3], is_thermal
+                pred_rgb[..., 3:], gt_rgb[..., :3], is_thermal, count
             )
         if train:
             il = 0.0
@@ -355,8 +421,8 @@ class ThermalNerfactoModel(NerfactoModel):
                 )
                 # the JAX package adds the summed distortion once per modality
                 dl = dl + cfg.distortion_loss_mult * metrics_dict["distortion"]
-            loss_dict["interlevel_loss"] = il
-            loss_dict["distortion_loss"] = dl
+            loss_dict["interlevel_loss"] = il * weight
+            loss_dict["distortion_loss"] = dl  # the distortion metric is this rank's contribution already
             for opt in self._active_camera_optimizers():
-                loss_dict[f"camera_opt_regularizer{opt.suffix}"] = opt.regularization_loss()
+                loss_dict[f"camera_opt_regularizer{opt.suffix}"] = shard.once(opt.regularization_loss())
         return loss_dict

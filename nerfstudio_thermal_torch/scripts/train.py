@@ -1,9 +1,9 @@
 """ns-train: train a registered method
 (counterpart of nerfstudio_thermal_tpu/scripts/train.py).
 
-    python -m nerfstudio_thermal_torch.scripts.train thermal-nerfacto --data SCENE \
+    python -m nerfstudio_thermal_torch.scripts.train thermal-nerfacto --data SCENE[,SCENE2,...] \
         [--max-num-iterations 30000] [--output-dir outputs] [--experiment-name NAME] \
-        [--pipeline.model.fused-raymarch True] [--<config.path> VALUE ...]
+        [--trainer.num-devices D] [--pipeline.model.fused-raymarch True] [--<config.path> VALUE ...]
 
 Trains on the card. The run goes to OUTPUT_DIR/EXPERIMENT/METHOD/TIMESTAMP/
 (the experiment defaults to the scene's directory name, or to the method
@@ -15,8 +15,18 @@ nerfstudio_models/ with the checkpoint. Every nested config field is a flag
 http://localhost:VIEWER_PORT (default 7007; websocket on VIEWER_PORT + 1)
 while training, rendering on the card (viewer/server.py), and stops it
 when training ends. --help lists the port's methods and the plugin
-methods (plugins/registry.py). Not carried: several comma-separated --data
-scenes (A7), which raise with their ROADMAP item.
+methods (plugins/registry.py).
+
+`--trainer.num-devices D` (default: every visible card for the models
+with a data-parallel step, thermal-nerfacto's; one for the others, with
+a note) trains on D cards: ns-train spawns D ranks on this host, joined over NCCL (gloo for
+the CPU seam) at a free localhost port, runs the data-parallel trainer
+in each (parallel/mesh.py) and joins them at the end; the main rank
+writes the run. Several comma-separated --data scenes train as a
+multi-scene run (engine/multi_scene.py): K scenes of one config, each
+rank stepping its K / D scenes in turn, into
+OUTPUT_DIR/multi_{K}scenes/METHOD/TIMESTAMP/scene_{i}_{name}/, each a
+standard run directory.
 """
 
 import json
@@ -26,11 +36,20 @@ from pathlib import Path
 from typing import List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from nerfstudio_thermal_torch.configs.cli import CLIError, apply_cli_overrides, print_config_help
-from nerfstudio_thermal_torch.configs.method_configs import get_method_config, method_names, setup_trainer
+from nerfstudio_thermal_torch.configs.method_configs import (
+    get_method_config,
+    method_names,
+    resolve_model_class,
+    setup_trainer,
+)
 from nerfstudio_thermal_torch.configs.serialization import save_config
+from nerfstudio_thermal_torch.parallel.mesh import free_port, initialize_distributed, is_main_process, visible_devices
 from nerfstudio_thermal_torch.utils.precision import pin_precision
+
+USAGE = "usage: ns-train METHOD [--data PATH[,PATH...]] [--trainer.num-devices D] [--<config.path> VALUE ...]"
 
 # top-level conveniences, mapped into the config tree
 _SHORT_FLAGS = {
@@ -43,12 +62,60 @@ _SHORT_FLAGS = {
 }
 
 
-def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] = "cuda") -> int:
-    """`device` is the seam for tests, which pass "cpu"."""
+def _rank_main(rank: int, world: int, port: int, argv: List[str], device: str, timestamp: str) -> None:
+    """One spawned rank: join the group, train, leave it."""
+    initialize_distributed(f"tcp://localhost:{port}", world, rank, device=device)
+    try:
+        if main(argv, device=device, timestamp=timestamp) != 0:
+            raise RuntimeError(f"rank {rank}: ns-train failed")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, argv: List[str], device: Union[str, torch.device], timestamp: str) -> int:
+    """Run ns-train in `world` spawned ranks on this host and join them."""
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    print(f"spawning {world} ranks (rendezvous tcp://localhost:{port})")
+    mp.start_processes(_rank_main, args=(world, port, argv, str(device), timestamp), nprocs=world,
+                       join=True, start_method="spawn")
+    return 0
+
+
+def _ranks(config, num_scenes: int, device: Union[str, torch.device]) -> int:
+    """The ranks to run: --trainer.num-devices, or by default every
+    visible card for a model with a data-parallel step and one for the
+    others; a multi-scene run's trimmed to its K scenes as the JAX package
+    trims its scene mesh. An explicit D > 1 for a model without a
+    data-parallel step raises."""
+    requested = config.trainer.num_devices
+    ranks = visible_devices(device) if requested is None else requested
+    if num_scenes > 1:
+        return min(ranks, num_scenes)
+    model_cls = resolve_model_class(config.model)
+    if getattr(model_cls, "data_parallel", False) or ranks <= 1:
+        return ranks
+    if requested is not None:
+        raise NotImplementedError(
+            f"--trainer.num-devices {requested}: data-parallel training is ported for thermal-nerfacto's model only; "
+            f"{model_cls.__name__}'s is ROADMAP A7's rest"
+        )
+    print(f"note: {model_cls.__name__} has no data-parallel step yet (ROADMAP A7's rest); training on one of the "
+          f"{ranks} visible cards")
+    return 1
+
+
+def main(
+    argv: Optional[List[str]] = None, *, device: Union[str, torch.device] = "cuda", timestamp: Optional[str] = None
+) -> int:
+    """`device` is the seam for tests, which pass "cpu"; `timestamp` names
+    the run directory (the spawned ranks share their parent's)."""
     pin_precision()
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: ns-train METHOD [--data PATH] [--<config.path> VALUE ...]\n")
+        print(USAGE + "\n")
         print("methods:")
         for name, description in sorted(method_names().items()):
             print(f"  {name:24s} {description}")
@@ -62,7 +129,7 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
         return 2
     rest = argv[1:]
     if "-h" in rest or "--help" in rest or "--help-flags" in rest:
-        print(f"usage: ns-train {method} --data PATH [--<config.path> VALUE ...]")
+        print(USAGE.replace("METHOD", method))
         print(f"\n{config.description}\n\nflags:")
         print_config_help(config)
         print("\n(reference-style --pipeline.model.X aliases also accepted)")
@@ -100,27 +167,50 @@ def main(argv: Optional[List[str]] = None, *, device: Union[str, torch.device] =
     if config.data is None and not isinstance(config.model, GenerfactoModelConfig):
         print("error: --data is required", file=sys.stderr)
         return 2
-    if config.data is not None and "," in str(config.data):
-        raise NotImplementedError("multi-scene training (comma-separated --data) is not ported yet (ROADMAP A7)")
+    timestamp = timestamp or time.strftime("%Y-%m-%d_%H%M%S")
+    dirs = [Path(p) for p in str(config.data).split(",") if p] if config.data is not None else []
+    ranks = _ranks(config, len(dirs), device)
+    if ranks > 1 and not dist.is_initialized():
+        return spawn_ranks(ranks, argv, device, timestamp)
 
-    timestamp = time.strftime("%Y-%m-%d_%H%M%S")
+    if len(dirs) > 1:
+        from nerfstudio_thermal_torch.engine.multi_scene import train_multi_scene
+
+        out = Path(config.trainer.output_dir) / f"multi_{len(dirs)}scenes" / method / timestamp
+        out.mkdir(parents=True, exist_ok=True)
+        summary = train_multi_scene(
+            config, dirs, steps=config.trainer.max_num_iterations,
+            seed=config.trainer.seed, out_dir=out, log_every=config.trainer.steps_per_log, device=device,
+        )
+        if is_main_process():
+            print(
+                f"multi-scene training complete: {summary.num_scenes} scenes on "
+                f"{summary.num_devices} device(s), final losses "
+                f"{['%.4f' % x for x in summary.final_losses]}; outputs in {out}"
+            )
+        return 0
+
     if config.trainer.experiment_name == "experiment":
         config.trainer.experiment_name = Path(config.data).name if config.data is not None else method
     base_dir = Path(config.trainer.output_dir) / config.trainer.experiment_name / method / timestamp
     base_dir.mkdir(parents=True, exist_ok=True)
-    save_config(config, base_dir / "config.yml")
-    print(f"config saved to {base_dir / 'config.yml'}")
+    main_rank = is_main_process()
+    if main_rank:
+        save_config(config, base_dir / "config.yml")
+        print(f"config saved to {base_dir / 'config.yml'}")
 
     trainer = setup_trainer(config, base_dir=base_dir, device=device)
     trainer.setup()
-    dpo = trainer.datamanager.train_dataparser_outputs
-    (base_dir / "dataparser_transforms.json").write_text(json.dumps(dpo.as_dict(), indent=2))
+    if main_rank:
+        dpo = trainer.datamanager.train_dataparser_outputs
+        (base_dir / "dataparser_transforms.json").write_text(json.dumps(dpo.as_dict(), indent=2))
     try:
         trainer.train()
     finally:
         trainer.stop_viewer()
     trainer.writer.close()
-    print(f"training complete; outputs in {base_dir}")
+    if main_rank:
+        print(f"training complete; outputs in {base_dir}")
     return 0
 
 

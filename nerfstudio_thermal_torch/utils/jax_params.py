@@ -46,7 +46,10 @@ Splatfacto's tree is flat: one array per group (`xyz`, `features_dc`,
 the JAX TrainState's `extra` (e.g. `jax.tree.map(np.asarray,
 state.extra)` as a dict, or the grid itself) and back.
 `load_jax_moments` / `export_jax_moments` carry the optimizers' first or
-second Adam moments in the param tree's layout.
+second Adam moments in the param tree's layout. `load_jax_scene_params` /
+`export_jax_stacked` carry the JAX multi-scene run's stacked tree (a
+leading scene axis on every array) into one model per scene and back
+(engine/multi_scene.py).
 """
 
 import dataclasses
@@ -230,6 +233,33 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> None:
     _check_keys(params, expected, "params")
     for group in expected:
         load_module(getattr(model, GROUPS[group]), params[group], group)
+
+
+def split_scene_params(stacked: Any, scene: int) -> Any:
+    """Scene `scene`'s params out of a stacked tree (nested mappings of
+    arrays with a leading scene axis)."""
+    if isinstance(stacked, Mapping):
+        return {k: split_scene_params(v, scene) for k, v in stacked.items()}
+    return np.asarray(stacked)[scene]
+
+
+def load_jax_scene_params(models, stacked: Dict[str, Any], scenes=None) -> None:
+    """Scene `scenes[i]`'s slice (default: i) of a stacked JAX tree into
+    `models[i]`, each in place."""
+    for i, model in enumerate(models):
+        load_jax_params(model, split_scene_params(stacked, i if scenes is None else scenes[i]))
+
+
+def _stack(trees) -> Any:
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def export_jax_stacked(models, grads: bool = False) -> Dict[str, Any]:
+    """The models' JAX trees stacked on a leading scene axis (the layout of
+    the JAX package's multi-scene params)."""
+    return _stack([export_jax_tree(m, grads) for m in models])
 
 
 def _value(p: torch.Tensor, grads: bool) -> np.ndarray:

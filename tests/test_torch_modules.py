@@ -398,9 +398,18 @@ def test_carry_over_rejects_mismatched_trees():
 # --------------------------------------------------------------- guards
 
 
-def _imported_modules(path: Path):
+def _imported_modules(path: Path, in_functions: bool = True):
+    """The modules a file imports; without `in_functions`, only those it
+    imports outside a function body."""
     tree = ast.parse(path.read_text())
+    skip = set()
+    if not in_functions:
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                skip.update(id(n) for n in ast.walk(node) if n is not node)
     for node in ast.walk(tree):
+        if id(node) in skip:
+            continue
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
@@ -410,8 +419,13 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "nerfstudio_thermal_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    # the card's machine has no Pillow and no websockets
+    # the card's machine has no Pillow and no websockets; the host-only
+    # process_data converters import Pillow inside their functions, as the
+    # JAX package's do (ns-process-data runs where Pillow is)
     banned = ("jax", "jaxlib", "flax", "optax", "nerfstudio_thermal_tpu", "PIL", "diffusers", "websockets")
+    host_only = ROOT / "nerfstudio_thermal_torch" / "process_data"
     for f in files:
         for mod in _imported_modules(f):
+            if mod.split(".")[0] == "PIL" and f.parent == host_only and mod not in _imported_modules(f, False):
+                continue
             assert mod.split(".")[0] not in banned, f"{f.relative_to(ROOT)} imports {mod}"
