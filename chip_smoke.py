@@ -350,8 +350,9 @@ Phases, each fatal on failure:
      paused, resumes, and reads train_stats to the end; every loss finite;
    - 20c, encode_jpeg of a 1920x1080 render on the host, in ms.
 
-21. data-parallel and multi-scene training (after phase 20; the JSON
-   line's rows 1-2 and 7-10 carry their launches per rank-step as
+21. data-parallel training of every method and multi-scene training
+   (after phase 20; the JSON line's rows 1-2 and 7-10 and the VJP carry
+   their launches per rank-step as
    data_parallel_launches_per_rank_step, rows 7-10 the two-scene run's as
    multi_scene_launches):
    - 21a, thermal-nerfacto and thermal-nerfacto-tpu at full width (8192
@@ -373,7 +374,18 @@ Phases, each fatal on failure:
      step-0 scalars and later total losses within phase 9's limit of
      ns-train --data A's (step 0's loss bitwise), twice the one-scene
      run's launches, ns-eval of each
-     scene's run; ms a step of both scenes against the one-scene run's.
+     scene's run; ms a step of both scenes against the one-scene run's;
+   - 21d, every other method (DP_METHODS: the nerfacto family,
+     depth-nerfacto, semantic-nerfw, instant-ngp and -bounded,
+     vanilla-nerf and mipnerf with use_pallas, tensorf, neus, neus-facto,
+     splatfacto, generfacto) at its ns-train defaults on an earlier
+     phase's scene, 3 steps plain and in a one-rank NCCL group: step 0's
+     loss bitwise, the rest within phase 9's limit, the same launches,
+     each kernel of DP_KERNELS launched; ms/step of both; then nerfacto
+     and splatfacto (the replicated whole-image step) in 21b's two gloo
+     ranks at f32 compute against plain runs, the ranks' parameters
+     equal after 3 steps; their launches per rank-step join
+     data_parallel_launches_per_rank_step.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -2062,15 +2074,13 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
     """Training step `step` once more from the state it started from, on
     the card and on the CPU (the plain PyTorch versions of every kernel),
     with the same batch and the card's own jitter draws (recorded as the
-    card draws them again from the same generator state: in the samplers,
-    or where the thermal model draws them for its samplers through
-    `RayShard.draw`). Raises unless
+    card draws them again from the same generator state, in the samplers'
+    `_uniforms`). Raises unless
     both give non-finite values in exactly the losses `bad`, as the
     training run did, and the finite losses agree within STEP_LOSS_TOL."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
     from nerfstudio_thermal_torch.model_components import ray_samplers
     from nerfstudio_thermal_torch.models import thermal_nerfacto
-    from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
     if method.model.background_color == "random":
         raise AssertionError(f"{method_name}: the witness does not replay a random background's draw")
@@ -2084,7 +2094,7 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
         trainers[dev] = tr
     trainers["cuda"].state.generator.set_state(gen_state)
     batch = trainers["cpu"].datamanager.next_train(step)
-    draws, draw, shard_draw = [], ray_samplers._uniforms, RayShard.draw
+    draws, draw = [], ray_samplers._uniforms
     tv_draws, tv_draw = [], thermal_nerfacto.draw_tv_uniforms
 
     def recorded(*args):
@@ -2093,24 +2103,17 @@ def overflow_witness(method, method_name: str, step: int, start, bad, run_dir: P
             draws.append(u)
         return u
 
-    def recorded_shard(shard, *args):
-        u = shard_draw(shard, *args)
-        draws.append(u)
-        return u
-
     def recorded_tv(*args):
         u = tv_draw(*args)
         tv_draws.append(u)
         return u
 
     ray_samplers._uniforms, thermal_nerfacto.draw_tv_uniforms = recorded, recorded_tv
-    RayShard.draw = recorded_shard  # no random background here: only jitter goes through it
     try:
         card = trainers["cuda"]._train_step(
             trainers["cuda"].state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()})
     finally:
         ray_samplers._uniforms, thermal_nerfacto.draw_tv_uniforms = draw, tv_draw
-        RayShard.draw = shard_draw
     levels = len(method.model.num_proposal_samples_per_ray) + 1
     modalities = ("rgb", "thermal")[: len(getattr(trainers["cuda"].model, "output_suffixes", ("",)))]
     if len(draws) != len(modalities) * levels:
@@ -5693,23 +5696,25 @@ PAR_FLIP, PAR_MAX_FLIPPED, PAR_PARAM_TOL = 1e-3, 0.25, 1e-3
 
 
 def dp_run(name: str, scene: Path, run_dir: Path, mesh=None, time_all_reduce: bool = False, f32: bool = False,
-           params_to: Path = None) -> dict:
-    """PAR_STEPS full-width steps of a method through setup_trainer and
+           params_to: Path = None, method=None, steps: int = PAR_STEPS, timed_from: int = PAR_TIMED_FROM) -> dict:
+    """`steps` full-width steps of a method (`method`, else
+    train_method(name, scene)) through setup_trainer and
     Trainer.train_iteration on `mesh` (default: create_mesh's, the process
     group's when one runs), with f32 compute where asked: each step's global
     losses, the launches (counts zeroed just before the steps, read just
-    after), ms/step from step PAR_TIMED_FROM (a float of each step's scalars
+    after), ms/step from step `timed_from` (a float of each step's scalars
     ends it), peak memory, and with time_all_reduce the gradient
     all-reduce's ms a step (synchronised around it) and the bytes it
     reduces. `params_to` gets each optimizer group's trained parameters,
     flat, before and after the steps, and their gradients at step 0 as the
-    optimizers take them (summed over the ranks)."""
+    optimizers take them (summed over the ranks; rank 0's for a replicated
+    step)."""
     from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
     from nerfstudio_thermal_torch.engine import trainer as trainer_lib
     from nerfstudio_thermal_torch.parallel.mesh import grad_bytes
 
-    method = train_method(name, scene)
-    if f32:
+    method = method if method is not None else train_method(name, scene)
+    if f32 and hasattr(method.model, "compute_dtype"):
         method.model.compute_dtype = "float32"
     trainer = setup_trainer(method, base_dir=run_dir, device="cuda", mesh=mesh)
     trainer.setup()
@@ -5749,7 +5754,7 @@ def dp_run(name: str, scene: Path, run_dir: Path, mesh=None, time_all_reduce: bo
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         losses, step_s = [], []
-        for step in range(PAR_STEPS):
+        for step in range(steps):
             t0 = time.perf_counter()
             scalars = trainer.train_iteration(step)
             losses.append({k: float(v) for k, v in scalars.items()})
@@ -5763,12 +5768,12 @@ def dp_run(name: str, scene: Path, run_dir: Path, mesh=None, time_all_reduce: bo
     bad = [(i, k) for i, rec in enumerate(losses) for k, v in rec.items() if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"{name}: non-finite scalars {bad[:5]}")
-    timed = step_s[PAR_TIMED_FROM:]
+    timed = step_s[timed_from:]
     out = {
         "losses": losses, "counts": counts, "ms": 1e3 * sum(timed) / len(timed), "peak": torch.cuda.max_memory_allocated(),
         "grad_bytes": grad_bytes(trainer_lib.trained_params(trainer.optimizers)),
-        "reduce_ms": 1e3 * sum(reduce_s[PAR_TIMED_FROM:]) / len(timed) if reduce_s else None,
-        "rays": method.datamanager.train_num_rays_per_batch,
+        "reduce_ms": 1e3 * sum(reduce_s[timed_from:]) / len(timed) if reduce_s else None,
+        "rays": None if trainer._whole_batch() else method.datamanager.train_num_rays_per_batch,
     }
     del trainer
     torch.cuda.empty_cache()
@@ -5830,6 +5835,104 @@ def check_dp_params(label: str, got: dict, want: dict) -> dict:
     return readings
 
 
+# 21d: every other method (thermal-nerfacto-tpu is 21a's) at its ns-train
+# defaults on the scene an earlier phase trained it on, DP_STEPS steps
+# plain and in a one-rank NCCL group: step 0's loss bitwise, the scalars
+# within phase 9's limit (check_dp_losses), the same launches, and each
+# DP_KERNELS kernel launched. vanilla-nerf and mipnerf with use_pallas (as
+# phase 16), depth-nerfacto without pose auto-scaling (phase 16's flag).
+# Then DP_GLOO_METHODS in 21b's two gloo ranks (f32 compute) against plain
+# runs: the ranks' parameters equal (splatfacto's replicated step takes
+# rank 0's gradients), the updates by the flip rule.
+DP_METHODS = ("nerfacto", "nerfacto-tpu", "nerfacto-big", "nerfacto-huge", "depth-nerfacto", "semantic-nerfw",
+              "instant-ngp", "instant-ngp-bounded", "vanilla-nerf", "mipnerf", "tensorf", "neus", "neus-facto",
+              "splatfacto", "generfacto")
+DP_GLOO_METHODS = ("nerfacto", "splatfacto")
+DP_STEPS, DP_TIMED_FROM = 3, 1
+_HASH_STEP = ("hash_encode_fwd", "hash_encode_bwd_table", "hash_encode_bwd_pos")
+DP_KERNELS = {
+    **{m: _HASH_STEP for m in ("nerfacto", "nerfacto-big", "nerfacto-huge", "depth-nerfacto", "semantic-nerfw")},
+    **{m: ("fused_mlp_fwd", "fused_mlp_bwd") for m in ("nerfacto-tpu", "vanilla-nerf", "mipnerf")},
+    **{m: ("hash_encode_fwd", "hash_encode_bwd_table") for m in ("instant-ngp", "instant-ngp-bounded")},
+    **{m: _HASH_STEP + ("hash_encode_bwd_pos_vjp",) for m in ("neus-facto", "generfacto")},
+    **{m: () for m in ("tensorf", "neus", "splatfacto")},  # no kernel of the TPU's on their path
+}
+# each method's scene: earlier phases' (phases 13, 15, 16, 17 and 19)
+DP_SCENE = {
+    **{m: "rgb" for m in ("nerfacto", "nerfacto-tpu", "nerfacto-big", "nerfacto-huge")},
+    **{m: "ngp" for m in ("instant-ngp", "neus", "neus-facto", "splatfacto")},
+    "instant-ngp-bounded": "ingp", "depth-nerfacto": "depth", "semantic-nerfw": "sitcoms",
+    **{m: "blender" for m in ("vanilla-nerf", "mipnerf", "tensorf")}, "generfacto": None,
+}
+
+
+def dp_scenes(tmp: Path, rgb: Path, ngp: Path, ingp: Path) -> dict:
+    """DP_SCENE's scenes: phase 16's blender and depth scenes and phase
+    17's Sitcoms3D scene where those phases wrote them under `tmp`, else
+    written here."""
+    found = {"blender": (tmp / "classic" / "blender", write_classic_blender),
+             "depth": (tmp / "classic" / "depth", write_depth_scene),
+             "sitcoms": (tmp / "surface17" / "sitcoms", write_sitcoms_scene)}
+    scenes = {"rgb": rgb, "ngp": ngp, "ingp": ingp}
+    for key, (path, write) in found.items():
+        scenes[key] = path if path.exists() else write(tmp / "dp_scenes" / key)
+    return {k: str(v) for k, v in scenes.items()}
+
+
+def dp_method(name: str, scenes: dict):
+    """A DP_METHODS method at its ns-train defaults on its scene."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config
+    from nerfstudio_thermal_torch.data.dataparsers.scene_parsers import Sitcoms3DDataParserConfig
+
+    method = get_method_config(name)
+    if name == "semantic-nerfw":
+        method.dataparser = Sitcoms3DDataParserConfig()
+    if name in ("vanilla-nerf", "mipnerf"):
+        method.model.use_pallas = True
+    if name == "depth-nerfacto":
+        method.dataparser.auto_scale_poses = False
+    if DP_SCENE[name] is not None:
+        method.data = Path(scenes[DP_SCENE[name]])
+    return method
+
+
+def dp_methods_phase(scenes: dict, tmp: Path, smi: str) -> dict:
+    """21d: each DP_METHODS method plain and in a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from nerfstudio_thermal_torch.parallel import mesh as mesh_lib
+
+    out, t0 = {}, time.perf_counter()
+    mesh_lib.initialize_distributed(f"tcp://localhost:{mesh_lib.free_port()}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the one-rank group runs {dist.get_backend()}, not NCCL")
+        for name in DP_METHODS:
+            runs = {}
+            for label, mesh in (("plain", mesh_lib.SINGLE), ("nccl", None)):
+                runs[label] = dp_run(name, None, tmp / name / label, mesh=mesh, method=dp_method(name, scenes),
+                                     steps=DP_STEPS, timed_from=DP_TIMED_FROM)
+            plain, nccl = runs["plain"], runs["nccl"]
+            worst = check_dp_losses(f"21d {name}", nccl["losses"], plain["losses"], step0_bitwise=True)
+            if nccl["counts"] != plain["counts"]:
+                raise AssertionError(f"21d {name}: launches {nccl['counts']} against the plain run's {plain['counts']}")
+            idle = [k for k in DP_KERNELS[name] if nccl["counts"][k] == 0]
+            if idle:
+                raise AssertionError(f"21d {name}: the NCCL run launched no {idle}")
+            per_step = {k: v / DP_STEPS for k, v in nccl["counts"].items() if v}
+            batch = f"{nccl['rays']} rays" if nccl["rays"] else "whole-image / pose batches"
+            log(f"phase 21d {name}: NCCL world 1 {nccl['ms']:.2f} ms/step against plain {plain['ms']:.2f} ms/step "
+                f"(steps {DP_TIMED_FROM}-{DP_STEPS - 1}, {batch}); step 0 loss bitwise "
+                f"{nccl['losses'][0]['loss']!r}; worst scalar rel diff {worst:.3g}; launches per step {per_step}; "
+                f"peak {nccl['peak'] / 2**30:.2f} GiB (plain {plain['peak'] / 2**30:.2f}); gradient bytes "
+                f"{nccl['grad_bytes']:,} ({smi})")
+            out[name] = runs
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 21d (NCCL world 1, {len(DP_METHODS)} methods): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def dp_nccl_phase(scene: Path, tmp: Path, smi: str) -> dict:
     """21a: each method plain and in a one-rank NCCL group."""
     import torch.distributed as dist
@@ -5864,7 +5967,7 @@ def dp_nccl_phase(scene: Path, tmp: Path, smi: str) -> dict:
 
 def dp_rank_main(spec_path: str, rank: int) -> int:
     """A 21b rank: join the gloo group on the card, run every PAR_METHODS
-    method, write its results."""
+    method, then 21d's DP_GLOO_METHODS, write their results."""
     import torch.distributed as dist
 
     from nerfstudio_thermal_torch.parallel.mesh import initialize_distributed
@@ -5877,6 +5980,10 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
             out = Path(spec["out"])
             results[name] = dp_run(name, Path(spec["scene"]), out / f"{name}_rank{rank}", time_all_reduce=True,
                                    f32=True, params_to=out / f"{name}_rank{rank}.pt")
+        for name in DP_GLOO_METHODS:
+            results[name] = dp_run(name, None, out / f"{name}_rank{rank}", time_all_reduce=True, f32=True,
+                                   params_to=out / f"{name}_rank{rank}.pt", method=dp_method(name, spec["dp_scenes"]),
+                                   steps=DP_STEPS, timed_from=DP_TIMED_FROM)
         (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(results))
         dist.barrier()
     finally:
@@ -5884,16 +5991,21 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
     return 0
 
 
-def dp_gloo_phase(scene: Path, tmp: Path, smi: str) -> dict:
-    """21b: two gloo ranks on the card, processes of this script, each
-    with a timeout, against plain runs, all with f32 compute."""
+def dp_gloo_phase(scene: Path, tmp: Path, smi: str, scenes: dict) -> dict:
+    """21b (and 21d's DP_GLOO_METHODS on `scenes`): two gloo ranks on the
+    card, processes of this script, each with a timeout, against plain
+    runs, all with f32 compute."""
     from nerfstudio_thermal_torch.parallel.mesh import SINGLE, free_port
 
     tmp.mkdir(parents=True, exist_ok=True)
     plains = {name: dp_run(name, scene, tmp / name / "plain", mesh=SINGLE, f32=True, params_to=tmp / f"{name}_plain.pt")
               for name in PAR_METHODS}
+    plains.update({name: dp_run(name, None, tmp / name / "plain", mesh=SINGLE, f32=True,
+                                params_to=tmp / f"{name}_plain.pt", method=dp_method(name, scenes), steps=DP_STEPS,
+                                timed_from=DP_TIMED_FROM)
+                   for name in DP_GLOO_METHODS})
     spec_path = tmp / "spec.json"
-    spec_path.write_text(json.dumps({"scene": str(scene), "out": str(tmp), "port": free_port()}))
+    spec_path.write_text(json.dumps({"scene": str(scene), "out": str(tmp), "port": free_port(), "dp_scenes": scenes}))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(spec_path), str(r)],
                               cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -5912,7 +6024,7 @@ def dp_gloo_phase(scene: Path, tmp: Path, smi: str) -> dict:
             raise AssertionError(f"21b rank {r} exited {p.returncode}:\n{text[-3000:]}")
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
     out = {"wall_s": time.perf_counter() - t0}
-    for name in PAR_METHODS:
+    for name in PAR_METHODS + DP_GLOO_METHODS:
         plain = plains[name]
         r0, r1 = ranks[0][name], ranks[1][name]
         if r0["losses"] != r1["losses"]:
@@ -5932,12 +6044,15 @@ def dp_gloo_phase(scene: Path, tmp: Path, smi: str) -> dict:
                 want1[k] -= 2 * PAR_STEPS
         if r1["counts"] != want1:
             raise AssertionError(f"21b {name}: rank 1 launched {r1['counts']}, expected {want1}")
-        per_step = [{k: r["counts"][k] / PAR_STEPS for k in PAR_KERNELS[name]} for r in (r0, r1)]
-        log(f"phase 21b {name} (f32 compute): 2 gloo ranks on one card {r0['ms']:.2f} / {r1['ms']:.2f} ms/step "
-            f"(ranks 0 / 1; plain {plain['ms']:.2f}), all-reduce {r0['reduce_ms']:.2f} / {r1['reduce_ms']:.2f} ms a "
-            f"step of {r0['grad_bytes']:,} gradient bytes; worst scalar rel diff {worst:.3g} against the plain run; "
-            f"parameters after {PAR_STEPS} steps equal on both ranks; against the plain run by group (step 0's "
-            f"gradient rel L2, updates flipped, the others' rel L2) "
+        steps = DP_STEPS if name in DP_GLOO_METHODS else PAR_STEPS
+        kernels = DP_KERNELS[name] if name in DP_GLOO_METHODS else PAR_KERNELS[name]
+        per_step = [{k: r["counts"][k] / steps for k in kernels} for r in (r0, r1)]
+        reduce = (f"all-reduce {r0['reduce_ms']:.2f} / {r1['reduce_ms']:.2f} ms a step of {r0['grad_bytes']:,} gradient "
+                  f"bytes" if r0["reduce_ms"] is not None else f"rank 0's {r0['grad_bytes']:,} gradient bytes broadcast")
+        log(f"phase {'21d' if name in DP_GLOO_METHODS else '21b'} {name} (f32 compute): 2 gloo ranks on one card "
+            f"{r0['ms']:.2f} / {r1['ms']:.2f} ms/step (ranks 0 / 1; plain {plain['ms']:.2f}), {reduce}; worst scalar "
+            f"rel diff {worst:.3g} against the plain run; parameters after {steps} steps equal on both ranks; "
+            f"against the plain run by group (step 0's gradient rel L2, updates flipped, the others' rel L2) "
             + ", ".join(f"{g} {a:.3g} {b:.3%} {c:.3g}" for g, (a, b, c) in params.items()) + "; launches "
             f"per rank-step {per_step[0]} / {per_step[1]}; peak {r0['peak'] / 2**30:.2f} / {r1['peak'] / 2**30:.2f} "
             f"GiB ({smi})")
@@ -6161,12 +6276,15 @@ def main() -> int:
         gen = generfacto_phase(Path(tmp) / "generfacto", smi)
         # phase 20: the web viewer on phase 11's runs, and ns-train --vis viewer
         viewer = viewer_phase(entries, entry_scene, Path(tmp) / "viewer", smi)
-        # phase 21: data-parallel (one NCCL rank, two gloo ranks) and multi-scene training
+        # phase 21: data-parallel (one NCCL rank, two gloo ranks) of every
+        # method and multi-scene training
         t0 = time.perf_counter()
         dp = dp_nccl_phase(scene, Path(tmp) / "dp", smi)
-        dp_gloo = dp_gloo_phase(scene, Path(tmp) / "dp_gloo", smi)
+        scenes = dp_scenes(Path(tmp), rgb_scene, ngp_scene, data_scenes["instant-ngp-data"])
+        dp_all = dp_methods_phase(scenes, Path(tmp) / "dp_methods", smi)
+        dp_gloo = dp_gloo_phase(scene, Path(tmp) / "dp_gloo", smi, scenes)
         multi = multi_scene_phase(entry_scene, Path(tmp) / "multi_scene", smi)
-        log(f"phase 21: {time.perf_counter() - t0:.1f} s (21b's two ranks {dp_gloo['wall_s']:.1f} s)")
+        log(f"phase 21: {time.perf_counter() - t0:.1f} s (the two gloo ranks {dp_gloo['wall_s']:.1f} s)")
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -6396,6 +6514,16 @@ def main() -> int:
                     **{f"{name} gloo rank {r}": dp_gloo[name][f"rank{r}"]["counts"][rec["name"]] / PAR_STEPS
                        for r in (0, 1)},
                 }
+        # 21d: every other method's NCCL world-1 run, and its two gloo ranks
+        # where it ran them
+        for name in DP_METHODS:
+            # (a row 3 / 4 record of one stack has no count of its own: none of these runs launches it)
+            per_rank = {f"{name} nccl world 1": dp_all[name]["nccl"]["counts"].get(rec["name"], 0) / DP_STEPS}
+            if name in DP_GLOO_METHODS:
+                per_rank.update({f"{name} gloo rank {r}": dp_gloo[name][f"rank{r}"]["counts"].get(rec["name"], 0)
+                                 / DP_STEPS for r in (0, 1)})
+            if any(per_rank.values()):
+                rec.setdefault("data_parallel_launches_per_rank_step", {}).update(per_rank)
         if rec["name"] in PAR_KERNELS["thermal-nerfacto"]:
             rec["multi_scene_launches"] = {"two scenes": multi["counts"][rec["name"]],
                                            "one scene": multi["solo_counts"][rec["name"]]}

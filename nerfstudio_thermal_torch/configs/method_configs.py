@@ -473,6 +473,13 @@ descriptions: Dict[str, str] = {name: make().description for name, make in _METH
 _PLUGINS: Dict[str, MethodConfig] = {}
 
 
+def register_method(config: MethodConfig) -> None:
+    """Make `config` a method of this process under config.method_name:
+    `get_method_config` and ns-train find it (after the built-in methods
+    of that name, as a plugin's)."""
+    _PLUGINS[config.method_name] = config
+
+
 def method_names() -> Dict[str, str]:
     """Every method's description by name, the plugins' included."""
     discover_methods(_PLUGINS)

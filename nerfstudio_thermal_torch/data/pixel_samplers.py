@@ -133,6 +133,11 @@ class PixelSampler:
         return batch
 
 
+class PatchPixelSampler(PixelSampler):
+    """PixelSampler under the reference's patch sampler's name: the patch
+    layout follows config.patch_size."""
+
+
 class PairPixelSampler(PixelSampler):
     """Pixels in pairs, an anchor and a neighbour within `radius`, laid out
     [anchor, neighbour, anchor, neighbour, ...]: the layout of

@@ -46,14 +46,16 @@ cadence. An `eval_only` setup serves no viewer.
 
 Data parallelism (parallel/mesh.py, whose docstring gives the design):
 inside a process group the trainer's mesh spans its ranks, one card
-each. A rank's step takes its rows of its host's batch and a `RayShard`;
-the model returns its contributions to the global losses, the
-gradients of the optimized parameters are summed over the ranks before
-the optimizers step, and the logged scalars are the global values.
-The ranks start from rank 0's parameters. Only the main rank writes
-events, images and checkpoints, runs the evals and serves the viewer.
-The ray-batch models that take a shard (`data_parallel`: thermal-nerfacto
-and thermal-nerfacto-tpu) train so; the others refuse a process group.
+each, for every method. A ray-batch rank's step takes its rows of its
+host's batch and a `RayShard`; the model returns its contributions to
+the global losses, the gradients of the optimized parameters are summed
+over the ranks before the optimizers step, and the logged scalars are
+the global values. The whole-image and generative steps replicate their
+batch and take rank 0's gradients (and splatfacto's refinement
+statistics) before the update. The ranks start from rank 0's
+parameters. Only the main rank writes events, images and checkpoints,
+opens the TensorBoard / W&B / Comet writers, runs the evals and serves
+the viewer.
 """
 
 import dataclasses
@@ -79,7 +81,9 @@ from nerfstudio_thermal_torch.parallel.mesh import (
     Mesh,
     RayShard,
     all_reduce_grads,
+    broadcast_grads,
     broadcast_params,
+    broadcast_tensors,
     create_mesh,
     reduce_scalars,
     shard_batch,
@@ -259,7 +263,8 @@ def make_ray_train_step(model, optimizers: Union[Optimizers, MultiSteps], camera
     return train_step
 
 
-def make_image_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras) -> Callable:
+def make_image_train_step(model, optimizers: Union[Optimizers, MultiSteps], cameras,
+                          replicated: bool = False) -> Callable:
     """The whole-image step of a rasterization model (splatfacto):
     (state, batch, background_uniforms=None) -> scalars, in the JAX step's
     order: the extra state's step; the whole image of batch["camera_index"]
@@ -269,7 +274,9 @@ def make_image_train_step(model, optimizers: Union[Optimizers, MultiSteps], came
     statistics from the means' gradient, before the update; one update of
     every group. A random background is the (3,) U[0, 1) draw of the
     state's generator, or `background_uniforms` where a test passes the
-    JAX package's."""
+    JAX package's. `replicated` (a data-parallel rank): every rank steps
+    on the same batch, then takes rank 0's gradients and refinement
+    statistics, so every rank applies the same update."""
     height, width = int(cameras.height[0]), int(cameras.width[0])
     random_background = _uses_random_background(model)
 
@@ -286,8 +293,13 @@ def make_image_train_step(model, optimizers: Union[Optimizers, MultiSteps], came
         metrics = model.get_metrics_dict(outputs, batch, train=True)
         loss_dict = model.get_loss_dict(outputs, batch, metrics, train=True)
         loss = sum(loss_dict[k] for k in sorted(loss_dict))
-        loss.backward(inputs=trained_params(optimizers))
+        params = trained_params(optimizers)
+        loss.backward(inputs=params)
+        if replicated:
+            broadcast_grads(params)
         state.extra = model.track_refinement_stats(state.extra, model.xyz.grad, outputs["radii"].detach())
+        if replicated:
+            broadcast_tensors((state.extra.grad_accum, state.extra.grad_count, state.extra.max_radii))
         optimizers.step()
         state.step = step + 1
         scalars = {"loss": loss, **loss_dict, **metrics}
@@ -296,13 +308,14 @@ def make_image_train_step(model, optimizers: Union[Optimizers, MultiSteps], came
     return train_step
 
 
-def make_generative_train_step(model, optimizers: Union[Optimizers, MultiSteps]) -> Callable:
+def make_generative_train_step(model, optimizers: Union[Optimizers, MultiSteps], replicated: bool = False) -> Callable:
     """The text-to-3D step (generfacto): (state, batch, draws=None) ->
     scalars. The batch is one random camera pose; the model renders its
     whole low-resolution image, then the guidance's loss and the rest.
     `draws` replaces the five draws of the state's generator (light,
     shade, background, choice, sampler jitter; `generative_forward`). The
-    guidance is built here, as the JAX package builds it with its step."""
+    guidance is built here, as the JAX package builds it with its step.
+    `replicated`: as make_image_train_step's (rank 0's gradients)."""
     model.get_guidance()
 
     def train_step(state: TrainState, batch, draws=None):
@@ -311,7 +324,10 @@ def make_generative_train_step(model, optimizers: Union[Optimizers, MultiSteps])
         outputs = model.generative_forward(batch, step=step, train=True, draws=draws, generator=state.generator)
         loss_dict = model.generative_loss(outputs, batch, step=step)
         loss = sum(loss_dict[k] for k in sorted(loss_dict))
-        loss.backward(inputs=trained_params(optimizers))
+        params = trained_params(optimizers)
+        loss.backward(inputs=params)
+        if replicated:
+            broadcast_grads(params)
         optimizers.step()
         state.step = step + 1
         scalars = {"loss": loss, **loss_dict}
@@ -340,18 +356,14 @@ class Trainer:
         self.datamanager = pipeline.datamanager
         self.device = self.model.device
         self.mesh = mesh if mesh is not None else create_mesh(config.num_devices)
-        if self.mesh.distributed and not getattr(self.model, "data_parallel", False):
-            raise NotImplementedError(
-                f"{type(self.model).__name__}: data-parallel training is ported for thermal-nerfacto's model "
-                "only; the other methods' data parallelism is ROADMAP A7's rest"
-            )
         self.optimizer_configs = optimizer_configs
         self.base_dir = Path(base_dir) if base_dir else Path(config.output_dir)
         self.checkpoint_dir = self.base_dir / "nerfstudio_models"
+        main = self.mesh.is_main  # only the main rank opens any writer
         self.writer = Writer(
-            self.base_dir if self.mesh.is_main else None, steps_per_log=config.steps_per_log,
-            use_tensorboard=config.use_tensorboard, use_wandb=config.use_wandb,
-            use_comet=config.use_comet, experiment_name=config.experiment_name,
+            self.base_dir if main else None, steps_per_log=config.steps_per_log,
+            use_tensorboard=config.use_tensorboard and main, use_wandb=config.use_wandb and main,
+            use_comet=config.use_comet and main, experiment_name=config.experiment_name,
         )
         self._start_step = 0
         self._eval_ray_generator = None
@@ -381,10 +393,11 @@ class Trainer:
         self._load_checkpoint(eval_only)
         if self.mesh.distributed:
             broadcast_params(self.model.parameters())
+        replicated = self.mesh.distributed
         if getattr(self.model, "is_rasterization", False):
-            self._train_step = make_image_train_step(self.model, self.optimizers, self.cameras)
+            self._train_step = make_image_train_step(self.model, self.optimizers, self.cameras, replicated)
         elif getattr(self.model, "is_generative", False):
-            self._train_step = make_generative_train_step(self.model, self.optimizers)
+            self._train_step = make_generative_train_step(self.model, self.optimizers, replicated)
         else:
             self._train_step = make_ray_train_step(self.model, self.optimizers, self.cameras)
         if self.config.profiler == "basic":
@@ -438,7 +451,7 @@ class Trainer:
     @profiler.time_function
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         batch = self.datamanager.next_train(step)
-        if self.mesh.distributed:
+        if self.mesh.distributed and not self._whole_batch():
             # this rank's rows of its host's batch
             patch = self.datamanager.config.patch_size
             shard = self.mesh.ray_shard(len(batch["ray_indices"]), patch)
@@ -454,6 +467,11 @@ class Trainer:
             # device scalar only on its update_every steps)
             after(scalars, step)
         return scalars
+
+    def _whole_batch(self) -> bool:
+        """Whether the step takes whole images or poses (splatfacto,
+        generfacto), which a data-parallel rank replicates, not shards."""
+        return getattr(self.model, "is_rasterization", False) or getattr(self.model, "is_generative", False)
 
     def _maybe_refine(self, step: int) -> None:
         """A model's refinement after the step. Splatfacto's edits rows of
@@ -556,7 +574,7 @@ class Trainer:
         """Losses and metrics of one eval ray batch (train=False), written
         as eval_* under the group "eval". Whole-image models (splatfacto,
         generfacto) skip it: they evaluate whole images only."""
-        if getattr(self.model, "is_rasterization", False) or getattr(self.model, "is_generative", False):
+        if self._whole_batch():
             return
         try:
             if self._eval_ray_generator is None:

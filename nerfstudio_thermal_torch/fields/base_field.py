@@ -25,6 +25,11 @@ class FieldHeadNames(Enum):
     GRADIENT = "gradient"
 
 
+def get_normalized_directions(directions: torch.Tensor) -> torch.Tensor:
+    """Unit directions shifted from [-1, 1] to [0, 1]."""
+    return (directions + 1.0) / 2.0
+
+
 def normalize_positions(positions: torch.Tensor, aabb: torch.Tensor, use_spatial_distortion: bool):
     """World positions -> [0, 1]^3 field coordinates and the in-box selector.
 

@@ -104,6 +104,12 @@ def orientation_loss(weights: torch.Tensor, normals: torch.Tensor, viewdirs: tor
     return torch.sum(weights[..., 0] * torch.minimum(n_dot_v.new_zeros(()), n_dot_v) ** 2, dim=-1)
 
 
+def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor, pred_normals: torch.Tensor) -> torch.Tensor:
+    """The weighted disagreement (1 - cos) of the predicted and the density
+    normals per ray: weights [..., S, 1], normals [..., S, 3] -> [...]."""
+    return torch.sum(weights[..., 0] * (1.0 - torch.sum(normals * pred_normals, dim=-1)), dim=-1)
+
+
 class _ScaleGradient(torch.autograd.Function):
     """Identity forward; the backward multiplies the cotangent by `scaling`
     (JAX's `_scale_gradient` custom_vjp)."""

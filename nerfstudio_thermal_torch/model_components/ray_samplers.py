@@ -10,7 +10,9 @@ In training the samplers jitter their bins (stratified sampling, one
 uniform per ray with `single_jitter`). The uniforms come from an explicit
 `torch.Generator` on the rays' device, or are passed in as tensors, so a
 test can feed the JAX package's draws: the two frameworks' generators
-give different numbers from one seed.
+give different numbers from one seed. A data-parallel rank hands its
+`shard` (parallel/mesh.py `RayShard`) down with the generator: each draw is
+then the global batch's, of which the rank keeps its rows.
 """
 
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -18,7 +20,15 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from nerfstudio_thermal_torch.cameras.rays import RayBundle, RaySamples, spacing_fn, spacing_fn_inv
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 from nerfstudio_thermal_torch.utils.math import cumsum
+
+
+def searchsorted_batched(a: torch.Tensor, v: torch.Tensor, side: str = "right") -> torch.Tensor:
+    """searchsorted over the last axis with matching batch dims: a [..., M]
+    sorted, v [..., K] -> int32 [..., K], the count of a <= v (side
+    "right") or a < v ("left")."""
+    return torch.searchsorted(a.contiguous(), v.contiguous(), right=side == "right").to(torch.int32)
 
 
 def take_below_above(
@@ -40,12 +50,18 @@ def _uniforms(
     like: torch.Tensor,
     uniforms: Optional[torch.Tensor],
     generator: Optional[torch.Generator],
+    shard: Optional[RayShard] = None,
 ) -> torch.Tensor:
-    """The jitter draw: the given tensor (checked) or fresh U[0, 1)."""
+    """The jitter draw [R, C]: the given tensor (checked) or fresh U[0, 1),
+    with a `shard` its rows of the global batch's [num_rays, C] draw."""
     if uniforms is not None:
         if tuple(uniforms.shape) != tuple(shape):
             raise ValueError(f"uniforms of shape {tuple(uniforms.shape)}, expected {tuple(shape)}")
         return uniforms.to(device=like.device, dtype=torch.float32)
+    if shard is not None:
+        if shape[0] != shard.rows:
+            raise ValueError(f"a draw of {shape[0]} rows for a shard of {shard.rows}")
+        return shard.draw(generator, shape[-1], like.device)
     return torch.rand(shape, generator=generator, device=like.device, dtype=torch.float32)
 
 
@@ -58,6 +74,7 @@ def spaced_sample(
     train: bool = False,
     uniforms: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[RayShard] = None,
 ) -> RaySamples:
     """Samples evenly spaced in the warped spacing domain; jittered within
     their bins in training."""
@@ -67,7 +84,7 @@ def spaced_sample(
     )[None, :].expand(num_rays, num_samples + 1)
     if train_stratified and train:
         shape = (num_rays, 1) if single_jitter else (num_rays, num_samples + 1)
-        t_rand = _uniforms(shape, bins, uniforms, generator)
+        t_rand = _uniforms(shape, bins, uniforms, generator, shard)
         bin_centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
         bin_upper = torch.cat([bin_centers, bins[..., -1:]], dim=-1)
         bin_lower = torch.cat([bins[..., :1], bin_centers], dim=-1)
@@ -99,6 +116,7 @@ def pdf_sample(
     eps: float = 1e-5,
     uniforms: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[RayShard] = None,
 ) -> RaySamples:
     """Inverse-CDF resampling in the spacing domain; the sample positions
     carry no gradient."""
@@ -119,7 +137,7 @@ def pdf_sample(
     ).expand(*cdf.shape[:-1], num_bins)
     if train_stratified and train:
         shape = (*cdf.shape[:-1], 1) if single_jitter else (*cdf.shape[:-1], num_bins)
-        u = u + _uniforms(shape, cdf, uniforms, generator) / num_bins
+        u = u + _uniforms(shape, cdf, uniforms, generator, shard) / num_bins
     else:
         u = u + 1.0 / (2 * num_bins)
 
@@ -159,6 +177,7 @@ def proposal_sample(
     train: bool = False,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[RayShard] = None,
 ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """Hierarchical proposal sampling: one density fn per proposal level,
     each fed the RaySamples of its level; `anneal` exponentiates the weights
@@ -172,7 +191,7 @@ def proposal_sample(
     if uniforms is not None and len(uniforms) != n + 1:
         raise ValueError(f"{len(uniforms)} uniform draws for {n + 1} sampling levels")
     draws = list(uniforms) if uniforms is not None else [None] * (n + 1)
-    jitter = dict(single_jitter=single_jitter, train=train, generator=generator)
+    jitter = dict(single_jitter=single_jitter, train=train, generator=generator, shard=shard)
     weights_list: List[torch.Tensor] = []
     samples_list: List[RaySamples] = []
     weights = None
@@ -198,3 +217,10 @@ def proposal_sample(
             weights_list.append(weights)
             samples_list.append(ray_samples)
     return ray_samples, weights_list, samples_list
+
+
+def uniform_lin_disp_piecewise_sample(*args, **kwargs) -> RaySamples:
+    """`spaced_sample` with the piecewise (linear, then disparity) spacing
+    by default: nerfacto's initial sampler."""
+    kwargs.setdefault("spacing_kind", "piecewise")
+    return spaced_sample(*args, **kwargs)

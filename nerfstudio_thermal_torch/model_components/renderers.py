@@ -94,6 +94,11 @@ def render_normals(normals: torch.Tensor, weights: torch.Tensor, normalize: bool
     return safe_normalize(n) if normalize else n
 
 
+def render_uncertainty(betas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weight-composited uncertainty: betas and weights [..., S, 1] -> [..., 1]."""
+    return torch.sum(weights * betas, dim=-2)
+
+
 def blend_background_rgb(
     image: torch.Tensor, background_color: Union[str, torch.Tensor] = "black"
 ) -> torch.Tensor:

@@ -27,6 +27,7 @@ from torch import nn
 
 from nerfstudio_thermal_torch.cameras.cameras import Cameras
 from nerfstudio_thermal_torch.cameras.rays import RayBundle, map_all_tensors
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 from nerfstudio_thermal_torch.utils.precision import pin_precision, resolve_device
 
 
@@ -109,6 +110,12 @@ class Model(nn.Module):
 
     def extra_forward_kwargs(self, extra: Any) -> Dict[str, Any]:
         return {}
+
+    @staticmethod
+    def _shard(shard: Optional[RayShard], batch: Dict[str, torch.Tensor]) -> RayShard:
+        """A data-parallel rank's shard (parallel/mesh.py), or a single
+        process's trivial one over its batch."""
+        return shard if shard is not None else RayShard.full(len(batch["image"]))
 
     def forward(self, ray_bundle: RayBundle, *, train: bool = False, **kwargs) -> Dict[str, torch.Tensor]:
         """Collider, then get_outputs (training takes the anneal, update

@@ -14,7 +14,10 @@ training metrics `s_val` (exp(10 variance)); the losses are the L1 colour
 loss, the eikonal loss on the SDF gradients, the foreground-mask BCE of
 the weight sums (with an `fg_mask` batch) and the monocular normal and
 depth priors (with `normal` and `depth` / `depth_image` batches and their
-multipliers above 0).
+multipliers above 0). A data-parallel rank (`shard`) contributes its
+share of each per-ray mean and s_val once; the depth prior, which fits
+one scale and shift over the global batch, is computed on the gathered
+global batch (parallel/mesh.py `gather`, `whole`).
 
 Training draws its jitter from `uniforms` when given: {"rgb": the
 sampler's draws, "background": [the background sampler's, [R, S_bg +
@@ -41,7 +44,7 @@ from nerfstudio_thermal_torch.model_components.losses import (
 from nerfstudio_thermal_torch.model_components.ray_samplers import spaced_sample
 from nerfstudio_thermal_torch.model_components.scene_colliders import AABBBoxCollider, NearFarCollider
 from nerfstudio_thermal_torch.models.base_model import Model, ModelConfig
-from nerfstudio_thermal_torch.utils.math import psnr
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -126,7 +129,8 @@ class SurfaceModel(Model):
         return groups
 
     def sample_and_forward_field(self, ray_bundle: RayBundle, *, train: bool, uniforms, generator,
-                                 cos_anneal_ratio: float, anneal: float = 1.0) -> Dict:
+                                 cos_anneal_ratio: float, anneal: float = 1.0,
+                                 shard: Optional[RayShard] = None) -> Dict:
         raise NotImplementedError
 
     def sdf_fn(self, positions: torch.Tensor) -> torch.Tensor:
@@ -142,13 +146,14 @@ class SurfaceModel(Model):
         generator: Optional[torch.Generator] = None,
         cos_anneal_ratio: float = 1.0,
         anneal: float = 1.0,
+        shard: Optional[RayShard] = None,
         **_,
     ) -> Dict[str, torch.Tensor]:
         cfg = self.config
         uniforms = uniforms or {}
         s = self.sample_and_forward_field(
             ray_bundle, train=train, uniforms=uniforms.get("rgb"), generator=generator,
-            cos_anneal_ratio=cos_anneal_ratio, anneal=anneal,
+            cos_anneal_ratio=cos_anneal_ratio, anneal=anneal, shard=shard,
         )
         field_outputs, ray_samples, weights = s["field_outputs"], s["ray_samples"], s["weights"]
         rgb = renderers.render_rgb(field_outputs[FieldHeadNames.RGB], weights, background_color="black", train=train)
@@ -165,7 +170,7 @@ class SurfaceModel(Model):
             bg_samples = spaced_sample(
                 bg_bundle, cfg.num_samples_outside, spacing_kind="lindisp", train_stratified=True,
                 single_jitter=False, train=train, uniforms=uniforms.get("background", [None])[0],
-                generator=generator,
+                generator=generator, shard=shard,
             )
             bg_out = self.field_background(bg_samples, train=train)
             w_bg = bg_samples.get_weights(bg_out[FieldHeadNames.DENSITY])
@@ -188,44 +193,52 @@ class SurfaceModel(Model):
                 )
         return outputs
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
-        metrics = {"psnr": psnr(outputs["rgb"], renderers.blend_background_rgb(batch["image"]))}
+    def get_metrics_dict(self, outputs, batch, train: bool = True,
+                         shard: Optional[RayShard] = None) -> Dict[str, torch.Tensor]:
+        shard = self._shard(shard, batch)
+        metrics = {"psnr": shard.psnr(outputs["rgb"], renderers.blend_background_rgb(batch["image"]))}
         if train:
-            metrics["s_val"] = torch.exp(self.field.variance.detach() * 10.0)
+            metrics["s_val"] = shard.once(torch.exp(self.field.variance.detach() * 10.0))
         return metrics
 
     def get_loss_dict(
         self, outputs, batch, metrics_dict, *, train: bool = True,
-        background_uniforms: Optional[torch.Tensor] = None, **_,
+        background_uniforms: Optional[torch.Tensor] = None, shard: Optional[RayShard] = None, **_,
     ) -> Dict[str, torch.Tensor]:
         cfg = self.config
+        shard = self._shard(shard, batch)
+        weight = shard.weight
         pred, gt = renderers.blend_background_for_loss_rgb(
             outputs["rgb"], outputs["accumulation"], batch["image"],
             background_color=cfg.background_color, uniforms=background_uniforms,
         )
-        loss_dict = {"rgb_loss": l1_loss(gt, pred)}
+        loss_dict = {"rgb_loss": l1_loss(gt, pred) * weight}
         if not train:
             return loss_dict
         grad = outputs["eik_grad"]
+        # a fixed number of samples a ray: a per-ray mean
         loss_dict["eikonal_loss"] = (
             torch.mean((torch.linalg.vector_norm(grad, dim=-1) - 1.0) ** 2) * cfg.eikonal_loss_mult
-        )
+        ) * weight
         if "fg_mask" in batch and cfg.fg_mask_loss_mult > 0:
             fg = batch["fg_mask"].float()
             w_sum = torch.clamp(torch.sum(outputs["weights"], dim=-2)[..., 0], 1e-3, 1 - 1e-3)
             bce = -(fg * torch.log(w_sum) + (1 - fg) * torch.log(1 - w_sum))
-            loss_dict["fg_mask_loss"] = torch.mean(bce) * cfg.fg_mask_loss_mult
+            loss_dict["fg_mask_loss"] = torch.mean(bce) * cfg.fg_mask_loss_mult * weight
         if "normal" in batch and cfg.mono_normal_loss_mult > 0:
             loss_dict["normal_loss"] = cfg.mono_normal_loss_mult * monosdf_normal_loss(
                 outputs["normal"], batch["normal"]
-            )
+            ) * weight
         depth_key = "depth" if "depth" in batch else ("depth_image" if "depth_image" in batch else None)
         if depth_key is not None and cfg.mono_depth_loss_mult > 0:
-            depth_gt = batch[depth_key].reshape(-1) * 50 + 0.5
-            depth_pred = outputs["depth"].reshape(-1)
+            # one scale and shift over the first `rows` rays of the global
+            # batch, gradient terms between rays rows / 32 apart: no sum over
+            # rays, so every rank computes it on the gathered global batch
+            depth_gt = shard.gather(batch[depth_key].reshape(-1)) * 50 + 0.5
+            depth_pred = shard.gather(outputs["depth"].reshape(-1))
             rows = max(depth_pred.shape[0] // 32, 1) * 32
             mask = torch.ones((1, 32, rows // 32), dtype=torch.bool, device=depth_pred.device)
-            loss_dict["depth_loss"] = cfg.mono_depth_loss_mult * scale_and_shift_invariant_depth_loss(
+            loss_dict["depth_loss"] = shard.whole(cfg.mono_depth_loss_mult * scale_and_shift_invariant_depth_loss(
                 depth_pred[:rows].reshape(1, 32, -1), depth_gt[:rows].reshape(1, 32, -1), mask, alpha=0.5, scales=1,
-            )
+            ))
         return loss_dict

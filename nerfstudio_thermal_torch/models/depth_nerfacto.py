@@ -6,6 +6,8 @@ depth_loss_mult times the DS-NeRF or URF depth loss on the last sampling
 level's weights and samples; a z-depth is turned into a ray distance with
 the bundle's `directions_norm`. Every batch with depths also reports
 `depth_mae`, the mean |expected depth - depth| over pixels with a depth.
+A data-parallel rank contributes the depth loss's per-ray mean times its
+share of the rays and `depth_mae`'s masked sum over the global count.
 
 As in the JAX package, the decaying sigma reads `batch.get("step", 0)`
 and no sampler puts a step in the batch, so with should_decay_sigma the
@@ -13,12 +15,13 @@ sigma stays at starting_depth_sigma.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from nerfstudio_thermal_torch.model_components.losses import depth_loss
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -54,8 +57,9 @@ class DepthNerfactoModel(NerfactoModel):
             outputs["ray_samples_final"] = outputs["ray_samples_list"][-1]
         return outputs
 
-    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True, **kwargs) -> Dict[str, torch.Tensor]:
-        loss_dict = super().get_loss_dict(outputs, batch, metrics_dict, train=train, **kwargs)
+    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True,
+                      shard: Optional[RayShard] = None, **kwargs) -> Dict[str, torch.Tensor]:
+        loss_dict = super().get_loss_dict(outputs, batch, metrics_dict, train=train, shard=shard, **kwargs)
         if train and "depth_image" in batch:
             sigma = self._sigma(batch.get("step", 0)).to(outputs["expected_depth"].device)
             loss_dict["depth_loss"] = self.config.depth_loss_mult * depth_loss(
@@ -67,13 +71,16 @@ class DepthNerfactoModel(NerfactoModel):
                 directions_norm=outputs["directions_norm"],
                 is_euclidean=self.config.is_euclidean_depth,
                 depth_loss_type=self.config.depth_loss_type,
-            )
+            ) * self._shard(shard, batch).weight
         return loss_dict
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
-        metrics = super().get_metrics_dict(outputs, batch, train=train)
+    def get_metrics_dict(
+        self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
+    ) -> Dict[str, torch.Tensor]:
+        metrics = super().get_metrics_dict(outputs, batch, train=train, shard=shard)
         if "depth_image" in batch:
             mask = batch["depth_image"] > 0
             err = torch.abs(outputs["expected_depth"] - batch["depth_image"])
-            metrics["depth_mae"] = torch.sum(err * mask) / torch.clamp(mask.sum(), min=1)
+            count = self._shard(shard, batch).global_sum(mask.sum())
+            metrics["depth_mae"] = torch.sum(err * mask) / torch.clamp(count, min=1)
         return metrics

@@ -9,7 +9,10 @@ model reports the mean count of live samples per ray
 (`num_samples_per_ray`), which the dynamic-batch pipeline reads. Renders
 get no grid: every sample is evaluated. The loss is the RGB MSE against
 the background-blended GT (`random` by default: the background is drawn
-per step, as the thermal model's).
+per step, as the thermal model's). A data-parallel rank draws the same
+grid points as every other rank (so the grids stay equal), contributes
+its share of the rays' MSE and live-sample mean, and hands its sampler
+the shard.
 """
 
 from dataclasses import dataclass
@@ -32,7 +35,7 @@ from nerfstudio_thermal_torch.model_components.occupancy_grid import (
 from nerfstudio_thermal_torch.model_components.ray_samplers import spaced_sample
 from nerfstudio_thermal_torch.model_components.scene_colliders import AABBBoxCollider
 from nerfstudio_thermal_torch.models.base_model import Model, ModelConfig
-from nerfstudio_thermal_torch.utils.math import psnr
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -110,13 +113,14 @@ class InstantNGPModel(Model):
         uniforms: Optional[Dict[str, List[torch.Tensor]]] = None,
         generator: Optional[torch.Generator] = None,
         occupancy_grid: Optional[OccupancyGridState] = None,
+        shard: Optional[RayShard] = None,
         **_,
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": [the sampler's jitter, [R, S + 1]]}."""
         cfg = self.config
         samples = spaced_sample(
             ray_bundle, cfg.num_samples_per_ray, spacing_kind="uniform", train=train,
-            uniforms=(uniforms or {}).get("rgb", [None])[0], generator=generator,
+            uniforms=(uniforms or {}).get("rgb", [None])[0], generator=generator, shard=shard,
         )
         field_out = self.field(samples, train=train)
         density = field_out[FieldHeadNames.DENSITY]
@@ -125,6 +129,8 @@ class InstantNGPModel(Model):
             mask = occupancy_mask(occupancy_grid, samples.get_positions(), cfg.alpha_thre)
             density = density * mask
             live_samples_per_ray = torch.mean(torch.sum(mask[..., 0], dim=-1))
+            if shard is not None:
+                live_samples_per_ray = live_samples_per_ray * shard.weight
         weights = samples.get_weights(density)
         out = {
             "rgb": renderers.render_rgb(field_out[FieldHeadNames.RGB], weights, cfg.background_color, train=train),
@@ -136,18 +142,21 @@ class InstantNGPModel(Model):
             out["num_samples_per_ray"] = live_samples_per_ray
         return out
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
-        metrics = {"psnr": psnr(outputs["rgb"], renderers.blend_background_rgb(batch["image"]))}
+    def get_metrics_dict(
+        self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
+    ) -> Dict[str, torch.Tensor]:
+        gt = renderers.blend_background_rgb(batch["image"])
+        metrics = {"psnr": self._shard(shard, batch).psnr(outputs["rgb"], gt)}
         if "num_samples_per_ray" in outputs:
             metrics["num_samples_per_ray"] = outputs["num_samples_per_ray"]
         return metrics
 
     def get_loss_dict(
         self, outputs, batch, metrics_dict, *, train: bool = True,
-        background_uniforms: Optional[torch.Tensor] = None, **_,
+        background_uniforms: Optional[torch.Tensor] = None, shard: Optional[RayShard] = None, **_,
     ) -> Dict[str, torch.Tensor]:
         pred, gt = renderers.blend_background_for_loss_rgb(
             outputs["rgb"], outputs["accumulation"], batch["image"],
             background_color=self.config.background_color, uniforms=background_uniforms,
         )
-        return {"rgb_loss": mse_loss(gt, pred)}
+        return {"rgb_loss": mse_loss(gt, pred) * self._shard(shard, batch).weight}

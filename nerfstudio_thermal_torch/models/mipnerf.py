@@ -19,6 +19,7 @@ from nerfstudio_thermal_torch.fields.vanilla_nerf_field import NeRFField
 from nerfstudio_thermal_torch.model_components import renderers
 from nerfstudio_thermal_torch.model_components.scene_colliders import NearFarCollider
 from nerfstudio_thermal_torch.models.vanilla_nerf import NeRFModel, VanillaModelConfig, coarse_fine
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -47,13 +48,13 @@ class MipNerfModel(NeRFModel):
     def get_outputs(
         self, ray_bundle: RayBundle, *, train: bool = False,
         uniforms: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
-        generator: Optional[torch.Generator] = None, **_,
+        generator: Optional[torch.Generator] = None, shard: Optional[RayShard] = None, **_,
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": [the uniform sampler's jitter [R, 129], the pdf
         sampler's [R, 129]]}."""
         bg = self.config.background_color
         (samples_u, w_c, out_c), (samples_pdf, w_f, out_f) = coarse_fine(
-            self, self.field, self.field, ray_bundle, train, False, uniforms, generator
+            self, self.field, self.field, ray_bundle, train, False, uniforms, generator, shard
         )
         rgb_coarse = renderers.render_rgb(out_c[FieldHeadNames.RGB], w_c, bg, train=train)
         rgb_fine = renderers.render_rgb(out_f[FieldHeadNames.RGB], w_f, bg, train=train)

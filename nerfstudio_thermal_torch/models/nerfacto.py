@@ -4,7 +4,11 @@ Collider -> proposal hierarchy -> field -> compositing, for eval and for
 training. Training adds jittered sampling, the proposal-weight anneal and
 the proposal update schedule (`proposal_anneal`, `proposal_updated`: pure
 functions of the step, computed on the host in f32 as the JAX package
-computes them in its step), the metrics and the losses.
+computes them in its step), the metrics and the losses. A data-parallel
+rank (`shard`, parallel/mesh.py) hands the shard to its samplers and
+returns its contributions: the per-ray means (rgb, interlevel,
+distortion) times its share of the rays, the PSNR from summed squared
+errors, the camera penalties and metrics once.
 """
 
 from dataclasses import dataclass, field as dataclass_field
@@ -32,7 +36,7 @@ from nerfstudio_thermal_torch.model_components.losses import (
 from nerfstudio_thermal_torch.model_components.ray_samplers import proposal_sample
 from nerfstudio_thermal_torch.model_components.scene_colliders import NearFarCollider
 from nerfstudio_thermal_torch.models.base_model import Model, ModelConfig
-from nerfstudio_thermal_torch.utils.math import psnr
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -264,6 +268,7 @@ class NerfactoModel(Model):
         updated: bool = True,
         uniforms: Optional[Sequence[torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[RayShard] = None,
     ):
         cfg = self.config
         return proposal_sample(
@@ -278,6 +283,7 @@ class NerfactoModel(Model):
             train=train,
             uniforms=uniforms,
             generator=generator,
+            shard=shard,
         )
 
     def _get_outputs_for_field(
@@ -333,13 +339,14 @@ class NerfactoModel(Model):
         updated: bool = True,
         uniforms: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[RayShard] = None,
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": one jitter draw per sampling level}."""
         if train:
             ray_bundle = self.camera_optimizer.apply_to_raybundle(ray_bundle)
         ray_samples, weights_list, ray_samples_list = self._sample(
             ray_bundle, self.proposal_networks, train, anneal, updated,
-            (uniforms or {}).get("rgb"), generator,
+            (uniforms or {}).get("rgb"), generator, shard,
         )
         outputs, weights_list, ray_samples_list = self._get_outputs_for_field(
             self.field, ray_samples, weights_list, ray_samples_list, train=train
@@ -352,13 +359,24 @@ class NerfactoModel(Model):
     def _active_camera_optimizers(self):
         return [self.camera_optimizer] if self.camera_optimizer.mode != "off" else []
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
+    def _camera_metrics(self, shard: RayShard) -> Dict[str, torch.Tensor]:
+        """The active camera optimizers' metrics, once over the ranks."""
+        return {k: shard.once(v) for opt in self._active_camera_optimizers() for k, v in opt.metrics().items()}
+
+    def _camera_losses(self, shard: RayShard) -> Dict[str, torch.Tensor]:
+        """The active camera optimizers' penalties, once over the ranks."""
+        return {f"camera_opt_regularizer{opt.suffix}": shard.once(opt.regularization_loss())
+                for opt in self._active_camera_optimizers()}
+
+    def get_metrics_dict(
+        self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
+    ) -> Dict[str, torch.Tensor]:
+        shard = self._shard(shard, batch)
         gt_rgb = renderers.blend_background_rgb(batch["image"])
-        metrics = {"psnr": psnr(outputs["rgb"], gt_rgb)}
+        metrics = {"psnr": shard.psnr(outputs["rgb"], gt_rgb)}
         if train:
-            metrics["distortion"] = distortion_loss(outputs["weights_list"], outputs["ray_samples_list"])
-            for opt in self._active_camera_optimizers():
-                metrics.update(opt.metrics())
+            metrics["distortion"] = distortion_loss(outputs["weights_list"], outputs["ray_samples_list"]) * shard.weight
+            metrics.update(self._camera_metrics(shard))
         return metrics
 
     def get_loss_dict(
@@ -366,20 +384,22 @@ class NerfactoModel(Model):
         background_uniforms: Optional[torch.Tensor] = None,
         tv_uniforms: Optional[Dict[str, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        shard: Optional[RayShard] = None,
     ) -> Dict[str, torch.Tensor]:
         """tv_uniforms and generator serve the thermal model's density TV
         loss; nerfacto has none."""
         cfg = self.config
+        weight = self._shard(shard, batch).weight
         pred_rgb, gt_rgb = renderers.blend_background_for_loss_rgb(
             outputs["rgb"], outputs["accumulation"], batch["image"],
             background_color=cfg.background_color, uniforms=background_uniforms,
         )
-        loss_dict = {"rgb_loss": mse_loss(gt_rgb, pred_rgb)}
+        loss_dict = {"rgb_loss": mse_loss(gt_rgb, pred_rgb) * weight}
         if train:
             loss_dict["interlevel_loss"] = cfg.interlevel_loss_mult * interlevel_loss(
                 outputs["weights_list"], outputs["ray_samples_list"]
-            )
+            ) * weight
+            # the distortion metric is this rank's contribution already
             loss_dict["distortion_loss"] = cfg.distortion_loss_mult * metrics_dict["distortion"]
-            for opt in self._active_camera_optimizers():
-                loss_dict[f"camera_opt_regularizer{opt.suffix}"] = opt.regularization_loss()
+            loss_dict.update(self._camera_losses(self._shard(shard, batch)))
         return loss_dict

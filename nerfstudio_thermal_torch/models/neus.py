@@ -27,6 +27,7 @@ from nerfstudio_thermal_torch.cameras.rays import RayBundle, RaySamples, get_wei
 from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames
 from nerfstudio_thermal_torch.model_components.ray_samplers import pdf_sample, spaced_sample
 from nerfstudio_thermal_torch.models.base_surface_model import SurfaceModel, SurfaceModelConfig
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -94,14 +95,15 @@ def neus_sample(
     train: bool = False,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[RayShard] = None,
 ) -> RaySamples:
     """SDF-guided iterative upsampling; `uniforms` holds the 1 +
     num_up_sample_steps jitter draws (the uniform sampler's, then each
-    round's)."""
+    round's); `shard`: a data-parallel rank's (ray_samplers.py)."""
     if uniforms is not None and len(uniforms) != num_up_sample_steps + 1:
         raise ValueError(f"{len(uniforms)} uniform draws for {num_up_sample_steps + 1} sampling rounds")
     draws = list(uniforms) if uniforms is not None else [None] * (num_up_sample_steps + 1)
-    jitter = dict(single_jitter=single_jitter, train=train, generator=generator)
+    jitter = dict(single_jitter=single_jitter, train=train, generator=generator, shard=shard)
     ray_samples = spaced_sample(ray_bundle, num_samples, spacing_kind="uniform", train_stratified=True,
                                 uniforms=draws[0], **jitter)
     for it in range(num_up_sample_steps):
@@ -141,7 +143,8 @@ class NeuSModel(SurfaceModel):
         return {"cos_anneal_ratio": cos_anneal_ratio(extra.step, self.config.anneal_end)}
 
     def sample_and_forward_field(self, ray_bundle: RayBundle, *, train: bool, uniforms, generator,
-                                 cos_anneal_ratio: float, anneal: float = 1.0) -> Dict:
+                                 cos_anneal_ratio: float, anneal: float = 1.0,
+                                 shard: Optional[RayShard] = None) -> Dict:
         cfg = self.config
         ray_samples = neus_sample(
             ray_bundle, self.field.get_sdf,
@@ -149,7 +152,7 @@ class NeuSModel(SurfaceModel):
             num_samples_importance=cfg.num_samples_importance,
             num_up_sample_steps=cfg.num_up_sample_steps,
             base_variance=cfg.base_variance,
-            train=train, uniforms=uniforms, generator=generator,
+            train=train, uniforms=uniforms, generator=generator, shard=shard,
         )
         field_outputs = self.field(ray_samples, train=train, return_alphas=True, cos_anneal_ratio=cos_anneal_ratio)
         weights, transmittance = get_weights_and_transmittance_from_alphas(field_outputs[FieldHeadNames.ALPHA])

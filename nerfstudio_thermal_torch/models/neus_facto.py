@@ -10,7 +10,7 @@ NeuS's. Jitter: {"rgb": one draw per sampling level}.
 """
 
 from dataclasses import dataclass, field as dataclass_field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,6 +21,7 @@ from nerfstudio_thermal_torch.fields.density_fields import HashMLPDensityField
 from nerfstudio_thermal_torch.model_components.losses import interlevel_loss
 from nerfstudio_thermal_torch.model_components.ray_samplers import proposal_sample
 from nerfstudio_thermal_torch.models.neus import NeuSModel, NeuSModelConfig
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -69,7 +70,8 @@ class NeuSFactoModel(NeuSModel):
         return [lambda samples, net=net: net(ray_samples=samples) for net in picked]
 
     def sample_and_forward_field(self, ray_bundle: RayBundle, *, train: bool, uniforms, generator,
-                                 cos_anneal_ratio: float, anneal: float = 1.0) -> Dict:
+                                 cos_anneal_ratio: float, anneal: float = 1.0,
+                                 shard: Optional[RayShard] = None) -> Dict:
         cfg = self.config
         ray_samples, weights_list, ray_samples_list = proposal_sample(
             ray_bundle,
@@ -83,6 +85,7 @@ class NeuSFactoModel(NeuSModel):
             train=train,
             uniforms=uniforms,
             generator=generator,
+            shard=shard,
         )
         field_outputs = self.field(ray_samples, train=train, return_alphas=True, cos_anneal_ratio=cos_anneal_ratio)
         weights, transmittance = get_weights_and_transmittance_from_alphas(field_outputs[FieldHeadNames.ALPHA])
@@ -95,10 +98,11 @@ class NeuSFactoModel(NeuSModel):
             "ray_samples_list": ray_samples_list + [ray_samples],
         }
 
-    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True, **kwargs) -> Dict[str, torch.Tensor]:
-        loss_dict = super().get_loss_dict(outputs, batch, metrics_dict, train=train, **kwargs)
+    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True,
+                      shard: Optional[RayShard] = None, **kwargs) -> Dict[str, torch.Tensor]:
+        loss_dict = super().get_loss_dict(outputs, batch, metrics_dict, train=train, shard=shard, **kwargs)
         if train:
             loss_dict["interlevel_loss"] = self.config.interlevel_loss_mult * interlevel_loss(
                 outputs["weights_list"], outputs["ray_samples_list"]
-            )
+            ) * self._shard(shard, batch).weight
         return loss_dict

@@ -8,18 +8,19 @@ metadata's colours (or, without them, of default_rng(0)'s uniform ones)
 for "semantics_colormap"; the training loss adds the cross-entropy of
 the logits against the batch's "semantics" labels, times
 `semantic_loss_weight` (a label outside [0, C) adds 0, as JAX's one-hot
-does). As in the JAX package, the transient (NeRF-W) branch is not
-implemented.
+does; a data-parallel rank contributes its share of the rays' mean). As
+in the JAX package, the transient (NeRF-W) branch is not implemented.
 """
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from nerfstudio_thermal_torch.fields.base_field import FieldHeadNames
 from nerfstudio_thermal_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -60,13 +61,15 @@ class SemanticNerfWModel(NerfactoModel):
         labels = torch.argmax(torch.softmax(sem, dim=-1), dim=-1)
         outputs["semantics_colormap"] = self.semantic_colormap[labels]
 
-    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True, **kwargs) -> Dict[str, torch.Tensor]:
-        loss_dict = super().get_loss_dict(outputs, batch, metrics_dict, train=train, **kwargs)
+    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True,
+                      shard: Optional[RayShard] = None, **kwargs) -> Dict[str, torch.Tensor]:
+        loss_dict = super().get_loss_dict(outputs, batch, metrics_dict, train=train, shard=shard, **kwargs)
         if train and "semantics" in batch and "semantics" in outputs:
             logits = outputs["semantics"]
             labels = batch["semantics"].long().reshape(-1)
             logp = torch.log_softmax(logits, dim=-1)
             onehot = labels[:, None] == torch.arange(logits.shape[-1], device=labels.device)
             ce = -torch.sum(onehot * logp, dim=-1)
-            loss_dict["semantics_loss"] = self.config.semantic_loss_weight * torch.mean(ce)
+            weight = self._shard(shard, batch).weight
+            loss_dict["semantics_loss"] = self.config.semantic_loss_weight * torch.mean(ce) * weight
         return loss_dict

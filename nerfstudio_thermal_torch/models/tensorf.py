@@ -13,7 +13,9 @@ linearly along each grid axis to the next resolution of a log schedule
 from `resolution` to `final_resolution` (numpy, float64, then f32),
 swaps the new grids into the field and the optimizer, with zero Adam
 moments for them and the group's step count kept, and rebuilds the field
-at the new resolution. Jitters as vanilla NeRF's: {"rgb": [u, p]}.
+at the new resolution. Jitters as vanilla NeRF's: {"rgb": [u, p]}. A
+data-parallel rank contributes its share of the MSE and the L1, which
+reads the parameters only, once; every rank upsamples alike.
 """
 
 from dataclasses import dataclass
@@ -32,7 +34,7 @@ from nerfstudio_thermal_torch.model_components.ray_samplers import pdf_sample, s
 from nerfstudio_thermal_torch.model_components.scene_colliders import AABBBoxCollider
 from nerfstudio_thermal_torch.models.base_model import Model, ModelConfig
 from nerfstudio_thermal_torch.models.vanilla_nerf import two_draws
-from nerfstudio_thermal_torch.utils.math import psnr
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -138,17 +140,17 @@ class TensoRFModel(Model):
     def get_outputs(
         self, ray_bundle: RayBundle, *, train: bool = False,
         uniforms: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
-        generator: Optional[torch.Generator] = None, **_,
+        generator: Optional[torch.Generator] = None, shard: Optional[RayShard] = None, **_,
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": [the uniform sampler's jitter [R, 201], the pdf
         sampler's [R, 51]]}."""
         cfg = self.config
         u_coarse, u_pdf = two_draws(uniforms)
         coarse = spaced_sample(ray_bundle, cfg.num_uniform_samples, spacing_kind="uniform", train=train,
-                               uniforms=u_coarse, generator=generator)
+                               uniforms=u_coarse, generator=generator, shard=shard)
         w_c = coarse.get_weights(self.field.density_fn(coarse.get_positions()))
         fine = pdf_sample(ray_bundle, coarse, w_c, cfg.num_samples, include_original=True, train=train,
-                          uniforms=u_pdf, generator=generator)
+                          uniforms=u_pdf, generator=generator, shard=shard)
         out = self.field(fine, train=train)
         w = fine.get_weights(out[FieldHeadNames.DENSITY])
         return {
@@ -158,13 +160,19 @@ class TensoRFModel(Model):
             "expected_depth": renderers.render_depth_expected(w, fine),
         }
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
-        return {"psnr": psnr(outputs["rgb"], renderers.blend_background_rgb(batch["image"]))}
+    def get_metrics_dict(
+        self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
+    ) -> Dict[str, torch.Tensor]:
+        return {"psnr": self._shard(shard, batch).psnr(outputs["rgb"], renderers.blend_background_rgb(batch["image"]))}
 
-    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True, **_) -> Dict[str, torch.Tensor]:
-        loss_dict = {"rgb_loss": mse_loss(outputs["rgb"], renderers.blend_background_rgb(batch["image"]))}
+    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True,
+                      shard: Optional[RayShard] = None, **_) -> Dict[str, torch.Tensor]:
+        shard = self._shard(shard, batch)
+        loss_dict = {
+            "rgb_loss": mse_loss(outputs["rgb"], renderers.blend_background_rgb(batch["image"])) * shard.weight
+        }
         if train and self.config.l1_reg_mult > 0:
             f = self.field
             l1 = torch.mean(torch.abs(f.density_planes)) + torch.mean(torch.abs(f.density_lines))
-            loss_dict["l1_reg"] = self.config.l1_reg_mult * l1
+            loss_dict["l1_reg"] = shard.once(self.config.l1_reg_mult * l1)
         return loss_dict

@@ -23,14 +23,14 @@ in the aabb with their 6 neighbours (`NerfactoField.sample_and_density`).
 
 A data-parallel rank (`shard`, a parallel/mesh.py `RayShard`) returns
 its contributions to the global batch's losses and metrics, which sum
-over the ranks to them: per-ray means weighted by its share of the rays,
-the patch losses' masked means over the global count, the cross-density
-prefix's k from the global ray count (a rank evaluates its own rows of
-it, possibly none), the camera penalties and the density TV loss on the
-main rank only, and the masked PSNRs from summed squared errors. Its
-jitter is its rows of the global batch's draw. Without a shard the model
-runs the same code over `RayShard.full` (every row, weight 1, nothing
-to reduce), which gives the plain values bit for bit.
+over the ranks to them: nerfacto's (models/nerfacto.py), the patch
+losses' masked means over the global count, the cross-density prefix's k
+from the global ray count (a rank evaluates its own rows of it, possibly
+none), the density TV loss on the main rank only, and the masked PSNRs
+from summed squared errors. Its samplers draw the global batch's jitter
+and keep its rows. Without a shard the model runs the same code over
+`RayShard.full` (every row, weight 1, nothing to reduce), which gives
+the plain values bit for bit.
 
 `fused_modalities` (separate mode; off by default as in the JAX package,
 where it vmaps both modalities' training pipelines over one stacked axis)
@@ -42,7 +42,7 @@ outputs are the sequential outputs of the same parameters and jitter.
 """
 
 from dataclasses import dataclass, field as dataclass_field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -112,17 +112,6 @@ def _removal(density, cross_density, rgb_samples, ray_samples, diff, background_
     return renderers.render_rgb(rgb_samples, weights, background_color=background_color, train=False)
 
 
-def _psnr(pred, target, mask, shard: RayShard) -> torch.Tensor:
-    """The masked PSNR (utils/math.py `psnr`) of the global batch on the
-    main rank, 0 on the others (from squared errors and counts summed
-    over the ranks)."""
-    se = (pred - target) ** 2
-    mask = torch.broadcast_to(mask, se.shape)
-    sums = shard.global_sum(torch.stack([torch.sum(se * mask), torch.sum(mask)]))
-    mse = sums[0] / torch.clamp(sums[1], min=1.0)
-    return shard.once(-10.0 * torch.log10(torch.clamp(mse, min=1e-12)))
-
-
 def draw_tv_uniforms(num_points: int, generator: torch.Generator) -> torch.Tensor:
     """The density TV loss's points, U[0, 1) [num_points, 3] from the
     step's generator (the JAX package draws them from its loss key)."""
@@ -131,13 +120,6 @@ def draw_tv_uniforms(num_points: int, generator: torch.Generator) -> torch.Tenso
 
 class ThermalNerfactoModel(NerfactoModel):
     config: ThermalNerfactoModelConfig
-    data_parallel = True  # the losses and metrics take a RayShard
-
-    def _jitter_columns(self) -> List[int]:
-        """The jitter draw's columns at each sampling level of `_sample`."""
-        cfg = self.config
-        levels = [*cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray]
-        return [1 if cfg.use_single_jitter else n + 1 for n in levels]
 
     def cross_density_rays(self, num_rays: int, train: bool) -> int:
         """The cross-spectral density loss's ray prefix of a batch of
@@ -207,27 +189,20 @@ class ThermalNerfactoModel(NerfactoModel):
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": [...], "thermal": [...]}, one jitter draw per
         sampling level of each modality (training); without them the
-        jitter comes from `generator`. With `shard` the jitter is its rows
-        of the global batch's draw and the cross densities cover its rows
-        of the global prefix (the keys are absent when it has none)."""
+        jitter comes from `generator` (rgb's levels, then thermal's). With
+        `shard` the jitter is its rows of the global batch's draw and the
+        cross densities cover its rows of the global prefix (the keys are
+        absent when it has none)."""
         cfg = self.config
         separate = cfg.density_mode == "separate"
-        shard = shard or RayShard.full(ray_bundle.origins.shape[0])
-        uniforms = dict(uniforms or {})
-        if train and generator is not None:
-            # in the order the samplers would draw them: rgb's levels, then thermal's
-            for modality in ("rgb", "thermal") if separate else ("rgb",):
-                if modality not in uniforms:
-                    uniforms[modality] = [
-                        shard.draw(generator, c, ray_bundle.origins.device) for c in self._jitter_columns()
-                    ]
+        uniforms = uniforms or {}
 
         bundle_rgb = self.shared_camera_optimizer.apply_to_raybundle(ray_bundle)
         if train:
             bundle_rgb = self.camera_optimizer.apply_to_raybundle(bundle_rgb)
         ray_samples, weights_list, ray_samples_list = self._sample(
             bundle_rgb, self.proposal_networks, train, anneal, updated,
-            uniforms.get("rgb"), generator,
+            uniforms.get("rgb"), generator, shard,
         )
         outputs, weights_list, ray_samples_list = self._get_outputs_for_field(
             self.field, ray_samples, weights_list, ray_samples_list, train=train,
@@ -249,7 +224,7 @@ class ThermalNerfactoModel(NerfactoModel):
             bundle_t = self.camera_optimizer_thermal.apply_to_raybundle(bundle_t)
         ray_samples_t, weights_list_t, ray_samples_list_t = self._sample(
             bundle_t, self.proposal_networks_thermal, train, anneal_thermal, updated_thermal,
-            uniforms.get("thermal"), generator,
+            uniforms.get("thermal"), generator, shard,
         )
         thermal_outputs, weights_list_t, ray_samples_list_t = self._get_outputs_for_field(
             self.field_thermal, ray_samples_t, weights_list_t, ray_samples_list_t, train=train,
@@ -262,7 +237,8 @@ class ThermalNerfactoModel(NerfactoModel):
         if cfg.density_loss_mult > 0 or not train:
             # cross-field densities: each field at the other field's samples,
             # in training on a ray prefix (rays are randomly ordered)
-            k = shard.prefix(self.cross_density_rays(shard.num_rays, train))
+            rows = shard or RayShard.full(ray_bundle.origins.shape[0])
+            k = rows.prefix(self.cross_density_rays(rows.num_rays, train))
             prefix = lambda t: t[:k]  # noqa: E731
             samples_t_k, samples_k = map_tensors(ray_samples_t, prefix), map_tensors(ray_samples, prefix)
             for name, field, samples in (
@@ -309,20 +285,19 @@ class ThermalNerfactoModel(NerfactoModel):
         self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
     ) -> Dict[str, torch.Tensor]:
         is_thermal = batch["is_thermal"]
-        shard = shard or RayShard.full(is_thermal.shape[0])
+        shard = self._shard(shard, batch)
         gt = renderers.blend_background_rgbt(
             batch["image"], is_thermal, background_color=self.config.background_color
         )
-        metrics = {"psnr_rgb": _psnr(outputs["rgb"], gt[..., :3], (1.0 - is_thermal)[..., None], shard)}
+        metrics = {"psnr_rgb": shard.psnr(outputs["rgb"], gt[..., :3], (1.0 - is_thermal)[..., None])}
         if self.config.density_mode != "rgb_only":
-            metrics["psnr_thermal"] = _psnr(outputs["rgb_thermal"], gt[..., 3:], is_thermal[..., None], shard)
+            metrics["psnr_thermal"] = shard.psnr(outputs["rgb_thermal"], gt[..., 3:], is_thermal[..., None])
         if train:
             metrics["distortion"] = sum(
                 distortion_loss(outputs[f"weights_list{s}"], outputs[f"ray_samples_list{s}"])
                 for s in self.output_suffixes
             ) * shard.weight
-            for opt in self._active_camera_optimizers():
-                metrics.update({k: shard.once(v) for k, v in opt.metrics().items()})
+            metrics.update(self._camera_metrics(shard))
         return metrics
 
     def _tv_density(self, field, key: str, tv_uniforms, generator, shard: RayShard) -> Optional[torch.Tensor]:
@@ -354,7 +329,7 @@ class ThermalNerfactoModel(NerfactoModel):
         With `shard`: this rank's contributions (the module docstring)."""
         cfg = self.config
         is_thermal = batch["is_thermal"]
-        shard = shard or RayShard.full(is_thermal.shape[0])
+        shard = self._shard(shard, batch)
         weight = shard.weight
         rgb_only = cfg.density_mode == "rgb_only"
         thermal = torch.zeros_like(outputs["rgb"][..., :1]) if rgb_only else outputs["rgb_thermal"]
@@ -423,6 +398,5 @@ class ThermalNerfactoModel(NerfactoModel):
                 dl = dl + cfg.distortion_loss_mult * metrics_dict["distortion"]
             loss_dict["interlevel_loss"] = il * weight
             loss_dict["distortion_loss"] = dl  # the distortion metric is this rank's contribution already
-            for opt in self._active_camera_optimizers():
-                loss_dict[f"camera_opt_regularizer{opt.suffix}"] = shard.once(opt.regularization_loss())
+            loss_dict.update(self._camera_losses(shard))
         return loss_dict

@@ -8,7 +8,9 @@ renders against the background-blended GT. `use_pallas` runs each field's
 
 Training draws two jitters, the uniform sampler's and the pdf sampler's
 (the JAX model splits its key into those two); `uniforms={"rgb": [u, p]}`
-passes them in, as a test passes the JAX package's draws.
+passes them in, as a test passes the JAX package's draws. A data-parallel
+rank (`shard`) hands its samplers the shard and contributes its share of
+both MSEs; the PSNRs are the global batch's.
 """
 
 from dataclasses import dataclass
@@ -25,7 +27,7 @@ from nerfstudio_thermal_torch.model_components.losses import mse_loss
 from nerfstudio_thermal_torch.model_components.ray_samplers import pdf_sample, spaced_sample
 from nerfstudio_thermal_torch.model_components.scene_colliders import NearFarCollider
 from nerfstudio_thermal_torch.models.base_model import Model, ModelConfig
-from nerfstudio_thermal_torch.utils.math import psnr
+from nerfstudio_thermal_torch.parallel.mesh import RayShard
 
 
 @dataclass
@@ -48,18 +50,19 @@ def two_draws(uniforms: Optional[Dict[str, Sequence[torch.Tensor]]]):
 
 
 def coarse_fine(model, field_coarse: NeRFField, field_fine: NeRFField, ray_bundle: RayBundle, train: bool,
-                include_original: bool, uniforms, generator):
+                include_original: bool, uniforms, generator, shard: Optional[RayShard] = None):
     """The two passes: uniform samples through field_coarse, their pdf
     resample through field_fine. Returns (coarse samples, weights, field
     outputs) and the same of the fine pass."""
     cfg = model.config
     u_coarse, u_pdf = two_draws(uniforms)
     samples_u = spaced_sample(ray_bundle, cfg.num_coarse_samples, spacing_kind="uniform", train=train,
-                              uniforms=u_coarse, generator=generator)
+                              uniforms=u_coarse, generator=generator, shard=shard)
     out_c = field_coarse(samples_u, train=train)
     w_c = samples_u.get_weights(out_c[FieldHeadNames.DENSITY])
     samples_pdf = pdf_sample(ray_bundle, samples_u, w_c, cfg.num_importance_samples,
-                             include_original=include_original, train=train, uniforms=u_pdf, generator=generator)
+                             include_original=include_original, train=train, uniforms=u_pdf, generator=generator,
+                             shard=shard)
     out_f = field_fine(samples_pdf, train=train)
     w_f = samples_pdf.get_weights(out_f[FieldHeadNames.DENSITY])
     return (samples_u, w_c, out_c), (samples_pdf, w_f, out_f)
@@ -91,13 +94,13 @@ class NeRFModel(Model):
     def get_outputs(
         self, ray_bundle: RayBundle, *, train: bool = False,
         uniforms: Optional[Dict[str, Sequence[torch.Tensor]]] = None,
-        generator: Optional[torch.Generator] = None, **_,
+        generator: Optional[torch.Generator] = None, shard: Optional[RayShard] = None, **_,
     ) -> Dict[str, torch.Tensor]:
         """uniforms: {"rgb": [the uniform sampler's jitter [R, 65], the pdf
         sampler's [R, 129]]}."""
         bg = self.config.background_color
         (samples_u, w_c, out_c), (samples_pdf, w_f, out_f) = coarse_fine(
-            self, self.field["coarse"], self.field["fine"], ray_bundle, train, True, uniforms, generator
+            self, self.field["coarse"], self.field["fine"], ray_bundle, train, True, uniforms, generator, shard
         )
         rgb_coarse = renderers.render_rgb(out_c[FieldHeadNames.RGB], w_c, bg, train=train)
         rgb_fine = renderers.render_rgb(out_f[FieldHeadNames.RGB], w_f, bg, train=train)
@@ -117,13 +120,18 @@ class NeRFModel(Model):
             "expected_depth": renderers.render_depth_expected(w_f, samples_pdf),
         }
 
-    def get_metrics_dict(self, outputs, batch, train: bool = True) -> Dict[str, torch.Tensor]:
+    def get_metrics_dict(
+        self, outputs, batch, train: bool = True, shard: Optional[RayShard] = None
+    ) -> Dict[str, torch.Tensor]:
+        shard = self._shard(shard, batch)
         gt = renderers.blend_background_rgb(batch["image"])
-        return {"psnr": psnr(outputs["rgb_fine"], gt), "psnr_coarse": psnr(outputs["rgb_coarse"], gt)}
+        return {"psnr": shard.psnr(outputs["rgb_fine"], gt), "psnr_coarse": shard.psnr(outputs["rgb_coarse"], gt)}
 
-    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True, **_) -> Dict[str, torch.Tensor]:
+    def get_loss_dict(self, outputs, batch, metrics_dict, *, train: bool = True,
+                      shard: Optional[RayShard] = None, **_) -> Dict[str, torch.Tensor]:
+        weight = self._shard(shard, batch).weight
         gt = renderers.blend_background_rgb(batch["image"])
         return {
-            "rgb_loss_coarse": mse_loss(outputs["rgb_coarse"], gt),
-            "rgb_loss_fine": mse_loss(outputs["rgb_fine"], gt),
+            "rgb_loss_coarse": mse_loss(outputs["rgb_coarse"], gt) * weight,
+            "rgb_loss_fine": mse_loss(outputs["rgb_fine"], gt) * weight,
         }

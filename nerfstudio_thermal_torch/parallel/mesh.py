@@ -9,39 +9,55 @@ or the backend the caller names), `create_mesh` says where this rank
 stands (world, rank, local rank, host index) and `shard_batch` keeps its
 rows of its host's batch. `is_main_process` is rank 0.
 
-The W-rank training step (engine/trainer.py `make_ray_train_step` given a
-`RayShard`) computes JAX's one-device step on the global batch:
+The W-rank ray-batch step (engine/trainer.py `make_ray_train_step` given a
+`RayShard`; every method but splatfacto and generfacto) computes JAX's
+one-device step on the global batch:
 - Every rank of host h samples host h's batch (seed `datamanager.seed +
   7919 * h`, JAX's per-process offset; `setup_trainer` applies it) and
   keeps the r-th contiguous 1/D of its rays, D ranks a host. The global
   batch is the hosts' batches in host order.
 - Draws: every rank draws the global batch's jitter and random
   backgrounds from the trainer's generator (seeded alike on every rank)
-  and keeps its rows (`RayShard.draw`), so the generators stay in step
-  and each ray sees the draw it would see in a one-rank step. The model
-  hands its samplers these rows as their uniforms.
+  and keeps its rows (`RayShard.draw`; the samplers do so when they are
+  handed the shard), so the generators stay in step and each ray sees the
+  draw it would see in a one-rank step. Draws that belong to no ray (the
+  occupancy grid's points, the density TV points) are the same on every
+  rank.
 - Each loss term of a rank is its contribution to the global term; the
   contributions sum to it over the ranks:
   * per-ray means: the local mean times R_local / R_global (`weight`);
-  * masked means (`tv_pixel_loss`, `cross_channel_loss`): the local masked
-    sum over the global mask count, a scalar all-reduce before the
-    backward (`global_sum`);
+  * masked means (`tv_pixel_loss`, `cross_channel_loss`, depth-nerfacto's
+    `depth_mae`): the local masked sum over the global mask count, a
+    scalar all-reduce before the backward (`global_sum`);
   * thermal-nerfacto's cross-density ray prefix: k from the global ray
     count; a rank evaluates its rows inside [0, k) (`prefix`, possibly
     none) and contributes their share of the L1 mean over k rays;
-  * parameter-only terms (the camera penalties) and batch-independent
-    draws (the density TV points) enter once, on the main rank (`once`);
-    every rank still draws the TV points, to keep the generators in step.
+  * parameter-only terms (the camera penalties, TensoRF's L1, the
+    surface models' s_val) and batch-independent draws (the density TV
+    points) enter once, on the main rank (`once`);
+  * a term that is no sum over rays (the surface models' monocular depth
+    loss: one scale and shift fitted over the global batch) is computed
+    on the whole global batch on every rank from the other ranks'
+    detached rows and this rank's own (`gather`); it enters with its
+    value once and its gradient to this rank's rows whole (`whole`).
   A single process's step is the same code over the trivial shard
-  (`RayShard.full`: every row, weight 1, no reduction).
+  (`RayShard.full`: every row, weight 1, no reduction), bitwise the
+  plain step.
   The gradient of the summed contributions is then the sum of the ranks'
   gradients: `all_reduce_grads` sums every trained parameter's gradient
   (zeros where a rank got none, which the optimizers treat alike) in
   buckets (BUCKET_BYTES) before the optimizers step.
 - Logged scalars are the global values (`reduce_scalars` sums the
-  contributions; the masked PSNRs come from summed squared errors and
-  counts). Checkpoints, config.yml, events and the viewer are the main
-  rank's.
+  contributions; the PSNRs come from summed squared errors and counts,
+  `RayShard.psnr`). Checkpoints, config.yml, events, the writers and the
+  viewer are the main rank's.
+
+The whole-image step (splatfacto) and the generative step (generfacto)
+replicate their batch, as JAX does: every rank runs the whole step on
+the same batch with the same generator, then takes rank 0's gradients
+(`broadcast_grads`) and splatfacto's refinement statistics before the
+update, so every rank applies bitwise the same update even where the
+card's atomics sum in another order on each rank.
 """
 
 import os
@@ -50,6 +66,8 @@ from typing import Any, Dict, Iterable, List, Optional, Union
 
 import torch
 import torch.distributed as dist
+
+from nerfstudio_thermal_torch.utils.math import psnr
 
 BUCKET_BYTES = 32 * 2**20
 
@@ -224,6 +242,36 @@ class RayShard:
         """A term that enters the global loss once: the main rank's."""
         return t if self.main else t * 0.0
 
+    def psnr(self, pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The (masked) PSNR of the global batch (utils/math.py `psnr`) on
+        the main rank, 0 on the others, from squared errors and counts
+        summed over the ranks."""
+        if not self.distributed:
+            return psnr(pred, target, mask).detach()
+        se = (pred - target) ** 2
+        mask = torch.ones_like(se) if mask is None else torch.broadcast_to(mask, se.shape)
+        sums = self.global_sum(torch.stack([torch.sum(se * mask), torch.sum(mask)]))
+        mse = sums[0] / torch.clamp(sums[1], min=1.0)
+        return self.once(-10.0 * torch.log10(torch.clamp(mse, min=1e-12)))
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor of this rank's rows -> the global batch's: the other
+        ranks' rows detached, this rank's with their graph."""
+        if not self.distributed:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.num_rays // self.rows)]
+        dist.all_gather(parts, t.detach().contiguous())
+        parts[self.start // self.rows] = t
+        return torch.cat(parts)
+
+    def whole(self, loss: torch.Tensor) -> torch.Tensor:
+        """A term every rank computes on the whole global batch (`gather`):
+        its value enters the global loss once, its gradient to this
+        rank's rows whole."""
+        if not self.distributed:
+            return loss
+        return loss - loss.detach() + self.once(loss.detach())
+
 
 def _buckets(tensors: List[torch.Tensor]) -> Iterable[List[torch.Tensor]]:
     by_kind: Dict[Any, List[torch.Tensor]] = {}
@@ -244,6 +292,22 @@ def _buckets(tensors: List[torch.Tensor]) -> Iterable[List[torch.Tensor]]:
 def all_reduce_grads(params: List[torch.Tensor]) -> int:
     """Sum every parameter's gradient over the ranks, zeros where a rank
     has none, in buckets of about BUCKET_BYTES; returns the bytes reduced."""
+    return _collective_grads(params, dist.all_reduce)
+
+
+def broadcast_grads(params: List[torch.Tensor]) -> int:
+    """Rank 0's gradient of every parameter on every rank (zeros where it
+    has none), in buckets as `all_reduce_grads`; returns the bytes sent."""
+    return _collective_grads(params, lambda flat: dist.broadcast(flat, src=0))
+
+
+def broadcast_tensors(tensors: Iterable[torch.Tensor]) -> None:
+    """Rank 0's values of these tensors on every rank, in place."""
+    for t in tensors:
+        dist.broadcast(t, src=0)
+
+
+def _collective_grads(params: List[torch.Tensor], collective) -> int:
     grads = []
     for p in params:
         if p.grad is None:
@@ -252,7 +316,7 @@ def all_reduce_grads(params: List[torch.Tensor]) -> int:
     total = 0
     for bucket in _buckets(grads):
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
+        collective(flat)
         total += flat.numel() * flat.element_size()
         offset = 0
         for g in bucket:
@@ -277,8 +341,7 @@ def reduce_scalars(scalars: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def broadcast_params(params: Iterable[torch.Tensor]) -> None:
     """Rank 0's parameter values on every rank (the replicas start equal)."""
-    for p in params:
-        dist.broadcast(p.data, src=0)
+    broadcast_tensors(p.data for p in params)
 
 
 def free_port() -> int:

@@ -17,12 +17,14 @@ while training, rendering on the card (viewer/server.py), and stops it
 when training ends. --help lists the port's methods and the plugin
 methods (plugins/registry.py).
 
-`--trainer.num-devices D` (default: every visible card for the models
-with a data-parallel step, thermal-nerfacto's; one for the others, with
-a note) trains on D cards: ns-train spawns D ranks on this host, joined over NCCL (gloo for
-the CPU seam) at a free localhost port, runs the data-parallel trainer
-in each (parallel/mesh.py) and joins them at the end; the main rank
-writes the run. Several comma-separated --data scenes train as a
+`--trainer.num-devices D` (default: every visible card, as the JAX
+package's `create_mesh(None)`) trains any method on D cards: ns-train
+spawns D ranks on this host, joined over NCCL (gloo for the CPU seam) at
+a free localhost port, runs the data-parallel trainer in each
+(parallel/mesh.py: the ray-batch methods shard their rays, splatfacto
+and generfacto replicate their batch) and joins them at the end; the
+main rank writes the run, and opens the TensorBoard / W&B / Comet
+writers that `--trainer.use-tensorboard` etc. ask for. Several comma-separated --data scenes train as a
 multi-scene run (engine/multi_scene.py): K scenes of one config, each
 rank stepping its K / D scenes in turn, into
 OUTPUT_DIR/multi_{K}scenes/METHOD/TIMESTAMP/scene_{i}_{name}/, each a
@@ -39,12 +41,7 @@ import torch
 import torch.distributed as dist
 
 from nerfstudio_thermal_torch.configs.cli import CLIError, apply_cli_overrides, print_config_help
-from nerfstudio_thermal_torch.configs.method_configs import (
-    get_method_config,
-    method_names,
-    resolve_model_class,
-    setup_trainer,
-)
+from nerfstudio_thermal_torch.configs.method_configs import get_method_config, method_names, setup_trainer
 from nerfstudio_thermal_torch.configs.serialization import save_config
 from nerfstudio_thermal_torch.parallel.mesh import free_port, initialize_distributed, is_main_process, visible_devices
 from nerfstudio_thermal_torch.utils.precision import pin_precision
@@ -86,25 +83,11 @@ def spawn_ranks(world: int, argv: List[str], device: Union[str, torch.device], t
 
 def _ranks(config, num_scenes: int, device: Union[str, torch.device]) -> int:
     """The ranks to run: --trainer.num-devices, or by default every
-    visible card for a model with a data-parallel step and one for the
-    others; a multi-scene run's trimmed to its K scenes as the JAX package
-    trims its scene mesh. An explicit D > 1 for a model without a
-    data-parallel step raises."""
+    visible card; a multi-scene run's trimmed to its K scenes as the JAX
+    package trims its scene mesh."""
     requested = config.trainer.num_devices
     ranks = visible_devices(device) if requested is None else requested
-    if num_scenes > 1:
-        return min(ranks, num_scenes)
-    model_cls = resolve_model_class(config.model)
-    if getattr(model_cls, "data_parallel", False) or ranks <= 1:
-        return ranks
-    if requested is not None:
-        raise NotImplementedError(
-            f"--trainer.num-devices {requested}: data-parallel training is ported for thermal-nerfacto's model only; "
-            f"{model_cls.__name__}'s is ROADMAP A7's rest"
-        )
-    print(f"note: {model_cls.__name__} has no data-parallel step yet (ROADMAP A7's rest); training on one of the "
-          f"{ranks} visible cards")
-    return 1
+    return min(ranks, num_scenes) if num_scenes > 1 else ranks
 
 
 def main(

@@ -13,3 +13,17 @@ def to4x4(pose: torch.Tensor) -> torch.Tensor:
 def multiply(pose_a: torch.Tensor, pose_b: torch.Tensor) -> torch.Tensor:
     """Compose two [..., 3, 4] poses: pose_a @ pose_b as 3x4."""
     return (to4x4(pose_a) @ to4x4(pose_b))[..., :3, :4]
+
+
+def inverse(pose: torch.Tensor) -> torch.Tensor:
+    """The inverse of a [..., 3, 4] rigid pose."""
+    r_inv = pose[..., :3, :3].transpose(-1, -2)
+    return torch.cat([r_inv, -r_inv @ pose[..., :3, 3:]], dim=-1)
+
+
+def normalize(pose: torch.Tensor) -> torch.Tensor:
+    """The pose with its translations scaled so that the largest is 1."""
+    scale = torch.max(torch.abs(pose[..., :3, 3]))
+    out = pose.clone()
+    out[..., :3, 3] = pose[..., :3, 3] / (scale + 1e-8)
+    return out

@@ -30,7 +30,9 @@ tests/test_torch_density_modes.py allows such entries up to half).
 Then the pieces: the host seed offset (host 1's batches are the JAX
 package's process 1's, and differ from host 0's), the shard rows of one
 and of two hosts, the step under a one-rank group against the plain step
-(bitwise), and the errors.
+(bitwise), the errors, and ns-train's default of every visible card for
+a method other than thermal-nerfacto. The other methods' data-parallel
+steps are tests/test_torch_parallel_methods.py's.
 """
 
 import json
@@ -51,7 +53,6 @@ from tests.test_torch_train import _method
 from tests.torch_parallel_worker import apply_fields, flatten, run_ns_train, run_ranks
 
 from nerfstudio_thermal_torch.configs.method_configs import get_method_config, setup_trainer
-from nerfstudio_thermal_torch.models.thermal_nerfacto import ThermalNerfactoModel
 from nerfstudio_thermal_torch.parallel import mesh
 from nerfstudio_thermal_torch.scripts import train as train_script
 
@@ -251,10 +252,12 @@ def test_shard_rows():
     assert (shard.prefix(4), shard.prefix(12), shard.prefix(16), shard.weight) == (0, 4, 8, 0.5)
 
 
-def test_errors(scene, tmp_path, monkeypatch):
+def test_errors(scene, tmp_path):
     """A batch that does not divide over the ranks raises, as JAX's
-    sharding does; so does a shard that would split a 2x2 patch, and a
-    mesh of several devices without a process of its own for each."""
+    sharding does (instant-ngp's dynamic batch buckets too); so does a
+    shard that would split a 2x2 patch, and a mesh of several devices
+    without a process of its own for each. A model other than
+    thermal-nerfacto's takes a process group's mesh."""
     two = mesh.Mesh(world=2, rank=0, local_rank=0, local_world=2, distributed=True)
     with pytest.raises(ValueError, match="does not divide"):
         mesh.shard_batch({"ray_indices": np.zeros((30, 3))}, mesh.Mesh(4, 0, 0, 4, True))
@@ -271,17 +274,20 @@ def test_errors(scene, tmp_path, monkeypatch):
     cfg.trainer.num_devices = 2
     with pytest.raises(ValueError, match="a process of its own"):
         setup_trainer(cfg, base_dir=tmp_path, device="cpu")
-    # a model whose losses take no shard refuses a process group
-    monkeypatch.setattr(ThermalNerfactoModel, "data_parallel", False)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        setup_trainer(port_cfg(scene), base_dir=tmp_path / "n", device="cpu", mesh=two)
+    # every model takes a process group's mesh
+    method = _method(get_method_config, "float32", scene, "nerfacto-tpu", tiny)
+    assert setup_trainer(method, base_dir=tmp_path / "n", device="cpu", mesh=two).mesh == two
+    # a dynamic batch of 48 rays over 32 ranks does not divide
+    with pytest.raises(ValueError, match="does not divide"):
+        mesh.Mesh(32, 0, 0, 32, True).ray_shard(48)
 
 
 def test_several_visible_cards_and_a_model_without_a_data_parallel_step(scene, tmp_path, monkeypatch, capsys):
     """With two visible cards and num_devices left at None, setup_trainer
-    trains on one, and ns-train runs a method whose model has no
-    data-parallel step (nerfacto-tpu) in one process with a note; only an
-    explicit --trainer.num-devices 2 for it raises."""
+    trains on one, and ns-train spans both for a method other than
+    thermal-nerfacto (nerfacto-tpu, whose model once had no data-parallel
+    step): it spawns two ranks, whose run holds the main rank's
+    checkpoint after the steps."""
     monkeypatch.setattr(mesh, "visible_devices", lambda device="cuda": 2)
     monkeypatch.setattr(train_script, "visible_devices", lambda device="cuda": 2)
     method = _method(get_method_config, "float32", scene, "nerfacto-tpu", tiny)
@@ -290,9 +296,11 @@ def test_several_visible_cards_and_a_model_without_a_data_parallel_step(scene, t
     trainer.setup()
     assert np.isfinite(float(trainer.train_iteration(0)["loss"]))
     argv = ["nerfacto-tpu", "--data", str(scene), "--max-num-iterations", "2", "--experiment-name", "x", *TINY_FLAGS]
+    spawned = []
+    monkeypatch.setattr(train_script, "spawn_ranks", lambda world, *a: spawned.append(world) or 0)
     assert train_script.main([*argv, "--output-dir", str(tmp_path / "cli")], device="cpu") == 0
-    assert "no data-parallel step" in capsys.readouterr().out
-    (run,) = (tmp_path / "cli" / "x" / "nerfacto-tpu").iterdir()
+    assert spawned == [2] and "no data-parallel step" not in capsys.readouterr().out
+    monkeypatch.undo()
+    run_ns_train([*argv, "--output-dir", str(tmp_path / "two"), "--trainer.num-devices", "2"], tmp_path)
+    (run,) = (tmp_path / "two" / "x" / "nerfacto-tpu").iterdir()
     assert torch.load(next((run / "nerfstudio_models").glob("*.ckpt")), weights_only=True)["step"] == 2
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        train_script.main([*argv, "--output-dir", str(tmp_path / "two"), "--trainer.num-devices", "2"], device="cpu")

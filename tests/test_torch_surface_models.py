@@ -86,6 +86,7 @@ from nerfstudio_thermal_torch.scripts import train as ns_train
 from nerfstudio_thermal_torch.utils.jax_params import export_jax_tree, load_jax_params
 from tests.fixtures import look_at, make_synthetic_rgbt_dataset
 from tests.test_torch_train import LOSS_TOL, adam_state, flat, port_moments, rel_l2
+from tests.torch_parallel_worker import BACKGROUND, NEUS_FACTO, SDF_GRID, flatten, run_ranks
 
 torch.set_num_threads(1)
 
@@ -95,8 +96,6 @@ EVAL_TOL = 5e-4
 MOVED_RAYS = 0.1
 NUM_RAYS = 64
 METHODS = ("neus", "neus-facto")
-SDF_GRID = dict(num_levels=4, log2_hashmap_size=10, max_res=64)
-BACKGROUND = dict(base_mlp_num_layers=3, base_mlp_layer_width=32, head_mlp_layer_width=16, skip_connections=())
 
 
 def t(a):
@@ -404,32 +403,87 @@ def mono_priors(m):
     m.mono_normal_loss_mult, m.mono_depth_loss_mult = 0.05, 0.1
 
 
-def test_mono_priors_step_matches_jax(tmp_path, small_sdf_grid):
+@pytest.fixture(scope="module")
+def mono_jax(tmp_path_factory):
+    """JAX's neus-facto step on an sdfstudio-format scene with its
+    monocular normal and depth priors (compiled once for the one-process
+    and the two-rank tests), with the small SDF grid: the scene, the
+    parameters, the step's batch and jitter, and its new state and
+    scalars."""
+    data = tmp_path_factory.mktemp("sdf")
+    sdfstudio_scene(data)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbsm, "SDFField", functools.partial(jsdf.SDFField, **SDF_GRID))
+        mp.setattr(jbsm, "NeRFField", functools.partial(jvf.NeRFField, **BACKGROUND))
+        run = JaxRun("neus-facto", data, JaxSDFStudioConfig(include_mono_prior=True), configure=mono_priors)
+        state = run.state()
+        batch = run.batch(0)
+        new_state, want = run.step_fn(state, batch)
+    return {"data": data, "params": run.params, "batch": batch, "uniforms": run.uniforms(state.rng),
+            "new_state": new_state, "want": want}
+
+
+def mono_method(data):
+    m = method(get_method_config, "neus-facto", data, SDFStudioDataParserConfig(include_mono_prior=True))
+    mono_priors(m.model)
+    return m
+
+
+def test_mono_priors_step_matches_jax(tmp_path, small_sdf_grid, mono_jax):
     """neus-facto on an sdfstudio-format scene with its monocular normal
     and depth priors: the normal and depth_image batches reach the
     normal_loss and depth_loss, as in JAX."""
-    (tmp_path / "sdf").mkdir()
-    data = sdfstudio_scene(tmp_path / "sdf")
-    run = JaxRun("neus-facto", data, JaxSDFStudioConfig(include_mono_prior=True), configure=mono_priors)
-    state = run.state()
-    batch = run.batch(0)
+    batch, want = mono_jax["batch"], mono_jax["want"]
     assert batch["normal"].shape == (NUM_RAYS, 3) and batch["depth_image"].shape == (NUM_RAYS, 1)
-    new_state, want = run.step_fn(state, batch)
     assert {"normal_loss", "depth_loss"} <= set(want)
-    m = method(get_method_config, "neus-facto", data, SDFStudioDataParserConfig(include_mono_prior=True))
-    mono_priors(m.model)
-    trainer = setup_trainer(m, base_dir=tmp_path / "run", device="cpu")
-    load_jax_params(trainer.model, run.params)
+    trainer = setup_trainer(mono_method(mono_jax["data"]), base_dir=tmp_path / "run", device="cpu")
+    load_jax_params(trainer.model, mono_jax["params"])
     trainer.setup()
     port_batch = trainer.datamanager.next_train(0)
     for k, v in batch.items():
         np.testing.assert_array_equal(port_batch[k], v, err_msg=k)
     got = trainer._train_step(trainer.state, {k: torch.as_tensor(v) for k, v in batch.items()},
-                              uniforms=run.uniforms(state.rng))
+                              uniforms=mono_jax["uniforms"])
     # the priors act on the fields group; on this scene the proposals'
     # gradient (the interlevel loss's alone, as in the step test above) is
     # ~1e-8 against the fields' ~1e2, below f32's resolution of the sums
-    assert_step_matches(new_state, want, trainer, got, groups=["fields"])
+    assert_step_matches(mono_jax["new_state"], want, trainer, got, groups=["fields"])
+
+
+def test_mono_priors_two_ranks_match_jax(tmp_path, mono_jax):
+    """The same step in two gloo ranks (tests/torch_parallel_worker.py),
+    each with half of the rays: the depth prior fits one scale and shift
+    over the whole batch and its gradient terms straddle the ranks' rows,
+    so each rank computes it on the gathered global batch. The global
+    scalars and the summed gradient of the fields group are JAX's
+    one-device step's, within the one-process test's tolerances."""
+    m = mono_method(mono_jax["data"])
+    fields = {f"model.{k}": getattr(m.model, k) for k in (*NEUS_FACTO, "eval_num_rays_per_chunk",
+                                                          "mono_normal_loss_mult", "mono_depth_loss_mult")}
+    fields = {k: list(v) if isinstance(v, tuple) else v for k, v in fields.items()}
+    fields.update({"datamanager.train_num_rays_per_batch": NUM_RAYS, "datamanager.use_native_sampler": False})
+    carry = {f"params/{k}": v for k, v in flatten(jax.tree.map(np.asarray, mono_jax["params"])).items()}
+    for name, draws in mono_jax["uniforms"].items():
+        carry.update({f"uniforms/0/{name}/{i}": u.numpy() for i, u in enumerate(draws)})
+    np.savez(tmp_path / "carry.npz", **carry)
+    spec = {"method": "neus-facto", "fields": fields, "data": str(mono_jax["data"]), "steps": 1,
+            "carry": str(tmp_path / "carry.npz"), "small_surface_fields": True, "sdfstudio_mono_prior": True,
+            "grads": True}
+    run_ranks(spec, tmp_path / "ranks", world=2)
+    (got,) = json.loads((tmp_path / "ranks" / "losses.json").read_text())
+    want = mono_jax["want"]
+    assert set(got) == set(want) and {"normal_loss", "depth_loss"} <= set(got)
+    for k, w in want.items():
+        w = float(w)
+        assert np.isfinite(got[k]), k
+        assert abs(got[k] - w) <= LOSS_TOL["float32"] * max(abs(w), 1e-3), (k, got[k], w)
+    _, mu, _ = adam_state(mono_jax["new_state"].opt_state, "fields")
+    want_g = flat({"fields": jax.tree.map(lambda x: np.asarray(x) / 0.1, mu)})
+    got_g = dict(np.load(tmp_path / "ranks" / "grads.npz"))
+    a = np.concatenate([got_g[k].ravel() for k in sorted(want_g)])
+    b = np.concatenate([want_g[k].ravel() for k in sorted(want_g)])
+    assert np.abs(b).max() > 0
+    assert rel_l2(a, b) <= STEP_GRAD_TOL, rel_l2(a, b)
 
 
 # ---- the entry points -------------------------------------------------------------
