@@ -192,10 +192,12 @@ Phases, each fatal on failure:
 
 15. the data path and the instant-ngp family (after phase 14; the JSON
    line's hash kernels carry its numbers as extra fields):
-   - the JPEG fixtures of tests/data/jpeg decode (the port's baseline
-     decoder, built with g++) to the Pillow hashes of their manifest, the
-     progressive one is refused; a 1920x1080 decode and its 0.5x BILINEAR
-     resize are timed on the host;
+   - the JPEG and PNG fixtures of tests/data/jpeg decode (the port's
+     decoders, the JPEG one built with g++; progressive JPEGs and an
+     Adam7-interlaced PNG among them) to the Pillow hashes of their
+     manifest, the CMYK one is refused; a 1920x1080 decode and its 0.5x
+     BILINEAR resize are timed on the host, and a progressive 1920x1080
+     decode against the baseline file of its pixels at the same quality;
    - the blender, instant_ngp and COLMAP (JPEG) scenes parse through
      build_dataparser (camera counts, sizes, scene boxes);
    - instant-ngp trains 48 steps through ns-train at full width (16
@@ -386,6 +388,18 @@ Phases, each fatal on failure:
      ranks at f32 compute against plain runs, the ranks' parameters
      equal after 3 steps; their launches per rank-step join
      data_parallel_launches_per_rank_step.
+22. ns-benchmark (`scripts.benchmarking.main`, on the card): full-width
+   nerfacto with the reference's Blender benchmark overrides trains
+   BENCH_STEPS steps on phase 16's 800 x 800 blender scene (laid out as
+   blender/lego by a symlink) and ns-eval scores its val images, under the
+   smoke's temporary directory. rc 0, benchmark.json's scene record equal
+   to ns-eval's JSON, a finite mean PSNR, every training loss finite, and
+   the hash kernels' launches in ns-train and in ns-eval (counts zeroed
+   just before each) equal to `benchmark_expected`'s prediction from the
+   code: row 8 and rows 7/9 as the proposal schedule runs them, row 10
+   none; a `benchmark` line with the seconds of each, ms/step, the PSNR
+   and the launches; the hash kernels' JSON records carry them as
+   ns_benchmark_launches.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -2891,18 +2905,22 @@ def ngp_step_counts(step: int, every: int = 16) -> dict:
 
 
 def image_io_phase(smi: str) -> dict:
-    """The JPEG fixtures against their manifest, the progressive one raises;
-    host times of a 1920x1080 decode and of its 0.5x resize (medians of 5)."""
+    """The JPEG and PNG fixtures against their manifest (progressive JPEGs
+    and the Adam7 PNG included), the CMYK one raises; host times of a
+    1920x1080 decode and of its 0.5x resize, and of a progressive 1920x1080
+    decode against the baseline file of the same pixels and quality (the
+    port's encoder writes it from the progressive file's decode), medians
+    of 5."""
     import hashlib
 
     from nerfstudio_thermal_torch.data import jpeg
-    from nerfstudio_thermal_torch.data.datasets import resize_like_pil
+    from nerfstudio_thermal_torch.data.datasets import read_image_array, resize_like_pil
 
     t0 = time.perf_counter()
     jpeg.load_library()
     build_s = time.perf_counter() - t0
     manifest = json.loads((JPEG_DIR / "manifest.json").read_text())
-    checked, refused = 0, []
+    checked, refused, kinds = 0, [], set()
     for name, rec in sorted(manifest.items()):
         if rec.get("port_raises"):
             try:
@@ -2910,32 +2928,46 @@ def image_io_phase(smi: str) -> dict:
             except NotImplementedError as e:
                 refused.append(f"{name}: {str(e).split(': ', 1)[-1]}")
                 continue
-            raise AssertionError(f"{name} decoded; the baseline decoder must refuse it")
-        arr = jpeg.decode_jpeg(JPEG_DIR / name)
+            raise AssertionError(f"{name} decoded; the decoder must refuse it")
+        arr = read_image_array(JPEG_DIR / name)
         if hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or list(arr.shape) != rec["shape"]:
             raise AssertionError(f"{name}: the decode does not match Pillow's ({arr.shape}, manifest {rec['shape']})")
+        data = (JPEG_DIR / name).read_bytes()
+        # SOF2 (0xFF 0xC2 is a marker only: coded data stuffs every 0xFF); IHDR's interlace byte
+        kinds.add("progressive" if b"\xff\xc2" in data else "interlaced" if name.endswith(".png") and data[28] else
+                  "other")
         checked += 1
     if not refused:
         raise AssertionError("no fixture exercised the decoder's refusal")
+    if not {"progressive", "interlaced"} <= kinds:
+        raise AssertionError(f"no progressive JPEG or interlaced PNG among the fixtures ({sorted(kinds)})")
+
+    def median_ms(fn) -> float:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3, out
+
     big = JPEG_DIR / "frame_1920x1080.jpg"
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        arr = jpeg.decode_jpeg(big)
-        times.append(time.perf_counter() - t0)
-    decode_ms = float(np.median(times)) * 1e3
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        small = resize_like_pil(arr, 960, 540)
-        times.append(time.perf_counter() - t0)
-    resize_ms = float(np.median(times)) * 1e3
+    decode_ms, arr = median_ms(lambda: jpeg.decode_jpeg(big))
+    resize_ms, small = median_ms(lambda: resize_like_pil(arr, 960, 540))
     if small.shape != (540, 960, 3):
         raise AssertionError(f"resize gave {small.shape}")
-    log(f"image_io: decoder built in {build_s:.2f} s; {checked} JPEG fixtures decode to their manifest's Pillow "
-        f"hashes; refused: {'; '.join(refused)}; 1920x1080 decode {decode_ms:.1f} ms, 0.5x BILINEAR resize "
-        f"{resize_ms:.1f} ms (host, median of 5) ({smi})")
-    return {"decode_ms": decode_ms, "resize_ms": resize_ms, "fixtures": checked}
+    progressive = (JPEG_DIR / "progressive_1920x1080.jpg").read_bytes()
+    prog_ms, prog = median_ms(lambda: jpeg.decode_jpeg_bytes(progressive))
+    baseline = jpeg.encode_jpeg(prog, quality=90)
+    twin_ms, twin = median_ms(lambda: jpeg.decode_jpeg_bytes(baseline))
+    if prog.shape != (1080, 1920, 3) or twin.shape != prog.shape:
+        raise AssertionError(f"progressive decode {prog.shape}, baseline twin {twin.shape}")
+    log(f"image_io: decoder built in {build_s:.2f} s; {checked} JPEG / PNG fixtures (progressive and Adam7 "
+        f"included) decode to their manifest's Pillow hashes; refused: {'; '.join(refused)}; 1920x1080 decode "
+        f"{decode_ms:.1f} ms, 0.5x BILINEAR resize {resize_ms:.1f} ms; progressive 1920x1080 decode {prog_ms:.1f} "
+        f"ms ({len(progressive)} bytes) against {twin_ms:.1f} ms for the baseline file of its pixels at the same "
+        f"quality ({len(baseline)} bytes) (host, medians of 5) ({smi})")
+    return {"decode_ms": decode_ms, "resize_ms": resize_ms, "fixtures": checked, "progressive_ms": prog_ms,
+            "baseline_twin_ms": twin_ms}
 
 
 def write_ingp_scene(root: Path, num: int = NGP_PAIRS, w: int = 640, h: int = 480) -> Path:
@@ -5674,6 +5706,7 @@ PAR_KERNELS = {"thermal-nerfacto": ("hash_encode_fwd", "hash_encode_bwd_table", 
                "thermal-nerfacto-tpu": ("fused_mlp_fwd", "fused_mlp_bwd")}
 PAR_STEPS, PAR_TIMED_FROM = 10, 3
 PAR_RANK_TIMEOUT = 420  # seconds for a 21b rank
+PAR_RENDEZVOUS_ATTEMPTS = 3  # ports tried for 21b's store: another process may take a free port first
 MULTI_STEPS = 20
 # 21b's parameters. Step 0's summed gradient, each optimizer group's,
 # against the plain step's within phase 9's f32 limits (relative L2:
@@ -5903,7 +5936,7 @@ def dp_methods_phase(scenes: dict, tmp: Path, smi: str) -> dict:
     from nerfstudio_thermal_torch.parallel import mesh as mesh_lib
 
     out, t0 = {}, time.perf_counter()
-    mesh_lib.initialize_distributed(f"tcp://localhost:{mesh_lib.free_port()}", 1, 0, device="cuda")
+    mesh_lib.initialize_distributed("tcp://localhost:0", 1, 0, device="cuda")
     try:
         if dist.get_backend() != "nccl":
             raise AssertionError(f"the one-rank group runs {dist.get_backend()}, not NCCL")
@@ -5940,7 +5973,7 @@ def dp_nccl_phase(scene: Path, tmp: Path, smi: str) -> dict:
     from nerfstudio_thermal_torch.parallel import mesh as mesh_lib
 
     out = {}
-    mesh_lib.initialize_distributed(f"tcp://localhost:{mesh_lib.free_port()}", 1, 0, device="cuda")
+    mesh_lib.initialize_distributed("tcp://localhost:0", 1, 0, device="cuda")
     try:
         if dist.get_backend() != "nccl":
             raise AssertionError(f"the one-rank group runs {dist.get_backend()}, not NCCL")
@@ -5991,6 +6024,29 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
     return 0
 
 
+def run_gloo_ranks(spec_path: Path) -> tuple:
+    """The two 21b ranks as processes of this script, each with a timeout;
+    rank 1 is stopped as soon as rank 0 fails (it would wait for a store
+    that never comes). Returns the processes and their logs."""
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(spec_path), str(r)],
+                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PAR_RANK_TIMEOUT)[0].decode(errors="replace"))
+            if p.returncode:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p in procs[len(logs):]:
+        logs.append(p.communicate()[0].decode(errors="replace"))
+    return procs, logs
+
+
 def dp_gloo_phase(scene: Path, tmp: Path, smi: str, scenes: dict) -> dict:
     """21b (and 21d's DP_GLOO_METHODS on `scenes`): two gloo ranks on the
     card, processes of this script, each with a timeout, against plain
@@ -6005,20 +6061,14 @@ def dp_gloo_phase(scene: Path, tmp: Path, smi: str, scenes: dict) -> dict:
                                 timed_from=DP_TIMED_FROM)
                    for name in DP_GLOO_METHODS})
     spec_path = tmp / "spec.json"
-    spec_path.write_text(json.dumps({"scene": str(scene), "out": str(tmp), "port": free_port(), "dp_scenes": scenes}))
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(spec_path), str(r)],
-                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=PAR_RANK_TIMEOUT)[0].decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    for attempt in range(PAR_RENDEZVOUS_ATTEMPTS):
+        spec_path.write_text(json.dumps({"scene": str(scene), "out": str(tmp), "port": free_port(),
+                                         "dp_scenes": scenes}))
+        procs, logs = run_gloo_ranks(spec_path)
+        if not (procs[0].returncode and "EADDRINUSE" in logs[0]):
+            break
+        log(f"phase 21b: rank 0's store found its port taken (attempt {attempt + 1}); another port")
     for r, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             raise AssertionError(f"21b rank {r} exited {p.returncode}:\n{text[-3000:]}")
@@ -6135,6 +6185,111 @@ def multi_scene_phase(scene_a: Path, tmp: Path, smi: str) -> dict:
         + ", ".join(f"{n} {r.get('psnr_rgb', float('nan')):.2f} / {r.get('psnr_thermal', float('nan')):.2f}"
                     for n, r in evals.items()) + f" ({smi})")
     return {"counts": multi_counts, "solo_counts": solo_counts, "k2_ms": summary.step_s * 1e3, "k1_ms": solo_ms}
+
+
+# Phase 22: ns-benchmark (scripts/benchmarking.py) on phase 16's blender scene.
+# The launches it must show, predicted from the code: a
+# nerfacto training step runs the hash forward (row 8) of each proposal grid
+# and of the field's grid, and the table gradient (rows 7/9) of the field's
+# grid and, on the steps the proposal schedule updates them
+# (`models.nerfacto.proposal_updated`: every step below 10, then every other
+# at the default warmup), of each proposal grid (on the other steps the
+# proposal densities are detached); no position asks for a gradient (camera
+# optimizer off, no predicted normals), so the position gradient (row 10)
+# never launches. No eval cadence falls inside BENCH_STEPS (nerfacto's are
+# every 500 steps and later; step 0 runs none). ns-eval renders each val
+# image in ceil(H * W / eval_num_rays_per_chunk) chunks of one forward per
+# grid, and differentiates nothing; `get_average_eval_image_metrics` first
+# renders camera 0 once more, untimed (a warm-up).
+BENCH_STEPS = 30
+
+
+def benchmark_expected(model) -> dict:
+    """The hash kernels' launches of ns-benchmark's ns-train and ns-eval
+    for nerfacto's model config `model` (see above)."""
+    from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
+
+    grids = model.num_proposal_iterations + 1
+    updated, since = 0, 0
+    for step in range(BENCH_STEPS):
+        u, since = proposal_updated(step, since, model.proposal_warmup, model.proposal_update_every)
+        updated += u
+    chunks = (BLENDER_VAL + 1) * math.ceil(BLENDER_SIZE * BLENDER_SIZE / model.eval_num_rays_per_chunk)
+    return {"train": expected_counts({"hash_encode_fwd": grids * BENCH_STEPS,
+                                      "hash_encode_bwd_table": BENCH_STEPS + (grids - 1) * updated}),
+            "eval": expected_counts({"hash_encode_fwd": grids * chunks})}
+
+
+def benchmark_phase(blender: Path, tmp: Path, smi: str) -> dict:
+    """Phase 22: `benchmarking.main` of nerfacto on `blender` (phase 16's
+    scene, linked as tmp/blender/lego), its output under tmp. Returns the
+    launches of its ns-train ("train") and ns-eval ("eval")."""
+    from nerfstudio_thermal_torch.configs.method_configs import get_method_config
+    from nerfstudio_thermal_torch.scripts import benchmarking
+    from nerfstudio_thermal_torch.scripts import eval as ns_eval
+    from nerfstudio_thermal_torch.scripts import train as ns_train
+
+    t_phase = time.perf_counter()
+    repo_outputs = Path(__file__).resolve().parent / "benchmarks"
+    had_outputs = repo_outputs.exists()
+    data = tmp / "blender"
+    data.mkdir(parents=True)
+    (data / "lego").symlink_to(blender.resolve(), target_is_directory=True)
+    expected = benchmark_expected(get_method_config("nerfacto").model)
+    spans, scripts = {}, {"train": ns_train, "eval": ns_eval}
+    originals = {kind: module.main for kind, module in scripts.items()}
+
+    def counted(kind):
+        def run(argv, **kw):
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = originals[kind](argv, **kw)
+            torch.cuda.synchronize()
+            spans[kind] = {"s": time.perf_counter() - t0, "counts": read_counts(), "rc": rc}
+            return rc
+        return run
+
+    for kind, module in scripts.items():
+        module.main = counted(kind)
+    try:
+        rc = benchmarking.main(["--method", "nerfacto", "--data-dir", str(data), "--scenes", "lego", "--output-dir",
+                                str(tmp / "out"), "--", "--max-num-iterations", str(BENCH_STEPS)])
+    finally:
+        for kind, module in scripts.items():
+            module.main = originals[kind]
+    if rc != 0 or set(spans) != {"train", "eval"} or any(s["rc"] != 0 for s in spans.values()):
+        raise AssertionError(f"ns-benchmark returned {rc}; ns-train / ns-eval: "
+                             f"{ {k: s['rc'] for k, s in spans.items()} }")
+    if not had_outputs and repo_outputs.exists():
+        raise AssertionError(f"ns-benchmark wrote {repo_outputs}")
+    (summary_path,) = (tmp / "out").glob("*/benchmark.json")
+    summary = json.loads(summary_path.read_text())
+    metrics = json.loads((summary_path.parent / "lego_metrics.json").read_text())
+    if summary["scenes"] != {"lego": metrics["results"]}:
+        raise AssertionError(f"benchmark.json's scenes {summary['scenes']} are not ns-eval's {metrics['results']}")
+    psnr = summary["mean_psnr"]
+    if psnr is None or not math.isfinite(psnr):
+        raise AssertionError(f"ns-benchmark's mean PSNR {psnr}")
+    (run,) = summary_path.parent.glob("lego/nerfacto/*")
+    records = [json.loads(line) for line in (run / "events.jsonl").read_text().splitlines()]
+    losses = {(r["step"], k): v for r in records for k, v in r.items() if k.startswith("train/") and k.endswith("loss")}
+    if not losses or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"ns-benchmark's training losses {losses}")
+    iter_s = [r["train/Train Iter (time)"] for r in records if r.get("step", 0) >= 20 and "train/Train Iter (time)" in r]
+    for kind in ("train", "eval"):
+        got = spans[kind]["counts"]
+        if got != expected[kind]:
+            raise AssertionError(f"ns-benchmark's ns-{kind} launched {got}; predicted {expected[kind]}")
+    launches = {kind: {k: v for k, v in spans[kind]["counts"].items() if v} for kind in spans}
+    ms_step = iter_s[0] * 1e3 if iter_s else float("nan")
+    log(f"benchmark: ns-benchmark nerfacto on blender/lego ({BLENDER_FRAMES} x {BLENDER_SIZE}x{BLENDER_SIZE}, "
+        f"{BLENDER_VAL} val): ns-train {BENCH_STEPS} steps {spans['train']['s']:.2f} s, {ms_step:.2f} ms/step "
+        f"(steps 11-20), ns-eval {spans['eval']['s']:.2f} s ({spans['eval']['s'] / BLENDER_VAL:.2f} s per "
+        f"{BLENDER_SIZE}x{BLENDER_SIZE} frame), mean_psnr {psnr:.4f} (= ns-eval's psnr_rgb); launches train "
+        f"{launches['train']}, eval {launches['eval']} (as predicted); phase {time.perf_counter() - t_phase:.1f} s "
+        f"({smi})")
+    return {"train": spans["train"]["counts"], "eval": spans["eval"]["counts"], "train_s": spans["train"]["s"],
+            "eval_s": spans["eval"]["s"], "ms_step": ms_step, "psnr": psnr}
 
 
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
@@ -6285,6 +6440,8 @@ def main() -> int:
         dp_gloo = dp_gloo_phase(scene, Path(tmp) / "dp_gloo", smi, scenes)
         multi = multi_scene_phase(entry_scene, Path(tmp) / "multi_scene", smi)
         log(f"phase 21: {time.perf_counter() - t0:.1f} s (the two gloo ranks {dp_gloo['wall_s']:.1f} s)")
+        # phase 22: ns-benchmark on phase 16's blender scene
+        bench = benchmark_phase(Path(tmp) / "classic" / "blender", Path(tmp) / "benchmark", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -6527,6 +6684,9 @@ def main() -> int:
         if rec["name"] in PAR_KERNELS["thermal-nerfacto"]:
             rec["multi_scene_launches"] = {"two scenes": multi["counts"][rec["name"]],
                                            "one scene": multi["solo_counts"][rec["name"]]}
+        # phase 22: ns-benchmark's ns-train and ns-eval
+        if rec["name"] in bench["train"]:
+            rec["ns_benchmark_launches"] = {"train": bench["train"][rec["name"]], "eval": bench["eval"][rec["name"]]}
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -6549,8 +6709,9 @@ def main() -> int:
     log(f"thermal-nerfacto 1080p include_per_sample peak memory "
         f"{render_surface['camera_types']['per_sample_peak'] / 2**30:.2f} GiB (per-ray outputs only "
         f"{render_surface['camera_types']['per_ray_peak'] / 2**30:.2f} GiB) ({smi})")
-    log(f"image_io: 1920x1080 JPEG decode {image_io['decode_ms']:.1f} ms, 0.5x resize {image_io['resize_ms']:.1f} ms "
-        f"(host) ({smi})")
+    log(f"image_io: 1920x1080 JPEG decode {image_io['decode_ms']:.1f} ms, 0.5x resize {image_io['resize_ms']:.1f} ms; "
+        f"progressive 1920x1080 {image_io['progressive_ms']:.1f} ms against baseline {image_io['baseline_twin_ms']:.1f} "
+        f"ms (host) ({smi})")
     r = ngp["instant-ngp"]
     log(f"instant-ngp: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays ({r['rays'] / r['step_s']:,.0f} rays/s, "
         f"{r['live']:.2f} live samples a ray), batches {sorted(set(r['sizes']))}, peak memory {r['peak'] / 2**30:.2f} "

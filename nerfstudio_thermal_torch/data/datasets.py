@@ -98,12 +98,28 @@ def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
     return out.reshape(rows.shape[0], -1)[:, :width].astype(np.uint8)
 
 
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(rows: np.ndarray, width: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows [H, stride] -> samples [H, width, channels]: uint8
+    (1-, 2- and 4-bit samples unpacked, unscaled) or uint16."""
+    if depth < 8:
+        return _unpack_bits(rows, width, depth)[..., None]
+    if depth == 16:
+        return rows.view(">u2").reshape(rows.shape[0], width, channels).astype(np.uint16)
+    return rows.reshape(rows.shape[0], width, channels)
+
+
 def decode_png(path) -> np.ndarray:
     """A PNG as Pillow's `np.asarray` gives it, with a channel axis: uint8
     [H, W, C], or uint16 [H, W, 1] for 16-bit grey. Palette images give
     their indices; 16-bit colour its high byte (16-bit grey+alpha as
     Pillow's RGBA: grey, grey, grey, alpha); 2- and 4-bit grey scaled to 8
-    bits, 1-bit grey 0 / 1 (Pillow's mode "1")."""
+    bits, 1-bit grey 0 / 1 (Pillow's mode "1"). An Adam7-interlaced file's
+    seven passes are each unfiltered as an image of their own and scattered
+    into place."""
     data = Path(path).read_bytes()
     header, idat = None, []
     for kind, body in _png_chunks(data):
@@ -117,25 +133,35 @@ def decode_png(path) -> np.ndarray:
     allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
     if ctype not in _CHANNELS or depth not in allowed:
         raise NotImplementedError(f"{path}: PNG colour type {ctype} at {depth} bits is not supported")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNGs are not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
     channels = _CHANNELS[ctype]
     bits = channels * depth
-    stride = (width * bits + 7) // 8
+    bpp = max(bits // 8, 1)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    pixels = _unfilter(raw, height, stride, max(bits // 8, 1))
+    if interlace:
+        samples = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no bytes, not even filter bytes
+            pstride = (pw * bits + 7) // 8
+            rows = _unfilter(raw[pos : pos + ph * (pstride + 1)], ph, pstride, bpp)
+            pos += ph * (pstride + 1)
+            samples[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
+    else:
+        samples = _samples(_unfilter(raw, height, (width * bits + 7) // 8, bpp), width, depth, channels)
     if depth < 8:
-        pixels = _unpack_bits(pixels, width, depth)
         if ctype == 0 and depth > 1:
-            pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
-        return pixels.reshape(height, width, 1)
+            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+        return samples
     if depth == 16:
-        wide = pixels.view(">u2").reshape(height, width, channels)
         if ctype == 0:
-            return wide.astype(np.uint16)
-        high = (wide >> 8).astype(np.uint8)
+            return samples
+        high = (samples >> 8).astype(np.uint8)
         return np.concatenate([np.repeat(high[..., :1], 3, -1), high[..., 1:]], -1) if ctype == 4 else high
-    return pixels.reshape(height, width, channels)
+    return samples
 
 
 def image_size(path) -> Tuple[int, int]:

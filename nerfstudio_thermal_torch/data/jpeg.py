@@ -1,14 +1,15 @@
-"""JPEG decoding and encoding through the port's own baseline decoder and
-encoder (nerfstudio_thermal_torch/native/jpeg_{decoder,encoder}.cpp).
+"""JPEG decoding and encoding through the port's own decoder (baseline and
+progressive) and baseline encoder
+(nerfstudio_thermal_torch/native/jpeg_{decoder,encoder}.cpp).
 
 Each source is compiled with g++ into build/native/ at first use and loaded
 with ctypes. It computes what Pillow's `np.asarray(Image.open(path))`
 gives with libjpeg-turbo's default settings: [H, W] uint8 for a greyscale
 file, [H, W, 3] RGB otherwise, with no EXIF rotation. There is no
 fallback: when the library cannot be built or loaded, decoding raises. A
-feature outside the decoder's scope (progressive, lossless, hierarchical
-or arithmetic coding, 12-bit samples, CMYK) raises NotImplementedError
-naming it.
+feature outside the decoder's scope (lossless, hierarchical or arithmetic
+coding, 12-bit samples, CMYK, a progressive file that libjpeg would
+block-smooth) raises NotImplementedError naming it.
 
 `encode_jpeg` writes what Pillow's `Image.save(format="JPEG", quality=q)`
 writes for an RGB image with libjpeg-turbo's defaults (4:2:0, the ISLOW

@@ -1,19 +1,29 @@
-// Baseline JPEG decoder that computes what libjpeg(-turbo) gives with its
-// default decompression settings, byte for byte:
+// Baseline and progressive JPEG decoder that computes what libjpeg(-turbo)
+// gives with its default decompression settings, byte for byte:
 //   - SOF0 / SOF1, Huffman coding, 8-bit samples, 1 or 3 components,
 //     sampling factors 1-2 (4:4:4, 4:2:2, 4:2:0, 4:4:0) and any other
 //     integral ratio (box replication), one or several sequential scans,
 //     restart intervals; APPn and COM segments are skipped (no EXIF
 //     rotation is applied);
+//   - SOF2 (progressive, Huffman-coded) with the same samples, components
+//     and samplings (jdphuff.c): DC first and refinement scans, AC
+//     spectral selection with successive approximation and EOB runs,
+//     restart intervals. The coefficients are kept for the whole image
+//     and go through the same IDCT, upsampling and colour conversion once
+//     the last scan is read. A progression that leaves one of the first
+//     nine AC coefficients short of full precision, where libjpeg would
+//     smooth the blocks (jdcoefct.c, block smoothing), returns 1;
+//   - each component's quantization table latched at its first scan
+//     (jdinput.c, latch_quant_tables);
 //   - the accurate integer IDCT (jidctint.c, jpeg_idct_islow);
 //   - fancy (triangle) upsampling for h2v1, h2v2 (jdsample.c; box
 //     replication when the downsampled width is 2 or less, as there) and
 //     h1v2;
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c, and libjpeg's
 //     choice of colour space (JFIF / Adobe markers, component ids).
-// Progressive, lossless, hierarchical and arithmetic-coded frames, 12-bit
-// samples and 4-component (CMYK / YCCK) images return 1 with the marker
-// named in the message.
+// Lossless, hierarchical and arithmetic-coded frames, 12-bit samples and
+// 4-component (CMYK / YCCK) images return 1 with the marker named in the
+// message.
 //
 // C interface (loaded with ctypes by data/jpeg.py):
 //   int jpeg_decoder_abi_version();
@@ -63,6 +73,12 @@ struct Component {
   int width = 0, height = 0;  // downsampled size in samples
   std::vector<int16_t> coefs;
   int dc_pred = 0;
+  uint16_t q[64];  // the quantization table, latched at the first scan
+  bool q_latched = false;
+  // per spectral position: the Al of the last scan that carried it, -1
+  // before any did (jdphuff.c's coef_bits)
+  int coef_bits[64];
+  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 class Decoder {
@@ -82,9 +98,10 @@ class Decoder {
   const uint8_t* end_;
   int width_ = 0, height_ = 0;
   int hmax_ = 1, vmax_ = 1, mcus_x_ = 0, mcus_y_ = 0;
-  bool frame_seen_ = false, jfif_ = false, adobe_ = false;
+  bool frame_seen_ = false, jfif_ = false, adobe_ = false, progressive_ = false;
   int adobe_transform_ = -1;
   int restart_interval_ = 0;
+  int eobrun_ = 0;  // progressive AC scans: blocks left in the current EOB run
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
@@ -122,7 +139,12 @@ class Decoder {
     hit_marker_ = false;
   }
   void decode_block(Component& c, int16_t* block);
+  void decode_dc_first(Component& c, int16_t* block, int al);
+  void decode_dc_refine(int16_t* block, int al);
+  void decode_ac_first(const Component& c, int16_t* block, int ss, int se, int al);
+  void decode_ac_refine(const Component& c, int16_t* block, int ss, int se, int al);
   bool process_restart();
+  void check_no_smoothing() const;
 
   void idct_component(const Component& c, std::vector<uint8_t>& plane, int& stride) const;
   void upsample(const Component& c, const std::vector<uint8_t>& plane, int stride, std::vector<uint8_t>& full) const;
@@ -184,11 +206,11 @@ void Decoder::parse(bool decode_scans) {
     switch (marker) {
       case 0xC0:
       case 0xC1:
+      case 0xC2:
+        progressive_ = marker == 0xC2;
         read_sof(marker);
         if (!decode_scans) return;
         break;
-      case 0xC2:
-        fail(1, "progressive JPEG (SOF2) is not supported");
       case 0xC3:
         fail(1, "lossless JPEG (SOF3) is not supported");
       case 0xC5:
@@ -235,6 +257,27 @@ void Decoder::parse(bool decode_scans) {
     p_ = next;
   }
   if (!frame_seen_) fail(2, "no frame (SOF) in the file");
+  if (decode_scans && progressive_) check_no_smoothing();
+}
+
+// jdcoefct.c's smoothing_ok on the final coefficient bits: libjpeg smooths
+// the blocks of a progressive image when every component's DC is known,
+// the quantizers it reads are nonzero and one of the first nine AC
+// coefficients is not known to full precision.
+void Decoder::check_no_smoothing() const {
+  static const int kQPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (const auto& c : comps_) {
+    if (!c.q_latched) return;
+    for (int pos : kQPos)
+      if (c.q[pos] == 0) return;
+    if (c.coef_bits[0] < 0) return;
+    for (int k = 1; k < 10; ++k)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  if (useful)
+    fail(1, "a progressive JPEG whose scans leave low AC coefficients short of full precision "
+            "(libjpeg's block smoothing) is not supported");
 }
 
 void Decoder::read_app(int marker, int length) {
@@ -403,6 +446,92 @@ void Decoder::decode_block(Component& c, int16_t* block) {
   }
 }
 
+// ---- jdphuff.c: the four progressive scan kinds ---------------------------
+
+void Decoder::decode_dc_first(Component& c, int16_t* block, int al) {
+  int s = decode_huffman(dc_[c.td]);
+  int diff = 0;
+  if (s) {
+    if (s > 16) fail(2, "bad DC magnitude");
+    diff = extend(get_bits(s), s);
+  }
+  c.dc_pred += diff;
+  block[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al);
+}
+
+void Decoder::decode_dc_refine(int16_t* block, int al) {
+  if (get_bits(1)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+}
+
+void Decoder::decode_ac_first(const Component& c, int16_t* block, int ss, int se, int al) {
+  if (eobrun_ > 0) {
+    --eobrun_;
+    return;
+  }
+  const Huffman& ac = ac_[c.ta];
+  for (int k = ss; k <= se; ++k) {
+    int rs = decode_huffman(ac);
+    int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      int v = extend(get_bits(s), s);
+      block[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    } else if (r == 15) {
+      k += 15;  // ZRL
+    } else {  // EOBr: this block and 2^r - 1 + (r appended bits) more
+      eobrun_ = 1 << r;
+      if (r) eobrun_ += get_bits(r);
+      --eobrun_;
+      break;
+    }
+  }
+}
+
+void Decoder::decode_ac_refine(const Component& c, int16_t* block, int ss, int se, int al) {
+  const int p1 = 1 << al, m1 = -p1;
+  // a correction bit for an already nonzero coefficient: 1 adds one more
+  // bit of magnitude
+  auto correct = [&](int16_t* coef) {
+    if (get_bits(1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+  };
+  int k = ss;
+  if (eobrun_ == 0) {
+    const Huffman& ac = ac_[c.ta];
+    for (; k <= se; ++k) {
+      int rs = decode_huffman(ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        // a newly nonzero coefficient, magnitude 1 at this bit (s != 1 is
+        // corrupt; libjpeg warns and goes on)
+        s = get_bits(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += get_bits(r);
+        break;  // the rest of the band goes through the EOB run below
+      }
+      // skip r zero coefficients (s == 0: 16 of them, ZRL), correcting the
+      // nonzero ones passed on the way
+      do {
+        int16_t* coef = block + kNaturalOrder[k];
+        if (*coef != 0) {
+          correct(coef);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) block[kNaturalOrder[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (eobrun_ > 0) {
+    for (; k <= se; ++k) {
+      int16_t* coef = block + kNaturalOrder[k];
+      if (*coef != 0) correct(coef);
+    }
+    --eobrun_;
+  }
+}
+
 bool Decoder::process_restart() {
   // discard the partial byte, find the marker, expect RSTn
   reset_bits();
@@ -410,6 +539,7 @@ bool Decoder::process_restart() {
   if (p_ + 1 < end_ && p_[1] >= 0xD0 && p_[1] <= 0xD7) {
     p_ += 2;
     for (auto& c : comps_) c.dc_pred = 0;
+    eobrun_ = 0;
     return true;
   }
   fail(2, "restart marker expected");
@@ -428,21 +558,46 @@ void Decoder::read_sos(bool decode_scans) {
     if (!found) fail(2, "scan names an unknown component");
     found->td = t >> 4;
     found->ta = t & 15;
-    if (found->td > 3 || found->ta > 3 || !dc_[found->td].defined || !ac_[found->ta].defined)
-      fail(2, "scan uses an undefined Huffman table");
+    if (found->td > 3 || found->ta > 3) fail(2, "bad Huffman table selector");
     scan.push_back(found);
   }
-  byte();  // Ss
-  byte();  // Se
-  byte();  // Ah / Al
+  const int ss = byte(), se = byte(), ahal = byte();
+  const int ah = ahal >> 4, al = ahal & 15;
+  // the tables the scan decodes with: both for a sequential scan, the DC
+  // table for a progressive DC first scan, the AC table for an AC scan
+  const bool need_dc = !progressive_ || (ss == 0 && ah == 0), need_ac = !progressive_ || ss > 0;
+  for (auto* c : scan)
+    if ((need_dc && !dc_[c->td].defined) || (need_ac && !ac_[c->ta].defined))
+      fail(2, "scan uses an undefined Huffman table");
+  if (progressive_) {
+    // jdphuff.c start_pass_phuff_decoder's checks
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) fail(2, "bad progressive scan parameters");
+  }
   if (!decode_scans) return;
   if (height_ == 0) fail(1, "a DNL-defined image height is not supported");
   for (auto* c : scan) {
-    if (!qt_defined_[c->tq]) fail(2, "component uses an undefined quantization table");
+    if (!c->q_latched) {
+      if (!qt_defined_[c->tq]) fail(2, "component uses an undefined quantization table");
+      std::memcpy(c->q, qt_[c->tq], sizeof(c->q));
+      c->q_latched = true;
+    }
     if (c->coefs.empty()) c->coefs.assign(static_cast<size_t>(c->blocks_w) * c->blocks_h * 64, 0);
     c->dc_pred = 0;
+    if (progressive_)
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
   }
+  eobrun_ = 0;
   reset_bits();
+  auto decode_one = [&](Component& c, int16_t* block) {
+    if (!progressive_)
+      decode_block(c, block);
+    else if (ss == 0)
+      ah == 0 ? decode_dc_first(c, block, al) : decode_dc_refine(block, al);
+    else
+      ah == 0 ? decode_ac_first(c, block, ss, se, al) : decode_ac_refine(c, block, ss, se, al);
+  };
   int restarts_left = restart_interval_;
   auto block_at = [](Component* c, int bx, int by) {
     return c->coefs.data() + (static_cast<size_t>(by) * c->blocks_w + bx) * 64;
@@ -460,7 +615,7 @@ void Decoder::read_sos(bool decode_scans) {
           }
           --restarts_left;
         }
-        decode_block(*c, block_at(c, bx, by));
+        decode_one(*c, block_at(c, bx, by));
       }
     }
   } else {
@@ -475,7 +630,7 @@ void Decoder::read_sos(bool decode_scans) {
         }
         for (auto* c : scan)
           for (int v = 0; v < c->v; ++v)
-            for (int h = 0; h < c->h; ++h) decode_block(*c, block_at(c, mx * c->h + h, my * c->v + v));
+            for (int h = 0; h < c->h; ++h) decode_one(*c, block_at(c, mx * c->h + h, my * c->v + v));
       }
     }
   }
@@ -621,7 +776,7 @@ void Decoder::idct_component(const Component& c, std::vector<uint8_t>& plane, in
   stride = bw * 8;
   plane.assign(static_cast<size_t>(stride) * bh * 8, 0);
   if (c.coefs.empty()) return;  // no scan carried this component
-  const uint16_t* q = qt_[c.tq];
+  const uint16_t* q = c.q;
   for (int by = 0; by < bh; ++by)
     for (int bx = 0; bx < bw; ++bx)
       idct_islow(c.coefs.data() + (static_cast<size_t>(by) * c.blocks_w + bx) * 64, q,

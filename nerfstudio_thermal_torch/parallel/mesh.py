@@ -82,7 +82,8 @@ def initialize_distributed(
 ) -> None:
     """Join `num_processes` ranks at `coordinator_address`
     (tcp://host:port) as rank `process_id`. A no-op without
-    `num_processes`. The backend is NCCL on CUDA and gloo on the CPU
+    `num_processes`. A one-rank group may give port 0: its store then
+    listens on whatever port is free when it starts, with no race. The backend is NCCL on CUDA and gloo on the CPU
     unless `backend` names one (two ranks sharing one card need gloo). A
     CUDA rank takes the card of its rank on this host."""
     if num_processes is None:
@@ -345,11 +346,14 @@ def broadcast_params(params: Iterable[torch.Tensor]) -> None:
 
 
 def free_port() -> int:
-    """A free TCP port on localhost, for a rendezvous address."""
+    """A TCP port free now on every local address, for a rendezvous
+    address: rank 0's store listens on all of them, so a port that is free
+    on localhost alone can still be taken. A one-rank group needs none of
+    this: its address may give port 0."""
     import socket
 
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
+        s.bind(("", 0))
         return int(s.getsockname()[1])
 
 

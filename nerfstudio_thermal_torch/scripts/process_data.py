@@ -3,22 +3,25 @@
 
     ns-process-data-torch rgbt --data FLIR_DIR --output-dir OUT [--calibration-data CAL1,CAL2] [flags]
     ns-process-data-torch images --data IMAGE_DIR --output-dir OUT [flags]
+    ns-process-data-torch video --data VIDEO --output-dir OUT [--camera-type equirectangular] [flags]
+    ns-process-data-torch polycam|record3d|metashape|realitycapture|odm|skydio --data EXPORT --output-dir OUT [flags]
 
-The modes `images` (copy and downscale images, COLMAP, transforms.json)
-and `rgbt` (the paper's pipeline: FLIR extraction with exiftool,
-circle-grid RGB <-> thermal calibration, COLMAP with the calibrated
-intrinsics fixed, the metric scale fix, an RGB + thermal transforms.json)
-run on the host: they need Pillow and OpenCV in Python and the exiftool
-and colmap executables on PATH, none of which the card's machine has.
-The other modes of the JAX package (video, skydio, polycam, record3d,
-metashape, realitycapture, odm) raise NotImplementedError (ROADMAP A9).
-Usage text and return codes are the JAX script's.
+Every mode of the JAX script, dispatched as it does: `images` (copy and
+downscale images, COLMAP, transforms.json), `video` (frames through
+OpenCV, then the images pipeline; equirectangular videos are cut into
+planar projections first), `rgbt` (the paper's pipeline: FLIR extraction
+with exiftool, circle-grid RGB <-> thermal calibration, COLMAP with the
+calibrated intrinsics fixed, the metric scale fix, an RGB + thermal
+transforms.json) and the vendor exports (polycam, record3d with scipy,
+metashape, realitycapture with Pillow, odm, skydio with exiftool). All
+run on the host: they need OpenCV, Pillow or scipy in Python and the
+exiftool and colmap executables on PATH (hloc where asked for), none of
+which the card's machine has. Usage text and return codes are the JAX
+script's.
 """
 
 import sys
 from pathlib import Path
-
-NOT_PORTED = ("video", "skydio", "polycam", "record3d", "metashape", "realitycapture", "odm")
 
 
 def _parse_kwargs(args, cls):
@@ -91,14 +94,30 @@ def main(argv=None) -> int:
         )
 
         cls = ImagesToNerfstudioDataset
+    elif mode == "video":
+        from nerfstudio_thermal_torch.process_data.video_to_nerfstudio_dataset import (
+            VideoToNerfstudioDataset,
+        )
+
+        cls = VideoToNerfstudioDataset
     elif mode == "rgbt":
         from nerfstudio_thermal_torch.process_data.rgbt_to_nerfstudio_dataset import (
             RGBTToNerfstudioDataset,
         )
 
         cls = RGBTToNerfstudioDataset
-    elif mode in NOT_PORTED:
-        raise NotImplementedError(f"ns-process-data {mode} is not ported yet (ROADMAP A9)")
+    elif mode in ("polycam", "record3d", "metashape", "realitycapture",
+                  "odm", "skydio"):
+        from nerfstudio_thermal_torch.process_data import device_converters as dc
+
+        cls = {
+            "polycam": dc.PolycamToNerfstudioDataset,
+            "record3d": dc.Record3DToNerfstudioDataset,
+            "metashape": dc.MetashapeToNerfstudioDataset,
+            "realitycapture": dc.RealityCaptureToNerfstudioDataset,
+            "odm": dc.ODMToNerfstudioDataset,
+            "skydio": dc.SkydioToNerfstudioDataset,
+        }[mode]
     else:
         print(f"error: unknown subcommand '{mode}'", file=sys.stderr)
         return 2

@@ -15,7 +15,10 @@ nerfstudio_models/ with the checkpoint. Every nested config field is a flag
 http://localhost:VIEWER_PORT (default 7007; websocket on VIEWER_PORT + 1)
 while training, rendering on the card (viewer/server.py), and stops it
 when training ends. --help lists the port's methods and the plugin
-methods (plugins/registry.py).
+methods (plugins/registry.py). A positional naming a dataparser
+(`blender-data`, ...: configs/dataparser_configs.py) replaces the
+method's parser, as the reference's dataparser subcommand does;
+ns-benchmark trains the Blender scenes so.
 
 `--trainer.num-devices D` (default: every visible card, as the JAX
 package's `create_mesh(None)`) trains any method on D cards: ns-train
@@ -31,6 +34,7 @@ OUTPUT_DIR/multi_{K}scenes/METHOD/TIMESTAMP/scene_{i}_{name}/, each a
 standard run directory.
 """
 
+import copy
 import json
 import sys
 import time
@@ -46,7 +50,8 @@ from nerfstudio_thermal_torch.configs.serialization import save_config
 from nerfstudio_thermal_torch.parallel.mesh import free_port, initialize_distributed, is_main_process, visible_devices
 from nerfstudio_thermal_torch.utils.precision import pin_precision
 
-USAGE = "usage: ns-train METHOD [--data PATH[,PATH...]] [--trainer.num-devices D] [--<config.path> VALUE ...]"
+USAGE = ("usage: ns-train METHOD [--data PATH[,PATH...]] [--trainer.num-devices D] [--<config.path> VALUE ...] "
+         "[DATAPARSER]")
 
 # top-level conveniences, mapped into the config tree
 _SHORT_FLAGS = {
@@ -57,6 +62,30 @@ _SHORT_FLAGS = {
     "vis": lambda c, v: setattr(c.trainer, "vis", v),
     "viewer_port": lambda c, v: setattr(c.trainer, "viewer_port", int(v)),
 }
+
+
+def _select_dataparser(config, argv: List[str]) -> List[str]:
+    """The reference's dataparser subcommand: a positional naming an entry
+    of `dataparser_configs` (`ns-train nerfacto --data data/blender/lego
+    blender-data`, as its Blender benchmark runs) makes that parser the
+    config's, before any `--dataparser.X` flag applies. Returns `argv`
+    without it."""
+    from nerfstudio_thermal_torch.configs.dataparser_configs import dataparser_configs
+
+    rest, i = [], 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok.startswith("--"):
+            step = 1 if "=" in tok else 2
+            rest += argv[i:i + step]
+            i += step
+            continue
+        if tok in dataparser_configs:
+            config.dataparser = copy.deepcopy(dataparser_configs[tok])
+        else:
+            rest.append(tok)
+        i += 1
+    return rest
 
 
 def _rank_main(rank: int, world: int, port: int, argv: List[str], device: str, timestamp: str) -> None:
@@ -137,6 +166,7 @@ def main(
             continue
         mapped.append(tok)
         i += 1
+    mapped = _select_dataparser(config, mapped)
     try:
         config, positionals = apply_cli_overrides(config, mapped)
     except CLIError as e:

@@ -8,12 +8,17 @@ Run from the repository root on a machine with Pillow and OpenCV:
   4:4:0 and 4:1:1 by OpenCV), greyscale, a restart interval, quality 50
   and 95, and odd sizes (partial MCUs);
 - one 1920x1080 frame (quality 90) to time a full-HD decode;
-- one progressive file, which the port's baseline decoder refuses;
+- progressive files: RGB 4:2:0, RGB 4:2:0 at an odd size with a restart
+  interval, greyscale, and a 1920x1080 frame (quality 90) to time a
+  progressive full-HD decode against a baseline one;
+- one CMYK file, which the port's decoder refuses;
+- interlaced.png: an Adam7-interlaced 8-bit RGB PNG (Pillow cannot write
+  one; `write_interlaced_png` does, with every filter type);
 - colmap_sphere/: eight 320x240 views of the smoke test's textured sphere
   (images/frame_*.jpg) with a COLMAP reconstruction of their cameras
   (colmap/sparse/0/cameras.bin, images.bin: one PINHOLE camera).
 
-manifest.json records, per file, the SHA-256 and shape of Pillow's
+manifest.json records, per file (JPEG and PNG), the SHA-256 and shape of Pillow's
 `np.asarray(Image.open(path))`, which the port's decoder must reproduce
 (the card's machine has no Pillow, so the hashes travel with the files).
 """
@@ -22,6 +27,7 @@ import hashlib
 import json
 import struct
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -37,11 +43,44 @@ def pillow_record(path: Path) -> dict:
     return {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(), "shape": list(arr.shape), "dtype": str(arr.dtype)}
 
 
-def smooth(h: int, w: int, c: int, seed: int = 0) -> np.ndarray:
+def smooth(h: int, w: int, c: int, seed: int = 0, noise: float = 6.0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:h, 0:w]
     base = np.stack([np.sin(x / 37.0 + k) * np.cos(y / 23.0 - k) for k in range(c)], -1) * 90 + 128
-    return np.clip(base + rng.normal(0, 6, (h, w, c)), 0, 255).astype(np.uint8)
+    return np.clip(base + rng.normal(0, noise, (h, w, c)), 0, 255).astype(np.uint8)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def write_interlaced_png(path: Path, img: np.ndarray) -> None:
+    """An Adam7-interlaced 8-bit RGB PNG of uint8 [H, W, 3]; row r of each
+    pass is filtered with filter type r % 5."""
+    def paeth(a, b, c):
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+    data = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = img[y0::dy, x0::dx].astype(np.int32)
+        if sub.size == 0:
+            continue
+        rows = sub.reshape(sub.shape[0], -1)
+        prev = np.zeros(rows.shape[1], np.int32)
+        for r, row in enumerate(rows):
+            left = np.concatenate([np.zeros(3, np.int32), row[:-3]])
+            upleft = np.concatenate([np.zeros(3, np.int32), prev[:-3]])
+            pred = [0, left, prev, (left + prev) >> 1, paeth(left, prev, upleft)][r % 5]
+            data += bytes([r % 5]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes()
+            prev = row
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    header = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8, 2, 0, 0, 1)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(data))
+                     + chunk(b"IEND", b""))
 
 
 def rotmat2qvec(r: np.ndarray) -> np.ndarray:
@@ -113,14 +152,22 @@ def main() -> None:
             cv2.IMWRITE_JPEG_QUALITY, 85, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411]),
         "frame_1920x1080.jpg": lambda p: Image.fromarray(smooth(1080, 1920, 3, seed=2)).save(p, quality=90),
         "progressive.jpg": lambda p: Image.fromarray(small).save(p, quality=75, progressive=True),
+        "progressive_420_restart.jpg": lambda p: Image.fromarray(odd).save(
+            p, quality=85, subsampling=2, progressive=True, restart_marker_blocks=2),
+        "progressive_grey.jpg": lambda p: Image.fromarray(small[..., 0]).save(p, quality=90, progressive=True),
+        "progressive_1920x1080.jpg": lambda p: Image.fromarray(smooth(1080, 1920, 3, seed=3, noise=1.0)).save(
+            p, quality=90, progressive=True),
+        "cmyk.jpg": lambda p: Image.fromarray(np.concatenate([small, small[..., :1]], -1), "CMYK").save(
+            p, quality=90),
+        "interlaced.png": lambda p: write_interlaced_png(p, odd),
     }
     for name, write in files.items():
         write(ROOT / name)
     write_colmap_sphere(ROOT / "colmap_sphere")
     manifest = {}
-    for path in sorted(ROOT.rglob("*.jpg")):
+    for path in sorted([*ROOT.rglob("*.jpg"), *ROOT.rglob("*.png")]):
         rec = pillow_record(path)
-        if path.name == "progressive.jpg":
+        if path.name == "cmyk.jpg":
             rec["port_raises"] = "NotImplementedError"
         manifest[path.relative_to(ROOT).as_posix()] = rec
     (ROOT / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True) + "\n")

@@ -7,19 +7,26 @@ the CPU.
   4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, greyscale, restart intervals,
   quality 50 and 95, sizes from 1x1 to 130x77 with partial MCUs. Equal
   bytes in every mode (no tolerance).
-- Progressive and CMYK files raise NotImplementedError naming what they
-  are; a decoder that cannot be built raises on every JPEG (no fallback).
+- Progressive files (RGB 4:4:4, 4:2:2, 4:2:0, greyscale, odd sizes,
+  restart intervals) decode to Pillow's bytes and `load_image` of each
+  equals the JAX package's; CMYK files raise NotImplementedError naming
+  what they are; a decoder that cannot be built raises on every JPEG (no
+  fallback).
 - `camera_res_scale_factor`: `load_image(p, s)` against the JAX package's
   (Pillow's `resize(..., BILINEAR)`) at 0.5, 0.25 and 0.37 and for 1.5,
   for L, LA, RGB, RGBA, 16-bit grey, JPEG and palette images: equal.
 - PNGs Pillow reads in its own way: palette (the indices, 1- to 8-bit),
   1/2/4-bit grey, 16-bit RGB / RGBA / grey+alpha (the high byte): equal
-  to the JAX loader.
+  to the JAX loader. Adam7-interlaced PNGs (written here: Pillow cannot
+  write them) of colour types 0/2/3/4/6 at 8 bits, 16-bit grey and
+  1/2/4-bit grey, with every filter type: equal to Pillow's array and to
+  the JAX loader.
 - `get_depth`, `get_normal`, `get_semantics` against the JAX
   InputDataset's on 16-bit PNG and npy depth, npy (channels first and
   last) and PNG normals, palette and RGB label PNGs: equal.
-- The committed fixtures of tests/data/jpeg/: Pillow's decode of each
-  matches its manifest entry (hash, shape), and the port's decode does too.
+- The committed fixtures of tests/data/jpeg/ (JPEG and PNG): Pillow's
+  decode of each matches its manifest entry (hash, shape), and the port's
+  decode does too.
 """
 
 import hashlib
@@ -86,16 +93,59 @@ def test_jpeg_other_samplings_match_pillow(tmp_path, factor):
         np.testing.assert_array_equal(jpeg.decode_jpeg(p), _pillow(p), err_msg=f"{factor} {h}x{w}")
 
 
-def test_unsupported_jpegs_raise(tmp_path):
-    Image.fromarray(smooth(16, 24, 3)).save(tmp_path / "prog.jpg", progressive=True)
-    with pytest.raises(NotImplementedError, match="progressive JPEG \\(SOF2\\)"):
-        load_image(tmp_path / "prog.jpg")
-    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(tmp_path / "cmyk.jpg")
-    with pytest.raises(NotImplementedError, match="CMYK"):
-        load_image(tmp_path / "cmyk.jpg")
-    (tmp_path / "junk.jpg").write_bytes(b"\xff\xd8\xff\xc0\x00")
-    with pytest.raises(ValueError):
-        load_image(tmp_path / "junk.jpg")
+# progressive files decode as Pillow does; CMYK and a truncated header raise
+UNSUPPORTED_CASES = [
+    ("progressive_444", (16, 24), {"subsampling": 0}),
+    ("progressive_422", (23, 37), {"subsampling": 1}),
+    ("progressive_420", (48, 64), {"subsampling": 2}),
+    ("progressive_420_odd", (77, 130), {"subsampling": 2, "quality": 50}),
+    ("progressive_420_1x1", (1, 1), {"subsampling": 2}),
+    ("progressive_420_restart", (23, 37), {"subsampling": 2, "restart_marker_blocks": 2}),
+    ("progressive_444_restart", (9, 17), {"subsampling": 0, "restart_marker_blocks": 1, "quality": 95}),
+    ("progressive_grey", (23, 37), {}),
+    ("progressive_grey_restart", (48, 64), {"restart_marker_blocks": 3}),
+    ("cmyk", (8, 8), {}),
+    ("junk", (0, 0), {}),
+]
+
+
+@pytest.mark.parametrize("case,hw,kw", UNSUPPORTED_CASES, ids=[c[0] for c in UNSUPPORTED_CASES])
+def test_unsupported_jpegs_raise(tmp_path, case, hw, kw):
+    p = tmp_path / f"{case}.jpg"
+    if case == "cmyk":
+        Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(p)
+        with pytest.raises(NotImplementedError, match="CMYK"):
+            load_image(p)
+        return
+    if case == "junk":
+        p.write_bytes(b"\xff\xd8\xff\xc0\x00")
+        with pytest.raises(ValueError):
+            load_image(p)
+        return
+    grey = case.startswith("progressive_grey")
+    arr = smooth(*hw, 3)
+    Image.fromarray(arr[..., 0] if grey else arr).save(p, progressive=True, **kw)
+    assert b"\xff\xc2" in p.read_bytes()
+    want = _pillow(p)
+    got = jpeg.decode_jpeg(p)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert image_size(p) == (hw[1], hw[0])
+    for s in (1.0, 0.5) if min(hw) > 1 else (1.0,):
+        np.testing.assert_array_equal(load_image(p, s), jax_load_image(p, s), err_msg=f"scale {s}")
+
+
+def test_progressive_jpeg_that_libjpeg_would_smooth_raises(tmp_path):
+    """A progression cut after its first scans leaves AC coefficients short
+    of full precision, where libjpeg smooths the blocks: the decoder
+    refuses it rather than give other bytes than Pillow."""
+    Image.fromarray(smooth(40, 56, 3)).save(tmp_path / "full.jpg", progressive=True, quality=80)
+    data = (tmp_path / "full.jpg").read_bytes()
+    scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    (tmp_path / "cut.jpg").write_bytes(data[:scans[2]] + b"\xff\xd9")
+    with pytest.raises(NotImplementedError, match="block smoothing"):
+        jpeg.decode_jpeg(tmp_path / "cut.jpg")
+    np.testing.assert_array_equal(jpeg.decode_jpeg(tmp_path / "full.jpg"), _pillow(tmp_path / "full.jpg"))
 
 
 def test_jpeg_without_a_decoder_raises(tmp_path, monkeypatch):
@@ -136,6 +186,68 @@ def _pack(idx: np.ndarray, depth: int) -> np.ndarray:
     for k in range(per):
         packed |= (p[..., k] << (8 - depth * (k + 1))).astype(np.uint8)
     return packed
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _filter_rows(rows: np.ndarray, bpp: int) -> bytes:
+    """PNG-filter packed rows [h, stride] (uint8), row r with type r % 5."""
+    out, prev = [], np.zeros(rows.shape[1], np.int32)
+    for r, row in enumerate(rows.astype(np.int32)):
+        left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        pa, pb, pc = (np.abs(left + prev - upleft - v) for v in (left, prev, upleft))
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        pred = [0, left, prev, (left + prev) >> 1, paeth][r % 5]
+        out.append(bytes([r % 5]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = row
+    return b"".join(out)
+
+
+def _write_adam7_png(path, img: np.ndarray, depth: int, ctype: int, palette: bytes = None):
+    """An Adam7-interlaced PNG of samples [H, W, C] (uint8, or uint16 at
+    16 bits): each pass packed and filtered as an image of its own."""
+    h, w, c = img.shape
+    data = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = img[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth == 16:
+            rows = np.frombuffer(sub.astype(">u2").tobytes(), np.uint8).reshape(sub.shape[0], -1)
+        else:
+            rows = _pack(sub.reshape(sub.shape[0], -1).astype(np.uint8), depth)
+        data += _filter_rows(rows, max(c * depth // 8, 1))
+
+    def chunk(kind, body):
+        return len(body).to_bytes(4, "big") + kind + body + (zlib.crc32(kind + body) & 0xFFFFFFFF).to_bytes(4, "big")
+
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([depth, ctype, 0, 0, 1])
+    body = chunk(b"IHDR", header) + (chunk(b"PLTE", palette) if palette else b"")
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + body + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+
+
+# (colour type, bits, channels)
+ADAM7_CASES = [(0, 8, 1), (2, 8, 3), (3, 8, 1), (4, 8, 2), (6, 8, 4), (0, 16, 1), (0, 1, 1), (0, 2, 1), (0, 4, 1)]
+
+
+@pytest.mark.parametrize("ctype,depth,c", ADAM7_CASES, ids=[f"type{t}_{d}bit" for t, d, _ in ADAM7_CASES])
+def test_interlaced_pngs_match_pillow_and_jax(tmp_path, ctype, depth, c):
+    rng = np.random.default_rng(10 * ctype + depth)
+    top = 16 if ctype == 3 else 1 << depth
+    palette = bytes(rng.integers(0, 256, 48).astype(np.uint8)) if ctype == 3 else None
+    for h, w in ((1, 1), (2, 3), (5, 1), (9, 13), (23, 37)):
+        img = rng.integers(0, top, (h, w, c)).astype(np.uint16 if depth == 16 else np.uint8)
+        p = tmp_path / f"{h}x{w}.png"
+        _write_adam7_png(p, img, depth, ctype, palette)
+        assert Image.open(p).info.get("interlace") == 1
+        # Pillow's mode "1" array is bool; the port gives 0 / 1 as uint8, interlaced or not
+        want = _pillow(p).astype(np.uint8) if depth == 1 else _pillow(p)
+        got = read_image_array(p)
+        assert got.dtype == want.dtype and got.shape == want.shape, (h, w)
+        np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w}")
+        np.testing.assert_array_equal(load_image(p), jax_load_image(p), err_msg=f"{h}x{w}")
 
 
 @pytest.mark.parametrize("depth", [1, 2, 4, 8])
@@ -232,7 +344,8 @@ def test_fixture_manifest_is_pillows_decode():
     """Pillow's decode of every committed fixture hashes to its manifest
     entry (the card's machine, which has no Pillow, checks against these)."""
     manifest = _manifest()
-    assert set(manifest) == {p.relative_to(FIXTURES).as_posix() for p in FIXTURES.rglob("*.jpg")}
+    assert set(manifest) == {p.relative_to(FIXTURES).as_posix() for p in [*FIXTURES.rglob("*.jpg"),
+                                                                          *FIXTURES.rglob("*.png")]}
     assert sum(p.stat().st_size for p in FIXTURES.rglob("*") if p.is_file()) < 1 << 20
     for name, rec in manifest.items():
         arr = np.ascontiguousarray(_pillow(FIXTURES / name))
@@ -246,6 +359,6 @@ def test_port_decodes_the_fixtures_to_the_manifest():
             with pytest.raises(NotImplementedError):
                 jpeg.decode_jpeg(FIXTURES / name)
             continue
-        arr = jpeg.decode_jpeg(FIXTURES / name)
+        arr = read_image_array(FIXTURES / name)
         assert hashlib.sha256(arr.tobytes()).hexdigest() == rec["sha256"], name
         assert list(arr.shape) == rec["shape"], name

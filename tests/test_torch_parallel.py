@@ -252,6 +252,33 @@ def test_shard_rows():
     assert (shard.prefix(4), shard.prefix(12), shard.prefix(16), shard.weight) == (0, 4, 8, 0.5)
 
 
+def test_rendezvous_ports():
+    """A one-rank group given port 0 starts with no port picked ahead
+    (twice in a row); `free_port` returns no port that any local address
+    holds, since rank 0's store listens on all of them."""
+    import socket
+
+    import torch.distributed as dist
+
+    for _ in range(2):
+        mesh.initialize_distributed("tcp://localhost:0", 1, 0, device="cpu")
+        try:
+            t = torch.ones(3)
+            dist.all_reduce(t)
+            assert dist.get_world_size() == 1 and t.tolist() == [1.0, 1.0, 1.0]
+        finally:
+            dist.destroy_process_group()
+    with socket.socket() as held:
+        held.bind(("", 0))
+        held.listen()
+        taken = held.getsockname()[1]
+        ports = {mesh.free_port() for _ in range(20)}
+        assert taken not in ports
+        for p in ports:
+            with socket.socket() as s:
+                s.bind(("", p))
+
+
 def test_errors(scene, tmp_path):
     """A batch that does not divide over the ranks raises, as JAX's
     sharding does (instant-ngp's dynamic batch buckets too); so does a

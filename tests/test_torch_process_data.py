@@ -28,6 +28,7 @@ the JAX side runs with its `circle_detect` reshaped alike
 (`opencv4_layout`).
 """
 
+import dataclasses
 import inspect
 import json
 import os
@@ -348,13 +349,32 @@ def test_images_mode_both_packages(tmp_path, monkeypatch):
         assert (outs["port"] / rel).read_bytes() == (outs["jax"] / rel).read_bytes(), rel
 
 
-def test_script_usage_and_modes(capsys):
-    """The JAX script's usage text and return codes; the modes not ported
-    raise with their ROADMAP item."""
+def test_script_usage_and_modes(capsys, monkeypatch, tmp_path):
+    """The JAX script's usage text and return codes; every mode reaches the
+    converter class the JAX script dispatches it to, with the same flags."""
     assert port_script.main([]) == jax_script.main([]) == 0
     usage = capsys.readouterr().out.split("usage:")
     assert usage[1] == usage[2]
     assert port_script.main(["nope"]) == jax_script.main(["nope"]) == 2
-    for mode in ("video", "skydio", "polycam", "record3d", "metashape", "realitycapture", "odm"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            port_script.main([mode, "--data", "x", "--output-dir", "y"])
+    from nerfstudio_thermal_torch.process_data import device_converters as port_dc
+    from nerfstudio_thermal_torch.process_data import video_to_nerfstudio_dataset as port_video
+    from nerfstudio_thermal_tpu.process_data import device_converters as jax_dc
+    from nerfstudio_thermal_tpu.process_data import video_to_nerfstudio_dataset as jax_video
+
+    reached = []
+    classes = {"video": "VideoToNerfstudioDataset", "skydio": "SkydioToNerfstudioDataset",
+               "polycam": "PolycamToNerfstudioDataset", "record3d": "Record3DToNerfstudioDataset",
+               "metashape": "MetashapeToNerfstudioDataset",
+               "realitycapture": "RealityCaptureToNerfstudioDataset", "odm": "ODMToNerfstudioDataset"}
+    for pkg, modules in (("port", (port_video, port_dc)), ("jax", (jax_video, jax_dc))):
+        for name in classes.values():
+            cls = getattr(modules[0] if name.startswith("Video") else modules[1], name)
+            monkeypatch.setattr(cls, "main", lambda self, pkg=pkg: reached.append((pkg, type(self).__name__, self)))
+    for mode, name in classes.items():
+        reached.clear()
+        argv = [mode, "--data", str(tmp_path / "x"), "--output-dir", str(tmp_path / mode), "--verbose", "true"]
+        assert port_script.main(argv) == jax_script.main(argv) == 0
+        (pkg_p, name_p, conv_p), (pkg_j, name_j, conv_j) = reached
+        assert (pkg_p, pkg_j) == ("port", "jax") and name_p == name_j == name, mode
+        assert type(conv_p).__module__.startswith("nerfstudio_thermal_torch."), mode
+        assert dataclasses.asdict(conv_p) == dataclasses.asdict(conv_j), mode
