@@ -400,6 +400,26 @@ Phases, each fatal on failure:
    none; a `benchmark` line with the seconds of each, ms/step, the PSNR
    and the launches; the hash kernels' JSON records carry them as
    ns_benchmark_launches.
+23. the data path's last modules (after phase 22):
+   - 23a, thermal-nerfacto at full width (16 levels, T 2^19; the
+     proposals 5 levels, T 2^17; the camera optimizer on) trains 30 steps
+     through setup_trainer(datamanager_cls=PrefetchingDataManager) on a
+     scene of 24-bit BMP RGB and 16-bit grey TIFF thermal frames (half
+     Deflate) written here with struct and zlib; it saves after step 19
+     and a second trainer resumes there (set_start_step called with 20)
+     for steps 20-29; every batch of both runs and of a third run through
+     VanillaDataManager equals VanillaDataManager.next_train of its step
+     bitwise, the resumed losses hold to the uninterrupted run's within
+     phase 9's loss limit, rows 8, 7/9 and 10 launch per step as phase 9's
+     thermal-nerfacto; ms/step through each data manager (single runs);
+   - 23b, depth-nerfacto through ns-train for 6 steps on float32 TIFF
+     depth maps: depth losses finite, its launches a step (rows 8, 7/9 and
+     10); the hash kernels' JSON records carry 23a's and 23b's as
+     prefetch_launches_per_step;
+   - 23c, in phase 15's image_io line: the TIFF / BMP / GIF / JPEG
+     fixtures of tests/data/images/ against their manifest, the 12-bit and
+     hierarchical JPEGs refused (Pillow refuses them too), host times of
+     1920x1080 16-bit TIFF (uncompressed, Deflate) and 24-bit BMP decodes.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -415,11 +435,13 @@ import dataclasses
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -2883,6 +2905,7 @@ def render_surface_phase(entries: dict, scene_dir: Path, out_dir: Path, smi: str
 # trains COLMAP_STEPS steps on the COLMAP JPEG scene through train_phase
 # (rows 7-10 with camera gradients).
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+IMAGES_DIR = Path(__file__).resolve().parent / "tests" / "data" / "images"
 NGP_STEPS, NGP_BOUNDED_STEPS, COLMAP_STEPS = 48, 24, 20
 NGP_CAPTURE_STEP = 32  # a grid update (2^18 points) and the step's own hash calls
 NGP_TIMED = range(34, 48)  # after the update of step 32 the batch holds until step 48
@@ -2905,42 +2928,54 @@ def ngp_step_counts(step: int, every: int = 16) -> dict:
 
 
 def image_io_phase(smi: str) -> dict:
-    """The JPEG and PNG fixtures against their manifest (progressive JPEGs
-    and the Adam7 PNG included), the CMYK one raises; host times of a
-    1920x1080 decode and of its 0.5x resize, and of a progressive 1920x1080
-    decode against the baseline file of the same pixels and quality (the
-    port's encoder writes it from the progressive file's decode), medians
-    of 5."""
+    """The JPEG and PNG fixtures of tests/data/jpeg/ and the TIFF, BMP, GIF
+    and JPEG fixtures of tests/data/images/ against their manifests'
+    Pillow hashes (progressive JPEGs, the Adam7 PNG, CMYK / YCCK and
+    block-smoothed JPEGs included); each file Pillow refuses (12-bit and
+    hierarchical JPEG) must be refused, and WebP (not ported) too. Host
+    times (medians of 5) of a 1920x1080 decode and of its 0.5x resize; of a
+    progressive 1920x1080 decode against the baseline file of the same
+    pixels and quality (the port's encoder writes it from the progressive
+    file's decode); of 1920x1080 16-bit TIFFs (uncompressed and Deflate)
+    and a 24-bit BMP written here; and of the LZW TIFF fixtures at their
+    size."""
     import hashlib
 
-    from nerfstudio_thermal_torch.data import jpeg
-    from nerfstudio_thermal_torch.data.datasets import read_image_array, resize_like_pil
+    from nerfstudio_thermal_torch.data import image_formats, jpeg
+    from nerfstudio_thermal_torch.data.datasets import read_image, read_image_array, resize_like_pil
 
     t0 = time.perf_counter()
     jpeg.load_library()
+    image_formats.load_library()
     build_s = time.perf_counter() - t0
-    manifest = json.loads((JPEG_DIR / "manifest.json").read_text())
     checked, refused, kinds = 0, [], set()
-    for name, rec in sorted(manifest.items()):
-        if rec.get("port_raises"):
-            try:
-                jpeg.decode_jpeg(JPEG_DIR / name)
-            except NotImplementedError as e:
-                refused.append(f"{name}: {str(e).split(': ', 1)[-1]}")
-                continue
-            raise AssertionError(f"{name} decoded; the decoder must refuse it")
-        arr = read_image_array(JPEG_DIR / name)
-        if hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or list(arr.shape) != rec["shape"]:
-            raise AssertionError(f"{name}: the decode does not match Pillow's ({arr.shape}, manifest {rec['shape']})")
-        data = (JPEG_DIR / name).read_bytes()
-        # SOF2 (0xFF 0xC2 is a marker only: coded data stuffs every 0xFF); IHDR's interlace byte
-        kinds.add("progressive" if b"\xff\xc2" in data else "interlaced" if name.endswith(".png") and data[28] else
-                  "other")
-        checked += 1
-    if not refused:
-        raise AssertionError("no fixture exercised the decoder's refusal")
-    if not {"progressive", "interlaced"} <= kinds:
-        raise AssertionError(f"no progressive JPEG or interlaced PNG among the fixtures ({sorted(kinds)})")
+    for root in (JPEG_DIR, IMAGES_DIR):
+        manifest = json.loads((root / "manifest.json").read_text())
+        for name, rec in sorted(manifest.items()):
+            if rec.get("port_raises") or rec.get("pillow_raises"):
+                try:
+                    read_image(root / name)
+                except NotImplementedError as e:
+                    refused.append(f"{name}: {str(e).split(': ', 1)[-1]}")
+                    continue
+                raise AssertionError(f"{name} decoded; the port must refuse it")
+            arr, mode = read_image(root / name)
+            if (hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or list(arr.shape) != rec["shape"]
+                    or str(arr.dtype) != rec["dtype"]):
+                raise AssertionError(f"{name}: the decode does not match Pillow's ({arr.shape} {arr.dtype}, manifest "
+                                     f"{rec['shape']} {rec['dtype']})")
+            if "mode" in rec and mode.split(":")[0] != rec["mode"]:
+                raise AssertionError(f"{name}: mode {mode}, Pillow's {rec['mode']}")
+            data = (root / name).read_bytes()
+            # SOF2 (0xFF 0xC2 is a marker only: coded data stuffs every 0xFF); IHDR's interlace byte
+            kinds.add("progressive" if b"\xff\xc2" in data else "interlaced" if name.endswith(".png") and data[28]
+                      else name.split("_")[0] if root == IMAGES_DIR else "other")
+            checked += 1
+    witnesses = [r for r in refused if r.startswith("jpeg_")]
+    if not witnesses:
+        raise AssertionError("no fixture that Pillow refuses exercised the port's refusal")
+    if not {"progressive", "interlaced", "tiff", "bmp", "gif", "jpeg"} <= kinds:
+        raise AssertionError(f"fixture kinds {sorted(kinds)}")
 
     def median_ms(fn) -> float:
         times = []
@@ -2961,13 +2996,29 @@ def image_io_phase(smi: str) -> dict:
     twin_ms, twin = median_ms(lambda: jpeg.decode_jpeg_bytes(baseline))
     if prog.shape != (1080, 1920, 3) or twin.shape != prog.shape:
         raise AssertionError(f"progressive decode {prog.shape}, baseline twin {twin.shape}")
-    log(f"image_io: decoder built in {build_s:.2f} s; {checked} JPEG / PNG fixtures (progressive and Adam7 "
-        f"included) decode to their manifest's Pillow hashes; refused: {'; '.join(refused)}; 1920x1080 decode "
-        f"{decode_ms:.1f} ms, 0.5x BILINEAR resize {resize_ms:.1f} ms; progressive 1920x1080 decode {prog_ms:.1f} "
-        f"ms ({len(progressive)} bytes) against {twin_ms:.1f} ms for the baseline file of its pixels at the same "
-        f"quality ({len(baseline)} bytes) (host, medians of 5) ({smi})")
+    formats_ms = {}
+    grey16 = prog[..., 0].astype(np.uint16) * 257 + 3
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"tiff16": (tiff_bytes(grey16, False), grey16), "tiff16_deflate": (tiff_bytes(grey16, True), grey16),
+                 "bmp24": (bmp24_bytes(prog), prog)}
+        for label, (data, want) in files.items():
+            path = Path(tmp) / f"{label}.{'bmp' if label.startswith('bmp') else 'tif'}"
+            path.write_bytes(data)
+            formats_ms[label], got = median_ms(lambda: read_image_array(path))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"the 1920x1080 {label} file does not decode to the pixels written")
+    lzw = sorted(IMAGES_DIR.glob("tiff_*lzw*.tif"))
+    lzw_ms, _ = median_ms(lambda: [read_image_array(p) for p in lzw])
+    log(f"image_io: decoders built in {build_s:.2f} s; {checked} JPEG / PNG / TIFF / BMP / GIF fixtures (progressive, "
+        f"Adam7, CMYK / YCCK and block-smoothed JPEGs included) decode to their manifest's Pillow hashes; refused: "
+        f"{'; '.join(refused)}; 1920x1080 decode {decode_ms:.1f} ms, 0.5x BILINEAR resize {resize_ms:.1f} ms; "
+        f"progressive 1920x1080 decode {prog_ms:.1f} ms ({len(progressive)} bytes) against {twin_ms:.1f} ms for the "
+        f"baseline file of its pixels at the same quality ({len(baseline)} bytes); 1920x1080 16-bit TIFF "
+        f"{formats_ms['tiff16']:.1f} ms uncompressed, {formats_ms['tiff16_deflate']:.1f} ms Deflate, 24-bit BMP "
+        f"{formats_ms['bmp24']:.1f} ms; the {len(lzw)} LZW TIFF fixtures (tens of pixels a side) {lzw_ms:.2f} ms "
+        f"together (host, medians of 5) ({smi})")
     return {"decode_ms": decode_ms, "resize_ms": resize_ms, "fixtures": checked, "progressive_ms": prog_ms,
-            "baseline_twin_ms": twin_ms}
+            "baseline_twin_ms": twin_ms, "formats_ms": formats_ms, "lzw_ms": lzw_ms}
 
 
 def write_ingp_scene(root: Path, num: int = NGP_PAIRS, w: int = 640, h: int = 480) -> Path:
@@ -6292,6 +6343,244 @@ def benchmark_phase(blender: Path, tmp: Path, smi: str) -> dict:
             "eval_s": spans["eval"]["s"], "ms_step": ms_step, "psnr": psnr}
 
 
+# Phase 23: the data path's last modules. (a) thermal-nerfacto at full
+# width trains PREFETCH_STEPS steps through PrefetchingDataManager on a scene
+# of 24-bit BMP RGB frames and 16-bit grey TIFF thermal frames (even frames
+# uncompressed, odd ones Deflate), written here with struct and zlib (the
+# card's machine has no Pillow); the trainer saves after step
+# PREFETCH_CKPT - 1, a second trainer resumes from there (its
+# _load_checkpoint calls set_start_step) and runs steps PREFETCH_CKPT to the
+# end. Every batch of both runs must equal VanillaDataManager.next_train of
+# its step bitwise; the resumed losses hold to the uninterrupted run's within
+# STEP_LOSS_TOL (phase 9's limit: the table scatter's atomics sum in another
+# order, so the steps are not bitwise); rows 8, 7/9 and 10 launch as train
+# phase's thermal-nerfacto does. The same run through VanillaDataManager
+# gives the ms/step beside the prefetching one (single runs). (b)
+# depth-nerfacto trains DEPTH23_STEPS steps through ns-train on float32 TIFF
+# depth maps (millimetres, half of them Deflate).
+PREFETCH_STEPS, PREFETCH_CKPT, PREFETCH_TIMED_FROM, PREFETCH_PAIRS = 30, 20, 10, 8
+DEPTH23_STEPS = 6
+
+
+def bmp24_bytes(rgb: np.ndarray) -> bytes:
+    """A bottom-up 24-bit BI_RGB BMP (INFO header) of uint8 [H, W, 3]."""
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[..., ::-1].reshape(h, -1)
+    pixels = rows[::-1].tobytes()
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(pixels), 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + len(pixels), 0, 0, 54) + info + pixels
+
+
+def tiff_bytes(img: np.ndarray, deflate: bool) -> bytes:
+    """A little-endian one-strip BlackIsZero TIFF of uint16 or float32
+    [H, W] samples, uncompressed or Deflate (compression 8)."""
+    h, w = img.shape
+    raw = np.ascontiguousarray(img).astype(img.dtype.newbyteorder("<")).tobytes()
+    data = zlib.compress(raw, 6) if deflate else raw
+    fmt = 3 if img.dtype == np.float32 else 1
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8 * img.dtype.itemsize), (259, 3, 8 if deflate else 1),
+               (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, h), (279, 4, len(data)), (339, 3, fmt)]
+    pad = len(data) % 2
+    out = b"II*\0" + struct.pack("<I", 8 + len(data) + pad) + data + b"\0" * pad + struct.pack("<H", len(entries))
+    for tag, typ, val in entries:
+        out += struct.pack("<HHI", tag, typ, 1) + struct.pack("<H" if typ == 3 else "<I", val).ljust(4, b"\0")
+    return out + b"\0\0\0\0"
+
+
+def write_tiff_bmp_scene(root: Path, num_pairs: int = PREFETCH_PAIRS) -> Path:
+    """write_scene's sphere scene with its RGB frames as 24-bit BMP and its
+    thermal frames as 16-bit grey TIFF (value * 257), odd frames Deflate."""
+    frames = []
+    for thermal, (w, h), sub in ((False, (640, 480), "images"), (True, (640, 512), "images_thermal")):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+        for i in range(num_pairs):
+            ang = 2 * np.pi * i / num_pairs
+            c2w = look_at(np.array([3.0 * np.cos(ang), 3.0 * np.sin(ang), 1.2]))
+            focal = 0.8 * w
+            img = render_sphere(c2w, w, h, focal, thermal)
+            if thermal:
+                name = f"frame_{i:04d}.tif"
+                (root / sub / name).write_bytes(tiff_bytes(img[..., 0].astype(np.uint16) * 257, deflate=i % 2 == 1))
+            else:
+                name = f"frame_{i:04d}.bmp"
+                (root / sub / name).write_bytes(bmp24_bytes(img))
+            frames.append({"file_path": f"{sub}/{name}", "transform_matrix": c2w.tolist(), "fl_x": focal,
+                           "fl_y": focal, "cx": w / 2, "cy": h / 2, "w": w, "h": h, "is_thermal": int(thermal)})
+    (root / "transforms.json").write_text(json.dumps({"frames": frames}))
+    return root
+
+
+def write_tiff_depth_scene(root: Path, num: int = DEPTH_FRAMES, w: int = 640, h: int = 480) -> Path:
+    """write_depth_scene's scene with float32 TIFF depth maps: the z-depth
+    in millimetres, unrounded, 0 where the ray misses; odd frames Deflate."""
+    write_depth_scene(root, num, w, h)
+    meta = json.loads((root / "transforms.json").read_text())
+    focal = 0.8 * w
+    ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
+    cam = np.stack([(xs - w / 2) / focal, -(ys - h / 2) / focal, -np.ones_like(xs)], -1)
+    norm = np.linalg.norm(cam, axis=-1)
+    for i, frame in enumerate(meta["frames"]):
+        c2w = np.asarray(frame["transform_matrix"])
+        d = (cam @ c2w[:3, :3].T) / norm[..., None]
+        o = c2w[:3, 3]
+        b = d @ o
+        disc = b * b - (o @ o - 1.0)
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        z_mm = np.where(disc > 0, t / norm * 1000.0, 0.0).astype(np.float32)
+        old = root / frame["depth_file_path"]
+        old.unlink()
+        frame["depth_file_path"] = old.with_suffix(".tif").relative_to(root).as_posix()
+        (root / frame["depth_file_path"]).write_bytes(tiff_bytes(z_mm, deflate=i % 2 == 1))
+    (root / "transforms.json").write_text(json.dumps(meta))
+    return root
+
+
+def prefetch_run(scene: Path, run_dir: Path, prefetch: bool, load_dir: Path = None) -> dict:
+    """thermal-nerfacto through setup_trainer -> setup -> train, each
+    iteration synchronized and timed, its launches checked against
+    METHODS' per-step counts, its host batch kept (compared afterwards, out
+    of the timed steps). Saves after step PREFETCH_CKPT - 1; with load_dir
+    resumes from that checkpoint."""
+    from nerfstudio_thermal_torch.configs.method_configs import setup_trainer
+    from nerfstudio_thermal_torch.data.datamanagers import PrefetchingDataManager
+    from nerfstudio_thermal_torch.models.nerfacto import proposal_updated
+
+    method = train_method("thermal-nerfacto", scene)
+    method.trainer.max_num_iterations = PREFETCH_STEPS
+    method.trainer.steps_per_save = PREFETCH_CKPT - 1  # saved after step 19: the state of step 20
+    method.trainer.save_only_latest_checkpoint = False
+    if load_dir is not None:
+        method.trainer.load_dir, method.trainer.load_step = load_dir, PREFETCH_CKPT - 1
+    t0 = time.perf_counter()
+    trainer = setup_trainer(method, base_dir=run_dir, device="cuda",
+                            datamanager_cls=PrefetchingDataManager if prefetch else None)
+    dm = trainer.datamanager
+    if type(dm).__name__ != ("PrefetchingDataManager" if prefetch else "VanillaDataManager"):
+        raise AssertionError(f"setup_trainer built a {type(dm).__name__}")
+    realigned = []
+    if prefetch:
+        inner_set = dm.set_start_step
+
+        def set_start_step(step):
+            realigned.append(step)
+            inner_set(step)
+
+        dm.set_start_step = set_start_step
+    trainer.setup()
+    setup_s = time.perf_counter() - t0
+    if not dm.uses_native_sampler:
+        raise AssertionError("phase 23: the native batch sampler did not build or the scene did not qualify")
+    batches, records = {}, []
+    next_train, iteration = dm.next_train, trainer.train_iteration
+
+    def kept(step):
+        batches[step] = next_train(step)
+        return batches[step]
+
+    def counted(step):
+        ssu = trainer.state.steps_since_update
+        c0 = read_counts()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = iteration(step)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t_start
+        launches = {k: v - c0[k] for k, v in read_counts().items()}
+        updated, _ = proposal_updated(step, ssu, method.model.proposal_warmup, method.model.proposal_update_every)
+        want = expected_counts(METHODS["thermal-nerfacto"]["step"](updated))
+        if launches != want:
+            raise AssertionError(f"phase 23 step {step} (proposal update {updated}): launches {launches}, "
+                                 f"expected {want}")
+        records.append({"step": step, "s": dt, "updated": updated, "launches": launches,
+                        "losses": {k: float(v) for k, v in out.items() if "loss" in k}})
+        return out
+
+    dm.next_train, trainer.train_iteration = kept, counted
+    reset_counts()
+    try:
+        trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        if prefetch:
+            dm.close()
+    first = PREFETCH_CKPT if load_dir is not None else 0
+    if [r["step"] for r in records] != list(range(first, PREFETCH_STEPS)):
+        raise AssertionError(f"phase 23 ran steps {[r['step'] for r in records]}")
+    if load_dir is not None and realigned != [PREFETCH_CKPT]:
+        raise AssertionError(f"the resumed trainer called set_start_step with {realigned}, not [{PREFETCH_CKPT}]")
+    timed = [r["s"] for r in records if r["step"] >= PREFETCH_TIMED_FROM]
+    return {"records": records, "batches": batches, "counts": read_counts(), "setup_s": setup_s,
+            "ms_step": float(np.mean(timed)) * 1e3, "dm_config": dm.config, "method": method,
+            "ckpt": trainer.checkpoint_dir}
+
+
+def prefetch_phase(tmp: Path, smi: str) -> dict:
+    """Phase 23 (a) and (b); see above."""
+    from nerfstudio_thermal_torch.configs.dataparser_configs import build_dataparser
+    from nerfstudio_thermal_torch.data.datamanagers import VanillaDataManager
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene = write_tiff_bmp_scene(tmp / "tiff_bmp")
+    log(f"phase 23 scene: {PREFETCH_PAIRS} 640x480 24-bit BMP + {PREFETCH_PAIRS} 640x512 16-bit TIFF frames "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    full = prefetch_run(scene, tmp / "prefetch", prefetch=True)
+    resumed = prefetch_run(scene, tmp / "resumed", prefetch=True, load_dir=full["ckpt"])
+    vanilla = prefetch_run(scene, tmp / "vanilla", prefetch=False)
+    # every batch against the stateless stream of a VanillaDataManager on the same config
+    reference = VanillaDataManager(full["dm_config"], build_dataparser(full["method"].dataparser))
+    checked = 0
+    for label, run in (("uninterrupted", full), ("resumed", resumed), ("vanilla", vanilla)):
+        for step, got in sorted(run["batches"].items()):
+            want = reference.next_train(step)
+            if set(got) != set(want) or any(got[k].dtype != want[k].dtype or not np.array_equal(got[k], want[k])
+                                            for k in want):
+                raise AssertionError(f"phase 23 {label} step {step}: the batch is not VanillaDataManager's")
+            checked += 1
+    worst = 0.0
+    before = {r["step"]: r["losses"] for r in full["records"]}
+    for r in resumed["records"]:
+        for k, v in r["losses"].items():
+            w = before[r["step"]][k]
+            if math.isfinite(v) != math.isfinite(w):
+                raise AssertionError(f"phase 23 resumed step {r['step']} {k}: {v}, uninterrupted {w}")
+            if math.isfinite(w):
+                rel = abs(v - w) / max(abs(w), 1e-3)
+                worst = max(worst, rel)
+                if rel > STEP_LOSS_TOL:
+                    raise AssertionError(f"phase 23 resumed step {r['step']} {k}: {v}, uninterrupted {w} "
+                                         f"(rel {rel:.2e} > {STEP_LOSS_TOL})")
+    per_step = {}
+    for r in full["records"]:
+        per_step.setdefault("updating" if r["updated"] else "not updating", {k: v for k, v in r["launches"].items()
+                                                                             if v})
+    log(f"phase 23a: thermal-nerfacto through PrefetchingDataManager, {PREFETCH_STEPS} steps on BMP + TIFF frames; "
+        f"{checked} batches (uninterrupted, resumed from the step-{PREFETCH_CKPT - 1} save at step {PREFETCH_CKPT}, "
+        f"vanilla) bitwise VanillaDataManager's; resumed losses within {worst:.2e} of the uninterrupted run's "
+        f"(limit {STEP_LOSS_TOL}); launches a step {per_step}; steps {PREFETCH_TIMED_FROM}-{PREFETCH_STEPS - 1}: "
+        f"prefetching {full['ms_step']:.2f} ms/step, vanilla {vanilla['ms_step']:.2f} ms/step (single runs; "
+        f"setup {full['setup_s']:.2f} / {vanilla['setup_s']:.2f} s) ({smi})")
+
+    # (b) depth-nerfacto on float32 TIFF depth maps
+    t0 = time.perf_counter()
+    depth_scene = write_tiff_depth_scene(tmp / "depth_tiff")
+    write_s = time.perf_counter() - t0
+    depth = classic_train("depth-nerfacto", depth_scene, tmp / "depth-nerfacto", CLASSIC["depth-nerfacto"]["flags"],
+                          None, steps=DEPTH23_STEPS, timed_from=1)
+    losses = [r.get("depth_loss") for r in depth["records"]]
+    if any(v is None or not math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 23 depth-nerfacto: depth_loss {losses}")
+    depth_launches = {k: v / DEPTH23_STEPS for k, v in depth["counts"].items() if v}
+    log(f"phase 23b: depth-nerfacto {DEPTH23_STEPS} steps on {DEPTH_FRAMES} float32 TIFF depth maps (written in "
+        f"{write_s:.2f} s): depth_loss {losses[0]:.4f} -> {losses[-1]:.4f}, {depth['step_s'] * 1e3:.2f} ms/step, "
+        f"launches a step {depth_launches} ({smi})")
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": full["counts"], "resumed_counts": resumed["counts"], "ms_step": full["ms_step"],
+            "vanilla_ms_step": vanilla["ms_step"], "depth_counts": depth["counts"], "worst": worst}
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -6442,6 +6731,8 @@ def main() -> int:
         log(f"phase 21: {time.perf_counter() - t0:.1f} s (the two gloo ranks {dp_gloo['wall_s']:.1f} s)")
         # phase 22: ns-benchmark on phase 16's blender scene
         bench = benchmark_phase(Path(tmp) / "classic" / "blender", Path(tmp) / "benchmark", smi)
+        # phase 23: BMP + TIFF frames through PrefetchingDataManager with a resume, TIFF depth maps
+        prefetch = prefetch_phase(Path(tmp) / "phase23", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -6687,6 +6978,13 @@ def main() -> int:
         # phase 22: ns-benchmark's ns-train and ns-eval
         if rec["name"] in bench["train"]:
             rec["ns_benchmark_launches"] = {"train": bench["train"][rec["name"]], "eval": bench["eval"][rec["name"]]}
+        # phase 23: thermal-nerfacto through PrefetchingDataManager (uninterrupted and resumed) and
+        # depth-nerfacto on TIFF depth maps, launches a step
+        if rec["name"] in PAR_KERNELS["thermal-nerfacto"]:
+            rec["prefetch_launches_per_step"] = {
+                "thermal-nerfacto": prefetch["counts"][rec["name"]] / PREFETCH_STEPS,
+                "thermal-nerfacto resumed": prefetch["resumed_counts"][rec["name"]] / (PREFETCH_STEPS - PREFETCH_CKPT),
+                "depth-nerfacto (TIFF depth)": prefetch["depth_counts"][rec["name"]] / DEPTH23_STEPS}
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -6711,7 +7009,12 @@ def main() -> int:
         f"{render_surface['camera_types']['per_ray_peak'] / 2**30:.2f} GiB) ({smi})")
     log(f"image_io: 1920x1080 JPEG decode {image_io['decode_ms']:.1f} ms, 0.5x resize {image_io['resize_ms']:.1f} ms; "
         f"progressive 1920x1080 {image_io['progressive_ms']:.1f} ms against baseline {image_io['baseline_twin_ms']:.1f} "
-        f"ms (host) ({smi})")
+        f"ms; 1920x1080 TIFF 16-bit {image_io['formats_ms']['tiff16']:.1f} ms, Deflate "
+        f"{image_io['formats_ms']['tiff16_deflate']:.1f} ms, BMP 24-bit {image_io['formats_ms']['bmp24']:.1f} ms "
+        f"(host) ({smi})")
+    log(f"phase 23: thermal-nerfacto through PrefetchingDataManager {prefetch['ms_step']:.2f} ms/step, through "
+        f"VanillaDataManager {prefetch['vanilla_ms_step']:.2f} ms/step (single runs, steps {PREFETCH_TIMED_FROM}-"
+        f"{PREFETCH_STEPS - 1}); resumed losses within {prefetch['worst']:.2e} ({smi})")
     r = ngp["instant-ngp"]
     log(f"instant-ngp: train {r['step_s'] * 1e3:.2f} ms/step at {r['rays']} rays ({r['rays'] / r['step_s']:,.0f} rays/s, "
         f"{r['live']:.2f} live samples a ray), batches {sorted(set(r['sizes']))}, peak memory {r['peak'] / 2**30:.2f} "

@@ -524,6 +524,7 @@ def setup_trainer(
     base_dir: Optional[Path] = None,
     device: Union[str, torch.device] = "cuda",
     mesh: Optional[Mesh] = None,
+    datamanager_cls: Optional[type] = None,
 ) -> Trainer:
     """Dataparser -> data manager -> model -> pipeline -> trainer. The model
     is built on `device` (CUDA unless the caller asks for the CPU) from the
@@ -533,7 +534,9 @@ def setup_trainer(
     `points3D_rgb` where they exist (no parser writes them). `mesh`
     (default: `create_mesh` of trainer.num_devices) places the run's rank;
     each host samples with the data manager's seed + 7919 x its index, as
-    the JAX package's processes do (on a copy of the data manager's config)."""
+    the JAX package's processes do (on a copy of the data manager's config).
+    `datamanager_cls` replaces `VanillaDataManager` for a ray-batch config
+    (`PrefetchingDataManager`: no method config or flag selects it)."""
     mesh = mesh if mesh is not None else create_mesh(config.trainer.num_devices)
     dm_config = dataclasses.replace(config.datamanager, seed=host_seed(config.datamanager.seed, mesh))
     seed = config.trainer.seed
@@ -546,7 +549,10 @@ def setup_trainer(
         return Trainer(config.trainer, VanillaPipeline(datamanager, model), config.optimizers, base_dir=base_dir, mesh=mesh)
     if config.data is not None:
         config.dataparser.data = Path(config.data)
-    dm_cls = FullImageDatamanager if isinstance(config.datamanager, FullImageDatamanagerConfig) else VanillaDataManager
+    if isinstance(config.datamanager, FullImageDatamanagerConfig):
+        dm_cls = FullImageDatamanager
+    else:
+        dm_cls = datamanager_cls or VanillaDataManager
     datamanager = dm_cls(dm_config, build_dataparser(config.dataparser))
     metadata = dict(datamanager.train_dataparser_outputs.metadata)
     if "is_thermal" not in metadata:

@@ -9,9 +9,12 @@ the C++ batch sampler (data/native_sampler.py) when the dataset qualifies
 and the library builds, and through the Python PixelSampler otherwise.
 `FullImageDatamanager` gives splatfacto one whole image a step and
 `RandomCamerasDataManager` gives generfacto one random camera pose a
-step. The prefetching manager of the JAX package is later work.
+step. `PrefetchingDataManager` keeps a queue of host batches filled by a
+worker thread; as in the JAX package, no method config selects it.
 """
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -106,6 +109,9 @@ class VanillaDataManager:
         idx = self._eval_image_index
         self._eval_image_index = (self._eval_image_index + 1) % len(self.eval_dataset)
         return idx, {"image": self.eval_dataset.get_image(idx), "is_thermal": self.eval_dataset.get_is_thermal(idx)}
+
+    def num_train_data(self) -> int:
+        return len(self.train_dataset)
 
 
 @dataclass
@@ -256,3 +262,90 @@ class RandomCamerasDataManager:
 
     def num_train_data(self) -> int:
         return 1
+
+
+class PrefetchingDataManager(VanillaDataManager):
+    """A `VanillaDataManager` whose training batches come from a queue of
+    `queue_size` that a daemon worker thread keeps filled, each tagged
+    (generation, step). The worker claims its step under `_step_lock`
+    before it samples, and `set_start_step` bumps the generation and drains
+    the queue under the same lock, so a batch drawn for an abandoned stream
+    is dropped on dequeue. A batch drawn for a later step than asked (a
+    rewind) is stashed and served when that step comes; the step asked is
+    sampled inline meanwhile. Every batch is the stateless (seed, step)
+    batch of `VanillaDataManager.next_train`. The worker makes host numpy
+    batches only: no CUDA call."""
+
+    def __init__(self, *args, queue_size: int = 4, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._queue: "queue.Queue[Tuple[int, int, Dict[str, np.ndarray]]]" = queue.Queue(maxsize=queue_size)
+        self._stop = threading.Event()
+        self._prefetch_step = 0
+        self._gen = 0  # the realignment generation; guarded by _step_lock
+        self._step_lock = threading.Lock()
+        self._lookahead = None  # a stashed future-tagged batch (trainer thread only)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def set_start_step(self, step: int):
+        """Restart the stream at `step` (after a checkpoint load): queued
+        batches are dropped, and so is any batch the worker is drawing now
+        (it was claimed under the old generation)."""
+        with self._step_lock:
+            self._gen += 1
+            self._prefetch_step = int(step)
+            # drained under the same lock: the worker cannot claim a step of
+            # the new generation (and enqueue a batch swallowed here) before
+            while True:
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    break
+        self._lookahead = None
+
+    def _worker(self):
+        while not self._stop.is_set():
+            with self._step_lock:
+                s = self._prefetch_step
+                gen = self._gen
+                self._prefetch_step = s + 1
+            batch = VanillaDataManager.next_train(self, s)
+            while not self._stop.is_set():
+                try:
+                    self._queue.put((gen, s, batch), timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    def _current_gen(self) -> int:
+        with self._step_lock:
+            return self._gen
+
+    def next_train(self, step: int) -> Dict[str, np.ndarray]:
+        if self._lookahead is not None:
+            gen, tag, batch = self._lookahead
+            if gen != self._current_gen() or tag < step:
+                self._lookahead = None
+            elif tag == step:
+                self._lookahead = None
+                return batch
+            else:  # still ahead of `step`
+                return super().next_train(step)
+        while True:
+            gen, tag, batch = self._queue.get()
+            if gen != self._current_gen() or tag < step:
+                continue
+            if tag == step:
+                return batch
+            # the stream ran ahead of a rewind: keep the batch for its step
+            # and draw this one inline (the draw is stateless in (seed, step))
+            self._lookahead = (gen, tag, batch)
+            return super().next_train(step)
+
+    def close(self):
+        self._stop.set()
+
+    def __del__(self):
+        stop = getattr(self, "_stop", None)
+        if stop is not None:
+            stop.set()

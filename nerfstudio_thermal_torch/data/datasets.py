@@ -4,17 +4,21 @@ Images load as float32 [H, W, 3 or 4] in [0, 1]; greyscale is replicated
 to 3 channels (thermal PNGs are grey; the RGBT packing later takes channel
 0). The JAX package reads them with Pillow; the port decodes them itself,
 so it needs no imaging package, and gives what `np.asarray(Image.open(p))`
-gives:
+gives, choosing the decoder by the file's first bytes as Pillow does:
 - PNG with the standard library's zlib: 1- to 16-bit, grey, grey+alpha,
-  RGB, RGBA and palette (the indices, as Pillow's mode "P"),
-  non-interlaced, all five row filters; 16-bit colour keeps its high byte
+  RGB, RGBA and palette (the indices, as Pillow's mode "P"), Adam7
+  interlacing, all five row filters; 16-bit colour keeps its high byte
   as Pillow does, 16-bit grey stays uint16;
-- JPEG with the port's baseline decoder (data/jpeg.py), which raises when
-  it cannot be built: no other decoder stands in.
-`camera_res_scale_factor` resizes with Pillow's BILINEAR resampling
-computed in numpy (`resize_like_pil`), and, as in the JAX package, the
-cameras are not rescaled with it. Depth, normal and semantic images load
-as the JAX package's `get_depth`, `get_normal` and `get_semantics` do.
+- JPEG with the port's decoder (data/jpeg.py), CMYK / YCCK included
+  (4 channels, inverted as Pillow's "CMYK;I");
+- TIFF, BMP and GIF with data/image_formats.py (16-bit grey TIFF is
+  uint16, float TIFF float32, 32-bit int TIFF int32);
+each raising when its native library cannot be built: no other decoder
+stands in. `camera_res_scale_factor` resizes as Pillow's BILINEAR,
+computed in numpy (`resize_like_pil`) per Pillow's mode (palette and
+1-bit images with NEAREST), and, as in the JAX package, the cameras are
+not rescaled with it. Depth, normal and semantic images load as the JAX
+package's `get_depth`, `get_normal` and `get_semantics` do.
 `is_thermal` comes per image from the dataparser's metadata.
 """
 
@@ -30,7 +34,6 @@ from nerfstudio_thermal_torch.data.dataparsers.base_dataparser import Dataparser
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
-_JPEG_SUFFIXES = (".jpg", ".jpeg", ".jpe", ".jfif")
 
 
 def _png_chunks(data: bytes):
@@ -164,24 +167,64 @@ def decode_png(path) -> np.ndarray:
     return samples
 
 
-def image_size(path) -> Tuple[int, int]:
-    """(width, height) of a PNG or JPEG from its header."""
-    if Path(path).suffix.lower() in _JPEG_SUFFIXES:
-        from nerfstudio_thermal_torch.data.jpeg import jpeg_size
+def _png_mode(path) -> str:
+    with open(path, "rb") as f:
+        head = f.read(26)
+    depth, ctype = head[24], head[25]
+    if ctype == 3:
+        return "P"
+    if ctype == 0:
+        return {1: "1", 16: "I;16"}.get(depth, "L")
+    return {2: "RGB", 4: "RGBA" if depth == 16 else "LA", 6: "RGBA"}[ctype]
 
-        return jpeg_size(path)
-    return png_size(path)
+
+def _format(path) -> Tuple[str, bytes]:
+    from nerfstudio_thermal_torch.data.image_formats import sniff
+
+    data = Path(path).read_bytes()
+    kind = sniff(data[:16])
+    if kind is None:
+        raise NotImplementedError(f"{path}: not an image format the port reads (PNG, JPEG, TIFF, BMP, GIF)")
+    if kind == "webp":
+        raise NotImplementedError(f"{path}: WebP is not supported")
+    return kind, data
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) from the file's header."""
+    from nerfstudio_thermal_torch.data import image_formats
+
+    kind, data = _format(path)
+    if kind == "png":
+        return struct.unpack(">II", data[16:24])
+    if kind == "jpeg":
+        from nerfstudio_thermal_torch.data.jpeg import decode_jpeg_header
+
+        return decode_jpeg_header(data, path)
+    return getattr(image_formats, f"{kind}_size")(data, path)
+
+
+def read_image(path) -> Tuple[np.ndarray, str]:
+    """(the file as Pillow's `np.asarray(Image.open(path))` gives it, its
+    Pillow mode): [H, W] for one channel, [H, W, C] otherwise."""
+    from nerfstudio_thermal_torch.data import image_formats
+
+    kind, data = _format(path)
+    if kind == "png":
+        arr = decode_png(path)
+        return (arr[..., 0] if arr.shape[-1] == 1 else arr), _png_mode(path)
+    if kind == "jpeg":
+        from nerfstudio_thermal_torch.data.jpeg import decode_jpeg_bytes
+
+        arr = decode_jpeg_bytes(data, path)
+        return arr, "L" if arr.ndim == 2 else {3: "RGB", 4: "CMYK"}[arr.shape[-1]]
+    return getattr(image_formats, f"decode_{kind}")(data, path)
 
 
 def read_image_array(path) -> np.ndarray:
     """The file as Pillow's `np.asarray(Image.open(path))` gives it: [H, W]
     for one channel, [H, W, C] otherwise."""
-    if Path(path).suffix.lower() in _JPEG_SUFFIXES:
-        from nerfstudio_thermal_torch.data.jpeg import decode_jpeg
-
-        return decode_jpeg(path)
-    arr = decode_png(path)
-    return arr[..., 0] if arr.shape[-1] == 1 else arr
+    return read_image(path)[0]
 
 
 # ---- Pillow's Image.resize(size, BILINEAR), in numpy ----------------------
@@ -219,7 +262,14 @@ def _bilinear_coeffs(in_size: int, out_size: int):
 def _resample_axis(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     """One pass along `axis` (0: rows, vertical; 1: columns, horizontal):
     uint8 with 22-bit fixed-point weights, rounded and clipped as Pillow's
-    8bpc passes; uint16 with double weights rounded half up (16bpc)."""
+    8bpc passes; uint16 (either byte order) with double weights rounded
+    half up (16bpc); int32 with double weights rounded half away from zero
+    and float32 summed in doubles, each stored back at its type (32bpc)."""
+    with np.errstate(invalid="ignore", over="ignore"):  # float images may hold inf / nan, as Pillow's do
+        return _resample_pass(arr, out_size, axis)
+
+
+def _resample_pass(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     in_size = arr.shape[axis]
     bounds, kk = _bilinear_coeffs(in_size, out_size)
     src = np.moveaxis(arr, axis, 0)
@@ -234,12 +284,17 @@ def _resample_axis(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
         valid = x < bounds[:, 1]
         idx = np.where(valid, bounds[:, 0] + x, 0)
         w = weights[:, x] if eight_bit else kk[:, x]
-        w = np.where(valid, w, 0).reshape(-1, *([1] * (src.ndim - 1)))
-        acc = acc + src[idx].astype(acc.dtype) * w
+        w = w.reshape(-1, *([1] * (src.ndim - 1)))
+        valid = valid.reshape(w.shape)
+        acc = acc + np.where(valid, src[idx].astype(acc.dtype) * w, 0)
     if eight_bit:
         out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    elif arr.dtype.kind == "u":
+        out = np.clip(np.floor(acc + 0.5), 0, 65535).astype(arr.dtype)
+    elif arr.dtype.kind == "i":
+        out = (np.sign(acc) * np.floor(np.abs(acc) + 0.5)).astype(np.int32)
     else:
-        out = np.clip(np.floor(acc + 0.5), 0, 65535).astype(np.uint16)
+        out = acc.astype(np.float32)
     return np.moveaxis(out, 0, axis)
 
 
@@ -253,17 +308,27 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum(np.cumsum(steps).astype(np.int64), in_size - 1)
 
 
-def resize_like_pil(arr: np.ndarray, width: int, height: int) -> np.ndarray:
-    """`np.asarray(Image.fromarray(arr).resize((width, height),
+def resize_like_pil(arr: np.ndarray, width: int, height: int, mode: Optional[str] = None) -> np.ndarray:
+    """`np.asarray(Image.fromarray(arr, mode).resize((width, height),
     Image.BILINEAR))` for the arrays the decoders give: uint8 [H, W] (L),
-    [H, W, 2] (LA), [H, W, 3] (RGB) and [H, W, 4] (RGBA; LA and RGBA are
-    resampled with premultiplied alpha, as Pillow's La / RGBa), uint16
-    [H, W] (I;16), and `nearest` for palette indices and 1-bit grey,
-    which Pillow resizes with NEAREST whatever the filter asked."""
+    [H, W, 2] (LA), [H, W, 3] (RGB) and [H, W, 4] (RGBA, or CMYK when
+    `mode` says so; LA and RGBA are resampled with premultiplied alpha, as
+    Pillow's La / RGBa), uint16 [H, W] (I;16, and I;16B, whose bytes
+    Pillow resamples as little-endian), int32 (I) and float32 (F); palette
+    indices and 1-bit images (modes "P" and "1") with NEAREST, as Pillow
+    resizes them whatever the filter asked. Mode "L:P" raises, as Pillow
+    does."""
+    if mode in ("P", "1"):
+        return resize_nearest_like_pil(arr, width, height)
+    if mode == "L:P":
+        raise ValueError("image has wrong mode (Pillow's 'L' GIF over a palette image cannot be resized)")
+    if arr.dtype == np.dtype(">u2"):
+        # Pillow's 16-bit resampling reads and writes I;16B as little-endian
+        return resize_like_pil(arr.view("<u2"), width, height, "I;16").view(">u2")
     h, w = arr.shape[:2]
     if (w, h) == (width, height):
         return arr.copy()
-    alpha = arr.ndim == 3 and arr.shape[-1] in (2, 4)
+    alpha = arr.ndim == 3 and arr.shape[-1] in (2, 4) and mode != "CMYK"
     if alpha:
         a = arr[..., -1:].astype(np.int64)
         tmp = arr[..., :-1].astype(np.int64) * a + 128
@@ -289,25 +354,15 @@ def resize_nearest_like_pil(arr: np.ndarray, width: int, height: int) -> np.ndar
     return arr[ys][:, xs]
 
 
-def _is_palette_or_bilevel(path) -> bool:
-    if Path(path).suffix.lower() != ".png":
-        return False
-    with open(path, "rb") as f:
-        head = f.read(26)
-    return head[12:16] == b"IHDR" and (head[25] == 3 or (head[25] == 0 and head[24] == 1))
-
-
 def load_image(path, scale_factor: float = 1.0) -> np.ndarray:
     """An image as float32 [H, W, 3 or 4] in [0, 1]; resized by
-    `scale_factor` to (int(w * s), int(h * s)) as Pillow's BILINEAR."""
-    arr = read_image_array(path)
+    `scale_factor` to (int(w * s), int(h * s)) as Pillow's BILINEAR. As in
+    the JAX package only native-order uint16 is divided by 65535, every
+    other type by 255 (a float or big-endian 16-bit TIFF too)."""
+    arr, mode = read_image(path)
     if scale_factor != 1.0:
         h, w = arr.shape[:2]
-        size = (int(w * scale_factor), int(h * scale_factor))
-        if _is_palette_or_bilevel(path):
-            arr = resize_nearest_like_pil(arr, *size)
-        else:
-            arr = resize_like_pil(arr, *size)
+        arr = resize_like_pil(arr, int(w * scale_factor), int(h * scale_factor), mode)
     img = arr.astype(np.float32) / (65535.0 if arr.dtype == np.uint16 else 255.0)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
@@ -393,3 +448,12 @@ class InputDataset:
         if vals is None:
             return np.zeros((len(self),), np.float32)
         return np.asarray(vals, np.float32)
+
+    def preload(self):
+        """Load every image into the cache now."""
+        for i in range(len(self)):
+            self.get_image(i)
+
+
+# the reference's class name (thermal_dataset.py)
+ThermalDataset = InputDataset

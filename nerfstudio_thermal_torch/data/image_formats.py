@@ -1,0 +1,632 @@
+"""TIFF, BMP and GIF decoding as Pillow decodes them (Pillow is not on the
+card's machine): each decoder returns what `np.asarray(Image.open(path))`
+gives, with Pillow's mode, so that resizing can follow Pillow's rules.
+
+- TIFF, first page: II and MM byte order, strips and tiles, compression
+  none, PackBits, LZW and Deflate (8 and 32946) with predictor 2, and 3
+  for floats; planar configuration 1 and 2; WhiteIsZero, BlackIsZero, RGB
+  and palette; 1-, 2-, 4-, 8- and 16-bit samples, 32-bit int and float
+  samples, extra alpha samples. The mode comes from a copy of Pillow's
+  table of (byte order, photometric, sample format, fill order, bits,
+  extra samples). Pillow decodes uncompressed files itself and
+  compressed ones through libtiff, which hands over samples in the host's
+  byte order: a compressed big-endian file of 32-bit or signed 16-bit
+  samples is therefore read with its bytes swapped, and so it is here.
+- BMP: core, INFO, V2-V5 headers; 1, 4, 8, 16, 24 and 32 bits per pixel;
+  BI_RGB, RLE8, RLE4 and the BITFIELDS layouts Pillow accepts; bottom-up
+  and top-down rows; palettes that are a grey ramp give mode "L" (or
+  "1" for black and white), others "P".
+- GIF: the first frame (LZW, interlaced or not, global or local palette),
+  as indices (mode "P", or "L" where the palette is the identity ramp),
+  on a canvas grown to the frame's extent, filled with the transparent
+  index where the frame has one. An identity local palette under another
+  global one gives Pillow's mode "L" over a palette image, which Pillow
+  refuses to resize: its mode here is "L:P".
+
+The byte loops (LZW, PackBits, the BMP RLE decoder) are host C++
+(native/image_codecs.cpp), built with g++ like the JPEG decoder; when it
+cannot be built, decoding raises (there is no other decoder). A variant
+Pillow reads and these decoders do not raises NotImplementedError naming
+it; so does one Pillow refuses.
+"""
+
+import ctypes
+import struct
+import zlib
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from nerfstudio_thermal_torch.data.native_build import NATIVE_DIR, build_library
+
+SOURCE = NATIVE_DIR / "image_codecs.cpp"
+_lib = None
+
+
+def load_library():
+    """The codec library, built at first use; raises when it cannot be
+    built or loaded."""
+    global _lib
+    if _lib is None:
+        try:
+            lib = ctypes.CDLL(str(build_library(SOURCE, "libimage_codecs")))
+        except Exception as e:
+            raise RuntimeError(f"the image codecs ({SOURCE.name}) could not be built or loaded: {e}") from e
+        if lib.image_codecs_abi_version() != 1:
+            raise RuntimeError("the image codec library has an unexpected ABI version")
+        size_p = ctypes.POINTER(ctypes.c_size_t)
+        for name in ("tiff_lzw_decode", "packbits_decode"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t, size_p]
+        lib.bmp_rle_decode.restype = ctypes.c_int
+        lib.bmp_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t, size_p]
+        lib.gif_lzw_decode.restype = ctypes.c_int
+        lib.gif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, *([ctypes.c_int] * 7), ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+def _check(rc: int, what: str, path) -> None:
+    if rc == 1:
+        raise NotImplementedError(f"{path}: {what} is not supported")
+    if rc != 0:
+        raise ValueError(f"{path}: corrupt {what} data")
+
+
+def _bilevel(on: np.ndarray) -> np.ndarray:
+    """Pillow's array of a mode "1" image: bool, its true bytes 255 (the
+    mode stores 0 / 255 and NumPy reads them as bool)."""
+    return np.ascontiguousarray(on.astype(np.uint8) * np.uint8(255)).view(np.bool_)
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def _byte_codec(name: str, raw: bytes, size: int, path) -> np.ndarray:
+    out = np.zeros(size, np.uint8)
+    written = ctypes.c_size_t(0)
+    _check(getattr(load_library(), name)(raw, len(raw), _ptr(out), size, ctypes.byref(written)),
+           name.split("_decode")[0].replace("_", " "), path)
+    if written.value < size:
+        raise ValueError(f"{path}: {name.split('_')[0]} data ends {size - written.value} bytes short")
+    return out
+
+
+# ---- identification --------------------------------------------------------
+
+_TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
+
+
+def sniff(head: bytes) -> Optional[str]:
+    """The format Pillow would open a file as, from its first bytes:
+    "png", "jpeg", "tiff", "bmp", "gif", "webp", or None."""
+    if head[:8] == b"\x89PNG\r\n\x1a\n":
+        return "png"
+    if head[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if head[:4] in _TIFF_PREFIXES:
+        return "tiff"
+    if head[:2] == b"BM":
+        return "bmp"
+    if head[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "webp"
+    return None
+
+
+# ---- TIFF ------------------------------------------------------------------
+
+II, MM = b"II", b"MM"
+# Pillow's TiffImagePlugin.OPEN_INFO, the entries of the photometric
+# interpretations read here: (byte order, photometric, sample format, fill
+# order, bits per sample, extra samples) -> (mode, raw mode)
+_OPEN_INFO: Dict[tuple, Tuple[str, str]] = {}
+for _bo in (II, MM):
+    for _fill, _r in ((1, ""), (2, "R")):
+        _OPEN_INFO.update({
+            (_bo, 0, (1,), _fill, (1,), ()): ("1", "1;I" + _r),
+            (_bo, 1, (1,), _fill, (1,), ()): ("1", "1" + (";R" if _r else "")),
+            (_bo, 0, (1,), _fill, (2,), ()): ("L", "L;2I" + _r),
+            (_bo, 1, (1,), _fill, (2,), ()): ("L", "L;2" + _r),
+            (_bo, 0, (1,), _fill, (4,), ()): ("L", "L;4I" + _r),
+            (_bo, 1, (1,), _fill, (4,), ()): ("L", "L;4" + _r),
+            (_bo, 0, (1,), _fill, (8,), ()): ("L", "L;I" + _r),
+            (_bo, 1, (1,), _fill, (8,), ()): ("L", "L" + (";R" if _r else "")),
+            (_bo, 2, (1,), _fill, (8, 8, 8), ()): ("RGB", "RGB" + (";R" if _r else "")),
+            (_bo, 3, (1,), _fill, (1,), ()): ("P", "P;1" + _r),
+            (_bo, 3, (1,), _fill, (2,), ()): ("P", "P;2" + _r),
+            (_bo, 3, (1,), _fill, (4,), ()): ("P", "P;4" + _r),
+        })
+    _OPEN_INFO.update({
+        (_bo, 1, (2,), 1, (8,), ()): ("L", "L"),
+        (_bo, 1, (1,), 1, (8, 8), (2,)): ("LA", "LA"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8), ()): ("RGBA", "RGBA"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8), (0,)): ("RGB", "RGBX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8, 8), (0, 0)): ("RGB", "RGBXX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8, 8, 8), (0, 0, 0)): ("RGB", "RGBXXX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8, 8), (1, 0)): ("RGBA", "RGBaX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8, 8, 8), (1, 0, 0)): ("RGBA", "RGBaXX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8, 8), (2, 0)): ("RGBA", "RGBAX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8, 8, 8), (2, 0, 0)): ("RGBA", "RGBAXX"),
+        (_bo, 2, (1,), 1, (8, 8, 8, 8), (999,)): ("RGBA", "RGBA"),
+        (_bo, 3, (1,), 1, (8,), ()): ("P", "P"),
+        (_bo, 3, (1,), 2, (8,), ()): ("P", "P;R"),
+        (_bo, 3, (1,), 1, (8, 8), (0,)): ("P", "PX"),
+        (_bo, 3, (1,), 1, (8, 8), (2,)): ("PA", "PA"),
+    })
+    _e = "L" if _bo == II else "B"
+    _OPEN_INFO.update({
+        (_bo, 2, (1,), 1, (16, 16, 16), ()): ("RGB", f"RGB;16{_e}"),
+        (_bo, 2, (1,), 1, (16, 16, 16, 16), ()): ("RGBA", f"RGBA;16{_e}"),
+        (_bo, 2, (1,), 1, (16, 16, 16, 16), (0,)): ("RGB", f"RGBX;16{_e}"),
+        (_bo, 2, (1,), 1, (16, 16, 16, 16), (1,)): ("RGBA", f"RGBa;16{_e}"),
+        (_bo, 2, (1,), 1, (16, 16, 16, 16), (2,)): ("RGBA", f"RGBA;16{_e}"),
+        (_bo, 0, (3,), 1, (32,), ()): ("F", "F;32BF" if _bo == MM else "F;32F"),
+        (_bo, 1, (3,), 1, (32,), ()): ("F", "F;32BF" if _bo == MM else "F;32F"),
+        (_bo, 1, (2,), 1, (16,), ()): ("I", "I;16BS" if _bo == MM else "I;16S"),
+        (_bo, 1, (2,), 1, (32,), ()): ("I", "I;32BS" if _bo == MM else "I;32S"),
+    })
+_OPEN_INFO.update({
+    (II, 1, (1,), 1, (12,), ()): ("I;16", "I;12"),
+    (II, 0, (1,), 1, (16,), ()): ("I;16", "I;16"),
+    (II, 1, (1,), 1, (16,), ()): ("I;16", "I;16"),
+    (MM, 1, (1,), 1, (16,), ()): ("I;16B", "I;16B"),
+    (II, 1, (1,), 2, (16,), ()): ("I;16", "I;16R"),
+    (II, 1, (1,), 1, (32,), ()): ("I", "I;32N"),
+})
+# what Pillow also opens (CMYK, YCbCr, LAB): not read here
+_OTHER_PHOTOMETRICS = {5: "CMYK", 6: "YCbCr", 8: "CIELAB"}
+_UNREAD_RAW = ("I;12", "PA", "RGBa;16L", "RGBa;16B")
+_PLANAR_RAW = ("1", "L", "P", "LA", "RGB", "RGBA", "RGBX", "RGBXX", "RGBXXX", "RGBAX", "RGBAXX")
+_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+_COMPRESSION_NAMES = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG", 7: "JPEG",
+                      34712: "JPEG 2000", 34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
+_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
+          13: "I", 16: "Q", 17: "q", 18: "Q"}
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _tiff_tags(data: bytes, path) -> Tuple[bytes, Dict[int, tuple]]:
+    order = data[:2]
+    if data[2:4] in (b"\x00\x2b", b"\x2b\x00"):
+        raise NotImplementedError(f"{path}: BigTIFF is not supported")
+    e = "<" if order == II else ">"
+    if struct.unpack(e + "H", data[2:4])[0] != 42:
+        raise NotImplementedError(f"{path}: a TIFF header with a wrong magic number is not supported")
+    off = struct.unpack(e + "I", data[4:8])[0]
+    if off + 2 > len(data):
+        raise ValueError(f"{path}: TIFF IFD offset out of the file")
+    (count,) = struct.unpack(e + "H", data[off:off + 2])
+    tags = {}
+    for i in range(count):
+        p = off + 2 + 12 * i
+        tag, typ, n = struct.unpack(e + "HHI", data[p:p + 8])
+        fmt = _TYPES.get(typ)
+        if fmt is None:
+            continue
+        size = struct.calcsize(e + fmt) * n
+        if size <= 4:
+            raw = data[p + 8:p + 8 + size]
+        else:
+            (voff,) = struct.unpack(e + "I", data[p + 8:p + 12])
+            raw = data[voff:voff + size]
+        if len(raw) < size:
+            raise ValueError(f"{path}: TIFF tag {tag} out of the file")
+        tags[tag] = struct.unpack(e + fmt * n, raw)
+    return order, tags
+
+
+def _first(tags, tag, default):
+    return tags[tag][0] if tag in tags else default
+
+
+def _tiff_layout(data: bytes, path) -> dict:
+    """The first IFD, resolved as Pillow resolves it: size, mode, raw mode
+    and how the samples are stored."""
+    order, tags = _tiff_tags(data, path)
+    if 256 not in tags or 257 not in tags:
+        raise ValueError(f"{path}: TIFF without its dimensions")
+    width, height = _first(tags, 256, 0), _first(tags, 257, 0)
+    compression = _first(tags, 259, 1)
+    photo = _first(tags, 262, 0)
+    fill = _first(tags, 266, 1)
+    planar = _first(tags, 284, 1)
+    sample_format = tags.get(339, (1,))
+    if len(sample_format) > 1 and max(sample_format) == min(sample_format) == 1:
+        sample_format = (1,)
+    bps = tags.get(258, (1,))
+    extra = tags.get(338, ())
+    spp = _first(tags, 277, 1)
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise ValueError(f"{path}: TIFF samples and bits per sample disagree")
+    if _first(tags, 274, 1) in (5, 6, 7, 8):
+        raise NotImplementedError(f"{path}: a transposing TIFF orientation is not supported")
+    if photo in _OTHER_PHOTOMETRICS or compression in (6, 7):
+        raise NotImplementedError(f"{path}: {_OTHER_PHOTOMETRICS.get(photo, 'JPEG-compressed')} TIFF is not supported")
+    key = (order, photo, tuple(sample_format), fill, tuple(bps), tuple(extra))
+    if key not in _OPEN_INFO:
+        raise NotImplementedError(f"{path}: TIFF of {key[1:]} (photometric, sample format, fill order, bits, "
+                                  "extra samples) is not a mode Pillow reads")
+    mode, rawmode = _OPEN_INFO[key]
+    if fill == 2:  # libtiff and Pillow's ";R" raw modes both reverse the stored bits
+        rawmode = _OPEN_INFO[key[:3] + (1,) + key[4:]][1]
+    if rawmode in _UNREAD_RAW:
+        raise NotImplementedError(f"{path}: TIFF raw mode {rawmode} is not supported")
+    if compression not in _COMPRESSIONS:
+        name = _COMPRESSION_NAMES.get(compression, f"compression {compression}")
+        raise NotImplementedError(f"{path}: {name} TIFF is not supported")
+    if len(set(bps)) != 1:
+        raise NotImplementedError(f"{path}: TIFF samples of different widths are not supported")
+    if planar == 2 and compression == 1 and rawmode not in _PLANAR_RAW:
+        # Pillow reads each plane with one letter of the raw mode
+        raise NotImplementedError(f"{path}: an uncompressed planar TIFF of raw mode {rawmode} is not supported")
+    if 273 in tags:
+        offsets, counts = tags[273], tags.get(279)
+        cw, ch = width, _first(tags, 278, height)
+    elif 324 in tags:
+        offsets, counts = tags[324], tags.get(325)
+        cw, ch = _first(tags, 322, 0), _first(tags, 323, 0)
+    else:
+        raise ValueError(f"{path}: TIFF without strips or tiles")
+    if cw <= 0 or ch <= 0:
+        raise ValueError(f"{path}: bad TIFF strip or tile size")
+    return {"order": order, "width": width, "height": height, "mode": mode, "rawmode": rawmode,
+            "compression": compression, "predictor": _first(tags, 317, 1), "planar": planar, "spp": spp,
+            "bits": bps[0], "float": sample_format == (3,), "signed": sample_format == (2,), "fill": fill,
+            "tiled": 324 in tags and 273 not in tags, "offsets": offsets, "counts": counts, "cw": cw, "ch": ch,
+            "colormap": tags.get(320)}
+
+
+def tiff_size(data: bytes, path) -> Tuple[int, int]:
+    layout = _tiff_layout(data, path)
+    return layout["width"], layout["height"]
+
+
+def _dtype(bits: int, is_float: bool, order: bytes) -> np.dtype:
+    e = "<" if order == II else ">"
+    return np.dtype(f"{e}f4") if is_float else np.dtype({8: "u1", 16: f"{e}u2", 32: f"{e}u4"}[bits])
+
+
+def _tiff_chunk(layout: dict, raw: bytes, rows: int, samples: int, path) -> np.ndarray:
+    """One strip or tile: [rows, cw * samples] sample values (uint8 for 1-8
+    bits, unpacked, unscaled; uint16 / uint32 / float32 otherwise), from
+    its stored bytes."""
+    bits, cw = layout["bits"], layout["cw"]
+    row_bytes = (cw * samples * bits + 7) // 8
+    size = row_bytes * rows
+    compression = layout["compression"]
+    if layout["fill"] == 2:  # libtiff reverses the stored bytes; Pillow's raw modes ";R" the same
+        raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+    if compression == 1:
+        if len(raw) < size:
+            raise ValueError(f"{path}: TIFF strip or tile is truncated")
+        buf = np.frombuffer(raw, np.uint8, size)
+    elif compression == 5:
+        buf = _byte_codec("tiff_lzw_decode", raw, size, path)
+    elif compression == 32773:
+        buf = _byte_codec("packbits_decode", raw, size, path)
+    else:
+        try:
+            buf = np.frombuffer(zlib.decompressobj().decompress(raw, size), np.uint8)
+        except zlib.error as e:
+            raise ValueError(f"{path}: corrupt Deflate data: {e}") from e
+        if len(buf) < size:
+            raise ValueError(f"{path}: Deflate data ends {size - len(buf)} bytes short")
+    rows_u8 = buf.reshape(rows, row_bytes)
+    # libtiff runs a predictor with LZW and Deflate only (PackBits ignores it), and Pillow reads an
+    # uncompressed file itself, without one
+    predictor = layout["predictor"] if compression in (5, 8, 32946) else 1
+    if predictor == 3:
+        if not layout["float"] or bits != 32:
+            raise NotImplementedError(f"{path}: TIFF predictor 3 on {bits}-bit non-float samples is not supported")
+        acc = rows_u8.reshape(rows, -1, samples).cumsum(1, dtype=np.uint8).reshape(rows, row_bytes)
+        planes = acc.reshape(rows, 4, cw * samples)  # most significant byte plane first
+        return planes.transpose(0, 2, 1).copy().view(">f4").reshape(rows, cw * samples).astype(np.float32)
+    if bits < 8:
+        if predictor != 1:
+            raise NotImplementedError(f"{path}: TIFF predictor {predictor} on {bits}-bit samples is not supported")
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        vals = (rows_u8[..., None] >> shifts) & ((1 << bits) - 1)
+        return vals.reshape(rows, -1)[:, :cw * samples].astype(np.uint8)
+    vals = rows_u8.view(_dtype(bits, layout["float"], layout["order"])).reshape(rows, cw * samples)
+    vals = vals.astype(vals.dtype.newbyteorder("="))
+    if predictor == 2:
+        if layout["float"]:
+            raise NotImplementedError(f"{path}: TIFF predictor 2 on float samples is not supported")
+        vals = vals.reshape(rows, cw, samples).cumsum(1, dtype=vals.dtype).reshape(rows, cw * samples)
+    elif predictor != 1:
+        raise NotImplementedError(f"{path}: TIFF predictor {predictor} is not supported")
+    return vals
+
+
+def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """Pillow's unpackRGBa: colour * 255 / alpha (truncated, clipped), all
+    zero where alpha is 0."""
+    a = rgba[..., 3:].astype(np.int64)
+    color = rgba[..., :3].astype(np.int64)
+    color = np.where(a == 255, color, np.clip(color * 255 // np.maximum(a, 1), 0, 255))
+    out = np.concatenate([color, a], -1)
+    return np.where(a == 0, 0, out).astype(np.uint8)
+
+
+def decode_tiff(data: bytes, path) -> Tuple[np.ndarray, str]:
+    layout = _tiff_layout(data, path)
+    width, height, spp = layout["width"], layout["height"], layout["spp"]
+    planes = spp if layout["planar"] == 2 and spp > 1 else 1
+    samples = spp // planes
+    cw, ch = layout["cw"], layout["ch"]
+    across, down = (-(-width // cw), -(-height // ch)) if layout["tiled"] else (1, -(-height // ch))
+    offsets, counts = layout["offsets"], layout["counts"]
+    if len(offsets) < across * down * planes:
+        raise ValueError(f"{path}: TIFF has {len(offsets)} strips or tiles, {across * down * planes} expected")
+    if counts is None:
+        if layout["compression"] != 1:
+            raise NotImplementedError(f"{path}: compressed TIFF without byte counts is not supported")
+        counts = [len(data)] * len(offsets)
+    image = None
+    for i in range(across * down * planes):
+        plane, rest = divmod(i, across * down)
+        ty, tx = divmod(rest, across)
+        y0, x0 = ty * ch, tx * cw
+        rows = ch if layout["tiled"] else min(ch, height - y0)
+        chunk = _tiff_chunk(layout, data[offsets[i]:offsets[i] + counts[i]], rows, samples, path)
+        if image is None:
+            image = np.zeros((height, width, spp), chunk.dtype)
+        chunk = chunk.reshape(rows, cw, samples)
+        h, w = min(rows, height - y0), min(cw, width - x0)
+        image[y0:y0 + h, x0:x0 + w, plane * samples:(plane + 1) * samples] = chunk[:h, :w]
+    return _tiff_mode(image, layout), layout["mode"]
+
+
+def _tiff_mode(v: np.ndarray, layout: dict) -> np.ndarray:
+    """Sample values [H, W, spp] -> Pillow's array of the file's mode."""
+    raw, mode = layout["rawmode"], layout["mode"]
+    base = raw.split(";")[0]
+    if mode == "1":
+        return _bilevel(v[..., 0] == 0 if raw.startswith("1;I") else v[..., 0] != 0)
+    if mode == "L":
+        scale = {1: 1, 2: 0x55, 4: 0x11, 8: 1}[layout["bits"]]
+        top = (1 << layout["bits"]) - 1
+        vals = top - v[..., 0] if raw.endswith("I") else v[..., 0]
+        return (vals.astype(np.int32) * scale).astype(np.uint8)
+    if mode in ("I;16", "I;16B"):
+        return v[..., 0].astype("<u2" if mode == "I;16" else ">u2")
+    if mode == "P":
+        return v[..., 0].astype(np.uint8)
+    if mode in ("I", "F"):
+        x = v[..., 0]
+        if layout["compression"] != 1 and raw in ("F;32BF", "I;32BS", "I;16BS"):
+            # libtiff gives the samples in the host's order; Pillow reads them as big-endian
+            x = x.byteswap()
+        if raw.startswith("I;16"):
+            return x.astype(np.int16).astype(np.int32)
+        return x.view(np.int32) if mode == "I" else x.astype(np.float32)
+    if ";16" in raw:
+        v = (v >> 8).astype(np.uint8)  # Pillow keeps the high byte of 16-bit colour
+    if mode == "LA":
+        return v[..., :2]
+    if mode == "RGB":
+        return v[..., :3].astype(np.uint8)
+    rgba = v[..., :4].astype(np.uint8)
+    return _unpremultiply(rgba) if base in ("RGBa", "RGBaX", "RGBaXX") else rgba
+
+
+# ---- BMP -------------------------------------------------------------------
+
+_BMP_BIT2MODE = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"), 16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"),
+                 32: ("RGB", "BGRX")}
+_BMP_MASK_MODES = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): "BGXR",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA",
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR",
+    (32, (0x0, 0x0, 0x0, 0x0)): "BGRA",
+    (24, (0xFF0000, 0xFF00, 0xFF)): "BGR",
+    (16, (0xF800, 0x7E0, 0x1F)): "BGR;16",
+    (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
+}
+
+
+def _bmp_layout(data: bytes, path) -> dict:
+    """Pillow's BmpImageFile._bitmap: size, mode, raw mode, where the pixels
+    start and how they are stored."""
+    u32 = lambda p: struct.unpack("<I", data[p:p + 4])[0]  # noqa: E731
+    u16 = lambda p: struct.unpack("<H", data[p:p + 2])[0]  # noqa: E731
+    if len(data) < 18:
+        raise ValueError(f"{path}: truncated BMP header")
+    offset, header_size = u32(10), u32(14)
+    if len(data) < 14 + header_size:
+        raise ValueError(f"{path}: truncated BMP header")
+    pos = 14 + header_size  # the file position after the header
+    direction = -1
+    masks = None
+    if header_size == 12:
+        width, height, bits, compression, padding, colors = u16(18), u16(20), u16(24), 0, 3, 0
+    elif header_size in (40, 52, 56, 64, 108, 124):
+        y_flip = data[25] == 0xFF
+        direction = 1 if y_flip else -1
+        width = u32(18)
+        height = 2**32 - u32(22) if y_flip else u32(22)
+        bits, compression, colors, padding = u16(28), u32(30), u32(46), 4
+        if compression == 3:
+            if header_size >= 52:
+                masks = [u32(54 + 4 * k) for k in range(3)] + [u32(66) if header_size >= 56 else 0]
+            else:
+                masks = [u32(pos + 4 * k) for k in range(3)] + [0]
+                pos += 12
+    else:
+        raise NotImplementedError(f"{path}: BMP header of {header_size} bytes (Pillow refuses it too)")
+    colors = colors or (1 << bits)
+    if offset == 14 + header_size and bits <= 8:
+        offset += 4 * colors
+    if bits not in _BMP_BIT2MODE:
+        raise NotImplementedError(f"{path}: {bits}-bit BMP (Pillow refuses it too)")
+    mode, rawmode = _BMP_BIT2MODE[bits]
+    rle = False
+    if compression == 3:
+        key = (bits, tuple(masks) if bits == 32 else tuple(masks[:3]))
+        if key not in _BMP_MASK_MODES:
+            raise NotImplementedError(f"{path}: BMP bitfields layout {key} (Pillow refuses it too)")
+        rawmode = _BMP_MASK_MODES[key]
+        if bits == 32 and "A" in rawmode:
+            mode = "RGBA"
+    elif compression in (1, 2):
+        rle = True
+    elif compression != 0:
+        raise NotImplementedError(f"{path}: BMP compression {compression} (Pillow refuses it too)")
+    palette = None
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise NotImplementedError(f"{path}: BMP palette of {colors} colours (Pillow refuses it too)")
+        palette = data[pos:pos + padding * colors]
+        ramp = (0, 255) if colors == 2 else range(colors)
+        grey = all(palette[i * padding:i * padding + 3] == bytes([v % 256]) * 3 for i, v in enumerate(ramp))
+        if grey:
+            mode = rawmode = "1" if colors == 2 else "L"
+    if rle and mode == "1":
+        raise NotImplementedError(f"{path}: a black-and-white RLE BMP (Pillow cannot unpack it)")
+    if not rle and rawmode == "L" and bits != 8:
+        raise NotImplementedError(f"{path}: a {bits}-bit BMP with a grey-ramp palette is not supported")
+    return {"width": width, "height": height, "bits": bits, "mode": mode, "rawmode": rawmode, "offset": offset,
+            "direction": direction, "rle4": compression == 2 if rle else None}
+
+
+def bmp_size(data: bytes, path) -> Tuple[int, int]:
+    layout = _bmp_layout(data, path)
+    return layout["width"], layout["height"]
+
+
+def _bmp_pixels(rows: np.ndarray, rawmode: str, width: int) -> np.ndarray:
+    """Raw rows [H, stride] -> Pillow's pixels for the raw mode."""
+    if rawmode in ("P;1", "1"):
+        out = np.unpackbits(rows, axis=1)[:, :width]
+        return _bilevel(out) if rawmode == "1" else out
+    if rawmode == "P;4":
+        return np.stack([rows >> 4, rows & 15], -1).reshape(rows.shape[0], -1)[:, :width]
+    if rawmode in ("P", "L"):
+        return rows[:, :width]
+    if rawmode.startswith("BGR;1"):
+        p = rows[:, :2 * width].astype(np.int32)
+        p = (p[:, 0::2] | (p[:, 1::2] << 8))
+        if rawmode == "BGR;15":
+            r, g, b = ((p >> 10) & 31) * 255 // 31, ((p >> 5) & 31) * 255 // 31, (p & 31) * 255 // 31
+        else:
+            r, g, b = ((p >> 11) & 31) * 255 // 31, ((p >> 5) & 63) * 255 // 63, (p & 31) * 255 // 31
+        return np.stack([r, g, b], -1).astype(np.uint8)
+    n = len(rawmode)
+    px = rows[:, :n * width].reshape(rows.shape[0], width, n)
+    order = [rawmode.index(c) for c in ("RGBA" if "A" in rawmode else "RGB")]
+    return px[..., order]
+
+
+def decode_bmp(data: bytes, path) -> Tuple[np.ndarray, str]:
+    layout = _bmp_layout(data, path)
+    w, h, off = layout["width"], layout["height"], layout["offset"]
+    if layout["rle4"] is not None:
+        cap = w * h
+        out = np.zeros(cap, np.uint8)
+        length = ctypes.c_size_t(0)
+        rc = load_library().bmp_rle_decode(data[off:], len(data) - off, off, w, h, int(layout["rle4"]), _ptr(out),
+                                           cap, ctypes.byref(length))
+        _check(rc, "BMP RLE", path)
+        if length.value < cap:
+            raise ValueError(f"{path}: not enough image data in the RLE BMP")
+        pix = out.reshape(h, w)
+    else:
+        stride = ((w * layout["bits"] + 31) >> 3) & ~3
+        if off + stride * h > len(data):
+            raise ValueError(f"{path}: truncated BMP pixel data")
+        pix = _bmp_pixels(np.frombuffer(data, np.uint8, stride * h, off).reshape(h, stride), layout["rawmode"], w)
+    if layout["direction"] == -1:
+        pix = pix[::-1]
+    return np.ascontiguousarray(pix), layout["mode"]
+
+
+# ---- GIF -------------------------------------------------------------------
+
+
+def _identity_palette(p: bytes) -> bool:
+    """GifImageFile._is_palette_needed, negated."""
+    return all(i // 3 == p[i] == p[i + 1] == p[i + 2] for i in range(0, len(p) - 2, 3)) and len(p) % 3 == 0
+
+
+def _gif_frame(data: bytes, path) -> dict:
+    """The first frame's descriptor, as GifImageFile._open and _seek(0)."""
+    if len(data) < 13:
+        raise ValueError(f"{path}: truncated GIF header")
+    size = list(struct.unpack("<HH", data[6:10]))
+    flags = data[10]
+    pos = 13
+    global_palette = False
+    if flags & 128:
+        n = 3 << ((flags & 7) + 1)
+        global_palette = not _identity_palette(data[pos:pos + n])
+        pos += n
+
+    def blocks(p):  # skip data sub-blocks; returns the position after the terminator
+        while p < len(data) and data[p]:
+            p += 1 + data[p]
+        return p + 1
+
+    transparency = None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise NotImplementedError(f"{path}: a GIF with no image (Pillow refuses it too)")
+        s = data[pos]
+        pos += 1
+        if s == 0x21:  # extension
+            label = data[pos] if pos < len(data) else 0
+            pos += 1
+            if label == 249 and pos < len(data) and data[pos] >= 4:
+                block = data[pos + 1:pos + 1 + data[pos]]
+                if block[0] & 1:
+                    transparency = block[3]
+            pos = blocks(pos)
+        elif s == 0x2C:  # image descriptor
+            x0, y0, w, h = struct.unpack("<HHHH", data[pos:pos + 8])
+            fflags = data[pos + 8]
+            pos += 9
+            size = [max(x0 + w, size[0]), max(y0 + h, size[1])]
+            palette = None
+            if fflags & 128:
+                n = 3 << ((fflags & 7) + 1)
+                palette = not _identity_palette(data[pos:pos + n])
+                pos += n
+            bits = data[pos]
+            frame_palette = palette if palette is not None else global_palette
+            mode = "P" if frame_palette else "L"
+            if palette is False and global_palette:
+                mode = "L:P"  # Pillow's mode "L" over a palette image, which it cannot resize
+            return {"size": tuple(size), "extent": (x0, y0, w, h), "interlace": bool(fflags & 64), "bits": bits,
+                    "offset": pos + 1, "mode": mode, "transparency": transparency}
+
+
+def gif_size(data: bytes, path) -> Tuple[int, int]:
+    return _gif_frame(data, path)["size"]
+
+
+def decode_gif(data: bytes, path) -> Tuple[np.ndarray, str]:
+    frame = _gif_frame(data, path)
+    width, height = frame["size"]
+    fill = frame["transparency"] if frame["transparency"] is not None else 0
+    canvas = np.full((height, width), fill, np.uint8)
+    x0, y0, w, h = frame["extent"]
+    off = frame["offset"]
+    rc = load_library().gif_lzw_decode(data[off:], len(data) - off, frame["bits"], int(frame["interlace"]), x0, y0,
+                                       w, h, width, _ptr(canvas))
+    _check(rc, "GIF LZW", path)
+    return canvas, frame["mode"]

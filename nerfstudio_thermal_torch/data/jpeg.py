@@ -1,15 +1,19 @@
-"""JPEG decoding and encoding through the port's own decoder (baseline and
-progressive) and baseline encoder
-(nerfstudio_thermal_torch/native/jpeg_{decoder,encoder}.cpp).
+"""JPEG decoding and encoding through the port's own decoder and baseline
+encoder (nerfstudio_thermal_torch/native/jpeg_{decoder,encoder}.cpp).
 
 Each source is compiled with g++ into build/native/ at first use and loaded
-with ctypes. It computes what Pillow's `np.asarray(Image.open(path))`
-gives with libjpeg-turbo's default settings: [H, W] uint8 for a greyscale
-file, [H, W, 3] RGB otherwise, with no EXIF rotation. There is no
-fallback: when the library cannot be built or loaded, decoding raises. A
-feature outside the decoder's scope (lossless, hierarchical or arithmetic
-coding, 12-bit samples, CMYK, a progressive file that libjpeg would
-block-smooth) raises NotImplementedError naming it.
+with ctypes. The decoder computes what Pillow's `np.asarray(Image.open(path))`
+gives with libjpeg-turbo's default settings, for baseline, progressive
+(block-smoothed where its scans stop short, as libjpeg-turbo smooths),
+arithmetic-coded (sequential and progressive) and lossless files: [H, W]
+uint8 for a greyscale file, [H, W, 3] RGB for three components, [H, W, 4]
+for CMYK / YCCK (inverted, as Pillow's "CMYK;I" raw mode gives them), with
+no EXIF rotation. There is no fallback: when the library cannot be built
+or loaded, decoding raises. A feature outside the decoder's scope
+(hierarchical frames, arithmetic-coded lossless frames, 12-bit samples,
+subsampled lossless frames, a lossless frame that needs a colour
+conversion) raises NotImplementedError naming it; Pillow here refuses
+all but the first two as well.
 
 `encode_jpeg` writes what Pillow's `Image.save(format="JPEG", quality=q)`
 writes for an RGB image with libjpeg-turbo's defaults (4:2:0, the ISLOW
@@ -64,7 +68,7 @@ def _call(data: bytes, out, out_size: int, path) -> Tuple[int, int, int]:
 
 
 def decode_jpeg(path) -> np.ndarray:
-    """A JPEG as uint8 [H, W] (greyscale) or [H, W, 3] (RGB)."""
+    """A JPEG as uint8 [H, W] (greyscale), [H, W, 3] (RGB) or [H, W, 4] (CMYK)."""
     return decode_jpeg_bytes(Path(path).read_bytes(), path)
 
 
@@ -127,5 +131,10 @@ def encode_jpeg(image: np.ndarray, quality: int = 85) -> bytes:
 
 def jpeg_size(path) -> Tuple[int, int]:
     """(width, height) from the frame header."""
-    h, w, _ = _call(Path(path).read_bytes(), None, 0, path)
+    return decode_jpeg_header(Path(path).read_bytes(), path)
+
+
+def decode_jpeg_header(data: bytes, name="<bytes>") -> Tuple[int, int]:
+    """(width, height) from the frame header of a file's bytes."""
+    h, w, _ = _call(data, None, 0, name)
     return w, h

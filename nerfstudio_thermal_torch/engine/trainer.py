@@ -680,4 +680,7 @@ class Trainer:
             restored = {k: v.to(self.device) if isinstance(v, torch.Tensor) else v for k, v in ckpt["extra"].items()}
             self.state.extra = dataclasses.replace(self.state.extra, **restored)
         self._start_step = self.state.step
+        set_start = getattr(self.datamanager, "set_start_step", None)
+        if set_start is not None:
+            set_start(self._start_step)
         print(f"Loaded checkpoint {path} at step {self._start_step}")

@@ -11,8 +11,14 @@
 //     restart intervals. The coefficients are kept for the whole image
 //     and go through the same IDCT, upsampling and colour conversion once
 //     the last scan is read. A progression that leaves one of the first
-//     nine AC coefficients short of full precision, where libjpeg would
-//     smooth the blocks (jdcoefct.c, block smoothing), returns 1;
+//     nine AC coefficients short of full precision is block-smoothed as
+//     libjpeg-turbo's decompress_smooth_data does (jdcoefct.c: the missing
+//     low AC coefficients estimated from the DC values of the 5 x 5 blocks
+//     around, and the DC too where no AC coefficient arrived);
+//   - 4 components: CMYK, or YCCK (an Adobe marker with transform 2, or
+//     any transform but 0) converted to CMYK (jdcolor.c,
+//     ycck_cmyk_convert), each sample then inverted as Pillow's "CMYK;I"
+//     raw mode does;
 //   - each component's quantization table latched at its first scan
 //     (jdinput.c, latch_quant_tables);
 //   - the accurate integer IDCT (jidctint.c, jpeg_idct_islow);
@@ -21,15 +27,20 @@
 //     h1v2;
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c, and libjpeg's
 //     choice of colour space (JFIF / Adobe markers, component ids).
-// Lossless, hierarchical and arithmetic-coded frames, 12-bit samples and
-// 4-component (CMYK / YCCK) images return 1 with the marker named in the
-// message.
+//   - SOF9 / SOF10 (arithmetic coding, sequential and progressive;
+//     jdarith.c): the QM decoder with ITU T.81's state table, DAC
+//     conditioning, restart intervals;
+//   - SOF3 (lossless, Huffman-coded; jdlhuff.c, jdlossls.c): predictors 1-7,
+//     a point transform, restart intervals of whole rows, no subsampling;
+//     the samples then take the same colour conversion.
+// Hierarchical frames, arithmetic-coded lossless ones, 12-bit samples and
+// subsampled lossless frames return 1 with the marker named in the message.
 //
 // C interface (loaded with ctypes by data/jpeg.py):
 //   int jpeg_decoder_abi_version();
 //   int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out,
 //                   size_t out_size, int* dims, char* err, int err_size);
-// dims receives {height, width, channels}. With out == nullptr only the
+// dims receives {height, width, channels} (channels 1, 3 or 4). With out == nullptr only the
 // header is read and dims filled. Returns 0 on success, 1 for an
 // unsupported feature, 2 for a malformed stream or a too-small buffer.
 
@@ -72,13 +83,23 @@ struct Component {
   int blocks_w = 0, blocks_h = 0;  // allocated coefficient blocks
   int width = 0, height = 0;  // downsampled size in samples
   std::vector<int16_t> coefs;
+  // lossless (SOF3): the reconstructed samples, before the point transform's shift
+  std::vector<uint16_t> samples;
+  int point_transform = 0;
   int dc_pred = 0;
+  int dc_context = 0;  // arithmetic coding: the DC statistics' conditioning (F.1.4.4.1.2)
   uint16_t q[64];  // the quantization table, latched at the first scan
   bool q_latched = false;
   // per spectral position: the Al of the last scan that carried it, -1
   // before any did (jdphuff.c's coef_bits)
   int coef_bits[64];
-  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
+  // coef_bits of positions 0-9 before the last scan that touched them
+  // (jdphuff.c's second half of cinfo->coef_bits)
+  int prev_coef_bits[10];
+  Component() {
+    std::fill(coef_bits, coef_bits + 64, -1);
+    std::fill(prev_coef_bits, prev_coef_bits + 10, -1);
+  }
 };
 
 class Decoder {
@@ -90,17 +111,29 @@ class Decoder {
 
   int width() const { return width_; }
   int height() const { return height_; }
-  int channels() const { return static_cast<int>(comps_.size()) == 1 ? 1 : 3; }
+  int channels() const { return static_cast<int>(comps_.size()); }
   void write(uint8_t* out) const;
+  bool converts() const;
 
  private:
   const uint8_t* p_;
   const uint8_t* end_;
   int width_ = 0, height_ = 0;
   int hmax_ = 1, vmax_ = 1, mcus_x_ = 0, mcus_y_ = 0;
-  bool frame_seen_ = false, jfif_ = false, adobe_ = false, progressive_ = false;
+  bool frame_seen_ = false, jfif_ = false, adobe_ = false, progressive_ = false, lossless_ = false;
+  bool arith_ = false;  // SOF9 / SOF10: arithmetic coding (jdarith.c)
+  // the arithmetic decoder: conditioning (DAC; defaults L 0, U 1, K 5),
+  // statistics bins, the C / A registers and bit counter, the fixed bin
+  uint8_t dc_l_[4] = {0, 0, 0, 0}, dc_u_[4] = {1, 1, 1, 1}, ac_k_[4] = {5, 5, 5, 5};
+  uint8_t dc_stats_[4][64], ac_stats_[4][256], fixed_bin_ = 113;
+  int64_t ac_c_ = 0, ac_a_ = 0;
+  int ac_ct_ = -16;
+  bool ac_marker_ = false;
+  std::vector<Component*> scan_;
+  int scan_ss_ = 0, scan_ah_ = 0;
   int adobe_transform_ = -1;
   int restart_interval_ = 0;
+  int scans_ = 0;  // scans read so far (libjpeg's input_scan_number)
   int eobrun_ = 0;  // progressive AC scans: blocks left in the current EOB run
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
@@ -129,6 +162,15 @@ class Decoder {
   void read_dqt(int length);
   void read_sos(bool decode_scans);
   void read_app(int marker, int length);
+  void read_dac(int length);
+  void arith_reset();
+  int arith_decode(uint8_t* st);
+  int arith_dc_diff(Component& c);
+  void arith_block(Component& c, int16_t* block);
+  void arith_dc_first(Component& c, int16_t* block, int al);
+  void arith_dc_refine(int16_t* block, int al);
+  void arith_ac_first(const Component& c, int16_t* block, int ss, int se, int al);
+  void arith_ac_refine(const Component& c, int16_t* block, int ss, int se, int al);
 
   void fill_bits();
   int get_bits(int n);
@@ -144,9 +186,11 @@ class Decoder {
   void decode_ac_first(const Component& c, int16_t* block, int ss, int se, int al);
   void decode_ac_refine(const Component& c, int16_t* block, int ss, int se, int al);
   bool process_restart();
-  void check_no_smoothing() const;
+  bool smoothing_ok() const;
+  void decode_lossless_scan(const std::vector<Component*>& scan, int psv, int pt);
 
-  void idct_component(const Component& c, std::vector<uint8_t>& plane, int& stride) const;
+  void idct_component(const Component& c, bool smooth, std::vector<uint8_t>& plane, int& stride) const;
+  void idct_smoothed(const Component& c, std::vector<uint8_t>& plane, int stride) const;
   void upsample(const Component& c, const std::vector<uint8_t>& plane, int stride, std::vector<uint8_t>& full) const;
 };
 
@@ -212,7 +256,10 @@ void Decoder::parse(bool decode_scans) {
         if (!decode_scans) return;
         break;
       case 0xC3:
-        fail(1, "lossless JPEG (SOF3) is not supported");
+        lossless_ = true;
+        read_sof(marker);
+        if (!decode_scans) return;
+        break;
       case 0xC5:
       case 0xC6:
       case 0xC7: {
@@ -222,7 +269,13 @@ void Decoder::parse(bool decode_scans) {
       }
       case 0xC9:
       case 0xCA:
+        arith_ = true;
+        progressive_ = marker == 0xCA;
+        read_sof(marker);
+        if (!decode_scans) return;
+        break;
       case 0xCB:
+        fail(1, "arithmetic-coded lossless JPEG (SOF11) is not supported");
       case 0xCD:
       case 0xCE:
       case 0xCF: {
@@ -231,7 +284,8 @@ void Decoder::parse(bool decode_scans) {
         fail(1, buf);
       }
       case 0xCC:
-        fail(1, "arithmetic-coded JPEG (DAC) is not supported");
+        read_dac(length - 2);
+        break;
       case 0xC4:
         read_dht(length - 2);
         break;
@@ -257,27 +311,24 @@ void Decoder::parse(bool decode_scans) {
     p_ = next;
   }
   if (!frame_seen_) fail(2, "no frame (SOF) in the file");
-  if (decode_scans && progressive_) check_no_smoothing();
 }
 
 // jdcoefct.c's smoothing_ok on the final coefficient bits: libjpeg smooths
 // the blocks of a progressive image when every component's DC is known,
 // the quantizers it reads are nonzero and one of the first nine AC
 // coefficients is not known to full precision.
-void Decoder::check_no_smoothing() const {
-  static const int kQPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+bool Decoder::smoothing_ok() const {
+  if (!progressive_) return false;
   bool useful = false;
   for (const auto& c : comps_) {
-    if (!c.q_latched) return;
-    for (int pos : kQPos)
-      if (c.q[pos] == 0) return;
-    if (c.coef_bits[0] < 0) return;
+    if (!c.q_latched) return false;
+    for (int k = 0; k < 10; ++k)
+      if (c.q[kNaturalOrder[k]] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
     for (int k = 1; k < 10; ++k)
       if (c.coef_bits[k] != 0) useful = true;
   }
-  if (useful)
-    fail(1, "a progressive JPEG whose scans leave low AC coefficients short of full precision "
-            "(libjpeg's block smoothing) is not supported");
+  return useful;
 }
 
 void Decoder::read_app(int marker, int length) {
@@ -301,8 +352,7 @@ void Decoder::read_sof(int marker) {
   height_ = u16();
   width_ = u16();
   int nf = byte();
-  if (nf == 4) fail(1, "4-component (CMYK / YCCK) JPEG is not supported");
-  if (nf != 1 && nf != 3) fail(1, "JPEG with " + std::to_string(nf) + " components is not supported");
+  if (nf != 1 && nf != 3 && nf != 4) fail(1, "JPEG with " + std::to_string(nf) + " components is not supported");
   if (width_ <= 0) fail(2, "zero image width");
   comps_.resize(nf);
   for (auto& c : comps_) {
@@ -540,6 +590,7 @@ bool Decoder::process_restart() {
     p_ += 2;
     for (auto& c : comps_) c.dc_pred = 0;
     eobrun_ = 0;
+    if (arith_) arith_reset();
     return true;
   }
   fail(2, "restart marker expected");
@@ -565,7 +616,8 @@ void Decoder::read_sos(bool decode_scans) {
   const int ah = ahal >> 4, al = ahal & 15;
   // the tables the scan decodes with: both for a sequential scan, the DC
   // table for a progressive DC first scan, the AC table for an AC scan
-  const bool need_dc = !progressive_ || (ss == 0 && ah == 0), need_ac = !progressive_ || ss > 0;
+  const bool need_dc = !arith_ && (!progressive_ || (ss == 0 && ah == 0));
+  const bool need_ac = !arith_ && !lossless_ && (!progressive_ || ss > 0);
   for (auto* c : scan)
     if ((need_dc && !dc_[c->td].defined) || (need_ac && !ac_[c->ta].defined))
       fail(2, "scan uses an undefined Huffman table");
@@ -575,8 +627,14 @@ void Decoder::read_sos(bool decode_scans) {
     if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
     if (bad) fail(2, "bad progressive scan parameters");
   }
+  if (lossless_ && (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7)) fail(2, "bad lossless scan parameters");
   if (!decode_scans) return;
   if (height_ == 0) fail(1, "a DNL-defined image height is not supported");
+  ++scans_;
+  if (lossless_) {
+    decode_lossless_scan(scan, ss, al);
+    return;
+  }
   for (auto* c : scan) {
     if (!c->q_latched) {
       if (!qt_defined_[c->tq]) fail(2, "component uses an undefined quantization table");
@@ -585,13 +643,26 @@ void Decoder::read_sos(bool decode_scans) {
     }
     if (c->coefs.empty()) c->coefs.assign(static_cast<size_t>(c->blocks_w) * c->blocks_h * 64, 0);
     c->dc_pred = 0;
-    if (progressive_)
+    if (progressive_) {
+      for (int k = std::min(ss, 1); k <= std::max(se, 9) && k < 10; ++k) c->prev_coef_bits[k] = scans_ > 1 ? c->coef_bits[k] : 0;
       for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
   }
   eobrun_ = 0;
   reset_bits();
+  scan_ = scan;
+  scan_ss_ = ss;
+  scan_ah_ = ah;
+  if (arith_) arith_reset();
   auto decode_one = [&](Component& c, int16_t* block) {
-    if (!progressive_)
+    if (arith_) {
+      if (!progressive_)
+        arith_block(c, block);
+      else if (ss == 0)
+        ah == 0 ? arith_dc_first(c, block, al) : arith_dc_refine(block, al);
+      else
+        ah == 0 ? arith_ac_first(c, block, ss, se, al) : arith_ac_refine(c, block, ss, se, al);
+    } else if (!progressive_)
       decode_block(c, block);
     else if (ss == 0)
       ah == 0 ? decode_dc_first(c, block, al) : decode_dc_refine(block, al);
@@ -635,6 +706,306 @@ void Decoder::read_sos(bool decode_scans) {
     }
   }
   // leave p_ at the marker that ends the scan
+  while (p_ + 1 < end_ && !(p_[0] == 0xFF && p_[1] != 0x00 && !(p_[1] >= 0xD0 && p_[1] <= 0xD7) && p_[1] != 0xFF))
+    ++p_;
+  while (p_ + 1 < end_ && p_[0] == 0xFF && p_[1] == 0xFF) ++p_;
+  reset_bits();
+}
+
+// ---- jdarith.c: arithmetic decoding (SOF9, SOF10) --------------------------
+
+// jaritab.c: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS
+// (ITU T.81 Table D.2), with state 113, the fixed estimate of one half
+#define QV(qe, nlps, nmps, sw) ((int64_t(qe) << 16) | (int64_t(nmps) << 8) | (int64_t(sw) << 7) | (nlps))
+const int64_t kAriTab[114] = {
+    QV(0x5a1d, 1, 1, 1),     QV(0x2586, 14, 2, 0),    QV(0x1114, 16, 3, 0),    QV(0x080b, 18, 4, 0),
+    QV(0x03d8, 20, 5, 0),    QV(0x01da, 23, 6, 0),    QV(0x00e5, 25, 7, 0),    QV(0x006f, 28, 8, 0),
+    QV(0x0036, 30, 9, 0),    QV(0x001a, 33, 10, 0),   QV(0x000d, 35, 11, 0),   QV(0x0006, 9, 12, 0),
+    QV(0x0003, 10, 13, 0),   QV(0x0001, 12, 13, 0),   QV(0x5a7f, 15, 15, 1),   QV(0x3f25, 36, 16, 0),
+    QV(0x2cf2, 38, 17, 0),   QV(0x207c, 39, 18, 0),   QV(0x17b9, 40, 19, 0),   QV(0x1182, 42, 20, 0),
+    QV(0x0cef, 43, 21, 0),   QV(0x09a1, 45, 22, 0),   QV(0x072f, 46, 23, 0),   QV(0x055c, 48, 24, 0),
+    QV(0x0406, 49, 25, 0),   QV(0x0303, 51, 26, 0),   QV(0x0240, 52, 27, 0),   QV(0x01b1, 54, 28, 0),
+    QV(0x0144, 56, 29, 0),   QV(0x00f5, 57, 30, 0),   QV(0x00b7, 59, 31, 0),   QV(0x008a, 60, 32, 0),
+    QV(0x0068, 62, 33, 0),   QV(0x004e, 63, 34, 0),   QV(0x003b, 32, 35, 0),   QV(0x002c, 33, 9, 0),
+    QV(0x5ae1, 37, 37, 1),   QV(0x484c, 64, 38, 0),   QV(0x3a0d, 65, 39, 0),   QV(0x2ef1, 67, 40, 0),
+    QV(0x261f, 68, 41, 0),   QV(0x1f33, 69, 42, 0),   QV(0x19a8, 70, 43, 0),   QV(0x1518, 72, 44, 0),
+    QV(0x1177, 73, 45, 0),   QV(0x0e74, 74, 46, 0),   QV(0x0bfb, 75, 47, 0),   QV(0x09f8, 77, 48, 0),
+    QV(0x0861, 78, 49, 0),   QV(0x0706, 79, 50, 0),   QV(0x05cd, 48, 51, 0),   QV(0x04de, 50, 52, 0),
+    QV(0x040f, 50, 53, 0),   QV(0x0363, 51, 54, 0),   QV(0x02d4, 52, 55, 0),   QV(0x025c, 53, 56, 0),
+    QV(0x01f8, 54, 57, 0),   QV(0x01a4, 55, 58, 0),   QV(0x0160, 56, 59, 0),   QV(0x0125, 57, 60, 0),
+    QV(0x00f6, 58, 61, 0),   QV(0x00cb, 59, 62, 0),   QV(0x00ab, 61, 63, 0),   QV(0x008f, 61, 32, 0),
+    QV(0x5b12, 65, 65, 1),   QV(0x4d04, 80, 66, 0),   QV(0x412c, 81, 67, 0),   QV(0x37d8, 82, 68, 0),
+    QV(0x2fe8, 83, 69, 0),   QV(0x293c, 84, 70, 0),   QV(0x2379, 86, 71, 0),   QV(0x1edf, 87, 72, 0),
+    QV(0x1aa9, 87, 73, 0),   QV(0x174e, 72, 74, 0),   QV(0x1424, 72, 75, 0),   QV(0x119c, 74, 76, 0),
+    QV(0x0f6b, 74, 77, 0),   QV(0x0d51, 75, 78, 0),   QV(0x0bb6, 77, 79, 0),   QV(0x0a40, 77, 48, 0),
+    QV(0x5832, 80, 81, 1),   QV(0x4d1c, 88, 82, 0),   QV(0x438e, 89, 83, 0),   QV(0x3bdd, 90, 84, 0),
+    QV(0x34ee, 91, 85, 0),   QV(0x2eae, 92, 86, 0),   QV(0x299a, 93, 87, 0),   QV(0x2516, 86, 71, 0),
+    QV(0x5570, 88, 89, 1),   QV(0x4ca9, 95, 90, 0),   QV(0x44d9, 96, 91, 0),   QV(0x3e22, 97, 92, 0),
+    QV(0x3824, 99, 93, 0),   QV(0x32b4, 99, 94, 0),   QV(0x2e17, 93, 86, 0),   QV(0x56a8, 95, 96, 1),
+    QV(0x4f46, 101, 97, 0),  QV(0x47e5, 102, 98, 0),  QV(0x41cf, 103, 99, 0),  QV(0x3c3d, 104, 100, 0),
+    QV(0x375e, 99, 93, 0),   QV(0x5231, 105, 102, 0), QV(0x4c0f, 106, 103, 0), QV(0x4639, 107, 104, 0),
+    QV(0x415e, 103, 99, 0),  QV(0x5627, 105, 106, 1), QV(0x50e7, 108, 107, 0), QV(0x4b85, 109, 103, 0),
+    QV(0x5597, 110, 109, 0), QV(0x504f, 111, 107, 0), QV(0x5a10, 110, 111, 1), QV(0x5522, 112, 109, 0),
+    QV(0x59eb, 112, 111, 1), QV(0x5a1d, 113, 113, 0)};
+#undef QV
+
+void Decoder::read_dac(int length) {
+  while (length >= 2) {
+    int tc_tb = byte(), v = byte();
+    length -= 2;
+    int tc = tc_tb >> 4, tb = tc_tb & 15;
+    if (tc > 1 || tb > 3) fail(2, "bad DAC table");
+    if (tc == 0) {
+      dc_l_[tb] = static_cast<uint8_t>(v & 15);
+      dc_u_[tb] = static_cast<uint8_t>(v >> 4);
+      if (dc_l_[tb] > dc_u_[tb]) fail(2, "bad DAC value");
+    } else {
+      if (v < 1 || v > 63) fail(2, "bad DAC value");
+      ac_k_[tb] = static_cast<uint8_t>(v);
+    }
+  }
+  if (length != 0) fail(2, "bad DAC length");
+}
+
+// jdarith.c start_pass / process_restart: the bins of the scan's tables
+// cleared, the DC predictions and contexts zeroed, the registers reset
+void Decoder::arith_reset() {
+  for (auto* c : scan_) {
+    if (!progressive_ || (scan_ss_ == 0 && scan_ah_ == 0)) {
+      std::memset(dc_stats_[c->td], 0, sizeof(dc_stats_[0]));
+      c->dc_pred = 0;
+      c->dc_context = 0;
+    }
+    if (!progressive_ || scan_ss_ > 0) std::memset(ac_stats_[c->ta], 0, sizeof(ac_stats_[0]));
+  }
+  ac_c_ = 0;
+  ac_a_ = 0;
+  ac_ct_ = -16;  // two bytes to read before the first decision
+  ac_marker_ = false;
+}
+
+// jdarith.c arith_decode: one binary decision in bin *st (D.2.4-D.2.6)
+int Decoder::arith_decode(uint8_t* st) {
+  while (ac_a_ < 0x8000) {
+    if (--ac_ct_ < 0) {
+      int data = 0;  // past a marker the data are zeros
+      if (!ac_marker_ && p_ < end_) {
+        data = *p_++;
+        if (data == 0xFF) {
+          while (p_ < end_ && *p_ == 0xFF) ++p_;
+          if (p_ < end_ && *p_ == 0) {
+            ++p_;
+          } else {
+            --p_;  // leave p_ at the marker
+            ac_marker_ = true;
+            data = 0;
+          }
+        }
+      }
+      ac_c_ = (ac_c_ << 8) | data;
+      if ((ac_ct_ += 8) < 0)
+        if (++ac_ct_ == 0) ac_a_ = 0x8000;  // two initial bytes read
+    }
+    ac_a_ <<= 1;
+  }
+  int sv = *st;
+  int64_t qe = kAriTab[sv & 0x7F];
+  const int nl = static_cast<int>(qe & 0xFF);
+  qe >>= 8;
+  const int nm = static_cast<int>(qe & 0xFF);
+  qe >>= 8;
+  int64_t temp = ac_a_ - qe;
+  ac_a_ = temp;
+  temp <<= ac_ct_;
+  if (ac_c_ >= temp) {
+    ac_c_ -= temp;
+    if (ac_a_ < qe) {  // conditional LPS exchange
+      ac_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    } else {
+      ac_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (ac_a_ < 0x8000) {  // conditional MPS exchange
+    if (ac_a_ < qe) {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+// F.1.4.4.1 / Figures F.19-F.24: a DC difference, its bins chosen by the
+// conditioning category of the component's last one
+int Decoder::arith_dc_diff(Component& c) {
+  uint8_t* stats = dc_stats_[c.td];
+  uint8_t* st = stats + c.dc_context;
+  if (arith_decode(st) == 0) {
+    c.dc_context = 0;
+    return 0;
+  }
+  const int sign = arith_decode(st + 1);
+  st += 2 + sign;
+  int m = arith_decode(st);
+  if (m != 0) {
+    st = stats + 20;
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) fail(2, "corrupt arithmetic-coded DC difference");
+      ++st;
+    }
+  }
+  if (m < static_cast<int>((1L << dc_l_[c.td]) >> 1))
+    c.dc_context = 0;
+  else if (m > static_cast<int>((1L << dc_u_[c.td]) >> 1))
+    c.dc_context = 12 + sign * 4;
+  else
+    c.dc_context = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+void Decoder::arith_block(Component& c, int16_t* block) {
+  c.dc_pred = (c.dc_pred + arith_dc_diff(c)) & 0xFFFF;
+  block[0] = static_cast<int16_t>(c.dc_pred);
+  arith_ac_first(c, block, 1, 63, 0);
+}
+
+void Decoder::arith_dc_first(Component& c, int16_t* block, int al) {
+  c.dc_pred += arith_dc_diff(c);
+  block[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al);
+}
+
+void Decoder::arith_dc_refine(int16_t* block, int al) {
+  if (arith_decode(&fixed_bin_)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+}
+
+void Decoder::arith_ac_first(const Component& c, int16_t* block, int ss, int se, int al) {
+  uint8_t* stats = ac_stats_[c.ta];
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (arith_decode(st)) break;  // end of block
+    while (arith_decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) fail(2, "corrupt arithmetic-coded AC data");
+    }
+    const int sign = arith_decode(&fixed_bin_);
+    st += 2;
+    int m = arith_decode(st);
+    if (m != 0 && arith_decode(st)) {
+      m <<= 1;
+      st = stats + (k <= ac_k_[c.ta] ? 189 : 217);
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) fail(2, "corrupt arithmetic-coded AC data");
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    block[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+  }
+}
+
+void Decoder::arith_ac_refine(const Component& c, int16_t* block, int ss, int se, int al) {
+  uint8_t* stats = ac_stats_[c.ta];
+  const int p1 = 1 << al, m1 = -1 * (1 << al);
+  int kex = se;
+  for (; kex > 0; --kex)
+    if (block[kNaturalOrder[kex]]) break;
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (k > kex && arith_decode(st)) break;  // end of block
+    for (;;) {
+      int16_t* coef = block + kNaturalOrder[k];
+      if (*coef) {  // previously nonzero: a correction bit
+        if (arith_decode(st + 2)) *coef = static_cast<int16_t>(*coef < 0 ? *coef + m1 : *coef + p1);
+        break;
+      }
+      if (arith_decode(st + 1)) {  // newly nonzero
+        *coef = static_cast<int16_t>(arith_decode(&fixed_bin_) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) fail(2, "corrupt arithmetic-coded AC refinement");
+    }
+  }
+}
+
+// ---- jdlhuff.c / jdlossls.c: lossless (SOF3) ------------------------------
+
+// Each sample is its prediction from the reconstructed neighbours (Ra left,
+// Rb above, Rc above-left; predictor `psv`) plus a Huffman-coded difference,
+// modulo 2^16; the first row of the image and of each restart interval
+// predicts 2^(7 - pt) at its first sample and Ra after it, the first column
+// Rb. The output sample is the reconstruction shifted left by the point
+// transform `pt`, as an 8-bit sample.
+void Decoder::decode_lossless_scan(const std::vector<Component*>& scan, int psv, int pt) {
+  const int W = width_, H = height_;
+  for (auto* c : scan) {
+    if (c->h != 1 || c->v != 1 || hmax_ != 1 || vmax_ != 1) fail(1, "a subsampled lossless JPEG is not supported");
+    c->samples.assign(static_cast<size_t>(W) * H, 0);
+    c->point_transform = pt;
+  }
+  if (restart_interval_ && restart_interval_ % W != 0)
+    fail(1, "a lossless JPEG whose restart interval is not a whole number of rows is not supported");
+  reset_bits();
+  const int rows_per_restart = restart_interval_ ? restart_interval_ / W : 0;
+  std::vector<std::vector<int>> diffs(scan.size(), std::vector<int>(static_cast<size_t>(W)));
+  int first_row = 0;
+  for (int y = 0; y < H; ++y) {
+    if (rows_per_restart && y > 0 && y % rows_per_restart == 0) {
+      process_restart();
+      first_row = y;
+    }
+    for (int x = 0; x < W; ++x) {
+      for (size_t i = 0; i < scan.size(); ++i) {
+        int s = decode_huffman(dc_[scan[i]->td]);
+        int diff = 0;
+        if (s == 16) {
+          diff = 32768;
+        } else if (s) {
+          if (s > 16) fail(2, "bad lossless difference magnitude");
+          diff = extend(get_bits(s), s);
+        }
+        diffs[i][static_cast<size_t>(x)] = diff;
+      }
+    }
+    for (size_t i = 0; i < scan.size(); ++i) {
+      uint16_t* row = scan[i]->samples.data() + static_cast<size_t>(y) * W;
+      const uint16_t* up = row - W;
+      const int* d = diffs[i].data();
+      for (int x = 0; x < W; ++x) {
+        int64_t pred;
+        if (y == first_row) {
+          pred = x == 0 ? (1 << (7 - pt)) : row[x - 1];
+        } else if (x == 0) {
+          pred = up[0];
+        } else {
+          const int64_t ra = row[x - 1], rb = up[x], rc = up[x - 1];
+          switch (psv) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = ra + rb - rc; break;
+            case 5: pred = ra + ((rb - rc) >> 1); break;
+            case 6: pred = rb + ((ra - rc) >> 1); break;
+            default: pred = (ra + rb) >> 1; break;
+          }
+        }
+        row[x] = static_cast<uint16_t>((pred + d[x]) & 0xFFFF);
+      }
+    }
+  }
   while (p_ + 1 < end_ && !(p_[0] == 0xFF && p_[1] != 0x00 && !(p_[1] >= 0xD0 && p_[1] <= 0xD7) && p_[1] != 0xFF))
     ++p_;
   while (p_ + 1 < end_ && p_[0] == 0xFF && p_[1] == 0xFF) ++p_;
@@ -771,16 +1142,137 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
   }
 }
 
-void Decoder::idct_component(const Component& c, std::vector<uint8_t>& plane, int& stride) const {
+void Decoder::idct_component(const Component& c, bool smooth, std::vector<uint8_t>& plane, int& stride) const {
   int bw = (c.width + 7) / 8, bh = (c.height + 7) / 8;
   stride = bw * 8;
   plane.assign(static_cast<size_t>(stride) * bh * 8, 0);
+  if (lossless_) {
+    if (c.samples.empty()) return;
+    for (int y = 0; y < c.height; ++y)
+      for (int x = 0; x < c.width; ++x)
+        plane[static_cast<size_t>(y) * stride + x] =
+            static_cast<uint8_t>(c.samples[static_cast<size_t>(y) * c.width + x] << c.point_transform);
+    return;
+  }
   if (c.coefs.empty()) return;  // no scan carried this component
+  if (smooth) {
+    idct_smoothed(c, plane, stride);
+    return;
+  }
   const uint16_t* q = c.q;
   for (int by = 0; by < bh; ++by)
     for (int bx = 0; bx < bw; ++bx)
       idct_islow(c.coefs.data() + (static_cast<size_t>(by) * c.blocks_w + bx) * 64, q,
                  plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
+}
+
+// ---- jdcoefct.c, decompress_smooth_data ---------------------------------
+
+// one estimated coefficient: round(num / (Q << 8)) away from zero
+// (num carries the 2^7 bias), clamped below 2^Al when Al > 0
+inline int16_t smoothed(int64_t num, int64_t q, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = static_cast<int>(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = static_cast<int>(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return static_cast<int16_t>(pred);
+}
+
+void Decoder::idct_smoothed(const Component& c, std::vector<uint8_t>& plane, int stride) const {
+  const int bw = (c.width + 7) / 8, bh = (c.height + 7) / 8;  // width_in_blocks, height_in_blocks
+  const int last_row = mcus_y_ - 1, last_col = bw - 1;
+  const int* bits = c.coef_bits;
+  const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 && bits[5] == -1 &&
+                         bits[6] == -1 && bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
+  const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16], Q11 = c.q[9], Q02 = c.q[2];
+  const int64_t Q03 = c.q[3], Q12 = c.q[10], Q21 = c.q[17], Q30 = c.q[24];
+  auto dc_at = [&](int row, int col) -> int {
+    col = col < 0 ? 0 : (col > last_col ? last_col : col);
+    return c.coefs[(static_cast<size_t>(row) * c.blocks_w + col) * 64];
+  };
+  int16_t ws[64];
+  for (int r = 0; r <= last_row; ++r) {
+    int block_rows = c.v;
+    if (r == last_row) {
+      block_rows = bh % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    const int image_block_rows = block_rows * mcus_y_;
+    for (int br = 0; br < block_rows; ++br) {
+      const int row = r * c.v + br;
+      if (row >= bh) break;
+      const int ib = r * block_rows + br;
+      const int prev = ib > 0 ? row - 1 : row;
+      const int prev2 = ib > 1 ? row - 2 : prev;
+      const int next = ib < image_block_rows - 1 ? row + 1 : row;
+      const int next2 = ib < image_block_rows - 2 ? row + 2 : next;
+      const int rows[5] = {prev2, prev, row, next, next2};
+      for (int b = 0; b <= last_col; ++b) {
+        int DC[26];  // DC[1..25]: the 5 x 5 neighbourhood, row-major
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) DC[1 + 5 * i + j] = dc_at(rows[i], b - 2 + j);
+        const int16_t* blk = c.coefs.data() + (static_cast<size_t>(row) * c.blocks_w + b) * 64;
+        std::memcpy(ws, blk, sizeof(ws));
+        int al;
+        if ((al = bits[1]) != 0 && ws[1] == 0) {
+          int64_t num = Q00 * (change_dc ? (-DC[1] - DC[2] + DC[4] + DC[5] - 3 * DC[6] + 13 * DC[7] - 13 * DC[9] +
+                                            3 * DC[10] - 3 * DC[11] + 38 * DC[12] - 38 * DC[14] + 3 * DC[15] -
+                                            3 * DC[16] + 13 * DC[17] - 13 * DC[19] + 3 * DC[20] - DC[21] - DC[22] +
+                                            DC[24] + DC[25])
+                                         : (-7 * DC[11] + 50 * DC[12] - 50 * DC[14] + 7 * DC[15]));
+          ws[1] = smoothed(num, Q01, al);
+        }
+        if ((al = bits[2]) != 0 && ws[8] == 0) {
+          int64_t num = Q00 * (change_dc ? (-DC[1] - 3 * DC[2] - 3 * DC[3] - 3 * DC[4] - DC[5] - DC[6] + 13 * DC[7] +
+                                            38 * DC[8] + 13 * DC[9] - DC[10] + DC[16] - 13 * DC[17] - 38 * DC[18] -
+                                            13 * DC[19] + DC[20] + DC[21] + 3 * DC[22] + 3 * DC[23] + 3 * DC[24] +
+                                            DC[25])
+                                         : (-7 * DC[3] + 50 * DC[8] - 50 * DC[18] + 7 * DC[23]));
+          ws[8] = smoothed(num, Q10, al);
+        }
+        if ((al = bits[3]) != 0 && ws[16] == 0) {
+          int64_t num = Q00 * (change_dc ? (DC[3] + 2 * DC[7] + 7 * DC[8] + 2 * DC[9] - 5 * DC[12] - 14 * DC[13] -
+                                            5 * DC[14] + 2 * DC[17] + 7 * DC[18] + 2 * DC[19] + DC[23])
+                                         : (-DC[3] + 13 * DC[8] - 24 * DC[13] + 13 * DC[18] - DC[23]));
+          ws[16] = smoothed(num, Q20, al);
+        }
+        if ((al = bits[4]) != 0 && ws[9] == 0) {
+          int64_t num = Q00 * (change_dc ? (-DC[1] + DC[5] + 9 * DC[7] - 9 * DC[9] - 9 * DC[17] + 9 * DC[19] +
+                                            DC[21] - DC[25])
+                                         : (DC[10] + DC[16] - 10 * DC[17] + 10 * DC[19] - DC[2] - DC[20] + DC[22] -
+                                            DC[24] + DC[4] - DC[6] + 10 * DC[7] - 10 * DC[9]));
+          ws[9] = smoothed(num, Q11, al);
+        }
+        if ((al = bits[5]) != 0 && ws[2] == 0) {
+          int64_t num = Q00 * (change_dc ? (2 * DC[7] - 5 * DC[8] + 2 * DC[9] + DC[11] + 7 * DC[12] - 14 * DC[13] +
+                                            7 * DC[14] + DC[15] + 2 * DC[17] - 5 * DC[18] + 2 * DC[19])
+                                         : (-DC[11] + 13 * DC[12] - 24 * DC[13] + 13 * DC[14] - DC[15]));
+          ws[2] = smoothed(num, Q02, al);
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && ws[3] == 0)
+            ws[3] = smoothed(Q00 * (DC[7] - DC[9] + 2 * DC[12] - 2 * DC[14] + DC[17] - DC[19]), Q03, al);
+          if ((al = bits[7]) != 0 && ws[10] == 0)
+            ws[10] = smoothed(Q00 * (DC[7] - 3 * DC[8] + DC[9] - DC[17] + 3 * DC[18] - DC[19]), Q12, al);
+          if ((al = bits[8]) != 0 && ws[17] == 0)
+            ws[17] = smoothed(Q00 * (DC[7] - DC[9] - 3 * DC[12] + 3 * DC[14] + DC[17] - DC[19]), Q21, al);
+          if ((al = bits[9]) != 0 && ws[24] == 0)
+            ws[24] = smoothed(Q00 * (DC[7] + 2 * DC[8] + DC[9] - DC[17] - 2 * DC[18] - DC[19]), Q30, al);
+          int64_t num = Q00 * (-2 * DC[1] - 6 * DC[2] - 8 * DC[3] - 6 * DC[4] - 2 * DC[5] - 6 * DC[6] + 6 * DC[7] +
+                               42 * DC[8] + 6 * DC[9] - 6 * DC[10] - 8 * DC[11] + 42 * DC[12] + 152 * DC[13] +
+                               42 * DC[14] - 8 * DC[15] - 6 * DC[16] + 6 * DC[17] + 42 * DC[18] + 6 * DC[19] -
+                               6 * DC[20] - 2 * DC[21] - 6 * DC[22] - 8 * DC[23] - 6 * DC[24] - 2 * DC[25]);
+          ws[0] = smoothed(num, Q00, 0);
+        }
+        idct_islow(ws, c.q, plane.data() + static_cast<size_t>(row) * 8 * stride + b * 8, stride);
+      }
+    }
+  }
 }
 
 // ---- jdsample.c --------------------------------------------------------
@@ -876,35 +1368,57 @@ struct YccTables {
 
 inline uint8_t clamp8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
+// libjpeg's default colour space (jdapimin.c): for 3 components YCbCr
+// (converted to RGB) after a JFIF marker, after an Adobe marker with a
+// transform other than 0, or without either unless the component ids are
+// 'R', 'G', 'B'; for 4 components YCCK (converted to CMYK) after an Adobe
+// marker with a transform other than 0
+bool Decoder::converts() const {
+  if (comps_.size() == 4) return adobe_ && adobe_transform_ != 0;
+  if (comps_.size() != 3) return false;
+  if (jfif_) return true;
+  if (adobe_) return adobe_transform_ != 0;
+  return !(comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66);
+}
+
 void Decoder::write(uint8_t* out) const {
+  // libjpeg-turbo converts no colours of a lossless image (JERR_CONVERSION_NOTIMPL)
+  if (lossless_ && converts()) fail(1, "a lossless JPEG that needs a colour conversion (libjpeg refuses it too)");
   const size_t n = static_cast<size_t>(width_) * height_;
   std::vector<std::vector<uint8_t>> full(comps_.size());
+  const bool smooth = smoothing_ok();
   for (size_t i = 0; i < comps_.size(); ++i) {
     std::vector<uint8_t> plane;
     int stride = 0;
-    idct_component(comps_[i], plane, stride);
+    idct_component(comps_[i], smooth, plane, stride);
     upsample(comps_[i], plane, stride, full[i]);
   }
   if (comps_.size() == 1) {
     std::memcpy(out, full[0].data(), n);
     return;
   }
-  // libjpeg's default colour space for 3 components (jdapimin.c)
-  bool ycc;
-  if (jfif_) {
-    ycc = true;
-  } else if (adobe_) {
-    ycc = adobe_transform_ != 0;
-  } else {
-    int c0 = comps_[0].id, c1 = comps_[1].id, c2 = comps_[2].id;
-    ycc = !(c0 == 82 && c1 == 71 && c2 == 66);  // 'R', 'G', 'B'
+  static const YccTables t;
+  if (comps_.size() == 4) {
+    // Pillow's "CMYK;I" inverts
+    if (converts()) {
+      for (size_t i = 0; i < n; ++i) {
+        int y = full[0][i], cb = full[1][i], cr = full[2][i];
+        out[4 * i + 0] = static_cast<uint8_t>(255 - clamp8(255 - (y + t.cr_r[cr])));
+        out[4 * i + 1] = static_cast<uint8_t>(255 - clamp8(255 - (y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16))));
+        out[4 * i + 2] = static_cast<uint8_t>(255 - clamp8(255 - (y + t.cb_b[cb])));
+        out[4 * i + 3] = static_cast<uint8_t>(255 - full[3][i]);
+      }
+    } else {
+      for (size_t i = 0; i < n; ++i)
+        for (int k = 0; k < 4; ++k) out[4 * i + k] = static_cast<uint8_t>(255 - full[k][i]);
+    }
+    return;
   }
-  if (!ycc) {
+  if (!converts()) {
     for (size_t i = 0; i < n; ++i)
       for (int k = 0; k < 3; ++k) out[3 * i + k] = full[k][i];
     return;
   }
-  static const YccTables t;
   for (size_t i = 0; i < n; ++i) {
     int y = full[0][i], cb = full[1][i], cr = full[2][i];
     out[3 * i + 0] = clamp8(y + t.cr_r[cr]);

@@ -9,9 +9,9 @@ the CPU.
   bytes in every mode (no tolerance).
 - Progressive files (RGB 4:4:4, 4:2:2, 4:2:0, greyscale, odd sizes,
   restart intervals) decode to Pillow's bytes and `load_image` of each
-  equals the JAX package's; CMYK files raise NotImplementedError naming
-  what they are; a decoder that cannot be built raises on every JPEG (no
-  fallback).
+  equals the JAX package's, as do progressions cut short (block-smoothed
+  as libjpeg-turbo smooths them) and CMYK files; a decoder that cannot be
+  built raises on every JPEG (no fallback).
 - `camera_res_scale_factor`: `load_image(p, s)` against the JAX package's
   (Pillow's `resize(..., BILINEAR)`) at 0.5, 0.25 and 0.37 and for 1.5,
   for L, LA, RGB, RGBA, 16-bit grey, JPEG and palette images: equal.
@@ -113,9 +113,10 @@ UNSUPPORTED_CASES = [
 def test_unsupported_jpegs_raise(tmp_path, case, hw, kw):
     p = tmp_path / f"{case}.jpg"
     if case == "cmyk":
+        # decoded since the port reads CMYK: Pillow's inverted CMYK, its fourth channel loaded as alpha
         Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(p)
-        with pytest.raises(NotImplementedError, match="CMYK"):
-            load_image(p)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(p), _pillow(p))
+        np.testing.assert_array_equal(load_image(p), jax_load_image(p))
         return
     if case == "junk":
         p.write_bytes(b"\xff\xd8\xff\xc0\x00")
@@ -137,14 +138,16 @@ def test_unsupported_jpegs_raise(tmp_path, case, hw, kw):
 
 def test_progressive_jpeg_that_libjpeg_would_smooth_raises(tmp_path):
     """A progression cut after its first scans leaves AC coefficients short
-    of full precision, where libjpeg smooths the blocks: the decoder
-    refuses it rather than give other bytes than Pillow."""
+    of full precision, where libjpeg smooths the blocks: since the decoder
+    smooths them as libjpeg-turbo does, it no longer raises but gives
+    Pillow's bytes, after every cut."""
     Image.fromarray(smooth(40, 56, 3)).save(tmp_path / "full.jpg", progressive=True, quality=80)
     data = (tmp_path / "full.jpg").read_bytes()
     scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
-    (tmp_path / "cut.jpg").write_bytes(data[:scans[2]] + b"\xff\xd9")
-    with pytest.raises(NotImplementedError, match="block smoothing"):
-        jpeg.decode_jpeg(tmp_path / "cut.jpg")
+    for cut in range(1, len(scans)):
+        (tmp_path / "cut.jpg").write_bytes(data[:scans[cut]] + b"\xff\xd9")
+        np.testing.assert_array_equal(jpeg.decode_jpeg(tmp_path / "cut.jpg"), _pillow(tmp_path / "cut.jpg"),
+                                      err_msg=f"cut after {cut} scans")
     np.testing.assert_array_equal(jpeg.decode_jpeg(tmp_path / "full.jpg"), _pillow(tmp_path / "full.jpg"))
 
 
