@@ -420,6 +420,22 @@ Phases, each fatal on failure:
      fixtures of tests/data/images/ against their manifest, the 12-bit and
      hierarchical JPEGs refused (Pillow refuses them too), host times of
      1920x1080 16-bit TIFF (uncompressed, Deflate) and 24-bit BMP decodes.
+24. the images only Pillow read before (after phase 23):
+   - thermal-nerfacto at full width trains 10 steps through ns-train on
+     tests/data/webp_tiff_scene: RGB 320x240 frames as lossy WebP and one
+     as a JPEG-compressed TIFF, thermal 320x256 frames as 16-bit
+     Zstandard TIFF with predictor 2 and one LZMA; every frame decodes to
+     its manifest's Pillow hash first (make_scene.py wrote them with
+     Pillow), every loss is finite, rows 8, 7/9 and 10 launch 8 / 8 / 8 a
+     step (the proposals update on each of the ten steps); the hash
+     kernels' JSON records carry them as webp_tiff_launches_per_step;
+   - in phase 15's image_io line: the new fixtures of tests/data/images/
+     (JPEG / LZMA / Zstandard / CCITT TIFFs, CMYK and CIELAB, 12-bit,
+     orientations, BigTIFF, WebP lossless / lossy / alpha / animated, the
+     4-bit grey BMP) against their manifest, the files Pillow refuses
+     refused, and host medians of
+     5 of 1920x1080 lossy and lossless WebP, JPEG-in-TIFF, 16-bit
+     Zstandard and LZMA TIFF and a CCITT Group 4 mask.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -2906,6 +2922,9 @@ def render_surface_phase(entries: dict, scene_dir: Path, out_dir: Path, smi: str
 # (rows 7-10 with camera gradients).
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 IMAGES_DIR = Path(__file__).resolve().parent / "tests" / "data" / "images"
+# phase 24's scene (tests/data/webp_tiff_scene/make_scene.py writes it with Pillow) and its 1920x1080 files
+SCENE24_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp_tiff_scene"
+SLICE24_1080P = ("lossy.webp", "lossless.webp", "jpeg.tif", "thermal16_zstd.tif", "thermal16_lzma.tif", "mask_g4.tif")
 NGP_STEPS, NGP_BOUNDED_STEPS, COLMAP_STEPS = 48, 24, 20
 NGP_CAPTURE_STEP = 32  # a grid update (2^18 points) and the step's own hash calls
 NGP_TIMED = range(34, 48)  # after the update of step 32 the batch holds until step 48
@@ -2928,31 +2947,37 @@ def ngp_step_counts(step: int, every: int = 16) -> dict:
 
 
 def image_io_phase(smi: str) -> dict:
-    """The JPEG and PNG fixtures of tests/data/jpeg/ and the TIFF, BMP, GIF
-    and JPEG fixtures of tests/data/images/ against their manifests'
+    """The JPEG and PNG fixtures of tests/data/jpeg/ and the TIFF, BMP, GIF,
+    JPEG and WebP fixtures of tests/data/images/ against their manifests'
     Pillow hashes (progressive JPEGs, the Adam7 PNG, CMYK / YCCK and
-    block-smoothed JPEGs included); each file Pillow refuses (12-bit and
-    hierarchical JPEG) must be refused, and WebP (not ported) too. Host
+    block-smoothed JPEGs, JPEG / LZMA / Zstandard / CCITT TIFFs, lossy,
+    lossless, alpha and animated WebP included); each file Pillow refuses
+    (12-bit and hierarchical JPEG, WebP and JPEG 2000 strips in a TIFF)
+    must be refused. Host
     times (medians of 5) of a 1920x1080 decode and of its 0.5x resize; of a
     progressive 1920x1080 decode against the baseline file of the same
     pixels and quality (the port's encoder writes it from the progressive
     file's decode); of 1920x1080 16-bit TIFFs (uncompressed and Deflate)
-    and a 24-bit BMP written here; and of the LZW TIFF fixtures at their
-    size."""
+    and a 24-bit BMP written here; of the LZW TIFF fixtures at their
+    size; and of the 1920x1080 files of tests/data/webp_tiff_scene/1080p/
+    (lossy and lossless WebP, JPEG-in-TIFF, 16-bit Zstandard and LZMA TIFF
+    with predictor 2, a CCITT Group 4 mask), each checked against its
+    manifest's Pillow hash."""
     import hashlib
 
-    from nerfstudio_thermal_torch.data import image_formats, jpeg
+    from nerfstudio_thermal_torch.data import image_formats, jpeg, webp
     from nerfstudio_thermal_torch.data.datasets import read_image, read_image_array, resize_like_pil
 
     t0 = time.perf_counter()
     jpeg.load_library()
     image_formats.load_library()
+    webp.load_library()
     build_s = time.perf_counter() - t0
     checked, refused, kinds = 0, [], set()
     for root in (JPEG_DIR, IMAGES_DIR):
         manifest = json.loads((root / "manifest.json").read_text())
         for name, rec in sorted(manifest.items()):
-            if rec.get("port_raises") or rec.get("pillow_raises"):
+            if rec.get("pillow_raises"):
                 try:
                     read_image(root / name)
                 except NotImplementedError as e:
@@ -2974,7 +2999,7 @@ def image_io_phase(smi: str) -> dict:
     witnesses = [r for r in refused if r.startswith("jpeg_")]
     if not witnesses:
         raise AssertionError("no fixture that Pillow refuses exercised the port's refusal")
-    if not {"progressive", "interlaced", "tiff", "bmp", "gif", "jpeg"} <= kinds:
+    if not {"progressive", "interlaced", "tiff", "bmp", "gif", "jpeg", "webp"} <= kinds:
         raise AssertionError(f"fixture kinds {sorted(kinds)}")
 
     def median_ms(fn) -> float:
@@ -3007,18 +3032,29 @@ def image_io_phase(smi: str) -> dict:
             formats_ms[label], got = median_ms(lambda: read_image_array(path))
             if got.shape != want.shape or not np.array_equal(got, want):
                 raise AssertionError(f"the 1920x1080 {label} file does not decode to the pixels written")
-    lzw = sorted(IMAGES_DIR.glob("tiff_*lzw*.tif"))
+    images = json.loads((IMAGES_DIR / "manifest.json").read_text())
+    lzw = [p for p in sorted(IMAGES_DIR.glob("tiff_*lzw*.tif")) if "pillow_raises" not in images[p.name]]
     lzw_ms, _ = median_ms(lambda: [read_image_array(p) for p in lzw])
-    log(f"image_io: decoders built in {build_s:.2f} s; {checked} JPEG / PNG / TIFF / BMP / GIF fixtures (progressive, "
+    scene_manifest = json.loads((SCENE24_DIR / "manifest.json").read_text())
+    slice_ms = {}
+    for label in SLICE24_1080P:
+        name = f"1080p/{label}"
+        slice_ms[label], (arr, mode) = median_ms(lambda: read_image(SCENE24_DIR / name))
+        rec = scene_manifest[name]
+        if (hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or mode != rec["mode"]
+                or list(arr.shape) != rec["shape"] or arr.shape[:2] != (1080, 1920)):
+            raise AssertionError(f"{name}: the decode does not match Pillow's")
+    log(f"image_io: decoders built in {build_s:.2f} s; {checked} JPEG / PNG / TIFF / BMP / GIF / WebP fixtures (progressive, "
         f"Adam7, CMYK / YCCK and block-smoothed JPEGs included) decode to their manifest's Pillow hashes; refused: "
         f"{'; '.join(refused)}; 1920x1080 decode {decode_ms:.1f} ms, 0.5x BILINEAR resize {resize_ms:.1f} ms; "
         f"progressive 1920x1080 decode {prog_ms:.1f} ms ({len(progressive)} bytes) against {twin_ms:.1f} ms for the "
         f"baseline file of its pixels at the same quality ({len(baseline)} bytes); 1920x1080 16-bit TIFF "
         f"{formats_ms['tiff16']:.1f} ms uncompressed, {formats_ms['tiff16_deflate']:.1f} ms Deflate, 24-bit BMP "
         f"{formats_ms['bmp24']:.1f} ms; the {len(lzw)} LZW TIFF fixtures (tens of pixels a side) {lzw_ms:.2f} ms "
-        f"together (host, medians of 5) ({smi})")
+        f"together; 1920x1080 " + ", ".join(f"{k} {v:.1f} ms" for k, v in slice_ms.items())
+        + f" (host, medians of 5) ({smi})")
     return {"decode_ms": decode_ms, "resize_ms": resize_ms, "fixtures": checked, "progressive_ms": prog_ms,
-            "baseline_twin_ms": twin_ms, "formats_ms": formats_ms, "lzw_ms": lzw_ms}
+            "baseline_twin_ms": twin_ms, "formats_ms": formats_ms, "lzw_ms": lzw_ms, "slice24_ms": slice_ms}
 
 
 def write_ingp_scene(root: Path, num: int = NGP_PAIRS, w: int = 640, h: int = 480) -> Path:
@@ -3565,8 +3601,8 @@ def nerf_stack_phase() -> dict:
 def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps: int = CLASSIC_STEPS,
                   capture_step=None, on_step=None, timed_from: int = CLASSIC_TIMED_FROM) -> dict:
     """ns-train of `name` at full width for `steps` steps, each synchronized
-    and timed (from step `timed_from`), with its launches (`per_step`, or
-    with None nerfacto's, by proposal_updated), every loss finite, every
+    and timed (from step `timed_from`), with its launches (`per_step`, a
+    function of proposal_updated, or with None nerfacto's), every loss finite, every
     param group changed. capture_step: that step's fused-MLP, hash and
     hash-VJP calls are recorded for mlp_model_phase / hash_model_phase /
     vjp_model_phase. on_step(trainer, step, scalars) runs after each step.
@@ -3600,10 +3636,10 @@ def classic_train(name: str, scene: Path, out_dir: Path, flags, per_step, steps:
             dt = time.perf_counter() - t0
             launches = {k: v - c0[k] for k, v in read_counts().items()}
             want = per_step
-            if want is None:
+            if want is None or callable(want):
                 cfg = trainer.model.config
                 updated, _ = proposal_updated(step, ssu, cfg.proposal_warmup, cfg.proposal_update_every)
-                want = _hash_step(1)(updated)
+                want = (want or _hash_step(1))(updated)
             if launches != expected_counts(want):
                 raise AssertionError(f"{name} step {step}: launches {launches}, expected {want}")
             scalars = {k: float(v) for k, v in out.items()}
@@ -6581,6 +6617,47 @@ def prefetch_phase(tmp: Path, smi: str) -> dict:
             "vanilla_ms_step": vanilla["ms_step"], "depth_counts": depth["counts"], "worst": worst}
 
 
+# Phase 24: the images only Pillow read before. thermal-nerfacto trains
+# SCENE24_STEPS steps at full width through ns-train on tests/data/
+# webp_tiff_scene (RGB 320x240 as lossy WebP and one JPEG-in-TIFF frame,
+# thermal 320x256 as 16-bit Zstandard TIFF with predictor 2 and one LZMA
+# frame), after every frame decodes to its manifest's Pillow hash; every
+# loss finite; the hash kernels' launches each step as
+# METHODS["thermal-nerfacto"] (all ten steps update the proposals: 8 / 8 / 8).
+SCENE24_STEPS = 10
+
+
+def formats24_phase(tmp: Path, smi: str) -> dict:
+    import hashlib
+
+    from nerfstudio_thermal_torch.data.datasets import read_image
+
+    t_phase = time.perf_counter()
+    manifest = json.loads((SCENE24_DIR / "manifest.json").read_text())
+    transforms = json.loads((SCENE24_DIR / "transforms.json").read_text())
+    names = [f["file_path"] for f in transforms["frames"]]
+    t0 = time.perf_counter()
+    for name in names:
+        arr, mode = read_image(SCENE24_DIR / name)
+        rec = manifest[name]
+        if (hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or mode != rec["mode"]
+                or list(arr.shape) != rec["shape"]):
+            raise AssertionError(f"phase 24: {name} does not decode to Pillow's array")
+    decode_s = time.perf_counter() - t0
+    kinds = sorted({(Path(n).suffix, manifest[n]["mode"]) for n in names})
+    step = METHODS["thermal-nerfacto"]["step"]
+    run = classic_train("thermal-nerfacto", SCENE24_DIR, tmp, [], step, steps=SCENE24_STEPS, timed_from=2)
+    if run["counts"] != expected_counts(step(True), SCENE24_STEPS):
+        raise AssertionError(f"phase 24: launches {run['counts']}, predicted {step(True)} x {SCENE24_STEPS}")
+    losses = [r["loss"] for r in run["records"]]
+    per_step = {k: v / SCENE24_STEPS for k, v in run["counts"].items() if v}
+    log(f"phase 24: {len(names)} frames ({kinds}) decode to their manifest's Pillow hashes in {decode_s:.2f} s; "
+        f"thermal-nerfacto {SCENE24_STEPS} steps through ns-train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{run['step_s'] * 1e3:.2f} ms/step (steps 2-{SCENE24_STEPS - 1}), launches a step {per_step}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {"counts": run["counts"], "step_s": run["step_s"], "losses": losses}
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -6733,6 +6810,8 @@ def main() -> int:
         bench = benchmark_phase(Path(tmp) / "classic" / "blender", Path(tmp) / "benchmark", smi)
         # phase 23: BMP + TIFF frames through PrefetchingDataManager with a resume, TIFF depth maps
         prefetch = prefetch_phase(Path(tmp) / "phase23", smi)
+        # phase 24: thermal-nerfacto on WebP / Zstandard / LZMA / JPEG-in-TIFF frames
+        formats24 = formats24_phase(Path(tmp) / "phase24", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -6985,6 +7064,8 @@ def main() -> int:
                 "thermal-nerfacto": prefetch["counts"][rec["name"]] / PREFETCH_STEPS,
                 "thermal-nerfacto resumed": prefetch["resumed_counts"][rec["name"]] / (PREFETCH_STEPS - PREFETCH_CKPT),
                 "depth-nerfacto (TIFF depth)": prefetch["depth_counts"][rec["name"]] / DEPTH23_STEPS}
+            # phase 24: thermal-nerfacto on this slice's formats
+            rec["webp_tiff_launches_per_step"] = formats24["counts"][rec["name"]] / SCENE24_STEPS
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -7010,8 +7091,10 @@ def main() -> int:
     log(f"image_io: 1920x1080 JPEG decode {image_io['decode_ms']:.1f} ms, 0.5x resize {image_io['resize_ms']:.1f} ms; "
         f"progressive 1920x1080 {image_io['progressive_ms']:.1f} ms against baseline {image_io['baseline_twin_ms']:.1f} "
         f"ms; 1920x1080 TIFF 16-bit {image_io['formats_ms']['tiff16']:.1f} ms, Deflate "
-        f"{image_io['formats_ms']['tiff16_deflate']:.1f} ms, BMP 24-bit {image_io['formats_ms']['bmp24']:.1f} ms "
-        f"(host) ({smi})")
+        f"{image_io['formats_ms']['tiff16_deflate']:.1f} ms, BMP 24-bit {image_io['formats_ms']['bmp24']:.1f} ms; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in image_io["slice24_ms"].items()) + f" (host) ({smi})")
+    log(f"phase 24: thermal-nerfacto on WebP / Zstandard / LZMA / JPEG-in-TIFF frames {formats24['step_s'] * 1e3:.2f} "
+        f"ms/step (steps 2-{SCENE24_STEPS - 1}) ({smi})")
     log(f"phase 23: thermal-nerfacto through PrefetchingDataManager {prefetch['ms_step']:.2f} ms/step, through "
         f"VanillaDataManager {prefetch['vanilla_ms_step']:.2f} ms/step (single runs, steps {PREFETCH_TIMED_FROM}-"
         f"{PREFETCH_STEPS - 1}); resumed losses within {prefetch['worst']:.2e} ({smi})")

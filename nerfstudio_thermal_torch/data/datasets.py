@@ -12,7 +12,10 @@ gives, choosing the decoder by the file's first bytes as Pillow does:
 - JPEG with the port's decoder (data/jpeg.py), CMYK / YCCK included
   (4 channels, inverted as Pillow's "CMYK;I");
 - TIFF, BMP and GIF with data/image_formats.py (16-bit grey TIFF is
-  uint16, float TIFF float32, 32-bit int TIFF int32);
+  uint16, float TIFF float32, 32-bit int TIFF int32; CMYK and CIELAB
+  TIFFs give 4 and 3 channels, as Pillow gives them to the JAX loader);
+- WebP with the port's decoder (data/webp.py): lossless, lossy, alpha,
+  an animation's first frame;
 each raising when its native library cannot be built: no other decoder
 stands in. `camera_res_scale_factor` resizes as Pillow's BILINEAR,
 computed in numpy (`resize_like_pil`) per Pillow's mode (palette and
@@ -184,9 +187,7 @@ def _format(path) -> Tuple[str, bytes]:
     data = Path(path).read_bytes()
     kind = sniff(data[:16])
     if kind is None:
-        raise NotImplementedError(f"{path}: not an image format the port reads (PNG, JPEG, TIFF, BMP, GIF)")
-    if kind == "webp":
-        raise NotImplementedError(f"{path}: WebP is not supported")
+        raise NotImplementedError(f"{path}: not an image format the port reads (PNG, JPEG, TIFF, BMP, GIF, WebP)")
     return kind, data
 
 
@@ -201,6 +202,10 @@ def image_size(path) -> Tuple[int, int]:
         from nerfstudio_thermal_torch.data.jpeg import decode_jpeg_header
 
         return decode_jpeg_header(data, path)
+    if kind == "webp":
+        from nerfstudio_thermal_torch.data.webp import webp_size
+
+        return webp_size(data, path)
     return getattr(image_formats, f"{kind}_size")(data, path)
 
 
@@ -218,6 +223,10 @@ def read_image(path) -> Tuple[np.ndarray, str]:
 
         arr = decode_jpeg_bytes(data, path)
         return arr, "L" if arr.ndim == 2 else {3: "RGB", 4: "CMYK"}[arr.shape[-1]]
+    if kind == "webp":
+        from nerfstudio_thermal_torch.data.webp import decode_webp
+
+        return decode_webp(data, path)
     return getattr(image_formats, f"decode_{kind}")(data, path)
 
 
@@ -311,9 +320,10 @@ def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
 def resize_like_pil(arr: np.ndarray, width: int, height: int, mode: Optional[str] = None) -> np.ndarray:
     """`np.asarray(Image.fromarray(arr, mode).resize((width, height),
     Image.BILINEAR))` for the arrays the decoders give: uint8 [H, W] (L),
-    [H, W, 2] (LA), [H, W, 3] (RGB) and [H, W, 4] (RGBA, or CMYK when
-    `mode` says so; LA and RGBA are resampled with premultiplied alpha, as
-    Pillow's La / RGBa), uint16 [H, W] (I;16, and I;16B, whose bytes
+    [H, W, 2] (LA, or PA), [H, W, 3] (RGB, or LAB, whose a* and b* Pillow
+    resamples as signed) and [H, W, 4] (RGBA, or CMYK when `mode` says so;
+    LA and RGBA are resampled with premultiplied alpha, as Pillow's La /
+    RGBa, PA and CMYK band by band), uint16 [H, W] (I;16, and I;16B, whose bytes
     Pillow resamples as little-endian), int32 (I) and float32 (F); palette
     indices and 1-bit images (modes "P" and "1") with NEAREST, as Pillow
     resizes them whatever the filter asked. Mode "L:P" raises, as Pillow
@@ -325,10 +335,15 @@ def resize_like_pil(arr: np.ndarray, width: int, height: int, mode: Optional[str
     if arr.dtype == np.dtype(">u2"):
         # Pillow's 16-bit resampling reads and writes I;16B as little-endian
         return resize_like_pil(arr.view("<u2"), width, height, "I;16").view(">u2")
+    if mode == "LAB":
+        # Pillow resamples a* and b* as the signed values they are
+        signed = np.array([0, 128, 128], np.uint8)
+        return resize_like_pil(arr ^ signed, width, height, "RGB") ^ signed
     h, w = arr.shape[:2]
     if (w, h) == (width, height):
         return arr.copy()
-    alpha = arr.ndim == 3 and arr.shape[-1] in (2, 4) and mode != "CMYK"
+    # LA and RGBA are resampled premultiplied; PA and CMYK band by band
+    alpha = arr.ndim == 3 and arr.shape[-1] in (2, 4) and mode not in ("CMYK", "PA")
     if alpha:
         a = arr[..., -1:].astype(np.int64)
         tmp = arr[..., :-1].astype(np.int64) * a + 128

@@ -11,9 +11,11 @@ for CMYK / YCCK (inverted, as Pillow's "CMYK;I" raw mode gives them), with
 no EXIF rotation. There is no fallback: when the library cannot be built
 or loaded, decoding raises. A feature outside the decoder's scope
 (hierarchical frames, arithmetic-coded lossless frames, 12-bit samples,
-subsampled lossless frames, a lossless frame that needs a colour
-conversion) raises NotImplementedError naming it; Pillow here refuses
-all but the first two as well.
+a lossless frame that needs a colour conversion) raises
+NotImplementedError naming it; Pillow 12.1 (libjpeg-turbo 3.1) refuses all but the
+arithmetic-coded lossless frames as well. `convert` of
+`decode_jpeg_bytes` sets the colour handling of a JPEG-compressed TIFF
+strip as libtiff sets it.
 
 `encode_jpeg` writes what Pillow's `Image.save(format="JPEG", quality=q)`
 writes for an RGB image with libjpeg-turbo's defaults (4:2:0, the ISLOW
@@ -47,19 +49,19 @@ def load_library():
             raise RuntimeError(f"the JPEG decoder ({SOURCE.name}) could not be built or loaded: {e}") from e
         if lib.jpeg_decoder_abi_version() != 1:
             raise RuntimeError("the JPEG decoder library has an unexpected ABI version")
-        lib.jpeg_decode.restype = ctypes.c_int
-        lib.jpeg_decode.argtypes = [
+        lib.jpeg_decode_color.restype = ctypes.c_int
+        lib.jpeg_decode_color.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
         ]
         _lib = lib
     return _lib
 
 
-def _call(data: bytes, out, out_size: int, path) -> Tuple[int, int, int]:
+def _call(data: bytes, out, out_size: int, path, color: int = -1) -> Tuple[int, int, int]:
     dims = (ctypes.c_int * 3)()
     err = ctypes.create_string_buffer(256)
-    rc = load_library().jpeg_decode(data, len(data), out, out_size, dims, err, len(err))
+    rc = load_library().jpeg_decode_color(data, len(data), out, out_size, dims, err, len(err), color)
     if rc == 1:
         raise NotImplementedError(f"{path}: {err.value.decode()}")
     if rc != 0:
@@ -72,11 +74,17 @@ def decode_jpeg(path) -> np.ndarray:
     return decode_jpeg_bytes(Path(path).read_bytes(), path)
 
 
-def decode_jpeg_bytes(data: bytes, name="<bytes>") -> np.ndarray:
-    """`decode_jpeg` of a file's bytes; `name` labels errors."""
-    h, w, c = _call(data, None, 0, name)
+def decode_jpeg_bytes(data: bytes, name="<bytes>", convert=None) -> np.ndarray:
+    """`decode_jpeg` of a file's bytes; `name` labels errors. `convert`
+    sets the colour handling of a JPEG-compressed TIFF strip, as libtiff
+    does: True converts YCbCr to RGB, False takes the components as they
+    are (CMYK not inverted), "replicate" as False with subsampled
+    components replicated rather than fancy-upsampled (an old-style JPEG
+    TIFF's planes); None decides from the markers."""
+    color = {None: -1, False: 0, True: 1, "replicate": 2}[convert]
+    h, w, c = _call(data, None, 0, name, color)
     out = np.empty((h, w, c), np.uint8)
-    _call(data, out.ctypes.data_as(ctypes.c_void_p), out.nbytes, name)
+    _call(data, out.ctypes.data_as(ctypes.c_void_p), out.nbytes, name, color)
     return out[..., 0] if c == 1 else out
 
 

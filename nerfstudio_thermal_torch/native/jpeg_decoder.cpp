@@ -30,16 +30,26 @@
 //   - SOF9 / SOF10 (arithmetic coding, sequential and progressive;
 //     jdarith.c): the QM decoder with ITU T.81's state table, DAC
 //     conditioning, restart intervals;
-//   - SOF3 (lossless, Huffman-coded; jdlhuff.c, jdlossls.c): predictors 1-7,
-//     a point transform, restart intervals of whole rows, no subsampling;
-//     the samples then take the same colour conversion.
-// Hierarchical frames, arithmetic-coded lossless ones, 12-bit samples and
-// subsampled lossless frames return 1 with the marker named in the message.
+//   - SOF3 (lossless, Huffman-coded; jdlhuff.c, jddiffct.c, jdlossls.c): predictors 1-7,
+//     a point transform, restart intervals of whole MCU rows, subsampled
+//     components (an interleaved scan's MCUs of h x v samples, replicated,
+//     not fancy-upsampled, as libjpeg-turbo does without a DCT); the
+//     samples then take the same colour conversion.
+// Hierarchical frames, arithmetic-coded lossless ones and 12-bit samples
+// return 1 with the marker named in the message.
 //
 // C interface (loaded with ctypes by data/jpeg.py):
 //   int jpeg_decoder_abi_version();
 //   int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out,
 //                   size_t out_size, int* dims, char* err, int err_size);
+//   int jpeg_decode_color(..., the same, int color);
+// jpeg_decode_color sets the colour handling as libtiff's JPEG codec does
+// for a JPEG-compressed TIFF strip: color 1 converts YCbCr to RGB
+// (JPEGCOLORMODE_RGB), color 0 takes every component as it is (JCS_UNKNOWN:
+// no conversion, a 4-component image not inverted), color 2 also
+// replicates subsampled components instead of fancy-upsampling them (the
+// planes libtiff's old-style JPEG codec hands its RGBA reader);
+// jpeg_decode decides from the markers, as libjpeg does by default.
 // dims receives {height, width, channels} (channels 1, 3 or 4). With out == nullptr only the
 // header is read and dims filled. Returns 0 on success, 1 for an
 // unsupported feature, 2 for a malformed stream or a too-small buffer.
@@ -114,8 +124,12 @@ class Decoder {
   int channels() const { return static_cast<int>(comps_.size()); }
   void write(uint8_t* out) const;
   bool converts() const;
+  void set_color(int color) { color_ = color; }
 
  private:
+  // -1: libjpeg's default from the markers; 0: none; 1: YCbCr -> RGB; 2: none, and the chroma
+  // replicated instead of fancy-upsampled
+  int color_ = -1;
   const uint8_t* p_;
   const uint8_t* end_;
   int width_ = 0, height_ = 0;
@@ -950,59 +964,77 @@ void Decoder::arith_ac_refine(const Component& c, int16_t* block, int ss, int se
 // Rb. The output sample is the reconstruction shifted left by the point
 // transform `pt`, as an 8-bit sample.
 void Decoder::decode_lossless_scan(const std::vector<Component*>& scan, int psv, int pt) {
-  const int W = width_, H = height_;
+  // an interleaved scan codes MCUs of h x v samples of each component (the
+  // padding past a component's edge coded too), a single component's scan
+  // one sample at a time (jddiffct.c)
+  const bool interleaved = scan.size() > 1;
+  const int mcus_x = interleaved ? (width_ + hmax_ - 1) / hmax_ : scan[0]->width;
+  const int mcus_y = interleaved ? (height_ + vmax_ - 1) / vmax_ : scan[0]->height;
   for (auto* c : scan) {
-    if (c->h != 1 || c->v != 1 || hmax_ != 1 || vmax_ != 1) fail(1, "a subsampled lossless JPEG is not supported");
-    c->samples.assign(static_cast<size_t>(W) * H, 0);
+    c->samples.assign(static_cast<size_t>(c->width) * c->height, 0);
     c->point_transform = pt;
   }
-  if (restart_interval_ && restart_interval_ % W != 0)
+  if (restart_interval_ && restart_interval_ % mcus_x != 0)
     fail(1, "a lossless JPEG whose restart interval is not a whole number of rows is not supported");
   reset_bits();
-  const int rows_per_restart = restart_interval_ ? restart_interval_ / W : 0;
-  std::vector<std::vector<int>> diffs(scan.size(), std::vector<int>(static_cast<size_t>(W)));
-  int first_row = 0;
-  for (int y = 0; y < H; ++y) {
-    if (rows_per_restart && y > 0 && y % rows_per_restart == 0) {
+  const int rows_per_restart = restart_interval_ ? restart_interval_ / mcus_x : 0;
+  std::vector<std::vector<int>> diffs(scan.size());
+  int first_mcu_row = 0;
+  for (int my = 0; my < mcus_y; ++my) {
+    if (rows_per_restart && my > 0 && my % rows_per_restart == 0) {
       process_restart();
-      first_row = y;
+      first_mcu_row = my;
     }
-    for (int x = 0; x < W; ++x) {
+    for (size_t i = 0; i < scan.size(); ++i) {
+      const int mw = interleaved ? scan[i]->h : 1, mh = interleaved ? scan[i]->v : 1;
+      diffs[i].assign(static_cast<size_t>(mcus_x) * mw * mh, 0);
+    }
+    for (int mx = 0; mx < mcus_x; ++mx) {
       for (size_t i = 0; i < scan.size(); ++i) {
-        int s = decode_huffman(dc_[scan[i]->td]);
-        int diff = 0;
-        if (s == 16) {
-          diff = 32768;
-        } else if (s) {
-          if (s > 16) fail(2, "bad lossless difference magnitude");
-          diff = extend(get_bits(s), s);
-        }
-        diffs[i][static_cast<size_t>(x)] = diff;
+        const int mw = interleaved ? scan[i]->h : 1, mh = interleaved ? scan[i]->v : 1;
+        for (int yy = 0; yy < mh; ++yy)
+          for (int xx = 0; xx < mw; ++xx) {
+            int s = decode_huffman(dc_[scan[i]->td]);
+            int diff = 0;
+            if (s == 16) {
+              diff = 32768;
+            } else if (s) {
+              if (s > 16) fail(2, "bad lossless difference magnitude");
+              diff = extend(get_bits(s), s);
+            }
+            diffs[i][static_cast<size_t>(yy) * mcus_x * mw + mx * mw + xx] = diff;
+          }
       }
     }
     for (size_t i = 0; i < scan.size(); ++i) {
-      uint16_t* row = scan[i]->samples.data() + static_cast<size_t>(y) * W;
-      const uint16_t* up = row - W;
-      const int* d = diffs[i].data();
-      for (int x = 0; x < W; ++x) {
-        int64_t pred;
-        if (y == first_row) {
-          pred = x == 0 ? (1 << (7 - pt)) : row[x - 1];
-        } else if (x == 0) {
-          pred = up[0];
-        } else {
-          const int64_t ra = row[x - 1], rb = up[x], rc = up[x - 1];
-          switch (psv) {
-            case 1: pred = ra; break;
-            case 2: pred = rb; break;
-            case 3: pred = rc; break;
-            case 4: pred = ra + rb - rc; break;
-            case 5: pred = ra + ((rb - rc) >> 1); break;
-            case 6: pred = rb + ((ra - rc) >> 1); break;
-            default: pred = (ra + rb) >> 1; break;
+      Component* c = scan[i];
+      const int W = c->width, mw = interleaved ? c->h : 1, mh = interleaved ? c->v : 1;
+      for (int yy = 0; yy < mh; ++yy) {
+        const int y = my * mh + yy;
+        if (y >= c->height) break;
+        uint16_t* row = c->samples.data() + static_cast<size_t>(y) * W;
+        const uint16_t* up = row - W;
+        const int* d = diffs[i].data() + static_cast<size_t>(yy) * mcus_x * mw;
+        for (int x = 0; x < W; ++x) {
+          int64_t pred;
+          if (y == first_mcu_row * mh) {
+            pred = x == 0 ? (1 << (7 - pt)) : row[x - 1];
+          } else if (x == 0) {
+            pred = up[0];
+          } else {
+            const int64_t ra = row[x - 1], rb = up[x], rc = up[x - 1];
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
           }
+          row[x] = static_cast<uint16_t>((pred + d[x]) & 0xFFFF);
         }
-        row[x] = static_cast<uint16_t>((pred + d[x]) & 0xFFFF);
       }
     }
   }
@@ -1289,7 +1321,7 @@ void Decoder::upsample(const Component& c, const std::vector<uint8_t>& plane, in
     for (int y = 0; y < H; ++y) std::memcpy(&full[static_cast<size_t>(y) * W], &plane[static_cast<size_t>(y) * stride], W);
     return;
   }
-  if (fx == 2 && fy == 1 && dw > 2) {  // h2v1_fancy_upsample
+  if (color_ != 2 && !lossless_ && fx == 2 && fy == 1 && dw > 2) {  // h2v1_fancy_upsample
     for (int y = 0; y < H; ++y) {
       uint8_t* o = row.data();
       int v = in(y, 0);
@@ -1307,7 +1339,7 @@ void Decoder::upsample(const Component& c, const std::vector<uint8_t>& plane, in
     }
     return;
   }
-  if (fx == 2 && fy == 2 && dw > 2) {  // h2v2_fancy_upsample
+  if (color_ != 2 && !lossless_ && fx == 2 && fy == 2 && dw > 2) {  // h2v2_fancy_upsample
     for (int y = 0; y < H; ++y) {
       int iy = y / 2;
       int ny = (y % 2 == 0) ? (iy > 0 ? iy - 1 : 0) : (iy + 1 < dh ? iy + 1 : dh - 1);
@@ -1331,7 +1363,7 @@ void Decoder::upsample(const Component& c, const std::vector<uint8_t>& plane, in
     }
     return;
   }
-  if (fx == 1 && fy == 2) {  // h1v2_fancy_upsample
+  if (color_ != 2 && !lossless_ && fx == 1 && fy == 2) {  // h1v2_fancy_upsample
     for (int y = 0; y < H; ++y) {
       int iy = y / 2;
       bool upper = y % 2 == 0;
@@ -1374,6 +1406,7 @@ inline uint8_t clamp8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 
 // 'R', 'G', 'B'; for 4 components YCCK (converted to CMYK) after an Adobe
 // marker with a transform other than 0
 bool Decoder::converts() const {
+  if (color_ >= 0) return color_ == 1 && comps_.size() == 3;
   if (comps_.size() == 4) return adobe_ && adobe_transform_ != 0;
   if (comps_.size() != 3) return false;
   if (jfif_) return true;
@@ -1398,6 +1431,11 @@ void Decoder::write(uint8_t* out) const {
     return;
   }
   static const YccTables t;
+  if (comps_.size() == 4 && (color_ == 0 || color_ == 2)) {
+    for (size_t i = 0; i < n; ++i)
+      for (int k = 0; k < 4; ++k) out[4 * i + k] = full[k][i];
+    return;
+  }
   if (comps_.size() == 4) {
     // Pillow's "CMYK;I" inverts
     if (converts()) {
@@ -1437,10 +1475,11 @@ void set_error(char* err, int err_size, const std::string& msg) {
 
 extern "C" int jpeg_decoder_abi_version() { return 1; }
 
-extern "C" int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, int* dims, char* err,
-                           int err_size) {
+extern "C" int jpeg_decode_color(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, int* dims,
+                                 char* err, int err_size, int color) {
   try {
     Decoder d(data, size);
+    d.set_color(color);
     if (out == nullptr) {
       d.header_only();
     } else {
@@ -1465,4 +1504,9 @@ extern "C" int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_
     set_error(err, err_size, e.what());
     return 2;
   }
+}
+
+extern "C" int jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_size, int* dims, char* err,
+                           int err_size) {
+  return jpeg_decode_color(data, size, out, out_size, dims, err, err_size, -1);
 }

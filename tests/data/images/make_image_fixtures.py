@@ -1,7 +1,7 @@
-"""Write the TIFF, BMP, GIF and JPEG fixtures of this directory and their
-manifest.
+"""Write the TIFF, BMP, GIF, JPEG and WebP fixtures of this directory and
+their manifest.
 
-Run from the repository root on a machine with Pillow:
+Run from the repository root on a machine with Pillow and zstandard:
 
     python tests/data/images/make_image_fixtures.py
 
@@ -22,17 +22,23 @@ cut progression (`arith_jpeg`: the quantized DCT of smooth planes through
 libjpeg's QM coder, `ArithEncoder`); and the refusal
 witnesses: a 12-bit JPEG, a hierarchical (SOF5) one and a lossless YCbCr
 one (libjpeg-turbo converts no colours of a lossless image), which Pillow
-here refuses too.
+refuses too. `tiffs_codecs` adds TIFFs with JPEG (Pillow's, and YCbCr
+4:2:0 strips and tiles built from Pillow's JPEG encoder with a
+JPEGTables tag), old-style JPEG, LZMA, Zstandard, CCITT (Pillow's, both
+fill orders), CMYK, CIELAB and YCbCr data units, I;12, PA, RGBa;16,
+planar 16-bit, all orientations and BigTIFF; `webps` lossless, lossy,
+alpha (hand-built ALPH chunks for each unfilter) and animated WebP.
 
 manifest.json records, per file, Pillow's mode and the SHA-256, shape and
 dtype of `np.asarray(Image.open(path))`; "pillow_raises" marks a file
-Pillow refuses, "port_raises" one the port does not read (WebP).
+Pillow refuses (the port refuses each of them too).
 Existing files come out byte-identical on a machine with the same Pillow.
 """
 
 import hashlib
 import io
 import json
+import lzma
 import struct
 import zlib
 from pathlib import Path
@@ -127,8 +133,11 @@ REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 def write_tiff(path: Path, img: np.ndarray, *, order: str = "<", photometric: int, bits: int, sample_format: int = 1,
                extra=(), compression: int = 1, predictor: int = 1, planar: int = 1, tile=None, rows_per_strip=None,
-               fill: int = 1, colormap=None) -> None:
-    """A one-page TIFF of sample values [H, W, S]."""
+               fill: int = 1, colormap=None, tags=None, coder=None, big: bool = False) -> None:
+    """A one-page TIFF of sample values [H, W, S]. `coder` encodes a strip
+    or tile of samples [rows, cw, S] itself (JPEG, or a codec libtiff does
+    not have); `tags` adds entries {tag: (type, values)}; `big` writes a
+    BigTIFF."""
     img = img if img.ndim == 3 else img[..., None]
     h, w, s = img.shape
     planes = s if planar == 2 else 1
@@ -138,7 +147,14 @@ def write_tiff(path: Path, img: np.ndarray, *, order: str = "<", photometric: in
 
     def pack(chunk: np.ndarray) -> bytes:  # [rows, cw, sc] values -> stored bytes
         rows, cw = chunk.shape[:2]
-        if bits < 8:
+        if coder is not None:
+            return coder(chunk)
+        if bits == 12:
+            flat = chunk.reshape(rows, -1).astype(np.uint16)
+            flat = np.concatenate([flat, np.zeros((rows, flat.shape[1] % 2), np.uint16)], 1).reshape(rows, -1, 2)
+            a, b = flat[..., 0], flat[..., 1]
+            raw = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], -1).astype(np.uint8).tobytes()
+        elif bits < 8:
             flat = chunk.reshape(rows, -1).astype(np.uint8)
             pad = (-flat.shape[1] * bits) % 8 // bits
             flat = np.concatenate([flat, np.zeros((rows, pad), np.uint8)], 1).reshape(rows, -1, 8 // bits)
@@ -164,6 +180,12 @@ def write_tiff(path: Path, img: np.ndarray, *, order: str = "<", photometric: in
             raw = zlib.compress(raw, 9)
         elif compression == 32773:
             raw = packbits_encode(raw)
+        elif compression == 34925:
+            raw = lzma.compress(raw)
+        elif compression == 50000:
+            import zstandard  # only in this script, to write fixtures
+
+            raw = zstandard.ZstdCompressor(level=19).compress(raw)
         return raw.translate(REVERSED) if fill == 2 else raw
 
     chunks = []
@@ -181,7 +203,9 @@ def write_tiff(path: Path, img: np.ndarray, *, order: str = "<", photometric: in
             rps = rows_per_strip or h
             for y in range(0, h, rps):
                 chunks.append(pack(src[y:y + rps]))
-    data = bytearray(struct.pack(order + "2sHI", b"II" if order == "<" else b"MM", 42, 0))
+    head = struct.pack(order + "2sHHHQ", b"II" if order == "<" else b"MM", 43, 8, 0, 0) if big else struct.pack(
+        order + "2sHI", b"II" if order == "<" else b"MM", 42, 0)
+    data = bytearray(head)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
@@ -204,20 +228,26 @@ def write_tiff(path: Path, img: np.ndarray, *, order: str = "<", photometric: in
         entries[338] = (3, list(extra))
     if sample_format != 1:
         entries[339] = (3, [sample_format] * s)
+    for tag, value in (tags or {}).items():
+        entries[tag] = value(chunks) if callable(value) else value
     ifd_at = len(data)
-    struct.pack_into(order + "I", data, 4, ifd_at)
-    overflow_at = ifd_at + 2 + 12 * len(entries) + 4
-    ifd, overflow = bytearray(struct.pack(order + "H", len(entries))), bytearray()
+    word, count, entry = ("Q", "Q", 20) if big else ("I", "H", 12)
+    struct.pack_into(order + word, data, 8 if big else 4, ifd_at)
+    overflow_at = ifd_at + struct.calcsize(count) + entry * len(entries) + struct.calcsize(word)
+    ifd, overflow = bytearray(struct.pack(order + count, len(entries))), bytearray()
     for tag in sorted(entries):
         typ, vals = entries[tag]
-        fmt = "H" if typ == 3 else "I"
-        raw = struct.pack(order + fmt * len(vals), *vals)
-        if len(raw) <= 4:
-            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+        if big and tag in (273, 279, 324, 325):
+            typ = 16
+        fmt = {1: "B", 7: "B", 3: "H", 4: "I", 5: "II", 16: "Q"}[typ]
+        raw = struct.pack(order + fmt[0] * len(vals), *vals)
+        count = len(vals) // len(fmt)
+        if len(raw) <= struct.calcsize(word):
+            ifd += struct.pack(order + "HH" + word, tag, typ, count) + raw.ljust(struct.calcsize(word), b"\0")
         else:
-            ifd += struct.pack(order + "HHII", tag, typ, len(vals), overflow_at + len(overflow))
+            ifd += struct.pack(order + "HH" + word + word, tag, typ, count, overflow_at + len(overflow))
             overflow += raw + (b"\0" if len(raw) % 2 else b"")
-    data += ifd + struct.pack(order + "I", 0) + overflow
+    data += ifd + struct.pack(order + word, 0) + overflow
     path.write_bytes(bytes(data))
 
 
@@ -305,6 +335,278 @@ def tiffs() -> dict:
                                                            colormap=cmap8),
     }
     return out
+
+
+# ---- TIFF: compressions, photometrics and layouts that libtiff reads -----
+
+
+def split_jpeg(data: bytes):
+    """(a JPEGTables stream: SOI, the DQT and DHT segments, EOI; the
+    abbreviated stream: SOI, the frame and scans, EOI) of a JPEG."""
+    tables, frame, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while data[pos + 1] != 0xDA:
+        size = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos:pos + 2 + size]
+        if data[pos + 1] in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= data[pos + 1] <= 0xEF:
+            frame += seg
+        pos += 2 + size
+    return bytes(tables + b"\xff\xd9"), bytes(frame + data[pos:])
+
+
+def jpeg_coder(subsampling: int, quality: int = 90):
+    """A write_tiff coder of JPEG strips or tiles (Pillow's encoder), their
+    tables kept for the JPEGTables tag (`coder.tables`)."""
+    def coder(chunk: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(chunk[..., 0] if chunk.shape[-1] == 1 else chunk).save(
+            buf, "JPEG", quality=quality, subsampling=subsampling)
+        coder.tables, stream = split_jpeg(buf.getvalue())
+        return stream
+
+    return coder
+
+
+def jpeg_tiff(path: Path, img: np.ndarray, photometric: int, subsampling: int, **kw) -> None:
+    coder = jpeg_coder(subsampling)
+    tags = {347: lambda chunks: (7, list(coder.tables))}
+    if photometric == 6:
+        tags[530] = (3, [2, 2] if subsampling == 2 else [1, 1])
+    write_tiff(path, img, photometric=photometric, bits=8, compression=7, coder=coder, tags=tags, **kw)
+
+
+def patch_tag(path: Path, tag: int, value: int) -> None:
+    """Set a short tag of a little-endian classic TIFF's first IFD in place."""
+    data = bytearray(path.read_bytes())
+    off = struct.unpack("<I", data[4:8])[0]
+    for i in range(struct.unpack("<H", data[off:off + 2])[0]):
+        p = off + 2 + 12 * i
+        if struct.unpack("<H", data[p:p + 2])[0] == tag:
+            struct.pack_into("<HHIH", data, p, tag, 3, 1, value)
+    path.write_bytes(bytes(data))
+
+
+def old_jpeg_tiff(path: Path, img: np.ndarray) -> None:
+    """Compression 6: one strip that is a whole JPEG, JPEGInterchangeFormat
+    pointing at it."""
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=90)
+    jpg = buf.getvalue()
+    write_tiff(path, img, photometric=6, bits=8, compression=6, coder=lambda chunk: jpg,
+               tags={513: lambda chunks: (4, [8]), 514: (4, [len(jpg)])})
+
+
+def ycbcr_units_tiff(path: Path, ycc: np.ndarray, sub, compression: int, **kw) -> None:
+    """Photometric YCbCr, not JPEG-compressed: each strip as data units of
+    sub[0] x sub[1] luma samples then Cb and Cr (the chroma the mean of the
+    unit, the padding past the image zero)."""
+    h, v = sub
+
+    def coder(chunk):
+        rows, cw = chunk.shape[:2]
+        uy, ux = -(-rows // v), -(-cw // h)
+        pad = np.zeros((uy * v, ux * h, 3), np.float64)
+        pad[:rows, :cw] = chunk
+        blocks = pad.reshape(uy, v, ux, h, 3).transpose(0, 2, 1, 3, 4)
+        luma = blocks[..., 0].reshape(uy, ux, v * h)
+        chroma = blocks[..., 1:].mean((2, 3))
+        raw = np.concatenate([luma, chroma], -1).round().astype(np.uint8).tobytes()
+        return lzw_encode_tiff(raw) if compression == 5 else zlib.compress(raw, 9)
+
+    write_tiff(path, ycc, photometric=6, bits=8, compression=compression, coder=coder,
+               tags={530: (3, list(sub)), **kw.pop("tags", {})}, **kw)
+
+
+def foreign_tiff(path: Path, img: np.ndarray, compression: int, fmt: str, **kw) -> None:
+    """A strip coded with a codec Pillow 12.1's libtiff (4.7) lacks: WebP, JPEG 2000."""
+    def coder(chunk):
+        buf = io.BytesIO()
+        Image.fromarray(chunk).save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    write_tiff(path, img, photometric=2, bits=8, compression=compression, coder=coder)
+
+
+def ccitt(path: Path, bits: np.ndarray, compression: str, fill: int = 1, t4: int = None) -> None:
+    info = {} if fill == 1 else {266: 2}
+    if t4 is not None:
+        info[292] = t4
+    Image.fromarray(bits.astype(bool)).save(path, compression=compression, tiffinfo=info)
+
+
+def tiffs_codecs() -> dict:
+    grey8 = u8(17, 22, 1, 50)
+    rgb = u8(9, 13, 3, 51)
+    grey16 = np.clip(smooth(19, 27, 1, 52, scale=20000, noise=300) * 100 + 20000, 0, 65535).astype(np.uint16)
+    thermal = np.clip(smooth(24, 32, 1, 53, scale=3000, noise=40) + 29000, 0, 65535).astype(np.uint16)
+    signed = (smooth(13, 17, 1, 54, scale=9000, noise=50) - 128).astype(np.int16)
+    depth = (smooth(15, 21, 1, 55, scale=1.5, noise=0.01) / 40 + 0.2).astype(np.float32)
+    cmyk = u8(14, 18, 4, 56)
+    lab = u8(13, 19, 3, 57)
+    y, x = np.mgrid[0:37, 0:61]
+    mask = (np.sin(x / 5.0) * np.cos(y / 7.0) + np.random.default_rng(58).normal(0, 0.3, x.shape)) > 0.2
+    tall = u8(12, 20, 3, 59)
+    out = {
+        # orientations: 2-4 flip, 5-8 transpose (a 32 x 40 file comes back 40 x 32)
+        **{f"tiff_orient{o}_l.tif": lambda p, o=o: write_tiff(p, grey8, photometric=1, bits=8,
+                                                              tags={274: (3, [o])}) for o in (2, 3, 4)},
+        **{f"tiff_orient{o}_rgb_lzw.tif": lambda p, o=o: write_tiff(p, rgb, photometric=2, bits=8, compression=5,
+                                                                    rows_per_strip=8, tags={274: (3, [o])})
+           for o in (2, 3, 4)},
+        "tiff_orient5_rgb.tif": lambda p: write_tiff(p, tall, photometric=2, bits=8, tags={274: (3, [5])}),
+        "tiff_orient6_grey16_zstd.tif": lambda p: write_tiff(p, grey16, photometric=1, bits=16, compression=50000,
+                                                             predictor=2, tags={274: (3, [6])}),
+        "tiff_orient7_l_deflate.tif": lambda p: write_tiff(p, grey8, photometric=1, bits=8, compression=8,
+                                                           tags={274: (3, [7])}),
+        "tiff_orient8_rgb_tiled.tif": lambda p: write_tiff(p, tall, photometric=2, bits=8, tile=(16, 16),
+                                                           tags={274: (3, [8])}),
+        # JPEG (259 = 7): Pillow's (RGB, grey), and by hand: YCbCr 4:2:0 strips with a short last one, tiles
+        "tiff_pillow_rgb_jpeg.tif": lambda p: Image.fromarray(rgb).save(p, compression="jpeg", quality=85),
+        "tiff_pillow_l_jpeg.tif": lambda p: Image.fromarray(grey8[..., 0]).save(p, compression="jpeg"),
+        "tiff_ycbcr420_jpeg_strips.tif": lambda p: jpeg_tiff(p, u8(37, 45, 3, 60), 6, 2, rows_per_strip=16),
+        "tiff_rgb_jpeg_tiled.tif": lambda p: jpeg_tiff(p, u8(37, 45, 3, 61), 2, 0, tile=(16, 16)),
+        "tiff_old_jpeg.tif": lambda p: old_jpeg_tiff(p, u8(16, 24, 3, 62)),
+        "tiff_old_jpeg_odd.tif": lambda p: old_jpeg_tiff(p, u8(15, 21, 3, 68)),
+        # LZMA and Zstandard, with predictors; big-endian 16-bit signed and float samples
+        "tiff_pillow_grey16_lzma_pred2.tif": lambda p: Image.fromarray(grey16[..., 0]).save(
+            p, compression="lzma", tiffinfo={317: 2}),
+        "tiff_pillow_thermal16_zstd_pred2.tif": lambda p: Image.fromarray(thermal[..., 0]).save(
+            p, compression="zstd", tiffinfo={317: 2}),
+        "tiff_pillow_rgb_zstd.tif": lambda p: Image.fromarray(rgb).save(p, compression="zstd"),
+        "tiff_pillow_rgb_lzma.tif": lambda p: Image.fromarray(rgb).save(p, compression="lzma"),
+        "tiff_mm_grey16_zstd.tif": lambda p: write_tiff(p, grey16, order=">", photometric=1, bits=16,
+                                                        compression=50000, rows_per_strip=7),
+        "tiff_mm_int16_signed_lzma.tif": lambda p: write_tiff(p, signed, order=">", photometric=1, bits=16,
+                                                              sample_format=2, compression=34925),
+        "tiff_mm_int16_signed_zstd_pred2.tif": lambda p: write_tiff(p, signed, order=">", photometric=1, bits=16,
+                                                                    sample_format=2, compression=50000, predictor=2),
+        "tiff_mm_float_zstd_pred3.tif": lambda p: write_tiff(p, depth, order=">", photometric=1, bits=32,
+                                                             sample_format=3, compression=50000, predictor=3),
+        "tiff_ii_float_lzma.tif": lambda p: write_tiff(p, depth, photometric=1, bits=32, sample_format=3,
+                                                       compression=34925, tile=(16, 16)),
+        # CCITT (bilevel masks): modified Huffman, T.4 1-D and 2-D, T.6, both fill orders
+        **{f"tiff_ccitt_{name}_fill{fill}.tif": lambda p, c=c, fill=fill, t4=t4: ccitt(p, mask, c, fill, t4)
+           for name, c, t4 in (("rle", "tiff_ccitt", None), ("g3_1d", "group3", None), ("g3_2d", "group3", 1),
+                               ("g4", "group4", None)) for fill in (1, 2)},
+        "tiff_ccitt_g3_2d_eolalign.tif": lambda p: ccitt(p, mask, "group3", 1, 5),
+        "tiff_ccitt_g4_whiteiszero.tif": lambda p: (ccitt(p, mask, "group4"), patch_tag(p, 262, 0)),
+        # CMYK and CIELAB, each codec; YCbCr that is not JPEG-compressed
+        **{f"tiff_pillow_cmyk_{c or 'raw'}.tif": lambda p, c=c: Image.fromarray(cmyk, "CMYK").save(p, compression=c)
+           for c in (None, "tiff_lzw", "packbits", "tiff_deflate", "lzma", "zstd", "jpeg")},
+        "tiff_mm_cmyk16.tif": lambda p: write_tiff(p, cmyk.astype(np.uint16) * 257 + 5, order=">", photometric=5,
+                                                   bits=16),
+        **{f"tiff_pillow_lab_{c or 'raw'}.tif": lambda p, c=c: Image.fromarray(lab, "LAB").save(p, compression=c)
+           for c in (None, "tiff_lzw", "tiff_deflate", "lzma", "zstd")},
+        "tiff_pillow_ycbcr_raw.tif": lambda p: Image.fromarray(rgb).convert("YCbCr").save(p),
+        "tiff_pillow_ycbcr_lzw.tif": lambda p: Image.fromarray(rgb).convert("YCbCr").save(p, compression="tiff_lzw"),
+        "tiff_ycbcr22_units_lzw.tif": lambda p: ycbcr_units_tiff(p, u8(15, 21, 3, 69), (2, 2), 5, rows_per_strip=6),
+        "tiff_ycbcr21_units_deflate_refbw.tif": lambda p: ycbcr_units_tiff(
+            p, u8(11, 17, 3, 70), (2, 1), 8, tags={532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])}),
+        # raw modes: 12-bit grey (I;16), palette + alpha, premultiplied 16-bit RGBA
+        "tiff_ii_grey12.tif": lambda p: write_tiff(p, (grey16 >> 4)[:, :25], photometric=1, bits=12,
+                                                   rows_per_strip=6),
+        "tiff_ii_grey12_lzw.tif": lambda p: write_tiff(p, (grey16 >> 4), photometric=1, bits=12, compression=5),
+        "tiff_ii_pa.tif": lambda p: write_tiff(p, np.concatenate([(grey8 // 16), u8(17, 22, 1, 63)], -1)[:9, :13],
+                                               photometric=3, bits=8, extra=(2,),
+                                               colormap=[(i * 4099) % 65536 for i in range(3 * 256)]),
+        "tiff_ii_rgba16_assoc.tif": lambda p: write_tiff(
+            p, (lambda a: np.concatenate([np.minimum(a[..., :3], a[..., 3:]), a[..., 3:]], -1))(
+                u8(13, 17, 4, 64).astype(np.uint16) * 257), photometric=2, bits=16, extra=(1,)),
+        "tiff_mm_rgba16_assoc_zstd.tif": lambda p: write_tiff(
+            p, (lambda a: np.concatenate([np.minimum(a[..., :3], a[..., 3:]), a[..., 3:]], -1))(
+                u8(13, 17, 4, 65).astype(np.uint16) * 257 + 2), order=">", photometric=2, bits=16, extra=(1,),
+            compression=50000),
+        # uncompressed planar files that Pillow unpacks plane by plane with 8-bit / native-float letters
+        "tiff_ii_rgb16_planar.tif": lambda p: write_tiff(p, rgb.astype(np.uint16) * 257 + 9, photometric=2,
+                                                         bits=16, planar=2, rows_per_strip=8),
+        "tiff_mm_rgb16_planar_tiled.tif": lambda p: write_tiff(p, rgb.astype(np.uint16) * 300, order=">",
+                                                               photometric=2, bits=16, planar=2, tile=(16, 16)),
+        "tiff_mm_float_planar.tif": lambda p: write_tiff(p, depth, order=">", photometric=1, bits=32,
+                                                         sample_format=3, planar=2),
+        # BigTIFF (8-byte offsets)
+        "tiff_pillow_bigtiff_rgb.tif": lambda p: Image.fromarray(rgb).save(p, big_tiff=True),
+        "tiff_bigtiff_ii_grey16_zstd.tif": lambda p: write_tiff(p, grey16, photometric=1, bits=16,
+                                                                compression=50000, rows_per_strip=5, big=True),
+        # Pillow 12.1 cannot open a big-endian BigTIFF
+        "tiff_bigtiff_mm_grey16.tif": lambda p: write_tiff(p, grey16[:5, :7], order=">", photometric=1, bits=16,
+                                                           big=True),
+        # what Pillow 12.1's libtiff cannot decode: WebP and JPEG 2000 strips
+        "tiff_webp_strip.tif": lambda p: foreign_tiff(p, u8(16, 24, 3, 66), 50001, "WEBP", lossless=True),
+        "tiff_jpeg2000_strip.tif": lambda p: foreign_tiff(p, u8(16, 24, 3, 67), 34712, "JPEG2000"),
+    }
+    return out
+
+
+# ---- WebP ---------------------------------------------------------------
+
+
+def riff(chunks) -> bytes:
+    body = b"".join(tag + struct.pack("<I", len(data)) + data + (b"\0" if len(data) % 2 else b"")
+                    for tag, data in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def webp_chunks(data: bytes):
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        tag, size = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        out.append((tag, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def filtered_alpha(alpha: np.ndarray, method: int) -> bytes:
+    """An ALPH chunk of raw (uncompressed) alpha under filter `method`
+    (1 horizontal, 2 vertical, 3 gradient), as libwebp's unfilters undo."""
+    a = alpha.astype(np.int32)
+    h, w = a.shape
+    res = np.zeros_like(a)
+    for yy in range(h):
+        for xx in range(w):
+            if yy == 0:
+                pred = 0 if xx == 0 else a[0, xx - 1]
+            elif method == 1:
+                pred = a[yy - 1, 0] if xx == 0 else a[yy, xx - 1]
+            elif method == 2:
+                pred = a[yy - 1, xx]
+            else:
+                pred = a[yy - 1, 0] if xx == 0 else min(max(a[yy, xx - 1] + a[yy - 1, xx] - a[yy - 1, xx - 1], 0), 255)
+            res[yy, xx] = (a[yy, xx] - pred) % 256
+    return bytes([method << 2]) + res.astype(np.uint8).tobytes()
+
+
+def lossy_with_alpha(rgb: np.ndarray, alpha: np.ndarray, method: int) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, "WEBP", quality=80)
+    vp8 = dict(webp_chunks(buf.getvalue()))[b"VP8 "]
+    h, w = alpha.shape
+    vp8x = struct.pack("<I", 0x10) + struct.pack("<I", w - 1)[:3] + struct.pack("<I", h - 1)[:3]
+    return riff([(b"VP8X", vp8x), (b"ALPH", filtered_alpha(alpha, method)), (b"VP8 ", vp8)])
+
+
+def webps() -> dict:
+    rgb = u8(40, 56, 3, 70)
+    rgba = np.concatenate([u8(20, 28, 3, 71), np.clip(u8(20, 28, 1, 72).astype(int) * 2 - 100, 0, 255).astype(
+        np.uint8)], -1)  # alpha 0, 255 and between
+    frames = [Image.fromarray(u8(24, 32, 3, 73 + k)) for k in range(3)]
+
+    def save(p, img, **kw):
+        Image.fromarray(img).save(p, "WEBP", **kw)
+
+    return {
+        "webp_lossless_rgba.webp": lambda p: save(p, rgba, lossless=True),
+        "webp_lossless_palette.webp": lambda p: save(p, (u8(30, 41, 3, 74) // 64 * 85).astype(np.uint8),
+                                                     lossless=True),
+        "webp_lossy.webp": lambda p: save(p, rgb, quality=80),
+        "webp_lossy_q20_odd.webp": lambda p: save(p, u8(37, 51, 3, 75), quality=20, method=6),
+        "webp_lossy_alpha.webp": lambda p: save(p, rgba, quality=75),
+        "webp_lossy_alpha_q30.webp": lambda p: save(p, rgba, quality=90, alpha_quality=30),
+        **{f"webp_lossy_alpha_filter{m}.webp": lambda p, m=m: p.write_bytes(
+            lossy_with_alpha(rgba[..., :3], rgba[..., 3], m)) for m in (1, 2, 3)},
+        "webp_animated.webp": lambda p: frames[0].save(p, "WEBP", save_all=True, append_images=frames[1:],
+                                                       quality=70, duration=100),
+    }
 
 
 # ---- BMP ----------------------------------------------------------------
@@ -433,6 +735,10 @@ def bmps() -> dict:
         "bmp_pal1_topdown.bmp": lambda p: write_bmp(p, width=35, height=11, bits=1, top_down=True,
                                                     palette=bytes([10, 20, 30, 0, 200, 150, 100, 0]),
                                                     pixels=rows_bytes(packed1, True)),
+        "bmp_pal4_grey_ramp.bmp": lambda p: write_bmp(
+            p, width=13, height=6, bits=4, colors=16, palette=b"".join(bytes([i, i, i, 0]) for i in range(16)),
+            pixels=rows_bytes((u8(6, 14, 1, 17)[..., 0] // 16).reshape(6, 7, 2).astype(np.uint8) @ np.array(
+                [16, 1], np.uint8))),
         "bmp_pal8_core.bmp": lambda p: write_bmp(p, width=21, height=14, bits=8, header=12,
                                                  palette=bytes(b for i in range(256) for b in pal256[4 * i:4 * i + 3]),
                                                  pixels=rows_bytes(idx8)),
@@ -1006,6 +1312,13 @@ def jpegs() -> dict:
             lossless_jpeg(lossless_rgb, 5, restart_rows=2, rgb_ids=True)),
         # YCbCr (a JFIF marker): libjpeg-turbo converts no colours of a lossless image, so Pillow refuses it
         "jpeg_lossless_ycc.jpg": lambda p: p.write_bytes(lossless_jpeg(lossless_rgb, 1)),
+        # SOF11 over Huffman-coded data (this script has no arithmetic lossless encoder): Pillow's libjpeg fails on
+        # the data, the port refuses the frame
+        "jpeg_lossless_arith_marker.jpg": lambda p: p.write_bytes(
+            lossless_jpeg(lossless_grey, 1).replace(b"\xff\xc3", b"\xff\xcb", 1)),
+        # a 2 x 2 sampling factor on a lossless frame's first component (its data coded for 1 x 1)
+        "jpeg_lossless_subsampled.jpg": lambda p: p.write_bytes(subsampled_lossless(lossless_jpeg(
+            lossless_rgb, 1, rgb_ids=True))),
     })
     def planes(h, w, sampling, seed):
         hmax, vmax = max(a for a, _ in sampling), max(b for _, b in sampling)
@@ -1037,6 +1350,14 @@ def jpegs() -> dict:
     return out
 
 
+def subsampled_lossless(data: bytes) -> bytes:
+    """A lossless frame whose first component claims 2 x 2 sampling."""
+    b = bytearray(data)
+    i = data.index(b"\xff\xc3")
+    b[i + 11] = 0x22
+    return bytes(b)
+
+
 def record(path: Path) -> dict:
     try:
         im = Image.open(path)
@@ -1045,14 +1366,12 @@ def record(path: Path) -> dict:
         return {"pillow_raises": type(e).__name__}
     rec = {"mode": im.mode, "sha256": hashlib.sha256(arr.tobytes()).hexdigest(), "shape": list(arr.shape),
            "dtype": str(arr.dtype)}
-    if path.suffix == ".webp":
-        rec["port_raises"] = "NotImplementedError"
     return rec
 
 
 def main() -> None:
     manifest = {}
-    for group in (tiffs(), bmps(), gifs(), jpegs()):
+    for group in (tiffs(), tiffs_codecs(), bmps(), gifs(), jpegs(), webps()):
         for name, write in group.items():
             write(ROOT / name)
             manifest[name] = record(ROOT / name)

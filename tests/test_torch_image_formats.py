@@ -1,6 +1,9 @@
-"""TIFF, BMP, GIF and the remaining JPEG modes (CMYK / YCCK, block-smoothed
-progressions, lossless, arithmetic-coded) through the port's decoders,
-against Pillow and the JAX package's loader, on the committed fixtures of
+"""TIFF (every compression Pillow 12.1's libtiff decodes: none, PackBits, LZW,
+Deflate, JPEG, LZMA, Zstandard, CCITT RLE / T.4 / T.6; CMYK and CIELAB;
+orientations; BigTIFF), BMP, GIF, WebP (lossless, lossy, alpha, animated)
+and the remaining JPEG modes (CMYK / YCCK, block-smoothed progressions,
+lossless, arithmetic-coded) through the port's decoders, against Pillow
+and the JAX package's loader, on the committed fixtures of
 tests/data/images/.
 
 - Each fixture decodes bitwise to `np.asarray(Image.open(p))` (dtype,
@@ -12,9 +15,9 @@ tests/data/images/.
   division by 255 of float and big-endian 16-bit images kept. Where Pillow
   refuses the resize, both raise.
 - A file Pillow refuses (12-bit and hierarchical JPEG, a lossless JPEG
-  that needs a colour conversion, unknown bytes) the port refuses too, with
-  NotImplementedError; WebP, which Pillow reads, the port refuses (not
-  ported).
+  that needs a colour conversion, WebP and JPEG 2000 strips in a TIFF, an
+  uncompressed YCbCr TIFF, a big-endian BigTIFF, unknown bytes) the port
+  refuses too, with NotImplementedError.
 - The format comes from the first bytes, not the suffix; `image_size`
   equals Pillow's size; the depth of a float32 TIFF loads as JAX's
   `get_depth`; the codec library has no fallback.
@@ -32,14 +35,14 @@ from PIL import Image
 from nerfstudio_thermal_tpu.data.dataparsers.base_dataparser import DataparserOutputs as JaxOutputs
 from nerfstudio_thermal_tpu.data.datasets import InputDataset as JaxDataset
 from nerfstudio_thermal_tpu.data.datasets import load_image as jax_load_image
-from nerfstudio_thermal_torch.data import image_formats
+from nerfstudio_thermal_torch.data import image_formats, webp
 from nerfstudio_thermal_torch.data.dataparsers.base_dataparser import DataparserOutputs
 from nerfstudio_thermal_torch.data.datasets import InputDataset, image_size, load_image, read_image
 
 FIXTURES = Path(__file__).resolve().parent / "data" / "images"
 MANIFEST = json.loads((FIXTURES / "manifest.json").read_text())
-READ = sorted(k for k, v in MANIFEST.items() if "sha256" in v and "port_raises" not in v)
-REFUSED = sorted(k for k, v in MANIFEST.items() if "sha256" not in v or "port_raises" in v)
+READ = sorted(k for k, v in MANIFEST.items() if "sha256" in v)
+REFUSED = sorted(k for k, v in MANIFEST.items() if "sha256" not in v)
 
 
 def _pillow(path):
@@ -51,7 +54,7 @@ def test_manifest_is_pillows_decode():
     assert set(MANIFEST) == files
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 300_000
     kinds = {name.split("_")[0] for name in READ}
-    assert kinds == {"tiff", "bmp", "gif", "jpeg"}
+    assert kinds == {"tiff", "bmp", "gif", "jpeg", "webp"}
     for name, rec in MANIFEST.items():
         if "pillow_raises" in rec:
             with pytest.raises(Exception):
@@ -97,11 +100,9 @@ def test_refused_fixture(name):
         read_image(path)
     with pytest.raises(NotImplementedError):
         load_image(path)
-    if "pillow_raises" in rec:
-        with pytest.raises(Exception):
-            jax_load_image(path)
-    else:  # read by Pillow, not by the port
-        assert jax_load_image(path).shape[:2] == tuple(rec["shape"][:2])
+    assert "pillow_raises" in rec
+    with pytest.raises(Exception):
+        jax_load_image(path)
 
 
 def test_unknown_bytes_are_refused_by_both(tmp_path):
@@ -151,6 +152,43 @@ def test_codecs_without_a_compiler_raise(monkeypatch):
 
     monkeypatch.setattr(image_formats, "_lib", None)
     monkeypatch.setattr(image_formats, "build_library", no_compiler)
-    for name in ("tiff_pillow_rgb_lzw.tif", "bmp_rle4.bmp", "gif_pillow.gif"):
+    for name in ("tiff_pillow_rgb_lzw.tif", "bmp_rle4.bmp", "gif_pillow.gif", "tiff_pillow_thermal16_zstd_pred2.tif",
+                 "tiff_ccitt_g4_fill1.tif"):
         with pytest.raises(RuntimeError, match="could not be built"):
             load_image(FIXTURES / name)
+
+
+def test_webp_without_a_compiler_raises(monkeypatch):
+    """No fallback for WebP either."""
+    def no_compiler(source, stem):
+        raise RuntimeError("no C++ compiler")
+
+    monkeypatch.setattr(webp, "_lib", None)
+    monkeypatch.setattr(webp, "build_library", no_compiler)
+    for name in ("webp_lossy.webp", "webp_lossless_rgba.webp"):
+        with pytest.raises(RuntimeError, match="could not be built"):
+            load_image(FIXTURES / name)
+
+
+# a scene of this slice's formats: RGB as lossy WebP, thermal as 16-bit Zstandard TIFF with
+# predictor 2, a CMYK frame, and frames turned by orientations 3 and 6
+SLICE_FRAMES = ["webp_lossy.webp", "tiff_pillow_thermal16_zstd_pred2.tif", "tiff_pillow_cmyk_zstd.tif",
+                "tiff_orient3_rgb_lzw.tif", "tiff_orient6_grey16_zstd.tif"]
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+@pytest.mark.parametrize("name", SLICE_FRAMES)
+def test_slice_frames_load_as_the_jax_dataset_loads_them(name, scale):
+    """InputDataset.get_image of both packages on the same file, at
+    camera_res_scale_factor 1 and 0.5: equal arrays, tolerance 0 (the
+    port's resize computes Pillow's rounding, so nothing is left to
+    tolerate); a CMYK frame enters as four channels, as in JAX."""
+    box = np.zeros((2, 3), np.float32)
+    files = [FIXTURES / name]
+    port = InputDataset(DataparserOutputs(image_filenames=files, cameras=None, scene_box=box, metadata={}), scale)
+    jax_ds = JaxDataset(JaxOutputs(image_filenames=files, cameras=None, scene_box=box, metadata={}), scale)
+    got, want = port.get_image(0), jax_ds.get_image(0)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if "cmyk" in name:
+        assert got.shape[-1] == 4

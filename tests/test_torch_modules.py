@@ -422,7 +422,9 @@ def test_port_imports_no_jax():
     # the card's machine has no Pillow and no websockets; the host-only
     # process_data converters import Pillow inside their functions, as the
     # JAX package's do (ns-process-data runs where Pillow is)
-    banned = ("jax", "jaxlib", "flax", "optax", "nerfstudio_thermal_tpu", "PIL", "diffusers", "websockets")
+    # nor zstandard: the port's own decoder reads Zstandard TIFF strips
+    banned = ("jax", "jaxlib", "flax", "optax", "nerfstudio_thermal_tpu", "PIL", "diffusers", "websockets",
+              "zstandard")
     host_only = ROOT / "nerfstudio_thermal_torch" / "process_data"
     for f in files:
         for mod in _imported_modules(f):

@@ -22,6 +22,14 @@ flip rule, and the two ranks' parameters and extra state bitwise equal
 (the ray-batch methods sum their gradients in one all-reduce; splatfacto
 and generfacto take rank 0's gradients). The scenes are written here
 with the JAX package's test fixtures, once.
+
+vanilla-nerf and mipnerf (REPLAYED) resample the plain run's coarse
+weights in the ranks (torch_parallel_worker.pdf_weights): the ranks'
+coarse fields, run on half the rays, give weights an ulp away, and the
+fine field's 10 position frequencies with Adam's second step turn the
+moved fine samples into sign flips of ~25% of the fine base's first
+layers. A pair of vanilla-nerf ranks whose rank 1 doubles its gradient
+is the negative control: the same check fails on it.
 """
 
 import json
@@ -42,6 +50,8 @@ PARAM_TOL = 1e-3
 FLIP = 1e-3
 MAX_FLIPPED = 0.25
 REPLICATED = ("splatfacto", "generfacto")
+REPLAYED = ("mipnerf", "vanilla-nerf")
+FAULT = {"label": "vanilla-nerf", "rank": 1, "grad_scale": 2.0}
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +66,11 @@ def runs(tmp_path_factory):
         "sitcoms": sitcoms_scene(root / "sitcoms"),
     }
     spec = {"methods": sorted(TINY), "scenes": {k: str(v) for k, v in scenes.items()}}
-    run_groups([(spec, root / "ranks", 2), ({**spec, "group": False}, root / "plain", 1),
-                ({**spec, "methods": ["nerfacto"]}, root / "one", 1)])
+    replay = {label: str(root / "plain") for label in REPLAYED}
+    run_groups([({**spec, "replay_pdf": replay}, root / "ranks", 2),
+                ({**spec, "group": False, "record_pdf": list(REPLAYED)}, root / "plain", 1),
+                ({**spec, "methods": ["nerfacto"]}, root / "one", 1),
+                ({**spec, "methods": [FAULT["label"]], "replay_pdf": replay, "fault": FAULT}, root / "fault", 2)])
     return root
 
 
@@ -89,9 +102,10 @@ def assert_updates_close(label, got, want):
         assert err <= PARAM_TOL, (label, key, err)
 
 
-@pytest.mark.parametrize("label", sorted(TINY))
-def test_two_ranks_match_the_plain_run(runs, label):
-    got, want = scalars(runs / "ranks", label), scalars(runs / "plain", label)
+def check_two_ranks(ranks, plain_dir, label):
+    """Rank 0's scalars and updates of `label` in the run under `ranks`
+    against the plain run's, and both ranks' state equal."""
+    got, want = scalars(ranks, label), scalars(plain_dir, label)
     assert len(got) == len(want) == TINY[label][4]
     for step, (g, w) in enumerate(zip(got, want)):
         assert set(g) == set(w), (label, step, set(g) ^ set(w))
@@ -100,8 +114,8 @@ def test_two_ranks_match_the_plain_run(runs, label):
             assert np.isfinite(g[k]), (label, step, k)
             assert abs(g[k] - v) <= tol * max(abs(v), 1e-3), (label, step, k, g[k], v)
     # every rank logs the same global scalars and ends with the same state
-    assert scalars(runs / "ranks", label, 1) == got
-    r0, r1, plain = arrays(runs / "ranks", label), arrays(runs / "ranks", label, 1), arrays(runs / "plain", label)
+    assert scalars(ranks, label, 1) == got
+    r0, r1, plain = arrays(ranks, label), arrays(ranks, label, 1), arrays(plain_dir, label)
     assert set(r0) == set(r1) == set(plain)
     for k in r0:
         np.testing.assert_array_equal(r0[k], r1[k], err_msg=f"{label} {k}")
@@ -113,6 +127,18 @@ def test_two_ranks_match_the_plain_run(runs, label):
             np.testing.assert_array_equal(r0[k], plain[k], err_msg=f"{label} {k}")
     else:
         assert_updates_close(label, r0, plain)
+
+
+@pytest.mark.parametrize("label", sorted(TINY))
+def test_two_ranks_match_the_plain_run(runs, label):
+    check_two_ranks(runs / "ranks", runs / "plain", label)
+
+
+def test_a_doubled_rank_fails_the_check(runs):
+    """The negative control: vanilla-nerf's ranks with the plain run's
+    fine samples, rank 1's gradients doubled before the all-reduce."""
+    with pytest.raises(AssertionError):
+        check_two_ranks(runs / "fault", runs / "plain", FAULT["label"])
 
 
 def test_extra_state_of_the_ranks(runs):

@@ -17,17 +17,24 @@ and where to write. Two modes:
   the world when it is more than one. Each rank writes, per
   configuration, the scalars of every step (`Trainer.train_iteration`'s,
   the global values) and the state dict and extra state before and after
-  the run.
+  the run. A plain run records the coarse weights that the pdf sampler
+  of each step of the labels in "record_pdf" resampled; ranks with
+  "replay_pdf" (the plain run's directory) resample their rows of them,
+  so both runs place the same fine samples (`pdf_weights`). "fault"
+  ({"label", "rank", "grad_scale"}) scales that rank's gradients before
+  the all-reduce, a negative control.
 `write_scene` writes a tiny RGBT scene with the port's PNG writer (the
 card's machine has no Pillow).
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -230,6 +237,82 @@ def small_surface_fields() -> None:
     base_surface_model.NeRFField = functools.partial(vanilla_nerf_field.NeRFField, **BACKGROUND)
 
 
+@contextlib.contextmanager
+def pdf_weights(label: str, spec: dict, rank: int):
+    """While open, vanilla-nerf's and mipnerf's pdf sampler (through
+    models/vanilla_nerf.py) records (spec "record_pdf") or replays (spec
+    "replay_pdf") the coarse weights of each training step's resample.
+    A rank's coarse field, evaluated on its half of the rays, gives
+    weights one ulp from the plain run's; the pdf sampler moves the fine
+    samples by as much, and the fine field's 10 position frequencies turn
+    that into gradients ~0.5% apart, which Adam's second step turns into
+    sign flips. The weights carry no gradient (pdf_sample detaches them),
+    so replaying the plain run's leaves what the step differentiates as
+    it was."""
+    from nerfstudio_thermal_torch.models import vanilla_nerf
+
+    out = Path(spec["out"])
+    record = label in spec.get("record_pdf", ())
+    replay = spec.get("replay_pdf", {}).get(label)
+    if not (record or replay):
+        yield
+        return
+    inner, calls = vanilla_nerf.pdf_sample, []
+    if replay:
+        path = Path(replay) / f"{label}_pdf.npz"
+        deadline = time.monotonic() + RANK_TIMEOUT
+        while not path.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {path}")
+            time.sleep(0.2)
+        saved = np.load(path)
+        calls = [torch.as_tensor(saved[str(i)]) for i in range(len(saved.files))]
+
+    def sampled(ray_bundle, ray_samples, weights, num_samples, *, train=False, shard=None, **kwargs):
+        if train and record:
+            calls.append(weights.detach().cpu().numpy().copy())
+        elif train:
+            w = calls.pop(0)
+            weights = (shard.local(w) if shard is not None else w).to(weights)
+        return inner(ray_bundle, ray_samples, weights, num_samples, train=train, shard=shard, **kwargs)
+
+    vanilla_nerf.pdf_sample = sampled
+    try:
+        yield
+    finally:
+        vanilla_nerf.pdf_sample = inner
+    if record and rank == 0:
+        tmp = out / f"{label}_pdf.tmp.npz"
+        np.savez(tmp, **{str(i): w for i, w in enumerate(calls)})
+        tmp.rename(out / f"{label}_pdf.npz")
+
+
+@contextlib.contextmanager
+def faulty_rank(label: str, spec: dict, rank: int):
+    """While open, this rank's gradients are scaled by spec["fault"]'s
+    grad_scale before the all-reduce, when the fault names this label and
+    rank."""
+    from nerfstudio_thermal_torch.engine import trainer
+
+    fault = spec.get("fault") or {}
+    if fault.get("label") != label or fault.get("rank") != rank:
+        yield
+        return
+    inner = trainer.all_reduce_grads
+
+    def scaled(params):
+        for p in params:
+            if p.grad is not None:
+                p.grad.mul_(fault["grad_scale"])
+        return inner(params)
+
+    trainer.all_reduce_grads = scaled
+    try:
+        yield
+    finally:
+        trainer.all_reduce_grads = inner
+
+
 def state_arrays(trainer) -> dict:
     """The model's state dict and the extra state's tensors, as numpy."""
     out = {f"model/{k}": v.detach().cpu().numpy().copy() for k, v in trainer.model.state_dict().items()}
@@ -273,8 +356,9 @@ def run_methods(spec: dict, rank: int) -> None:
             argv += ["--data", spec["scenes"][scene]]
         if spec["world"] > 1:
             argv += ["--trainer.num-devices", str(spec["world"])]
-        if train_script.main(argv, device=spec.get("device", "cpu"), timestamp="run") != 0:
-            raise RuntimeError(f"ns-train {label} failed")
+        with pdf_weights(label, spec, rank), faulty_rank(label, spec, rank):
+            if train_script.main(argv, device=spec.get("device", "cpu"), timestamp="run") != 0:
+                raise RuntimeError(f"ns-train {label} failed")
         (out / f"{label}_rank{rank}.json").write_text(json.dumps(record["scalars"]))
         np.savez(out / f"{label}_rank{rank}.npz", **{f"before/{k}": v for k, v in record["before"].items()},
                  **{f"after/{k}": v for k, v in record["after"].items()})
