@@ -436,6 +436,23 @@ Phases, each fatal on failure:
      refused, and host medians of
      5 of 1920x1080 lossy and lossless WebP, JPEG-in-TIFF, 16-bit
      Zstandard and LZMA TIFF and a CCITT Group 4 mask.
+25. the formats Pillow opens beyond those (after phase 24):
+   - tests/data/formats_scene/make_scene.py writes, from a seed and
+     without Pillow, a 320x240 RGB + 320x256 thermal scene (RGB as raw
+     PPM, QOI, RLE TGA, RLE SGI and PCX; thermal as P5 PGM at maxval 255
+     and 200) and a 640x480 depth scene (RGB PPM, depth as PFM and
+     16-bit PGM); every frame the port decodes equals its source array on
+     the card (the CPU tests hold Pillow's decodes to the same arrays);
+     thermal-nerfacto at full width trains 10 steps through ns-train on
+     the first, rows 8, 7/9 and 10 launching 8 / 8 / 8 a step, every loss
+     finite; depth-nerfacto 6 steps on the second, 3 / 3 / 3 a step,
+     depth losses finite; the hash kernels' JSON records carry them as
+     formats25_launches_per_step;
+   - in phase 15's image_io line: the fixtures of tests/data/images_more/
+     (netpbm with PFM, TGA, QOI, SGI, PCX / DCX, ICO / CUR, DDS BC1-BC7,
+     IM, Sun, DIB) against their manifest, the files Pillow refuses
+     refused, and host medians of 5 of 1920x1080 16-bit PGM, PFM, QOI,
+     RLE TGA and BC7 DDS decodes, each with its 0.5x resize.
 
 --profile DIR additionally writes torch.profiler tables of one 1080p chunk
 and of one training step of each method to DIR. Exits non-zero without
@@ -2925,6 +2942,20 @@ IMAGES_DIR = Path(__file__).resolve().parent / "tests" / "data" / "images"
 # phase 24's scene (tests/data/webp_tiff_scene/make_scene.py writes it with Pillow) and its 1920x1080 files
 SCENE24_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp_tiff_scene"
 SLICE24_1080P = ("lossy.webp", "lossless.webp", "jpeg.tif", "thermal16_zstd.tif", "thermal16_lzma.tif", "mask_g4.tif")
+# phase 25's fixtures and scene writer (no Pillow: it writes the files and their source arrays from a seed)
+IMAGES_MORE_DIR = Path(__file__).resolve().parent / "tests" / "data" / "images_more"
+SCENE25_WRITER = Path(__file__).resolve().parent / "tests" / "data" / "formats_scene" / "make_scene.py"
+MORE_KINDS = {"ppm", "tga", "qoi", "sgi", "pcx", "dcx", "ico", "cur", "dds", "im", "sun", "dib"}
+
+
+def scene_writer():
+    """tests/data/formats_scene/make_scene.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("formats_scene_writer", SCENE25_WRITER)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 NGP_STEPS, NGP_BOUNDED_STEPS, COLMAP_STEPS = 48, 24, 20
 NGP_CAPTURE_STEP = 32  # a grid update (2^18 points) and the step's own hash calls
 NGP_TIMED = range(34, 48)  # after the update of step 32 the batch holds until step 48
@@ -2962,19 +2993,25 @@ def image_io_phase(smi: str) -> dict:
     size; and of the 1920x1080 files of tests/data/webp_tiff_scene/1080p/
     (lossy and lossless WebP, JPEG-in-TIFF, 16-bit Zstandard and LZMA TIFF
     with predictor 2, a CCITT Group 4 mask), each checked against its
-    manifest's Pillow hash."""
+    manifest's Pillow hash. Phase 25: the fixtures of
+    tests/data/images_more/ (netpbm, TGA, QOI, SGI, PCX / DCX, ICO / CUR,
+    DDS, IM, Sun, DIB) against their manifest, and medians of 5 of the
+    decode and the 0.5x resize of the 1920x1080 files scene_writer()
+    writes (16-bit PGM, PFM, QOI, RLE TGA, BC7 DDS), each held to its
+    source array (the DDS to its shape)."""
     import hashlib
 
-    from nerfstudio_thermal_torch.data import image_formats, jpeg, webp
+    from nerfstudio_thermal_torch.data import image_formats, jpeg, raster_formats, webp
     from nerfstudio_thermal_torch.data.datasets import read_image, read_image_array, resize_like_pil
 
     t0 = time.perf_counter()
     jpeg.load_library()
     image_formats.load_library()
     webp.load_library()
+    raster_formats.load_library()
     build_s = time.perf_counter() - t0
     checked, refused, kinds = 0, [], set()
-    for root in (JPEG_DIR, IMAGES_DIR):
+    for root in (JPEG_DIR, IMAGES_DIR, IMAGES_MORE_DIR):
         manifest = json.loads((root / "manifest.json").read_text())
         for name, rec in sorted(manifest.items()):
             if rec.get("pillow_raises"):
@@ -2994,13 +3031,14 @@ def image_io_phase(smi: str) -> dict:
             data = (root / name).read_bytes()
             # SOF2 (0xFF 0xC2 is a marker only: coded data stuffs every 0xFF); IHDR's interlace byte
             kinds.add("progressive" if b"\xff\xc2" in data else "interlaced" if name.endswith(".png") and data[28]
-                      else name.split("_")[0] if root == IMAGES_DIR else "other")
+                      else name.split("_")[0] if root in (IMAGES_DIR, IMAGES_MORE_DIR) else "other")
             checked += 1
     witnesses = [r for r in refused if r.startswith("jpeg_")]
     if not witnesses:
         raise AssertionError("no fixture that Pillow refuses exercised the port's refusal")
-    if not {"progressive", "interlaced", "tiff", "bmp", "gif", "jpeg", "webp"} <= kinds:
+    if not {"progressive", "interlaced", "tiff", "bmp", "gif", "jpeg", "webp"} | MORE_KINDS <= kinds:
         raise AssertionError(f"fixture kinds {sorted(kinds)}")
+    more_refused = [r for r in refused if r.split("_")[0] in MORE_KINDS | {"bufr", "grib", "hdf5", "mpeg"}]
 
     def median_ms(fn) -> float:
         times = []
@@ -3044,6 +3082,18 @@ def image_io_phase(smi: str) -> dict:
         if (hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"] or mode != rec["mode"]
                 or list(arr.shape) != rec["shape"] or arr.shape[:2] != (1080, 1920)):
             raise AssertionError(f"{name}: the decode does not match Pillow's")
+    # phase 25's 1920x1080 files, written here from a seed: decode and 0.5x resize
+    slice25_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sources = scene_writer().write_1080p(Path(tmp))
+        for name, (want, want_mode) in sources.items():
+            decode_25, (arr, mode) = median_ms(lambda: read_image(Path(tmp) / name))
+            resize_25, small = median_ms(lambda: resize_like_pil(arr, 960, 540, mode))
+            if mode != want_mode or arr.shape[:2] != (1080, 1920) or small.shape[:2] != (540, 960) or (
+                    want is not None and (arr.dtype != want.dtype or not np.array_equal(arr, want))):
+                raise AssertionError(f"the 1920x1080 {name} does not decode to the pixels written ({arr.shape} "
+                                     f"{arr.dtype} {mode})")
+            slice25_ms[name] = (decode_25, resize_25)
     log(f"image_io: decoders built in {build_s:.2f} s; {checked} JPEG / PNG / TIFF / BMP / GIF / WebP fixtures (progressive, "
         f"Adam7, CMYK / YCCK and block-smoothed JPEGs included) decode to their manifest's Pillow hashes; refused: "
         f"{'; '.join(refused)}; 1920x1080 decode {decode_ms:.1f} ms, 0.5x BILINEAR resize {resize_ms:.1f} ms; "
@@ -3053,8 +3103,12 @@ def image_io_phase(smi: str) -> dict:
         f"{formats_ms['bmp24']:.1f} ms; the {len(lzw)} LZW TIFF fixtures (tens of pixels a side) {lzw_ms:.2f} ms "
         f"together; 1920x1080 " + ", ".join(f"{k} {v:.1f} ms" for k, v in slice_ms.items())
         + f" (host, medians of 5) ({smi})")
+    log(f"image_io (phase 25): the {len(MORE_KINDS)} kinds of tests/data/images_more/ decode to their manifest's "
+        f"Pillow hashes; {len(more_refused)} refused as Pillow refuses them; 1920x1080 decode + 0.5x resize "
+        + ", ".join(f"{k} {d:.1f} + {r:.1f} ms" for k, (d, r) in slice25_ms.items()) + f" (host, medians of 5) ({smi})")
     return {"decode_ms": decode_ms, "resize_ms": resize_ms, "fixtures": checked, "progressive_ms": prog_ms,
-            "baseline_twin_ms": twin_ms, "formats_ms": formats_ms, "lzw_ms": lzw_ms, "slice24_ms": slice_ms}
+            "baseline_twin_ms": twin_ms, "formats_ms": formats_ms, "lzw_ms": lzw_ms, "slice24_ms": slice_ms,
+            "slice25_ms": slice25_ms}
 
 
 def write_ingp_scene(root: Path, num: int = NGP_PAIRS, w: int = 640, h: int = 480) -> Path:
@@ -6658,6 +6712,60 @@ def formats24_phase(tmp: Path, smi: str) -> dict:
     return {"counts": run["counts"], "step_s": run["step_s"], "losses": losses}
 
 
+# Phase 25: the formats Pillow opens beyond PNG / JPEG / TIFF / BMP / GIF /
+# WebP. make_scene.py writes both scenes from a seed; every decoded frame is
+# held to its source array on the card; thermal-nerfacto trains
+# SCENE25_STEPS steps (8 / 8 / 8 a step, as phase 24), depth-nerfacto
+# DEPTH25_STEPS steps on PFM and 16-bit PGM depth maps (3 / 3 / 3, as phase
+# 23b).
+SCENE25_STEPS, DEPTH25_STEPS, SCENE25_SEED = 10, 6, 25
+
+
+def formats25_phase(tmp: Path, smi: str) -> dict:
+    from nerfstudio_thermal_torch.data.datasets import read_image
+
+    t_phase = time.perf_counter()
+    writer = scene_writer()
+    t0 = time.perf_counter()
+    scenes = {"rgbt": writer.write_thermal_scene(tmp / "rgbt", SCENE25_SEED),
+              "depth": writer.write_depth_scene(tmp / "depth", SCENE25_SEED)}
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kinds = set()
+    for scene, sources in scenes.items():
+        for name, (want, want_mode) in sources.items():
+            arr, mode = read_image(tmp / scene / name)
+            same = (mode == want_mode and arr.dtype == want.dtype and arr.shape == want.shape
+                    and bool(torch.equal(torch.from_numpy(arr).cuda(), torch.from_numpy(want).cuda())))
+            if not same:
+                raise AssertionError(f"phase 25: {scene}/{name} decodes to {arr.shape} {arr.dtype} {mode}, not to "
+                                     f"its source {want.shape} {want.dtype} {want_mode}")
+            kinds.add((Path(name).suffix, mode))
+    check_s = time.perf_counter() - t0
+    step = METHODS["thermal-nerfacto"]["step"]
+    run = classic_train("thermal-nerfacto", tmp / "rgbt", tmp / "thermal-nerfacto", [], step, steps=SCENE25_STEPS,
+                        timed_from=2)
+    if run["counts"] != expected_counts(step(True), SCENE25_STEPS):
+        raise AssertionError(f"phase 25: launches {run['counts']}, predicted {step(True)} x {SCENE25_STEPS}")
+    losses = [r["loss"] for r in run["records"]]
+    depth = classic_train("depth-nerfacto", tmp / "depth", tmp / "depth-nerfacto", CLASSIC["depth-nerfacto"]["flags"],
+                          None, steps=DEPTH25_STEPS, timed_from=1)
+    depth_losses = [r.get("depth_loss") for r in depth["records"]]
+    if any(v is None or not math.isfinite(v) for v in depth_losses):
+        raise AssertionError(f"phase 25 depth-nerfacto: depth_loss {depth_losses}")
+    per_step = {k: v / SCENE25_STEPS for k, v in run["counts"].items() if v}
+    depth_per_step = {k: v / DEPTH25_STEPS for k, v in depth["counts"].items() if v}
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 25: {sum(map(len, scenes.values()))} frames ({sorted(kinds)}) written in {write_s:.2f} s, decoded "
+        f"and held to their source arrays on the card in {check_s:.2f} s; thermal-nerfacto {SCENE25_STEPS} steps "
+        f"through ns-train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, {run['step_s'] * 1e3:.2f} ms/step (steps "
+        f"2-{SCENE25_STEPS - 1}), launches a step {per_step}; depth-nerfacto {DEPTH25_STEPS} steps on PFM and "
+        f"16-bit PGM depth: depth_loss {depth_losses[0]:.4e} -> {depth_losses[-1]:.4e}, "
+        f"{depth['step_s'] * 1e3:.2f} ms/step, launches a step {depth_per_step}; phase {phase_s:.1f} s ({smi})")
+    return {"counts": run["counts"], "depth_counts": depth["counts"], "step_s": run["step_s"],
+            "depth_step_s": depth["step_s"], "phase_s": phase_s}
+
+
 def profile_step(trainer, out_dir: Path, tag: str) -> None:
     """torch.profiler over one training step: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -6812,6 +6920,8 @@ def main() -> int:
         prefetch = prefetch_phase(Path(tmp) / "phase23", smi)
         # phase 24: thermal-nerfacto on WebP / Zstandard / LZMA / JPEG-in-TIFF frames
         formats24 = formats24_phase(Path(tmp) / "phase24", smi)
+        # phase 25: thermal-nerfacto on netpbm / QOI / TGA / SGI / PCX frames, depth-nerfacto on PFM / PGM depth
+        formats25 = formats25_phase(Path(tmp) / "phase25", smi)
         if args.profile is not None:
             # after every timed phase: a profiler session slows the host ops
             # that follow it
@@ -7066,6 +7176,10 @@ def main() -> int:
                 "depth-nerfacto (TIFF depth)": prefetch["depth_counts"][rec["name"]] / DEPTH23_STEPS}
             # phase 24: thermal-nerfacto on this slice's formats
             rec["webp_tiff_launches_per_step"] = formats24["counts"][rec["name"]] / SCENE24_STEPS
+            # phase 25: thermal-nerfacto and depth-nerfacto on this slice's formats
+            rec["formats25_launches_per_step"] = {
+                "thermal-nerfacto": formats25["counts"][rec["name"]] / SCENE25_STEPS,
+                "depth-nerfacto (PFM / PGM depth)": formats25["depth_counts"][rec["name"]] / DEPTH25_STEPS}
     for m in METHODS:
         counts, frame_s, _ = renders[m]
         _, step_s, rays, _, _, _ = trains[m]
@@ -7095,6 +7209,10 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} ms" for k, v in image_io["slice24_ms"].items()) + f" (host) ({smi})")
     log(f"phase 24: thermal-nerfacto on WebP / Zstandard / LZMA / JPEG-in-TIFF frames {formats24['step_s'] * 1e3:.2f} "
         f"ms/step (steps 2-{SCENE24_STEPS - 1}) ({smi})")
+    log(f"phase 25: thermal-nerfacto on PPM / QOI / TGA / SGI / PCX / PGM frames {formats25['step_s'] * 1e3:.2f} "
+        f"ms/step (steps 2-{SCENE25_STEPS - 1}), depth-nerfacto on PFM / PGM depth {formats25['depth_step_s'] * 1e3:.2f} "
+        f"ms/step; phase {formats25['phase_s']:.1f} s; 1920x1080 decode + 0.5x resize "
+        + ", ".join(f"{k} {d:.1f} + {r:.1f} ms" for k, (d, r) in image_io["slice25_ms"].items()) + f" (host) ({smi})")
     log(f"phase 23: thermal-nerfacto through PrefetchingDataManager {prefetch['ms_step']:.2f} ms/step, through "
         f"VanillaDataManager {prefetch['vanilla_ms_step']:.2f} ms/step (single runs, steps {PREFETCH_TIMED_FROM}-"
         f"{PREFETCH_STEPS - 1}); resumed losses within {prefetch['worst']:.2e} ({smi})")

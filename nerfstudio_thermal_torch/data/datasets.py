@@ -126,7 +126,20 @@ def decode_png(path) -> np.ndarray:
     bits, 1-bit grey 0 / 1 (Pillow's mode "1"). An Adam7-interlaced file's
     seven passes are each unfiltered as an image of their own and scattered
     into place."""
-    data = Path(path).read_bytes()
+    return _decode_png_data(Path(path).read_bytes(), path)
+
+
+def decode_png_bytes(data: bytes, path) -> Tuple[np.ndarray, str]:
+    """(a PNG's bytes as Pillow's `np.asarray` gives them, its mode)."""
+    arr = _decode_png_data(data, path)
+    return (arr[..., 0] if arr.shape[-1] == 1 else arr), _png_mode(data[:26])
+
+
+def png_bytes_size(data: bytes) -> Tuple[int, int]:
+    return struct.unpack(">II", data[16:24])
+
+
+def _decode_png_data(data: bytes, path) -> np.ndarray:
     header, idat = None, []
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
@@ -170,9 +183,7 @@ def decode_png(path) -> np.ndarray:
     return samples
 
 
-def _png_mode(path) -> str:
-    with open(path, "rb") as f:
-        head = f.read(26)
+def _png_mode(head: bytes) -> str:
     depth, ctype = head[24], head[25]
     if ctype == 3:
         return "P"
@@ -181,23 +192,26 @@ def _png_mode(path) -> str:
     return {2: "RGB", 4: "RGBA" if depth == 16 else "LA", 6: "RGBA"}[ctype]
 
 
-def _format(path) -> Tuple[str, bytes]:
-    from nerfstudio_thermal_torch.data.image_formats import sniff
+def _format(path):
+    """(the kind of decoder, the file's bytes, the module that decodes it)."""
+    from nerfstudio_thermal_torch.data import image_formats, raster_formats
 
     data = Path(path).read_bytes()
-    kind = sniff(data[:16])
+    kind = raster_formats.identify(data)
     if kind is None:
-        raise NotImplementedError(f"{path}: not an image format the port reads (PNG, JPEG, TIFF, BMP, GIF, WebP)")
-    return kind, data
+        raise NotImplementedError(f"{path}: not an image format that Pillow or the port reads")
+    if kind.isupper():
+        raise NotImplementedError(f"{path}: {kind} is not supported ({raster_formats.REFUSED[kind]})")
+    return kind, data, image_formats if kind in ("tiff", "bmp", "gif") else raster_formats
 
 
-def image_size(path) -> Tuple[int, int]:
-    """(width, height) from the file's header."""
-    from nerfstudio_thermal_torch.data import image_formats
+# Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as many pixels
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
 
-    kind, data = _format(path)
+
+def _size(kind: str, data: bytes, module, path) -> Tuple[int, int]:
     if kind == "png":
-        return struct.unpack(">II", data[16:24])
+        return png_bytes_size(data)
     if kind == "jpeg":
         from nerfstudio_thermal_torch.data.jpeg import decode_jpeg_header
 
@@ -206,18 +220,26 @@ def image_size(path) -> Tuple[int, int]:
         from nerfstudio_thermal_torch.data.webp import webp_size
 
         return webp_size(data, path)
-    return getattr(image_formats, f"{kind}_size")(data, path)
+    return getattr(module, f"{kind}_size")(data, path)
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) from the file's header."""
+    return _size(*_format(path), path)
 
 
 def read_image(path) -> Tuple[np.ndarray, str]:
     """(the file as Pillow's `np.asarray(Image.open(path))` gives it, its
-    Pillow mode): [H, W] for one channel, [H, W, C] otherwise."""
-    from nerfstudio_thermal_torch.data import image_formats
-
-    kind, data = _format(path)
+    Pillow mode): [H, W] for one channel, [H, W, C] otherwise. Like
+    Image.open, it refuses an image of more than 2 * MAX_IMAGE_PIXELS
+    pixels (a decompression bomb) before decoding it."""
+    kind, data, module = _format(path)
+    width, height = _size(kind, data, module, path)
+    if width * height > 2 * MAX_IMAGE_PIXELS:
+        raise NotImplementedError(f"{path}: {width} x {height} pixels, over Pillow's decompression-bomb limit of "
+                                  f"{2 * MAX_IMAGE_PIXELS} (Pillow refuses it too)")
     if kind == "png":
-        arr = decode_png(path)
-        return (arr[..., 0] if arr.shape[-1] == 1 else arr), _png_mode(path)
+        return decode_png_bytes(data, path)
     if kind == "jpeg":
         from nerfstudio_thermal_torch.data.jpeg import decode_jpeg_bytes
 
@@ -227,7 +249,7 @@ def read_image(path) -> Tuple[np.ndarray, str]:
         from nerfstudio_thermal_torch.data.webp import decode_webp
 
         return decode_webp(data, path)
-    return getattr(image_formats, f"decode_{kind}")(data, path)
+    return getattr(module, f"decode_{kind}")(data, path)
 
 
 def read_image_array(path) -> np.ndarray:
@@ -326,8 +348,10 @@ def resize_like_pil(arr: np.ndarray, width: int, height: int, mode: Optional[str
     RGBa, PA and CMYK band by band), uint16 [H, W] (I;16, and I;16B, whose bytes
     Pillow resamples as little-endian), int32 (I) and float32 (F); palette
     indices and 1-bit images (modes "P" and "1") with NEAREST, as Pillow
-    resizes them whatever the filter asked. Mode "L:P" raises, as Pillow
-    does."""
+    resizes them whatever the filter asked. Mode "L:P" and a size of 0
+    raise, as Pillow does."""
+    if width <= 0 or height <= 0:
+        raise ValueError("height and width must be > 0")
     if mode in ("P", "1"):
         return resize_nearest_like_pil(arr, width, height)
     if mode == "L:P":

@@ -48,7 +48,7 @@ import lzma
 import struct
 import zlib
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -111,29 +111,6 @@ def _byte_codec(name: str, raw: bytes, size: int, path) -> np.ndarray:
     if written.value < size:
         raise ValueError(f"{path}: {name.split('_')[0]} data ends {size - written.value} bytes short")
     return out
-
-
-# ---- identification --------------------------------------------------------
-
-_TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
-
-
-def sniff(head: bytes) -> Optional[str]:
-    """The format Pillow would open a file as, from its first bytes:
-    "png", "jpeg", "tiff", "bmp", "gif", "webp", or None."""
-    if head[:8] == b"\x89PNG\r\n\x1a\n":
-        return "png"
-    if head[:3] == b"\xff\xd8\xff":
-        return "jpeg"
-    if head[:4] in _TIFF_PREFIXES:
-        return "tiff"
-    if head[:2] == b"BM":
-        return "bmp"
-    if head[:6] in (b"GIF87a", b"GIF89a"):
-        return "gif"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return "webp"
-    return None
 
 
 # ---- TIFF ------------------------------------------------------------------
@@ -713,9 +690,12 @@ _BMP_MASK_MODES = {
 }
 
 
-def _bmp_layout(data: bytes, path) -> dict:
+def _bmp_layout(data: bytes, path, raw_alpha: bool = False) -> dict:
     """Pillow's BmpImageFile._bitmap: size, mode, raw mode, where the pixels
-    start and how they are stored."""
+    start and how they are stored. A pixel offset of 0 (a DIB has none)
+    means right after the header, masks and palette; `raw_alpha` reads a
+    32-bit BI_RGB file's fourth byte as alpha (Pillow does so for a CUR
+    whose bitmap starts at byte 22)."""
     u32 = lambda p: struct.unpack("<I", data[p:p + 4])[0]  # noqa: E731
     u16 = lambda p: struct.unpack("<H", data[p:p + 2])[0]  # noqa: E731
     if len(data) < 18:
@@ -756,6 +736,8 @@ def _bmp_layout(data: bytes, path) -> dict:
         rawmode = _BMP_MASK_MODES[key]
         if bits == 32 and "A" in rawmode:
             mode = "RGBA"
+    elif compression == 0 and bits == 32 and raw_alpha:
+        mode, rawmode = "RGBA", "BGRA"
     elif compression in (1, 2):
         rle = True
     elif compression != 0:
@@ -771,8 +753,13 @@ def _bmp_layout(data: bytes, path) -> dict:
             mode = rawmode = "1" if colors == 2 else "L"
     if rle and mode == "1":
         raise NotImplementedError(f"{path}: a black-and-white RLE BMP (Pillow cannot unpack it)")
+    if rle and bits > 8:
+        raise NotImplementedError(f"{path}: a {bits}-bit RLE BMP (Pillow cannot unpack it)")
+    if offset == 0:
+        offset = pos + (padding * colors if bits <= 8 else 0)
     return {"width": width, "height": height, "bits": bits, "mode": mode, "rawmode": rawmode, "offset": offset,
-            "direction": direction, "rle4": compression == 2 if rle else None}
+            "direction": direction, "rle4": compression == 2 if rle else None, "palette": palette,
+            "padding": padding}
 
 
 def bmp_size(data: bytes, path) -> Tuple[int, int]:
@@ -811,25 +798,45 @@ def _bmp_pixels(rows: np.ndarray, rawmode: str, width: int) -> np.ndarray:
 
 def decode_bmp(data: bytes, path) -> Tuple[np.ndarray, str]:
     layout = _bmp_layout(data, path)
+    return bmp_pixels(data, layout, path), layout["mode"]
+
+
+def dib_layout(data: bytes, start: int, path, raw_alpha: bool = False) -> Tuple[bytes, dict]:
+    """A DIB (a bitmap without its file header: ICO and CUR entries, DIB
+    files) whose header starts at `start`: the DIB behind a 14-byte file
+    header whose pixel offset is 0, and its layout (offsets into those
+    bytes)."""
+    dib = b"BM" + bytes(12) + data[start:]
+    layout = _bmp_layout(dib, path, raw_alpha)
+    layout["file_shift"] = start - 14  # an RLE bitmap aligns its codes to the file's positions
+    return dib, layout
+
+
+def bmp_pixels(data: bytes, layout: dict, path) -> np.ndarray:
+    """The pixels of a BMP laid out by _bmp_layout, in Pillow's array of
+    its mode."""
     w, h, off = layout["width"], layout["height"], layout["offset"]
     if layout["rle4"] is not None:
         cap = w * h
         out = np.zeros(cap, np.uint8)
         length = ctypes.c_size_t(0)
-        rc = load_library().bmp_rle_decode(data[off:], len(data) - off, off, w, h, int(layout["rle4"]), _ptr(out),
-                                           cap, ctypes.byref(length))
+        rc = load_library().bmp_rle_decode(data[off:], len(data) - off, off + layout.get("file_shift", 0), w, h,
+                                           int(layout["rle4"]), _ptr(out), cap, ctypes.byref(length))
         _check(rc, "BMP RLE", path)
         if length.value < cap:
             raise ValueError(f"{path}: not enough image data in the RLE BMP")
         pix = out.reshape(h, w)
     else:
         stride = ((w * layout["bits"] + 31) >> 3) & ~3
-        if off + stride * h > len(data):
+        need = stride * (h - 1) + (w * layout["bits"] + 7) // 8  # the last row stored needs no padding
+        if off + need > len(data):
             raise ValueError(f"{path}: truncated BMP pixel data")
-        pix = _bmp_pixels(np.frombuffer(data, np.uint8, stride * h, off).reshape(h, stride), layout["rawmode"], w)
+        rows = np.zeros(stride * h, np.uint8)
+        rows[:need] = np.frombuffer(data, np.uint8, need, off)
+        pix = _bmp_pixels(rows.reshape(h, stride), layout["rawmode"], w)
     if layout["direction"] == -1:
         pix = pix[::-1]
-    return np.ascontiguousarray(pix), layout["mode"]
+    return np.ascontiguousarray(pix)
 
 
 # ---- GIF -------------------------------------------------------------------
